@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's SPIRAL-base CTC transcription path once through its normal
-entry point, at full width with seeded random weights, and checks each hand
+Drives the port's two SPIRAL-base paths through their normal entry point
+(``tpu_speech_torch.cli.run_spiral.main``), at full width with seeded random
+weights: CTC transcription, and the ST2Vec pretrain step. It checks each hand
 kernel against its plain PyTorch version. Phases (any failure raises and the
 script exits non-zero without printing a result):
 
@@ -20,7 +21,25 @@ script exits non-zero without printing a result):
 5. the same weights on the CPU (plain paths) against the card's log-probs
    for two of those utterances;
 6. timings with CUDA events (median of 20 after warm-up): each kernel beside
-   its plain version, and the slice per batch.
+   its plain version, and the slice per batch;
+7. K2 with attention dropout 0.1 against ``qkv_attention_plain`` replaying
+   the same counter-based mask, at the pretrain step's four shapes; the
+   kernel's own keep rate (q = 0, v = 1: each output is its row's kept share
+   over 1 - p) within 4 sigma of 0.9; masks that differ across seeds and
+   across (b, h);
+8. K2-bwd: dqkv against autograd of the plain version at p = 0 and 0.1,
+   timed beside it (backward alone, and forward + backward);
+9. the pretrain slice: a synthetic corpus (speech-like waves, 4-20 s) ->
+   ``run_spiral.main(--model_type st2vec --run_mode train --config_name
+   spiral_base_pretrain_ls960)`` for a few steps at B = 24 x 250 000
+   samples; the launch counters must show K1 twice per step, K2-fwd once per
+   kept teacher and student layer, K2-bwd once per kept student layer; the
+   loss and accuracy finite, the student moved, the teacher moved less (EMA);
+10. one full-width step on the card against the CPU (B = 2 x 4 s crops, the
+    same weights and batch, dither, dropout and layerdrop off, SGD with
+    lr = 1): the loss and every gradient tensor, and the EMA update exactly;
+11. the pretrain step's time (median of 10 on the card, batch on the card),
+    its peak device memory, and a profile of the step.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -50,6 +69,21 @@ K1_ATOL_PLAIN64 = 2e-4
 K2_ATOL = 1e-4
 SLICE_ATOL = 5e-3
 SLICE_ARGMAX_AGREE = 0.99
+DROP_P = 0.1
+# K2-bwd against autograd of the plain version: 1e-4 x max(1, max|plain|).
+# Both sum 64-term dot products in fp32 in different orders, and dS = P (dP -
+# Delta) cancels; measured ~1e-5 at these shapes.
+K2_BWD_RTOL = 1e-4
+# the pretrain step's shapes: (B, T, E, H), student and teacher, both blocks
+STEP_SHAPES = ((24, 392, 512, 8), (24, 456, 512, 8), (24, 196, 768, 12), (24, 228, 768, 12))
+PRETRAIN_STEPS = 3
+PRETRAIN_BATCH = 24
+# card against CPU, one step: loss relative; each gradient tensor within
+# GRAD_RTOL x its max|g|, floored at GRAD_RTOL x 1 % of the largest gradient
+# of the model (the key biases have an exactly zero gradient, the softmax
+# ignores a per-row shift, so both sides see rounding noise there)
+STEP_LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-3
 
 
 def log(msg):
@@ -190,6 +224,260 @@ def phase_k2(torch, gen):
     }
 
 
+def _k2_case(torch, gen, b, t, e, h, dev="cuda"):
+    """The merged plane at one shape; lengths over 30-100 % of T, row 0
+    fully padded."""
+    qkv = torch.randn(b, t, 3 * e, generator=gen).to(dev)
+    qkv[..., :e] *= (e // h) ** -0.5  # the folded q scale
+    lens = torch.linspace(0.3 * t, t, b).round().long().to(dev)
+    lens[0] = 0
+    mask = torch.arange(t, device=dev)[None, :] >= lens[:, None]
+    return qkv, mask
+
+
+def phase_k2_dropout(torch, gen):
+    from tpu_speech_torch.ops.fused_attention import (
+        fused_qkv_self_attention,
+        qkv_attention_plain,
+    )
+
+    worst, timed = 0.0, None
+    for b, t, e, h in STEP_SHAPES:
+        qkv, mask = _k2_case(torch, gen, b, t, e, h)
+        out = fused_qkv_self_attention(qkv, h, mask, DROP_P, 1234)
+        ref = qkv_attention_plain(qkv, h, mask, DROP_P, 1234)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        check(bool(torch.isfinite(out).all()), f"K2 dropout T={t}: non-finite output")
+        check(err <= K2_ATOL, f"K2 dropout T={t}: {err} > {K2_ATOL}")
+        # the kernel's own mask: q = 0 makes every row uniform over its T keys
+        # and v = 1 makes each output the row's kept share / (1 - p)
+        probe = torch.zeros_like(qkv)
+        probe[..., 2 * e:] = 1.0
+        share = fused_qkv_self_attention(probe, h, None, DROP_P, 99)[..., ::e // h]
+        share = share * (1 - DROP_P)  # (B, T, H): kept keys / T per row
+        rate = share.mean().item()
+        n = b * h * t * t
+        sigma = (DROP_P * (1 - DROP_P) / n) ** 0.5
+        other_seed = fused_qkv_self_attention(probe, h, None, DROP_P, 100)[..., ::e // h]
+        differ = (not torch.equal(share[0, :, 0], share[0, :, 1])
+                  and not torch.equal(share[0, :, 0], share[1, :, 0])
+                  and not torch.equal(share, other_seed * (1 - DROP_P)))
+        log(f"[7 K2 dropout T={t} E={e} H={h}] max|K2-plain replay| {err:.3e}; kernel "
+            f"keep rate {rate:.5f} (0.9 +- 4 sigma = {4 * sigma:.1e}); masks differ "
+            f"across (b, h) and seeds: {differ}")
+        check(abs(rate - (1 - DROP_P)) <= 4 * sigma, f"keep rate {rate}")
+        check(differ, "dropout masks repeat across (b, h) or seeds")
+        if timed is None:
+            timed = dict(
+                ms=cuda_ms(lambda: fused_qkv_self_attention(qkv, h, mask, DROP_P, 1234)),
+                plain_ms=cuda_ms(lambda: qkv_attention_plain(qkv, h, mask, DROP_P, 1234)))
+            log(f"    K2 fwd p=0.1 at {(b, t, 3 * e)}: {timed['ms']:.3f} ms, plain "
+                f"{timed['plain_ms']:.3f} ms")
+    return worst, timed
+
+
+def phase_k2_bwd(torch, gen):
+    from tpu_speech_torch.ops import fused_attention as fa
+
+    res = {}
+    for b, t, e, h in STEP_SHAPES:
+        qkv, mask = _k2_case(torch, gen, b, t, e, h)
+        dout = torch.randn(b, t, e, generator=gen).to("cuda")
+        for p in (0.0, DROP_P):
+            grads = []
+            for fn in (fa.fused_qkv_self_attention, fa.qkv_attention_plain):
+                x = qkv.clone().requires_grad_(True)
+                fn(x, h, mask, p, 4321).backward(dout)
+                grads.append(x.grad)
+            torch.cuda.synchronize()
+            got, ref = grads
+            err = (got - ref).abs().max().item()
+            bound = K2_BWD_RTOL * max(1.0, ref.abs().max().item())
+            log(f"[8 K2-bwd T={t} E={e} H={h} p={p}] max|dqkv kernel - autograd plain| "
+                f"{err:.3e} (bound {bound:.2e}); padded row dq, dk zero: "
+                f"{got[0, :, :2 * e].abs().max().item() == 0.0}")
+            check(bool(torch.isfinite(got).all()), f"K2-bwd T={t}: non-finite")
+            check(err <= bound, f"K2-bwd T={t} p={p}: {err} > {bound}")
+            res[(t, p)] = err
+    # times at the student's block-1 shape with dropout: backward alone and
+    # forward + backward, each beside the plain version
+    b, t, e, h = STEP_SHAPES[0]
+    qkv, mask = _k2_case(torch, gen, b, t, e, h)
+    dout = torch.randn(b, t, e, generator=gen).to("cuda")
+    seed, thresh = 4321, fa.dropout_threshold(DROP_P)
+    scale = 1.0 / (1.0 - DROP_P)
+    out, lse = fa._launch_fwd(qkv, mask, h, seed, thresh, scale, True)
+    x = qkv.clone().requires_grad_(True)
+    plain_out = fa.qkv_attention_plain(x, h, mask, DROP_P, seed)
+
+    def fwd_bwd(fn):
+        y = qkv.clone().requires_grad_(True)
+        fn(y, h, mask, DROP_P, seed).backward(dout)
+
+    t_k = dict(
+        ms=cuda_ms(lambda: fa._launch_bwd(qkv, mask, out, dout, lse, h, seed, thresh, scale)),
+        plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_out, x, dout, retain_graph=True)),
+        fb_ms=cuda_ms(lambda: fwd_bwd(fa.fused_qkv_self_attention)),
+        fb_plain_ms=cuda_ms(lambda: fwd_bwd(fa.qkv_attention_plain)),
+    )
+    log(f"    K2-bwd at {(b, t, 3 * e)} p=0.1: backward {t_k['ms']:.3f} ms vs plain "
+        f"{t_k['plain_ms']:.3f} ms; forward + backward {t_k['fb_ms']:.3f} vs "
+        f"{t_k['fb_plain_ms']:.3f} ms")
+    return max(res.values()), t_k
+
+
+def write_pretrain_corpus(root, rng, n):
+    """n speech-like int16 wavs of 4-20 s and a manifest named as the
+    config's first train manifest, so --manifest_dir finds it."""
+    import scipy.io.wavfile
+
+    with open(os.path.join(root, "librivox-train-clean-100.json"), "w") as f:
+        for i, d in enumerate(rng.uniform(4.0, 20.0, size=n)):
+            path = os.path.join(root, f"pre{i:03d}.wav")
+            pcm = np.clip(speech_like(rng, int(d * SR)) * 32767, -32768, 32767)
+            scipy.io.wavfile.write(path, SR, pcm.astype(np.int16))
+            f.write(json.dumps({"audio_filepath": path, "duration": float(d),
+                                "text": ""}) + "\n")
+    for other in ("librivox-train-clean-360.json", "librivox-train-other-500.json"):
+        open(os.path.join(root, other), "w").close()
+
+
+def _max_diff(a, b):
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def phase_pretrain_slice(torch, rng, root):
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder
+    from tpu_speech_torch.ops import _build
+
+    write_pretrain_corpus(root, rng, PRETRAIN_STEPS * PRETRAIN_BATCH)
+    run_dir = os.path.join(root, "pretrain")
+    # a 2-step warmup instead of 32 000, so that a few steps move the
+    # parameters far beyond rounding and the EMA's pull shows
+    argv = ["--model_type", "st2vec", "--run_mode", "train",
+            "--config_name", "spiral_base_pretrain_ls960", "--manifest_dir", root,
+            "--model_save_dir", run_dir, "--set", f"trainer.max_steps={PRETRAIN_STEPS}",
+            "--set", "model.optim.sched.warmup_steps=2"]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_spiral.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = res["steps"]
+    kept_t = sum(m["teacher_layers"] for m in steps)
+    kept_s = sum(m["student_layers"] for m in steps)
+    log(f"[9 pretrain slice] {len(steps)} steps of B = {PRETRAIN_BATCH} x 250 000 "
+        f"samples through run_spiral.main in {wall:.1f} s (model build, data, steps); "
+        f"launches {launches}; kept layers teacher {kept_t}, student {kept_s}")
+    for i, m in enumerate(steps):
+        log(f"    step {i}: loss {m['loss']:.4f} acc {m['accuracy']:.4f} "
+            f"momentum {m['momentum']:.6f} lr {m['lr']:.3e}")
+    check(len(steps) == PRETRAIN_STEPS, f"{len(steps)} steps ran")
+    check(launches["fused_logmel"] == 2 * len(steps), f"K1 launches {launches}")
+    check(launches["fused_qkv_attention"] == kept_t + kept_s, f"K2-fwd launches {launches}")
+    check(launches["fused_qkv_attention_bwd"] == kept_s, f"K2-bwd launches {launches}")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["accuracy"]) for m in steps),
+          "non-finite loss or accuracy")
+    cfg = spiral_base_pretrain_ls960()
+    init = ST2VecEncoder(cfg.model.encoder, pretraining=True)
+    init.init_weights(torch.Generator().manual_seed(0))
+    init_sd, sd = init.state_dict(), torch.load(res["state_dict"], weights_only=True)
+    check(sd.keys() == init_sd.keys(), "saved state_dict keys")
+    stu = [k for k in sd if k.startswith(("feature_encoder.", "projector."))
+           and sd[k].is_floating_point()]
+    d_student = _max_diff([sd[k] for k in stu], [init_sd[k] for k in stu])
+    d_teacher = _max_diff([sd["target_" + k] for k in stu], [init_sd["target_" + k] for k in stu])
+    log(f"    max |change| from the init: student {d_student:.3e}, teacher "
+        f"{d_teacher:.3e} (EMA)")
+    check(d_student > 0 and 0 < d_teacher < d_student, "student/teacher did not move as expected")
+    return launches
+
+
+def phase_pretrain_cpu_vs_card(torch):
+    import dataclasses
+
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, draw_negative_indices
+    from tpu_speech_torch.train import spiral as tspiral
+
+    enc = spiral_base_pretrain_ls960().model.encoder
+    blocks = tuple(dataclasses.replace(b, transformer=dataclasses.replace(
+        b.transformer, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+        encoder_layerdrop=0.0), conv_layers=tuple(
+            dataclasses.replace(c, dropout=0.0) for c in b.conv_layers)) for b in enc.blocks)
+    enc = dataclasses.replace(enc, blocks=blocks, dither=0.0)
+    n = 4 * SR
+    spec_len = ((1 + n // 160 + 15) // 16) * 16
+    r = np.random.default_rng(5)
+    wavs = np.stack([speech_like(r, n) for _ in range(2)])
+    lens = np.array([n, 3 * SR], np.int32)
+    wavs[1, lens[1]:] = 0
+    batch = tspiral.host_augment_batch(enc, wavs, lens, wavs * 0.8, lens, spec_len,
+                                       np.random.default_rng(6), np.random.default_rng(7))
+    t_out = spec_len // 8
+    feat_lens = torch.tensor(np.ceil(lens / 160).astype(np.int64))
+    for _ in range(3):
+        feat_lens = (feat_lens + 1) // 2
+    neg = draw_negative_indices(feat_lens, t_out, enc.n_negatives,
+                                torch.Generator().manual_seed(8))
+    results = []
+    for dev in ("cpu", "cuda"):
+        model = ST2VecEncoder(enc, pretraining=True)
+        model.init_weights(torch.Generator().manual_seed(3))
+        model.to(dev)
+        teacher0 = [p.detach().clone() for p in model.teacher_parameters()]
+        state = tspiral.make_pretrain_state(model, lambda ps: torch.optim.SGD(ps, lr=1.0))
+        m = tspiral.pretrain_step(state, tspiral.batch_to_device(batch, dev),
+                                  DropoutRng.seeded(0, dev), neg_idx=neg.to(dev))
+        results.append((model, float(m["loss"]), m["momentum"], teacher0))
+    (cpu, l_cpu, _, _), (card, l_card, mom, t0) = results
+    names = [n for n, p in card.named_parameters() if p.requires_grad]
+    g_cpu = dict((n, p.grad) for n, p in cpu.named_parameters() if p.requires_grad)
+    g_card = dict((n, p.grad.cpu()) for n, p in card.named_parameters() if p.requires_grad)
+    g_max = max(g_cpu[k].abs().max().item() for k in names)
+    worst, worst_name = 0.0, ""
+    for k in names:
+        bound_ref = max(g_cpu[k].abs().max().item(), 1e-2 * g_max)
+        rel = (g_card[k] - g_cpu[k]).abs().max().item() / bound_ref
+        if rel > worst:
+            worst, worst_name = rel, k
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    # EMA on the card: teacher = m * teacher0 + (1 - m) * student (after SGD)
+    student = [p for _, s in card._pairs() for p in s.parameters()]
+    ema_err = max((t - (t_old * mom + s.detach() * (1 - mom))).abs().max().item()
+                  for t, t_old, s in zip(card.teacher_parameters(), t0, student))
+    log(f"[10 pretrain card vs cpu] B = 2 x 4 s, one SGD(lr=1) step: loss card "
+        f"{l_card:.6f} cpu {l_cpu:.6f} (rel {rel_loss:.2e}, limit {STEP_LOSS_RTOL}); "
+        f"worst gradient {worst:.2e} x its max|g| ({worst_name}; limit {GRAD_RTOL}) over "
+        f"{len(names)} tensors; EMA max error {ema_err:.2e}")
+    check(rel_loss <= STEP_LOSS_RTOL, f"loss card {l_card} vs cpu {l_cpu}")
+    check(worst <= GRAD_RTOL, f"gradient {worst_name}: {worst} x max|g|")
+    check(ema_err <= 1e-6, f"EMA update off by {ema_err}")
+
+
+def phase_pretrain_time(torch, root):
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+
+    cfg = spiral_base_pretrain_ls960()
+    cfg.model.train_ds.manifest_filepath = os.path.join(root, "librivox-train-clean-100.json")
+    runner = SpiralPretrainRunner(cfg, os.path.join(root, "timed"), device="cuda")
+    batch = runner.device_batch(next(iter(runner.loader)))
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: runner.step(batch), n=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[11 pretrain step time] B = 24 x 250 000 samples, batch on the card: "
+        f"{ms:.2f} ms per step (median of 10), peak device memory {peak:.2f} GiB")
+    profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="11 profile")
+    return ms, peak
+
+
 def write_corpus(root, rng):
     import scipy.io.wavfile
 
@@ -311,7 +599,7 @@ def phase_slice_time(torch, manifest, ckpt):
     profile_slice(torch, lambda: infer(torch, enc_cfg, model, wavs, lens))
 
 
-def profile_slice(torch, run, batches=3, top=8):
+def profile_slice(torch, run, batches=3, top=8, tag="6 profile"):
     """Where the slice's device time goes: torch.profiler kernel events over a
     few batches, summed by kernel name, and the device's busy share of the
     span from the first kernel's start to the last kernel's end (kernels
@@ -327,7 +615,7 @@ def profile_slice(torch, run, batches=3, top=8):
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        log("[6 profile] the profiler saw no device kernels; not measured")
+        log(f"[{tag}] the profiler saw no device kernels; not measured")
         return
     busy, (cur_s, cur_e) = 0, spans[0]
     by_name = defaultdict(lambda: [0, 0])
@@ -343,9 +631,9 @@ def profile_slice(torch, run, batches=3, top=8):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
-    log(f"[6 profile] {len(spans) // batches} kernels per batch; device busy "
+    log(f"[{tag}] {len(spans) // batches} kernels per run; device busy "
         f"{busy / batches / 1e3:.2f} ms of a {span / batches / 1e3:.2f} ms span per "
-        f"batch (share {busy / span:.3f})")
+        f"run (share {busy / span:.3f})")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"    {us / batches / 1e3:8.3f} ms  x{n // batches:<3d} {name[:90]}")
 
@@ -371,20 +659,44 @@ def main():
         manifest, ckpt, card_logits, launches = phase_slice(torch, rng, root)
         phase_cpu_vs_card(torch, manifest, ckpt, card_logits)
         phase_slice_time(torch, manifest, ckpt)
+    drop_err, k2_drop_t = phase_k2_dropout(torch, gen)
+    bwd_err, k2_bwd_t = phase_k2_bwd(torch, gen)
+    with tempfile.TemporaryDirectory() as root:
+        pre_launches = phase_pretrain_slice(torch, rng, root)
+        phase_pretrain_cpu_vs_card(torch)
+        phase_pretrain_time(torch, root)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    def by_path(key):
+        return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key]}
+
+    k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], drop_err), ms=k2_drop_t["ms"],
+              plain_ms=k2_drop_t["plain_ms"],
+              shape=f"dropout 0.1 at (24, 392, 1536) H=8 (no grad); dropout 0 at "
+                    f"(14, 604, 1536) H=8: {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms; "
+                    + k2["shape"].split("; ")[-1])
     kernels = [
         dict(name="fused_logmel", route="cuda",
              source="tpu_speech_torch/csrc/fused_logmel.cu",
              replaces="tpu_speech/ops/fused_logmel.py:203",
-             launches=launches["fused_logmel"], **k1),
+             launches=sum(by_path("fused_logmel").values()),
+             launches_by_path=by_path("fused_logmel"), **k1),
         dict(name="fused_qkv_self_attention", route="cuda",
              source="tpu_speech_torch/csrc/fused_attention.cu",
              replaces="tpu_speech/ops/fused_attention.py:384",
-             launches=launches["fused_qkv_attention"], **k2),
+             launches=sum(by_path("fused_qkv_attention").values()),
+             launches_by_path=by_path("fused_qkv_attention"), **k2),
+        dict(name="fused_qkv_self_attention_bwd", route="cuda",
+             source="tpu_speech_torch/csrc/fused_attention.cu",
+             replaces="tpu_speech/ops/fused_attention.py:401",
+             launches=pre_launches["fused_qkv_attention_bwd"],
+             launches_by_path=by_path("fused_qkv_attention_bwd"),
+             max_abs_err=bwd_err, ms=k2_bwd_t["ms"], plain_ms=k2_bwd_t["plain_ms"],
+             shape=f"dqkv (24, 392, 1536) H=8 p=0.1, backward alone; forward + backward "
+                   f"{k2_bwd_t['fb_ms']:.4f} ms vs plain {k2_bwd_t['fb_plain_ms']:.4f} ms"),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

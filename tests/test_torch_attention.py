@@ -1,8 +1,10 @@
-"""PyTorch port, K2 (merged-qkv attention forward): the plain version against
-the JAX Pallas kernel in interpret mode, the wrapper's CPU dispatch, its
+"""PyTorch port, K2 (merged-qkv attention, forward and backward): the plain
+version and its autograd gradient against the JAX Pallas kernel in interpret
+mode, the dropout mask's definition and replay, the gradient at a fully
+padded row against the JAX XLA path, the wrapper's CPU dispatch, its
 argument checks, and the attention module against the JAX module.
 
-The CUDA kernel itself is checked on the card by
+The CUDA kernels themselves are checked on the card by
 tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
 
@@ -20,6 +22,8 @@ from tpu_speech.ops.fused_attention import fused_qkv_self_attention as jax_fused
 from tpu_speech_torch.models.spiral.wav2vec import MultiheadSelfAttention
 from tpu_speech_torch.ops import _build
 from tpu_speech_torch.ops.fused_attention import (
+    dropout_bits,
+    dropout_keep_mask,
     fused_qkv_self_attention,
     qkv_attention_plain,
 )
@@ -78,8 +82,10 @@ def test_wrapper_on_cpu_is_the_plain_version(rng):
 
 def test_wrapper_rejects_what_it_does_not_take():
     qkv = torch.zeros(2, 5, 24)
-    with pytest.raises(NotImplementedError):  # K2-bwd / dropout not ported yet
+    with pytest.raises(ValueError):  # dropout needs a seed
         fused_qkv_self_attention(qkv, 2, dropout_p=0.1)
+    with pytest.raises(ValueError):
+        fused_qkv_self_attention(qkv, 2, dropout_p=1.0, dropout_seed=1)
     with pytest.raises(ValueError):
         fused_qkv_self_attention(qkv, 5)  # 3E not divisible by 3 * heads
     with pytest.raises(ValueError):
@@ -114,3 +120,114 @@ def test_multihead_self_attention_matches_jax_module(rng, jax_fused):
     with torch.no_grad():
         out = port(torch.tensor(x), torch.tensor(mask))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,t,e,h", [(2, 12, 32, 4), (3, 37, 48, 2), (2, 70, 64, 1)])
+def test_plain_gradient_matches_jax_pallas_interpret(rng, b, t, e, h):
+    """dqkv by autograd of the plain version against jax.vjp of the Pallas
+    kernel pair (K2-fwd/K2-bwd, interpret mode) at dropout 0, over rows that
+    have a valid key. Tolerance 1e-5."""
+    qkv, mask = _qkv(rng, b, t, e, h, fully_padded_row=False)
+    dout = rng.standard_normal((b, t, e)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jax_fused_qkv(x, h, jnp.asarray(mask), interpret=True),
+                     jnp.asarray(qkv))
+    (ref,) = vjp(jnp.asarray(dout))
+    x = torch.tensor(qkv, requires_grad=True)
+    qkv_attention_plain(x, h, torch.tensor(mask)).backward(torch.tensor(dout))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_fully_padded_row_gradient_is_the_xla_path(rng):
+    """At a batch row whose keys are all padded, the plain version's dqkv
+    (autograd through masked_fill) equals the gradient of the JAX XLA path
+    (wav2vec.py:197-216, through jnp.where): zero into q and k, the uniform
+    1/T weights into v. The JAX Pallas backward gives a nonzero dq, dk there
+    (it leaves dS = P (dP - Delta) at padded keys); ROADMAP Queue 3 logs the
+    difference between the reference's two paths."""
+    b, t, e, h = 2, 9, 16, 2
+    qkv, mask = _qkv(rng, b, t, e, h, fully_padded_row=True)
+    dout = rng.standard_normal((b, t, e)).astype(np.float32)
+
+    def xla(x):  # the XLA path of MultiheadSelfAttention on the merged plane
+        q, k, v = jnp.split(x, 3, axis=-1)
+        q, k, v = (a.reshape(b, t, h, e // h) for a in (q, k, v))
+        s = jnp.einsum("bthd,bshd->bhts", q, k)
+        s = jnp.where(jnp.asarray(mask)[:, None, None, :], -1e9, s)
+        p = jax.nn.softmax(s, axis=-1)
+        return jnp.einsum("bhts,bshd->bthd", p, v).reshape(b, t, e)
+
+    (ref,) = jax.vjp(xla, jnp.asarray(qkv))[1](jnp.asarray(dout))
+    x = torch.tensor(qkv, requires_grad=True)
+    qkv_attention_plain(x, h, torch.tensor(mask)).backward(torch.tensor(dout))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    assert not x.grad[0, :, :2 * e].any()  # dq, dk of the fully padded row
+    (pallas,) = jax.vjp(lambda y: jax_fused_qkv(y, h, jnp.asarray(mask), interpret=True),
+                        jnp.asarray(qkv))[1](jnp.asarray(dout))
+    assert np.abs(np.asarray(pallas)[0, :, :2 * e]).max() > 1e-3
+    np.testing.assert_allclose(np.asarray(pallas)[1], np.asarray(ref)[1], atol=1e-5, rtol=1e-5)
+
+
+def _bits_uint32(seed, bh, idx):
+    """The kernels' dropout bits, written with Python ints mod 2**32."""
+    m = 0xFFFFFFFF
+
+    def fmix(x):
+        x ^= x >> 16
+        x = (x * 0x85EBCA6B) & m
+        x ^= x >> 13
+        x = (x * 0xC2B2AE35) & m
+        return x ^ (x >> 16)
+
+    stream = fmix(seed ^ fmix((bh + 0x9E3779B9) & m))
+    return fmix(stream ^ ((idx * 0x9E3779B1) & m))
+
+
+def test_dropout_bits_are_the_kernels_definition():
+    bh = [0, 1, 95, 287]
+    idx = [0, 1, 455, 207935]
+    for seed in (0, 1, 2**31 - 2):
+        got = dropout_bits(seed, torch.tensor(bh)[:, None], torch.tensor(idx)[None, :])
+        want = [[_bits_uint32(seed, a, i) for i in idx] for a in bh]
+        assert got.tolist() == want
+
+
+def test_dropout_mask_rate_and_streams():
+    """keep rate within 4 sigma of 1 - p; the mask differs across seeds and
+    across (b, h); p = 0.5 and 0.1."""
+    for p in (0.1, 0.5):
+        keep = dropout_keep_mask(123, 3, 4, 64, p)
+        n = keep.numel()
+        assert abs(keep.float().mean().item() - (1 - p)) < 4 * (p * (1 - p) / n) ** 0.5
+        assert (keep[0, 0] != keep[0, 1]).any() and (keep[0, 0] != keep[1, 0]).any()
+        assert (keep != dropout_keep_mask(124, 3, 4, 64, p)).any()
+
+
+def test_dropout_replays_the_same_mask_in_forward_and_backward(rng):
+    """The plain forward with dropout equals softmax * keep / (1 - p) @ v for
+    the mask dropout_keep_mask defines, and its autograd gradient equals the
+    gradient of that explicit expression: the backward replays the
+    forward's mask."""
+    b, t, e, h, p, seed = 2, 11, 16, 2, 0.1, 77
+    qkv, mask = _qkv(rng, b, t, e, h)
+    dout = torch.tensor(rng.standard_normal((b, t, e)).astype(np.float32))
+    keep = dropout_keep_mask(seed, b, h, t, p)
+
+    def explicit(x):
+        q, k, v = x.view(b, t, 3, h, e // h).unbind(2)
+        s = torch.einsum("bthd,bshd->bhts", q, k).masked_fill(
+            torch.tensor(mask)[:, None, None, :], -1e9)
+        pr = torch.softmax(s, dim=-1) * keep / (1 - p)
+        return torch.einsum("bhts,bshd->bthd", pr, v).reshape(b, t, e)
+
+    grads, outs = [], []
+    for fn in (lambda x: fused_qkv_self_attention(x, h, torch.tensor(mask), p, seed),
+               explicit):
+        x = torch.tensor(qkv, requires_grad=True)
+        out = fn(x)
+        out.backward(dout)
+        outs.append(out.detach())
+        grads.append(x.grad)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-6)
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6)
+    assert not torch.allclose(outs[0], qkv_attention_plain(torch.tensor(qkv), h,
+                                                           torch.tensor(mask)))

@@ -16,6 +16,7 @@ from tpu_speech_torch.models.spiral.features import hann_window_symmetric
 from tpu_speech_torch.ops import _build
 from tpu_speech_torch.ops.fused_attention import (
     KERNEL_D_HEADS,
+    dropout_keep_mask,
     fused_qkv_self_attention,
     qkv_attention_plain,
 )
@@ -86,23 +87,79 @@ def test_fused_qkv_attention_matches_plain(cuda, d_head, t):
                                qkv_attention_plain(qkv, h), rtol=0, atol=1e-4)
 
 
+def _qkv_case(dev, b, t, h, d_head, seed):
+    e = h * d_head
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * e, generator=g)
+    qkv[..., :e] *= d_head ** -0.5
+    lens = torch.tensor([0, t, max(1, t // 3)][:b], device=dev)  # row 0 fully padded
+    mask = torch.arange(t, device=dev)[None, :] >= lens[:, None]
+    return qkv.to(dev), mask
+
+
+@pytest.mark.parametrize("d_head", KERNEL_D_HEADS)
+@pytest.mark.parametrize("t", [5, 64, 131])
+def test_fused_qkv_attention_dropout_matches_plain_replay(cuda, d_head, t):
+    qkv, mask = _qkv_case(cuda, 3, t, 4, d_head, 7 * t + d_head)
+    out = fused_qkv_self_attention(qkv, 4, mask, 0.1, 1234)
+    ref = qkv_attention_plain(qkv, 4, mask, 0.1, 1234)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    assert not torch.allclose(out, fused_qkv_self_attention(qkv, 4, mask, 0.1, 1235))
+
+
+@pytest.mark.parametrize("d_head", KERNEL_D_HEADS)
+@pytest.mark.parametrize("t", [5, 64, 131])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_fused_qkv_attention_backward_matches_plain_autograd(cuda, d_head, t, p):
+    """dqkv of the K2-bwd kernel against autograd of the plain version on
+    the same inputs and the same replayed mask; row 0 fully padded."""
+    qkv, mask = _qkv_case(cuda, 3, t, 4, d_head, 11 * t + d_head)
+    dout = torch.randn(3, t, 4 * d_head, generator=torch.Generator().manual_seed(t)).to(cuda)
+    grads = []
+    for fn in (fused_qkv_self_attention, qkv_attention_plain):
+        x = qkv.clone().requires_grad_(True)
+        fn(x, 4, mask, p, 99).backward(dout)
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    got, ref = grads
+    assert torch.isfinite(got).all()
+    bound = 1e-4 * max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(got, ref, rtol=0, atol=bound)
+    e = 4 * d_head
+    assert got[0, :, :2 * e].abs().max().item() == 0.0  # dq, dk of the fully padded row
+
+
+def test_dropout_keep_rate_and_streams(cuda):
+    keep = dropout_keep_mask(5, 4, 8, 456, 0.1, cuda)
+    n = keep.numel()
+    rate = keep.float().mean().item()
+    assert abs(rate - 0.9) < 4 * (0.9 * 0.1 / n) ** 0.5
+    assert (keep[0, 0] != keep[0, 1]).any() and (keep[0, 0] != keep[1, 0]).any()
+    assert (keep != dropout_keep_mask(6, 4, 8, 456, 0.1, cuda)).any()
+
+
 def test_launch_counters_count_kernel_launches_only(cuda):
     win, fb = _spiral_consts(cuda)
     _build.reset_launches()
     x = torch.randn(1, 2000)
     fused_logmel(x, win.cpu(), fb.cpu(), n_fft=512, hop_length=160, num_frames=9)
     fused_qkv_self_attention(torch.randn(1, 4, 48), 2)
-    assert _build.LAUNCHES == {"fused_logmel": 0, "fused_qkv_attention": 0}
+    assert _build.LAUNCHES == {"fused_logmel": 0, "fused_qkv_attention": 0,
+                               "fused_qkv_attention_bwd": 0}
     fused_logmel(x.to(cuda), win, fb, n_fft=512, hop_length=160, num_frames=9)
     fused_qkv_self_attention(torch.randn(1, 4, 48, device=cuda), 2)
-    fused_qkv_self_attention(torch.randn(1, 4, 48, device=cuda), 2)
-    assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2}
+    qkv = torch.randn(1, 4, 48, device=cuda, requires_grad=True)
+    fused_qkv_self_attention(qkv, 2, None, 0.1, 3).sum().backward()
+    assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2,
+                               "fused_qkv_attention_bwd": 1}
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     qkv = torch.randn(1, 4, 48, device=cuda)
-    with pytest.raises(NotImplementedError):
-        fused_qkv_self_attention(qkv, 2, dropout_p=0.1)
+    with pytest.raises(ValueError):
+        fused_qkv_self_attention(qkv, 2, dropout_p=0.1)  # no seed
     with pytest.raises(ValueError):
         fused_qkv_self_attention(qkv.double(), 2)
     with pytest.raises(ValueError):
@@ -132,6 +189,48 @@ def test_tiny_slice_on_the_card_matches_the_cpu(cuda):
         model.to(cuda)
         _build.reset_launches()
         out, out_lens = model(*wav_to_spec(cfg.model.encoder, wavs.to(cuda), lens.to(cuda)))
-    assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2}
+    assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2,
+                               "fused_qkv_attention_bwd": 0}
     torch.testing.assert_close(out_lens.cpu(), ref_lens)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3)
+
+
+def test_tiny_pretrain_step_on_the_card_matches_the_cpu(cuda):
+    """One pretrain step of the tiny config on both devices from the same
+    weights, batch and negatives (dither, dropout and layerdrop off, SGD
+    lr = 1): the loss, every gradient, and the launch counts of one step."""
+    import dataclasses
+
+    from tpu_speech_torch.configs.spiral import spiral_tiny_pretrain
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, draw_negative_indices
+    from tpu_speech_torch.train import spiral as tspiral
+
+    enc = spiral_tiny_pretrain().model.encoder
+    enc = dataclasses.replace(enc, dither=0.0, blocks=tuple(
+        dataclasses.replace(b, transformer=dataclasses.replace(b.transformer, attention_dropout=0.0))
+        for b in enc.blocks))
+    r = np.random.default_rng(0)
+    wavs = (r.standard_normal((2, 16000)) * 0.1).astype(np.float32)
+    lens = np.array([16000, 9000], np.int32)
+    batch = tspiral.host_augment_batch(enc, wavs, lens, wavs, lens, 112,
+                                       np.random.default_rng(1))
+    neg = draw_negative_indices(torch.tensor([13, 8]), 14, enc.n_negatives,
+                                torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = ST2VecEncoder(enc, pretraining=True).init_weights(torch.Generator().manual_seed(0))
+        state = tspiral.make_pretrain_state(model.to(dev), lambda ps: torch.optim.SGD(ps, lr=1.0))
+        _build.reset_launches()
+        m = tspiral.pretrain_step(state, tspiral.batch_to_device(batch, dev),
+                                  DropoutRng.seeded(0, dev), neg_idx=neg.to(dev))
+        out[str(dev)] = (float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                            if p.requires_grad}, dict(_build.LAUNCHES))
+    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
+    assert n_cpu == {"fused_logmel": 0, "fused_qkv_attention": 0, "fused_qkv_attention_bwd": 0}
+    assert n_gpu == {"fused_logmel": 2, "fused_qkv_attention": 4, "fused_qkv_attention_bwd": 2}
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    g_max = max(g.abs().max().item() for g in g_cpu.values())
+    for k in g_cpu:
+        bound = 1e-3 * max(g_cpu[k].abs().max().item(), 1e-2 * g_max)
+        torch.testing.assert_close(g_gpu[k], g_cpu[k], rtol=0, atol=bound, msg=k)

@@ -1,8 +1,19 @@
-"""SPIRAL launcher for the port: the CTC ``--run_mode test`` path.
+"""SPIRAL launcher for the port: ST2Vec pretraining and CTC transcription.
 
-Port of ``cli/run_spiral.py`` for ``--model_type ctc_finetune --run_mode
-test``: build the configured model, load test weights, decode the test
-manifest greedily and print ``TEST: WER = ... | CER = ... | N utts``.
+Port of ``cli/run_spiral.py`` for two of its paths:
+
+- ``--model_type st2vec --run_mode train`` (``:312-346``): the pretrain loop
+  of ``SpiralPretrainRunner`` for ``trainer.max_epochs`` epochs or until
+  ``trainer.max_steps`` steps, then the reference-named state_dict in
+  ``<model_save_dir>/st2vec.pt``::
+
+    python -m tpu_speech_torch.cli.run_spiral --model_type st2vec \
+        --run_mode train --config_name spiral_base_pretrain_ls960 \
+        --manifest_dir D --set trainer.max_steps=N --model_save_dir OUT
+
+- ``--model_type ctc_finetune --run_mode test``: build the configured model,
+  load test weights, decode the test manifest greedily and print
+  ``TEST: WER = ... | CER = ... | N utts``.
 
     python -m tpu_speech_torch.cli.run_spiral --run_mode test \\
         --config_name spiral_base_finetune_ls100_char \\
@@ -13,11 +24,14 @@ Weights: a torch state_dict with the reference names (``.pt``), or the JAX
 package's trees in an ``.npz`` (``params/...``, ``batch_stats/...``; see
 ``tpu_speech_torch/compat/jax_spiral.py``). Without weights the model keeps
 its seeded random init. ``--config_name`` is a key of
-``tpu_speech_torch.configs.spiral.CONFIGS`` (char-label recipes).
+``tpu_speech_torch.configs.spiral.CONFIGS``. ``--manifest_dir`` rebases the
+configured manifests' file names onto a directory (``:270-277``); ``--set
+KEY=VALUE`` overrides a config leaf (``:148-153``). ``--device`` defaults to
+``cuda`` and fails without a card.
 
-Not ported yet: pretraining and finetune training, YAML configs and
-``--set`` overrides, subword tokenizers, archives, beam search, streaming
-evaluation, export and multi-node runs.
+Not ported yet: finetune training, validation, resume, YAML configs,
+subword tokenizers, archives, beam search, streaming evaluation, export and
+multi-node runs.
 """
 
 from __future__ import annotations
@@ -27,8 +41,12 @@ import glob
 import os
 
 from tpu_speech.text.tokenizers import CharTokenizer
+from tpu_speech.utils.config import apply_override, parse_cli_override
 from tpu_speech_torch.configs.spiral import CONFIGS
-from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+from tpu_speech_torch.train.spiral_runner import (
+    SpiralFinetuneRunner,
+    SpiralPretrainRunner,
+)
 
 
 def str2bool(v):
@@ -49,14 +67,16 @@ def get_ckpt_path(ckpt_dir, ckpt_name):
 
 def build_parser():
     p = argparse.ArgumentParser(
-        description="SPIRAL CTC transcription (PyTorch port)",
+        description="SPIRAL pretraining and CTC transcription (PyTorch port)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     p.add_argument("--config_name", type=str, required=True,
                    choices=sorted(CONFIGS))
     p.add_argument("--model_type", type=str, default="ctc_finetune",
-                   choices=["ctc_finetune"])
-    p.add_argument("--run_mode", type=str, default="test", choices=["test"])
+                   choices=["st2vec", "ctc_finetune"])
+    p.add_argument("--run_mode", type=str, default="test", choices=["train", "test"])
+    p.add_argument("--manifest_dir", type=str, default="",
+                   help="directory the configured manifest file names live in")
     p.add_argument("--test_manifest", type=str, default="")
     p.add_argument("--model_save_dir", type=str, default="")
     p.add_argument("--log_dir", type=str, default="")
@@ -64,20 +84,56 @@ def build_parser():
     p.add_argument("--init_chkpt_file", type=str, default="")
     p.add_argument("--save_logits", type=str2bool, default=False,
                    help="save each batch's log-probs under <run dir>/logits")
-    p.add_argument("--device", type=str, default="",
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs the plain versions")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="dotted config override, e.g. --set trainer.max_steps=3 "
+                   "(repeatable)")
     return p
+
+
+def train_st2vec(cfg, log_dir: str, device: str) -> dict:
+    """The pretrain loop (cli/run_spiral.py:312-346 without validation,
+    resume and archives)."""
+    runner = SpiralPretrainRunner(cfg, log_dir, device=device)
+    max_steps = cfg.trainer.max_steps
+    loss = float("nan")
+    for epoch in range(1, cfg.trainer.max_epochs + 1):
+        loss = runner.train_epoch(epoch, max_steps)
+        print(f"Epoch {epoch}: loss = {loss:.4f}", flush=True)
+        if max_steps and runner.iteration >= max_steps:
+            break
+    path = runner.save_state_dict()
+    print(f"saved model state_dict: {path}")
+    return {"loss": loss, "steps": runner.history, "state_dict": path,
+            "iteration": runner.iteration}
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(args=argv)
     cfg = CONFIGS[args.config_name]()
+    for spec in args.overrides:
+        apply_override(cfg, *parse_cli_override(spec))
+    if args.manifest_dir:
+        for ds in (cfg.model.train_ds, cfg.model.validation_ds, cfg.model.test_ds):
+            if ds is not None:
+                ds.manifest_filepath = ",".join(
+                    p if os.path.isabs(p) else os.path.join(args.manifest_dir,
+                                                            os.path.basename(p))
+                    for p in ds.manifest_filepath.split(","))
     if args.test_manifest:
         cfg.model.test_ds.manifest_filepath = args.test_manifest
     log_dir = args.model_save_dir or args.log_dir or "logs/spiral_torch"
 
+    if args.model_type == "st2vec":
+        if args.run_mode != "train":
+            raise SystemExit("--model_type st2vec runs --run_mode train")
+        return train_st2vec(cfg, log_dir, args.device)
+    if args.run_mode != "test":
+        raise SystemExit("ctc_finetune training is not ported yet")
     runner = SpiralFinetuneRunner(cfg, log_dir, CharTokenizer(cfg.model.labels),
-                                  device=args.device or None)
+                                  device=args.device)
     if args.init_chkpt_dir and args.init_chkpt_file:
         path = get_ckpt_path(args.init_chkpt_dir, args.init_chkpt_file)
         runner.load_weights(path)

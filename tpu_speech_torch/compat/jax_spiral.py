@@ -1,11 +1,15 @@
 """tpu_speech (JAX/flax) SPIRAL trees -> reference-named PyTorch state_dicts.
 
-The inverse of ``tpu_speech/compat/torch_spiral.py::convert_ctc_finetune``:
-``ctc_finetune_from_jax(params, batch_stats)`` takes the CTC finetune
-model's flax trees (numpy leaves) and returns the state_dict that
-``tpu_speech_torch.models.spiral.ctc.CTCFinetuneModel`` (and the reference
-PyTorch model) load, so that ``convert_ctc_finetune(state_dict)`` gives the
-trees back exactly.
+The inverses of ``tpu_speech/compat/torch_spiral.py``'s converters:
+
+- ``ctc_finetune_from_jax(params, batch_stats)`` takes the CTC finetune
+  model's flax trees (numpy leaves) and returns the state_dict that
+  ``tpu_speech_torch.models.spiral.ctc.CTCFinetuneModel`` (and the reference
+  PyTorch model) load, so that ``convert_ctc_finetune(state_dict)`` gives the
+  trees back exactly;
+- ``st2vec_from_jax(params, batch_stats, teacher)`` does the same for the
+  pretraining model, ``ST2VecEncoder(cfg, pretraining=True)``, against
+  ``convert_st2vec``.
 
 Layout translation (flax channels-last -> torch channels-first):
 - conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
@@ -158,6 +162,36 @@ def ctc_finetune_from_jax(params: Mapping, batch_stats: Mapping = None
     sd["decoder.decoder_layers.0.weight"] = _t(np.transpose(w, (1, 0))[:, :, None])
     sd["decoder.decoder_layers.0.bias"] = _t(tr.get(*dec, "decoder_proj", "bias"))
     leftover = tr.leftover() + bs.leftover()
+    if leftover:
+        raise ValueError(f"unconsumed JAX leaves: {leftover[:8]}")
+    return sd
+
+
+def _projector(tr, bs, path, sd, key):
+    i = 0
+    while tr.has(*path, f"conv{i}"):
+        cp = path + (f"conv{i}",)
+        _conv(tr, cp + ("conv",), sd, f"{key}.conv_layers.{i}.conv.conv")
+        _norm(tr, bs, cp + ("norm",), sd, f"{key}.conv_layers.{i}.norm")
+        i += 1
+    _dense(tr, path + ("output_proj",), sd, f"{key}.output_proj")
+
+
+def st2vec_from_jax(params: Mapping, batch_stats: Mapping = None,
+                    teacher: Mapping = None) -> Dict[str, torch.Tensor]:
+    """ST2Vec pretraining flax trees (student params, BatchNorm stats, EMA
+    teacher subtree) -> reference-named torch state_dict."""
+    tr = _Tree(params, "params")
+    bs = _Tree(batch_stats or {}, "batch_stats")
+    te = _Tree(teacher or {}, "teacher")
+    sd: Dict[str, torch.Tensor] = {}
+    _feature_encoder(tr, bs, ("feature_encoder",), sd, "feature_encoder")
+    _projector(tr, bs, ("projector",), sd, "projector")
+    _projector(tr, bs, ("predictor",), sd, "predictor")
+    if teacher:
+        _feature_encoder(te, bs, ("feature_encoder",), sd, "target_feature_encoder")
+        _projector(te, bs, ("projector",), sd, "target_projector")
+    leftover = tr.leftover() + bs.leftover() + te.leftover()
     if leftover:
         raise ValueError(f"unconsumed JAX leaves: {leftover[:8]}")
     return sd

@@ -11,6 +11,12 @@ field-for-field twin dataclasses (``models/spiral/encoder.py``,
 with the finetune dropout bumps, the char CTC head (4x ProjUpsampling + 3
 convs, blank after the 28-char vocab), test batches of 14 padded to 24 s.
 
+``spiral_base_pretrain_ls960()`` is ``cli/conf/spiral/spiral_base_pretrain_ls960.py``
+(SPIRAL-base ST2Vec pretraining: batch 24 x 250 000-sample crops, AdamW
+3e-3 with 32k-step warmup and cosine decay, EMA momentum 0.995 -> 1.0);
+``spiral_tiny_pretrain()`` is ``cli/conf/spiral/spiral_tiny_test.py``, the
+CPU test size of the pretrain step.
+
 ``CONFIGS`` maps the ``--config_name`` values of the port's run_spiral CLI to
 these builders.
 """
@@ -36,6 +42,106 @@ from tpu_speech_torch.models.spiral.encoder import (
     TransformerCfg,
 )
 from tpu_speech_torch.models.spiral.st2vec import ST2VecConfig, spiral_base_config
+
+
+def spiral_base_pretrain_ls960() -> RunConfig:
+    """``cli/conf/spiral/spiral_base_pretrain_ls960.py``."""
+    max_steps = 200000
+    model = SpiralModelConfig(
+        encoder=spiral_base_config(target_momentum_steps=max_steps),
+        optim=AdamWParams(
+            lr=0.003, eps=1e-6, betas=(0.9, 0.98), weight_decay=0.01,
+            sched=SchedParams(name="CosineAnnealing", warmup_steps=32000,
+                              max_steps=max_steps, min_lr=0.0),
+        ),
+        train_ds=AudioDatasetConfig(
+            manifest_filepath=(
+                "manifest_json/librivox-train-clean-100.json,"
+                "manifest_json/librivox-train-clean-360.json,"
+                "manifest_json/librivox-train-other-500.json"
+            ),
+            sample_rate=16000, batch_size=24, min_duration=2.0,
+            crop_size=250000, shuffle=True, num_workers=4,
+        ),
+        validation_ds=AudioDatasetConfig(
+            manifest_filepath="manifest_json/librivox-dev-clean.json",
+            sample_rate=16000, batch_size=24, min_duration=2.0,
+            crop_size=250000, shuffle=False,
+        ),
+        test_ds=AudioDatasetConfig(
+            manifest_filepath="manifest_json/librivox-test-clean.json",
+            sample_rate=16000, batch_size=24, min_duration=2.0,
+            crop_size=250000, shuffle=False,
+        ),
+        expected_gpu_num=16,
+    )
+    return RunConfig(
+        name="st2vec", model=model,
+        trainer=TrainerConfig(max_epochs=280, max_steps=max_steps),
+        exp_manager=ExpManagerConfig(name="st2vec", save_top_k=5),
+    )
+
+
+def _tiny_blocks():
+    """The blocks of ``cli/conf/spiral/spiral_tiny_test.py``: 16 mels, two
+    one-layer 32-wide transformers."""
+    return (
+        ConvTransformerBlockCfg(
+            conv_layers=(
+                ConvLayerCfg(24, (5,), (2,), "ln", "relu", 0.0),
+                ConvLayerCfg(32, (5,), (2,), "ln", "relu", 0.0),
+            ),
+            transformer=TransformerCfg(1, 32, 64, 4, 0.0, conv_pos=8,
+                                       conv_pos_groups=4),
+        ),
+        ConvTransformerBlockCfg(
+            conv_layers=(ConvLayerCfg(32, (5,), (2,), "ln", "relu", 0.0),),
+            transformer=TransformerCfg(1, 32, 64, 4, 0.0, conv_pos=8,
+                                       conv_pos_groups=4),
+        ),
+    )
+
+
+def spiral_tiny_pretrain() -> RunConfig:
+    """``cli/conf/spiral/spiral_tiny_test.py``: the tiny ST2Vec (16-wide
+    projector, one BatchNorm predictor conv, 4 negatives) on 1 s crops,
+    batch 2, 4 steps."""
+    encoder = ST2VecConfig(
+        blocks=_tiny_blocks(),
+        num_features=16,
+        projector_dim=16,
+        predictor_convs=(ConvLayerCfg(16, (3,), (1,), "bn", "relu", 0.0, bias=None),),
+        n_negatives=4,
+        max_shift=2,
+        target_momentum_steps=100,
+    )
+    model = SpiralModelConfig(
+        encoder=encoder,
+        labels=DEFAULT_CHAR_LABELS,
+        freeze_finetune_updates=1,
+        optim=AdamWParams(
+            lr=1e-3,
+            sched=SchedParams(name="CosineAnnealing", warmup_steps=2, max_steps=100),
+        ),
+        train_ds=AudioDatasetConfig(
+            manifest_filepath="manifest.json", sample_rate=16000,
+            batch_size=2, crop_size=16000, shuffle=True, num_workers=2,
+            max_duration=1.0,
+        ),
+        validation_ds=AudioDatasetConfig(
+            manifest_filepath="manifest.json", sample_rate=16000,
+            batch_size=2, shuffle=False, max_duration=1.0,
+        ),
+        test_ds=AudioDatasetConfig(
+            manifest_filepath="manifest.json", sample_rate=16000,
+            batch_size=2, shuffle=False, max_duration=1.0,
+        ),
+    )
+    return RunConfig(
+        name="st2vec_tiny", model=model,
+        trainer=TrainerConfig(max_epochs=1, max_steps=4, val_check_interval_epochs=1),
+        exp_manager=ExpManagerConfig(name="st2vec_tiny"),
+    )
 
 
 def finetune_transformer_overrides(blocks, layerdrop_first=None,
@@ -139,22 +245,7 @@ def spiral_tiny_ctc_char() -> RunConfig:
     one-layer 32-wide transformers) with a 32-wide char head (4x
     upsampling): the CPU test size of the whole transcription path. Test
     batches of 2 padded to 1 s."""
-    blocks = (
-        ConvTransformerBlockCfg(
-            conv_layers=(
-                ConvLayerCfg(24, (5,), (2,), "ln", "relu", 0.0),
-                ConvLayerCfg(32, (5,), (2,), "ln", "relu", 0.0),
-            ),
-            transformer=TransformerCfg(1, 32, 64, 4, 0.0, conv_pos=8,
-                                       conv_pos_groups=4),
-        ),
-        ConvTransformerBlockCfg(
-            conv_layers=(ConvLayerCfg(32, (5,), (2,), "ln", "relu", 0.0),),
-            transformer=TransformerCfg(1, 32, 64, 4, 0.0, conv_pos=8,
-                                       conv_pos_groups=4),
-        ),
-    )
-    encoder = ST2VecConfig(blocks=blocks, num_features=16)
+    encoder = ST2VecConfig(blocks=_tiny_blocks(), num_features=16)
     cfg = finetune_run_config(
         "ctc_tiny", encoder, char_decoder(norm_type=None, filters=32),
         labels=DEFAULT_CHAR_LABELS, batch_size=2, max_duration=1.0,
@@ -168,4 +259,6 @@ def spiral_tiny_ctc_char() -> RunConfig:
 CONFIGS = {
     "spiral_base_finetune_ls100_char": spiral_base_ctc_char,
     "spiral_tiny_ctc_char": spiral_tiny_ctc_char,
+    "spiral_base_pretrain_ls960": spiral_base_pretrain_ls960,
+    "spiral_tiny_pretrain": spiral_tiny_pretrain,
 }

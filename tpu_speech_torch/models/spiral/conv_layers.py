@@ -7,6 +7,11 @@ JAX package; each conv transposes to PyTorch's (B, C, T) around
 ``F.conv1d``. Parameters carry the reference state_dict names
 (``conv.conv.weight``, ``norm.weight``, ``proj.conv.conv.weight``).
 
+BatchNorm follows flax's ``nn.BatchNorm`` in training: batch statistics over
+(B, T), padded frames included, and the running variance updated with the
+BIASED batch variance (``FlaxBatchNorm1d``); PyTorch's ``nn.BatchNorm1d``
+stores the unbiased one. Dropout draws from an explicit ``DropoutRng``.
+
 Not ported yet: the causal/incremental (streaming) modes and ``Conv2dTF``.
 """
 
@@ -17,6 +22,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpu_speech_torch.models.spiral.dropout import dropout
 
 
 def create_pad_mask(lens: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -63,11 +70,34 @@ class Conv1dTF(nn.Module):
         return y, lens, pad_mask
 
 
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (same parameters, buffers and names) with flax's
+    training semantics (``flax.linen.BatchNorm``, use_fast_variance):
+    mean = E[x], var = max(0, E[x^2] - mean^2) over (B, T); the running
+    statistics move by ``momentum`` toward the batch mean and the BIASED
+    batch variance. Eval mode normalizes with the running statistics, as
+    torch does."""
+
+    def forward(self, x):  # x (B, C, T)
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        mean2 = x.square().mean(dim=(0, 2))
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum  # the torch convention: weight of the new value
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight  # flax's order
+        return (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
+
+
 class ConvNormAct(nn.Module):
     """conv -> {ln | bn | none} -> {relu | none} -> dropout, with length and
     mask tracking (convolution_layers.py:62-102). LayerNorm epsilon is
-    ``ln_eps`` (1e-5, as the JAX module); BatchNorm matches flax's
-    (momentum 0.99 -> torch 0.01, epsilon 1e-3)."""
+    ``ln_eps`` (1e-5, as the JAX module); BatchNorm is ``FlaxBatchNorm1d``
+    with flax's momentum 0.99 (torch's 0.01) and epsilon 1e-3."""
 
     def __init__(self, in_channels: int, filters: int,
                  kernel_size: Sequence[int], stride: Sequence[int] = (1,),
@@ -84,17 +114,17 @@ class ConvNormAct(nn.Module):
         if norm_type == "ln":
             self.norm = nn.LayerNorm(filters, eps=ln_eps, device=device)
         elif norm_type == "bn":
-            self.norm = nn.BatchNorm1d(filters, eps=1e-3, momentum=0.01,
-                                       device=device)
+            self.norm = FlaxBatchNorm1d(filters, eps=1e-3, momentum=0.01,
+                                        device=device)
         elif norm_type is None:
             self.norm = None
         else:
             raise NotImplementedError(f"norm_type={norm_type!r} is not ported")
         self.norm_type = norm_type
         self.act_func = act_func
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x, lens, pad_mask=None):
+    def forward(self, x, lens, pad_mask=None, rng=None):
         y, lens, pad_mask = self.conv(x, lens, pad_mask)
         if self.norm_type == "ln":
             y = self.norm(y)
@@ -102,7 +132,7 @@ class ConvNormAct(nn.Module):
             y = self.norm(y.transpose(1, 2)).transpose(1, 2)
         if self.act_func == "relu":
             y = F.relu(y)
-        return self.dropout(y), lens, pad_mask
+        return dropout(y, self.dropout, self.training, rng), lens, pad_mask
 
 
 class ProjUpsampling(nn.Module):
@@ -130,9 +160,9 @@ class ProjUpsampling(nn.Module):
         else:
             raise NotImplementedError(f"norm_type={norm_type!r} is not ported")
         self.act_func = act_func
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x, lens):
+    def forward(self, x, lens, rng=None):
         pad_mask = create_pad_mask(lens, x.shape[1])
         y, lens, _ = self.proj(x, lens, pad_mask)
         b, t, _ = y.shape
@@ -142,4 +172,4 @@ class ProjUpsampling(nn.Module):
             y = self.norm(y)
         if self.act_func == "relu":
             y = F.relu(y)
-        return self.dropout(y), lens
+        return dropout(y, self.dropout, self.training, rng), lens

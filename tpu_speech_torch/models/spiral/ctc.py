@@ -13,7 +13,6 @@ Not ported yet: ``ctc_loss``, ``make_finetune_step`` and
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -26,8 +25,11 @@ from tpu_speech_torch.models.spiral.conv_layers import (
     create_pad_mask,
 )
 from tpu_speech_torch.models.spiral.encoder import ConvLayerCfg
-from tpu_speech_torch.models.spiral.st2vec import ST2VecConfig, ST2VecEncoder
-from tpu_speech_torch.models.spiral.wav2vec import ConvPositionalEmbedding
+from tpu_speech_torch.models.spiral.st2vec import (
+    ST2VecConfig,
+    ST2VecEncoder,
+    init_weights_,
+)
 
 _DEFAULT_DECODER_CONVS = (
     ConvLayerCfg(512, (5,), (1,), None, "relu", 0.1),
@@ -115,30 +117,9 @@ class CTCFinetuneModel(nn.Module):
         feats, feat_lens = self.encoder.encode_features(specs, spec_lens)
         return self.decoder(feats, feat_lens)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "CTCFinetuneModel":
-        """Seeded random init at the JAX package's scales: kaiming-normal
-        convs, lecun-normal linears (and the 1x1 vocab conv), normal(0,
-        sqrt(4/(k*C))) positional-conv direction with its per-tap norm as
-        magnitude, zero biases, unit norms. Draws on the CPU generator, so
-        build on the CPU and move the model afterwards."""
-
-        def normal_(p, std):
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
-
-        vocab_conv = self.decoder.decoder_layers[0]
-        for mod in self.modules():
-            if isinstance(mod, ConvPositionalEmbedding):
-                normal_(mod.weight_v, mod.init_std())
-                mod.weight_g.copy_(
-                    mod.weight_v.square().sum(dim=(0, 1), keepdim=True).sqrt())
-                mod.bias.zero_()
-            elif isinstance(mod, (nn.Conv1d, nn.Linear)):
-                fan_in = mod.weight[0].numel()
-                gain = 1.0 if (mod is vocab_conv or isinstance(mod, nn.Linear)) else 2.0
-                normal_(mod.weight, math.sqrt(gain / fan_in))
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
-                mod.reset_parameters()
+        """Seeded random init at the JAX package's scales
+        (``st2vec.init_weights_``); the 1x1 vocab conv is lecun-normal like
+        a dense layer."""
+        init_weights_(self, generator, unit_gain=(self.decoder.decoder_layers[0],))
         return self

@@ -11,9 +11,13 @@ transformer 0, convs of block 1, transformer 1, ...), which is the layout of
 the reference state_dict (``feature_encoder.block_modules.{i}.conv.conv.weight``,
 ``feature_encoder.block_modules.{i}.layers.{j}...``).
 
+``Projector`` (``encoder.py:185``) is the pretrain towers' head: a conv stack
+(the predictor's BatchNorm convs) and ``output_proj``, under the reference
+names ``conv_layers.{i}.*`` and ``output_proj.*``.
+
 Not ported yet: the streaming-trainable mode (``StreamingCfg`` is kept as a
-config field; a FeatureEncoder given one raises) and the Projector, which
-only the pretrain step uses.
+config field; a FeatureEncoder given one raises) and a Projector with a
+transformer (no SPIRAL config has one).
 """
 
 from __future__ import annotations
@@ -121,11 +125,41 @@ class FeatureEncoder(nn.Module):
         self.block_modules = nn.ModuleList(mods)
         self.output_dim = ch
 
-    def forward(self, x, lens):
+    def forward(self, x, lens, rng=None):
         pad_mask = create_pad_mask(lens, x.shape[1])
         for mod in self.block_modules:
             if isinstance(mod, ConvNormAct):
-                x, lens, pad_mask = mod(x, lens, pad_mask)
+                x, lens, pad_mask = mod(x, lens, pad_mask, rng)
             else:
-                x = mod(x, pad_mask)
+                x = mod(x, pad_mask, rng)
         return x, lens
+
+    def layers_run(self) -> int:
+        """Transformer layers the last forward ran (layerdrop skips some)."""
+        return sum(m.layers_run for m in self.block_modules
+                   if isinstance(m, TransformerEncoder))
+
+
+class Projector(nn.Module):
+    """Optional conv stack + linear ``output_proj`` (spec2vec.py:128-185);
+    the convs keep stride 1, so lengths pass through."""
+
+    def __init__(self, in_dim: int, conv_layers: Tuple[ConvLayerCfg, ...],
+                 output_dim: int, device=None):
+        super().__init__()
+        convs, ch = [], in_dim
+        for c in conv_layers:
+            if tuple(c.stride) != (1,):
+                raise ValueError(f"projector convs keep stride 1: {c}")
+            convs.append(ConvNormAct(ch, c.filters, c.kernel_size, c.stride,
+                                     c.norm_type, c.act_func, c.dropout,
+                                     bias=c.bias, device=device))
+            ch = c.filters
+        self.conv_layers = nn.ModuleList(convs)
+        self.output_proj = nn.Linear(ch, output_dim, device=device)
+
+    def forward(self, x, lens, rng=None):
+        pad_mask = create_pad_mask(lens, x.shape[1])
+        for conv in self.conv_layers:
+            x, lens, pad_mask = conv(x, lens, pad_mask, rng)
+        return self.output_proj(x)

@@ -7,12 +7,18 @@ reference state_dict (``pos_conv.0.weight_v``, ``layers.{j}.self_attn.q_proj``,
 ``layers.{j}.fc1``, ``layer_norm``). The transformer LayerNorms use flax's
 default epsilon 1e-6 (not torch's 1e-5).
 
-The score/softmax/value chain of every layer runs through
-``ops/fused_attention.py::fused_qkv_self_attention`` (the K2 kernel on CUDA).
+The score/softmax/dropout/value chain of every layer runs through
+``ops/fused_attention.py::fused_qkv_self_attention`` (the K2 kernels on
+CUDA, forward and backward).
 
-Not ported yet: layerdrop and attention dropout in training (they need the
-K2 backward/dropout kernel), the causal positional conv and chunked
-attention of the streaming mode.
+Training mode draws from an explicit ``DropoutRng`` passed to ``forward``:
+one attention-dropout seed per layer per step and the layerdrop keep draws
+on the host, the other dropout masks on the device. A layer that layerdrop
+skips is not run (its parameters then get no gradient from this forward;
+the pretrain step gives them zeros, as JAX's ``jnp.where`` does).
+
+Not ported yet: the causal positional conv and chunked attention of the
+streaming mode.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_speech_torch.models.spiral.dropout import dropout
 from tpu_speech_torch.ops.fused_attention import fused_qkv_self_attention
 
 TRANSFORMER_LN_EPS = 1e-6  # flax nn.LayerNorm default (wav2vec.py:242-331)
@@ -77,17 +84,20 @@ class MultiheadSelfAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, nn.Linear(embed_dim, embed_dim, device=device))
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, rng=None):
         scale = (self.embed_dim // self.num_heads) ** -0.5
         w = torch.cat([self.q_proj.weight * scale, self.k_proj.weight,
                        self.v_proj.weight], dim=0)
         b = torch.cat([self.q_proj.bias * scale, self.k_proj.bias,
                        self.v_proj.bias], dim=0)
         qkv = F.linear(x, w, b)
-        out = fused_qkv_self_attention(
-            qkv, self.num_heads, key_padding_mask,
-            dropout_p=self.dropout if self.training else 0.0,
-        )
+        drop_p, seed = 0.0, None
+        if self.training and self.dropout > 0.0:
+            if rng is None:
+                raise ValueError("training-mode attention dropout needs a DropoutRng")
+            drop_p, seed = self.dropout, rng.attention_seed()
+        out = fused_qkv_self_attention(qkv, self.num_heads, key_padding_mask,
+                                       drop_p, seed)
         return self.out_proj(out)
 
 
@@ -113,20 +123,21 @@ class TransformerSentenceEncoderLayer(nn.Module):
         self.fc2 = nn.Linear(ffn_embedding_dim, embedding_dim, device=device)
         self.final_layer_norm = nn.LayerNorm(
             embedding_dim, eps=TRANSFORMER_LN_EPS, device=device)
-        self.dropout1 = nn.Dropout(dropout)
-        self.dropout2 = nn.Dropout(activation_dropout)
-        self.dropout3 = nn.Dropout(dropout)
+        self.dropout, self.activation_dropout = dropout, activation_dropout
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, rng=None):
+        def drop(v, p):
+            return dropout(v, p, self.training, rng)
+
         if self.layer_norm_first:
-            h = self.self_attn(self.self_attn_layer_norm(x), key_padding_mask)
-            x = x + self.dropout1(h)
-            h = self.dropout2(self.act(self.fc1(self.final_layer_norm(x))))
-            return x + self.dropout3(self.fc2(h))
-        h = self.self_attn(x, key_padding_mask)
-        x = self.self_attn_layer_norm(x + self.dropout1(h))
-        h = self.dropout2(self.act(self.fc1(x)))
-        return self.final_layer_norm(x + self.dropout3(self.fc2(h)))
+            h = self.self_attn(self.self_attn_layer_norm(x), key_padding_mask, rng)
+            x = x + drop(h, self.dropout)
+            h = drop(self.act(self.fc1(self.final_layer_norm(x))), self.activation_dropout)
+            return x + drop(self.fc2(h), self.dropout)
+        h = self.self_attn(x, key_padding_mask, rng)
+        x = self.self_attn_layer_norm(x + drop(h, self.dropout))
+        h = drop(self.act(self.fc1(x)), self.activation_dropout)
+        return self.final_layer_norm(x + drop(self.fc2(h), self.dropout))
 
 
 class TransformerEncoder(nn.Module):
@@ -155,19 +166,25 @@ class TransformerEncoder(nn.Module):
         ])
         self.layer_norm = nn.LayerNorm(embedding_dim, eps=TRANSFORMER_LN_EPS,
                                        device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
+        self.layers_run = 0  # layers the last forward ran (layerdrop skips)
 
-    def forward(self, x, padding_mask=None):
-        if self.training and self.encoder_layerdrop > 0:
-            raise NotImplementedError("layerdrop (training) is not ported yet")
+    def forward(self, x, padding_mask=None, rng=None):
         if padding_mask is not None:
             x = x.masked_fill(padding_mask[:, :, None], 0.0)
         x = x + self.pos_conv[0](x)
         if not self.layer_norm_first:
             x = self.layer_norm(x)
-        x = self.dropout(x)
+        x = dropout(x, self.dropout, self.training, rng)
+        layerdrop = self.training and self.encoder_layerdrop > 0
+        if layerdrop and rng is None:
+            raise ValueError("training-mode layerdrop needs a DropoutRng")
+        self.layers_run = 0
         for layer in self.layers:
-            x = layer(x, padding_mask)
+            if layerdrop and not rng.keep_layer(self.encoder_layerdrop):
+                continue
+            x = layer(x, padding_mask, rng)
+            self.layers_run += 1
         if self.layer_norm_first:
             x = self.layer_norm(x)
         return x

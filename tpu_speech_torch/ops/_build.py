@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels; count their launches.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds), then
-loaded through ``ctypes``. The build runs at first use, never at import:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into ONE shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), then loaded
+through ``ctypes``. The build runs at first use, never at import:
 the CPU test tier imports every module on a machine without ``nvcc``.
 
 The library lands in ``<repo>/build/tpu_speech_torch/<key>/`` where ``key``
@@ -31,23 +32,29 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpu_speech_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # C entry points: name -> argtypes (restype is int: a cudaError_t)
 SIGNATURES = {
     # x, dft, mel, out, B, N, n_fft, hop, n_freq, n_mels, num_frames,
     # mag_mode, mag_eps, log_mode, log_guard, stream
     "tsx_fused_logmel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _F, _P],
-    # qkv, key_pad (nullable), out, B, T, H, D, stream
-    "tsx_qkv_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # qkv, key_pad (nullable), out, lse (nullable), B, T, H, D,
+    # seed, dropout threshold, dropout scale, stream
+    "tsx_qkv_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _P],
+    # qkv, key_pad (nullable), out, dout, lse, delta, dqkv, B, T, H, D,
+    # seed, dropout threshold, dropout scale, stream
+    "tsx_qkv_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _U, _U, _F, _P],
 }
 
 # Launches made through each wrapper: a plain integer per kernel, bumped
 # where the wrapper launches its kernel and nowhere else.
-LAUNCHES = {"fused_logmel": 0, "fused_qkv_attention": 0}
+LAUNCHES = {"fused_logmel": 0, "fused_qkv_attention": 0,
+            "fused_qkv_attention_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -84,6 +91,40 @@ def _build_key(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _compile(sources, out_dir: Path, so_path: Path) -> str:
+    """One nvcc per source, all at once, then one link; returns the log."""
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs = [tmp / f"{src.stem}.o" for src in sources]
+        jobs = [(cmd, _run(cmd)) for cmd in (
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs))]
+        outs = [proc.communicate()[0] for _, proc in jobs]  # wait for every one
+        log = "".join(outs)
+        for (cmd, proc), out in zip(jobs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        so_tmp = tmp / so_path.name
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(so_tmp), *map(str, objs)]
+        link = _run(cmd)
+        out = link.communicate()[0]
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+        os.replace(so_tmp, so_path)
+        return log + out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def library():
     """The loaded kernel library, built on first use."""
     global _lib
@@ -100,17 +141,7 @@ def library():
         compiled = not so_path.exists()
         if compiled:
             out_dir.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
-                )
-            os.replace(tmp, so_path)
+            log = _compile(sources, out_dir, so_path)
         lib = ctypes.CDLL(str(so_path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

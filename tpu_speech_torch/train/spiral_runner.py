@@ -1,6 +1,17 @@
-"""SPIRAL CTC runner, inference half: build, load weights, transcribe, test.
+"""SPIRAL runners: the pretrain loop, and the CTC runner's inference half.
 
-Port of the serving subset of
+``SpiralPretrainRunner`` is the single-device part of
+``tpu_speech/train/spiral_runner.py::SpiralPretrainRunner`` (``:100-245``,
+``:461-566``): the JAX-free ``AudioDataset(return_both=True)``,
+``AudioBatchCollate`` and ``DataLoader`` of the JAX package, the host-side
+masks and teacher shifts with the same generator seeding (``_augment``), the
+int16 wire format, ``pretrain_step`` (``train/spiral.py``), a log line per
+epoch with loss, accuracy and ms/step, and a reference-named ``state_dict``
+saved at the end. Not ported yet: ``validate``, resume, archives, orbax
+checkpoints, the native C++ batcher, tarred data, the mu-law wire format,
+mesh / FSDP / sequence parallelism.
+
+``SpiralFinetuneRunner`` is the serving subset of
 ``tpu_speech/train/spiral_runner.py::SpiralFinetuneRunner``: the model built
 from the run config (``:692-705``), weight loading, ``_infer_fn:1098``
 (wav -> ``wav_to_spec`` -> ``CTCFinetuneModel`` -> log-probs),
@@ -9,30 +20,48 @@ from the run config (``:692-705``), weight loading, ``_infer_fn:1098``
 per-utterance HTML diagnosis). Host-side data, tokenizers and scoring are the
 JAX package's own JAX-free modules.
 
-The serving path runs in full float32: ``use_full_fp32()`` turns TF32 off
-for both cuDNN convolutions (on by default in PyTorch) and matmuls.
+Both run in full float32: ``use_full_fp32()`` turns TF32 off for both cuDNN
+convolutions (on by default in PyTorch) and matmuls. Both default to the
+CUDA device and raise when there is none; the CPU runs only when it is asked
+for (``device="cpu"``).
 
-Not ported yet: the training methods (``train_epoch``, ``validate``,
-checkpoint resume and archives), beam search and streaming decode;
-multi-process evaluation.
+Not ported yet: the finetune training methods, beam search and streaming
+decode; multi-process evaluation.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tpu_speech.data.loader import DataLoader
-from tpu_speech.data.spiral import AudioTextBatchCollate, AudioToTextDataset
+from tpu_speech.data.spiral import (
+    AudioAugmentor,
+    AudioBatchCollate,
+    AudioDataset,
+    AudioTextBatchCollate,
+    AudioToTextDataset,
+    RandomNoisePerturbation,
+)
 from tpu_speech.data.wav import read_wav
 from tpu_speech.eval.wer import ctc_greedy_decode, error_counts, render_wer_html
 from tpu_speech.text.tokenizers import BlankOffsetTokenizer
 from tpu_speech_torch.compat.jax_spiral import ctc_finetune_from_jax, load_jax_npz
 from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel
-from tpu_speech_torch.models.spiral.st2vec import wav_to_spec
+from tpu_speech_torch.models.spiral.dropout import DropoutRng
+from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, wav_to_spec
+from tpu_speech_torch.train.optim import lr_scale, make_optimizer
+from tpu_speech_torch.train.spiral import (
+    batch_to_device,
+    host_augment_batch,
+    make_pretrain_state,
+    pretrain_step,
+    quantize_wire_int16,
+)
 
 # reference-checkpoint buffers that are constants here (the JAX converter
 # drops them the same way, compat/torch_spiral.py:200-204)
@@ -47,6 +76,18 @@ def use_full_fp32() -> None:
     convolutions and matmuls alike."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The runner's device: CUDA unless another is named; no silent fall
+    back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    if device.type == "cuda":
+        use_full_fp32()
+    return device
 
 
 def build_model(cfg, num_classes: int, device=None) -> CTCFinetuneModel:
@@ -82,16 +123,13 @@ class SpiralFinetuneRunner:
     """Serving half of the JAX SpiralFinetuneRunner; the training methods
     come with the port of the finetune step."""
 
-    def __init__(self, cfg, log_dir: str, tokenizer, device=None):
+    def __init__(self, cfg, log_dir: str, tokenizer, device="cuda"):
         self.cfg = cfg
         m = cfg.model
         self.enc_cfg = m.encoder
         self.log_dir = log_dir
         os.makedirs(log_dir, exist_ok=True)
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
-        if self.device.type == "cuda":
-            use_full_fp32()
+        self.device = resolve_device(device)
         dec = m.decoder
         if dec is None or dec.blank_pos == "vocab_first":
             # reserve id 0 for the CTC blank (blank_pos='vocab_first')
@@ -215,3 +253,114 @@ class SpiralFinetuneRunner:
             "diagnosis_html": html_path,
             "hyps": hyps,
         }
+
+
+def _spec_len(crop_size: int, sample_rate: int) -> int:
+    """Static padded spec length of a crop: 1 + N // hop frames, padded to a
+    multiple of 16 (``spiral_runner.py::_spec_len:72``)."""
+    t = 1 + crop_size // int(0.01 * sample_rate)
+    return ((t + 15) // 16) * 16
+
+
+class SpiralPretrainRunner:
+    """Single-device SPIRAL pretraining over a manifest."""
+
+    def __init__(self, cfg, log_dir: str, device="cuda", seed: int = 0):
+        self.cfg = cfg
+        m = cfg.model
+        self.enc_cfg = m.encoder
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self.device = resolve_device(device)
+        self.accum = max(1, getattr(cfg.trainer, "accumulate_grad_batches", 1))
+        self.bf16 = getattr(m, "precision", "fp32") == "bf16"
+        self.wire = getattr(m.train_ds, "wire_dtype", "int16")
+        if self.wire not in ("int16", "float32"):
+            raise NotImplementedError(f"wire_dtype={self.wire!r} is not ported yet")
+        if getattr(m.train_ds, "tarred_audio_filepaths", None):
+            raise NotImplementedError("tarred training data is not ported yet")
+
+        aug = None
+        noise_cfg = getattr(m, "noise_perturb", None)
+        if noise_cfg is not None and noise_cfg.manifest_path:
+            aug = AudioAugmentor([(1.0, RandomNoisePerturbation(
+                noise_cfg.manifest_path, min_snr_db=noise_cfg.min_snr_db,
+                max_snr_db=noise_cfg.max_snr_db, ratio=noise_cfg.ratio))])
+        elif m.train_ds.noise_manifest:
+            aug = AudioAugmentor([(1.0, RandomNoisePerturbation(m.train_ds.noise_manifest))])
+        ds = m.train_ds
+        self.dataset = AudioDataset(ds.manifest_filepath, ds.sample_rate, ds.crop_size,
+                                    ds.min_duration, ds.max_duration, augmentor=aug,
+                                    return_both=True)
+        self.loader = DataLoader(self.dataset, ds.batch_size, AudioBatchCollate(ds.crop_size),
+                                 shuffle=ds.shuffle, num_workers=ds.num_workers)
+        self.spec_len = _spec_len(ds.crop_size, ds.sample_rate)
+
+        # the student from a seeded generator (the JAX runner's PRNGKey(0)
+        # init), the teacher a copy of its subset
+        model = ST2VecEncoder(self.enc_cfg, pretraining=True)
+        model.init_weights(torch.Generator().manual_seed(seed))
+        total_steps = m.optim.sched.max_steps if m.optim.sched else 100000
+        self.lr_scale = lr_scale(m, data_parallel=1, accum=self.accum)
+        self.state = make_pretrain_state(
+            model.to(self.device),
+            lambda params: make_optimizer(m.optim, params, total_steps, self.lr_scale))
+        self.rng = DropoutRng.seeded(seed, self.device)
+        self.host_rng = np.random.default_rng(0)  # process index 0
+        self.iteration = 0
+        self.history = []  # per-step metrics, floats
+
+    def _augment(self, raw):
+        # shift scalars seeded by the step that consumes the batch
+        # (spiral_runner.py:468-470, micro index 0)
+        shift_rng = np.random.default_rng(1_000_003 + self.iteration * self.accum)
+        return host_augment_batch(
+            self.enc_cfg, raw["wavs"], raw["wav_lens"], raw["p_wavs"],
+            raw["p_wav_lens"], self.spec_len, self.host_rng, shift_rng)
+
+    def device_batch(self, raw) -> dict:
+        batch = self._augment(raw)
+        if self.wire == "int16":
+            batch = quantize_wire_int16(batch)
+        return batch_to_device(batch, self.device)
+
+    def step(self, batch) -> dict:
+        return pretrain_step(self.state, batch, self.rng, grad_clip=self.cfg.model.grad_clip,
+                             bf16=self.bf16, accum_steps=self.accum)
+
+    def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> float:
+        """One pass over the loader, stopping early at ``max_steps`` total
+        steps. Metrics are read back once, at the end of the epoch."""
+        sr = self.cfg.model.train_ds.sample_rate
+        pending, n_sec = [], 0.0
+        t0 = time.perf_counter()
+        for raw in self.loader:
+            if max_steps and self.iteration >= max_steps:
+                break
+            n_sec += float(np.sum(raw["wav_lens"])) / sr
+            pending.append(self.step(self.device_batch(raw)))
+            self.iteration += 1
+        losses = [float(m["loss"]) for m in pending]  # the epoch's one sync
+        dt = time.perf_counter() - t0
+        for m in pending:
+            self.history.append({k: float(v) if torch.is_tensor(v) else v
+                                 for k, v in m.items()})
+        n = max(len(pending), 1)
+        loss = float(np.mean(losses)) if losses else float("nan")
+        acc = float(np.mean([h["accuracy"] for h in self.history[-len(pending):]])) \
+            if pending else float("nan")
+        msg = (f"Epoch {epoch}: loss = {loss:.4f} | acc = {acc:.4f} | "
+               f"step {dt * 1e3 / n:.0f} ms | {n_sec / max(dt, 1e-9):.1f}x realtime")
+        print(msg, flush=True)
+        with open(os.path.join(self.log_dir, "train.log"), "a") as f:
+            f.write(msg + "\n")
+        return loss
+
+    def save_state_dict(self, name: str = "st2vec.pt") -> str:
+        """The model's reference-named state_dict (student, predictor BN
+        statistics, ``target_*`` teacher), loadable by
+        ``tpu_speech.compat.torch_spiral.convert_st2vec``."""
+        path = os.path.join(self.log_dir, name)
+        torch.save({k: v.detach().cpu() for k, v in self.state.model.state_dict().items()},
+                   path)
+        return path
