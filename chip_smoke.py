@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two SPIRAL-base paths through their normal entry point
+Drives the port's three SPIRAL-base paths through their normal entry point
 (``tpu_speech_torch.cli.run_spiral.main``), at full width with seeded random
-weights: CTC transcription, and the ST2Vec pretrain step. It checks each hand
-kernel against its plain PyTorch version. Phases (any failure raises and the
-script exits non-zero without printing a result):
+weights: CTC transcription, the ST2Vec pretrain step and the CTC finetune
+step. It checks each hand kernel against its plain PyTorch version. Phases
+(any failure raises and the script exits non-zero without printing a
+result):
 
 1. build the CUDA kernels from ``tpu_speech_torch/csrc`` (nvcc, sm_90a);
 2. K1 (fused log-mel) against ``logmel_plain`` at the SPIRAL shape
@@ -16,29 +17,52 @@ script exits non-zero without printing a result):
    SPIRAL blocks' shapes, lengths over 30-100 % of T, one fully padded row;
 4. the slice: synthetic wavs + manifest -> ``tpu_speech_torch.cli.run_spiral
    .main(--run_mode test)`` with full-width weights from a seeded
-   ``torch.Generator``; the launch counters must show K1 on every batch and
-   K2 twelve times per batch, and the log-probs must be finite;
+   ``torch.Generator``; the launch counters must show K1 on every batch, K2
+   twelve times and K4 twice per batch, and the log-probs must be finite;
 5. the same weights on the CPU (plain paths) against the card's log-probs
    for two of those utterances;
 6. timings with CUDA events (median of 20 after warm-up): each kernel beside
    its plain version, and the slice per batch;
 7. K2 with attention dropout 0.1 against ``qkv_attention_plain`` replaying
-   the same counter-based mask, at the pretrain step's four shapes; the
-   kernel's own keep rate (q = 0, v = 1: each output is its row's kept share
-   over 1 - p) within 4 sigma of 0.9; masks that differ across seeds and
-   across (b, h);
-8. K2-bwd: dqkv against autograd of the plain version at p = 0 and 0.1,
-   timed beside it (backward alone, and forward + backward);
+   the same counter-based mask, at the pretrain step's four shapes and the
+   finetune step's two; the kernel's own keep rate (q = 0, v = 1: each
+   output is its row's kept share over 1 - p) within 4 sigma of 0.9; masks
+   that differ across seeds and across (b, h);
+8. K2-bwd: dqkv against autograd of the plain version at p = 0 and 0.1, at
+   the same six shapes, timed beside it (backward alone, and forward +
+   backward);
 9. the pretrain slice: a synthetic corpus (speech-like waves, 4-20 s) ->
    ``run_spiral.main(--model_type st2vec --run_mode train --config_name
    spiral_base_pretrain_ls960)`` for a few steps at B = 24 x 250 000
    samples; the launch counters must show K1 twice per step, K2-fwd once per
-   kept teacher and student layer, K2-bwd once per kept student layer; the
-   loss and accuracy finite, the student moved, the teacher moved less (EMA);
+   kept teacher and student layer, K2-bwd once per kept student layer, K4
+   four times and K4-dx twice per step; the loss and accuracy finite, the
+   student moved, the teacher moved less (EMA);
 10. one full-width step on the card against the CPU (B = 2 x 4 s crops, the
     same weights and batch, dither, dropout and layerdrop off, SGD with
     lr = 1): the loss and every gradient tensor, and the EMA update exactly;
 11. the pretrain step's time (median of 10 on the card, batch on the card),
+    its peak device memory, and a profile of the step;
+12. K4 (grouped positional conv) against ``grouped_conv1d_plain`` (cuDNN's
+    ``F.conv1d``) at the six shapes of the three paths with left pads 64, 63
+    and 127, dx against autograd of the plain version, each timed beside
+    the plain version (forward, and forward + backward);
+13. K3 (attention on (B, T, H, D) q, k, v) against ``attention_plain`` at
+    both finetune blocks' shapes, dropout 0 and 0.1, one fully padded row,
+    forward and backward, timed beside the plain version and beside K2;
+14. the finetune slice: a synthetic corpus (speech-like waves, 4-20 s,
+    random character transcripts) -> ``run_spiral.main(--model_type
+    ctc_finetune --run_mode train --config_name
+    spiral_base_finetune_ls100_char)`` from phase 9's ``st2vec.pt`` for 4
+    steps at B = 14 x 24 s, the first 2 with the encoder frozen; per step
+    the launch counters must show K1 once, K2-fwd once per kept layer, K4
+    twice, and K2-bwd and K4-dx only in the unfrozen steps; the loss finite;
+    in the frozen steps the encoder moved by weight decay alone; the decoder
+    moved on every step; the saved state_dict loads in ``--run_mode test``;
+15. one full-width unfrozen finetune step on the card against the CPU
+    (B = 2 x 4 s, dither, dropout, layerdrop and masks off, SGD with lr = 1):
+    the loss and every gradient tensor;
+16. the finetune step's time (median of 10, unfrozen, batch on the card),
     its peak device memory, and a profile of the step.
 
 Output: phase lines, then the card's name and power limit
@@ -56,6 +80,7 @@ import time
 
 import numpy as np
 
+T0 = time.perf_counter()
 SR = 16000
 BATCH = 14
 MAX_SAMPLES = 24 * SR
@@ -76,6 +101,9 @@ DROP_P = 0.1
 K2_BWD_RTOL = 1e-4
 # the pretrain step's shapes: (B, T, E, H), student and teacher, both blocks
 STEP_SHAPES = ((24, 392, 512, 8), (24, 456, 512, 8), (24, 196, 768, 12), (24, 228, 768, 12))
+# ... and the finetune step's (blocks 1 and 2 at 24 s): K2 with dropout and
+# K2-bwd are held against the plain version at both sets
+K2_TRAIN_SHAPES = STEP_SHAPES + ((14, 604, 512, 8), (14, 302, 768, 12))
 PRETRAIN_STEPS = 3
 PRETRAIN_BATCH = 24
 # card against CPU, one step: loss relative; each gradient tensor within
@@ -84,6 +112,19 @@ PRETRAIN_BATCH = 24
 # ignores a per-row shift, so both sides see rounding noise there)
 STEP_LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3
+# K4 and K4-dx against the plain version: 1e-4 x max(1, max|plain|); both
+# sum Cg * K = 4096-6144 fp32 products in different orders (measured ~2e-5
+# at max|plain| ~5)
+K4_RTOL = 1e-4
+# (B, T, C): the positional convs of CTC transcription and finetuning (blocks
+# 1 and 2 at 24 s), and of the pretrain step (student and teacher crops)
+K4_SHAPES = ((14, 604, 512), (14, 302, 768), (24, 392, 512), (24, 456, 512),
+             (24, 196, 768), (24, 228, 768))
+# K3 at the finetune step's shapes: (B, T, H, D)
+K3_SHAPES = ((14, 604, 8, 64), (14, 302, 12, 64))
+FT_STEPS = 4
+FT_FROZEN = 2
+FT_LR = 1e-2  # x lr_scale 1/8; weight decay 0.01: a frozen step scales by 1 - 1.25e-5
 
 
 def log(msg):
@@ -242,7 +283,7 @@ def phase_k2_dropout(torch, gen):
     )
 
     worst, timed = 0.0, None
-    for b, t, e, h in STEP_SHAPES:
+    for b, t, e, h in K2_TRAIN_SHAPES:
         qkv, mask = _k2_case(torch, gen, b, t, e, h)
         out = fused_qkv_self_attention(qkv, h, mask, DROP_P, 1234)
         ref = qkv_attention_plain(qkv, h, mask, DROP_P, 1234)
@@ -282,7 +323,7 @@ def phase_k2_bwd(torch, gen):
     from tpu_speech_torch.ops import fused_attention as fa
 
     res = {}
-    for b, t, e, h in STEP_SHAPES:
+    for b, t, e, h in K2_TRAIN_SHAPES:
         qkv, mask = _k2_case(torch, gen, b, t, e, h)
         dout = torch.randn(b, t, e, generator=gen).to("cuda")
         for p in (0.0, DROP_P):
@@ -381,6 +422,8 @@ def phase_pretrain_slice(torch, rng, root):
     check(launches["fused_logmel"] == 2 * len(steps), f"K1 launches {launches}")
     check(launches["fused_qkv_attention"] == kept_t + kept_s, f"K2-fwd launches {launches}")
     check(launches["fused_qkv_attention_bwd"] == kept_s, f"K2-bwd launches {launches}")
+    check(launches["grouped_conv1d"] == 4 * len(steps), f"K4 launches {launches}")
+    check(launches["grouped_conv1d_dx"] == 2 * len(steps), f"K4-dx launches {launches}")
     check(all(np.isfinite(m["loss"]) and np.isfinite(m["accuracy"]) for m in steps),
           "non-finite loss or accuracy")
     cfg = spiral_base_pretrain_ls960()
@@ -395,7 +438,7 @@ def phase_pretrain_slice(torch, rng, root):
     log(f"    max |change| from the init: student {d_student:.3e}, teacher "
         f"{d_teacher:.3e} (EMA)")
     check(d_student > 0 and 0 < d_teacher < d_student, "student/teacher did not move as expected")
-    return launches
+    return launches, res["state_dict"]
 
 
 def phase_pretrain_cpu_vs_card(torch):
@@ -478,6 +521,331 @@ def phase_pretrain_time(torch, root):
     return ms, peak
 
 
+def phase_k4(torch, gen):
+    from tpu_speech_torch.ops import fused_posconv as fp
+    from tpu_speech_torch.ops.fused_posconv import grouped_conv1d, grouped_conv1d_plain
+
+    worst, worst_dx, times = 0.0, 0.0, {}
+    for b, t, c in K4_SHAPES:
+        cg, k = c // 16, 128
+        x = torch.randn(b, t, c, generator=gen).to("cuda")
+        w = (torch.randn(c, cg, k, generator=gen) * (cg * k) ** -0.5).to("cuda")
+        errs = []
+        for left in (64, 63, 127):  # the forward, dx's and the causal pad
+            out = grouped_conv1d(x, w, 16, left)
+            ref = grouped_conv1d_plain(x, w, 16, left)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            bound = K4_RTOL * max(1.0, ref.abs().max().item())
+            check(bool(torch.isfinite(out).all()), f"K4 {(b, t, c)}: non-finite")
+            check(err <= bound, f"K4 {(b, t, c)} left {left}: {err} > {bound}")
+            errs.append(err)
+        dy = torch.randn(b, t, c, generator=gen).to("cuda")
+        grads = []
+        for fn in (grouped_conv1d, grouped_conv1d_plain):
+            xx = x.clone().requires_grad_(True)
+            ww = w.clone().requires_grad_(True)
+            fn(xx, ww, 16, 64).backward(dy)
+            grads.append((xx.grad, ww.grad))
+        torch.cuda.synchronize()
+        (gx, gw), (rx, rw) = grads
+        e_dx = (gx - rx).abs().max().item()
+        e_dw = (gw - rw).abs().max().item()
+        check(e_dx <= K4_RTOL * max(1.0, rx.abs().max().item()), f"K4-dx {(b, t, c)}: {e_dx}")
+        check(e_dw <= K4_RTOL * max(1.0, rw.abs().max().item()), f"K4 dw {(b, t, c)}: {e_dw}")
+        worst, worst_dx = max(worst, *errs), max(worst_dx, e_dx)
+
+        def fwd_bwd(fn):
+            xx = x.clone().requires_grad_(True)
+            ww = w.clone().requires_grad_(True)
+            fn(xx, ww, 16, 64).backward(dy)
+
+        # dx alone: K4 on the rearranged weights, as the backward runs it,
+        # against the plain version's input gradient alone
+        xg = x.clone().requires_grad_(True)
+        plain_y = grouped_conv1d_plain(xg, w, 16, 64)
+        r = times[(b, t, c)] = dict(
+            ms=cuda_ms(lambda: grouped_conv1d(x, w, 16, 64)),
+            plain_ms=cuda_ms(lambda: grouped_conv1d_plain(x, w, 16, 64)),
+            dx_ms=cuda_ms(lambda: fp._launch(dy, fp._dx_weights(w, 16), 63, "grouped_conv1d_dx")),
+            dx_plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_y, xg, dy, retain_graph=True)),
+            fb_ms=cuda_ms(lambda: fwd_bwd(grouped_conv1d)),
+            fb_plain_ms=cuda_ms(lambda: fwd_bwd(grouped_conv1d_plain)))
+        flop = 2 * b * t * c * cg * k
+        log(f"[12 K4 {(b, t, c)} Cg={cg} K=128] max|K4-plain| at left pads 64/63/127 "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; dx {e_dx:.3e}, dw {e_dw:.3e}; "
+            f"forward {r['ms']:.3f} ms ({flop / r['ms'] / 1e9:.1f} TFLOP/s) vs plain "
+            f"{r['plain_ms']:.3f} ms; dx {r['dx_ms']:.3f} vs {r['dx_plain_ms']:.3f} ms; "
+            f"forward + backward {r['fb_ms']:.3f} vs {r['fb_plain_ms']:.3f} ms")
+    return worst, worst_dx, times
+
+
+def phase_k3(torch, gen):
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops import fused_attention as fa
+
+    _build.reset_launches()
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    cases = {}
+    for b, t, h, d in K3_SHAPES:
+        q, k, v = (torch.randn(b, t, h, d, generator=gen).to("cuda") for _ in range(3))
+        q = q * d ** -0.5
+        lens = torch.linspace(0.3 * t, t, b).round().long().to("cuda")
+        lens[0] = 0  # one fully padded row
+        mask = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        dout = torch.randn(b, t, h, d, generator=gen).to("cuda")
+        cases[(b, t, h, d)] = (q, k, v, mask, dout)
+        for p in (0.0, DROP_P):
+            res = []
+            for fn in (fa.fused_self_attention, fa.attention_plain):
+                xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
+                out = fn(*xs, mask, p, 4321)
+                out.backward(dout)
+                res.append([out.detach()] + [x.grad for x in xs])
+            torch.cuda.synchronize()
+            e_out = (res[0][0] - res[1][0]).abs().max().item()
+            e_grad = max((g - r).abs().max().item() / max(1.0, r.abs().max().item())
+                         for g, r in zip(res[0][1:], res[1][1:]))
+            pad_zero = res[0][1][0].abs().max().item() == 0.0
+            log(f"[13 K3 {(b, t, h, d)} p={p}] max|K3-plain| {e_out:.3e}; dq, dk, dv "
+                f"{e_grad:.3e} x max(1, max|plain|); padded row dq zero: {pad_zero}")
+            check(all(bool(torch.isfinite(a).all()) for a in res[0]), "K3: non-finite")
+            check(e_out <= K2_ATOL, f"K3 {(b, t, h, d)} p={p}: {e_out}")
+            check(e_grad <= K2_BWD_RTOL, f"K3-bwd {(b, t, h, d)} p={p}: {e_grad}")
+            check(pad_zero, "K3-bwd: dq of the fully padded row")
+            worst["fwd"], worst["bwd"] = max(worst["fwd"], e_out), max(worst["bwd"], e_grad)
+    launches = dict(_build.LAUNCHES)
+    # times, K3 beside its plain version and beside K2 on the same data
+    t_k = {}
+    for shape, (q, k, v, mask, dout) in cases.items():
+        b, t, h, d = shape
+        seed, thresh, scale = 4321, fa.dropout_threshold(DROP_P), 1.0 / (1.0 - DROP_P)
+        out, lse = fa._launch_attn_fwd(q, k, v, mask, seed, thresh, scale, True)
+        xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        plain_out = fa.attention_plain(*xs, mask, DROP_P, seed)
+        qkv = torch.cat([a.reshape(b, t, h * d) for a in (q, k, v)], -1).contiguous()
+
+        def fb3(fn):
+            ys = [a.clone().requires_grad_(True) for a in (q, k, v)]
+            fn(*ys, mask, DROP_P, seed).backward(dout)
+
+        def fb2():
+            y = qkv.clone().requires_grad_(True)
+            fa.fused_qkv_self_attention(y, h, mask, DROP_P, seed).backward(
+                dout.reshape(b, t, h * d))
+
+        r = t_k[shape] = dict(
+            ms=cuda_ms(lambda: fa.fused_self_attention(q, k, v, mask, DROP_P, seed)),
+            plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, mask, DROP_P, seed)),
+            bwd_ms=cuda_ms(lambda: fa._launch_attn_bwd(q, k, v, mask, out, dout, lse, seed,
+                                                       thresh, scale)),
+            bwd_plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_out, xs, dout,
+                                                             retain_graph=True)),
+            fb_ms=cuda_ms(lambda: fb3(fa.fused_self_attention)),
+            fb_plain_ms=cuda_ms(lambda: fb3(fa.attention_plain)),
+            k2_ms=cuda_ms(lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed)),
+            k2_fb_ms=cuda_ms(fb2))
+        log(f"    K3 at {shape} p=0.1: forward {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} "
+            f"(K2 {r['k2_ms']:.3f}); backward {r['bwd_ms']:.3f} vs plain "
+            f"{r['bwd_plain_ms']:.3f}; forward + backward {r['fb_ms']:.3f} vs plain "
+            f"{r['fb_plain_ms']:.3f} (K2 {r['k2_fb_ms']:.3f})")
+    return worst, t_k, launches
+
+
+CHARS = "abcdefghijklmnopqrstuvwxyz'"
+
+
+def random_transcript(rng, seconds):
+    """About 12 characters a second: words of 2-8 random letters."""
+    words, n = [], 0
+    while n < 12 * seconds:
+        w = "".join(rng.choice(list(CHARS), size=int(rng.integers(2, 9))))
+        words.append(w)
+        n += len(w) + 1
+    return " ".join(words)
+
+
+def write_finetune_corpus(root, rng, n_train, n_dev):
+    """Speech-like int16 wavs of 4-20 s with random transcripts, under the
+    config's train and dev manifest names, so --manifest_dir finds them."""
+    import scipy.io.wavfile
+
+    for name, n in (("librivox-train-clean-100.json", n_train),
+                    ("librivox-dev-other.json", n_dev)):
+        with open(os.path.join(root, name), "w") as f:
+            for i, d in enumerate(rng.uniform(4.0, 20.0, size=n)):
+                path = os.path.join(root, f"{name[9:14]}{i:03d}.wav")
+                pcm = np.clip(speech_like(rng, int(d * SR)) * 32767, -32768, 32767)
+                scipy.io.wavfile.write(path, SR, pcm.astype(np.int16))
+                f.write(json.dumps({"audio_filepath": path, "duration": float(d),
+                                    "text": random_transcript(rng, d)}) + "\n")
+
+
+def phase_finetune_slice(torch, rng, root, st2vec_pt):
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    write_finetune_corpus(root, rng, FT_STEPS * BATCH, BATCH)
+    run_dir = os.path.join(root, "finetune")
+    argv = ["--model_type", "ctc_finetune", "--run_mode", "train",
+            "--config_name", "spiral_base_finetune_ls100_char", "--manifest_dir", root,
+            "--init_chkpt_dir", os.path.dirname(st2vec_pt),
+            "--init_chkpt_file", os.path.basename(st2vec_pt), "--model_save_dir", run_dir,
+            "--set", f"trainer.max_steps={FT_STEPS}",
+            "--set", f"model.freeze_finetune_updates={FT_FROZEN}",
+            "--set", "model.optim.sched.warmup_ratio=0", "--set", f"model.optim.lr={FT_LR}",
+            "--set", "trainer.val_check_interval_epochs=1"]
+    # watch each step: its launches, and the parameters before and after it
+    # (validation's inference comes after the last step)
+    seen, step = [], SpiralFinetuneRunner.step
+
+    def watched(self, batch):
+        if not seen:
+            seen.append((None, {n: p.detach().clone() for n, p in self.model.named_parameters()}))
+        _build.reset_launches()
+        m = step(self, batch)
+        torch.cuda.synchronize()
+        seen.append((dict(_build.LAUNCHES),
+                     {n: p.detach().clone() for n, p in self.model.named_parameters()}))
+        return m
+
+    SpiralFinetuneRunner.step = watched
+    t0 = time.perf_counter()
+    try:
+        res = run_spiral.main(argv)
+    finally:
+        SpiralFinetuneRunner.step = step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = res["steps"]
+    check(len(steps) == FT_STEPS and len(seen) == FT_STEPS + 1, f"{len(steps)} steps ran")
+    wd = 0.01  # the config's AdamW weight decay
+    totals = dict.fromkeys(seen[1][0], 0)
+    for i, m in enumerate(steps):
+        launches, after = seen[i + 1]
+        before = seen[i][1]
+        for name in totals:
+            totals[name] += launches[name]
+        frozen = i < FT_FROZEN
+        dec = max((after[n] - before[n]).abs().max().item() for n in after
+                  if n.startswith("decoder."))
+        decay = 1.0 - m["lr"] * wd
+        # > 0 where an encoder element is off p * (1 - lr * wd) by more than 1e-6 |p|
+        enc_off = max(((after[n] - before[n] * decay).abs()
+                       - 1e-6 * before[n].abs()).max().item()
+                      for n in after if n.startswith("encoder."))
+        log(f"    finetune step {i} ({'frozen' if frozen else 'unfrozen'}): loss "
+            f"{m['loss']:.4f}, lr {m['lr']:.3e}, kept layers {m['layers']}, launches "
+            f"{launches}; decoder max|change| {dec:.3e}; encoder beyond p*(1 - lr*wd) "
+            f"+ 1e-6|p|: {enc_off:.3e}")
+        check(m["frozen"] == frozen, f"step {i}: frozen {m['frozen']}")
+        check(np.isfinite(m["loss"]), f"step {i}: loss {m['loss']}")
+        check(launches["fused_logmel"] == 1, f"step {i}: K1 {launches}")
+        check(launches["fused_qkv_attention"] == m["layers"], f"step {i}: K2-fwd {launches}")
+        check(launches["grouped_conv1d"] == 2, f"step {i}: K4 {launches}")
+        check(launches["fused_qkv_attention_bwd"] == (0 if frozen else m["layers"]),
+              f"step {i}: K2-bwd {launches}")
+        check(launches["grouped_conv1d_dx"] == (0 if frozen else 2), f"step {i}: K4-dx {launches}")
+        check(dec > 0, f"step {i}: the decoder did not move")
+        if frozen:
+            check(enc_off <= 0, f"step {i}: the frozen encoder moved beyond its decay")
+        else:
+            check(enc_off > 0, f"step {i}: the encoder moved by its decay alone")
+    val = res["validation"]
+    log(f"[14 finetune slice] {FT_STEPS} steps of B = {BATCH} x 24 s through "
+        f"run_spiral.main in {wall:.1f} s (model build, st2vec.pt load, data, steps, "
+        f"validation of {val['n']} utts: WER {val['wer']:.3f}); launches over the "
+        f"steps {totals}")
+    results = run_spiral.main([
+        "--run_mode", "test", "--config_name", "spiral_base_finetune_ls100_char",
+        "--test_manifest", os.path.join(root, "librivox-dev-other.json"),
+        "--model_save_dir", os.path.join(root, "finetune_test"),
+        "--init_chkpt_dir", run_dir, "--init_chkpt_file", os.path.basename(res["state_dict"])])
+    log(f"    --run_mode test on the saved {os.path.basename(res['state_dict'])}: "
+        f"{results['n']} utts, WER {results['wer']:.3f}")
+    check(results["n"] == BATCH, "test mode on the saved state_dict")
+    return totals
+
+
+def _no_dropout_finetune_cfg():
+    import dataclasses
+
+    from tpu_speech_torch.configs.spiral import spiral_base_ctc_char
+
+    cfg = spiral_base_ctc_char()
+    enc = cfg.model.encoder
+    cfg.model.encoder = dataclasses.replace(enc, dither=0.0, blocks=tuple(
+        dataclasses.replace(b, transformer=dataclasses.replace(
+            b.transformer, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+            encoder_layerdrop=0.0), conv_layers=tuple(
+                dataclasses.replace(c, dropout=0.0) for c in b.conv_layers))
+        for b in enc.blocks))
+    dec = cfg.model.decoder
+    cfg.model.decoder = dataclasses.replace(dec, upsample_dropout=0.0, conv_layers=tuple(
+        dataclasses.replace(c, dropout=0.0) for c in dec.conv_layers))
+    return cfg
+
+
+def phase_finetune_cpu_vs_card(torch):
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
+    from tpu_speech_torch.train.spiral import batch_to_device
+    from tpu_speech_torch.train.spiral_runner import build_model
+
+    cfg = _no_dropout_finetune_cfg()
+    n = 4 * SR
+    r = np.random.default_rng(9)
+    wavs = np.stack([speech_like(r, n) for _ in range(2)])
+    lens = np.array([n, 3 * SR], np.int32)
+    wavs[1, lens[1]:] = 0
+    labels = np.zeros((2, 512), np.int32)
+    label_lens = np.array([40, 30], np.int32)
+    for i, m in enumerate(label_lens):
+        labels[i, :m] = r.integers(0, 28, size=m)
+    batch = {"wavs": wavs, "wav_lens": lens, "labels": labels, "label_lens": label_lens}
+    results = []
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, 28).init_weights(torch.Generator().manual_seed(3)).to(dev)
+        state = make_finetune_state(model, lambda ps: torch.optim.SGD(ps, lr=1.0))
+        m = finetune_step(state, batch_to_device(batch, dev), DropoutRng.seeded(0, dev))
+        results.append((float(m["loss"]), {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (l_cpu, g_cpu), (l_card, g_card) = results
+    g_max = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for k, g in g_cpu.items():
+        rel = (g_card[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-2 * g_max)
+        if rel > worst:
+            worst, worst_name = rel, k
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"[15 finetune card vs cpu] B = 2 x 4 s, one unfrozen SGD(lr=1) step: loss card "
+        f"{l_card:.6f} cpu {l_cpu:.6f} (rel {rel_loss:.2e}, limit {STEP_LOSS_RTOL}); worst "
+        f"gradient {worst:.2e} x its max|g| ({worst_name}; limit {GRAD_RTOL}) over "
+        f"{len(g_cpu)} tensors")
+    check(rel_loss <= STEP_LOSS_RTOL, f"loss card {l_card} vs cpu {l_cpu}")
+    check(worst <= GRAD_RTOL, f"gradient {worst_name}: {worst} x max|g|")
+
+
+def phase_finetune_time(torch, root):
+    from tpu_speech.text.tokenizers import CharTokenizer
+    from tpu_speech_torch.configs.spiral import spiral_base_ctc_char
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    cfg = spiral_base_ctc_char()
+    cfg.model.freeze_finetune_updates = 0
+    cfg.model.train_ds.manifest_filepath = os.path.join(root, "librivox-train-clean-100.json")
+    runner = SpiralFinetuneRunner(cfg, os.path.join(root, "ft_timed"),
+                                  CharTokenizer(cfg.model.labels), device="cuda")
+    batch = runner.device_batch(next(iter(runner.loader)))
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: runner.step(batch), n=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[16 finetune step time] B = 14 x 24 s, unfrozen, batch on the card: {ms:.2f} ms "
+        f"per step (median of 10), peak device memory {peak:.2f} GiB")
+    profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="16 profile")
+    return ms, peak
+
+
 def write_corpus(root, rng):
     import scipy.io.wavfile
 
@@ -528,6 +896,8 @@ def phase_slice(torch, rng, root):
     check(results["n"] == N_UTTS, f"decoded {results['n']} of {N_UTTS} utterances")
     check(launches["fused_logmel"] >= n_batches, f"K1 launches {launches}")
     check(launches["fused_qkv_attention"] == 12 * n_batches, f"K2 launches {launches}")
+    check(launches["grouped_conv1d"] == 2 * n_batches and launches["grouped_conv1d_dx"] == 0,
+          f"K4 launches {launches}")
     logits = [np.load(os.path.join(run_dir, "logits", f"logits_{BATCH * (i + 1)}.npy"))
               for i in range(n_batches)]
     for lp in logits:
@@ -602,8 +972,11 @@ def phase_slice_time(torch, manifest, ckpt):
 def profile_slice(torch, run, batches=3, top=8, tag="6 profile"):
     """Where the slice's device time goes: torch.profiler kernel events over a
     few batches, summed by kernel name, and the device's busy share of the
-    span from the first kernel's start to the last kernel's end (kernels
-    cuDNN overlaps count once in the share, fully in the per-kernel sums)."""
+    span from the first kernel's start to the last kernel's end. Kernels
+    that run at the same time (cuDNN's per-group launches) count once in the
+    share and fully in the per-kernel sums. Annotations that the profiler
+    reports on the device timeline (``Optimizer.step#AdamW.step``) are not
+    kernels and are left out."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -612,17 +985,17 @@ def profile_slice(torch, run, batches=3, top=8, tag="6 profile"):
         for _ in range(batches):
             run()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
         log(f"[{tag}] the profiler saw no device kernels; not measured")
         return
     busy, (cur_s, cur_e) = 0, spans[0]
     by_name = defaultdict(lambda: [0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += e.time_range.end - e.time_range.start
-            by_name[e.name][1] += 1
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
     for s, e in spans[1:]:
         if s > cur_e:
             busy += cur_e - cur_s
@@ -661,43 +1034,87 @@ def main():
         phase_slice_time(torch, manifest, ckpt)
     drop_err, k2_drop_t = phase_k2_dropout(torch, gen)
     bwd_err, k2_bwd_t = phase_k2_bwd(torch, gen)
+    k4_err, k4_dx_err, k4_t = phase_k4(torch, gen)
+    k3_err, k3_t, k3_launches = phase_k3(torch, gen)
     with tempfile.TemporaryDirectory() as root:
-        pre_launches = phase_pretrain_slice(torch, rng, root)
+        pre_launches, st2vec_pt = phase_pretrain_slice(torch, rng, root)
         phase_pretrain_cpu_vs_card(torch)
         phase_pretrain_time(torch, root)
+        ft_root = os.path.join(root, "ft")
+        os.makedirs(ft_root)
+        ft_launches = phase_finetune_slice(torch, rng, ft_root, st2vec_pt)
+        phase_finetune_cpu_vs_card(torch)
+        phase_finetune_time(torch, ft_root)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
     def by_path(key):
-        return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key]}
+        return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key],
+                "finetune_step": ft_launches[key]}
+
+    def path_kernel(name, key, replaces, **measured):
+        return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
+                    replaces=replaces, launches=sum(by_path(key).values()),
+                    launches_by_path=by_path(key), **measured)
+
+    def k3_kernel(name, key, replaces, **measured):
+        # no path reaches K3: its launches are those of its own checks (phase 13)
+        return dict(name=name, route="cuda", source="tpu_speech_torch/csrc/fused_attention.cu",
+                    replaces=replaces, launches=k3_launches[key],
+                    launches_by_path=dict(by_path(key), k3_phase_13=k3_launches[key]),
+                    **measured)
 
     k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], drop_err), ms=k2_drop_t["ms"],
               plain_ms=k2_drop_t["plain_ms"],
               shape=f"dropout 0.1 at (24, 392, 1536) H=8 (no grad); dropout 0 at "
                     f"(14, 604, 1536) H=8: {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms; "
                     + k2["shape"].split("; ")[-1])
+    k4_b1, k4_b2 = k4_t[K4_SHAPES[0]], k4_t[K4_SHAPES[1]]
+    k3_b1, k3_b2 = k3_t[K3_SHAPES[0]], k3_t[K3_SHAPES[1]]
     kernels = [
-        dict(name="fused_logmel", route="cuda",
-             source="tpu_speech_torch/csrc/fused_logmel.cu",
-             replaces="tpu_speech/ops/fused_logmel.py:203",
-             launches=sum(by_path("fused_logmel").values()),
-             launches_by_path=by_path("fused_logmel"), **k1),
-        dict(name="fused_qkv_self_attention", route="cuda",
-             source="tpu_speech_torch/csrc/fused_attention.cu",
-             replaces="tpu_speech/ops/fused_attention.py:384",
-             launches=sum(by_path("fused_qkv_attention").values()),
-             launches_by_path=by_path("fused_qkv_attention"), **k2),
-        dict(name="fused_qkv_self_attention_bwd", route="cuda",
-             source="tpu_speech_torch/csrc/fused_attention.cu",
-             replaces="tpu_speech/ops/fused_attention.py:401",
-             launches=pre_launches["fused_qkv_attention_bwd"],
-             launches_by_path=by_path("fused_qkv_attention_bwd"),
-             max_abs_err=bwd_err, ms=k2_bwd_t["ms"], plain_ms=k2_bwd_t["plain_ms"],
-             shape=f"dqkv (24, 392, 1536) H=8 p=0.1, backward alone; forward + backward "
-                   f"{k2_bwd_t['fb_ms']:.4f} ms vs plain {k2_bwd_t['fb_plain_ms']:.4f} ms"),
+        path_kernel("fused_logmel", "fused_logmel", "tpu_speech/ops/fused_logmel.py:203",
+                    src="fused_logmel.cu", **k1),
+        path_kernel("fused_qkv_self_attention", "fused_qkv_attention",
+                    "tpu_speech/ops/fused_attention.py:384", src="fused_attention.cu", **k2),
+        path_kernel("fused_qkv_self_attention_bwd", "fused_qkv_attention_bwd",
+                    "tpu_speech/ops/fused_attention.py:401", src="fused_attention.cu",
+                    max_abs_err=bwd_err, ms=k2_bwd_t["ms"], plain_ms=k2_bwd_t["plain_ms"],
+                    shape=f"dqkv (24, 392, 1536) H=8 p=0.1, backward alone; forward + "
+                          f"backward {k2_bwd_t['fb_ms']:.4f} ms vs plain "
+                          f"{k2_bwd_t['fb_plain_ms']:.4f} ms"),
+        k3_kernel("fused_self_attention", "fused_attention",
+                  "tpu_speech/ops/fused_attention.py:222", max_abs_err=k3_err["fwd"],
+                  ms=k3_b1["ms"], plain_ms=k3_b1["plain_ms"],
+                  shape=f"q, k, v (14, 604, 8, 64) p=0.1 (no grad); K2 on the same data "
+                        f"{k3_b1['k2_ms']:.4f} ms; at (14, 302, 12, 64): {k3_b2['ms']:.4f} "
+                        f"ms vs plain {k3_b2['plain_ms']:.4f} ms"),
+        k3_kernel("fused_self_attention_bwd", "fused_attention_bwd",
+                  "tpu_speech/ops/fused_attention.py:239", max_abs_err=k3_err["bwd"],
+                  ms=k3_b1["bwd_ms"], plain_ms=k3_b1["bwd_plain_ms"],
+                  shape=f"dq, dk, dv (14, 604, 8, 64) p=0.1, backward alone (error relative "
+                        f"to max(1, max|plain|)); forward + backward {k3_b1['fb_ms']:.4f} ms "
+                        f"vs plain {k3_b1['fb_plain_ms']:.4f} ms (K2 {k3_b1['k2_fb_ms']:.4f} "
+                        f"ms); at (14, 302, 12, 64) backward {k3_b2['bwd_ms']:.4f} vs "
+                        f"{k3_b2['bwd_plain_ms']:.4f} ms"),
+        path_kernel("grouped_conv1d", "grouped_conv1d", "tpu_speech/ops/fused_posconv.py:132",
+                    src="fused_posconv.cu", max_abs_err=k4_err, ms=k4_b1["ms"],
+                    plain_ms=k4_b1["plain_ms"],
+                    shape=f"x (14, 604, 512) Cg 32 K 128, forward; forward + backward "
+                          f"{k4_b1['fb_ms']:.4f} ms vs plain {k4_b1['fb_plain_ms']:.4f} ms; "
+                          f"at (14, 302, 768) Cg 48: forward {k4_b2['ms']:.4f} vs "
+                          f"{k4_b2['plain_ms']:.4f} ms"),
+        path_kernel("grouped_conv1d_dx", "grouped_conv1d_dx",
+                    "tpu_speech/ops/fused_posconv.py:132", src="fused_posconv.cu",
+                    max_abs_err=k4_dx_err, ms=k4_b1["dx_ms"], plain_ms=k4_b1["dx_plain_ms"],
+                    shape=f"dx alone at (14, 604, 512), the weight rearrangement included: "
+                          f"the K4 kernel on flipped, swapped weights (the VJP _bwd:198) "
+                          f"against the plain version's input gradient; at (14, 302, 768) "
+                          f"{k4_b2['dx_ms']:.4f} vs {k4_b2['dx_plain_ms']:.4f} ms"),
     ]
+    log(f"[done] {time.perf_counter() - T0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""PyTorch port, K2 (merged-qkv attention, forward and backward): the plain
-version and its autograd gradient against the JAX Pallas kernel in interpret
-mode, the dropout mask's definition and replay, the gradient at a fully
-padded row against the JAX XLA path, the wrapper's CPU dispatch, its
-argument checks, and the attention module against the JAX module.
+"""PyTorch port, K2 (merged-qkv attention, forward and backward) and K3
+(attention on separate (B, T, H, D) q, k, v): the plain versions and their
+autograd gradients against the JAX Pallas kernels in interpret mode, the
+dropout mask's definition and replay, the gradient at a fully padded row
+against the JAX XLA path, the wrappers' CPU dispatch, their argument checks,
+and the attention module against the JAX module.
 
 The CUDA kernels themselves are checked on the card by
 tests/test_torch_kernels_cuda.py and chip_smoke.py.
@@ -19,12 +20,15 @@ from tpu_speech.models.spiral.wav2vec import (
     MultiheadSelfAttention as JaxMultiheadSelfAttention,
 )
 from tpu_speech.ops.fused_attention import fused_qkv_self_attention as jax_fused_qkv
+from tpu_speech.ops.fused_attention import fused_self_attention as jax_fused_attn
 from tpu_speech_torch.models.spiral.wav2vec import MultiheadSelfAttention
 from tpu_speech_torch.ops import _build
 from tpu_speech_torch.ops.fused_attention import (
+    attention_plain,
     dropout_bits,
     dropout_keep_mask,
     fused_qkv_self_attention,
+    fused_self_attention,
     qkv_attention_plain,
 )
 
@@ -231,3 +235,104 @@ def test_dropout_replays_the_same_mask_in_forward_and_backward(rng):
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6)
     assert not torch.allclose(outs[0], qkv_attention_plain(torch.tensor(qkv), h,
                                                            torch.tensor(mask)))
+
+
+# ---- K3: separate (B, T, H, D) q, k, v --------------------------------------
+
+def _qkv4(rng, b, t, h, d, fully_padded_row=True):
+    """q (pre-scaled), k, v (B, T, H, D) and a key padding mask."""
+    q, k, v = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(3))
+    q *= d ** -0.5
+    lens = rng.integers(max(1, t // 3), t + 1, size=b)
+    if fully_padded_row:
+        lens[0] = 0
+    return q, k, v, np.arange(t)[None, :] >= lens[:, None]
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 12, 4, 8), (3, 37, 2, 24), (2, 70, 1, 64)])
+def test_k3_plain_matches_jax_pallas_interpret(rng, b, t, h, d):
+    q, k, v, mask = _qkv4(rng, b, t, h, d)
+    ref = jax_fused_attn(*map(jnp.asarray, (q, k, v, mask)), interpret=True)
+    out = attention_plain(*map(torch.tensor, (q, k, v, mask)))
+    assert out.shape == (b, t, h, d)
+    assert torch.isfinite(out[0]).all()  # the fully padded row stays finite
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 12, 4, 8), (3, 37, 2, 24), (2, 70, 1, 64)])
+def test_k3_plain_gradient_matches_jax_pallas_interpret(rng, b, t, h, d):
+    """dq, dk, dv by autograd of the plain version against jax.vjp of the
+    Pallas K3-fwd/K3-bwd pair (interpret mode) at dropout 0, over rows that
+    have a valid key. Tolerance 1e-5."""
+    q, k, v, mask = _qkv4(rng, b, t, h, d, fully_padded_row=False)
+    dout = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, y, z: jax_fused_attn(x, y, z, jnp.asarray(mask),
+                                                    interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    refs = vjp(jnp.asarray(dout))
+    xs = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    attention_plain(*xs, torch.tensor(mask)).backward(torch.tensor(dout))
+    for x, ref in zip(xs, refs):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_k3_fully_padded_row_gradient_is_the_xla_path(rng):
+    """At a row whose keys are all padded the plain version (and the CUDA
+    kernels) give the XLA path's gradient: zero dq and dk, uniform weights
+    into dv. The Pallas K3 backward leaves dq and dk nonzero there, as the
+    Pallas K2 does (ROADMAP Queue 3); the other rows agree."""
+    b, t, h, d = 2, 9, 2, 8
+    q, k, v, mask = _qkv4(rng, b, t, h, d, fully_padded_row=True)
+    dout = rng.standard_normal((b, t, h, d)).astype(np.float32)
+
+    def xla(x, y, z):
+        s = jnp.einsum("bthd,bshd->bhts", x, y)
+        s = jnp.where(jnp.asarray(mask)[:, None, None, :], -1e9, s)
+        return jnp.einsum("bhts,bshd->bthd", jax.nn.softmax(s, axis=-1), z)
+
+    refs = jax.vjp(xla, *map(jnp.asarray, (q, k, v)))[1](jnp.asarray(dout))
+    xs = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    attention_plain(*xs, torch.tensor(mask)).backward(torch.tensor(dout))
+    for x, ref in zip(xs, refs):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    assert not xs[0].grad[0].any() and not xs[1].grad[0].any()
+    pallas = jax.vjp(lambda x, y, z: jax_fused_attn(x, y, z, jnp.asarray(mask),
+                                                    interpret=True),
+                     *map(jnp.asarray, (q, k, v)))[1](jnp.asarray(dout))
+    assert np.abs(np.asarray(pallas[0])[0]).max() > 1e-3
+    for got, ref in zip(pallas, refs):
+        np.testing.assert_allclose(np.asarray(got)[1], np.asarray(ref)[1], atol=1e-5, rtol=1e-5)
+
+
+def test_merged_plain_is_k3_plain_on_the_thirds(rng):
+    """K2's plain version is K3's on the (B, T, H, D) views of the plane's
+    thirds, with dropout: the same function by strides."""
+    b, t, e, h = 2, 13, 32, 4
+    qkv, mask = _qkv(rng, b, t, e, h)
+    x, m = torch.tensor(qkv), torch.tensor(mask)
+    q, k, v = (x[..., i * e:(i + 1) * e].reshape(b, t, h, e // h) for i in range(3))
+    torch.testing.assert_close(
+        qkv_attention_plain(x, h, m, 0.1, 9),
+        attention_plain(q, k, v, m, 0.1, 9).reshape(b, t, e), rtol=0, atol=0)
+
+
+def test_k3_wrapper_on_cpu_is_the_plain_version(rng):
+    q, k, v, mask = (torch.tensor(a) for a in _qkv4(rng, 2, 15, 4, 8))
+    before = dict(_build.LAUNCHES)
+    torch.testing.assert_close(fused_self_attention(q, k, v, mask, 0.1, 3),
+                               attention_plain(q, k, v, mask, 0.1, 3), rtol=0, atol=0)
+    assert _build.LAUNCHES == before
+
+
+def test_k3_wrapper_rejects_what_it_does_not_take():
+    q = torch.zeros(2, 5, 2, 8)
+    with pytest.raises(ValueError):  # dropout needs a seed
+        fused_self_attention(q, q, q, dropout_p=0.1)
+    with pytest.raises(ValueError):
+        fused_self_attention(q, q, q, dropout_p=1.0, dropout_seed=1)
+    with pytest.raises(ValueError):
+        fused_self_attention(q, q[:, :4], q)  # shapes differ
+    with pytest.raises(ValueError):
+        fused_self_attention(q, q, q, torch.zeros(2, 5))  # float mask
+    with pytest.raises(ValueError):
+        fused_self_attention(q.to("meta"), q.to("meta"), q.to("meta"))

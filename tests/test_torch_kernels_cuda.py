@@ -16,11 +16,14 @@ from tpu_speech_torch.models.spiral.features import hann_window_symmetric
 from tpu_speech_torch.ops import _build
 from tpu_speech_torch.ops.fused_attention import (
     KERNEL_D_HEADS,
+    attention_plain,
     dropout_keep_mask,
     fused_qkv_self_attention,
+    fused_self_attention,
     qkv_attention_plain,
 )
 from tpu_speech_torch.ops.fused_logmel import fused_logmel, logmel_plain
+from tpu_speech_torch.ops.fused_posconv import grouped_conv1d, grouped_conv1d_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -146,14 +149,25 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     x = torch.randn(1, 2000)
     fused_logmel(x, win.cpu(), fb.cpu(), n_fft=512, hop_length=160, num_frames=9)
     fused_qkv_self_attention(torch.randn(1, 4, 48), 2)
-    assert _build.LAUNCHES == {"fused_logmel": 0, "fused_qkv_attention": 0,
-                               "fused_qkv_attention_bwd": 0}
+    q = torch.randn(1, 4, 2, 8)
+    fused_self_attention(q, q, q)
+    grouped_conv1d(torch.randn(1, 5, 8), torch.randn(8, 4, 3), 2, 1)
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0)
     fused_logmel(x.to(cuda), win, fb, n_fft=512, hop_length=160, num_frames=9)
     fused_qkv_self_attention(torch.randn(1, 4, 48, device=cuda), 2)
     qkv = torch.randn(1, 4, 48, device=cuda, requires_grad=True)
     fused_qkv_self_attention(qkv, 2, None, 0.1, 3).sum().backward()
+    q = torch.randn(1, 4, 2, 8, device=cuda, requires_grad=True)
+    fused_self_attention(q, q.detach(), q.detach()).sum().backward()
+    fused_self_attention(q.detach(), q.detach(), q.detach())
+    xc = torch.randn(1, 5, 8, device=cuda, requires_grad=True)
+    grouped_conv1d(xc, torch.randn(8, 4, 3, device=cuda), 2, 1).sum().backward()
+    with torch.no_grad():
+        grouped_conv1d(xc, torch.randn(8, 4, 3, device=cuda), 2, 1)
     assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2,
-                               "fused_qkv_attention_bwd": 1}
+                               "fused_qkv_attention_bwd": 1, "fused_attention": 2,
+                               "fused_attention_bwd": 1, "grouped_conv1d": 2,
+                               "grouped_conv1d_dx": 1}
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -171,6 +185,23 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         fused_logmel(torch.randn(1, 2000, device=cuda), win, fb,
                      n_fft=512, hop_length=162, num_frames=9)
+    q = torch.randn(1, 4, 2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        fused_self_attention(q, q, q, dropout_p=0.1)  # no seed
+    with pytest.raises(ValueError):
+        fused_self_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        q40 = torch.randn(1, 4, 2, 40, device=cuda)
+        fused_self_attention(q40, q40, q40)  # d_head 40
+    x = torch.randn(1, 9, 130, device=cuda)
+    with pytest.raises(ValueError):
+        grouped_conv1d(x, torch.randn(130, 65, 8, device=cuda), 2, 4)  # Cg 65
+    with pytest.raises(ValueError):
+        grouped_conv1d(x[..., :128], torch.randn(128, 8, 129, device=cuda), 16, 64)  # K 129
+    with pytest.raises(ValueError):
+        grouped_conv1d(x[..., :128].double(), torch.randn(128, 8, 8, device=cuda).double(), 16, 4)
+    with pytest.raises(ValueError):
+        grouped_conv1d(x[..., :128], torch.randn(128, 8, 8), 16, 4)  # weights on the CPU
 
 
 def test_tiny_slice_on_the_card_matches_the_cpu(cuda):
@@ -190,7 +221,9 @@ def test_tiny_slice_on_the_card_matches_the_cpu(cuda):
         _build.reset_launches()
         out, out_lens = model(*wav_to_spec(cfg.model.encoder, wavs.to(cuda), lens.to(cuda)))
     assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2,
-                               "fused_qkv_attention_bwd": 0}
+                               "fused_qkv_attention_bwd": 0, "fused_attention": 0,
+                               "fused_attention_bwd": 0, "grouped_conv1d": 2,
+                               "grouped_conv1d_dx": 0}
     torch.testing.assert_close(out_lens.cpu(), ref_lens)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3)
 
@@ -227,10 +260,159 @@ def test_tiny_pretrain_step_on_the_card_matches_the_cpu(cuda):
         out[str(dev)] = (float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()
                                             if p.requires_grad}, dict(_build.LAUNCHES))
     (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
-    assert n_cpu == {"fused_logmel": 0, "fused_qkv_attention": 0, "fused_qkv_attention_bwd": 0}
-    assert n_gpu == {"fused_logmel": 2, "fused_qkv_attention": 4, "fused_qkv_attention_bwd": 2}
+    assert n_cpu == dict.fromkeys(_build.LAUNCHES, 0)
+    assert n_gpu == {"fused_logmel": 2, "fused_qkv_attention": 4, "fused_qkv_attention_bwd": 2,
+                     "fused_attention": 0, "fused_attention_bwd": 0, "grouped_conv1d": 4,
+                     "grouped_conv1d_dx": 2}
     assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
     g_max = max(g.abs().max().item() for g in g_cpu.values())
     for k in g_cpu:
         bound = 1e-3 * max(g_cpu[k].abs().max().item(), 1e-2 * g_max)
         torch.testing.assert_close(g_gpu[k], g_cpu[k], rtol=0, atol=bound, msg=k)
+
+
+# ---- K4: the grouped positional conv ----------------------------------------
+
+# (B, T, C, groups, K): the tiny and toy configs' Cg 8 and 12, odd K, ragged
+# tiles; SPIRAL-base's two blocks (Cg 32 and 48, K 128); large's Cg 64
+K4_SHAPES = [(2, 37, 32, 4, 8), (3, 50, 48, 4, 7), (2, 129, 192, 16, 16),
+             (14, 604, 512, 16, 128), (14, 302, 768, 16, 128), (2, 300, 1024, 16, 128)]
+
+
+def _conv_case(dev, b, t, c, g, k, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, c, generator=gen)
+    w = torch.randn(c, c // g, k, generator=gen) * (c // g * k) ** -0.5
+    return x.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("b,t,c,g,k", K4_SHAPES)
+def test_grouped_conv1d_matches_plain(cuda, b, t, c, g, k):
+    """Forward at the SAME-even (K//2), dx's (K//2 - 1) and causal (K-1)
+    left pads. Both sum C/groups * K fp32 products in different orders:
+    1e-4 x max(1, max|plain|)."""
+    x, w = _conv_case(cuda, b, t, c, g, k, b * t + k)
+    for left in sorted({k // 2, max(k // 2 - 1, 0), k - 1}):
+        out = grouped_conv1d(x, w, g, left)
+        ref = grouped_conv1d_plain(x, w, g, left)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("b,t,c,g,k", K4_SHAPES)
+def test_grouped_conv1d_backward_matches_plain_autograd(cuda, b, t, c, g, k):
+    """dx (K4 on the flipped, swapped weights) and dw (the library's weight
+    gradient) against autograd of the plain version."""
+    x, w = _conv_case(cuda, b, t, c, g, k, 3 * t + k)
+    dy = torch.randn(b, t, c, generator=torch.Generator().manual_seed(t)).to(cuda)
+    grads = []
+    for fn in (grouped_conv1d, grouped_conv1d_plain):
+        xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        fn(xx, ww, g, k // 2).backward(dy)
+        grads.append((xx.grad, ww.grad))
+    torch.cuda.synchronize()
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+# ---- K3: attention on (B, T, H, D) q, k, v -----------------------------------
+
+@pytest.mark.parametrize("d_head", KERNEL_D_HEADS)
+@pytest.mark.parametrize("t", [5, 64, 131])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_fused_self_attention_matches_plain(cuda, d_head, t, p):
+    """K3 forward and dq, dk, dv against the plain version and its autograd
+    on the same replayed mask; row 0 fully padded."""
+    b, h = 3, 4
+    gen = torch.Generator().manual_seed(13 * t + d_head)
+    q, k, v = (torch.randn(b, t, h, d_head, generator=gen).to(cuda) for _ in range(3))
+    q = q * d_head ** -0.5
+    lens = torch.tensor([0, t, max(1, t // 3)], device=cuda)
+    mask = torch.arange(t, device=cuda)[None, :] >= lens[:, None]
+    dout = torch.randn(b, t, h, d_head, generator=gen).to(cuda)
+    res = []
+    for fn in (fused_self_attention, attention_plain):
+        xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        out = fn(*xs, mask, p, 99)
+        out.backward(dout)
+        res.append([out.detach()] + [x.grad for x in xs])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=0, atol=1e-4)
+    for got, ref in zip(res[0][1:], res[1][1:]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * max(1.0, ref.abs().max().item()))
+    assert res[0][1][0].abs().max().item() == 0.0  # dq of the fully padded row
+
+
+def test_k3_and_k2_are_one_kernel_by_strides(cuda):
+    """K3 on the (B, T, H, D) views of a merged plane's thirds equals K2 on
+    the plane, forward and gradient, with dropout: bit for bit."""
+    b, t, h, d = 2, 77, 4, 16
+    qkv = torch.randn(b, t, 3 * h * d, generator=torch.Generator().manual_seed(1)).to(cuda)
+    x = qkv.clone().requires_grad_(True)
+    out2 = fused_qkv_self_attention(x, h, None, 0.1, 5)
+    out2.sum().backward()
+    xs = [qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d).clone().requires_grad_(True)
+          for i in range(3)]
+    out3 = fused_self_attention(*xs, None, 0.1, 5)
+    out3.sum().backward()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out3.reshape(b, t, h * d), out2, rtol=0, atol=0)
+    torch.testing.assert_close(torch.cat([a.grad.reshape(b, t, h * d) for a in xs], -1),
+                               x.grad, rtol=0, atol=0)
+
+
+def test_tiny_finetune_step_on_the_card_matches_the_cpu(cuda):
+    """One finetune step of the tiny CTC config on both devices from the same
+    weights and batch (dither, dropout and layerdrop off, SGD lr = 1), frozen
+    and unfrozen: the loss, every gradient, and the launch counts (K4-dx and
+    K2-bwd only when the encoder is not frozen)."""
+    import dataclasses
+
+    from tpu_speech_torch.configs.spiral import spiral_tiny_ctc_char
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
+    from tpu_speech_torch.train.spiral import batch_to_device
+    from tpu_speech_torch.train.spiral_runner import build_model
+
+    cfg = spiral_tiny_ctc_char()
+    enc = cfg.model.encoder
+    cfg.model.encoder = dataclasses.replace(enc, dither=0.0, blocks=tuple(
+        dataclasses.replace(b, transformer=dataclasses.replace(b.transformer, attention_dropout=0.0))
+        for b in enc.blocks))
+    dec = cfg.model.decoder
+    cfg.model.decoder = dataclasses.replace(dec, upsample_dropout=0.0, conv_layers=tuple(
+        dataclasses.replace(c, dropout=0.0) for c in dec.conv_layers))
+    r = np.random.default_rng(0)
+    wavs = (r.standard_normal((2, 16000)) * 0.1).astype(np.float32)
+    lens = np.array([16000, 9000], np.int32)
+    labels = np.zeros((2, 512), np.int32)
+    labels[:, :7] = r.integers(0, 28, size=(2, 7))
+    batch = {"wavs": wavs, "wav_lens": lens, "labels": labels,
+             "label_lens": np.array([7, 4], np.int32)}
+    for frozen in (True, False):
+        out = {}
+        for dev in ("cpu", cuda):
+            model = build_model(cfg, 28).init_weights(torch.Generator().manual_seed(0))
+            state = make_finetune_state(model.to(dev), lambda ps: torch.optim.SGD(ps, lr=1.0))
+            _build.reset_launches()
+            m = finetune_step(state, batch_to_device(batch, dev), DropoutRng.seeded(0, dev),
+                              freeze_encoder=frozen)
+            out[str(dev)] = (float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                             dict(_build.LAUNCHES))
+        (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
+        assert n_cpu == dict.fromkeys(_build.LAUNCHES, 0)
+        assert n_gpu == {"fused_logmel": 1, "fused_qkv_attention": 2,
+                         "fused_qkv_attention_bwd": 0 if frozen else 2, "fused_attention": 0,
+                         "fused_attention_bwd": 0, "grouped_conv1d": 2,
+                         "grouped_conv1d_dx": 0 if frozen else 2}
+        assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+        g_max = max(g.abs().max().item() for g in g_cpu.values())
+        for k in g_cpu:
+            bound = 1e-3 * max(g_cpu[k].abs().max().item(), 1e-2 * g_max)
+            torch.testing.assert_close(g_gpu[k], g_cpu[k], rtol=0, atol=bound, msg=k)
+            if frozen and k.startswith("encoder."):
+                assert not g_gpu[k].any()

@@ -6,10 +6,12 @@ its counterpart's path and name (``tpu_speech/models/spiral/ctc.py`` ->
 ``tests/test_torch_*.py`` parity tests. Public functions keep the JAX
 package's channels-last ``(B, T, C)`` layout.
 
-Ported so far: the SPIRAL-base CTC transcription path (wav -> log-mel ->
+Ported so far: SPIRAL-base CTC transcription (wav -> log-mel ->
 conv-subsampling + transformer encoder -> char CTC head -> greedy decode),
-with the two Pallas kernels it runs re-written by hand for Hopper in
-``csrc/`` (``ops/fused_logmel.py``, ``ops/fused_attention.py``).
+the ST2Vec pretrain step and the CTC finetune step, with every Pallas kernel
+of the JAX package re-written by hand for Hopper in ``csrc/``
+(``ops/fused_logmel.py``, ``ops/fused_attention.py``,
+``ops/fused_posconv.py``).
 
 Nothing here imports JAX. Host-side helpers that import no JAX
 (``tpu_speech.text``, ``tpu_speech.eval.wer``, ``tpu_speech.data``,

@@ -1,19 +1,33 @@
-"""SPIRAL launcher for the port: ST2Vec pretraining and CTC transcription.
+"""SPIRAL launcher for the port: ST2Vec pretraining, CTC finetuning and CTC
+transcription.
 
-Port of ``cli/run_spiral.py`` for two of its paths:
+Port of ``cli/run_spiral.py`` for three of its paths:
 
 - ``--model_type st2vec --run_mode train`` (``:312-346``): the pretrain loop
   of ``SpiralPretrainRunner`` for ``trainer.max_epochs`` epochs or until
   ``trainer.max_steps`` steps, then the reference-named state_dict in
   ``<model_save_dir>/st2vec.pt``::
 
-    python -m tpu_speech_torch.cli.run_spiral --model_type st2vec \
-        --run_mode train --config_name spiral_base_pretrain_ls960 \
+    python -m tpu_speech_torch.cli.run_spiral --model_type st2vec \\
+        --run_mode train --config_name spiral_base_pretrain_ls960 \\
         --manifest_dir D --set trainer.max_steps=N --model_save_dir OUT
+
+- ``--model_type ctc_finetune --run_mode train`` (``:348-447``): the
+  encoder from ``--init_chkpt_dir/--init_chkpt_file`` (a pretraining
+  state_dict such as ``st2vec.pt``, a reference checkpoint, or JAX trees in
+  an ``.npz``; ``--use_teacher_encoder`` takes the EMA teacher's) unless
+  ``--finetune_from_scratch true``; the finetune loop with validation every
+  ``trainer.val_check_interval_epochs`` epochs, stopping at
+  ``trainer.max_steps``; then ``<model_save_dir>/ctc_finetune.pt``::
+
+    python -m tpu_speech_torch.cli.run_spiral --model_type ctc_finetune \\
+        --run_mode train --config_name spiral_base_finetune_ls100_char \\
+        --manifest_dir D --init_chkpt_dir PRE --init_chkpt_file st2vec.pt \\
+        --set trainer.max_steps=N --model_save_dir OUT
 
 - ``--model_type ctc_finetune --run_mode test``: build the configured model,
   load test weights, decode the test manifest greedily and print
-  ``TEST: WER = ... | CER = ... | N utts``.
+  ``TEST: WER = ... | CER = ... | N utts``::
 
     python -m tpu_speech_torch.cli.run_spiral --run_mode test \\
         --config_name spiral_base_finetune_ls100_char \\
@@ -29,9 +43,9 @@ configured manifests' file names onto a directory (``:270-277``); ``--set
 KEY=VALUE`` overrides a config leaf (``:148-153``). ``--device`` defaults to
 ``cuda`` and fails without a card.
 
-Not ported yet: finetune training, validation, resume, YAML configs,
-subword tokenizers, archives, beam search, streaming evaluation, export and
-multi-node runs.
+Not ported yet: resume, orbax checkpoints, ``.tpu_speech`` archives and
+``--init_archive``, YAML configs, subword tokenizers, beam search, streaming
+evaluation, export and multi-node runs.
 """
 
 from __future__ import annotations
@@ -67,7 +81,8 @@ def get_ckpt_path(ckpt_dir, ckpt_name):
 
 def build_parser():
     p = argparse.ArgumentParser(
-        description="SPIRAL pretraining and CTC transcription (PyTorch port)",
+        description="SPIRAL pretraining, CTC finetuning and CTC transcription "
+                    "(PyTorch port)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     p.add_argument("--config_name", type=str, required=True,
@@ -82,6 +97,11 @@ def build_parser():
     p.add_argument("--log_dir", type=str, default="")
     p.add_argument("--init_chkpt_dir", type=str, default="")
     p.add_argument("--init_chkpt_file", type=str, default="")
+    p.add_argument("--finetune_from_scratch", type=str2bool, default=False,
+                   help="finetune train mode: keep the random encoder init")
+    p.add_argument("--use_teacher_encoder", type=str2bool, default=False,
+                   help="finetune train mode: take the pretraining EMA teacher's "
+                   "encoder")
     p.add_argument("--save_logits", type=str2bool, default=False,
                    help="save each batch's log-probs under <run dir>/logits")
     p.add_argument("--device", type=str, default="cuda",
@@ -110,6 +130,27 @@ def train_st2vec(cfg, log_dir: str, device: str) -> dict:
             "iteration": runner.iteration}
 
 
+def train_ctc(cfg, runner: SpiralFinetuneRunner) -> dict:
+    """The finetune loop (cli/run_spiral.py:431-447 without resume and
+    archives)."""
+    max_steps = cfg.trainer.max_steps
+    val_every = max(1, getattr(cfg.trainer, "val_check_interval_epochs", 1))
+    loss, val = float("nan"), {}
+    for epoch in range(1, cfg.trainer.max_epochs + 1):
+        loss = runner.train_epoch(epoch, max_steps)  # prints the epoch's line
+        if epoch % val_every == 0:
+            val = runner.validate()
+            if val:
+                print(f"Validation: WER = {val['wer']:.4f} | CER = {val['cer']:.4f}",
+                      flush=True)
+        if max_steps and runner.iteration >= max_steps:
+            break
+    path = runner.save_state_dict()
+    print(f"saved model state_dict: {path}")
+    return {"loss": loss, "steps": runner.history, "state_dict": path,
+            "iteration": runner.iteration, "validation": val}
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(args=argv)
     cfg = CONFIGS[args.config_name]()
@@ -130,10 +171,17 @@ def main(argv=None) -> dict:
         if args.run_mode != "train":
             raise SystemExit("--model_type st2vec runs --run_mode train")
         return train_st2vec(cfg, log_dir, args.device)
-    if args.run_mode != "test":
-        raise SystemExit("ctc_finetune training is not ported yet")
+    if (args.run_mode == "train" and not args.finetune_from_scratch
+            and args.init_chkpt_dir and args.init_chkpt_file):
+        cfg.model.pretrain_chkpt_path = get_ckpt_path(args.init_chkpt_dir,
+                                                      args.init_chkpt_file)
+    cfg.model.use_teacher_encoder = args.use_teacher_encoder
     runner = SpiralFinetuneRunner(cfg, log_dir, CharTokenizer(cfg.model.labels),
                                   device=args.device)
+    if args.run_mode == "train":
+        if cfg.model.pretrain_chkpt_path:
+            print(f"Loaded the pretrained encoder from: {cfg.model.pretrain_chkpt_path}")
+        return train_ctc(cfg, runner)
     if args.init_chkpt_dir and args.init_chkpt_file:
         path = get_ckpt_path(args.init_chkpt_dir, args.init_chkpt_file)
         runner.load_weights(path)

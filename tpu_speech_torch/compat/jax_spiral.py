@@ -24,7 +24,8 @@ Layout translation (flax channels-last -> torch channels-first):
 The converter is strict: every leaf of both trees is consumed exactly once.
 
 ``load_jax_npz`` reads trees saved as one ``.npz`` whose keys are
-``params/<path>`` and ``batch_stats/<path>`` with ``/``-joined flax paths.
+``params/<path>`` and ``batch_stats/<path>`` (and ``teacher/<path>`` for a
+pretraining model) with ``/``-joined flax paths.
 """
 
 from __future__ import annotations
@@ -197,10 +198,10 @@ def st2vec_from_jax(params: Mapping, batch_stats: Mapping = None,
     return sd
 
 
-def load_jax_npz(path: str):
-    """``.npz`` with ``params/...`` and ``batch_stats/...`` keys -> (params,
-    batch_stats) nested dicts of numpy arrays."""
-    trees = {"params": {}, "batch_stats": {}}
+def load_jax_npz(path: str, roots=("params", "batch_stats")):
+    """``.npz`` whose keys are ``<root>/<path>`` -> one nested dict of numpy
+    arrays per name in ``roots`` (a root the file lacks gives ``{}``)."""
+    trees = {r: {} for r in roots}
     with np.load(path) as z:
         for key in z.files:
             root, *rest = key.split("/")
@@ -210,4 +211,4 @@ def load_jax_npz(path: str):
             for k in rest[:-1]:
                 node = node.setdefault(k, {})
             node[rest[-1]] = z[key]
-    return trees["params"], trees["batch_stats"]
+    return tuple(trees[r] for r in roots)

@@ -1,15 +1,22 @@
-// Merged-qkv self-attention, forward and backward, fp32, flash-style, with
-// in-kernel attention dropout, for Hopper.
+// Self-attention, forward and backward, fp32, flash-style, with in-kernel
+// attention dropout, for Hopper.
 //
-// Replaces the Pallas TPU kernels of
-// tpu_speech/ops/fused_attention.py::fused_qkv_self_attention:
-//   forward  _qkv_fwd_kernel (pallas_call at line 384, _fused_qkv_attn_fwd)
-//   backward _qkv_bwd_kernel (pallas_call at line 401, _fused_qkv_attn_bwd)
-// Per (batch b, head h), with q, k, v head h's column slices of the merged
-// (B, T, 3E) plane (q already carries the d_head**-0.5 scale):
+// Replaces the Pallas TPU kernels of tpu_speech/ops/fused_attention.py:
+//   K2, fused_qkv_self_attention (q, k, v the thirds of a merged (B, T, 3E)
+//   plane):
+//     forward  _qkv_fwd_kernel (pallas_call at line 384, _fused_qkv_attn_fwd)
+//     backward _qkv_bwd_kernel (pallas_call at line 401, _fused_qkv_attn_bwd)
+//   K3, fused_self_attention (q, k, v separate (B, T, H, D) arrays):
+//     forward  _fwd_kernel (pallas_call at line 222, _fused_attn_fwd)
+//     backward _bwd_kernel (pallas_call at line 239, _fused_attn_bwd)
+// Both are one set of kernels here. They read row t of head h of q, k and v
+// at base + (b*T + t)*ld + h*D: ld = 3E for the merged plane (k and v start E
+// and 2E floats after q), ld = H*D for separate (B, T, H, D) arrays. The
+// gradients go out the same way with their own row stride. Per (batch b,
+// head h), with q already carrying the d_head**-0.5 scale:
 //     S = q k^T, padded keys filled with the finite -1e9
 //     P = softmax(S) in fp32,   P~ = P * keep / (1 - p_drop)
-//     out[b, :, h*D:(h+1)*D] = P~ v
+//     out[b, :, h*D:(h+1)*D] = P~ v      (out is (B, T, H*D))
 // A query row whose keys are all padded stays finite (P is uniform, 1/T), as
 // in the reference.
 //
@@ -28,8 +35,7 @@
 //     dP  = (dO v^T) * keep / (1 - p_drop)
 //     dS  = P * (dP - Delta),  Delta_i = rowsum(dO_i * out_i)
 //     dQ  = dS k,   dK = dS^T q
-// and writes dQ, dK, dV into the three thirds of a (B, T, 3E) plane by
-// strides. dS is zero at padded keys: the gradient of the -1e9 fill, which
+// and writes dQ, dK, dV by their row stride. dS is zero at padded keys: the gradient of the -1e9 fill, which
 // is what the XLA path (jnp.where) and the plain PyTorch version
 // (masked_fill) give. The Pallas backward differs there for fully padded
 // rows (ROADMAP Queue 3). A fully padded row's L rounds to the fill itself
@@ -105,10 +111,11 @@ constexpr size_t dq_smem_bytes() {  // q, dO, k, v tiles; dS tile
 
 template <int D>
 __global__ void __launch_bounds__(NT)
-qkv_attn_fwd_kernel(const float* __restrict__ qkv,
-                    const unsigned char* __restrict__ key_pad,
-                    float* __restrict__ out, float* __restrict__ lse, int T,
-                    int H, unsigned seed, unsigned thresh, float drop_scale) {
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, int ld,
+                const unsigned char* __restrict__ key_pad,
+                float* __restrict__ out, float* __restrict__ lse, int T, int H,
+                unsigned seed, unsigned thresh, float drop_scale) {
   constexpr int DP = D + 1;
   constexpr int DPT = (D + 15) / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -124,11 +131,11 @@ qkv_attn_fwd_kernel(const float* __restrict__ qkv,
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * BQ;
   const int E = H * D;
-  const long long row = 3LL * E;
-  const float* base = qkv + (long long)b * T * row;
-  const float* qg = base + h * D;
-  const float* kg = base + E + h * D;
-  const float* vg = base + 2 * E + h * D;
+  const long long row = ld;
+  const long long head = (long long)b * T * row + h * D;
+  const float* qg = q + head;
+  const float* kg = k + head;
+  const float* vg = v + head;
   const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
   const unsigned stream = thresh ? dropout_stream(seed, (unsigned)blockIdx.y) : 0u;
 
@@ -223,9 +230,9 @@ qkv_attn_fwd_kernel(const float* __restrict__ qkv,
       for (int c = 0; c < DPT; ++c) {
         const int col = cg + 16 * c;
         if (col < D) {
-          const float v = vs[kk * D + col];
+          const float vv = vs[kk * D + col];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) o[i][c] = fmaf(pv[i], v, o[i][c]);
+          for (int i = 0; i < 4; ++i) o[i][c] = fmaf(pv[i], vv, o[i][c]);
         }
       }
     }
@@ -250,10 +257,10 @@ qkv_attn_fwd_kernel(const float* __restrict__ qkv,
 
 // Delta[b, h, t] = sum_c dO[b, t, h*D + c] * out[b, t, h*D + c]; one block
 // per (b, t), one warp per head.
-__global__ void qkv_attn_bwd_delta_kernel(const float* __restrict__ out,
-                                          const float* __restrict__ dout,
-                                          float* __restrict__ delta, int T,
-                                          int H, int D) {
+__global__ void attn_bwd_delta_kernel(const float* __restrict__ out,
+                                      const float* __restrict__ dout,
+                                      float* __restrict__ delta, int T, int H,
+                                      int D) {
   const int bt = blockIdx.x;
   const int b = bt / T, t = bt % T;
   const long long E = (long long)H * D;
@@ -342,13 +349,15 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
 
 template <int D>
 __global__ void __launch_bounds__(NT)
-qkv_attn_bwd_dkdv_kernel(const float* __restrict__ qkv,
-                         const unsigned char* __restrict__ key_pad,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dqkv, int T, int H, unsigned seed,
-                         unsigned thresh, float drop_scale, float inv_t) {
+attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, int ld,
+                     const unsigned char* __restrict__ key_pad,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int ld_grad, int T, int H,
+                     unsigned seed, unsigned thresh, float drop_scale,
+                     float inv_t) {
   constexpr int DP = D + 1;
   constexpr int DPT = (D + 15) / 16;
   extern __shared__ __align__(16) float smem[];
@@ -369,14 +378,14 @@ qkv_attn_bwd_dkdv_kernel(const float* __restrict__ qkv,
   const int h = bh % H;
   const int k0 = blockIdx.x * BK;
   const int E = H * D;
-  const long long row = 3LL * E;
-  const float* base = qkv + (long long)b * T * row;
+  const long long row = ld;
+  const long long head = (long long)b * T * row + h * D;
   const float* dog = dout + (long long)b * T * E + h * D;
   const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
   const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
 
-  stage_rows<D>(ks, base + E + h * D, row, k0, T, tid);
-  stage_rows<D>(vs, base + 2 * E + h * D, row, k0, T, tid);
+  stage_rows<D>(ks, k + head, row, k0, T, tid);
+  stage_rows<D>(vs, v + head, row, k0, T, tid);
   int kidx[4];
   bool kvalid[4], kpad[4];
 #pragma unroll
@@ -386,18 +395,18 @@ qkv_attn_bwd_dkdv_kernel(const float* __restrict__ qkv,
     kpad[j] = kvalid[j] && pad != nullptr && pad[kidx[j]] != 0;
   }
 
-  float dk[4][DPT], dv[4][DPT];
+  float dkr[4][DPT], dvr[4][DPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
-      dk[i][c] = 0.f;
-      dv[i][c] = 0.f;
+      dkr[i][c] = 0.f;
+      dvr[i][c] = 0.f;
     }
 
   for (int q0 = 0; q0 < T; q0 += BQ) {
     __syncthreads();  // the previous query tile is consumed
-    stage_rows<D>(qs, base + h * D, row, q0, T, tid);
+    stage_rows<D>(qs, q + head, row, q0, T, tid);
     stage_rows<D>(dos, dog, E, q0, T, tid);
     if (tid < BQ) {
       const int t = q0 + tid;
@@ -441,11 +450,11 @@ qkv_attn_bwd_dkdv_kernel(const float* __restrict__ qkv,
         const int col = cg + 16 * c;
         if (col < D) {
           const float g = dos[qq * DP + col];
-          const float q = qs[qq * DP + col];
+          const float qv = qs[qq * DP + col];
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            dv[kk][c] = fmaf(pv[kk], g, dv[kk][c]);
-            dk[kk][c] = fmaf(dsv[kk], q, dk[kk][c]);
+            dvr[kk][c] = fmaf(pv[kk], g, dvr[kk][c]);
+            dkr[kk][c] = fmaf(dsv[kk], qv, dkr[kk][c]);
           }
         }
       }
@@ -456,13 +465,13 @@ qkv_attn_bwd_dkdv_kernel(const float* __restrict__ qkv,
   for (int kk = 0; kk < 4; ++kk) {
     const int t = k0 + rg * 4 + kk;
     if (t < T) {
-      float* drow = dqkv + ((long long)b * T + t) * row + h * D;
+      const long long off = ((long long)b * T + t) * ld_grad + h * D;
 #pragma unroll
       for (int c = 0; c < DPT; ++c) {
         const int col = cg + 16 * c;
         if (col < D) {
-          drow[E + col] = dk[kk][c];
-          drow[2 * E + col] = dv[kk][c];
+          dk[off + col] = dkr[kk][c];
+          dv[off + col] = dvr[kk][c];
         }
       }
     }
@@ -471,13 +480,14 @@ qkv_attn_bwd_dkdv_kernel(const float* __restrict__ qkv,
 
 template <int D>
 __global__ void __launch_bounds__(NT)
-qkv_attn_bwd_dq_kernel(const float* __restrict__ qkv,
-                       const unsigned char* __restrict__ key_pad,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       float* __restrict__ dqkv, int T, int H, unsigned seed,
-                       unsigned thresh, float drop_scale, float inv_t) {
+attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, int ld,
+                   const unsigned char* __restrict__ key_pad,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int ld_grad, int T, int H, unsigned seed, unsigned thresh,
+                   float drop_scale, float inv_t) {
   constexpr int DP = D + 1;
   constexpr int DPT = (D + 15) / 16;
   extern __shared__ __align__(16) float smem[];
@@ -495,12 +505,12 @@ qkv_attn_bwd_dq_kernel(const float* __restrict__ qkv,
   const int h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int E = H * D;
-  const long long row = 3LL * E;
-  const float* base = qkv + (long long)b * T * row;
+  const long long row = ld;
+  const long long head = (long long)b * T * row + h * D;
   const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
   const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
 
-  stage_rows<D>(qs, base + h * D, row, q0, T, tid);
+  stage_rows<D>(qs, q + head, row, q0, T, tid);
   stage_rows<D>(dos, dout + (long long)b * T * E + h * D, E, q0, T, tid);
   float L[4], Di[4];
 #pragma unroll
@@ -510,16 +520,16 @@ qkv_attn_bwd_dq_kernel(const float* __restrict__ qkv,
     Di[i] = t < T ? delta[(long long)bh * T + t] : 0.f;
   }
 
-  float dq[4][DPT];
+  float dqr[4][DPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) dq[i][c] = 0.f;
+    for (int c = 0; c < DPT; ++c) dqr[i][c] = 0.f;
 
   for (int k0 = 0; k0 < T; k0 += BK) {
     __syncthreads();  // q/dO staged / the previous key tile is consumed
-    stage_rows<D>(ks, base + E + h * D, row, k0, T, tid);
-    stage_rows<D>(vs, base + 2 * E + h * D, row, k0, T, tid);
+    stage_rows<D>(ks, k + head, row, k0, T, tid);
+    stage_rows<D>(vs, v + head, row, k0, T, tid);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -553,9 +563,9 @@ qkv_attn_bwd_dq_kernel(const float* __restrict__ qkv,
       for (int c = 0; c < DPT; ++c) {
         const int col = cg + 16 * c;
         if (col < D) {
-          const float k = ks[kk * DP + col];
+          const float kv = ks[kk * DP + col];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dq[i][c] = fmaf(dsv[i], k, dq[i][c]);
+          for (int i = 0; i < 4; ++i) dqr[i][c] = fmaf(dsv[i], kv, dqr[i][c]);
         }
       }
     }
@@ -565,11 +575,11 @@ qkv_attn_bwd_dq_kernel(const float* __restrict__ qkv,
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + rg * 4 + i;
     if (t < T) {
-      float* drow = dqkv + ((long long)b * T + t) * row + h * D;
+      float* drow = dq + ((long long)b * T + t) * ld_grad + h * D;
 #pragma unroll
       for (int c = 0; c < DPT; ++c) {
         const int col = cg + 16 * c;
-        if (col < D) drow[col] = dq[i][c];
+        if (col < D) drow[col] = dqr[i][c];
       }
     }
   }
@@ -581,91 +591,106 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Row strides and pointers of one attention call: q, k, v rows at stride ld;
+// dq, dk, dv rows at stride ld_grad (backward only).
+struct Operands {
+  const float *q, *k, *v;
+  int ld;
+  float *dq, *dk, *dv;
+  int ld_grad;
+};
+
 template <int D>
-int launch_fwd(const float* qkv, const unsigned char* key_pad, float* out,
+int launch_fwd(const Operands& a, const unsigned char* key_pad, float* out,
                float* lse, int B, int T, int H, unsigned seed, unsigned thresh,
                float drop_scale, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D>();
-  cudaError_t err = allow_smem(qkv_attn_fwd_kernel<D>, smem);
+  cudaError_t err = allow_smem(attn_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, B * H);
-  qkv_attn_fwd_kernel<D><<<grid, NT, smem, stream>>>(qkv, key_pad, out, lse, T,
-                                                     H, seed, thresh, drop_scale);
+  attn_fwd_kernel<D><<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.ld, key_pad, out,
+                                                 lse, T, H, seed, thresh, drop_scale);
   return cudaGetLastError();
 }
 
 template <int D>
-int launch_bwd(const float* qkv, const unsigned char* key_pad, const float* out,
-               const float* dout, const float* lse, float* delta, float* dqkv,
-               int B, int T, int H, unsigned seed, unsigned thresh,
-               float drop_scale, cudaStream_t stream) {
+int launch_bwd(const Operands& a, const unsigned char* key_pad, const float* out,
+               const float* dout, const float* lse, float* delta, int B, int T,
+               int H, unsigned seed, unsigned thresh, float drop_scale,
+               cudaStream_t stream) {
   const float inv_t = 1.f / (float)T;
-  qkv_attn_bwd_delta_kernel<<<B * T, 128, 0, stream>>>(out, dout, delta, T, H, D);
+  attn_bwd_delta_kernel<<<B * T, 128, 0, stream>>>(out, dout, delta, T, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_kv = dkdv_smem_bytes<D>();
-  err = allow_smem(qkv_attn_bwd_dkdv_kernel<D>, smem_kv);
+  err = allow_smem(attn_bwd_dkdv_kernel<D>, smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((T + BK - 1) / BK, B * H);
-  qkv_attn_bwd_dkdv_kernel<D><<<grid_kv, NT, smem_kv, stream>>>(
-      qkv, key_pad, dout, lse, delta, dqkv, T, H, seed, thresh, drop_scale, inv_t);
+  attn_bwd_dkdv_kernel<D><<<grid_kv, NT, smem_kv, stream>>>(
+      a.q, a.k, a.v, a.ld, key_pad, dout, lse, delta, a.dk, a.dv, a.ld_grad, T, H,
+      seed, thresh, drop_scale, inv_t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_q = dq_smem_bytes<D>();
-  err = allow_smem(qkv_attn_bwd_dq_kernel<D>, smem_q);
+  err = allow_smem(attn_bwd_dq_kernel<D>, smem_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((T + BQ - 1) / BQ, B * H);
-  qkv_attn_bwd_dq_kernel<D><<<grid_q, NT, smem_q, stream>>>(
-      qkv, key_pad, dout, lse, delta, dqkv, T, H, seed, thresh, drop_scale, inv_t);
+  attn_bwd_dq_kernel<D><<<grid_q, NT, smem_q, stream>>>(
+      a.q, a.k, a.v, a.ld, key_pad, dout, lse, delta, a.dq, a.ld_grad, T, H, seed,
+      thresh, drop_scale, inv_t);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// out (B, T, E); lse (B, H, T) or null (no gradient needed).
-extern "C" int tsx_qkv_attention_fwd(const void* qkv, const void* key_pad,
-                                     void* out, void* lse, int B, int T, int H,
-                                     int D, unsigned seed, unsigned thresh,
-                                     float drop_scale, void* stream) {
+// out (B, T, H*D); lse (B, H, T) or null (no gradient needed). q, k, v rows
+// of width >= H*D at stride ld.
+extern "C" int tsx_attention_fwd(const void* q, const void* k, const void* v,
+                                 int ld, const void* key_pad, void* out,
+                                 void* lse, int B, int T, int H, int D,
+                                 unsigned seed, unsigned thresh, float drop_scale,
+                                 void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
-  const float* q = static_cast<const float*>(qkv);
+  const Operands a{static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), ld, nullptr, nullptr, nullptr, 0};
   const unsigned char* kp = static_cast<const unsigned char*>(key_pad);
   float* o = static_cast<float*>(out);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8: return launch_fwd<8>(q, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 16: return launch_fwd<16>(q, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 32: return launch_fwd<32>(q, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 64: return launch_fwd<64>(q, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
+    case 8: return launch_fwd<8>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
+    case 16: return launch_fwd<16>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
+    case 32: return launch_fwd<32>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
+    case 64: return launch_fwd<64>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// dqkv (B, T, 3E) from qkv, out, dout (B, T, E) and the forward's lse;
-// delta (B, H, T) is scratch.
-extern "C" int tsx_qkv_attention_bwd(const void* qkv, const void* key_pad,
-                                     const void* out, const void* dout,
-                                     const void* lse, void* delta, void* dqkv,
-                                     int B, int T, int H, int D, unsigned seed,
-                                     unsigned thresh, float drop_scale,
-                                     void* stream) {
+// dq, dk, dv (rows at stride ld_grad) from q, k, v, out, dout (B, T, H*D) and
+// the forward's lse; delta (B, H, T) is scratch.
+extern "C" int tsx_attention_bwd(const void* q, const void* k, const void* v,
+                                 int ld, const void* key_pad, const void* out,
+                                 const void* dout, const void* lse, void* delta,
+                                 void* dq, void* dk, void* dv, int ld_grad, int B,
+                                 int T, int H, int D, unsigned seed,
+                                 unsigned thresh, float drop_scale, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
-  const float* q = static_cast<const float*>(qkv);
+  const Operands a{static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), ld, static_cast<float*>(dq),
+                   static_cast<float*>(dk), static_cast<float*>(dv), ld_grad};
   const unsigned char* kp = static_cast<const unsigned char*>(key_pad);
   const float* o = static_cast<const float*>(out);
   const float* g = static_cast<const float*>(dout);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  float* dq = static_cast<float*>(dqkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8: return launch_bwd<8>(q, kp, o, g, l, dl, dq, B, T, H, seed, thresh, drop_scale, s);
-    case 16: return launch_bwd<16>(q, kp, o, g, l, dl, dq, B, T, H, seed, thresh, drop_scale, s);
-    case 32: return launch_bwd<32>(q, kp, o, g, l, dl, dq, B, T, H, seed, thresh, drop_scale, s);
-    case 64: return launch_bwd<64>(q, kp, o, g, l, dl, dq, B, T, H, seed, thresh, drop_scale, s);
+    case 8: return launch_bwd<8>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
+    case 16: return launch_bwd<16>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
+    case 32: return launch_bwd<32>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
+    case 64: return launch_bwd<64>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,19 +1,22 @@
-"""CTC decoder head + finetune model for SPIRAL (forward only).
+"""CTC decoder head, finetune model, CTC loss and encoder surgery for SPIRAL.
 
 Port of ``tpu_speech/models/spiral/ctc.py`` (``ConvASRDecoder:30``,
-``CTCFinetuneModel:82``): the ST2Vec feature encoder followed by the conv
-decoder, returning log-probs and their lengths. Parameter names follow the
-reference state_dict: ``encoder.feature_encoder.block_modules.*``,
-``decoder.proj_upsampling.*``, ``decoder.conv_layers.{i}.*`` and the 1x1
-vocab conv ``decoder.decoder_layers.0.weight`` of shape (V, C, 1).
+``CTCFinetuneModel:82``, ``ctc_loss:135``, ``load_pretrained_encoder:272``):
+the ST2Vec feature encoder followed by the conv decoder, returning log-probs
+and their lengths. Parameter names follow the reference state_dict:
+``encoder.feature_encoder.block_modules.*``, ``decoder.proj_upsampling.*``,
+``decoder.conv_layers.{i}.*`` and the 1x1 vocab conv
+``decoder.decoder_layers.0.weight`` of shape (V, C, 1).
 
-Not ported yet: ``ctc_loss``, ``make_finetune_step`` and
-``load_pretrained_encoder`` (the training path).
+In training mode the forward takes a ``DropoutRng`` for the encoder's and
+decoder's dropouts. ``freeze_encoder`` runs the encoder under
+``torch.no_grad()`` (still in training mode: dropout, layerdrop and BatchNorm
+statistics as usual), the twin of the JAX ``stop_gradient`` gate.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,12 +78,12 @@ class ConvASRDecoder(nn.Module):
             return self.num_classes + 1
         return self.num_classes
 
-    def forward(self, x, lens):
+    def forward(self, x, lens, rng=None):
         if self.proj_upsampling is not None:
-            x, lens = self.proj_upsampling(x, lens)
+            x, lens = self.proj_upsampling(x, lens, rng)
         pad_mask = create_pad_mask(lens, x.shape[1])
         for conv in self.conv_layers:
-            x, lens, pad_mask = conv(x, lens, pad_mask)
+            x, lens, pad_mask = conv(x, lens, pad_mask, rng)
         proj = self.decoder_layers[0]
         logits = F.linear(x, proj.weight[:, :, 0], proj.bias)
         return torch.log_softmax(logits, dim=-1), lens
@@ -113,9 +116,13 @@ class CTCFinetuneModel(nn.Module):
             return self.num_classes  # appended blank
         return self.num_classes - 1
 
-    def forward(self, specs, spec_lens):
-        feats, feat_lens = self.encoder.encode_features(specs, spec_lens)
-        return self.decoder(feats, feat_lens)
+    def forward(self, specs, spec_lens, rng=None, freeze_encoder: bool = False):
+        if freeze_encoder:
+            with torch.no_grad():
+                feats, feat_lens = self.encoder.encode_features(specs, spec_lens, rng)
+        else:
+            feats, feat_lens = self.encoder.encode_features(specs, spec_lens, rng)
+        return self.decoder(feats, feat_lens, rng)
 
     def init_weights(self, generator: torch.Generator) -> "CTCFinetuneModel":
         """Seeded random init at the JAX package's scales
@@ -123,3 +130,45 @@ class CTCFinetuneModel(nn.Module):
         a dense layer."""
         init_weights_(self, generator, unit_gain=(self.decoder.decoder_layers[0],))
         return self
+
+
+def ctc_loss(log_probs, logit_lens, labels, label_lens, blank_idx: int):
+    """Mean over the batch of the per-sequence CTC negative log-likelihood
+    (``ctc_loss:135``: ``optax.ctc_loss`` then ``jnp.mean``; not torch's
+    ``reduction="mean"``, which divides by the label lengths).
+
+    log_probs (B, T, V); labels (B, L) padded past ``label_lens``. A sequence
+    whose labels cannot fit its frames gets loss 0 and a zero gradient
+    (``zero_infinity``): optax gives it a large finite value instead, torch's
+    default an infinite loss and NaN gradients (ROADMAP Queue 3)."""
+    per_seq = F.ctc_loss(
+        log_probs.float().transpose(0, 1), labels.long(), logit_lens.long(),
+        label_lens.long(), blank=blank_idx, reduction="none", zero_infinity=True)
+    return per_seq.mean()
+
+
+@torch.no_grad()
+def load_pretrained_encoder(model: CTCFinetuneModel,
+                            state_dict: Mapping[str, torch.Tensor],
+                            use_teacher: bool = False) -> None:
+    """Checkpoint surgery (``load_pretrained_encoder:272``): copy the feature
+    encoder of a pretraining state_dict, ``feature_encoder.*`` (or the EMA
+    teacher's ``target_feature_encoder.*`` with ``use_teacher``, when it has
+    one), into ``model.encoder.feature_encoder``, strictly; the decoder keeps
+    its weights. A Lightning checkpoint's ``state_dict`` is unwrapped and the
+    task models' ``st2vec_encoder.`` / ``encoder.`` prefixes stripped, as
+    ``compat/torch_spiral.py:148-158`` does."""
+    if "state_dict" in state_dict and not torch.is_tensor(state_dict["state_dict"]):
+        state_dict = state_dict["state_dict"]
+    for prefix in ("st2vec_encoder.", "encoder."):
+        if any(k.startswith(prefix) for k in state_dict):
+            state_dict = {k[len(prefix):]: v for k, v in state_dict.items()
+                          if k.startswith(prefix)}
+            break
+    src = "feature_encoder."
+    if use_teacher and any(k.startswith("target_feature_encoder.") for k in state_dict):
+        src = "target_feature_encoder."
+    encoder = {k[len(src):]: v for k, v in state_dict.items() if k.startswith(src)}
+    if not encoder:
+        raise ValueError(f"no {src}* tensors in the pretraining state_dict")
+    model.encoder.feature_encoder.load_state_dict(encoder, strict=True)

@@ -9,7 +9,9 @@ default epsilon 1e-6 (not torch's 1e-5).
 
 The score/softmax/dropout/value chain of every layer runs through
 ``ops/fused_attention.py::fused_qkv_self_attention`` (the K2 kernels on
-CUDA, forward and backward).
+CUDA, forward and backward), and the positional conv through
+``ops/fused_posconv.py::grouped_conv1d`` (the K4 kernel on CUDA, forward and
+dx).
 
 Training mode draws from an explicit ``DropoutRng`` passed to ``forward``:
 one attention-dropout seed per layer per step and the layerdrop keep draws
@@ -31,13 +33,16 @@ from torch import nn
 
 from tpu_speech_torch.models.spiral.dropout import dropout
 from tpu_speech_torch.ops.fused_attention import fused_qkv_self_attention
+from tpu_speech_torch.ops.fused_posconv import grouped_conv1d
 
 TRANSFORMER_LN_EPS = 1e-6  # flax nn.LayerNorm default (wav2vec.py:242-331)
 
 
 class ConvPositionalEmbedding(nn.Module):
     """Grouped conv (k=128, g=16) with weight norm over (in/g, out) per tap,
-    SamePad trim for an even kernel, and exact GELU (wav2vec.py:20-79).
+    SamePad trim for an even kernel, and exact GELU (wav2vec.py:20-79). The
+    conv is ``grouped_conv1d`` with left pad k // 2 (SAME-even + trim), on
+    (B, T, C) as it comes.
 
     ``weight_v`` (C, C/g, k) and ``weight_g`` (1, 1, k) are plain parameters
     in the reference's weight_norm(dim=2) layout; the weight is computed in
@@ -52,21 +57,27 @@ class ConvPositionalEmbedding(nn.Module):
         self.weight_v = nn.Parameter(torch.empty(c, c // g, k, device=device))
         self.weight_g = nn.Parameter(torch.empty(1, 1, k, device=device))
         self.bias = nn.Parameter(torch.empty(c, device=device))
+        self.reset_parameters()
 
     def init_std(self) -> float:
         """std of the reference init, sqrt(4 / (k * C))."""
         return math.sqrt(4.0 / (self.kernel_size * self.weight_v.shape[0]))
 
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """The reference init (wav2vec.py:38-49) from the global generator:
+        direction normal(0, init_std), magnitude its per-tap norm, zero
+        bias."""
+        nn.init.normal_(self.weight_v, 0.0, self.init_std())
+        self.weight_g.copy_(self.weight_v.square().sum(dim=(0, 1), keepdim=True).sqrt())
+        self.bias.zero_()
+
     def forward(self, x):
         v = self.weight_v
         norm = v.square().sum(dim=(0, 1), keepdim=True).sqrt()
         w = v / norm.clamp_min(1e-12) * self.weight_g
-        k = self.kernel_size
-        y = F.conv1d(x.transpose(1, 2), w, self.bias, padding=k // 2,
-                     groups=self.groups)
-        if k % 2 == 0:
-            y = y[:, :, :-1]  # SamePad: an even kernel yields one extra frame
-        return F.gelu(y.transpose(1, 2))
+        y = grouped_conv1d(x, w, self.groups, self.kernel_size // 2)
+        return F.gelu(y + self.bias)
 
 
 class MultiheadSelfAttention(nn.Module):

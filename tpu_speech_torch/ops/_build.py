@@ -42,19 +42,24 @@ SIGNATURES = {
     # mag_mode, mag_eps, log_mode, log_guard, stream
     "tsx_fused_logmel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _F, _P],
-    # qkv, key_pad (nullable), out, lse (nullable), B, T, H, D,
+    # q, k, v, row stride, key_pad (nullable), out, lse (nullable), B, T, H, D,
     # seed, dropout threshold, dropout scale, stream
-    "tsx_qkv_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _P],
-    # qkv, key_pad (nullable), out, dout, lse, delta, dqkv, B, T, H, D,
-    # seed, dropout threshold, dropout scale, stream
-    "tsx_qkv_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _U, _U, _F, _P],
+    "tsx_attention_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _P],
+    # q, k, v, row stride, key_pad (nullable), out, dout, lse, delta, dq, dk,
+    # dv, gradient row stride, B, T, H, D, seed, dropout threshold, dropout
+    # scale, stream
+    "tsx_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _U, _U, _F, _P],
+    # x, w, out, B, T, C, G, K, left_pad, stream
+    "tsx_grouped_conv1d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # Launches made through each wrapper: a plain integer per kernel, bumped
 # where the wrapper launches its kernel and nowhere else.
 LAUNCHES = {"fused_logmel": 0, "fused_qkv_attention": 0,
-            "fused_qkv_attention_bwd": 0}
+            "fused_qkv_attention_bwd": 0, "fused_attention": 0,
+            "fused_attention_bwd": 0, "grouped_conv1d": 0,
+            "grouped_conv1d_dx": 0}
 
 _lock = threading.Lock()
 _lib = None

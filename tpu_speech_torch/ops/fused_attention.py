@@ -1,26 +1,34 @@
-"""Merged-qkv self-attention with in-kernel dropout: the Hopper kernels, the
-autograd function around them, and their plain version.
+"""Self-attention with in-kernel dropout: the Hopper kernels, the autograd
+functions around them, and their plain versions.
 
-Port of ``tpu_speech/ops/fused_attention.py::fused_qkv_self_attention:416``:
-K2-fwd (``_fused_qkv_attn_fwd:380``) and K2-bwd (``_fused_qkv_attn_bwd:396``).
-``fused_qkv_self_attention`` launches the hand-written CUDA kernels of
-``csrc/fused_attention.cu`` on a CUDA tensor (forward, and backward through
-``torch.autograd``) and computes ``qkv_attention_plain`` on a CPU tensor; a
-CUDA tensor it cannot take raises.
+Ports of two entry points of ``tpu_speech/ops/fused_attention.py``:
 
-Semantics (both versions): ``qkv`` (B, T, 3E) is the merged projection with
-the d_head**-0.5 scale already folded into its q third; head h is the column
-slice ``[h*D, (h+1)*D)`` of each third. Padded keys (``key_padding_mask``
-True) get the finite score -1e9, so a fully padded row stays finite; the
-softmax runs in float32. With ``dropout_p > 0`` the probabilities are
-multiplied by ``keep / (1 - p)``, where ``keep`` is the counter-based mask of
-``dropout_keep_mask``: a function of (seed, b*H + h, i*T + j) that the CUDA
-kernels compute bit for bit, so forward, backward and plain version agree
-under any tiling. It is not the TPU's mask: the TPU draws from its core
-PRNG, which nothing else reproduces. Returns (B, T, E).
+- ``fused_qkv_self_attention:416``, K2-fwd (``_fused_qkv_attn_fwd:380``) and
+  K2-bwd (``_fused_qkv_attn_bwd:396``): ``qkv`` (B, T, 3E) is the merged
+  projection, head h the column slice ``[h*D, (h+1)*D)`` of each third;
+  returns (B, T, E).
+- ``fused_self_attention:452``, K3-fwd (``_fused_attn_fwd:218``) and K3-bwd
+  (``_fused_attn_bwd:234``): q, k, v are separate (B, T, H, D) arrays;
+  returns (B, T, H, D).
+
+Both launch the same hand-written CUDA kernels of ``csrc/fused_attention.cu``
+on a CUDA tensor (forward, and backward through ``torch.autograd``), which
+read q, k and v by a row stride (3E for the merged plane, H*D for separate
+arrays), and compute their plain version on a CPU tensor; a CUDA tensor they
+cannot take raises.
+
+Semantics (every version): q already carries the d_head**-0.5 scale. Padded
+keys (``key_padding_mask`` True) get the finite score -1e9, so a fully
+padded row stays finite; the softmax runs in float32. With ``dropout_p > 0``
+the probabilities are multiplied by ``keep / (1 - p)``, where ``keep`` is the
+counter-based mask of ``dropout_keep_mask``: a function of
+(seed, b*H + h, i*T + j) that the CUDA kernels compute bit for bit, so
+forward, backward and plain version agree under any tiling. It is not the
+TPU's mask: the TPU draws from its core PRNG, which nothing else reproduces.
 
 The gradient at a padded key is zero (the gradient of the -1e9 fill), as the
-JAX package's XLA path gives it.
+JAX package's XLA path gives it; its Pallas backwards differ at a fully
+padded row (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -32,8 +40,8 @@ import torch
 from tpu_speech_torch.ops import _build
 
 __all__ = [
-    "fused_qkv_self_attention", "qkv_attention_plain", "dropout_keep_mask",
-    "dropout_threshold", "KERNEL_D_HEADS",
+    "fused_qkv_self_attention", "qkv_attention_plain", "fused_self_attention",
+    "attention_plain", "dropout_keep_mask", "dropout_threshold", "KERNEL_D_HEADS",
 ]
 
 KERNEL_D_HEADS = (8, 16, 32, 64)  # head widths the CUDA kernels are built for
@@ -78,59 +86,120 @@ def dropout_keep_mask(seed: int, b: int, h: int, t: int, dropout_p: float,
     return dropout_bits(seed, bh, idx) >= dropout_threshold(dropout_p)
 
 
-def qkv_attention_plain(
-    qkv: torch.Tensor, n_heads: int,
+def attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
     dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """einsum scores, -1e9 fill at padded keys, f32 softmax, the replayed
-    dropout mask, einsum values. Differentiable by autograd."""
-    b, t, e3 = qkv.shape
-    e = e3 // 3
-    q, k, v = qkv.view(b, t, 3, n_heads, e // n_heads).unbind(2)
+    """q, k, v (B, T, H, D) -> (B, T, H, D): einsum scores, -1e9 fill at
+    padded keys, f32 softmax, the replayed dropout mask, einsum values.
+    Differentiable by autograd."""
+    b, t, h, _ = q.shape
     scores = torch.einsum("bthd,bshd->bhts", q, k)
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], -1e9)
     p = torch.softmax(scores.float(), dim=-1)
     if dropout_p > 0.0:
-        keep = dropout_keep_mask(dropout_seed, b, n_heads, t, dropout_p, qkv.device)
+        keep = dropout_keep_mask(dropout_seed, b, h, t, dropout_p, q.device)
         p = p * keep * (1.0 / (1.0 - dropout_p))
-    return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v).reshape(b, t, e)
+    return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
+
+
+def qkv_attention_plain(
+    qkv: torch.Tensor, n_heads: int,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """``attention_plain`` on the (B, T, H, D) views of the merged plane's
+    thirds; returns (B, T, E)."""
+    b, t, e3 = qkv.shape
+    e = e3 // 3
+    q, k, v = qkv.view(b, t, 3, n_heads, e // n_heads).unbind(2)
+    return attention_plain(q, k, v, key_padding_mask, dropout_p,
+                           dropout_seed).reshape(b, t, e)
+
+
+def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device):
+    """One forward launch over q, k, v rows at ``ptrs`` with row stride
+    ``ld``: returns (out (B, T, H*D), lse (B, H, T) or None)."""
+    out = torch.empty((b, t, h * d), device=device, dtype=torch.float32)
+    lse = (torch.empty((b, h, t), device=device, dtype=torch.float32)
+           if with_lse else None)
+    lib = _build.library()
+    with torch.cuda.device(device):  # the runtime launches on its current device
+        err = lib.tsx_attention_fwd(
+            *ptrs, ld, None if mask is None else mask.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            b, t, h, d, seed, thresh, scale,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    return err, out, lse
+
+
+def _bwd(ptrs, ld, grad_ptrs, ld_grad, mask, out, dout, lse, h, seed, thresh,
+         scale):
+    """One backward launch (three kernels) writing dq, dk, dv at
+    ``grad_ptrs`` with row stride ``ld_grad``."""
+    b, t, e = out.shape
+    delta = torch.empty((b, h, t), device=out.device, dtype=torch.float32)
+    lib = _build.library()
+    with torch.cuda.device(out.device):
+        return lib.tsx_attention_bwd(
+            *ptrs, ld, None if mask is None else mask.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *grad_ptrs, ld_grad, b, t, h, e // h, seed, thresh, scale,
+            torch.cuda.current_stream(out.device).cuda_stream,
+        )
+
+
+def _thirds(plane: torch.Tensor):
+    """Pointers to the q, k and v thirds of a (B, T, 3E) plane."""
+    p, step = plane.data_ptr(), plane.shape[2] // 3 * plane.element_size()
+    return p, p + step, p + 2 * step
 
 
 def _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, with_lse):
+    """K2-fwd on the merged plane: (out (B, T, E), lse or None)."""
     b, t, e3 = qkv.shape
-    out = torch.empty((b, t, e3 // 3), device=qkv.device, dtype=qkv.dtype)
-    lse = (torch.empty((b, n_heads, t), device=qkv.device, dtype=torch.float32)
-           if with_lse else None)
-    lib = _build.library()
-    with torch.cuda.device(qkv.device):  # the runtime launches on its current device
-        err = lib.tsx_qkv_attention_fwd(
-            qkv.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, t, n_heads, e3 // 3 // n_heads, seed, thresh, scale,
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
+    err, out, lse = _fwd(_thirds(qkv), e3, mask, b, t, n_heads, e3 // 3 // n_heads,
+                         seed, thresh, scale, with_lse, qkv.device)
     _build.check(err, "fused_qkv_self_attention")
     _build.LAUNCHES["fused_qkv_attention"] += 1
     return out, lse
 
 
 def _launch_bwd(qkv, mask, out, dout, lse, n_heads, seed, thresh, scale):
-    b, t, e3 = qkv.shape
+    """K2-bwd: dqkv (B, T, 3E), written into the plane's thirds."""
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((b, n_heads, t), device=qkv.device, dtype=torch.float32)
-    lib = _build.library()
-    with torch.cuda.device(qkv.device):
-        err = lib.tsx_qkv_attention_bwd(
-            qkv.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dqkv.data_ptr(), b, t, n_heads, e3 // 3 // n_heads, seed, thresh,
-            scale, torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
+    err = _bwd(_thirds(qkv), qkv.shape[2], _thirds(dqkv), qkv.shape[2], mask,
+               out, dout, lse, n_heads, seed, thresh, scale)
     _build.check(err, "fused_qkv_self_attention backward")
     _build.LAUNCHES["fused_qkv_attention_bwd"] += 1
     return dqkv
+
+
+def _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, with_lse):
+    """K3-fwd on contiguous (B, T, H, D) q, k, v: (out (B, T, H, D), lse)."""
+    b, t, h, d = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    err, out, lse = _fwd(ptrs, h * d, mask, b, t, h, d, seed, thresh, scale,
+                         with_lse, q.device)
+    _build.check(err, "fused_self_attention")
+    _build.LAUNCHES["fused_attention"] += 1
+    return out.view(b, t, h, d), lse
+
+
+def _launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh, scale):
+    """K3-bwd: (dq, dk, dv), each (B, T, H, D)."""
+    b, t, h, d = q.shape
+    grads = tuple(torch.empty_like(x) for x in (q, k, v))
+    err = _bwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), h * d,
+               tuple(g.data_ptr() for g in grads), h * d, mask,
+               out.view(b, t, h * d), dout.view(b, t, h * d), lse, h, seed,
+               thresh, scale)
+    _build.check(err, "fused_self_attention backward")
+    _build.LAUNCHES["fused_attention_bwd"] += 1
+    return grads
 
 
 class _FusedQKVAttention(torch.autograd.Function):
@@ -150,6 +219,55 @@ class _FusedQKVAttention(torch.autograd.Function):
         return dqkv, None, None, None, None, None
 
 
+class _FusedAttention(torch.autograd.Function):
+    """K3-fwd saving the row logsumexp, and K3-bwd as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, thresh, scale):
+        out, lse = _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask, ctx.args = mask, (seed, thresh, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_attn_bwd(q, k, v, ctx.mask, out, dout.contiguous(),
+                                      lse, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def _check_common(x, b, t, key_padding_mask, dropout_p, dropout_seed, name):
+    if key_padding_mask is not None and (
+        key_padding_mask.shape != (b, t) or key_padding_mask.dtype != torch.bool
+    ):
+        raise ValueError(
+            f"key_padding_mask must be bool (B, T) = {(b, t)}: "
+            f"{key_padding_mask.dtype} {tuple(key_padding_mask.shape)}"
+        )
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1): {dropout_p}")
+    if dropout_p > 0.0 and (dropout_seed is None or not 0 <= dropout_seed < 2**31):
+        raise ValueError(f"dropout_p > 0 needs a dropout_seed in [0, 2**31): {dropout_seed}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _kernel_args(x, d, key_padding_mask, dropout_p, dropout_seed, name):
+    """Checks of what the CUDA kernels take; (mask, seed, threshold, scale)."""
+    if x.dtype != torch.float32 or d not in KERNEL_D_HEADS:
+        raise ValueError(
+            f"{name} kernel takes float32 with d_head in {KERNEL_D_HEADS}: "
+            f"got {x.dtype}, d_head={d}"
+        )
+    if key_padding_mask is not None and key_padding_mask.device != x.device:
+        raise ValueError("key_padding_mask must be on the device of q, k, v")
+    mask = None if key_padding_mask is None else key_padding_mask.contiguous()
+    seed = dropout_seed if dropout_p > 0.0 else 0
+    thresh = dropout_threshold(dropout_p) if dropout_p > 0.0 else 0
+    return mask, seed, thresh, 1.0 / (1.0 - dropout_p)
+
+
 def fused_qkv_self_attention(
     qkv: torch.Tensor, n_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,
@@ -164,35 +282,45 @@ def fused_qkv_self_attention(
     if qkv.ndim != 3 or qkv.shape[2] % (3 * n_heads):
         raise ValueError(f"qkv must be (B, T, 3E) with E % n_heads == 0: {tuple(qkv.shape)}")
     b, t, e3 = qkv.shape
-    if key_padding_mask is not None and (
-        key_padding_mask.shape != (b, t) or key_padding_mask.dtype != torch.bool
-    ):
-        raise ValueError(
-            f"key_padding_mask must be bool (B, T) = {(b, t)}: "
-            f"{key_padding_mask.dtype} {tuple(key_padding_mask.shape)}"
-        )
-    if not 0.0 <= dropout_p < 1.0:
-        raise ValueError(f"dropout_p must be in [0, 1): {dropout_p}")
-    if dropout_p > 0.0 and (dropout_seed is None or not 0 <= dropout_seed < 2**31):
-        raise ValueError(f"dropout_p > 0 needs a dropout_seed in [0, 2**31): {dropout_seed}")
+    _check_common(qkv, b, t, key_padding_mask, dropout_p, dropout_seed,
+                  "fused_qkv_self_attention")
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, n_heads, key_padding_mask, dropout_p,
                                    dropout_seed)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_qkv_self_attention: unsupported device {qkv.device}")
-    d = e3 // 3 // n_heads
-    if qkv.dtype != torch.float32 or d not in KERNEL_D_HEADS:
-        raise ValueError(
-            f"fused_qkv_self_attention kernel takes float32 with d_head in "
-            f"{KERNEL_D_HEADS}: got {qkv.dtype}, d_head={d}"
-        )
-    if key_padding_mask is not None and key_padding_mask.device != qkv.device:
-        raise ValueError("key_padding_mask must be on the qkv device")
+    mask, seed, thresh, scale = _kernel_args(qkv, e3 // 3 // n_heads, key_padding_mask,
+                                             dropout_p, dropout_seed,
+                                             "fused_qkv_self_attention")
     qkv = qkv.contiguous()
-    mask = None if key_padding_mask is None else key_padding_mask.contiguous()
-    seed = dropout_seed if dropout_p > 0.0 else 0
-    thresh = dropout_threshold(dropout_p) if dropout_p > 0.0 else 0
-    scale = 1.0 / (1.0 - dropout_p)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedQKVAttention.apply(qkv, mask, n_heads, seed, thresh, scale)
     return _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, False)[0]
+
+
+def fused_self_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """softmax(q k^T, -1e9 at padded keys) [dropout] v with q, k, v
+    (B, T, H, D) and q pre-scaled; returns (B, T, H, D). The K3 kernels on
+    CUDA (dq, dk, dv through autograd), ``attention_plain`` on CPU.
+
+    ``dropout_seed``: a non-negative int (< 2**31); required when
+    ``dropout_p > 0``.
+    """
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be equal (B, T, H, D): "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, d = q.shape
+    _check_common(q, b, t, key_padding_mask, dropout_p, dropout_seed,
+                  "fused_self_attention")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, key_padding_mask, dropout_p, dropout_seed)
+    if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must share a dtype and a device")
+    mask, seed, thresh, scale = _kernel_args(q, d, key_padding_mask, dropout_p,
+                                             dropout_seed, "fused_self_attention")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FusedAttention.apply(q, k, v, mask, seed, thresh, scale)
+    return _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, False)[0]

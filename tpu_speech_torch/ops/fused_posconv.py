@@ -1,0 +1,131 @@
+"""Grouped 1-D convolution (the transformer's positional conv): the Hopper
+kernel, the autograd function around it, and its plain version.
+
+Port of ``tpu_speech/ops/fused_posconv.py::grouped_conv1d:190`` (K4,
+``_pallas_fwd:121``; its VJP ``_bwd:198``). ``grouped_conv1d`` launches the
+hand-written CUDA kernel of ``csrc/fused_posconv.cu`` on a CUDA tensor and
+computes ``grouped_conv1d_plain`` on a CPU tensor; a CUDA tensor or shape it
+cannot take raises.
+
+Semantics (both versions), channels last as in JAX: x (B, T, C), w (C, Cg, K)
+in PyTorch's grouped conv layout (``F.conv1d``'s weight, Cg = C / groups),
+output (B, T, C) with::
+
+    out[b, t, o] = sum_k sum_ci xp[b, t + k, g*Cg + ci] * w[o, ci, k],
+    xp = pad(x, (left_pad, K - 1 - left_pad)) in time,  g = o // Cg.
+
+``left_pad = K // 2`` is the SAME-even pad with the trailing frame trimmed
+(the positional conv); ``K - 1`` is causal.
+
+Gradients on CUDA, as the JAX VJP computes them: dx by the same kernel on
+the k-flipped, in/out-swapped weights with the complementary left pad
+``K - 1 - left_pad``; dw by the library's convolution weight gradient (JAX
+leaves dw to XLA's native conv, outside any Pallas kernel).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tpu_speech_torch.ops import _build
+
+__all__ = ["grouped_conv1d", "grouped_conv1d_plain", "kernel_weights",
+           "KERNEL_MAX_CG", "KERNEL_MAX_K"]
+
+KERNEL_MAX_CG = 64  # channels per group the CUDA kernel takes
+KERNEL_MAX_K = 128  # taps the CUDA kernel takes
+
+
+def grouped_conv1d_plain(x: torch.Tensor, w: torch.Tensor, groups: int,
+                         left_pad: int) -> torch.Tensor:
+    """``F.conv1d(groups=...)`` on the explicitly padded (B, C, T) input.
+    Differentiable by autograd."""
+    k = w.shape[-1]
+    xp = F.pad(x.transpose(1, 2), (left_pad, k - 1 - left_pad))
+    return F.conv1d(xp, w, groups=groups).transpose(1, 2)
+
+
+def kernel_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """(C, Cg, K) -> the kernel's (G, K, Cg_in, Cg_out), one copy."""
+    c, cg, k = w.shape
+    return w.reshape(groups, cg, cg, k).permute(0, 3, 2, 1).contiguous()
+
+
+def _dx_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """The kernel weights of dx: tap K-1-k of w with input and output
+    channels swapped, (G, K, Cg_out, Cg_in), one copy."""
+    c, cg, k = w.shape
+    return w.reshape(groups, cg, cg, k).flip(3).permute(0, 3, 1, 2).contiguous()
+
+
+def _launch(x, wk, left_pad, counter):
+    b, t, c = x.shape
+    g, k = wk.shape[0], wk.shape[1]
+    out = torch.empty_like(x)
+    lib = _build.library()
+    with torch.cuda.device(x.device):  # the runtime launches on its current device
+        err = lib.tsx_grouped_conv1d(
+            x.data_ptr(), wk.data_ptr(), out.data_ptr(), b, t, c, g, k, left_pad,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(err, counter)
+    _build.LAUNCHES[counter] += 1
+    return out
+
+
+class _GroupedConv1d(torch.autograd.Function):
+    """K4 forward; K4 again for dx, the library's weight gradient for dw."""
+
+    @staticmethod
+    def forward(ctx, x, w, groups, left_pad):
+        ctx.save_for_backward(x, w)
+        ctx.groups, ctx.left_pad = groups, left_pad
+        return _launch(x, kernel_weights(w, groups), left_pad, "grouped_conv1d")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        groups, left_pad = ctx.groups, ctx.left_pad
+        k = w.shape[-1]
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _launch(dy, _dx_weights(w, groups), k - 1 - left_pad,
+                         "grouped_conv1d_dx")
+        if ctx.needs_input_grad[1]:
+            xp = F.pad(x.transpose(1, 2), (left_pad, k - 1 - left_pad))
+            dw = torch.nn.grad.conv1d_weight(xp, w.shape, dy.transpose(1, 2),
+                                             groups=groups)
+        return dx, dw, None, None
+
+
+def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, groups: int,
+                   left_pad: int) -> torch.Tensor:
+    """Grouped conv of x (B, T, C) with w (C, C/groups, K) and ``left_pad``
+    zeros before the first frame; the K4 kernel on CUDA (any C/groups <= 64,
+    K <= 128), ``grouped_conv1d_plain`` on CPU."""
+    if x.ndim != 3 or w.ndim != 3:
+        raise ValueError(f"x must be (B, T, C) and w (C, Cg, K): "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    c, k = x.shape[2], w.shape[2]
+    if groups < 1 or c % groups or w.shape[:2] != (c, c // groups):
+        raise ValueError(f"w must be (C, C/groups, K) = ({c}, {c}/{groups}, K): "
+                         f"{tuple(w.shape)}")
+    if not 0 <= left_pad < k:
+        raise ValueError(f"left_pad must be in [0, K = {k}): {left_pad}")
+    if x.device.type == "cpu":
+        return grouped_conv1d_plain(x, w, groups, left_pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_conv1d: unsupported device {x.device}")
+    if (x.dtype != torch.float32 or w.dtype != torch.float32 or w.device != x.device
+            or c // groups > KERNEL_MAX_CG or k > KERNEL_MAX_K):
+        raise ValueError(
+            f"grouped_conv1d kernel takes float32 x and w on one device with "
+            f"C/groups <= {KERNEL_MAX_CG} and K <= {KERNEL_MAX_K}: got "
+            f"{x.dtype}/{w.dtype} on {x.device}/{w.device}, C/groups={c // groups}, K={k}"
+        )
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedConv1d.apply(x, w, groups, left_pad)
+    return _launch(x, kernel_weights(w, groups), left_pad, "grouped_conv1d")

@@ -1,4 +1,4 @@
-"""SPIRAL runners: the pretrain loop, and the CTC runner's inference half.
+"""SPIRAL runners: the pretrain loop, and the CTC finetune runner.
 
 ``SpiralPretrainRunner`` is the single-device part of
 ``tpu_speech/train/spiral_runner.py::SpiralPretrainRunner`` (``:100-245``,
@@ -11,26 +11,36 @@ saved at the end. Not ported yet: ``validate``, resume, archives, orbax
 checkpoints, the native C++ batcher, tarred data, the mu-law wire format,
 mesh / FSDP / sequence parallelism.
 
-``SpiralFinetuneRunner`` is the serving subset of
-``tpu_speech/train/spiral_runner.py::SpiralFinetuneRunner``: the model built
-from the run config (``:692-705``), weight loading, ``_infer_fn:1098``
-(wav -> ``wav_to_spec`` -> ``CTCFinetuneModel`` -> log-probs),
-``transcribe:961`` (with the overlapping-window path for audio longer than
-``max_duration``) and ``evaluate:1134`` (greedy CTC decode, WER/CER and the
-per-utterance HTML diagnosis). Host-side data, tokenizers and scoring are the
-JAX package's own JAX-free modules.
+``SpiralFinetuneRunner`` is the single-device part of
+``tpu_speech/train/spiral_runner.py::SpiralFinetuneRunner``. Serving: the
+model built from the run config (``:692-705``), weight loading,
+``_infer_fn:1098`` (wav -> ``wav_to_spec`` -> ``CTCFinetuneModel`` ->
+log-probs), ``transcribe:961`` (with the overlapping-window path for audio
+longer than ``max_duration``) and ``evaluate:1134`` (greedy CTC decode,
+WER/CER and the per-utterance HTML diagnosis). Training (``:569-959``): the
+pretrained encoder from ``model.pretrain_chkpt_path`` (``_load_pretrain:773``),
+``AudioToTextDataset`` with ``dup_factor``, ``AudioTextBatchCollate(max
+samples, 512)`` and ``DataLoader``, the host generator ``default_rng(1)``
+(``:709-711``) and its spec masks (``_train_masks:871``), the int16 wire
+(``_device_batches:890``), AdamW with the lr rescale (``:724-733``),
+``finetune_step`` with the freeze gate decided from the iteration counter,
+``train_epoch:914`` (metrics read back once per epoch), ``validate:941`` and
+a reference-named ``state_dict`` at the end. Host-side data, tokenizers and
+scoring are the JAX package's own JAX-free modules.
 
 Both run in full float32: ``use_full_fp32()`` turns TF32 off for both cuDNN
 convolutions (on by default in PyTorch) and matmuls. Both default to the
 CUDA device and raise when there is none; the CPU runs only when it is asked
 for (``device="cpu"``).
 
-Not ported yet: the finetune training methods, beam search and streaming
-decode; multi-process evaluation.
+Not ported yet: resume, orbax checkpoints and ``.tpu_speech`` archives, the
+bucketed loader (``num_buckets``), tarred data, beam search and streaming
+decode, multi-process runs.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Optional
@@ -50,10 +60,16 @@ from tpu_speech.data.spiral import (
 from tpu_speech.data.wav import read_wav
 from tpu_speech.eval.wer import ctc_greedy_decode, error_counts, render_wer_html
 from tpu_speech.text.tokenizers import BlankOffsetTokenizer
-from tpu_speech_torch.compat.jax_spiral import ctc_finetune_from_jax, load_jax_npz
-from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel
+from tpu_speech_torch.compat.jax_spiral import (
+    ctc_finetune_from_jax,
+    load_jax_npz,
+    st2vec_from_jax,
+)
+from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel, load_pretrained_encoder
+from tpu_speech_torch.models.spiral.masking import make_student_masks
 from tpu_speech_torch.models.spiral.dropout import DropoutRng
 from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, wav_to_spec
+from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
 from tpu_speech_torch.train.optim import lr_scale, make_optimizer
 from tpu_speech_torch.train.spiral import (
     batch_to_device,
@@ -119,9 +135,19 @@ def load_state_dict_file(path: str):
     return {k: v for k, v in sd.items() if k not in _REFERENCE_CONSTANTS}
 
 
+def load_pretrain_file(path: str):
+    """A pretraining model's state_dict (``_load_pretrain:773``): the port's
+    ``st2vec.pt``, a reference Lightning checkpoint (``.pt``/``.ckpt``), or
+    JAX trees in an ``.npz`` (``params/``, ``batch_stats/``, ``teacher/``)."""
+    if os.path.isdir(path):
+        raise NotImplementedError(f"{path}: orbax checkpoints are not ported yet")
+    if path.endswith(".npz"):
+        return st2vec_from_jax(*load_jax_npz(path, ("params", "batch_stats", "teacher")))
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 class SpiralFinetuneRunner:
-    """Serving half of the JAX SpiralFinetuneRunner; the training methods
-    come with the port of the finetune step."""
+    """Single-device CTC finetuning and serving."""
 
     def __init__(self, cfg, log_dir: str, tokenizer, device="cuda"):
         self.cfg = cfg
@@ -141,7 +167,35 @@ class SpiralFinetuneRunner:
         # (the JAX runner's model.init with PRNGKey(0))
         model = build_model(cfg, tokenizer.vocab_size)
         model.init_weights(torch.Generator().manual_seed(0))
+        if m.pretrain_chkpt_path:
+            load_pretrained_encoder(model, load_pretrain_file(m.pretrain_chkpt_path),
+                                    m.use_teacher_encoder)
         self.model = model.to(self.device).eval()
+        if getattr(m, "precision", "fp32") == "bf16":
+            raise NotImplementedError("bf16 finetuning is not ported yet")
+        if getattr(cfg.trainer, "accumulate_grad_batches", 1) > 1:
+            raise NotImplementedError("gradient accumulation is not ported yet")
+        self.iteration = 0
+        self.history = []  # per-step metrics, floats
+
+    # the training half is built at first use: serving needs no optimizer,
+    # dropout generator, mask generator or training manifest
+
+    @functools.cached_property
+    def state(self):
+        m = self.cfg.model
+        total_steps = m.optim.sched.max_steps if m.optim.sched else 80000
+        scale = lr_scale(m, data_parallel=1, accum=1)
+        return make_finetune_state(
+            self.model, lambda params: make_optimizer(m.optim, params, total_steps, scale))
+
+    @functools.cached_property
+    def rng(self):
+        return DropoutRng.seeded(0, self.device)
+
+    @functools.cached_property
+    def host_rng(self):
+        return np.random.default_rng(1)  # process index 0
 
     def load_state_dict(self, state_dict) -> None:
         self.model.load_state_dict(state_dict, strict=True)
@@ -152,7 +206,8 @@ class SpiralFinetuneRunner:
     @torch.inference_mode()
     def infer(self, wavs, wav_lens):
         """wavs (B, N) float32 / int16 / uint8, lengths (B,) -> (log_probs
-        (B, T, V), lens (B,)) on the runner's device."""
+        (B, T, V), lens (B,)) on the runner's device, in eval mode."""
+        self.model.eval()
         wavs = torch.as_tensor(wavs).to(self.device)
         wav_lens = torch.as_tensor(wav_lens).to(self.device)
         specs, spec_lens = wav_to_spec(self.enc_cfg, wavs, wav_lens)
@@ -253,6 +308,102 @@ class SpiralFinetuneRunner:
             "diagnosis_html": html_path,
             "hyps": hyps,
         }
+
+
+    # ---- training ---------------------------------------------------------
+
+    @functools.cached_property
+    def loader(self):
+        ds = self.cfg.model.train_ds
+        if getattr(ds, "tarred_audio_filepaths", None):
+            raise NotImplementedError("tarred training data is not ported yet")
+        if max(1, getattr(ds, "num_buckets", 1)) > 1:
+            raise NotImplementedError("the bucketed loader is not ported yet")
+        dataset = AudioToTextDataset(
+            ds.manifest_filepath, self.tokenizer, sample_rate=ds.sample_rate,
+            crop_size=self.max_samples, min_duration=ds.min_duration,
+            max_duration=ds.max_duration, dup_factor=getattr(ds, "dup_factor", 1),
+        )
+        return DataLoader(
+            dataset, ds.batch_size, AudioTextBatchCollate(self.max_samples, 512),
+            shuffle=ds.shuffle, num_workers=ds.num_workers,
+        )
+
+    def _train_masks(self, wav_width: int, wav_lens):
+        """The spec masks of one training batch from the host generator
+        (``_train_masks:871``)."""
+        hop = int(0.01 * self.sample_rate)
+        spec_lens = np.ceil(np.asarray(wav_lens) / hop).astype(np.int32)
+        e = self.enc_cfg
+        return make_student_masks(
+            len(spec_lens), _spec_len(int(wav_width), self.sample_rate),
+            e.num_features, spec_lens, e.mask_prob, e.mask_length,
+            e.mask_channel_prob, e.mask_channel_length, rng=self.host_rng,
+        )
+
+    def device_batch(self, raw) -> dict:
+        """A collated batch -> masks, the wire format, the device
+        (``_device_batches:890-899``)."""
+        batch = {k: v for k, v in raw.items() if k != "texts"}
+        batch["time_mask"], batch["chan_mask"] = self._train_masks(
+            batch["wavs"].shape[1], batch["wav_lens"])
+        wire = getattr(self.cfg.model.train_ds, "wire_dtype", "int16")
+        if wire == "int16":
+            batch = quantize_wire_int16(batch)
+        elif wire != "float32":
+            raise NotImplementedError(f"wire_dtype={wire!r} is not ported yet")
+        return batch_to_device(batch, self.device)
+
+    def step(self, batch) -> dict:
+        # the encoder-freeze gate, from the host-side iteration counter
+        # (step_auto:252-267): no device read
+        n = self.cfg.model.freeze_finetune_updates
+        frozen = n > 0 and self.iteration < n
+        m = finetune_step(self.state, batch, self.rng, freeze_encoder=frozen)
+        m["frozen"] = frozen
+        return m
+
+    def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> float:
+        """One pass over the loader, stopping early at ``max_steps`` total
+        steps. Metrics are read back once, at the end of the epoch."""
+        pending = []
+        t0 = time.perf_counter()
+        for raw in self.loader:
+            if max_steps and self.iteration >= max_steps:
+                break
+            pending.append(self.step(self.device_batch(raw)))
+            self.iteration += 1
+        losses = [float(m["loss"]) for m in pending]  # the epoch's one sync
+        dt = time.perf_counter() - t0
+        for m in pending:
+            self.history.append({k: float(v) if torch.is_tensor(v) else v
+                                 for k, v in m.items()})
+        loss = float(np.mean(losses)) if losses else float("nan")
+        msg = (f"Epoch {epoch}: ctc loss = {loss:.4f} | "
+               f"step {dt * 1e3 / max(len(pending), 1):.0f} ms")
+        print(msg, flush=True)
+        with open(os.path.join(self.log_dir, "train.log"), "a") as f:
+            f.write(msg + "\n")
+        return loss
+
+    def validate(self) -> dict:
+        """Validation WER/CER over ``validation_ds`` (``validate:941``)."""
+        ds_cfg = self.cfg.model.validation_ds
+        if ds_cfg is None:
+            return {}
+        results = self.evaluate(manifest=ds_cfg.manifest_filepath, ds_cfg=ds_cfg)
+        with open(os.path.join(self.log_dir, "train.log"), "a") as f:
+            f.write(f"Validation: WER = {results['wer']:.4f} | "
+                    f"CER = {results['cer']:.4f}\n")
+        return results
+
+    def save_state_dict(self, name: str = "ctc_finetune.pt") -> str:
+        """The model's reference-named state_dict, which ``--run_mode test
+        --init_chkpt_file`` and ``convert_ctc_finetune`` load."""
+        path = os.path.join(self.log_dir, name)
+        torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+                   path)
+        return path
 
 
 def _spec_len(crop_size: int, sample_rate: int) -> int:
