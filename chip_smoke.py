@@ -11,6 +11,9 @@ step. It checks each hand kernel against its plain PyTorch version. Phases
 result):
 
 1. build the CUDA kernels from ``tpu_speech_torch/csrc`` (nvcc, sm_90a);
+   print each kernel's registers and spills (``-Xptxas -v``) and its
+   tensor-core instructions (``cuobjdump -sass``: HMMA for mma.sync, HGMMA
+   for wgmma), and fail if an attention or positional-conv kernel has none;
 2. K1 (fused log-mel) against ``logmel_plain`` at the SPIRAL shape
    (14 x 384 512 featurizer-input samples) and at frame-count edges;
 3. K2 (merged-qkv attention forward) against ``qkv_attention_plain`` at both
@@ -22,7 +25,11 @@ result):
 5. the same weights on the CPU (plain paths) against the card's log-probs
    for two of those utterances;
 6. timings with CUDA events (median of 20 after warm-up): each kernel beside
-   its plain version, and the slice per batch;
+   its plain version, and the slice per batch; beside each kernel's time its
+   bound (``roofline``) and, where one PyTorch call computes the same
+   function, that call's time (``F.scaled_dot_product_attention`` for K2 and
+   K3, cuDNN's grouped ``conv1d`` and its input gradient for K4), which the
+   port never calls;
 7. K2 with attention dropout 0.1 against ``qkv_attention_plain`` replaying
    the same counter-based mask, at the pretrain step's four shapes and the
    finetune step's two; the kernel's own keep rate (q = 0, v = 1: each
@@ -73,6 +80,7 @@ Needs one CUDA card; fails without one.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -170,15 +178,113 @@ def cuda_ms(fn, n=20, warmup=3):
     return float(np.median(times))
 
 
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense): TF32 tensor cores
+# and HBM3. An fp32-accurate product costs three TF32 products (the hi/lo
+# split), so a kernel's least time is the larger of 3 * FLOP / TF32 peak and
+# bytes / memory rate.
+PEAK_TF32 = 495e12
+PEAK_BYTES = 3.35e12
+
+
+def roofline(flop, nbytes):
+    """(bound_ms, bound_by) of a kernel that does ``flop`` fp32-accurate
+    operations and must move ``nbytes`` (each input read once, each output
+    written once)."""
+    ops_ms, bytes_ms = 3 * flop / PEAK_TF32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def attention_bound(b, t, h, d, backward):
+    """The forward does S = q k^T and P v (4 B H T^2 D FLOP); the backward
+    recomputes S and dO v^T and forms dV, dQ, dK (10 B H T^2 D)."""
+    e = h * d
+    if backward:  # q, k, v, out, dO, L, mask in; dq, dk, dv out
+        return roofline(10 * b * h * t * t * d, 4 * (8 * b * t * e + b * h * t) + b * t)
+    return roofline(4 * b * h * t * t * d, 4 * 4 * b * t * e + b * t)
+
+
+def sdpa(q, k, v, mask, p):
+    """The one PyTorch call that computes K2's and K3's function, on (B, H,
+    T, D) views (q carries its scale; True in ``mask`` is a padded key): the
+    yardstick timed as ``library_ms``. The port never calls it."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=~mask[:, None, None, :],
+                                          dropout_p=p, scale=1.0)
+
+
+def sdpa_times(torch, q, k, v, mask, dout, p):
+    """(forward ms, backward-alone ms) of ``sdpa`` on (B, T, H, D) q, k, v
+    and dout, passed as (B, H, T, D) views."""
+    q, k, v, dout = (a.transpose(1, 2) for a in (q, k, v, dout))
+    fwd = cuda_ms(lambda: sdpa(q, k, v, mask, p))
+    xs = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
+    out = sdpa(*xs, mask, p)
+    return fwd, cuda_ms(lambda: torch.autograd.grad(out, xs, dout, retain_graph=True))
+
+
+def qkv_views(qkv, h):
+    """The (B, T, H, D) q, k, v views of a merged (B, T, 3E) plane."""
+    b, t, e3 = qkv.shape
+    return qkv.view(b, t, 3, h, e3 // 3 // h).unbind(2)
+
+
+def sass_counts(so_path):
+    """({kernel: tensor-core instructions}, the HMMA TF32 lines) from
+    ``cuobjdump -sass`` of the built library (HMMA: mma.sync; HGMMA: wgmma),
+    or None without the tool."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    counts, fn = {}, None
+    for line in sass:
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts, [ln for ln in sass if "HMMA" in ln and "TF32" in ln]
+
+
+def kernel_name(text):
+    """``attn_fwd_kernel<64>`` from a line that holds a kernel's mangled name."""
+    m = re.search(r"(attn_[a-z_]+?_kernel|grouped_conv1d_kernel|logmel_kernel)"
+                  r"((?:ILi\d+E)?(?:Li\d+E)*)", text)
+    if m is None:
+        return text.strip()
+    args = re.findall(r"Li(\d+)E", m.group(2))
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def phase_build(_build):
     t0 = time.perf_counter()
     _build.library()
     secs = time.perf_counter() - t0
     log(f"[1 build] {secs:.1f} s, compiled={_build.build_info['compiled']} "
         f"-> {_build.build_info['path']}")
+    name = None
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            name = kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            log(f"    ptxas {name}: {line.strip().replace('ptxas info    : ', '')}")
+    sass = sass_counts(_build.build_info["path"])
+    if sass is None:
+        log("    cuobjdump not found: tensor-core instructions not counted")
+        return
+    counts, tf32 = sass
+    for fn, n in sorted(counts.items()):
+        log(f"    SASS: {n:5d} HMMA/HGMMA in {kernel_name(fn)}")
+    log(f"    SASS: {len(tf32)} HMMA ... TF32 instructions in all, e.g. "
+        f"{tf32[0].split('*/')[1].split(';')[0].strip() if tf32 else None}")
+    # the attention and positional-conv kernels run their products on the
+    # tensor cores (the attention's Delta kernel is a row sum)
+    tc = {kernel_name(fn): n for fn, n in counts.items()
+          if ("attn_" in fn and "delta" not in fn) or "grouped_conv1d" in fn}
+    check(tc and all(n > 0 for n in tc.values()),
+          f"kernels without tensor-core instructions: {tc}")
 
 
 def phase_k1(torch, rng):
@@ -220,8 +326,16 @@ def phase_k1(torch, rng):
         check(e64 <= K1_ATOL_PLAIN64, f"K1 {name}: {e64} > {K1_ATOL_PLAIN64} vs plain fp64")
         worst[name] = e32
     kw = dict(n_fft=512, hop_length=160, num_frames=1 + (x.shape[1] - 512) // 160)
+    # the least work for the function: a real FFT (2.5 N log2 N), the power,
+    # the mel product and the log per frame; wav, window, filterbank in, the
+    # log-mel out
+    frames, n_freq, n_mels = BATCH * kw["num_frames"], fb.shape[1], fb.shape[0]
+    k1_bound = roofline(frames * (2.5 * 512 * 9 + 3 * n_freq + 2 * n_freq * n_mels + n_mels),
+                     4 * (x.numel() + 512 + fb.numel() + frames * n_mels))
     return {
         "max_abs_err": max(worst.values()),
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        "library_ms": None,  # no one PyTorch call computes the log-mel
         "ms": cuda_ms(lambda: fused_logmel(x, window, fb, **kw)),
         "plain_ms": cuda_ms(lambda: logmel_plain(x, window, fb, **kw)),
         "shape": f"wav {tuple(x.shape)} -> {(BATCH, kw['num_frames'], 128)}",
@@ -311,11 +425,16 @@ def phase_k2_dropout(torch, gen):
         check(abs(rate - (1 - DROP_P)) <= 4 * sigma, f"keep rate {rate}")
         check(differ, "dropout masks repeat across (b, h) or seeds")
         if timed is None:
+            q, k, v = qkv_views(qkv, h)
+            lib_ms = cuda_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), mask, DROP_P))
+            bound_ms, bound_by = attention_bound(b, t, h, e // h, backward=False)
             timed = dict(
                 ms=cuda_ms(lambda: fused_qkv_self_attention(qkv, h, mask, DROP_P, 1234)),
-                plain_ms=cuda_ms(lambda: qkv_attention_plain(qkv, h, mask, DROP_P, 1234)))
+                plain_ms=cuda_ms(lambda: qkv_attention_plain(qkv, h, mask, DROP_P, 1234)),
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
             log(f"    K2 fwd p=0.1 at {(b, t, 3 * e)}: {timed['ms']:.3f} ms, plain "
-                f"{timed['plain_ms']:.3f} ms")
+                f"{timed['plain_ms']:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.4f} ms")
     return worst, timed
 
 
@@ -357,14 +476,19 @@ def phase_k2_bwd(torch, gen):
         y = qkv.clone().requires_grad_(True)
         fn(y, h, mask, DROP_P, seed).backward(dout)
 
+    _, lib_bwd = sdpa_times(torch, *qkv_views(qkv, h), mask,
+                            dout.view(b, t, h, e // h), DROP_P)
+    bound_ms, bound_by = attention_bound(b, t, h, e // h, backward=True)
     t_k = dict(
         ms=cuda_ms(lambda: fa._launch_bwd(qkv, mask, out, dout, lse, h, seed, thresh, scale)),
         plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_out, x, dout, retain_graph=True)),
         fb_ms=cuda_ms(lambda: fwd_bwd(fa.fused_qkv_self_attention)),
         fb_plain_ms=cuda_ms(lambda: fwd_bwd(fa.qkv_attention_plain)),
+        library_ms=lib_bwd, bound_ms=bound_ms, bound_by=bound_by,
     )
     log(f"    K2-bwd at {(b, t, 3 * e)} p=0.1: backward {t_k['ms']:.3f} ms vs plain "
-        f"{t_k['plain_ms']:.3f} ms; forward + backward {t_k['fb_ms']:.3f} vs "
+        f"{t_k['plain_ms']:.3f} ms, SDPA's backward {lib_bwd:.3f} ms, bound "
+        f"{bound_ms:.4f} ms; forward + backward {t_k['fb_ms']:.3f} vs "
         f"{t_k['fb_plain_ms']:.3f} ms")
     return max(res.values()), t_k
 
@@ -564,19 +688,30 @@ def phase_k4(torch, gen):
         # against the plain version's input gradient alone
         xg = x.clone().requires_grad_(True)
         plain_y = grouped_conv1d_plain(xg, w, 16, 64)
+        # the library calls: one cuDNN convolution on the padded (B, C, T)
+        # input, and its input gradient (padded, the pad rows cut by a view)
+        xp = torch.nn.functional.pad(x.transpose(1, 2), (64, 63)).contiguous()
+        dyt = dy.transpose(1, 2).contiguous()
+        flop = 2 * b * t * c * cg * k
+        conv_bytes = 4 * (2 * b * t * c + c * cg * k)  # x and out, w
         r = times[(b, t, c)] = dict(
+            library_ms=cuda_ms(lambda: torch.nn.functional.conv1d(xp, w, groups=16)),
+            dx_library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+                xp.shape, w, dyt, groups=16)),
+            bound=roofline(flop, conv_bytes),
             ms=cuda_ms(lambda: grouped_conv1d(x, w, 16, 64)),
             plain_ms=cuda_ms(lambda: grouped_conv1d_plain(x, w, 16, 64)),
             dx_ms=cuda_ms(lambda: fp._launch(dy, fp._dx_weights(w, 16), 63, "grouped_conv1d_dx")),
             dx_plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_y, xg, dy, retain_graph=True)),
             fb_ms=cuda_ms(lambda: fwd_bwd(grouped_conv1d)),
             fb_plain_ms=cuda_ms(lambda: fwd_bwd(grouped_conv1d_plain)))
-        flop = 2 * b * t * c * cg * k
         log(f"[12 K4 {(b, t, c)} Cg={cg} K=128] max|K4-plain| at left pads 64/63/127 "
             f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; dx {e_dx:.3e}, dw {e_dw:.3e}; "
             f"forward {r['ms']:.3f} ms ({flop / r['ms'] / 1e9:.1f} TFLOP/s) vs plain "
-            f"{r['plain_ms']:.3f} ms; dx {r['dx_ms']:.3f} vs {r['dx_plain_ms']:.3f} ms; "
-            f"forward + backward {r['fb_ms']:.3f} vs {r['fb_plain_ms']:.3f} ms")
+            f"{r['plain_ms']:.3f} ms, cuDNN's conv alone {r['library_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.4f} ms; dx {r['dx_ms']:.3f} vs {r['dx_plain_ms']:.3f} ms "
+            f"(cuDNN's dgrad alone {r['dx_library_ms']:.3f}); forward + backward "
+            f"{r['fb_ms']:.3f} vs {r['fb_plain_ms']:.3f} ms")
     return worst, worst_dx, times
 
 
@@ -645,10 +780,14 @@ def phase_k3(torch, gen):
             fb_plain_ms=cuda_ms(lambda: fb3(fa.attention_plain)),
             k2_ms=cuda_ms(lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed)),
             k2_fb_ms=cuda_ms(fb2))
+        r["library_ms"], r["bwd_library_ms"] = sdpa_times(torch, q, k, v, mask, dout, DROP_P)
+        r["bound"], r["bwd_bound"] = (attention_bound(b, t, h, d, backward=False),
+                                      attention_bound(b, t, h, d, backward=True))
         log(f"    K3 at {shape} p=0.1: forward {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} "
-            f"(K2 {r['k2_ms']:.3f}); backward {r['bwd_ms']:.3f} vs plain "
-            f"{r['bwd_plain_ms']:.3f}; forward + backward {r['fb_ms']:.3f} vs plain "
-            f"{r['fb_plain_ms']:.3f} (K2 {r['k2_fb_ms']:.3f})")
+            f"(K2 {r['k2_ms']:.3f}, SDPA {r['library_ms']:.3f}, bound {r['bound'][0]:.4f}); "
+            f"backward {r['bwd_ms']:.3f} vs plain {r['bwd_plain_ms']:.3f} (SDPA "
+            f"{r['bwd_library_ms']:.3f}, bound {r['bwd_bound'][0]:.4f}); forward + backward "
+            f"{r['fb_ms']:.3f} vs plain {r['fb_plain_ms']:.3f} (K2 {r['k2_fb_ms']:.3f})")
     return worst, t_k, launches
 
 
@@ -827,8 +966,8 @@ def phase_finetune_cpu_vs_card(torch):
 
 
 def phase_finetune_time(torch, root):
-    from tpu_speech.text.tokenizers import CharTokenizer
     from tpu_speech_torch.configs.spiral import spiral_base_ctc_char
+    from tpu_speech_torch.text.tokenizers import CharTokenizer
     from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
 
     cfg = spiral_base_ctc_char()
@@ -1067,8 +1206,7 @@ def main():
                     launches_by_path=dict(by_path(key), k3_phase_13=k3_launches[key]),
                     **measured)
 
-    k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], drop_err), ms=k2_drop_t["ms"],
-              plain_ms=k2_drop_t["plain_ms"],
+    k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], drop_err), **k2_drop_t,
               shape=f"dropout 0.1 at (24, 392, 1536) H=8 (no grad); dropout 0 at "
                     f"(14, 604, 1536) H=8: {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms; "
                     + k2["shape"].split("; ")[-1])
@@ -1082,18 +1220,23 @@ def main():
         path_kernel("fused_qkv_self_attention_bwd", "fused_qkv_attention_bwd",
                     "tpu_speech/ops/fused_attention.py:401", src="fused_attention.cu",
                     max_abs_err=bwd_err, ms=k2_bwd_t["ms"], plain_ms=k2_bwd_t["plain_ms"],
+                    bound_ms=k2_bwd_t["bound_ms"], bound_by=k2_bwd_t["bound_by"],
+                    library_ms=k2_bwd_t["library_ms"],
                     shape=f"dqkv (24, 392, 1536) H=8 p=0.1, backward alone; forward + "
                           f"backward {k2_bwd_t['fb_ms']:.4f} ms vs plain "
                           f"{k2_bwd_t['fb_plain_ms']:.4f} ms"),
         k3_kernel("fused_self_attention", "fused_attention",
                   "tpu_speech/ops/fused_attention.py:222", max_abs_err=k3_err["fwd"],
-                  ms=k3_b1["ms"], plain_ms=k3_b1["plain_ms"],
+                  ms=k3_b1["ms"], plain_ms=k3_b1["plain_ms"], bound_ms=k3_b1["bound"][0],
+                  bound_by=k3_b1["bound"][1], library_ms=k3_b1["library_ms"],
                   shape=f"q, k, v (14, 604, 8, 64) p=0.1 (no grad); K2 on the same data "
                         f"{k3_b1['k2_ms']:.4f} ms; at (14, 302, 12, 64): {k3_b2['ms']:.4f} "
                         f"ms vs plain {k3_b2['plain_ms']:.4f} ms"),
         k3_kernel("fused_self_attention_bwd", "fused_attention_bwd",
                   "tpu_speech/ops/fused_attention.py:239", max_abs_err=k3_err["bwd"],
                   ms=k3_b1["bwd_ms"], plain_ms=k3_b1["bwd_plain_ms"],
+                  bound_ms=k3_b1["bwd_bound"][0], bound_by=k3_b1["bwd_bound"][1],
+                  library_ms=k3_b1["bwd_library_ms"],
                   shape=f"dq, dk, dv (14, 604, 8, 64) p=0.1, backward alone (error relative "
                         f"to max(1, max|plain|)); forward + backward {k3_b1['fb_ms']:.4f} ms "
                         f"vs plain {k3_b1['fb_plain_ms']:.4f} ms (K2 {k3_b1['k2_fb_ms']:.4f} "
@@ -1101,7 +1244,8 @@ def main():
                         f"{k3_b2['bwd_plain_ms']:.4f} ms"),
         path_kernel("grouped_conv1d", "grouped_conv1d", "tpu_speech/ops/fused_posconv.py:132",
                     src="fused_posconv.cu", max_abs_err=k4_err, ms=k4_b1["ms"],
-                    plain_ms=k4_b1["plain_ms"],
+                    plain_ms=k4_b1["plain_ms"], bound_ms=k4_b1["bound"][0],
+                    bound_by=k4_b1["bound"][1], library_ms=k4_b1["library_ms"],
                     shape=f"x (14, 604, 512) Cg 32 K 128, forward; forward + backward "
                           f"{k4_b1['fb_ms']:.4f} ms vs plain {k4_b1['fb_plain_ms']:.4f} ms; "
                           f"at (14, 302, 768) Cg 48: forward {k4_b2['ms']:.4f} vs "
@@ -1109,6 +1253,8 @@ def main():
         path_kernel("grouped_conv1d_dx", "grouped_conv1d_dx",
                     "tpu_speech/ops/fused_posconv.py:132", src="fused_posconv.cu",
                     max_abs_err=k4_dx_err, ms=k4_b1["dx_ms"], plain_ms=k4_b1["dx_plain_ms"],
+                    bound_ms=k4_b1["bound"][0], bound_by=k4_b1["bound"][1],
+                    library_ms=k4_b1["dx_library_ms"],
                     shape=f"dx alone at (14, 604, 512), the weight rearrangement included: "
                           f"the K4 kernel on flipped, swapped weights (the VJP _bwd:198) "
                           f"against the plain version's input gradient; at (14, 302, 768) "

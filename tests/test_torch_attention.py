@@ -336,3 +336,62 @@ def test_k3_wrapper_rejects_what_it_does_not_take():
         fused_self_attention(q, q, q, torch.zeros(2, 5))  # float mask
     with pytest.raises(ValueError):
         fused_self_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---- why the CUDA kernels split each operand in three TF32 products ---------
+
+def _tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+    the kernels' hi part."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """x as the tensor core reads a non-TF32 operand: low 13 bits dropped."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_exact_then_f32(a, b):
+    # products of TF32 values are exact in float64; one rounding to float32
+    return (a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32, a = a_hi + a_lo."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return (_mm_exact_then_f32(al, bh) + _mm_exact_then_f32(ah, bl)
+            + _mm_exact_then_f32(ah, bh))
+
+
+def _mm_1xtf32(a, b):
+    return _mm_exact_then_f32(_tf32_rna(a), _tf32_rna(b))
+
+
+def _attention_np(q, k, v, mm, dtype):
+    s = mm(q, np.swapaxes(k, -1, -2)).astype(dtype)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p = (p / p.sum(-1, keepdims=True)).astype(dtype)
+    return mm(p, v)
+
+
+def test_3xtf32_split_keeps_fp32_accuracy_where_one_tf32_pass_does_not():
+    """The kernels' products, emulated in numpy at (B, H, T, D) = (2, 2, 64,
+    64): the 3xTF32 split lands within 1e-6 (relative to max|out|) of the
+    fp32 computation, while one TF32 pass is off by more than the kernels'
+    1e-4 limit. This is why the kernels pay three tensor-core products for
+    each one."""
+    rng = np.random.default_rng(0)
+    q = (rng.standard_normal((2, 2, 64, 64)) * 64 ** -0.5).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2, 64, 64)).astype(np.float32) for _ in range(2))
+    exact = _attention_np(q, k, v, lambda a, b: a.astype(np.float64) @ b.astype(np.float64),
+                          np.float64)
+    fp32 = _attention_np(q, k, v, np.matmul, np.float32)
+    split = _attention_np(q, k, v, _mm_3xtf32, np.float32)
+    single = _attention_np(q, k, v, _mm_1xtf32, np.float32)
+    scale = np.abs(fp32).max()
+    assert np.abs(split - fp32).max() <= 1e-6 * scale
+    assert np.abs(split - exact).max() <= np.abs(fp32 - exact).max()
+    assert np.abs(single - fp32).max() > 1e-4

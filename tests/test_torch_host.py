@@ -1,0 +1,184 @@
+"""The port's copies of the host-side code against the JAX package's originals.
+
+``tpu_speech_torch`` keeps its own copies of the config dataclasses and
+overrides, the tokenizers, the WER tools and the SPIRAL data pipeline
+(``utils/config.py``, ``text/``, ``eval/wer.py``, ``data/``). Each is held
+here against the module it was copied from, on the same inputs.
+"""
+
+import dataclasses
+import json
+import random
+
+import numpy as np
+import pytest
+
+from tpu_speech.data import loader as j_loader
+from tpu_speech.data import spiral as j_data
+from tpu_speech.data.wav import read_wav as j_read_wav
+from tpu_speech.data.wav import write_wav
+from tpu_speech.eval import wer as j_wer
+from tpu_speech.text import tokenizers as j_tok
+from tpu_speech.utils import config as j_cfg
+from tpu_speech_torch.data import loader as t_loader
+from tpu_speech_torch.data import spiral as t_data
+from tpu_speech_torch.data.wav import read_wav as t_read_wav
+from tpu_speech_torch.eval import wer as t_wer
+from tpu_speech_torch.text import tokenizers as t_tok
+from tpu_speech_torch.utils import config as t_cfg
+
+CONFIG_CLASSES = ("AdamWParams", "SchedParams", "AudioDatasetConfig", "DecoderConfig",
+                  "NoisePerturbConfig", "TrainerConfig", "ExpManagerConfig",
+                  "SpiralModelConfig", "RunConfig")
+
+
+@pytest.mark.parametrize("name", CONFIG_CLASSES)
+def test_config_defaults_equal(name):
+    ours, theirs = getattr(t_cfg, name), getattr(j_cfg, name)
+    assert [f.name for f in dataclasses.fields(ours)] == [
+        f.name for f in dataclasses.fields(theirs)]
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
+
+
+OVERRIDES = (
+    ["trainer.max_steps=7", "model.optim.lr=3e-3"],
+    ["model.validation_ds.batch_size=5", "model.validation_ds.shuffle=false"],
+    ["model.optim.sched.warmup_ratio=0.1", "model.optim.betas=[0.8, 0.9]"],
+    ["model.noise_perturb.min_snr_db=5", "model.labels=[a, b]"],
+)
+
+
+@pytest.mark.parametrize("specs", OVERRIDES, ids=lambda s: s[0].split("=")[0])
+def test_apply_override_same_tree(specs):
+    trees = []
+    for mod in (t_cfg, j_cfg):
+        cfg = mod.RunConfig()
+        cfg.model.optim.sched = mod.SchedParams()
+        for spec in specs:
+            mod.apply_override(cfg, *mod.parse_cli_override(spec))
+        trees.append(dataclasses.asdict(cfg))
+    assert trees[0] == trees[1]
+
+
+def test_apply_override_refuses_unknown_keys_alike():
+    errors = []
+    for mod in (t_cfg, j_cfg):
+        with pytest.raises(KeyError) as e:
+            mod.apply_override(mod.RunConfig(), "model.optim.nope", 1)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+
+
+TEXTS = ("Hello, World!", "Dr. Smith paid $3.50 on Jan. 2nd", "it's 1,234 m & 5% +",
+         "Café naïve façade", "  many   spaces\tand\nlines  ", "")
+
+
+@pytest.mark.parametrize("parser", ["en", "base", None])
+def test_char_tokenizer_same(parser):
+    ours, theirs = t_tok.CharTokenizer(parser=parser), j_tok.CharTokenizer(parser=parser)
+    for text in TEXTS:
+        ids = theirs.text_to_ids(text)
+        assert ours.text_to_ids(text) == ids
+        assert ours.ids_to_text(ids) == theirs.ids_to_text(ids)
+    ob, tb = t_tok.BlankOffsetTokenizer(ours), j_tok.BlankOffsetTokenizer(theirs)
+    assert ob.vocab_size == tb.vocab_size
+    for text in TEXTS:
+        ids = tb.text_to_ids(text)
+        assert ob.text_to_ids(text) == ids and ob.ids_to_text(ids) == tb.ids_to_text(ids)
+    assert t_tok.DEFAULT_CHAR_LABELS == j_tok.DEFAULT_CHAR_LABELS
+
+
+def _hyps_refs(seed):
+    r = random.Random(seed)
+    words = ["a", "speech", "model", "port", "kernel", "the", "of"]
+    refs = [" ".join(r.choice(words) for _ in range(r.randint(0, 9))) for _ in range(12)]
+    hyps = []
+    for ref in refs:
+        w = ref.split()
+        for _ in range(r.randint(0, 3)):
+            op = r.randrange(3)
+            if op == 0 and w:
+                w.pop(r.randrange(len(w)))
+            elif op == 1:
+                w.insert(r.randint(0, len(w)), r.choice(words))
+            elif w:
+                w[r.randrange(len(w))] = r.choice(words)
+        hyps.append(" ".join(w))
+    return hyps, refs
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wer_tools_same(seed, tmp_path):
+    hyps, refs = _hyps_refs(seed)
+    for use_cer in (False, True):
+        assert t_wer.error_counts(hyps, refs, use_cer) == j_wer.error_counts(hyps, refs, use_cer)
+    for h, r in zip(hyps, refs):
+        assert t_wer.align_words(h, r) == j_wer.align_words(h, r)
+        assert t_wer.levenshtein(h, r) == j_wer.levenshtein(h, r)
+    stats = [mod.render_wer_html(hyps, refs, str(tmp_path / f"{i}.html"))
+             for i, mod in enumerate((t_wer, j_wer))]
+    assert stats[0] == stats[1]
+    assert (tmp_path / "0.html").read_text() == (tmp_path / "1.html").read_text()
+    rng = np.random.default_rng(seed)
+    lp = rng.standard_normal((3, 40, 6)).astype(np.float32)
+    lens = np.array([40, 17, 0])
+    for blank in (0, 5):
+        assert (t_wer.ctc_greedy_decode(lp, lens, blank)
+                == j_wer.ctc_greedy_decode(lp, lens, blank))
+
+
+def _corpus(root, n=10):
+    """n int16 wavs of 0.2-0.8 s with transcripts, a noise wav, manifests."""
+    rng = np.random.default_rng(3)
+    manifest, noise = root / "train.json", root / "noise.json"
+    with open(manifest, "w") as f:
+        for i in range(n):
+            d = float(rng.uniform(0.2, 0.8))
+            path = str(root / f"u{i}.wav")
+            write_wav(path, 0.3 * rng.standard_normal(int(d * 16000)).clip(-1, 1), 16000)
+            f.write(json.dumps({"audio_filepath": path, "duration": d,
+                                "text": f"word {i} and more"}) + "\n")
+    write_wav(str(root / "n.wav"), 0.1 * rng.standard_normal(5000), 16000)
+    noise.write_text(json.dumps({"audio_filepath": str(root / "n.wav"), "duration": 0.3}) + "\n")
+    return str(manifest), str(noise)
+
+
+def _batches(mods, manifest, noise, text):
+    data, loader, tok = mods
+    aug = data.AudioAugmentor([(1.0, data.RandomNoisePerturbation(
+        noise, 0.0, 30.0, ratio=0.7, rng=random.Random(11)))])
+    aug.rng = random.Random(12)
+    if text:
+        ds = data.AudioToTextDataset(manifest, tok.CharTokenizer(), sample_rate=16000,
+                                     crop_size=9000, augmentor=aug, seed=4)
+        collate = data.AudioTextBatchCollate(12000, 16)
+    else:
+        ds = data.AudioDataset(manifest, 16000, 8000, min_duration=0.25, augmentor=aug,
+                               return_both=True, seed=4)
+        collate = data.AudioBatchCollate(8000)
+    # one worker: the dataset's crop generator is drawn in item order
+    dl = loader.DataLoader(ds, 3, collate, shuffle=True, drop_last=False, num_workers=1,
+                           seed=5)
+    return [b for _ in range(2) for b in dl]
+
+
+@pytest.mark.parametrize("text", [False, True], ids=["pretrain", "finetune"])
+def test_data_pipeline_same_batches(text, tmp_path):
+    manifest, noise = _corpus(tmp_path)
+    ours = _batches((t_data, t_loader, t_tok), manifest, noise, text)
+    theirs = _batches((j_data, j_loader, j_tok), manifest, noise, text)
+    assert len(ours) == len(theirs) > 0
+    for a, b in zip(ours, theirs):
+        assert a.keys() == b.keys()
+        for k in a:
+            if isinstance(a[k], np.ndarray):
+                assert a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            else:
+                assert a[k] == b[k]
+    assert t_data.read_manifest(manifest, 0.3, 0.7) == j_data.read_manifest(manifest, 0.3, 0.7)
+    for i in range(3):
+        w, sr = t_read_wav(str(tmp_path / f"u{i}.wav"))
+        w2, sr2 = j_read_wav(str(tmp_path / f"u{i}.wav"))
+        assert sr == sr2 and w.dtype == w2.dtype
+        np.testing.assert_array_equal(w, w2)

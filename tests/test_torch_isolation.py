@@ -1,0 +1,57 @@
+"""The port imports nothing of the JAX package and nothing of JAX.
+
+In a fresh interpreter, a ``sys.meta_path`` finder raises on any import of
+``tpu_speech`` (but not ``tpu_speech_torch``) or ``jax``/``jaxlib``; then
+every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
+``chip_smoke`` are imported, and ``run_spiral --help`` runs.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib
+import importlib.abc
+import pkgutil
+import sys
+
+BANNED = ("tpu_speech", "jax", "jaxlib")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import tpu_speech_torch
+
+names = ["chip_smoke"] + [
+    m.name for m in pkgutil.walk_packages(tpu_speech_torch.__path__, "tpu_speech_torch.")]
+for name in names:
+    importlib.import_module(name)
+from tpu_speech_torch.cli import run_spiral
+
+try:
+    run_spiral.main(["--help"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not leaked, leaked
+print("IMPORTED", len(names))
+"""
+
+
+def test_port_imports_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    n = int(proc.stdout.split("IMPORTED")[-1])
+    assert n > 30, proc.stdout  # every module of the port, not an empty walk
+    assert "--model_type" in proc.stdout  # the CLI's help text ran

@@ -134,6 +134,56 @@ def test_fused_qkv_attention_backward_matches_plain_autograd(cuda, d_head, t, p)
     assert got[0, :, :2 * e].abs().max().item() == 0.0  # dq, dk of the fully padded row
 
 
+# the kernels' tiles are 64 queries by 64 keys, 16 rows a warp, 8-wide
+# tensor-core fragments: lengths around the tile edges and both path lengths
+EDGE_T = [1, 63, 64, 65, 127, 129, 392, 604]
+
+
+@pytest.mark.parametrize("d_head", KERNEL_D_HEADS)
+@pytest.mark.parametrize("t", EDGE_T)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_attention_tiling_edges_k2_and_k3(cuda, d_head, t, p):
+    """K2 and K3, forward and backward, at the tiling's edges: padded rows, a
+    fully padded row (its dq and dk exactly 0), dropout replayed; forward
+    within 1e-4, gradients within 1e-4 x max(1, max|plain|)."""
+    b, h = 3, 2
+    qkv, mask = _qkv_case(cuda, b, t, h, d_head, 17 * t + d_head)
+    dout = torch.randn(b, t, h * d_head, generator=torch.Generator().manual_seed(t)).to(cuda)
+    q, k, v = (a.contiguous() for a in qkv.view(b, t, 3, h, d_head).unbind(2))
+    cases = ((lambda *xs: fused_qkv_self_attention(*xs, h, mask, p, 5),
+              lambda *xs: qkv_attention_plain(*xs, h, mask, p, 5), (qkv,), dout),
+             (lambda *xs: fused_self_attention(*xs, mask, p, 5),
+              lambda *xs: attention_plain(*xs, mask, p, 5), (q, k, v),
+              dout.view(b, t, h, d_head)))
+    for kernel, plain, inputs, g in cases:
+        res = []
+        for fn in (kernel, plain):
+            xs = [a.clone().requires_grad_(True) for a in inputs]
+            out = fn(*xs)
+            out.backward(g)
+            res.append((out.detach(), [x.grad for x in xs]))
+        torch.cuda.synchronize()
+        (out, grads), (ref, ref_grads) = res
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+        for got, want in zip(grads, ref_grads):
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-4 * max(1.0, want.abs().max().item()))
+        padded_row = grads[0][0].reshape(t, -1)  # K3: dq; K2: dqkv
+        if len(grads) == 1:
+            padded_row = padded_row[:, :2 * h * d_head]  # K2: dq and dk
+        assert padded_row.abs().max().item() == 0.0
+
+
+def test_attention_raises_on_misaligned_operands(cuda):
+    """The kernels stage rows with 16-byte copies: a q that starts 4 bytes
+    into its storage is refused at launch, not computed some other way."""
+    q = torch.randn(1 * 8 * 2 * 8 + 1, device=cuda)[1:].view(1, 8, 2, 8)
+    k, v = torch.randn(2, 1, 8, 2, 8, device=cuda).unbind(0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_self_attention(q, k, v)
+
+
 def test_dropout_keep_rate_and_streams(cuda):
     keep = dropout_keep_mask(5, 4, 8, 456, 0.1, cuda)
     n = keep.numel()

@@ -13,9 +13,12 @@ of the JAX package re-written by hand for Hopper in ``csrc/``
 (``ops/fused_logmel.py``, ``ops/fused_attention.py``,
 ``ops/fused_posconv.py``).
 
-Nothing here imports JAX. Host-side helpers that import no JAX
-(``tpu_speech.text``, ``tpu_speech.eval.wer``, ``tpu_speech.data``,
-``tpu_speech.utils.config``) are reused from the JAX package as they are.
+Nothing here imports JAX or any module of the JAX package. The host-side
+code the port runs is its own copy, with the JAX package's structure and
+names: ``utils/config.py``, ``text/`` (tokenizers and the char parser),
+``eval/wer.py`` and ``data/`` (manifests, datasets, collates, the loader,
+``read_wav``). ``tests/test_torch_isolation.py`` holds the rule and
+``tests/test_torch_host.py`` holds the copies against the originals.
 """
 
 __version__ = "0.1.0"

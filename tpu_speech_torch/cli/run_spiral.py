@@ -54,13 +54,13 @@ import argparse
 import glob
 import os
 
-from tpu_speech.text.tokenizers import CharTokenizer
-from tpu_speech.utils.config import apply_override, parse_cli_override
 from tpu_speech_torch.configs.spiral import CONFIGS
+from tpu_speech_torch.text.tokenizers import CharTokenizer
 from tpu_speech_torch.train.spiral_runner import (
     SpiralFinetuneRunner,
     SpiralPretrainRunner,
 )
+from tpu_speech_torch.utils.config import apply_override, parse_cli_override
 
 
 def str2bool(v):

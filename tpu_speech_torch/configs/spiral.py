@@ -3,8 +3,8 @@
 The JAX experiment files under ``cli/conf/spiral/`` import flax through the
 JAX model configs, so the port rebuilds the same RunConfig trees from its own
 field-for-field twin dataclasses (``models/spiral/encoder.py``,
-``models/spiral/st2vec.py``) plus the JAX package's JAX-free
-``tpu_speech.utils.config`` dataclasses.
+``models/spiral/st2vec.py``) and the port's copy of the run-config
+dataclasses (``utils/config.py``).
 
 ``spiral_base_ctc_char()`` is ``cli/conf/spiral/spiral_base_finetune_ls100_char.py``
 (with the helpers of ``cli/conf/spiral/_common.py``): SPIRAL-base encoder
@@ -25,8 +25,14 @@ from __future__ import annotations
 
 import dataclasses
 
-from tpu_speech.text.tokenizers import DEFAULT_CHAR_LABELS
-from tpu_speech.utils.config import (
+from tpu_speech_torch.models.spiral.encoder import (
+    ConvLayerCfg,
+    ConvTransformerBlockCfg,
+    TransformerCfg,
+)
+from tpu_speech_torch.models.spiral.st2vec import ST2VecConfig, spiral_base_config
+from tpu_speech_torch.text.tokenizers import DEFAULT_CHAR_LABELS
+from tpu_speech_torch.utils.config import (
     AdamWParams,
     AudioDatasetConfig,
     DecoderConfig,
@@ -36,12 +42,6 @@ from tpu_speech.utils.config import (
     SpiralModelConfig,
     TrainerConfig,
 )
-from tpu_speech_torch.models.spiral.encoder import (
-    ConvLayerCfg,
-    ConvTransformerBlockCfg,
-    TransformerCfg,
-)
-from tpu_speech_torch.models.spiral.st2vec import ST2VecConfig, spiral_base_config
 
 
 def spiral_base_pretrain_ls960() -> RunConfig:

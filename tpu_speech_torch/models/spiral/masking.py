@@ -5,8 +5,7 @@ Port of ``tpu_speech/models/spiral/masking.py``: ``gaussian_mask_emb:25``,
 consume the ``np.random.Generator`` in exactly the order the JAX package
 does, so one seed gives equal masks in both packages. ``apply_mask:208``
 runs on the batch's device in torch. The fixed 'gaussian' mask embedding is
-the JAX package's data file, read by path (importing that module would
-import JAX).
+the port's copy of the JAX package's data file ``_gaussian_mask.npy``.
 """
 
 from __future__ import annotations
@@ -18,9 +17,7 @@ import numpy as np
 import torch
 
 _GAUSSIAN_MASK_PATH = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..", "..", "tpu_speech",
-    "models", "spiral", "_gaussian_mask.npy",
-)
+    os.path.dirname(os.path.abspath(__file__)), "_gaussian_mask.npy")
 
 
 def gaussian_mask_emb(num_features: int) -> np.ndarray:

@@ -45,9 +45,9 @@ SIGNATURES = {
     # q, k, v, row stride, key_pad (nullable), out, lse (nullable), B, T, H, D,
     # seed, dropout threshold, dropout scale, stream
     "tsx_attention_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _P],
-    # q, k, v, row stride, key_pad (nullable), out, dout, lse, delta, dq, dk,
-    # dv, gradient row stride, B, T, H, D, seed, dropout threshold, dropout
-    # scale, stream
+    # q, k, v, row stride, key_pad (nullable), out, dout, lse, scratch (Delta,
+    # then dS^T), dq, dk, dv, gradient row stride, B, T, H, D, seed, dropout
+    # threshold, dropout scale, stream
     "tsx_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _I, _I, _U, _U, _F, _P],
     # x, w, out, B, T, C, G, K, left_pad, stream

@@ -139,14 +139,18 @@ def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device):
 def _bwd(ptrs, ld, grad_ptrs, ld_grad, mask, out, dout, lse, h, seed, thresh,
          scale):
     """One backward launch (three kernels) writing dq, dk, dv at
-    ``grad_ptrs`` with row stride ``ld_grad``."""
+    ``grad_ptrs`` with row stride ``ld_grad``. The scratch holds the row sums
+    Delta (B, H, T) and then dS^T (B*H, TQ, TQ), TQ = T rounded up to 64,
+    which the dK/dV kernel writes and the dQ kernel reads."""
     b, t, e = out.shape
-    delta = torch.empty((b, h, t), device=out.device, dtype=torch.float32)
+    tq = -(-t // 64) * 64
+    scratch = torch.empty((b * h * t + 3) // 4 * 4 + b * h * tq * tq, device=out.device,
+                          dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(out.device):
         return lib.tsx_attention_bwd(
             *ptrs, ld, None if mask is None else mask.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             *grad_ptrs, ld_grad, b, t, h, e // h, seed, thresh, scale,
             torch.cuda.current_stream(out.device).cuda_stream,
         )

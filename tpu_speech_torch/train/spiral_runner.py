@@ -2,8 +2,8 @@
 
 ``SpiralPretrainRunner`` is the single-device part of
 ``tpu_speech/train/spiral_runner.py::SpiralPretrainRunner`` (``:100-245``,
-``:461-566``): the JAX-free ``AudioDataset(return_both=True)``,
-``AudioBatchCollate`` and ``DataLoader`` of the JAX package, the host-side
+``:461-566``): ``AudioDataset(return_both=True)``, ``AudioBatchCollate``
+and ``DataLoader`` (the port's copies, ``data/``), the host-side
 masks and teacher shifts with the same generator seeding (``_augment``), the
 int16 wire format, ``pretrain_step`` (``train/spiral.py``), a log line per
 epoch with loss, accuracy and ms/step, and a reference-named ``state_dict``
@@ -26,7 +26,8 @@ samples, 512)`` and ``DataLoader``, the host generator ``default_rng(1)``
 ``finetune_step`` with the freeze gate decided from the iteration counter,
 ``train_epoch:914`` (metrics read back once per epoch), ``validate:941`` and
 a reference-named ``state_dict`` at the end. Host-side data, tokenizers and
-scoring are the JAX package's own JAX-free modules.
+scoring are the port's own copies of the JAX package's modules (``data/``,
+``text/``, ``eval/wer.py``).
 
 Both run in full float32: ``use_full_fp32()`` turns TF32 off for both cuDNN
 convolutions (on by default in PyTorch) and matmuls. Both default to the
@@ -48,8 +49,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpu_speech.data.loader import DataLoader
-from tpu_speech.data.spiral import (
+from tpu_speech_torch.compat.jax_spiral import (
+    ctc_finetune_from_jax,
+    load_jax_npz,
+    st2vec_from_jax,
+)
+from tpu_speech_torch.data.loader import DataLoader
+from tpu_speech_torch.data.spiral import (
     AudioAugmentor,
     AudioBatchCollate,
     AudioDataset,
@@ -57,18 +63,13 @@ from tpu_speech.data.spiral import (
     AudioToTextDataset,
     RandomNoisePerturbation,
 )
-from tpu_speech.data.wav import read_wav
-from tpu_speech.eval.wer import ctc_greedy_decode, error_counts, render_wer_html
-from tpu_speech.text.tokenizers import BlankOffsetTokenizer
-from tpu_speech_torch.compat.jax_spiral import (
-    ctc_finetune_from_jax,
-    load_jax_npz,
-    st2vec_from_jax,
-)
+from tpu_speech_torch.data.wav import read_wav
+from tpu_speech_torch.eval.wer import ctc_greedy_decode, error_counts, render_wer_html
 from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel, load_pretrained_encoder
 from tpu_speech_torch.models.spiral.masking import make_student_masks
 from tpu_speech_torch.models.spiral.dropout import DropoutRng
 from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, wav_to_spec
+from tpu_speech_torch.text.tokenizers import BlankOffsetTokenizer
 from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
 from tpu_speech_torch.train.optim import lr_scale, make_optimizer
 from tpu_speech_torch.train.spiral import (
