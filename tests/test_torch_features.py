@@ -22,6 +22,7 @@ from tpu_speech_torch.audio import mel
 from tpu_speech_torch.models.spiral import features
 from tpu_speech_torch.models.spiral.st2vec import spiral_base_config, wav_to_spec
 from tpu_speech_torch.ops import _build
+from tpu_speech_torch.ops import fused_logmel as fused_logmel_ops
 from tpu_speech_torch.ops.fused_logmel import fused_logmel, logmel_plain, make_dft_mats
 
 jax.config.update("jax_default_matmul_precision", "highest")
@@ -103,6 +104,153 @@ def test_fused_logmel_rejects_what_it_does_not_take():
         fused_logmel(x, win[:300], fb, n_fft=512, hop_length=160, num_frames=3)
     with pytest.raises(ValueError):
         fused_logmel(x.to("meta"), win, fb, n_fft=512, hop_length=160, num_frames=3)
+
+
+@pytest.mark.parametrize("n_fft", [128, 256, 512, 1024, 2048])
+def test_fft_tables_are_float64_twiddles(n_fft):
+    tab = fused_logmel_ops.fft_tables(n_fft, torch.device("cpu"))
+    a = fused_logmel_ops.twiddle_exponents(n_fft)
+    m, v = n_fft // 2, n_fft // 64
+    assert tab.dtype == torch.float64 and tab.shape == (m + m // 2 + v // 2 + 16, 2)
+    ref = np.exp(-2j * np.pi * a / n_fft)
+    np.testing.assert_allclose(tab[:, 0].numpy(), ref.real, rtol=0, atol=1e-15)
+    np.testing.assert_allclose(tab[:, 1].numpy(), ref.imag, rtol=0, atol=1e-15)
+    # the W_V and W_32 entries the transform's stages read
+    split = m + m // 2
+    np.testing.assert_array_equal(a[split:split + v // 2], np.arange(v // 2) * (n_fft // v))
+    np.testing.assert_array_equal(a[split + v // 2:], np.arange(16) * (n_fft // 32))
+
+
+def _kernel_power(frames, n_fft):
+    """csrc/fused_logmel.cu's transform step for step, in float64 numpy over
+    the wrapper's tables: r[:, l, p] is lane l's register p; returns the
+    power of bins 0..n_fft/2."""
+    br = fused_logmel_ops._bitrev
+    w = fused_logmel_ops.fft_tables(n_fft, torch.device("cpu")).numpy()
+    w = w[:, 0] + 1j * w[:, 1]
+    m = n_fft // 2
+    v = m // 32
+    h, logv = v // 2, v.bit_length() - 1
+    tw1, tw2 = w[:m].reshape(v, 32).T, w[m:m + m // 2].reshape(h, 32).T
+    wv, w32 = w[m + m // 2:m + m // 2 + h], w[m + m // 2 + h:]
+    lane = np.arange(32)
+    r = (frames[:, 0::2] + 1j * frames[:, 1::2]).reshape(-1, v, 32).transpose(0, 2, 1)
+    for st in range(logv):  # V-point DFTs in registers, radix 2, DIF
+        s = v >> (st + 1)
+        for j in range(h):
+            i = j % s
+            a = (j // s) * 2 * s + i
+            c = a + s
+            r[:, :, a], r[:, :, c] = (r[:, :, a] + r[:, :, c],
+                                      (r[:, :, a] - r[:, :, c]) * wv[i * (v // (2 * s))])
+    r = r * tw1
+    for q in range(5):  # across the lanes: transposing exchanges
+        d = 16 >> q
+        up = ((lane & d) != 0)[:, None]
+        sent = np.where(up, r[:, :, :h], r[:, :, h:])
+        kept = np.where(up, r[:, :, h:], r[:, :, :h])
+        recv = sent[:, lane ^ d]
+        ws = np.where(lane & d, -1, 1) * w32[(lane & (d - 1)) * (16 // d)]
+        r = np.concatenate([kept + recv, (kept - recv) * ws[:, None]], axis=2)
+    l4, b4 = lane >> 4, br(lane & 15, 4)
+    src0 = np.where(l4 == 1, lane ^ 15, np.where(b4 == 0, lane, br((16 - b4) & 15, 4)))
+    power = np.empty((frames.shape[0], m + 1))
+    for a in range(h):  # the real split, one pair (k, M - k) per register
+        a1 = br(h - 1 - br(a, logv - 1), logv - 1)
+        a0 = br((h - br(a, logv - 1)) % h, logv - 1)
+        if a == 0:
+            sent = np.where(l4 == 1, r[:, :, h + a1], np.where(b4 == 0, r[:, :, 0], r[:, :, h]))
+            partner = sent[:, src0]
+        else:
+            partner = np.where(l4 == 1, r[:, :, h + a1], r[:, :, h + a0])[:, lane ^ 15]
+        e, o = (r[:, :, a] + np.conj(partner)) / 2, (r[:, :, a] - np.conj(partner)) / 2j
+        k = l4 + 2 * br(a, logv - 1) + v * b4
+        power[:, k] = np.abs(e + tw2[:, a] * o) ** 2
+        power[:, m - k] = np.abs(e - tw2[:, a] * o) ** 2
+    power[:, m // 2] = np.abs(r[:, 0, h]) ** 2
+    return power
+
+
+@pytest.mark.parametrize("n_fft", [128, 256, 512, 1024, 2048])
+def test_kernel_transform_over_the_tables_is_the_rfft(rng, n_fft):
+    frames = rng.standard_normal((5, n_fft))
+    ref = np.abs(np.fft.rfft(frames, axis=1)) ** 2
+    np.testing.assert_allclose(_kernel_power(frames, n_fft), ref, rtol=0,
+                               atol=1e-12 * ref.max())
+
+
+def _band_check(fb):
+    bands = fused_logmel_ops.mel_bands(torch.tensor(fb)).numpy()
+    assert bands.dtype == np.int32 and bands.shape == (2, fb.shape[0])
+    for m, (lo, hi) in enumerate(bands.T):
+        nz = np.flatnonzero(fb[m])
+        if nz.size == 0:
+            assert lo == hi == 0
+        else:
+            assert (lo, hi) == (nz[0], nz[-1] + 1)  # covers every nonzero, tightly
+    return bands
+
+
+@pytest.mark.parametrize("sr,n_fft,n_mels", [(16000, 512, 128), (22050, 1024, 80),
+                                              (16000, 128, 40)])
+def test_mel_bands_cover_every_nonzero(sr, n_fft, n_mels):
+    fb = np.array(mel.mel_filterbank(sr, n_fft, n_mels, 0.0, sr / 2))
+    fb[3] = 0.0  # an all-zero filter
+    bands = _band_check(fb)
+    assert bands[0, 3] == bands[1, 3] == 0
+    # the banded product is the dense one
+    p = np.random.default_rng(n_fft).random((4, n_fft // 2 + 1)).astype(np.float32)
+    banded = np.stack([p[:, lo:hi] @ fb[m, lo:hi] for m, (lo, hi) in enumerate(bands.T)], 1)
+    np.testing.assert_allclose(banded, p @ fb.T, rtol=1e-6, atol=0)
+
+
+def test_kernel_launch_config_takes_powers_of_two_only():
+    for n_fft in (128, 256, 512, 1024, 2048):
+        tf, smem = fused_logmel_ops.kernel_launch_config(n_fft, 256, 40)
+        assert 2 * smem <= 232448 and tf >= 8  # two blocks fit an SM
+    for n_fft in (400, 320, 64, 4096):
+        with pytest.raises(ValueError, match=r"\(128, 256, 512, 1024, 2048\)"):
+            fused_logmel_ops.kernel_launch_config(n_fft, 160, 40)
+    with pytest.raises(ValueError):
+        fused_logmel_ops.kernel_launch_config(512, 162, 128)  # hop % 4
+    with pytest.raises(ValueError):
+        fused_logmel_ops.kernel_launch_config(512, 160, 258)  # n_mels > n_freq
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_logmel_ops.kernel_launch_config(512, 4096, 128)
+    # the CPU takes any n_fft through the plain version
+    x = torch.randn(1, 2000)
+    win, fb = torch.ones(400), torch.tensor(mel.mel_filterbank(16000, 400, 40, 0.0, 8000.0))
+    torch.testing.assert_close(fused_logmel(x, win, fb, n_fft=400, hop_length=160, num_frames=5),
+                               logmel_plain(x, win, fb, n_fft=400, hop_length=160, num_frames=5))
+
+
+def test_constant_tables_are_built_once():
+    cpu = torch.device("cpu")
+    assert fused_logmel_ops.fft_tables(512, cpu) is fused_logmel_ops.fft_tables(512, cpu)
+    assert fused_logmel_ops.fft_tables(1024, cpu) is not fused_logmel_ops.fft_tables(512, cpu)
+    spiral = (16000, 320, 512, 128, 0.0, 8000.0, cpu)
+    win, fb = features.featurizer_constants(*spiral)
+    again = features.featurizer_constants(*spiral)
+    assert again[0] is win and again[1] is fb
+    other = features.featurizer_constants(16000, 320, 512, 80, 0.0, 8000.0, cpu)
+    assert other[1] is not fb and other[1].shape == (80, 257)
+    np.testing.assert_array_equal(win.numpy(), _spiral_window())
+    np.testing.assert_array_equal(fb.numpy(), mel.mel_filterbank(16000, 512, 128, 0.0, 8000.0))
+    bands = fused_logmel_ops.mel_bands(fb)
+    assert fused_logmel_ops.mel_bands(fb) is bands
+    assert fused_logmel_ops.mel_bands(other[1]) is not bands
+    edited = fb.clone()
+    fused_logmel_ops.mel_bands(edited)
+    edited[5] = 0.0  # an in-place edit is seen
+    assert fused_logmel_ops.mel_bands(edited)[:, 5].tolist() == [0, 0]
+    # the serving path runs under inference mode: what it caches there are
+    # ordinary tensors, and an inference tensor (no version counter) still works
+    with torch.inference_mode():
+        inf_win, inf_fb = features.featurizer_constants(16000, 400, 512, 40, 0.0, 8000.0, cpu)
+        inf_tab = fused_logmel_ops.fft_tables(256, cpu)
+        torch.testing.assert_close(fused_logmel_ops.mel_bands(fb.clone()), bands)
+    assert not (inf_win.is_inference() or inf_fb.is_inference() or inf_tab.is_inference())
+    assert fused_logmel_ops.mel_bands(inf_fb) is fused_logmel_ops.mel_bands(inf_fb)
 
 
 def _wavs(rng, b=3, n=16000):

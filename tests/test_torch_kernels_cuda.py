@@ -70,6 +70,85 @@ def test_fused_logmel_hifigan_convention(cuda):
                                logmel_plain(x, win, fb, **kw), rtol=0, atol=2e-4)
 
 
+# mels per n_fft: at 128 the slaney filters are narrower than a bin, so some
+# rows are all zero (empty bands)
+K1_MELS = {128: 40, 256: 80, 512: 128, 1024: 80, 2048: 128}
+
+
+@pytest.mark.parametrize("n_fft", sorted(K1_MELS))
+@pytest.mark.parametrize("hop", [128, 160, 256])
+def test_fused_logmel_sizes_modes_and_tile_edges(cuda, n_fft, hop):
+    """Every transform size and hop, both magnitude and both log modes, at
+    frame counts around the kernel's tile of TF frames (1, TF - 1, TF, TF + 1
+    and a ragged count), against the plain version on white noise."""
+    from tpu_speech_torch.ops.fused_logmel import kernel_launch_config
+
+    win = torch.tensor(hann_window(n_fft), device=cuda)
+    fb = torch.tensor(mel_filterbank(16000, n_fft, K1_MELS[n_fft], 0.0, 8000.0), device=cuda)
+    tf, _ = kernel_launch_config(n_fft, hop, K1_MELS[n_fft])
+    g = torch.Generator().manual_seed(n_fft + hop)
+    for frames in (1, tf - 1, tf, tf + 1, 3 * tf + 5):
+        x = (torch.randn(2, (frames - 1) * hop + n_fft - 7, generator=g) * 0.1).to(cuda)
+        for mag_mode in ("power", "mag_eps"):
+            for log_mode in ("guard", "clip"):
+                kw = dict(n_fft=n_fft, hop_length=hop, num_frames=frames, mag_mode=mag_mode,
+                          log_mode=log_mode, log_guard=1e-5 if log_mode == "clip" else 2 ** -24)
+                out = fused_logmel(x, win, fb, **kw)
+                torch.cuda.synchronize()
+                assert torch.isfinite(out).all()
+                torch.testing.assert_close(out, logmel_plain(x, win, fb, **kw), rtol=0,
+                                           atol=2e-4, msg=lambda m: f"{kw}: {m}")
+
+
+def tones_over_noise(n, sr=16000, seed=1):
+    """Two strong tones (440 Hz and 1234.5 Hz) over a noise floor 74 dB
+    below them: near-zero-power bins everywhere off the tones."""
+    t = np.arange(n) / sr
+    noise = np.random.default_rng(seed).standard_normal(n)
+    return (0.5 * np.sin(2 * np.pi * 440.0 * t) + 0.3 * np.sin(2 * np.pi * 1234.5 * t)
+            + 1e-4 * noise).astype(np.float32)
+
+
+def test_fused_logmel_tones_against_float64(cuda):
+    """On tones over a weak noise floor the log amplifies every rounding: the
+    kernel is held against the float64 plain version, no worse than the fp32
+    plain version's own error there plus 1e-4."""
+    from tpu_speech_torch.models.spiral.features import stft_input
+
+    win, fb = _spiral_consts(cuda)
+    x = stft_input(torch.tensor(np.stack([tones_over_noise(8 * 16000, seed=s)
+                                          for s in (1, 2)]), device=cuda), 512)
+    kw = dict(n_fft=512, hop_length=160, num_frames=1 + (x.shape[1] - 512) // 160)
+    out = fused_logmel(x, win, fb, **kw)
+    p32 = logmel_plain(x, win, fb, **kw)
+    p64 = logmel_plain(x.double(), win.double(), fb.double(), **kw)
+    err = (out.double() - p64).abs().max().item()
+    plain_err = (p32.double() - p64).abs().max().item()
+    assert err <= plain_err + 1e-4, (err, plain_err)
+
+
+def test_fused_logmel_steady_state_makes_no_copy_or_sync(cuda):
+    """After the first call builds the tables, the featurizer on the card (and
+    K1 in it) copies nothing from the host and never synchronises."""
+    from tpu_speech_torch.models.spiral.features import filterbank_features
+
+    x = (torch.randn(2, 16000, generator=torch.Generator().manual_seed(3)) * 0.1).to(cuda)
+    lens = torch.tensor([16000, 9000], device=cuda)
+    with torch.inference_mode():  # as the serving path runs it
+        first, _ = filterbank_features(x, lens)
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, _ = filterbank_features(x, lens)
+        with torch.inference_mode():
+            served, _ = filterbank_features(x, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.LAUNCHES["fused_logmel"] == 2
+    torch.testing.assert_close(again, first, rtol=0, atol=0)
+    torch.testing.assert_close(served, first, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("d_head", KERNEL_D_HEADS)
 @pytest.mark.parametrize("t", [5, 64, 131])
 def test_fused_qkv_attention_matches_plain(cuda, d_head, t):

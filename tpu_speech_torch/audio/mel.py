@@ -2,7 +2,7 @@
 
 Port of ``tpu_speech/audio/mel.py:28-84``: the librosa-compatible slaney mel
 scale and filterbank, and the periodic Hann window. These are constants built
-once on the host; the device work (framing, DFT, mel product, log) lives in
+once on the host; the device work (framing, FFT, mel product, log) lives in
 ``tpu_speech_torch/ops/fused_logmel.py``.
 """
 

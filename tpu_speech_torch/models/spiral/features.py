@@ -16,6 +16,7 @@ Not ported yet: the per_feature_causal and all_features normalizations.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -35,6 +36,21 @@ def hann_window_symmetric(win_length: int) -> np.ndarray:
     return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / (win_length - 1)))).astype(
         np.float32
     )
+
+
+@functools.lru_cache(maxsize=16)
+def featurizer_constants(sample_rate: int, win_length: int, n_fft: int, nfilt: int,
+                         lowfreq: float, highfreq: float, device: torch.device):
+    """(window (n_fft,), mel filterbank (nfilt, n_fft//2 + 1)) float32 on
+    ``device``, built and copied once per configuration and device: the
+    center=True STFT's symmetric Hann of win_length zero-padded to n_fft, and
+    the slaney filterbank. Shared by every call: read only."""
+    window = hann_window_symmetric(win_length)
+    lpad = (n_fft - win_length) // 2
+    window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    fb = mel_filterbank(sample_rate, n_fft, nfilt, lowfreq, highfreq)
+    with torch.inference_mode(False):  # a cached tensor outlives any inference region
+        return torch.tensor(window, device=device), torch.tensor(fb, device=device)
 
 
 def normalize_time_domain(x: torch.Tensor) -> torch.Tensor:
@@ -99,16 +115,11 @@ def filterbank_features(
     xp = stft_input(x, n_fft, preemph, do_normalize_time_domain,
                     dither if training else 0.0, generator)
 
-    # center=True STFT, symmetric hann of win_length zero-padded to n_fft
-    window = hann_window_symmetric(win_length)
-    lpad = (n_fft - win_length) // 2
-    window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    window, fb = featurizer_constants(sample_rate, win_length, n_fft, nfilt, lowfreq,
+                                      highfreq, x.device)
     num_frames = 1 + (xp.shape[-1] - n_fft) // hop_length
-    fb = mel_filterbank(sample_rate, n_fft, nfilt, lowfreq, highfreq)
-
     feats = fused_logmel(
-        xp, torch.tensor(window, device=x.device),
-        torch.tensor(fb, device=x.device),
+        xp, window, fb,
         n_fft=n_fft, hop_length=hop_length, num_frames=num_frames,
         mag_mode="power" if mag_power == 2.0 else "mag_eps", mag_eps=0.0,
         log_mode="guard", log_guard=log_zero_guard_value,

@@ -38,9 +38,9 @@ NVCC_FLAGS = (
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # C entry points: name -> argtypes (restype is int: a cudaError_t)
 SIGNATURES = {
-    # x, dft, mel, out, B, N, n_fft, hop, n_freq, n_mels, num_frames,
-    # mag_mode, mag_eps, log_mode, log_guard, stream
-    "tsx_fused_logmel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # x, window, mel_fb, bands, twiddle tables, out, B, N, n_fft, hop, n_mels,
+    # num_frames, mag_mode, mag_eps, log_mode, log_guard, stream
+    "tsx_fused_logmel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _F, _P],
     # q, k, v, row stride, key_pad (nullable), out, lse (nullable), B, T, H, D,
     # seed, dropout threshold, dropout scale, stream

@@ -1,11 +1,11 @@
 """Fused wav -> log-mel: the Hopper kernel and its plain PyTorch version.
 
 Port of ``tpu_speech/ops/fused_logmel.py`` (K1). ``fused_logmel`` launches
-the hand-written CUDA kernel ``csrc/fused_logmel.cu`` on a CUDA tensor and
-computes ``logmel_plain`` on a CPU tensor; a CUDA tensor it cannot take
-raises. ``logmel_plain`` is the counterpart of ``logmel_reference:233``:
-strided frames (``unfold``) -> window -> ``torch.fft.rfft`` -> power ->
-mel -> log.
+the hand-written CUDA kernel ``csrc/fused_logmel.cu`` (a real FFT per frame
+in float64, a banded mel product) on a CUDA tensor and computes
+``logmel_plain`` on a CPU tensor; a CUDA tensor it cannot take raises.
+``logmel_plain`` is the counterpart of ``logmel_reference:233``: strided
+frames (``unfold``) -> window -> ``torch.fft.rfft`` -> power -> mel -> log.
 
 Semantics (both versions): ``x`` (B, N) float32 is already padded per the
 caller's STFT convention; frame ``t`` reads ``x[:, t*hop : t*hop + n_fft]``
@@ -13,23 +13,32 @@ caller's STFT convention; frame ``t`` reads ``x[:, t*hop : t*hop + n_fft]``
   mag_mode: 'power' -> re^2 + im^2; 'mag_eps' -> sqrt(re^2 + im^2 + mag_eps)
   log_mode: 'guard' -> log(mel + log_guard); 'clip' -> log(max(mel, log_guard))
 Returns (B, num_frames, n_mels) float32.
+
+The kernel's constant inputs are built once and cached: the twiddle tables
+per (n_fft, device) (``fft_tables``) and each filterbank's nonzero bands per
+filterbank tensor (``mel_bands``, on the device, no host sync). A call with
+warm caches copies nothing to the card and does not synchronise.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import weakref
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpu_speech_torch.ops import _build
 
-__all__ = ["fused_logmel", "logmel_plain", "make_dft_mats"]
+__all__ = ["fused_logmel", "logmel_plain", "make_dft_mats", "fft_tables", "mel_bands",
+           "kernel_launch_config"]
 
 _MAG_MODES = {"power": 0, "mag_eps": 1}
 _LOG_MODES = {"guard": 0, "clip": 1}
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
-_TF, _KC = 16, 16  # frames per block, DFT rows per stage (csrc/fused_logmel.cu)
+KERNEL_N_FFT = (128, 256, 512, 1024, 2048)  # the kernel's transform sizes
 
 
 def make_dft_mats(n_fft: int, window: torch.Tensor, mel_fb: torch.Tensor):
@@ -38,7 +47,9 @@ def make_dft_mats(n_fft: int, window: torch.Tensor, mel_fb: torch.Tensor):
     ``dft = [cos*win | -sin*win]`` over the n_freq = n_fft//2 + 1 real bins
     only (the TPU version pads the bins to 384 for its tiles; this one does
     not). Angles are reduced exactly (k*n mod n_fft) and evaluated in float64
-    before the cast, as the numpy ``make_dft_mats:54`` does.
+    before the cast, as the numpy ``make_dft_mats:54`` does. The counterpart
+    of the TPU kernel's operands; the Hopper kernel transforms by an FFT over
+    ``fft_tables`` and reads no DFT matrix.
     """
     n_freq = n_fft // 2 + 1
     dev = window.device
@@ -81,6 +92,105 @@ def logmel_plain(
     return torch.log(mel + log_guard)
 
 
+def _bitrev(x: np.ndarray, bits: int) -> np.ndarray:
+    r = np.zeros_like(x)
+    for i in range(bits):
+        r = (r << 1) | ((x >> i) & 1)
+    return r
+
+
+def twiddle_exponents(n_fft: int) -> np.ndarray:
+    """The integer a of each entry W_N^a = exp(-2 pi i a / n_fft) of the
+    kernel's table, in its order (``csrc/fused_logmel.cu``): with M = n_fft/2
+    = 32 V complex points, lane l and register p,
+      [p*32 + l]             W_M^(l * bitrev_V(p))    (after the V-point DFTs)
+      [M + a*32 + l]         W_N^k, a < V/2, k = l//16 + 2 bitrev_(V/2)(a)
+                             + V bitrev_16(l % 16)    (the real split)
+      [3M/2 + e]             W_V^e, e < V/2           (the V-point DFTs)
+      [3M/2 + V/2 + j]       W_32^j, j < 16           (the cross-lane DFTs)
+    """
+    m = n_fft // 2
+    v = m // 32
+    logv = v.bit_length() - 1
+    p, lane = np.meshgrid(np.arange(v), np.arange(32), indexing="ij")
+    a, lane2 = np.meshgrid(np.arange(v // 2), np.arange(32), indexing="ij")
+    return np.concatenate([
+        (2 * lane * _bitrev(p, logv)).ravel(),             # W_M^a = W_N^(2a)
+        (lane2 // 16 + 2 * _bitrev(a, logv - 1) + v * _bitrev(lane2 % 16, 4)).ravel(),
+        np.arange(v // 2) * (n_fft // v),
+        np.arange(16) * (n_fft // 32),
+    ]) % n_fft
+
+
+@functools.lru_cache(maxsize=None)
+def fft_tables(n_fft: int, device: torch.device) -> torch.Tensor:
+    """The kernel's float64 twiddle table (entries, 2) = (cos, -sin) of
+    2 pi a / n_fft for ``twiddle_exponents``, on ``device``; built once per
+    (n_fft, device), with the angle reduced exactly (a mod n_fft) before
+    the float64 cos and sin, as ``make_dft_mats`` does. Shared: read only."""
+    ang = (2.0 * np.pi / n_fft) * twiddle_exponents(n_fft).astype(np.float64)
+    tab = np.stack([np.cos(ang), -np.sin(ang)], axis=1)
+    with torch.inference_mode(False):  # a cached tensor outlives any inference region
+        return torch.from_numpy(tab).to(device)
+
+
+# filterbank tensor id -> (weak reference, version, data pointer, bands)
+_BANDS: dict = {}
+
+
+def _bands(mel_fb: torch.Tensor) -> torch.Tensor:
+    n_freq = mel_fb.shape[1]
+    nz = mel_fb != 0
+    idx = torch.arange(n_freq, device=mel_fb.device)
+    hi = torch.where(nz, idx + 1, 0).amax(dim=1)
+    lo = torch.minimum(torch.where(nz, idx, n_freq).amin(dim=1), hi)
+    return torch.stack([lo, hi]).to(torch.int32).contiguous()
+
+
+def mel_bands(mel_fb: torch.Tensor) -> torch.Tensor:
+    """int32 (2, n_mels) on ``mel_fb``'s device: row 0 the first nonzero bin
+    of each filter, row 1 one past its last (an all-zero filter gets 0, 0).
+    Computed by a few device ops, without a host sync, once per filterbank
+    tensor: a second call with the same, unmodified tensor returns the same
+    bands. An inference-mode tensor has no version counter to show an edit,
+    so its bands are computed on every call."""
+    if mel_fb.is_inference():
+        return _bands(mel_fb)
+    key = id(mel_fb)
+    hit = _BANDS.get(key)
+    if (hit is not None and hit[0]() is mel_fb and hit[1] == mel_fb._version
+            and hit[2] == mel_fb.data_ptr()):
+        return hit[3]
+    with torch.inference_mode(False):
+        bands = _bands(mel_fb)
+    _BANDS[key] = (weakref.ref(mel_fb, lambda _, k=key: _BANDS.pop(k, None)),
+                   mel_fb._version, mel_fb.data_ptr(), bands)
+    return bands
+
+
+def kernel_launch_config(n_fft: int, hop_length: int, n_mels: int):
+    """(frames per tile, shared-memory bytes) of the kernel's launch, as
+    ``csrc/fused_logmel.cu`` computes them; raises ValueError for what the
+    kernel does not take."""
+    if n_fft not in KERNEL_N_FFT:
+        raise ValueError(f"fused_logmel kernel takes n_fft in {KERNEL_N_FFT} "
+                         f"(powers of two), not {n_fft}")
+    if hop_length <= 0 or hop_length % 4:
+        raise ValueError(f"fused_logmel kernel needs hop % 4 == 0 (hop={hop_length})")
+    m = n_fft // 2
+    if not 0 < n_mels <= m + 1:
+        raise ValueError(f"fused_logmel kernel needs 0 < n_mels <= n_fft/2 + 1 ({n_mels})")
+    v = m // 32
+    tf = 16 if v <= 16 else 8
+    n_tab = m + m // 2 + v // 2 + 16
+    span_pad = ((tf - 1) * hop_length + n_fft + 3) & ~3
+    smem = 16 * n_tab + 4 * (n_fft + span_pad + tf * (m + m // 32 + 2) + 2 * n_mels)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"fused_logmel kernel: n_fft={n_fft}, hop={hop_length} need "
+                         f"{smem} bytes of shared memory (at most {_MAX_SMEM})")
+    return tf, smem
+
+
 def fused_logmel(
     x: torch.Tensor,
     window: torch.Tensor,
@@ -112,26 +222,20 @@ def fused_logmel(
         return logmel_plain(x, window, mel_fb, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"fused_logmel: unsupported device {x.device}")
-    if x.dtype != torch.float32 or window.device != x.device or mel_fb.device != x.device:
+    if any(t.dtype != torch.float32 or t.device != x.device for t in (x, window, mel_fb)):
         raise ValueError("fused_logmel: x, window and mel_fb must be float32 on one device")
-    if hop_length % 4 or n_fft % _KC:
-        raise ValueError(f"fused_logmel kernel needs hop % 4 == 0 and n_fft % {_KC} == 0 "
-                         f"(hop={hop_length}, n_fft={n_fft})")
-    span = (_TF - 1) * hop_length + n_fft + 3
-    if 4 * (span + (2 * _KC + _TF) * n_freq) > _MAX_SMEM:
-        raise ValueError(f"fused_logmel kernel: n_fft={n_fft}, hop={hop_length} "
-                         "overflow shared memory")
-    x = x.contiguous()
-    dft, mel = make_dft_mats(n_fft, window, mel_fb)
+    n_mels = mel_fb.shape[0]
+    kernel_launch_config(n_fft, hop_length, n_mels)
+    x, window, mel_fb = x.contiguous(), window.contiguous(), mel_fb.contiguous()
+    tables, bands = fft_tables(n_fft, x.device), mel_bands(mel_fb)
     b, n = x.shape
-    n_mels = mel.shape[1]
     out = torch.empty((b, num_frames, n_mels), device=x.device, dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(x.device):  # the runtime launches on its current device
         err = lib.tsx_fused_logmel(
-            x.data_ptr(), dft.data_ptr(), mel.data_ptr(), out.data_ptr(),
-            b, n, n_fft, hop_length, n_freq, n_mels, num_frames,
-            _MAG_MODES[mag_mode], mag_eps, _LOG_MODES[log_mode], log_guard,
+            x.data_ptr(), window.data_ptr(), mel_fb.data_ptr(), bands.data_ptr(),
+            tables.data_ptr(), out.data_ptr(), b, n, n_fft, hop_length, n_mels,
+            num_frames, _MAG_MODES[mag_mode], mag_eps, _LOG_MODES[log_mode], log_guard,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "fused_logmel")
