@@ -6,14 +6,17 @@
 Drives the port's three SPIRAL-base paths through their normal entry point
 (``tpu_speech_torch.cli.run_spiral.main``), at full width with seeded random
 weights: CTC transcription, the ST2Vec pretrain step and the CTC finetune
-step. It checks each hand kernel against its plain PyTorch version. Phases
+step, the two training steps also in bf16 mixed precision and with gradient
+accumulation. It checks each hand kernel, fp32 and bf16, against its plain
+PyTorch version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
 
 1. build the CUDA kernels from ``tpu_speech_torch/csrc`` (nvcc, sm_90a);
    print each kernel's registers and spills (``-Xptxas -v``) and its
    tensor-core instructions (``cuobjdump -sass``: HMMA for mma.sync, HGMMA
-   for wgmma), and fail if an attention or positional-conv kernel has none;
+   for wgmma), and fail if an attention or positional-conv kernel has none,
+   or if a bf16 variant has no bf16 ones;
 2. K1 (fused log-mel) against ``logmel_plain`` in fp32 and in float64 at
    the SPIRAL shape (14 x 384 512 featurizer-input samples), at frame-count
    edges, at the HiFi-GAN mel (n_fft 1024, hop 256, mag_eps and clip) and
@@ -73,7 +76,31 @@ result):
     (B = 2 x 4 s, dither, dropout, layerdrop and masks off, SGD with lr = 1):
     the loss and every gradient tensor;
 16. the finetune step's time (median of 10, unfrozen, batch on the card),
-    its peak device memory, and a profile of the step.
+    its peak device memory, and a profile of the step;
+17. the bf16 variants of K2, K2-bwd, K3, K3-bwd, K4 and K4-dx against their
+    plain versions (which round where the kernels do) at the shapes of
+    phases 7, 8, 12 and 13, each timed beside its plain version, its bound
+    (FLOP at the bf16 peak) and the library's bf16 call (SDPA, cuDNN's conv
+    and dgrad);
+18. the pretrain slice with ``--set model.precision=bf16`` through
+    ``run_spiral.main`` on phase 9's corpus for 3 steps: per step the bf16
+    kernels' launches and none of the fp32 attention or K4 kernels, finite
+    losses, float32 weights saved; then the bf16 step's time, peak memory
+    and profile;
+19. one full-width pretrain step in bf16 against fp32 on the card (B = 24 x
+    250 000, the same weights, batch and negatives, regularisers off, SGD lr
+    = 1): the loss within 2e-2 relative, each gradient leaf (at least 1 % of
+    the largest) within 0.1 relative L2 or, where the same bf16 step on the
+    plain versions is itself farther, within 2x its distance + 1e-2;
+20. the same for finetuning: the bf16 slice through ``run_spiral.main`` (2
+    unfrozen steps from phase 9's st2vec.pt), its step time and peak memory,
+    and a bf16 step against fp32 (B = 14 x 24 s);
+21. ``accumulate_grad_batches = 2`` for both steps at full width (24 and 14
+    utterances a micro-batch): one update and one EMA a call, the peak
+    memory within 1.1x the accum = 1 step's, the step times;
+22. the finetune step at accum 2 on two halves of 28 utterances against
+    accum 1 on all 28 (fp32, SGD, regularisers off): the loss within 1e-5
+    relative, the gradients within 1e-3 x max|g|.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -136,6 +163,20 @@ K3_SHAPES = ((14, 604, 8, 64), (14, 302, 12, 64))
 FT_STEPS = 4
 FT_FROZEN = 2
 FT_LR = 1e-2  # x lr_scale 1/8; weight decay 0.01: a frozen step scales by 1 - 1.25e-5
+# the bf16 kernels against their plain versions, which round at the same
+# points (P~ and dS, outputs): x max(1, max|plain|), about one bf16 step at
+# the largest value (an output of either may land one rounding step apart)
+BF16_FWD_RTOL = 8e-3
+BF16_GRAD_RTOL = 1.6e-2
+# a bf16 step against the fp32 step on the same weights and batch: the loss
+# relative, and each gradient leaf (max|g| at least 1 % of the largest) in
+# relative L2 (see _hold_bf16_step for the leaves where the bf16 scheme
+# itself, with the plain versions, is farther)
+BF16_STEP_LOSS_RTOL = 2e-2
+BF16_STEP_GRAD_RL2 = 0.1
+BF16_FT_STEPS = 2
+# the finetune step at accum 2 on two halves against accum 1 on the whole
+ACCUM_LOSS_RTOL = 1e-5
 
 
 def log(msg):
@@ -186,29 +227,34 @@ def cuda_ms(fn, n=20, warmup=3, reps=1):
     return float(np.median(times))
 
 
-# the card's peaks (NVIDIA's H100 SXM data sheet, dense): TF32 tensor cores
-# and HBM3. An fp32-accurate product costs three TF32 products (the hi/lo
-# split), so a kernel's least time is the larger of 3 * FLOP / TF32 peak and
-# bytes / memory rate.
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense): TF32 and bf16
+# tensor cores and HBM3. An fp32-accurate product costs three TF32 products
+# (the hi/lo split), a bf16 product one bf16 product, so a kernel's least
+# time is the larger of 3 * FLOP / TF32 peak (FLOP / bf16 peak) and bytes /
+# memory rate.
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def roofline(flop, nbytes):
-    """(bound_ms, bound_by) of a kernel that does ``flop`` fp32-accurate
-    operations and must move ``nbytes`` (each input read once, each output
-    written once)."""
-    ops_ms, bytes_ms = 3 * flop / PEAK_TF32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def roofline(flop, nbytes, bf16=False):
+    """(bound_ms, bound_by) of a kernel that does ``flop`` fp32-accurate (or
+    bf16) operations and must move ``nbytes`` (each input read once, each
+    output written once)."""
+    ops_ms = (flop / PEAK_BF16 if bf16 else 3 * flop / PEAK_TF32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def attention_bound(b, t, h, d, backward):
+def attention_bound(b, t, h, d, backward, itemsize=4):
     """The forward does S = q k^T and P v (4 B H T^2 D FLOP); the backward
-    recomputes S and dO v^T and forms dV, dQ, dK (10 B H T^2 D)."""
+    recomputes S and dO v^T and forms dV, dQ, dK (10 B H T^2 D). Operands of
+    ``itemsize`` bytes; L and Delta float32, the mask a byte a key."""
     e = h * d
     if backward:  # q, k, v, out, dO, L, mask in; dq, dk, dv out
-        return roofline(10 * b * h * t * t * d, 4 * (8 * b * t * e + b * h * t) + b * t)
-    return roofline(4 * b * h * t * t * d, 4 * 4 * b * t * e + b * t)
+        return roofline(10 * b * h * t * t * d, itemsize * 8 * b * t * e + 4 * b * h * t + b * t,
+                        bf16=itemsize == 2)
+    return roofline(4 * b * h * t * t * d, itemsize * 4 * b * t * e + b * t, bf16=itemsize == 2)
 
 
 def sdpa(q, k, v, mask, p):
@@ -238,27 +284,28 @@ def qkv_views(qkv, h):
 
 
 def sass_counts(so_path):
-    """({kernel: tensor-core instructions}, the HMMA TF32 lines) from
-    ``cuobjdump -sass`` of the built library (HMMA: mma.sync; HGMMA: wgmma),
-    or None without the tool."""
+    """({kernel: tensor-core instructions}, {kernel: bf16 ones}, the HMMA
+    TF32 lines) from ``cuobjdump -sass`` of the built library (HMMA:
+    mma.sync; HGMMA: wgmma), or None without the tool."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
         return None
     sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
                           check=True).stdout.splitlines()
-    counts, fn = {}, None
+    counts, bf16, fn = {}, {}, None
     for line in sass:
         if "Function :" in line:
             fn = line.split("Function :")[-1].strip()
-            counts[fn] = 0
+            counts[fn] = bf16[fn] = 0
         elif fn is not None and ("HMMA" in line or "HGMMA" in line):
             counts[fn] += 1
-    return counts, [ln for ln in sass if "HMMA" in ln and "TF32" in ln]
+            bf16[fn] += "BF16" in line
+    return counts, bf16, [ln for ln in sass if "HMMA" in ln and "TF32" in ln]
 
 
 def kernel_name(text):
     """``attn_fwd_kernel<64>`` from a line that holds a kernel's mangled name."""
-    m = re.search(r"(attn_[a-z_]+?_kernel|grouped_conv1d_kernel|logmel_fft_kernel)"
+    m = re.search(r"(attn_[a-z0-9_]+?_kernel|grouped_conv1d(?:_bf16)?_kernel|logmel_fft_kernel)"
                   r"((?:ILi\d+E)?(?:Li\d+E)*)", text)
     if m is None:
         return text.strip()
@@ -282,9 +329,9 @@ def phase_build(_build):
     if sass is None:
         log("    cuobjdump not found: tensor-core instructions not counted")
         return
-    counts, tf32 = sass
+    counts, bf16, tf32 = sass
     for fn, n in sorted(counts.items()):
-        log(f"    SASS: {n:5d} HMMA/HGMMA in {kernel_name(fn)}")
+        log(f"    SASS: {n:5d} HMMA/HGMMA ({bf16[fn]} of them BF16) in {kernel_name(fn)}")
     log(f"    SASS: {len(tf32)} HMMA ... TF32 instructions in all, e.g. "
         f"{tf32[0].split('*/')[1].split(';')[0].strip() if tf32 else None}")
     # the attention and positional-conv kernels run their products on the
@@ -293,6 +340,11 @@ def phase_build(_build):
           if ("attn_" in fn and "delta" not in fn) or "grouped_conv1d" in fn}
     check(tc and all(n > 0 for n in tc.values()),
           f"kernels without tensor-core instructions: {tc}")
+    # ... and the bf16 variants on bf16 ones
+    tc16 = {kernel_name(fn): n for fn, n in bf16.items()
+            if "_bf16_" in kernel_name(fn) and "delta" not in fn}
+    check(len(tc16) >= 4 and all(n > 0 for n in tc16.values()),
+          f"bf16 kernels without bf16 tensor-core instructions: {tc16}")
 
 
 def tones_over_noise(n, seed):
@@ -1045,6 +1097,558 @@ def phase_finetune_time(torch, root):
     return ms, peak
 
 
+# ---- bf16 mixed precision and gradient accumulation --------------------------
+
+def _bf16_err(got, ref):
+    """max|got - ref| / max(1, max|ref|) over tensors compared as float32."""
+    return max((g.float() - r.float()).abs().max().item() / max(1.0, r.float().abs().max().item())
+               for g, r in zip(got, ref))
+
+
+def phase_bf16_kernels(torch, gen):
+    """17: each bf16 kernel against its plain version (which rounds at the
+    kernel's points) at every shape of the paths, timed beside its plain
+    version, its bound and the library's bf16 call."""
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops import fused_attention as fa
+    from tpu_speech_torch.ops import fused_posconv as fp
+
+    res = {"k2": 0.0, "k2_bwd": 0.0, "k3": 0.0, "k3_bwd": 0.0, "k4": 0.0, "k4_dx": 0.0}
+    for b, t, e, h in K2_TRAIN_SHAPES:
+        qkv32, mask = _k2_case(torch, gen, b, t, e, h)
+        qkv = qkv32.bfloat16()
+        dout = torch.randn(b, t, e, generator=gen).to("cuda").bfloat16()
+        for p in (0.0, DROP_P):
+            outs, grads = [], []
+            for fn in (fa.fused_qkv_self_attention, fa.qkv_attention_plain):
+                x = qkv.clone().requires_grad_(True)
+                out = fn(x, h, mask, p, 4321)
+                out.backward(dout)
+                outs.append(out.detach())
+                grads.append(x.grad)
+            torch.cuda.synchronize()
+            e_f, e_b = _bf16_err(outs[:1], outs[1:]), _bf16_err(grads[:1], grads[1:])
+            log(f"[17 K2 bf16 {(b, t, 3 * e)} H={h} p={p}] max|kernel - plain| forward "
+                f"{e_f:.3e} (limit {BF16_FWD_RTOL}), dqkv {e_b:.3e} (limit {BF16_GRAD_RTOL}) "
+                f"x max(1, max|plain|); dtypes {outs[0].dtype}/{grads[0].dtype}")
+            check(outs[0].dtype == grads[0].dtype == torch.bfloat16, "K2 bf16 dtypes")
+            check(bool(torch.isfinite(outs[0]).all() and torch.isfinite(grads[0]).all()),
+                  "K2 bf16: non-finite")
+            check(e_f <= BF16_FWD_RTOL and e_b <= BF16_GRAD_RTOL, f"K2 bf16 T={t} p={p}")
+            check(grads[0][0, :, :2 * e].abs().max().item() == 0.0, "K2 bf16: padded row dq, dk")
+            res["k2"], res["k2_bwd"] = max(res["k2"], e_f), max(res["k2_bwd"], e_b)
+    # times at the student's block-1 shape with dropout
+    b, t, e, h = STEP_SHAPES[0]
+    qkv32, mask = _k2_case(torch, gen, b, t, e, h)
+    qkv = qkv32.bfloat16()
+    dout = torch.randn(b, t, e, generator=gen).to("cuda").bfloat16()
+    seed, thresh, scale = 4321, fa.dropout_threshold(DROP_P), 1.0 / (1.0 - DROP_P)
+    out, lse = fa._launch_fwd(qkv, mask, h, seed, thresh, scale, True)
+    x = qkv.clone().requires_grad_(True)
+    plain_out = fa.qkv_attention_plain(x, h, mask, DROP_P, seed)
+    lib_fwd, lib_bwd = sdpa_times(torch, *qkv_views(qkv, h), mask, dout.view(b, t, h, e // h),
+                                  DROP_P)
+    res["k2_t"] = dict(
+        ms=cuda_ms(lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed)),
+        plain_ms=cuda_ms(lambda: fa.qkv_attention_plain(qkv, h, mask, DROP_P, seed)),
+        library_ms=lib_fwd, bound=attention_bound(b, t, h, e // h, False, itemsize=2))
+    res["k2_bwd_t"] = dict(
+        ms=cuda_ms(lambda: fa._launch_bwd(qkv, mask, out, dout, lse, h, seed, thresh, scale)),
+        plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_out, x, dout, retain_graph=True)),
+        library_ms=lib_bwd, bound=attention_bound(b, t, h, e // h, True, itemsize=2))
+    for k in ("k2_t", "k2_bwd_t"):
+        r = res[k]
+        log(f"    {k[:-2]} bf16 at {(b, t, 3 * e)} p=0.1: {r['ms']:.3f} ms vs plain "
+            f"{r['plain_ms']:.3f} ms, SDPA bf16 {r['library_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+
+    _build.reset_launches()
+    for b, t, h, d in K3_SHAPES:
+        q, k, v = (torch.randn(b, t, h, d, generator=gen).to("cuda") for _ in range(3))
+        q, k, v = (q * d ** -0.5).bfloat16(), k.bfloat16(), v.bfloat16()
+        lens = torch.linspace(0.3 * t, t, b).round().long().to("cuda")
+        lens[0] = 0
+        mask = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        dout = torch.randn(b, t, h, d, generator=gen).to("cuda").bfloat16()
+        for p in (0.0, DROP_P):
+            got = []
+            for fn in (fa.fused_self_attention, fa.attention_plain):
+                xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
+                o = fn(*xs, mask, p, 4321)
+                o.backward(dout)
+                got.append([o.detach()] + [a.grad for a in xs])
+            torch.cuda.synchronize()
+            e_f, e_b = _bf16_err(got[0][:1], got[1][:1]), _bf16_err(got[0][1:], got[1][1:])
+            log(f"[17 K3 bf16 {(b, t, h, d)} p={p}] forward {e_f:.3e}, dq dk dv {e_b:.3e} "
+                f"x max(1, max|plain|)")
+            check(all(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+                      for a in got[0]), "K3 bf16: dtype or non-finite")
+            check(e_f <= BF16_FWD_RTOL and e_b <= BF16_GRAD_RTOL, f"K3 bf16 T={t} p={p}")
+            check(got[0][1][0].abs().max().item() == 0.0, "K3 bf16: padded row dq")
+            res["k3"], res["k3_bwd"] = max(res["k3"], e_f), max(res["k3_bwd"], e_b)
+    res["k3_launches"] = dict(_build.LAUNCHES)
+    b, t, h, d = K3_SHAPES[0]
+    q, k, v = (torch.randn(b, t, h, d, generator=gen).to("cuda").bfloat16() for _ in range(3))
+    mask = torch.zeros(b, t, dtype=torch.bool, device="cuda")
+    mask[:, int(0.8 * t):] = True
+    dout = torch.randn(b, t, h, d, generator=gen).to("cuda").bfloat16()
+    out, lse = fa._launch_attn_fwd(q, k, v, mask, seed, thresh, scale, True)
+    xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    plain_out = fa.attention_plain(*xs, mask, DROP_P, seed)
+    lib_fwd, lib_bwd = sdpa_times(torch, q, k, v, mask, dout, DROP_P)
+    res["k3_t"] = dict(
+        ms=cuda_ms(lambda: fa.fused_self_attention(q, k, v, mask, DROP_P, seed)),
+        plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, mask, DROP_P, seed)),
+        library_ms=lib_fwd, bound=attention_bound(b, t, h, d, False, itemsize=2))
+    res["k3_bwd_t"] = dict(
+        ms=cuda_ms(lambda: fa._launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh,
+                                               scale)),
+        plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_out, xs, dout, retain_graph=True)),
+        library_ms=lib_bwd, bound=attention_bound(b, t, h, d, True, itemsize=2))
+    for k_ in ("k3_t", "k3_bwd_t"):
+        r = res[k_]
+        log(f"    {k_[:-2]} bf16 at {(b, t, h, d)} p=0.1: {r['ms']:.3f} ms vs plain "
+            f"{r['plain_ms']:.3f} ms, SDPA bf16 {r['library_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+
+    for b, t, c in K4_SHAPES:
+        cg, k = c // 16, 128
+        x = torch.randn(b, t, c, generator=gen).to("cuda").bfloat16()
+        w = (torch.randn(c, cg, k, generator=gen) * (cg * k) ** -0.5).to("cuda").bfloat16()
+        errs = []
+        for left in (64, 63, 127):
+            out = fp.grouped_conv1d(x, w, 16, left)
+            ref = fp.grouped_conv1d_plain(x, w, 16, left)
+            torch.cuda.synchronize()
+            errs.append(_bf16_err([out], [ref]))
+            check(out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all()),
+                  "K4 bf16: dtype or non-finite")
+        dy = torch.randn(b, t, c, generator=gen).to("cuda").bfloat16()
+        grads = []
+        for fn in (fp.grouped_conv1d, fp.grouped_conv1d_plain):
+            xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            fn(xx, ww, 16, 64).backward(dy)
+            grads.append((xx.grad, ww.grad))
+        torch.cuda.synchronize()
+        e_dx, e_dw = _bf16_err([grads[0][0]], [grads[1][0]]), _bf16_err([grads[0][1]], [grads[1][1]])
+        log(f"[17 K4 bf16 {(b, t, c)} Cg={cg}] forward at left pads 64/63/127 "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, dx {e_dx:.3e}, dw {e_dw:.3e} "
+            f"x max(1, max|plain|)")
+        check(max(errs) <= BF16_FWD_RTOL, f"K4 bf16 {(b, t, c)}: {errs}")
+        check(e_dx <= BF16_GRAD_RTOL and e_dw <= BF16_GRAD_RTOL, f"K4 bf16 dx/dw {(b, t, c)}")
+        res["k4"], res["k4_dx"] = max(res["k4"], *errs), max(res["k4_dx"], e_dx)
+        if (b, t, c) == K4_SHAPES[0]:
+            xg = x.clone().requires_grad_(True)
+            plain_y = fp.grouped_conv1d_plain(xg, w, 16, 64)
+            xp = torch.nn.functional.pad(x.transpose(1, 2), (64, 63)).contiguous()
+            dyt = dy.transpose(1, 2).contiguous()
+            bound = roofline(2 * b * t * c * cg * k, 2 * (2 * b * t * c + c * cg * k), bf16=True)
+            res["k4_t"] = dict(
+                ms=cuda_ms(lambda: fp.grouped_conv1d(x, w, 16, 64)),
+                plain_ms=cuda_ms(lambda: fp.grouped_conv1d_plain(x, w, 16, 64)),
+                library_ms=cuda_ms(lambda: torch.nn.functional.conv1d(xp, w, groups=16)),
+                bound=bound)
+            res["k4_dx_t"] = dict(
+                ms=cuda_ms(lambda: fp._launch(dy, fp._dx_weights(w, 16), 63, "grouped_conv1d_dx")),
+                plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_y, xg, dy, retain_graph=True)),
+                library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(xp.shape, w, dyt, groups=16)),
+                bound=bound)
+            for k_ in ("k4_t", "k4_dx_t"):
+                r = res[k_]
+                log(f"    {k_[:-2]} bf16 at {(b, t, c)}: {r['ms']:.3f} ms vs plain "
+                    f"{r['plain_ms']:.3f} ms, cuDNN bf16 {r['library_ms']:.3f} ms, bound "
+                    f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return res
+
+
+FP32_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd", "fused_attention",
+                "fused_attention_bwd", "grouped_conv1d", "grouped_conv1d_dx")
+
+
+def _watch_steps(torch, runner_cls, seen):
+    """Wrap ``runner_cls.step`` to record each call's launches (a difference
+    of the counters, which the caller zeroes once before the path) and the
+    step's metrics; returns the original."""
+    from tpu_speech_torch.ops import _build
+
+    step = runner_cls.step
+
+    def watched(self, batch):
+        before = dict(_build.LAUNCHES)
+        m = step(self, batch)
+        torch.cuda.synchronize()
+        seen.append({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+        return m
+
+    runner_cls.step = watched
+    return step
+
+
+def phase_bf16_pretrain_slice(torch, root):
+    """18: the pretrain slice with --set model.precision=bf16 through
+    run_spiral.main on phase 9's corpus: per step the bf16 kernels' launches
+    and no fp32 attention or K4 launch, finite losses, float32 weights
+    saved."""
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+
+    argv = ["--model_type", "st2vec", "--run_mode", "train",
+            "--config_name", "spiral_base_pretrain_ls960", "--manifest_dir", root,
+            "--model_save_dir", os.path.join(root, "pretrain_bf16"),
+            "--set", f"trainer.max_steps={PRETRAIN_STEPS}",
+            "--set", "model.optim.sched.warmup_steps=2", "--set", "model.precision=bf16"]
+    seen = []
+    step = _watch_steps(torch, SpiralPretrainRunner, seen)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = run_spiral.main(argv)
+    finally:
+        SpiralPretrainRunner.step = step
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    steps = res["steps"]
+    log(f"[18 bf16 pretrain slice] {len(steps)} steps of B = {PRETRAIN_BATCH} x 250 000 "
+        f"samples with model.precision=bf16 through run_spiral.main in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    check(len(steps) == PRETRAIN_STEPS == len(seen), f"{len(steps)} steps ran")
+    for i, (m, n) in enumerate(zip(steps, seen)):
+        log(f"    step {i}: loss {m['loss']:.4f} acc {m['accuracy']:.4f}, kept layers "
+            f"teacher {m['teacher_layers']} student {m['student_layers']}; launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+        check(np.isfinite(m["loss"]) and np.isfinite(m["accuracy"]), f"step {i}: loss")
+        check(n["fused_logmel"] == 2, f"step {i}: K1 {n}")
+        check(n["fused_qkv_attention_bf16"] == m["teacher_layers"] + m["student_layers"],
+              f"step {i}: K2-fwd bf16 {n}")
+        check(n["fused_qkv_attention_bwd_bf16"] == m["student_layers"], f"step {i}: K2-bwd {n}")
+        check(n["grouped_conv1d_bf16"] == 4 and n["grouped_conv1d_dx_bf16"] == 2,
+              f"step {i}: K4 bf16 {n}")
+        check(all(n[k] == 0 for k in FP32_KERNELS), f"step {i}: an fp32 kernel ran {n}")
+    sd = torch.load(res["state_dict"], weights_only=True)
+    check(all(v.dtype == torch.float32 for v in sd.values() if v.is_floating_point()),
+          "the saved weights are not float32")
+    return launches
+
+
+def _pretrain_runner(root, precision="fp32", accum=1, regularised=True):
+    """A SpiralPretrainRunner at spiral_base_pretrain_ls960 on phase 9's
+    corpus; without regularisers: dither, dropout and layerdrop off."""
+    import dataclasses
+
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+
+    cfg = spiral_base_pretrain_ls960()
+    cfg.model.train_ds.manifest_filepath = os.path.join(root, "librivox-train-clean-100.json")
+    cfg.model.precision = precision
+    cfg.trainer.accumulate_grad_batches = accum
+    if not regularised:
+        enc = cfg.model.encoder
+        cfg.model.encoder = dataclasses.replace(enc, dither=0.0, blocks=tuple(
+            dataclasses.replace(b, transformer=dataclasses.replace(
+                b.transformer, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                encoder_layerdrop=0.0), conv_layers=tuple(
+                    dataclasses.replace(c, dropout=0.0) for c in b.conv_layers))
+            for b in enc.blocks))
+    return SpiralPretrainRunner(cfg, os.path.join(root, f"timed_{precision}_{accum}"),
+                                device="cuda")
+
+
+def _timed_step(torch, fn, n=10):
+    """(median ms of ``fn`` over n after 2 warm-ups, peak GiB over them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(fn, n=n, warmup=2)
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_bf16_pretrain_time(torch, root):
+    """18: the bf16 pretrain step's time and peak memory, as phase 11."""
+    runner = _pretrain_runner(root, "bf16")
+    batch = runner.device_batch(next(iter(runner.loader)))
+    ms, peak = _timed_step(torch, lambda: runner.step(batch))
+    log(f"[18 bf16 pretrain step time] B = 24 x 250 000 samples, batch on the card: "
+        f"{ms:.2f} ms per step (median of 10), peak device memory {peak:.2f} GiB")
+    profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="18 profile")
+    return ms, peak
+
+
+class plain_kernels:
+    """Within: the towers call the plain versions of K2 and K4 on the card
+    (the bf16 scheme's own rounding, without the hand kernels)."""
+
+    def __enter__(self):
+        from tpu_speech_torch.models.spiral import wav2vec
+        from tpu_speech_torch.ops.fused_attention import qkv_attention_plain
+        from tpu_speech_torch.ops.fused_posconv import grouped_conv1d_plain
+
+        self.saved = wav2vec.fused_qkv_self_attention, wav2vec.grouped_conv1d
+        wav2vec.fused_qkv_self_attention = qkv_attention_plain
+        wav2vec.grouped_conv1d = grouped_conv1d_plain
+
+    def __exit__(self, *exc):
+        from tpu_speech_torch.models.spiral import wav2vec
+
+        wav2vec.fused_qkv_self_attention, wav2vec.grouped_conv1d = self.saved
+
+
+def _hold_bf16_step(tag, run):
+    """A bf16 step against the fp32 step on the same weights and batch.
+    ``run(bf16)`` gives (loss, {name: gradient}); the plain versions' bf16
+    step (``plain_kernels``) is the yardstick of the bf16 scheme's own error.
+    The loss within BF16_STEP_LOSS_RTOL relative; each gradient leaf (max|g|
+    at least 1 % of the largest) within BF16_STEP_GRAD_RL2 relative L2 or,
+    where the bf16 scheme itself is farther, no farther than the JAX parity
+    tests' bound: 2 x the plain bf16 step's distance + 1e-2 ||g32||."""
+    l32, g32 = run(False)
+    l16, g16 = run(True)
+    with plain_kernels():
+        lp, gp = run(True)
+    rel_loss, rel_plain = abs(l16 - l32) / abs(l32), abs(lp - l32) / abs(l32)
+    g_max = max(g.abs().max().item() for g in g32.values())
+    rows = []
+    for k, g in g32.items():
+        if g.abs().max().item() < 1e-2 * g_max:
+            continue
+        n32 = g.norm().item()
+        rows.append((((g16[k] - g).norm().item() / n32), (gp[k] - g).norm().item() / n32, k))
+    rows.sort(reverse=True)
+    over = [r for r in rows if r[0] > BF16_STEP_GRAD_RL2]
+    bad = [r for r in over if r[0] > 2 * r[1] + 1e-2]
+    log(f"[{tag}] loss fp32 {l32:.6f} bf16 {l16:.6f} (rel {rel_loss:.3e}, limit "
+        f"{BF16_STEP_LOSS_RTOL}); plain-version bf16 {lp:.6f} (rel {rel_plain:.3e}); "
+        f"{len(rows)} gradient leaves above 1 % of the largest, {len(over)} of them beyond "
+        f"{BF16_STEP_GRAD_RL2} relative L2; worst leaves (kernels' bf16, plain bf16 "
+        f"relative L2):")
+    for r16, rp, k in rows[:6]:
+        log(f"    {r16:.3e} {rp:.3e} {k}")
+    check(rel_loss <= BF16_STEP_LOSS_RTOL, f"bf16 loss {l16} vs fp32 {l32}")
+    check(not bad, f"bf16 gradients beyond both bounds: {bad}")
+    return rel_loss, rows[0][0]
+
+
+def phase_bf16_vs_fp32_pretrain(torch, root):
+    """19: one full-width pretrain step in bf16 against the fp32 step on the
+    card: the same weights, batch (B = 24 x 250 000) and negatives,
+    regularisers off, SGD lr = 1; loss and gradients (``_hold_bf16_step``)."""
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, draw_negative_indices
+    from tpu_speech_torch.train import spiral as tspiral
+
+    runner = _pretrain_runner(root, regularised=False)
+    enc = runner.enc_cfg
+    batch = runner.device_batch(next(iter(runner.loader)))
+    del runner
+    feat_lens = torch.ceil(batch["p_wav_lens"].float() / 160).long()
+    for _ in range(3):
+        feat_lens = (feat_lens + 1) // 2
+    neg = draw_negative_indices(feat_lens.cpu(), batch["time_mask"].shape[1] // 8,
+                                enc.n_negatives, torch.Generator().manual_seed(8)).cuda()
+
+    def run(bf16):
+        model = ST2VecEncoder(enc, pretraining=True)
+        model.init_weights(torch.Generator().manual_seed(3))
+        state = tspiral.make_pretrain_state(model.cuda(), lambda ps: torch.optim.SGD(ps, lr=1.0))
+        m = tspiral.pretrain_step(state, batch, DropoutRng.seeded(0, "cuda"), bf16=bf16,
+                                  neg_idx=neg)
+        return float(m["loss"]), {n: p.grad for n, p in model.named_parameters()
+                                  if p.requires_grad}
+
+    return _hold_bf16_step("19 pretrain bf16 vs fp32, B = 24 x 250 000, one SGD(lr=1) step",
+                           run)
+
+
+def phase_bf16_finetune_slice(torch, root, st2vec_pt):
+    """20: the finetune slice with --set model.precision=bf16 through
+    run_spiral.main from phase 9's st2vec.pt, unfrozen, on phase 14's
+    corpus: per step the bf16 kernels' launches, finite losses."""
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    argv = ["--model_type", "ctc_finetune", "--run_mode", "train",
+            "--config_name", "spiral_base_finetune_ls100_char", "--manifest_dir", root,
+            "--init_chkpt_dir", os.path.dirname(st2vec_pt),
+            "--init_chkpt_file", os.path.basename(st2vec_pt),
+            "--model_save_dir", os.path.join(root, "finetune_bf16"),
+            "--set", f"trainer.max_steps={BF16_FT_STEPS}",
+            "--set", "model.freeze_finetune_updates=0",
+            "--set", "model.optim.sched.warmup_ratio=0", "--set", f"model.optim.lr={FT_LR}",
+            "--set", "model.precision=bf16"]
+    seen = []
+    step = _watch_steps(torch, SpiralFinetuneRunner, seen)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = run_spiral.main(argv)
+    finally:
+        SpiralFinetuneRunner.step = step
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    steps = res["steps"]
+    log(f"[20 bf16 finetune slice] {len(steps)} unfrozen steps of B = {BATCH} x 24 s with "
+        f"model.precision=bf16 through run_spiral.main in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    check(len(steps) == BF16_FT_STEPS == len(seen), f"{len(steps)} steps ran")
+    for i, (m, n) in enumerate(zip(steps, seen)):
+        log(f"    step {i}: loss {m['loss']:.4f}, kept layers {m['layers']}; launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+        check(np.isfinite(m["loss"]) and not m["frozen"], f"step {i}: loss {m['loss']}")
+        check(n["fused_logmel"] == 1, f"step {i}: K1 {n}")
+        check(n["fused_qkv_attention_bf16"] == n["fused_qkv_attention_bwd_bf16"] == m["layers"],
+              f"step {i}: K2 bf16 {n}")
+        check(n["grouped_conv1d_bf16"] == n["grouped_conv1d_dx_bf16"] == 2, f"step {i}: K4 {n}")
+        check(all(n[k] == 0 for k in FP32_KERNELS), f"step {i}: an fp32 kernel ran {n}")
+    return launches
+
+
+def _finetune_runner(root, precision="fp32", accum=1):
+    from tpu_speech_torch.configs.spiral import spiral_base_ctc_char
+    from tpu_speech_torch.text.tokenizers import CharTokenizer
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    cfg = spiral_base_ctc_char()
+    cfg.model.freeze_finetune_updates = 0
+    cfg.model.precision = precision
+    cfg.trainer.accumulate_grad_batches = accum
+    cfg.model.train_ds.manifest_filepath = os.path.join(root, "librivox-train-clean-100.json")
+    return SpiralFinetuneRunner(cfg, os.path.join(root, f"ft_timed_{precision}_{accum}"),
+                                CharTokenizer(cfg.model.labels), device="cuda")
+
+
+def phase_bf16_finetune_time(torch, root):
+    """20: the bf16 finetune step's time and peak memory, as phase 16."""
+    runner = _finetune_runner(root, "bf16")
+    batch = runner.device_batch(next(iter(runner.loader)))
+    ms, peak = _timed_step(torch, lambda: runner.step(batch))
+    log(f"[20 bf16 finetune step time] B = 14 x 24 s, unfrozen, batch on the card: "
+        f"{ms:.2f} ms per step (median of 10), peak device memory {peak:.2f} GiB")
+    profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="20 profile")
+    return ms, peak
+
+
+def _finetune_batch(rng, n):
+    """n speech-like utterances of 4-24 s padded to 24 s with random labels
+    (12 a second), as host arrays."""
+    lens = rng.integers(4 * SR, MAX_SAMPLES + 1, size=n).astype(np.int32)
+    wavs = np.zeros((n, MAX_SAMPLES), np.float32)
+    labels = np.zeros((n, 512), np.int32)
+    label_lens = (lens // SR * 12).astype(np.int32)
+    for i in range(n):
+        wavs[i, :lens[i]] = speech_like(rng, int(lens[i]))
+        labels[i, :label_lens[i]] = rng.integers(0, 28, size=label_lens[i])
+    return {"wavs": wavs, "wav_lens": lens, "labels": labels, "label_lens": label_lens}
+
+
+def phase_bf16_vs_fp32_finetune(torch):
+    """20: one full-width unfrozen finetune step in bf16 against fp32 on the
+    card: the same weights and batch (B = 14 x 24 s), regularisers off, SGD
+    lr = 1; loss and gradients (``_hold_bf16_step``)."""
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
+    from tpu_speech_torch.train.spiral import batch_to_device
+    from tpu_speech_torch.train.spiral_runner import build_model
+
+    cfg = _no_dropout_finetune_cfg()
+    batch = batch_to_device(_finetune_batch(np.random.default_rng(11), BATCH), "cuda")
+
+    def run(bf16):
+        model = build_model(cfg, 28).init_weights(torch.Generator().manual_seed(3)).cuda()
+        state = make_finetune_state(model, lambda ps: torch.optim.SGD(ps, lr=1.0))
+        m = finetune_step(state, batch, DropoutRng.seeded(0, "cuda"), bf16=bf16)
+        return float(m["loss"]), {n: p.grad for n, p in model.named_parameters()}
+
+    return _hold_bf16_step("20 finetune bf16 vs fp32, B = 14 x 24 s, one unfrozen SGD(lr=1) "
+                           "step", run)
+
+
+def phase_accum(torch, root, ft_root):
+    """21: accumulate_grad_batches = 2 at full width, 24 (pretrain) and 14
+    (finetune) utterances a micro-batch, through the runners' steps: one
+    optimizer update and one EMA per call, the peak memory against the
+    accum = 1 step's on the same state, and the step times."""
+    from tpu_speech_torch.train.spiral import pretrain_step
+    from tpu_speech_torch.train.finetune import finetune_step
+
+    res = {}
+    runner = _pretrain_runner(root, accum=2)
+    it = iter(runner.loader)
+    micro = [runner.device_batch(next(it), i) for i in range(2)]
+    state = runner.state
+    one = lambda: pretrain_step(state, micro[0], runner.rng, grad_clip=runner.cfg.model.grad_clip)
+    res["pre_1"] = _timed_step(torch, one, n=5)
+    res["pre_2"] = _timed_step(torch, lambda: runner.step(micro), n=5)
+    step0 = state.step
+    teacher0 = [p.detach().clone() for p in state.model.teacher_parameters()]
+    m = runner.step(micro)
+    student = [p for _, s in state.model._pairs() for p in s.parameters()]
+    mom = m["momentum"]
+    ema_err = max((t - (t0 * mom + s.detach() * (1 - mom))).abs().max().item()
+                  for t, t0, s in zip(state.model.teacher_parameters(), teacher0, student))
+    log(f"[21 pretrain accum 2] 2 x 24 x 250 000 samples a call: step count +{state.step - step0} "
+        f"a call; EMA as one update (max error {ema_err:.2e}); loss {float(m['loss']):.4f}; "
+        f"{res['pre_2'][0]:.2f} ms a call vs {res['pre_1'][0]:.2f} ms for one micro-batch "
+        f"(median of 5), peak {res['pre_2'][1]:.2f} GiB vs {res['pre_1'][1]:.2f} GiB")
+    check(state.step - step0 == 1, "pretrain accum: not one update a call")
+    check(ema_err <= 1e-6, f"pretrain accum: EMA off by {ema_err}")
+    check(np.isfinite(float(m["loss"])), "pretrain accum: loss")
+    check(res["pre_2"][1] <= 1.1 * res["pre_1"][1], "pretrain accum: peak memory")
+    del runner, micro, state, one, teacher0, student
+
+    runner = _finetune_runner(ft_root, accum=2)
+    it = iter(runner.loader)
+    micro = [runner.device_batch(next(it)) for _ in range(2)]
+    state = runner.state
+    one = lambda: finetune_step(state, micro[0], runner.rng)
+    res["ft_1"] = _timed_step(torch, one, n=5)
+    res["ft_2"] = _timed_step(torch, lambda: runner.step(micro), n=5)
+    step0, count0 = state.step, state.optimizer.count
+    m = runner.step(micro)
+    log(f"[21 finetune accum 2] 2 x 14 x 24 s a call: step count +{state.step - step0}, "
+        f"optimizer count +{state.optimizer.count - count0} a call; loss {float(m['loss']):.4f}; "
+        f"{res['ft_2'][0]:.2f} ms a call vs {res['ft_1'][0]:.2f} ms for one micro-batch "
+        f"(median of 5), peak {res['ft_2'][1]:.2f} GiB vs {res['ft_1'][1]:.2f} GiB")
+    check(state.step - step0 == 1 and state.optimizer.count - count0 == 1,
+          "finetune accum: not one update a call")
+    check(np.isfinite(float(m["loss"])), "finetune accum: loss")
+    check(res["ft_2"][1] <= 1.1 * res["ft_1"][1], "finetune accum: peak memory")
+    return res
+
+
+def phase_finetune_accum_equiv(torch):
+    """22: the finetune step at accum 2 on two halves of 14 against accum 1 on
+    the 28 utterances, fp32, SGD lr = 1, regularisers off: loss and
+    gradients."""
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
+    from tpu_speech_torch.train.spiral import batch_to_device
+    from tpu_speech_torch.train.spiral_runner import build_model
+
+    cfg = _no_dropout_finetune_cfg()
+    whole = _finetune_batch(np.random.default_rng(12), 2 * BATCH)
+    halves = [{k: v[i * BATCH:(i + 1) * BATCH] for k, v in whole.items()} for i in range(2)]
+    out = []
+    for batch, accum in ((batch_to_device(whole, "cuda"), 1),
+                         ([batch_to_device(h, "cuda") for h in halves], 2)):
+        model = build_model(cfg, 28).init_weights(torch.Generator().manual_seed(3)).cuda()
+        state = make_finetune_state(model, lambda ps: torch.optim.SGD(ps, lr=1.0))
+        m = finetune_step(state, batch, DropoutRng.seeded(0, "cuda"), accum_steps=accum)
+        out.append((float(m["loss"]), {n: p.grad for n, p in model.named_parameters()}))
+        del model, state, batch
+    (l1, g1), (l2, g2) = out
+    rel_loss = abs(l2 - l1) / abs(l1)
+    g_max = max(g.abs().max().item() for g in g1.values())
+    worst = max((g2[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-2 * g_max)
+                for k, g in g1.items())
+    log(f"[22 finetune accum 2 vs 1] 28 utterances, fp32, SGD(lr=1): loss {l1:.6f} vs "
+        f"{l2:.6f} (rel {rel_loss:.2e}, limit {ACCUM_LOSS_RTOL}); worst gradient "
+        f"{worst:.2e} x its max|g| (limit {GRAD_RTOL})")
+    check(rel_loss <= ACCUM_LOSS_RTOL, f"accum 2 loss {l2} vs accum 1 {l1}")
+    check(worst <= GRAD_RTOL, f"accum 2 gradient: {worst}")
+    return rel_loss
+
+
 def write_corpus(root, rng):
     import scipy.io.wavfile
 
@@ -1244,6 +1848,15 @@ def main():
         ft_launches = phase_finetune_slice(torch, rng, ft_root, st2vec_pt)
         phase_finetune_cpu_vs_card(torch)
         phase_finetune_time(torch, ft_root)
+        k16 = phase_bf16_kernels(torch, gen)
+        pre16_launches = phase_bf16_pretrain_slice(torch, root)
+        phase_bf16_pretrain_time(torch, root)
+        phase_bf16_vs_fp32_pretrain(torch, root)
+        ft16_launches = phase_bf16_finetune_slice(torch, ft_root, st2vec_pt)
+        phase_bf16_finetune_time(torch, ft_root)
+        phase_bf16_vs_fp32_finetune(torch)
+        phase_accum(torch, root, ft_root)
+        phase_finetune_accum_equiv(torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1252,7 +1865,8 @@ def main():
 
     def by_path(key):
         return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key],
-                "finetune_step": ft_launches[key]}
+                "finetune_step": ft_launches[key], "pretrain_step_bf16": pre16_launches[key],
+                "finetune_step_bf16": ft16_launches[key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -1260,11 +1874,23 @@ def main():
                     launches_by_path=by_path(key), **measured)
 
     def k3_kernel(name, key, replaces, **measured):
-        # no path reaches K3: its launches are those of its own checks (phase 13)
+        # no path reaches K3: its launches are those of its own checks (phase
+        # 13, and phase 17 for bf16)
+        own = (k16["k3_launches"] if key.endswith("_bf16") else k3_launches)[key]
+        phase = "k3_phase_17" if key.endswith("_bf16") else "k3_phase_13"
         return dict(name=name, route="cuda", source="tpu_speech_torch/csrc/fused_attention.cu",
-                    replaces=replaces, launches=k3_launches[key],
-                    launches_by_path=dict(by_path(key), k3_phase_13=k3_launches[key]),
-                    **measured)
+                    replaces=replaces, launches=own,
+                    launches_by_path=dict(by_path(key), **{phase: own}), **measured)
+
+    def bf16_kernel(name, key, replaces, src, err, timed, shape):
+        r = k16[timed]
+        measured = dict(max_abs_err=k16[err], ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                        library_ms=r["library_ms"],
+                        shape=shape + "; error relative to max(1, max|plain|)")
+        if key.startswith("fused_attention"):
+            return k3_kernel(name, key, replaces, **measured)
+        return path_kernel(name, key, replaces, src=src, **measured)
 
     k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], drop_err), **k2_drop_t,
               shape=f"dropout 0.1 at (24, 392, 1536) H=8 (no grad); dropout 0 at "
@@ -1320,6 +1946,34 @@ def main():
                           f"against the plain version's input gradient; at (14, 302, 768) "
                           f"{k4_b2['dx_ms']:.4f} vs {k4_b2['dx_plain_ms']:.4f} ms"),
     ]
+    # the bf16 variants (phase 17): max_abs_err relative to max(1, max|plain|)
+    # against the plain versions that round at the kernels' points
+    kernels += [
+        bf16_kernel("fused_qkv_self_attention_bf16", "fused_qkv_attention_bf16",
+                    "tpu_speech/ops/fused_attention.py:384", "fused_attention.cu", "k2", "k2_t",
+                    "bf16 qkv (24, 392, 1536) H=8 p=0.1 (no grad); library: SDPA in bf16"),
+        bf16_kernel("fused_qkv_self_attention_bwd_bf16", "fused_qkv_attention_bwd_bf16",
+                    "tpu_speech/ops/fused_attention.py:401", "fused_attention.cu", "k2_bwd",
+                    "k2_bwd_t", "bf16 dqkv (24, 392, 1536) H=8 p=0.1, backward alone"),
+        bf16_kernel("fused_self_attention_bf16", "fused_attention_bf16",
+                    "tpu_speech/ops/fused_attention.py:222", "fused_attention.cu", "k3", "k3_t",
+                    "bf16 q, k, v (14, 604, 8, 64) p=0.1 (no grad)"),
+        bf16_kernel("fused_self_attention_bwd_bf16", "fused_attention_bwd_bf16",
+                    "tpu_speech/ops/fused_attention.py:239", "fused_attention.cu", "k3_bwd",
+                    "k3_bwd_t", "bf16 dq, dk, dv (14, 604, 8, 64) p=0.1, backward alone"),
+        bf16_kernel("grouped_conv1d_bf16", "grouped_conv1d_bf16",
+                    "tpu_speech/ops/fused_posconv.py:132", "fused_posconv.cu", "k4", "k4_t",
+                    "bf16 x (14, 604, 512) Cg 32 K 128, forward; library: cuDNN's bf16 conv1d"),
+        bf16_kernel("grouped_conv1d_dx_bf16", "grouped_conv1d_dx_bf16",
+                    "tpu_speech/ops/fused_posconv.py:132", "fused_posconv.cu", "k4_dx",
+                    "k4_dx_t", "bf16 dx alone at (14, 604, 512), the weight rearrangement "
+                    "included; library: cuDNN's bf16 dgrad"),
+    ]
+    check(len(kernels) == 13, f"{len(kernels)} kernel entries")  # K1, 6 fp32, 6 bf16
+    for k in kernels:
+        path_launches = {p: n for p, n in k["launches_by_path"].items() if not p.startswith("k3_")}
+        if not k["name"].startswith("fused_self_attention"):  # K3: no path reaches it
+            check(sum(path_launches.values()) > 0, f"{k['name']} never ran on a path")
     log(f"[done] {time.perf_counter() - T0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

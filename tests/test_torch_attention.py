@@ -395,3 +395,114 @@ def test_3xtf32_split_keeps_fp32_accuracy_where_one_tf32_pass_does_not():
     assert np.abs(split - fp32).max() <= 1e-6 * scale
     assert np.abs(split - exact).max() <= np.abs(fp32 - exact).max()
     assert np.abs(single - fp32).max() > 1e-4
+
+
+# ---- bf16: the plain versions round where the Pallas kernels cast ----------
+
+def _bf16(a):
+    """numpy float32 -> the bf16 values, as JAX and torch arrays."""
+    t = torch.tensor(a).bfloat16()
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), t
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not torch.is_tensor(x) else x.float().numpy()
+
+
+@pytest.mark.parametrize("b,t,e,h", [(2, 12, 32, 4), (3, 37, 48, 2), (2, 70, 64, 1)])
+def test_bf16_plain_matches_jax_pallas_interpret(rng, b, t, e, h):
+    """bf16 qkv through the plain version and through the JAX Pallas K2 pair
+    (interpret mode), dropout 0: the output, and dqkv by autograd against
+    jax.vjp (rows with a valid key). Both take the products in float32 from
+    the bf16 values, round P to bf16 before P v and dS before dQ and dK, and
+    return bf16. Limits: forward 8e-3, gradient 1.6e-2, times max(1,
+    max|ref|): about one bf16 step at the largest value."""
+    qkv, mask = _qkv(rng, b, t, e, h, fully_padded_row=False)
+    dout = rng.standard_normal((b, t, e)).astype(np.float32)
+    (jq, tq), (jd, td) = _bf16(qkv), _bf16(dout)
+    ref, vjp = jax.vjp(lambda x: jax_fused_qkv(x, h, jnp.asarray(mask), interpret=True), jq)
+    (gref,) = vjp(jd)
+    x = tq.clone().requires_grad_(True)
+    out = qkv_attention_plain(x, h, torch.tensor(mask))
+    out.backward(td)
+    assert out.dtype == x.grad.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    for got, want, lim in ((out.detach(), ref, 8e-3), (x.grad, gref, 1.6e-2)):
+        want = _f32(want)
+        np.testing.assert_allclose(_f32(got), want, rtol=0,
+                                   atol=lim * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 12, 4, 16), (3, 37, 2, 32), (2, 70, 1, 64)])
+def test_k3_bf16_plain_matches_jax_pallas_interpret(rng, b, t, h, d):
+    """K3's plain version on bf16 q, k, v against the JAX Pallas K3 pair in
+    interpret mode, dropout 0, forward and dq, dk, dv; the limits of the K2
+    test."""
+    q, k, v, mask = _qkv4(rng, b, t, h, d, fully_padded_row=False)
+    dout = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    pairs = [_bf16(a) for a in (q, k, v, dout)]
+    ref, vjp = jax.vjp(lambda x, y, z: jax_fused_attn(x, y, z, jnp.asarray(mask),
+                                                      interpret=True),
+                       *(p[0] for p in pairs[:3]))
+    grefs = vjp(pairs[3][0])
+    xs = [p[1].clone().requires_grad_(True) for p in pairs[:3]]
+    out = attention_plain(*xs, torch.tensor(mask))
+    out.backward(pairs[3][1])
+    assert out.dtype == torch.bfloat16
+    for got, want, lim in [(out.detach(), ref, 8e-3)] + [
+            (x.grad, g, 1.6e-2) for x, g in zip(xs, grefs)]:
+        want = _f32(want)
+        np.testing.assert_allclose(_f32(got), want, rtol=0,
+                                   atol=lim * max(1.0, np.abs(want).max()))
+
+
+def test_bf16_plain_rounds_p_and_ds_where_the_kernels_do(rng):
+    """The bf16 plain version against its definition written out in float32:
+    P~ rounded to bf16 before P~ v, the output rounded, and in the backward
+    the row sums Delta from the bf16 output (the kernels' Delta kernel) and
+    dS rounded to bf16 before dQ and dK (dV from the rounded P~). Equal to
+    1e-6; and at these inputs the rounding of dS shows (it is not the
+    float32 gradient)."""
+    b, t, e, h = 2, 19, 32, 2
+    qkv, mask = _qkv(rng, b, t, e, h, fully_padded_row=False)
+    d = e // h
+    x = torch.tensor(qkv).bfloat16()
+    dout = torch.tensor(rng.standard_normal((b, t, e)).astype(np.float32)).bfloat16()
+    m = torch.tensor(mask)
+    xa = x.clone().requires_grad_(True)
+    out = qkv_attention_plain(xa, h, m)
+    out.backward(dout)
+
+    q, k, v = (a.float() for a in x.view(b, t, 3, h, d).unbind(2))
+    s = torch.einsum("bthd,bshd->bhts", q, k).masked_fill(m[:, None, None, :], -1e9)
+    p = torch.softmax(s, -1)
+    pb = p.bfloat16().float()
+    o = torch.einsum("bhts,bshd->bthd", pb, v).reshape(b, t, e)
+    torch.testing.assert_close(out.float(), o.bfloat16().float(), rtol=0, atol=1e-6)
+    do = dout.float().view(b, t, h, d)
+    dp = torch.einsum("bthd,bshd->bhts", do, v)
+    delta = (do * out.float().view(b, t, h, d)).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    ds = ds.masked_fill(m[:, None, None, :], 0.0)
+    dq = torch.einsum("bhts,bshd->bthd", ds.bfloat16().float(), k)
+    dk = torch.einsum("bhts,bthd->bshd", ds.bfloat16().float(), q)
+    dv = torch.einsum("bhts,bthd->bshd", pb, do)
+    want = torch.cat([a.reshape(b, t, e) for a in (dq, dk, dv)], -1).bfloat16().float()
+    torch.testing.assert_close(xa.grad.float(), want, rtol=0, atol=1e-6)
+    unrounded = torch.einsum("bhts,bshd->bthd", ds, k).reshape(b, t, e).bfloat16().float()
+    assert not torch.equal(xa.grad.float()[..., :e], unrounded)
+
+
+def test_kernel_args_take_bf16_at_their_head_widths():
+    """What the CUDA path takes, checked before any launch: float32 at
+    d_head 8, 16, 32, 64; bf16 at 16, 32, 64; nothing else."""
+    from tpu_speech_torch.ops.fused_attention import _kernel_args
+
+    for dtype, d, ok in ((torch.float32, 8, True), (torch.bfloat16, 64, True),
+                         (torch.bfloat16, 16, True), (torch.bfloat16, 8, False),
+                         (torch.float16, 64, False), (torch.float32, 24, False)):
+        x = torch.zeros(1, 2, 3 * d, dtype=dtype)
+        if ok:
+            assert _kernel_args(x, d, None, 0.0, None, "k")[1:] == (0, 0, 1.0)
+        else:
+            with pytest.raises(ValueError, match="bfloat16"):
+                _kernel_args(x, d, None, 0.0, None, "k")

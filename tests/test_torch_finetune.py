@@ -166,8 +166,33 @@ def _port_tree(model):
     return {"encoder": enc, "decoder": dec}
 
 
+def _jax_sgd(jax_init, batch, frozen=False, **step_kw):
+    """One JAX finetune step with optax.sgd(1.0) from the fixture's weights:
+    (new params, metrics) as numpy."""
+    _, jmodel, jcfg, params = jax_init
+    tx = optax.sgd(1.0)
+    jstate = jctc.CTCTrainState(jnp.zeros((), jnp.int32), params, {}, tx.init(params))
+    jstep = jctc.make_finetune_step(jmodel, jcfg, tx, freeze_finetune_updates=1, **step_kw)
+    jnew, jm = jstep(jstate, batch, jax.random.PRNGKey(3), iteration=0 if frozen else 1)
+    return jax.device_get(jnew.params), jax.device_get(jm)
+
+
+@pytest.fixture(scope="module")
+def jax_sgd_step(jax_init):
+    """The JAX fp32 unfrozen SGD(1) step on ``_batch()``, compiled once for
+    the fp32 and the bf16 parity tests: (new params, metrics)."""
+    return _jax_sgd(jax_init, _batch())
+
+
+def _sgd_grads(old, new):
+    """The gradient leaves of an SGD(1) step: old - new."""
+    old, new = dict(_leaves(old)), dict(_leaves(new))
+    assert old.keys() == new.keys()
+    return {k: old[k] - new[k] for k in old}
+
+
 @pytest.mark.parametrize("frozen", [True, False])
-def test_finetune_step_gradients_match_jax_sgd(jax_init, frozen):
+def test_finetune_step_gradients_match_jax_sgd(jax_init, jax_sgd_step, frozen):
     """optax.sgd(1.0) on both sides: the parameter delta is -grad. Loss
     within 1e-5 relative; each gradient tensor within 1e-4 x its max|g|,
     floored at 1e-4 x 1 % of the largest gradient anywhere (the key biases'
@@ -175,10 +200,7 @@ def test_finetune_step_gradients_match_jax_sgd(jax_init, frozen):
     frozen step leaves the encoder exactly where it was on both sides."""
     cfg, jmodel, jcfg, params = jax_init
     batch = _batch()
-    tx = optax.sgd(1.0)
-    jstate = jctc.CTCTrainState(jnp.zeros((), jnp.int32), params, {}, tx.init(params))
-    jstep = jctc.make_finetune_step(jmodel, jcfg, tx, freeze_finetune_updates=1)
-    jnew, jm = jstep(jstate, batch, jax.random.PRNGKey(3), iteration=0 if frozen else 1)
+    want_new, jm = _jax_sgd(jax_init, batch, frozen=True) if frozen else jax_sgd_step
     state = _port_state(cfg, params, lambda ps: torch.optim.SGD(ps, lr=1.0))
     before = dict(_build.LAUNCHES)
     m = finetune_step(state, batch_to_device(batch, "cpu"), DropoutRng.seeded(0, "cpu"),
@@ -186,16 +208,145 @@ def test_finetune_step_gradients_match_jax_sgd(jax_init, frozen):
     assert _build.LAUNCHES == before  # the plain versions on the CPU
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
     assert m["layers"] == 2
-    got = dict(_leaves(_port_tree(state.model)))
-    want, old = dict(_leaves(jax.device_get(jnew.params))), dict(_leaves(params))
+    got, want = _sgd_grads(params, _port_tree(state.model)), _sgd_grads(params, want_new)
+    if frozen:
+        for k in want:
+            if k[0] == "encoder":
+                assert not want[k].any() and not got[k].any(), "/".join(k)
+    _assert_grads_close(got, want)
+
+
+def _assert_grads_close(got, want, rtol=1e-4):
+    """Each gradient leaf within rtol x its max|g|, floored at rtol x 1 % of
+    the largest gradient anywhere."""
     assert got.keys() == want.keys()
-    g_max = max(float(np.abs(old[k] - want[k]).max()) for k in old)
-    for k in old:
-        g_ref, g_got = old[k] - want[k], old[k] - got[k]
-        if frozen and k[0] == "encoder":
-            assert not g_ref.any() and not g_got.any(), "/".join(k)
-        bound = 1e-4 * max(float(np.abs(g_ref).max()), 1e-2 * g_max)
-        np.testing.assert_allclose(g_got, g_ref, atol=bound, rtol=0, err_msg="/".join(k))
+    g_max = max(float(np.abs(g).max()) for g in want.values())
+    for k, g_ref in want.items():
+        bound = rtol * max(float(np.abs(g_ref).max()), 1e-2 * g_max)
+        np.testing.assert_allclose(got[k], g_ref, atol=bound, rtol=0, err_msg="/".join(k))
+
+
+def test_finetune_step_accum2_matches_jax_sgd(jax_init):
+    """accum_steps=2, fp32, optax.sgd(1.0), unfrozen: the port's step on a
+    list of two micro-batches against the JAX step on them stacked (its
+    scan, one update per call): the averaged loss within 1e-5 and the
+    averaged gradients within 1e-4 x max|g|, the single step's limits."""
+    cfg, _, _, params = jax_init
+    micro = [_batch(seed=s) for s in (3, 4)]
+    stacked = jax.tree.map(lambda *xs: np.stack(xs), *micro)
+    want_new, jm = _jax_sgd(jax_init, stacked, accum_steps=2)
+    state = _port_state(cfg, params, lambda ps: torch.optim.SGD(ps, lr=1.0))
+    m = finetune_step(state, [batch_to_device(mb, "cpu") for mb in micro],
+                      DropoutRng.seeded(0, "cpu"), accum_steps=2)
+    assert state.step == 1 and m["layers"] == 4
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    _assert_grads_close(_sgd_grads(params, _port_tree(state.model)),
+                        _sgd_grads(params, want_new))
+
+
+def test_finetune_accum2_on_halves_equals_accum1_on_the_whole(jax_init):
+    """Two micro-batches of 2 utterances at accum_steps=2 against one batch
+    of the 4 at accum_steps=1, SGD(0.1) on both: the loss within 1e-6
+    relative and every parameter within 2e-5 relative (+ 2e-7), the bounds
+    of tests/test_distributed.py's accumulation test."""
+    cfg, _, _, params = jax_init
+    halves = [_batch(seed=s) for s in (5, 6)]
+    whole = {k: np.concatenate([h[k] for h in halves]) for k in halves[0]}
+    out = []
+    for batch, accum in ((whole, 1), (halves, 2)):
+        state = _port_state(cfg, params, lambda ps: torch.optim.SGD(ps, lr=0.1))
+        dev = batch_to_device(batch, "cpu") if accum == 1 else [
+            batch_to_device(h, "cpu") for h in batch]
+        m = finetune_step(state, dev, DropoutRng.seeded(0, "cpu"), accum_steps=accum)
+        out.append((float(m["loss"]), dict(_leaves(_port_tree(state.model)))))
+    (l1, p1), (l2, p2) = out
+    np.testing.assert_allclose(l2, l1, rtol=1e-6)
+    for k in p1:
+        np.testing.assert_allclose(p2[k], p1[k], rtol=2e-5, atol=2e-7, err_msg="/".join(k))
+
+
+def test_finetune_step_bf16_within_the_jax_bf16_error(jax_init, jax_sgd_step, monkeypatch):
+    """bf16=True against the JAX package's own bf16 step, unfrozen, on the
+    batch and weights of the fp32 parity test. With L32 the JAX fp32 loss,
+    Lj the JAX bf16 loss and Lp the port's: |Lp - L32| <= 2 |Lj - L32| +
+    5e-3 |L32|; per gradient leaf (max|g32| at least 1 % of the largest) in
+    L2 norm: ||gp - g32|| <= 2 ||gj - g32|| + 1e-2 ||g32||. The parameters
+    and their gradients stay float32 (the masters), and the attention
+    receives bf16."""
+    from tpu_speech_torch.models.spiral import wav2vec
+
+    cfg, _, _, params = jax_init
+    want32, jm32 = jax_sgd_step
+    want16, jm16 = _jax_sgd(jax_init, _batch(), bf16=True)
+    seen = []
+    attention = wav2vec.fused_qkv_self_attention
+
+    def recording(qkv, *args):
+        seen.append(qkv.dtype)
+        return attention(qkv, *args)
+
+    monkeypatch.setattr(wav2vec, "fused_qkv_self_attention", recording)
+    state = _port_state(cfg, params, lambda ps: torch.optim.SGD(ps, lr=1.0))
+    m = finetune_step(state, batch_to_device(_batch(), "cpu"), DropoutRng.seeded(0, "cpu"),
+                      bf16=True)
+    assert seen and set(seen) == {torch.bfloat16}
+    assert m["loss"].dtype == torch.float32
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in state.model.parameters())
+    l32, lj, lp = float(jm32["loss"]), float(jm16["loss"]), float(m["loss"])
+    assert abs(lp - l32) <= 2 * abs(lj - l32) + 5e-3 * abs(l32), (lp, lj, l32)
+    g32, gj = _sgd_grads(params, want32), _sgd_grads(params, want16)
+    gp = _sgd_grads(params, _port_tree(state.model))
+    g_max = max(float(np.abs(g).max()) for g in g32.values())
+    for k, g in g32.items():
+        if np.abs(g).max() < 1e-2 * g_max:
+            continue
+        err_p, err_j = np.linalg.norm(gp[k] - g), np.linalg.norm(gj[k] - g)
+        assert err_p <= 2 * err_j + 1e-2 * np.linalg.norm(g), ("/".join(k), err_p, err_j)
+
+
+def test_bf16_accum_adamw_finetune_keeps_float32_masters_and_state(jax_init, monkeypatch):
+    """Two bf16 finetune steps with AdamW, accumulating two micro-batches
+    with time and channel masks, the first frozen: the parameters, their
+    gradients and the optimizer's moments stay float32, the step count moves
+    once per call, the loss is finite, and the frozen step moved the
+    encoder by the decay alone. The masked specs stay bf16 up to the
+    attention: the mask embedding takes the specs' dtype. (The JAX step
+    fills with its float32 embedding, which promotes the bf16 specs, and so
+    the network, to float32: ROADMAP Queue 3.)"""
+    from tpu_speech.models.spiral import masking as jmasking
+    from tpu_speech_torch.models.spiral import wav2vec
+
+    promoted = jmasking.apply_mask(jnp.zeros((1, 4, 16), jnp.bfloat16), np.ones((1, 4), bool),
+                                   None, np.asarray(jmasking.gaussian_mask_emb(16)))
+    assert promoted.dtype == jnp.float32
+    seen = []
+    attention = wav2vec.fused_qkv_self_attention
+    monkeypatch.setattr(wav2vec, "fused_qkv_self_attention",
+                        lambda qkv, *a: seen.append(qkv.dtype) or attention(qkv, *a))
+    cfg, _, _, params = jax_init
+    state = _port_state(cfg, params, lambda ps: optim.AdamW(ps, 1e-3, weight_decay=0.1))
+    enc0 = {k: v.clone() for k, v in state.model.encoder.state_dict().items()}
+    for i in range(2):
+        micro = []
+        for j in range(2):
+            batch = _batch(seed=20 + 2 * i + j)
+            batch["time_mask"] = np.zeros((2, 112), bool)
+            batch["time_mask"][:, 10:20] = True
+            batch["chan_mask"] = np.zeros((2, 16), bool)
+            batch["chan_mask"][:, 3] = True
+            micro.append(batch_to_device(batch, "cpu"))
+        m = finetune_step(state, micro, DropoutRng.seeded(i, "cpu"), freeze_encoder=i == 0,
+                          bf16=True, accum_steps=2)
+        assert torch.isfinite(m["loss"]) and m["loss"].dtype == torch.float32
+        if i == 0:
+            for k, v in state.model.encoder.state_dict().items():
+                torch.testing.assert_close(v, enc0[k] * (1 - 1e-3 * 0.1), rtol=1e-6, atol=0,
+                                           msg=k)
+    assert state.step == 2 and state.optimizer.count == 2
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in state.model.parameters())
+    moments = [v for st in state.optimizer.state.values() for v in st.values()]
+    assert moments and all(v.dtype == torch.float32 for v in moments)
+    assert seen and set(seen) == {torch.bfloat16}
 
 
 def test_finetune_step_two_adamw_steps_match_jax(jax_init):
@@ -272,25 +423,7 @@ def test_training_forward_needs_an_explicit_rng():
     assert model.decoder.decoder_layers[0].weight.grad is not None
 
 
-def test_step_rejects_what_is_not_ported(jax_init):
-    cfg, _, _, params = jax_init
-    state = _port_state(cfg, params, lambda ps: torch.optim.SGD(ps, lr=1.0))
-    batch = batch_to_device(_batch(), "cpu")
-    with pytest.raises(NotImplementedError):
-        finetune_step(state, batch, DropoutRng.seeded(0, "cpu"), bf16=True)
-    with pytest.raises(NotImplementedError):
-        finetune_step(state, batch, DropoutRng.seeded(0, "cpu"), accum_steps=2)
-
-
 # ---- the runner ----------------------------------------------------------------
-
-@pytest.mark.parametrize("knob,value", [("precision", "bf16"), ("accumulate_grad_batches", 2)])
-def test_runner_rejects_what_is_not_ported_at_construction(tmp_path, knob, value):
-    cfg = spiral_tiny_ctc_char()
-    setattr(cfg.model if knob == "precision" else cfg.trainer, knob, value)
-    with pytest.raises(NotImplementedError):
-        SpiralFinetuneRunner(cfg, str(tmp_path), CharTokenizer(), device="cpu")
-
 
 def test_serving_runner_builds_nothing_of_training(tmp_path):
     """A runner that only serves builds no optimizer, generator or loader."""
@@ -446,3 +579,93 @@ def test_cli_finetune_train_then_test_mode(tmp_path, capsys):
         "--init_chkpt_dir", str(tmp_path / "run"), "--init_chkpt_file", "ctc_finetune.pt",
     ])
     assert results["n"] == 6 and "TEST: WER =" in capsys.readouterr().out
+
+
+def _recording_runner(tmp_path, monkeypatch, accum, n_utts=6):
+    """A tiny finetune runner (batch 2, accum ``accum``, the first update
+    frozen) over ``n_utts`` utterances whose ``finetune_step`` records its
+    arguments instead of running."""
+    from tpu_speech_torch.train import spiral_runner
+
+    _corpus(str(tmp_path), n=n_utts)
+    cfg = spiral_tiny_ctc_char()
+    cfg.trainer.accumulate_grad_batches = accum
+    cfg.model.freeze_finetune_updates = 1
+    cfg.model.train_ds.manifest_filepath = str(tmp_path / "librivox-train-clean-100.json")
+    cfg.model.train_ds.num_workers = 1
+    calls = []
+
+    def step(state, batch, rng, freeze_encoder=False, bf16=False, accum_steps=1):
+        calls.append(dict(batch=batch, frozen=freeze_encoder, bf16=bf16, accum=accum_steps))
+        return {"loss": torch.tensor(1.0)}
+
+    monkeypatch.setattr(spiral_runner, "finetune_step", step)
+    runner = SpiralFinetuneRunner(cfg, str(tmp_path / "run"), CharTokenizer(), device="cpu")
+    return runner, calls
+
+
+def test_finetune_runner_updates_once_per_accum_batches_and_carries_leftovers(
+        tmp_path, monkeypatch):
+    """accum 2 over 3 batches an epoch: epoch 1 makes one update and keeps
+    one micro-batch, epoch 2 makes two more from it and its own three; each
+    update gets a list of two micro-batches, the freeze gate is decided once
+    per update from the update counter, and bf16 and accum reach the step."""
+    runner, calls = _recording_runner(tmp_path, monkeypatch, accum=2)
+    runner.bf16 = True
+    assert len(runner.loader) == 3
+    runner.train_epoch(1)
+    assert runner.iteration == 1 and len(calls) == 1 and len(runner._micro) == 1
+    left = runner._micro[0]
+    runner.train_epoch(2)
+    assert runner.iteration == 3 and len(calls) == 3 and not runner._micro
+    assert calls[1]["batch"][0] is left
+    assert [c["frozen"] for c in calls] == [True, False, False]
+    assert all(c["accum"] == 2 and c["bf16"] and isinstance(c["batch"], list)
+               and len(c["batch"]) == 2 for c in calls)
+    assert [h["frozen"] for h in runner.history] == [True, False, False]
+
+
+@pytest.mark.parametrize("accum", [1, 3])
+def test_finetune_runner_lr_scale_includes_accumulation(tmp_path, monkeypatch, accum):
+    """The finetune runner rescales the lr by data_parallel x accum /
+    expected_gpu_num, as the JAX runner does (spiral_runner.py:726)."""
+    from tpu_speech_torch.train import spiral_runner
+
+    scales = []
+    make = spiral_runner.make_optimizer
+
+    def recording(optim_cfg, params, total_steps, lr_scale=1.0):
+        scales.append(lr_scale)
+        return make(optim_cfg, params, total_steps, lr_scale)
+
+    monkeypatch.setattr(spiral_runner, "make_optimizer", recording)
+    cfg = spiral_tiny_ctc_char()
+    cfg.model.expected_gpu_num = 4
+    cfg.trainer.accumulate_grad_batches = accum
+    runner = SpiralFinetuneRunner(cfg, str(tmp_path), CharTokenizer(), device="cpu")
+    runner.state  # noqa: B018 (built at first use)
+    assert scales == [accum / 4]
+
+
+def test_cli_finetune_runs_bf16_with_accumulation(tmp_path):
+    """run_spiral --model_type ctc_finetune with --set model.precision=bf16
+    --set trainer.accumulate_grad_batches=2 on the tiny config: two updates
+    of two micro-batches each (the second epoch starts from the first's
+    leftover), finite losses, the frozen first update, and a saved
+    float32 state_dict."""
+    _corpus(str(tmp_path))
+    _pretrained(tmp_path)
+    out = run_spiral.main([
+        "--model_type", "ctc_finetune", "--run_mode", "train",
+        "--config_name", "spiral_tiny_ctc_char", "--manifest_dir", str(tmp_path),
+        "--init_chkpt_dir", str(tmp_path), "--init_chkpt_file", "st2vec.pt",
+        "--model_save_dir", str(tmp_path / "run"), "--device", "cpu",
+        "--set", "trainer.max_steps=2", "--set", "model.train_ds.num_workers=1",
+        "--set", "model.freeze_finetune_updates=1",
+        "--set", "model.precision=bf16", "--set", "trainer.accumulate_grad_batches=2",
+        "--set", "trainer.max_epochs=2",
+    ])
+    assert out["iteration"] == 2 and [m["frozen"] for m in out["steps"]] == [True, False]
+    assert all(np.isfinite(m["loss"]) and m["layers"] == 4 for m in out["steps"])
+    saved = torch.load(out["state_dict"], weights_only=True)
+    assert all(v.dtype == torch.float32 for v in saved.values() if v.is_floating_point())

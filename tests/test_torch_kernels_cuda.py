@@ -4,7 +4,7 @@ Marked ``cuda``: each test needs a CUDA card and nvcc and skips without them
 (the card is checked inside the fixture, never at import). This file imports
 no JAX; on a CUDA machine without JAX run it past tests/conftest.py (which
 imports JAX):  ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
-Inputs are fp32 with TF32 off.
+Inputs are fp32 with TF32 off, and bf16 for the kernels' bf16 variants.
 """
 
 import numpy as np
@@ -16,6 +16,7 @@ from tpu_speech_torch.models.spiral.features import hann_window_symmetric
 from tpu_speech_torch.ops import _build
 from tpu_speech_torch.ops.fused_attention import (
     KERNEL_D_HEADS,
+    KERNEL_D_HEADS_BF16,
     attention_plain,
     dropout_keep_mask,
     fused_qkv_self_attention,
@@ -36,6 +37,11 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = False
     _build.library()
     return torch.device("cuda")
+
+
+def _counts(**launched):
+    """Every launch counter at 0 but those given."""
+    return dict(dict.fromkeys(_build.LAUNCHES, 0), **launched)
 
 
 def _spiral_consts(dev):
@@ -293,10 +299,10 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     grouped_conv1d(xc, torch.randn(8, 4, 3, device=cuda), 2, 1).sum().backward()
     with torch.no_grad():
         grouped_conv1d(xc, torch.randn(8, 4, 3, device=cuda), 2, 1)
-    assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2,
-                               "fused_qkv_attention_bwd": 1, "fused_attention": 2,
-                               "fused_attention_bwd": 1, "grouped_conv1d": 2,
-                               "grouped_conv1d_dx": 1}
+    assert _build.LAUNCHES == _counts(fused_logmel=1, fused_qkv_attention=2,
+                                      fused_qkv_attention_bwd=1, fused_attention=2,
+                                      fused_attention_bwd=1, grouped_conv1d=2,
+                                      grouped_conv1d_dx=1)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -349,10 +355,8 @@ def test_tiny_slice_on_the_card_matches_the_cpu(cuda):
         model.to(cuda)
         _build.reset_launches()
         out, out_lens = model(*wav_to_spec(cfg.model.encoder, wavs.to(cuda), lens.to(cuda)))
-    assert _build.LAUNCHES == {"fused_logmel": 1, "fused_qkv_attention": 2,
-                               "fused_qkv_attention_bwd": 0, "fused_attention": 0,
-                               "fused_attention_bwd": 0, "grouped_conv1d": 2,
-                               "grouped_conv1d_dx": 0}
+    assert _build.LAUNCHES == _counts(fused_logmel=1, fused_qkv_attention=2,
+                                      grouped_conv1d=2)
     torch.testing.assert_close(out_lens.cpu(), ref_lens)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3)
 
@@ -390,9 +394,8 @@ def test_tiny_pretrain_step_on_the_card_matches_the_cpu(cuda):
                                             if p.requires_grad}, dict(_build.LAUNCHES))
     (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
     assert n_cpu == dict.fromkeys(_build.LAUNCHES, 0)
-    assert n_gpu == {"fused_logmel": 2, "fused_qkv_attention": 4, "fused_qkv_attention_bwd": 2,
-                     "fused_attention": 0, "fused_attention_bwd": 0, "grouped_conv1d": 4,
-                     "grouped_conv1d_dx": 2}
+    assert n_gpu == _counts(fused_logmel=2, fused_qkv_attention=4, fused_qkv_attention_bwd=2,
+                            grouped_conv1d=4, grouped_conv1d_dx=2)
     assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
     g_max = max(g.abs().max().item() for g in g_cpu.values())
     for k in g_cpu:
@@ -534,10 +537,9 @@ def test_tiny_finetune_step_on_the_card_matches_the_cpu(cuda):
                              dict(_build.LAUNCHES))
         (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
         assert n_cpu == dict.fromkeys(_build.LAUNCHES, 0)
-        assert n_gpu == {"fused_logmel": 1, "fused_qkv_attention": 2,
-                         "fused_qkv_attention_bwd": 0 if frozen else 2, "fused_attention": 0,
-                         "fused_attention_bwd": 0, "grouped_conv1d": 2,
-                         "grouped_conv1d_dx": 0 if frozen else 2}
+        assert n_gpu == _counts(fused_logmel=1, fused_qkv_attention=2,
+                                fused_qkv_attention_bwd=0 if frozen else 2, grouped_conv1d=2,
+                                grouped_conv1d_dx=0 if frozen else 2)
         assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
         g_max = max(g.abs().max().item() for g in g_cpu.values())
         for k in g_cpu:
@@ -545,3 +547,221 @@ def test_tiny_finetune_step_on_the_card_matches_the_cpu(cuda):
             torch.testing.assert_close(g_gpu[k], g_cpu[k], rtol=0, atol=bound, msg=k)
             if frozen and k.startswith("encoder."):
                 assert not g_gpu[k].any()
+
+
+# ---- the bf16 variants -------------------------------------------------------
+
+# lengths around the 64 x 64 tiles and the 16-wide bf16 k steps, and the
+# pretrain and finetune block-1 lengths
+BF16_EDGE_T = [1, 15, 16, 17, 63, 64, 65, 392, 604]
+# against the plain version, which rounds at the same points: x max(1,
+# max|plain|), about one bf16 step at the largest value
+BF16_FWD_RTOL, BF16_GRAD_RTOL = 8e-3, 1.6e-2
+# and no more than this factor farther than the plain version from the
+# float64 result on the same bf16 values (L2 over all elements), give or take
+# half a bf16 step of that result's norm (where the plain version lands on
+# it, as at T = 1, where dS is zero but for rounding)
+BF16_F64_FACTOR = 1.25
+
+
+def _f64_attention(q, k, v, mask, p, seed):
+    """Attention in float64 on the bf16 values: no rounding in between."""
+    b, t, h, _ = q.shape
+    s = torch.einsum("bthd,bshd->bhts", q.double(), k.double())
+    if mask is not None:
+        s = s.masked_fill(mask[:, None, None, :], -1e9)
+    pr = torch.softmax(s, -1)
+    if p > 0.0:
+        pr = pr * dropout_keep_mask(seed, b, h, t, p, q.device) / (1.0 - p)
+    return torch.einsum("bhts,bshd->bthd", pr, v.double())
+
+
+def _l2(xs, ref):
+    return sum((x.double() - r).square().sum().item() for x, r in zip(xs, ref)) ** 0.5
+
+
+def _norm(xs):
+    return sum(x.double().square().sum().item() for x in xs) ** 0.5
+
+
+def _hold_bf16(got, plain, f64, rtol, what):
+    """bf16 ``got`` within rtol x max(1, max|plain|) of ``plain`` each, and
+    all of them together no more than BF16_F64_FACTOR as far from ``f64``
+    (+ 2**-9 of its norm)."""
+    for a, r in zip(got, plain):
+        assert a.dtype == r.dtype == torch.bfloat16 and torch.isfinite(a).all(), what
+        torch.testing.assert_close(a.float(), r.float(), rtol=0,
+                                   atol=rtol * max(1.0, r.float().abs().max().item()),
+                                   msg=lambda m: f"{what}: {m}")
+    e_got, e_plain = _l2(got, f64), _l2(plain, f64)
+    assert e_got <= BF16_F64_FACTOR * e_plain + 2**-9 * _norm(f64), (what, e_got, e_plain)
+
+
+@pytest.mark.parametrize("d_head", KERNEL_D_HEADS_BF16)
+@pytest.mark.parametrize("t", BF16_EDGE_T)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_bf16_attention_k2_and_k3_match_plain(cuda, d_head, t, p):
+    """K2 and K3 on bf16 operands, forward and backward, against the plain
+    versions rounding at the kernels' points (P~ and dS to bf16, Delta from
+    the bf16 output): padded rows, a fully padded row (its dq and dk exactly
+    0), dropout replayed; each also against float64 on the same bf16
+    values."""
+    b, h = 3, 2
+    e = h * d_head
+    qkv32, mask = _qkv_case(cuda, b, t, h, d_head, 23 * t + d_head)
+    qkv = qkv32.bfloat16()
+    dout = torch.randn(b, t, e, generator=torch.Generator().manual_seed(t)).to(cuda).bfloat16()
+    q, k, v = (a.contiguous() for a in qkv.view(b, t, 3, h, d_head).unbind(2))
+
+    def f64_k2(x):
+        return _f64_attention(*x.view(b, t, 3, h, d_head).unbind(2), mask, p, 5).reshape(b, t, e)
+
+    cases = ((lambda *xs: fused_qkv_self_attention(*xs, h, mask, p, 5),
+              lambda *xs: qkv_attention_plain(*xs, h, mask, p, 5), f64_k2, (qkv,), dout),
+             (lambda *xs: fused_self_attention(*xs, mask, p, 5),
+              lambda *xs: attention_plain(*xs, mask, p, 5),
+              lambda *xs: _f64_attention(*xs, mask, p, 5), (q, k, v),
+              dout.view(b, t, h, d_head)))
+    for name, (kernel, plain, exact, inputs, g) in zip(("K2", "K3"), cases):
+        res = []
+        for fn, cast in ((kernel, None), (plain, None), (exact, torch.float64)):
+            xs = [(a.to(cast) if cast else a.clone()).requires_grad_(True) for a in inputs]
+            out = fn(*xs)
+            out.backward(g.to(out.dtype))
+            res.append((out.detach(), [x.grad for x in xs]))
+        torch.cuda.synchronize()
+        (out, grads), (ref, ref_grads), (out64, grads64) = res
+        _hold_bf16([out], [ref], [out64], BF16_FWD_RTOL, f"{name} forward T={t}")
+        _hold_bf16(grads, ref_grads, grads64, BF16_GRAD_RTOL, f"{name} backward T={t}")
+        padded_row = grads[0][0].reshape(t, -1)  # K3: dq; K2: dqkv
+        if name == "K2":
+            padded_row = padded_row[:, :2 * e]
+        assert padded_row.abs().max().item() == 0.0
+
+
+# (B, T, C, groups, K): Cg 16, 32, 48, 64 around the 128-frame tile, and the
+# SPIRAL-base blocks (Cg 32 and 48, K 128)
+BF16_K4_SHAPES = [(2, 1, 256, 16, 128), (2, 17, 64, 4, 7), (3, 127, 512, 16, 16),
+                  (2, 128, 768, 16, 128), (2, 129, 1024, 16, 128), (14, 604, 512, 16, 128),
+                  (14, 302, 768, 16, 128)]
+
+
+@pytest.mark.parametrize("b,t,c,g,k", BF16_K4_SHAPES)
+def test_bf16_grouped_conv1d_matches_plain(cuda, b, t, c, g, k):
+    """K4 on bf16 x and w at the SAME, dx's and causal left pads, and dx (K4
+    on the flipped weights) and dw (the library's bf16 weight gradient)
+    against autograd of the plain version (float32 products of the bf16
+    values, one rounding); forward and dx also against float64."""
+    x32, w32 = _conv_case(cuda, b, t, c, g, k, 5 * t + k)
+    x, w = x32.bfloat16(), w32.bfloat16()
+    x64, w64 = x.double(), w.double()
+    for left in sorted({k // 2, max(k // 2 - 1, 0), k - 1}):
+        out = grouped_conv1d(x, w, g, left)
+        ref = grouped_conv1d_plain(x, w, g, left)
+        exact = grouped_conv1d_plain(x64, w64, g, left)
+        torch.cuda.synchronize()
+        _hold_bf16([out], [ref], [exact], BF16_FWD_RTOL, f"K4 left {left}")
+    dy = torch.randn(b, t, c, generator=torch.Generator().manual_seed(t)).to(cuda).bfloat16()
+    grads = []
+    for fn, xx, ww in ((grouped_conv1d, x, w), (grouped_conv1d_plain, x, w),
+                       (grouped_conv1d_plain, x64, w64)):
+        xx, ww = xx.clone().requires_grad_(True), ww.clone().requires_grad_(True)
+        fn(xx, ww, g, k // 2).backward(dy.to(xx.dtype))
+        grads.append((xx.grad, ww.grad))
+    torch.cuda.synchronize()
+    (gx, gw), (rx, rw), (ex, _) = grads
+    _hold_bf16([gx], [rx], [ex], BF16_GRAD_RTOL, "K4-dx")
+    assert gw.dtype == torch.bfloat16
+    torch.testing.assert_close(gw.float(), rw.float(), rtol=0,
+                               atol=BF16_GRAD_RTOL * max(1.0, rw.float().abs().max().item()))
+
+
+def test_bf16_wrappers_raise_instead_of_falling_back(cuda):
+    """What the bf16 kernels do not take raises on the card: d_head 8, float16,
+    Cg 8, mixed dtypes."""
+    with pytest.raises(ValueError):
+        fused_qkv_self_attention(torch.randn(1, 4, 48, device=cuda).bfloat16(), 2)  # d 8
+    with pytest.raises(ValueError):
+        fused_qkv_self_attention(torch.randn(1, 4, 192, device=cuda).half(), 2)
+    q = torch.randn(1, 4, 2, 8, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        fused_self_attention(q, q, q)
+    x = torch.randn(1, 9, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        grouped_conv1d(x, torch.randn(128, 8, 8, device=cuda).bfloat16(), 16, 4)  # Cg 8
+    with pytest.raises(ValueError):
+        grouped_conv1d(x, torch.randn(128, 32, 8, device=cuda), 4, 4)  # w float32
+
+
+def test_bf16_launch_counters(cuda):
+    """A bf16 launch counts under the kernel's ``_bf16`` name only."""
+    _build.reset_launches()
+    qkv = torch.randn(1, 4, 96, device=cuda).bfloat16().requires_grad_(True)
+    fused_qkv_self_attention(qkv, 2, None, 0.1, 3).float().sum().backward()
+    q = torch.randn(1, 4, 2, 16, device=cuda).bfloat16().requires_grad_(True)
+    fused_self_attention(q, q.detach(), q.detach()).float().sum().backward()
+    xc = torch.randn(1, 5, 64, device=cuda).bfloat16().requires_grad_(True)
+    grouped_conv1d(xc, torch.randn(64, 16, 3, device=cuda).bfloat16(), 4, 1).float().sum().backward()
+    assert _build.LAUNCHES == _counts(
+        fused_qkv_attention_bf16=1, fused_qkv_attention_bwd_bf16=1, fused_attention_bf16=1,
+        fused_attention_bwd_bf16=1, grouped_conv1d_bf16=1, grouped_conv1d_dx_bf16=1)
+
+
+def test_bf16_pretrain_step_on_the_card_matches_the_cpu(cuda):
+    """One bf16 pretrain step at SPIRAL-base width with one layer per block
+    (B = 2 x 1 s, dither, dropout and layerdrop off, SGD lr = 1) on the card
+    and on the CPU (the plain versions, rounding at the same points), and
+    the fp32 step on the CPU: only the bf16 kernels launch (and K1, which
+    stays float32), the parameters and gradients stay float32, and the
+    card's bf16 step is no farther from the fp32 step than the JAX parity
+    tests allow against the CPU's bf16 step: the loss within 2 x the CPU
+    bf16 loss's distance + 5e-3 relative, each gradient leaf (max|g| at
+    least 1 % of the largest) within 2 x its distance + 1e-2 in L2 (the
+    first layers' gradients are 0.1-0.2 apart in relative L2 in either
+    bf16 step)."""
+    import dataclasses
+
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, draw_negative_indices
+    from tpu_speech_torch.train import spiral as tspiral
+
+    enc = spiral_base_pretrain_ls960().model.encoder
+    enc = dataclasses.replace(enc, dither=0.0, blocks=tuple(dataclasses.replace(
+        b, transformer=dataclasses.replace(
+            b.transformer, encoder_layers=1, dropout=0.0, attention_dropout=0.0,
+            activation_dropout=0.0, encoder_layerdrop=0.0),
+        conv_layers=tuple(dataclasses.replace(c, dropout=0.0) for c in b.conv_layers))
+        for b in enc.blocks))
+    r = np.random.default_rng(0)
+    n = 16000
+    wavs = (r.standard_normal((2, n)) * 0.1).astype(np.float32)
+    lens = np.array([n, 12000], np.int32)
+    spec_len = ((1 + n // 160 + 15) // 16) * 16
+    batch = tspiral.host_augment_batch(enc, wavs, lens, wavs * 0.8, lens, spec_len,
+                                       np.random.default_rng(1), np.random.default_rng(2))
+    feat_lens = torch.tensor(np.ceil(lens / 160).astype(np.int64))
+    for _ in range(3):
+        feat_lens = (feat_lens + 1) // 2
+    neg = draw_negative_indices(feat_lens, spec_len // 8, enc.n_negatives,
+                                torch.Generator().manual_seed(3))
+    out = {}
+    for dev, bf16 in (("cpu", False), ("cpu", True), (cuda, True)):
+        model = ST2VecEncoder(enc, pretraining=True).init_weights(torch.Generator().manual_seed(0))
+        state = tspiral.make_pretrain_state(model.to(dev), lambda ps: torch.optim.SGD(ps, lr=1.0))
+        _build.reset_launches()
+        m = tspiral.pretrain_step(state, tspiral.batch_to_device(batch, dev),
+                                  DropoutRng.seeded(0, dev), bf16=bf16, neg_idx=neg.to(dev))
+        assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.student_parameters())
+        out[(str(dev), bf16)] = (float(m["loss"]), dict(_build.LAUNCHES), {
+            n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad})
+    (l32, _, g32), (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = out.values()
+    assert n_cpu == _counts()
+    assert n_gpu == _counts(fused_logmel=2, fused_qkv_attention_bf16=4,
+                            fused_qkv_attention_bwd_bf16=2, grouped_conv1d_bf16=4,
+                            grouped_conv1d_dx_bf16=2)
+    assert abs(l_gpu - l32) <= 2 * abs(l_cpu - l32) + 5e-3 * abs(l32), (l_gpu, l_cpu, l32)
+    g_max = max(g.abs().max().item() for g in g32.values())
+    for k, g in g32.items():
+        if g.abs().max().item() >= 1e-2 * g_max:
+            assert (g_gpu[k] - g).norm() <= 2 * (g_cpu[k] - g).norm() + 1e-2 * g.norm(), k

@@ -165,3 +165,43 @@ def test_positional_conv_parameters_are_initialised():
                                v.square().sum(dim=(0, 1), keepdim=True).sqrt())
     out = m(torch.randn(2, 9, 64))
     assert torch.isfinite(out).all()
+
+
+# ---- bf16 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,c,g,k,causal", SHAPES)
+def test_bf16_matches_jax_pallas_forward_dx_and_dw(rng, b, t, c, g, k, causal):
+    """bf16 x and w through the port (its plain version: float32 products of
+    the bf16 values, one rounding to bf16) and through the JAX Pallas kernel
+    in interpret mode and its VJP (dx by the same kernel, dw by XLA's bf16
+    conv): the output, dx and dw. Limits 8e-3 (forward) and 1.6e-2
+    (gradients) times max(1, max|ref|): about one bf16 step."""
+    x, wj, _ = _case(rng, b, t, c, g, k)
+    cot = rng.standard_normal((b, t, c)).astype(np.float32)
+    left = k - 1 if causal else k // 2
+    xb, wb, cb = (torch.tensor(a).bfloat16() for a in (x, wj, cot))
+    jx, jw, jc = (jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in (xb, wb, cb))
+    ref, vjp = jax.vjp(lambda xx, ww: jax_grouped_conv1d(xx, ww, g, left, True), jx, jw)
+    gx, gw = vjp(jc)
+    xt = xb.clone().requires_grad_(True)
+    wt = wb.permute(2, 1, 0).contiguous().requires_grad_(True)  # (C, Cg, K)
+    out = fp.grouped_conv1d(xt, wt, g, left)
+    out.backward(cb)
+    assert out.dtype == xt.grad.dtype == wt.grad.dtype == torch.bfloat16
+    for got, want, lim in ((out.detach(), ref, 8e-3), (xt.grad, gx, 1.6e-2),
+                           (wt.grad.permute(2, 1, 0), gw, 1.6e-2)):
+        want = np.asarray(jnp.asarray(want, jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=lim * max(1.0, np.abs(want).max()))
+
+
+def test_bf16_kernel_weight_layout():
+    """The bf16 kernel reads (G, K, Cg_out, Cg_in): kernel_weights(w)[g, k,
+    co, ci] == w[g*Cg + co, ci, k]; dx's weights swap the two and flip k."""
+    c, g, k = 12, 3, 5
+    w = torch.arange(c * (c // g) * k, dtype=torch.float32).view(c, c // g, k).bfloat16()
+    wk, wd = fp.kernel_weights(w, g), fp._dx_weights(w, g)
+    cg = c // g
+    for gi, ki, co, ci in ((0, 0, 0, 0), (1, 4, 2, 3), (2, 3, 1, 0)):
+        assert wk[gi, ki, co, ci] == w[gi * cg + co, ci, ki]
+        assert wd[gi, ki, ci, co] == w[gi * cg + co, ci, k - 1 - ki]

@@ -378,7 +378,34 @@ def _student_tree(model):
     return torch_spiral.convert_st2vec(sd)
 
 
-def test_pretrain_step_gradients_match_jax_sgd(jax_init):
+def _jax_sgd(jax_init, batch, key, **step_kw):
+    """One JAX step with optax.sgd(1.0) from the fixture's weights: (new
+    params, metrics) as numpy."""
+    _, jcfg, jmodel, params, bstats, teacher = jax_init
+    jstate = jspiral.SpiralTrainState(jnp.zeros((), jnp.int32), params, bstats, teacher,
+                                      optax.sgd(1.0).init(params))
+    jnew, jm = jspiral.make_pretrain_step(jmodel, jcfg, optax.sgd(1.0), **step_kw)(
+        jstate, batch, key)
+    return jax.device_get((jnew.params, jnew.batch_stats)), jax.device_get(jm)
+
+
+@pytest.fixture(scope="module")
+def jax_sgd_step(jax_init):
+    """The JAX fp32 SGD(1) step on ``_batch`` with key 7, compiled once for
+    the fp32 and the bf16 parity tests: (batch, key, (params, batch_stats),
+    metrics)."""
+    batch, key = _batch(jax_init[1]), jax.random.PRNGKey(7)
+    return (batch, key) + _jax_sgd(jax_init, batch, key)
+
+
+def _sgd_grads(old, new):
+    """The gradient leaves of an SGD(1) step: old - new."""
+    old, new = dict(_leaves(old)), dict(_leaves(new))
+    assert old.keys() == new.keys()
+    return {k: old[k] - new[k] for k in old}
+
+
+def test_pretrain_step_gradients_match_jax_sgd(jax_init, jax_sgd_step):
     """optax.sgd(1.0) on both sides: the parameter delta is -grad. Loss
     within 1e-5 relative; each gradient tensor within 1e-4 x its max|g|,
     floored at 1e-4 x 1 % of the largest gradient anywhere: the key bias has
@@ -386,26 +413,155 @@ def test_pretrain_step_gradients_match_jax_sgd(jax_init):
     sides see rounding noise there (the towers' CPU bound is PARITY.md's
     5e-4). Measured: about 1e-5 x max|g| per tensor."""
     cfg, jcfg, jmodel, params, bstats, teacher = jax_init
-    batch = _batch(jcfg)
-    key = jax.random.PRNGKey(7)
-    jstate = jspiral.SpiralTrainState(jnp.zeros((), jnp.int32), params, bstats, teacher,
-                                      optax.sgd(1.0).init(params))
-    jnew, jm = jspiral.make_pretrain_step(jmodel, jcfg, optax.sgd(1.0))(jstate, batch, key)
+    batch, key, (want_new, _), jm = jax_sgd_step
     state = _port_state(cfg, params, bstats, teacher, lambda ps: torch.optim.SGD(ps, lr=1.0))
     before_launches = dict(_build.LAUNCHES)
     m = _port_step(state, jcfg, batch, key)
     assert _build.LAUNCHES == before_launches  # the plain versions on the CPU
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
     assert float(m["accuracy"]) == pytest.approx(float(jm["accuracy"]), abs=1e-6)
-    got_params = dict(_leaves(_student_tree(state.model)[0]))
-    want_new, old = dict(_leaves(jax.device_get(jnew.params))), dict(_leaves(params))
-    assert got_params.keys() == want_new.keys()
-    g_max = max(float(np.abs(old[k] - want_new[k]).max()) for k in old)
-    for k in old:
-        g_ref = old[k] - want_new[k]
-        g_got = old[k] - got_params[k]
-        bound = 1e-4 * max(float(np.abs(g_ref).max()), 1e-2 * g_max)
-        np.testing.assert_allclose(g_got, g_ref, atol=bound, rtol=0, err_msg="/".join(k))
+    _assert_grads_close(_sgd_grads(params, _student_tree(state.model)[0]),
+                        _sgd_grads(params, want_new))
+
+
+def _assert_grads_close(got, want, rtol=1e-4):
+    """Each gradient leaf within rtol x its max|g|, floored at rtol x 1 %
+    of the largest gradient anywhere."""
+    assert got.keys() == want.keys()
+    g_max = max(float(np.abs(g).max()) for g in want.values())
+    for k, g_ref in want.items():
+        bound = rtol * max(float(np.abs(g_ref).max()), 1e-2 * g_max)
+        np.testing.assert_allclose(got[k], g_ref, atol=bound, rtol=0, err_msg="/".join(k))
+
+
+def test_pretrain_step_accum2_matches_jax_sgd(jax_init):
+    """accum_steps=2, fp32, optax.sgd(1.0): the port's step on a list of two
+    micro-batches against the JAX step on them stacked (its scan, one update
+    per call). The negatives of micro-batch i come from JAX's key
+    fold_in(fold_in(key, i), 3). The averaged loss and accuracy, the
+    averaged gradients and the BatchNorm statistics carried through both
+    micro-batches, at the single step's limits (loss 1e-5, gradients 1e-4 x
+    max|g|; statistics 1e-5)."""
+    cfg, jcfg, _, params, bstats, teacher = jax_init
+    micro = [_batch(jcfg, seed=s) for s in (3, 4)]
+    key = jax.random.PRNGKey(11)
+    stacked = jax.tree.map(lambda *xs: np.stack(xs), *micro)
+    (want_new, want_stats), jm = _jax_sgd(jax_init, stacked, key, accum_steps=2)
+    state = _port_state(cfg, params, bstats, teacher, lambda ps: torch.optim.SGD(ps, lr=1.0))
+    negs = [st2vec.exclude_self(torch.tensor(_jax_raw_negative_indices(
+        jax.random.fold_in(jax.random.fold_in(key, i), 3),
+        _student_feat_lens(mb["p_wav_lens"]), 14, jcfg.n_negatives)))
+        for i, mb in enumerate(micro)]
+    m = tspiral.pretrain_step(state, [tspiral.batch_to_device(mb, "cpu") for mb in micro],
+                              DropoutRng.seeded(0, "cpu"), accum_steps=2, neg_idx=negs)
+    assert state.step == 1 and m["student_layers"] == m["teacher_layers"] == 4
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    assert float(m["accuracy"]) == pytest.approx(float(jm["accuracy"]), abs=1e-6)
+    got_params, got_stats, _ = _student_tree(state.model)
+    _assert_grads_close(_sgd_grads(params, got_params), _sgd_grads(params, want_new))
+    got_stats, want_stats = dict(_leaves(got_stats)), dict(_leaves(want_stats))
+    for k in want_stats:
+        np.testing.assert_allclose(got_stats[k], want_stats[k], atol=1e-5, rtol=0,
+                                   err_msg="/".join(k))
+
+
+def test_pretrain_step_bf16_within_the_jax_bf16_error(jax_init, jax_sgd_step, monkeypatch):
+    """bf16=True against the JAX package's own bf16 step, on the batch and
+    weights of the fp32 parity test. With L32 the JAX fp32 loss, Lj the JAX
+    bf16 loss and Lp the port's: |Lp - L32| <= 2 |Lj - L32| + 5e-3 |L32|;
+    per gradient leaf (max|g32| at least 1 % of the largest) in L2 norm:
+    ||gp - g32|| <= 2 ||gj - g32|| + 1e-2 ||g32||. The parameters and their
+    gradients stay float32 (the masters), and the attention receives
+    bf16."""
+    from tpu_speech_torch.models.spiral import wav2vec
+
+    cfg, jcfg, _, params, bstats, teacher = jax_init
+    batch, key, (want32, _), jm32 = jax_sgd_step
+    (want16, _), jm16 = _jax_sgd(jax_init, batch, key, bf16=True)
+    seen = []
+    attention = wav2vec.fused_qkv_self_attention
+
+    def recording(qkv, *args):
+        seen.append(qkv.dtype)
+        return attention(qkv, *args)
+
+    monkeypatch.setattr(wav2vec, "fused_qkv_self_attention", recording)
+    state = _port_state(cfg, params, bstats, teacher, lambda ps: torch.optim.SGD(ps, lr=1.0))
+    neg = st2vec.exclude_self(torch.tensor(_jax_raw_negative_indices(
+        jax.random.fold_in(key, 3), _student_feat_lens(batch["p_wav_lens"]), 14,
+        jcfg.n_negatives)))
+    m = tspiral.pretrain_step(state, tspiral.batch_to_device(batch, "cpu"),
+                              DropoutRng.seeded(0, "cpu"), bf16=True, neg_idx=neg)
+    assert seen and set(seen) == {torch.bfloat16}
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    assert all(p.grad.dtype == torch.float32 for p in state.model.student_parameters())
+    l32, lj, lp = float(jm32["loss"]), float(jm16["loss"]), float(m["loss"])
+    assert abs(lp - l32) <= 2 * abs(lj - l32) + 5e-3 * abs(l32), (lp, lj, l32)
+    g32, gj = _sgd_grads(params, want32), _sgd_grads(params, want16)
+    gp = _sgd_grads(params, _student_tree(state.model)[0])
+    g_max = max(float(np.abs(g).max()) for g in g32.values())
+    for k, g in g32.items():
+        if np.abs(g).max() < 1e-2 * g_max:
+            continue
+        err_p, err_j = np.linalg.norm(gp[k] - g), np.linalg.norm(gj[k] - g)
+        assert err_p <= 2 * err_j + 1e-2 * np.linalg.norm(g), ("/".join(k), err_p, err_j)
+
+
+def test_batchnorm_bf16_matches_flax(rng):
+    """FlaxBatchNorm1d on bf16 input with bf16 scale and bias against flax's
+    BatchNorm (0.12: statistics and affine in float32, force_float32_
+    reductions) on the same values: the bf16 output within one bf16 step
+    (2**-7 relative) and the float32 running statistics within 1e-6."""
+    import flax.linen as fnn
+
+    from tpu_speech_torch.models.spiral.conv_layers import FlaxBatchNorm1d
+
+    c = 12
+    x = (rng.standard_normal((3, 17, c)) * 2 + 0.5).astype(np.float32)
+    scale = (rng.uniform(0.5, 1.5, c)).astype(np.float32)
+    bias = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    mean0 = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    var0 = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    xb, sb, bb = (torch.tensor(a).bfloat16() for a in (x, scale, bias))
+    jx, js, jb = (jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in (xb, sb, bb))
+    ref, new = fnn.BatchNorm(use_running_average=False, momentum=0.99, epsilon=1e-3).apply(
+        {"params": {"scale": js, "bias": jb},
+         "batch_stats": {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)}},
+        jx, mutable=["batch_stats"])
+    bn = FlaxBatchNorm1d(c, eps=1e-3, momentum=0.01).train()
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.tensor(mean0))
+        bn.running_var.copy_(torch.tensor(var0))
+    out = torch.func.functional_call(bn, {"weight": sb, "bias": bb}, (xb.transpose(1, 2),))
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert bn.running_mean.dtype == bn.running_var.dtype == torch.float32
+    np.testing.assert_allclose(out.transpose(1, 2).float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), rtol=2**-7, atol=1e-6)
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(new["batch_stats"]["mean"]),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(new["batch_stats"]["var"]),
+                               atol=1e-6, rtol=0)
+
+
+def test_bf16_adamw_step_keeps_float32_masters_and_state():
+    """Two bf16 steps with the port's AdamW, accumulating two micro-batches:
+    the parameters, their gradients and the optimizer's moments stay
+    float32, the step count moves once per call, the loss is finite."""
+    cfg, jcfg = _tiny()
+    model = st2vec.ST2VecEncoder(cfg.model.encoder, pretraining=True)
+    model.init_weights(torch.Generator().manual_seed(0))
+    state = tspiral.make_pretrain_state(model, lambda ps: optim.AdamW(ps, 1e-3))
+    for i in range(2):
+        micro = [tspiral.batch_to_device(_batch(jcfg, seed=2 * i + j), "cpu") for j in (0, 1)]
+        m = tspiral.pretrain_step(state, micro, DropoutRng.seeded(i, "cpu"), bf16=True,
+                                  accum_steps=2)
+        assert torch.isfinite(m["loss"]) and m["loss"].dtype == torch.float32
+    assert state.step == 2 and state.optimizer.count == 2
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    moments = [v for st in state.optimizer.state.values() for v in st.values()]
+    assert moments and all(v.dtype == torch.float32 for v in moments)
+    with pytest.raises(ValueError, match="micro-batches"):
+        tspiral.pretrain_step(state, micro[:1], DropoutRng.seeded(0, "cpu"), accum_steps=2)
 
 
 def test_pretrain_step_two_adamw_steps_match_jax(jax_init):
@@ -513,3 +669,88 @@ def test_cli_train_mode_runs_the_tiny_pretrain(tmp_path, capsys):
     params, bstats, teacher = torch_spiral.convert_st2vec({k: _np(v) for k, v in sd.items()})
     assert set(teacher) == {"feature_encoder", "projector"} and "predictor" in bstats
     assert os.path.exists(tmp_path / "run" / "train.log")
+
+
+def _counting_runner(tmp_path, accum, n_utts=6):
+    """A tiny pretrain runner (batch 2, accum ``accum``) over ``n_utts``
+    utterances whose step records its micro-batches instead of running."""
+    _toy_manifest(str(tmp_path), n=n_utts)
+    cfg = spiral_tiny_pretrain()
+    cfg.trainer.accumulate_grad_batches = accum
+    cfg.model.train_ds.manifest_filepath = str(tmp_path / "manifest.json")
+    cfg.model.train_ds.num_workers = 1
+    runner = SpiralPretrainRunner(cfg, str(tmp_path / "run"), device="cpu")
+    calls = []
+
+    def step(batch):
+        calls.append(batch)
+        return {"loss": torch.tensor(1.0), "accuracy": torch.tensor(0.5)}
+
+    runner.step = step
+    return runner, calls
+
+
+def test_pretrain_runner_shift_seeds_equal_the_jax_runner(tmp_path):
+    """Each micro-batch's teacher shifts come from default_rng(1_000_003 +
+    update * accum + micro), as the JAX runner's _augment seeds them; the
+    host generator's masks follow in the same order."""
+    import types
+
+    from tpu_speech.train.spiral_runner import SpiralPretrainRunner as JaxPretrainRunner
+
+    runner, _ = _counting_runner(tmp_path, accum=3)
+    raw = next(iter(runner.loader))
+    jself = types.SimpleNamespace(iteration=0, accum=3, spec_len=runner.spec_len,
+                                  enc_cfg=jax_encoder_cfg(runner.enc_cfg),
+                                  host_rng=np.random.default_rng(0))
+    for it in (0, 4):
+        runner.iteration = jself.iteration = it
+        for micro in range(3):
+            got = runner._augment(raw, micro)
+            ref = JaxPretrainRunner._augment(jself, raw, micro_idx=micro)
+            for k in ref:
+                np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(ref[k]), err_msg=k)
+
+
+def test_pretrain_runner_updates_once_per_accum_batches_and_carries_leftovers(tmp_path):
+    """accum 2 over 3 batches an epoch: epoch 1 makes one update and keeps
+    one micro-batch, epoch 2 makes two more from it and its own three; each
+    update gets two micro-batches seeded by (update, micro) and the audio
+    seconds are counted when an update consumes them."""
+    runner, calls = _counting_runner(tmp_path, accum=2)
+    assert len(runner.loader) == 3
+    runner.train_epoch(1)
+    assert runner.iteration == 1 and len(calls) == 1 and len(runner._micro) == 1
+    left = runner._micro[0]
+    runner.train_epoch(2)
+    assert runner.iteration == 3 and len(calls) == 3 and not runner._micro
+    assert calls[1][0] is left
+    for update, batch in enumerate(calls):
+        assert isinstance(batch, list) and len(batch) == 2
+        for micro, mb in enumerate(batch):
+            shift = np.random.default_rng(1_000_003 + update * 2 + micro)
+            assert (mb["shift_k"], mb["shift_r"]) == (
+                int(shift.integers(0, 3)), int(shift.integers(0, 3)))
+    assert len(runner.history) == 3
+
+
+def test_cli_train_mode_runs_bf16_with_accumulation(tmp_path):
+    """run_spiral with --set model.precision=bf16 --set
+    trainer.accumulate_grad_batches=2 on the tiny pretrain config (3 batches
+    an epoch: the second update starts from the first epoch's leftover): the
+    runner runs both, each update sums two micro-batches' layers, the loss
+    is finite and the saved weights are float32."""
+    _toy_manifest(str(tmp_path), n=6)
+    out = run_spiral.main([
+        "--model_type", "st2vec", "--run_mode", "train",
+        "--config_name", "spiral_tiny_pretrain", "--manifest_dir", str(tmp_path),
+        "--model_save_dir", str(tmp_path / "run"), "--device", "cpu",
+        "--set", "trainer.max_steps=2", "--set", "model.train_ds.num_workers=1",
+        "--set", "model.precision=bf16", "--set", "trainer.accumulate_grad_batches=2",
+        "--set", "trainer.max_epochs=2",
+    ])
+    assert out["iteration"] == 2 and len(out["steps"]) == 2
+    for m in out["steps"]:
+        assert np.isfinite(m["loss"]) and m["teacher_layers"] == m["student_layers"] == 4
+    sd = torch.load(out["state_dict"], weights_only=True)
+    assert all(v.dtype == torch.float32 for k, v in sd.items() if v.is_floating_point())

@@ -40,8 +40,10 @@ package's trees in an ``.npz`` (``params/...``, ``batch_stats/...``; see
 its seeded random init. ``--config_name`` is a key of
 ``tpu_speech_torch.configs.spiral.CONFIGS``. ``--manifest_dir`` rebases the
 configured manifests' file names onto a directory (``:270-277``); ``--set
-KEY=VALUE`` overrides a config leaf (``:148-153``). ``--device`` defaults to
-``cuda`` and fails without a card.
+KEY=VALUE`` overrides a config leaf (``:148-153``); both train modes take
+``--set model.precision=bf16`` (bf16 mixed precision) and ``--set
+trainer.accumulate_grad_batches=N`` (one update per N batches). ``--device``
+defaults to ``cuda`` and fails without a card.
 
 Not ported yet: resume, orbax checkpoints, ``.tpu_speech`` archives and
 ``--init_archive``, YAML configs, subword tokenizers, beam search, streaming

@@ -76,21 +76,28 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     mean = E[x], var = max(0, E[x^2] - mean^2) over (B, T); the running
     statistics move by ``momentum`` toward the batch mean and the BIASED
     batch variance. Eval mode normalizes with the running statistics, as
-    torch does."""
+    torch does.
+
+    A bf16 input (bf16 parameters under the steps' mixed precision) is
+    normalized as flax 0.12 does it (``force_float32_reductions``): the
+    statistics and the affine in float32, the running statistics float32
+    buffers, the output rounded to the input's dtype once."""
 
     def forward(self, x):  # x (B, C, T)
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2))
-        mean2 = x.square().mean(dim=(0, 2))
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2))
+        mean2 = xf.square().mean(dim=(0, 2))
         var = torch.clamp(mean2 - mean.square(), min=0.0)
         with torch.no_grad():
             m = self.momentum  # the torch convention: weight of the new value
             self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
             self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
             self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight  # flax's order
-        return (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()  # flax's order
+        y = (xf - mean[None, :, None]) * mul[None, :, None] + self.bias.float()[None, :, None]
+        return y.to(x.dtype)
 
 
 class ConvNormAct(nn.Module):

@@ -191,6 +191,13 @@ class ST2VecEncoder(nn.Module):
         feats, feat_lens = self.target_feature_encoder(specs, spec_lens, rng)
         return self.target_projector(feats, feat_lens, rng), feat_lens
 
+    def forward(self, specs, spec_lens, rng=None, tower: str = "student"):
+        """One tower, ``student`` (``encode_student``) or ``teacher``
+        (``encode_teacher``): the entry ``torch.func.functional_call``
+        reaches, as the pretrain step's bf16 parameter copies do."""
+        encode = self.encode_teacher if tower == "teacher" else self.encode_student
+        return encode(specs, spec_lens, rng)
+
 
 @torch.no_grad()
 def ema_update(model: ST2VecEncoder, momentum: float) -> None:

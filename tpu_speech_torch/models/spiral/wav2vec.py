@@ -19,6 +19,11 @@ on the host, the other dropout masks on the device. A layer that layerdrop
 skips is not run (its parameters then get no gradient from this forward;
 the pretrain step gives them zeros, as JAX's ``jnp.where`` does).
 
+Under the steps' bf16 mixed precision the parameters arrive as bf16 copies
+(``torch.func.functional_call``): the positional conv's weight norm runs in
+the parameters' dtype and the merged qkv plane is in x's dtype, as in the
+JAX module (``wav2vec.py:50-51,69,155``).
+
 Not ported yet: the causal positional conv and chunked attention of the
 streaming mode.
 """
@@ -75,9 +80,9 @@ class ConvPositionalEmbedding(nn.Module):
     def forward(self, x):
         v = self.weight_v
         norm = v.square().sum(dim=(0, 1), keepdim=True).sqrt()
-        w = v / norm.clamp_min(1e-12) * self.weight_g
-        y = grouped_conv1d(x, w, self.groups, self.kernel_size // 2)
-        return F.gelu(y + self.bias)
+        w = v / norm.clamp_min(1e-12) * self.weight_g  # in the parameters' dtype
+        y = grouped_conv1d(x, w.to(x.dtype), self.groups, self.kernel_size // 2)
+        return F.gelu(y + self.bias.to(x.dtype))
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -101,7 +106,7 @@ class MultiheadSelfAttention(nn.Module):
                        self.v_proj.weight], dim=0)
         b = torch.cat([self.q_proj.bias * scale, self.k_proj.bias,
                        self.v_proj.bias], dim=0)
-        qkv = F.linear(x, w, b)
+        qkv = F.linear(x, w.to(x.dtype), b.to(x.dtype))  # in x's dtype (wav2vec.py:155)
         drop_p, seed = 0.0, None
         if self.training and self.dropout > 0.0:
             if rng is None:

@@ -53,13 +53,17 @@ SIGNATURES = {
     # x, w, out, B, T, C, G, K, left_pad, stream
     "tsx_grouped_conv1d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+# the bf16 variants take the same arguments
+for _name in ("tsx_attention_fwd", "tsx_attention_bwd", "tsx_grouped_conv1d"):
+    SIGNATURES[_name + "_bf16"] = SIGNATURES[_name]
 
 # Launches made through each wrapper: a plain integer per kernel, bumped
-# where the wrapper launches its kernel and nowhere else.
-LAUNCHES = {"fused_logmel": 0, "fused_qkv_attention": 0,
-            "fused_qkv_attention_bwd": 0, "fused_attention": 0,
-            "fused_attention_bwd": 0, "grouped_conv1d": 0,
-            "grouped_conv1d_dx": 0}
+# where the wrapper launches its kernel and nowhere else. A bf16 launch
+# counts under the kernel's name with "_bf16".
+_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd", "fused_attention",
+            "fused_attention_bwd", "grouped_conv1d", "grouped_conv1d_dx")
+LAUNCHES = {"fused_logmel": 0, **dict.fromkeys(_KERNELS, 0),
+            **dict.fromkeys((k + "_bf16" for k in _KERNELS), 0)}
 
 _lock = threading.Lock()
 _lib = None

@@ -29,6 +29,18 @@ TPU's mask: the TPU draws from its core PRNG, which nothing else reproduces.
 The gradient at a padded key is zero (the gradient of the -1e9 fill), as the
 JAX package's XLA path gives it; its Pallas backwards differ at a fully
 padded row (ROADMAP Queue 3).
+
+dtypes: float32 (the kernels' 3xTF32 path, d_head 8, 16, 32 or 64) and
+bfloat16 (one bf16 tensor-core pass, d_head 16, 32 or 64), as the TPU kernels
+take the activation's dtype. In bf16 every version rounds where the Pallas
+kernels cast (``_qkv_fwd_kernel:282``, ``_qkv_bwd_kernel:312,322``): the
+products accumulate in float32 from the bf16 values, the fill and the softmax
+run in float32, P~ is rounded to bf16 before P~ v (and before dV), dS is
+rounded to bf16 before dQ and dK, and out, dq, dk, dv come back in bf16; the
+row logsumexp and the backward's row sums stay float32. The row sums are
+Delta = rowsum(dO * out) from the bf16 out, where the Pallas backward sums
+dP * P: at T = 1 (dS = 0 but for rounding) that is a few bf16 steps of dq
+apart, and at the SPIRAL lengths it is far below one.
 """
 
 from __future__ import annotations
@@ -42,9 +54,11 @@ from tpu_speech_torch.ops import _build
 __all__ = [
     "fused_qkv_self_attention", "qkv_attention_plain", "fused_self_attention",
     "attention_plain", "dropout_keep_mask", "dropout_threshold", "KERNEL_D_HEADS",
+    "KERNEL_D_HEADS_BF16",
 ]
 
-KERNEL_D_HEADS = (8, 16, 32, 64)  # head widths the CUDA kernels are built for
+KERNEL_D_HEADS = (8, 16, 32, 64)  # head widths the float32 CUDA kernels are built for
+KERNEL_D_HEADS_BF16 = (16, 32, 64)  # ... and the bf16 ones (16-wide k steps)
 _M32 = 0xFFFFFFFF
 
 
@@ -86,6 +100,55 @@ def dropout_keep_mask(seed: int, b: int, h: int, t: int, dropout_p: float,
     return dropout_bits(seed, bh, idx) >= dropout_threshold(dropout_p)
 
 
+def _bf16_probs(q, k, key_padding_mask, dropout_p, dropout_seed):
+    """The float32 softmax P of bf16 q, k and the dropout factor keep / (1 -
+    p) (1.0 without dropout)."""
+    b, t, h, _ = q.shape
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    if key_padding_mask is not None:
+        s = s.masked_fill(key_padding_mask[:, None, None, :], -1e9)
+    p = torch.softmax(s, dim=-1)
+    if dropout_p <= 0.0:
+        return p, 1.0
+    keep = dropout_keep_mask(dropout_seed, b, h, t, dropout_p, q.device)
+    return p, keep * (1.0 / (1.0 - dropout_p))
+
+
+class _Bf16Attention(torch.autograd.Function):
+    """``attention_plain`` on bf16 q, k, v, rounding where the kernels do:
+    P~ to bf16 before P~ v and before dV = P~^T dO; the backward's row sums
+    Delta = rowsum(dO * out) in float32 from the bf16 out and dO (the
+    kernels' Delta kernel; the Pallas kernel sums dP * P instead, which
+    differs by out's rounding); dS = P (dP keep / (1 - p) - Delta), zero at
+    padded keys, rounded to bf16 before dQ = dS k and dK = dS^T q."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, dropout_p, dropout_seed):
+        p, keep = _bf16_probs(q, k, key_padding_mask, dropout_p, dropout_seed)
+        pd = (p * keep).to(v.dtype).float()
+        out = torch.einsum("bhts,bshd->bthd", pd, v.float()).to(v.dtype)
+        ctx.save_for_backward(q, k, v, key_padding_mask, out)
+        ctx.drop = (dropout_p, dropout_seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, out = ctx.saved_tensors
+        dtype = v.dtype
+        p, keep = _bf16_probs(q, k, mask, *ctx.drop)
+        do = dout.to(dtype).float()
+        dv = torch.einsum("bhts,bthd->bshd", (p * keep).to(dtype).float(), do)
+        dp = torch.einsum("bthd,bshd->bhts", do, v.float()) * keep
+        delta = (do * out.float()).sum(-1).permute(0, 2, 1)[..., None]  # (B, H, T, 1)
+        ds = p * (dp - delta)
+        if mask is not None:
+            ds = ds.masked_fill(mask[:, None, None, :], 0.0)
+        ds = ds.to(dtype).float()
+        dq = torch.einsum("bhts,bshd->bthd", ds, k.float())
+        dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
+        return dq.to(dtype), dk.to(dtype), dv.to(dtype), None, None, None
+
+
 def attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
@@ -93,7 +156,10 @@ def attention_plain(
 ) -> torch.Tensor:
     """q, k, v (B, T, H, D) -> (B, T, H, D): einsum scores, -1e9 fill at
     padded keys, f32 softmax, the replayed dropout mask, einsum values.
-    Differentiable by autograd."""
+    Differentiable by autograd. bf16 inputs round where the kernels do
+    (``_Bf16Attention``); the products run in float32 on their values."""
+    if v.dtype == torch.bfloat16:
+        return _Bf16Attention.apply(q, k, v, key_padding_mask, dropout_p, dropout_seed)
     b, t, h, _ = q.shape
     scores = torch.einsum("bthd,bshd->bhts", q, k)
     if key_padding_mask is not None:
@@ -119,15 +185,21 @@ def qkv_attention_plain(
                            dropout_seed).reshape(b, t, e)
 
 
-def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device):
+def _suffix(x: torch.Tensor) -> str:
+    """The bf16 kernels' entry points and counters carry ``_bf16``."""
+    return "_bf16" if x.dtype == torch.bfloat16 else ""
+
+
+def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device, dtype):
     """One forward launch over q, k, v rows at ``ptrs`` with row stride
-    ``ld``: returns (out (B, T, H*D), lse (B, H, T) or None)."""
-    out = torch.empty((b, t, h * d), device=device, dtype=torch.float32)
+    ``ld``: returns (out (B, T, H*D) in ``dtype``, lse (B, H, T) float32 or
+    None)."""
+    out = torch.empty((b, t, h * d), device=device, dtype=dtype)
     lse = (torch.empty((b, h, t), device=device, dtype=torch.float32)
            if with_lse else None)
     lib = _build.library()
     with torch.cuda.device(device):  # the runtime launches on its current device
-        err = lib.tsx_attention_fwd(
+        err = getattr(lib, "tsx_attention_fwd" + _suffix(out))(
             *ptrs, ld, None if mask is None else mask.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             b, t, h, d, seed, thresh, scale,
@@ -141,14 +213,16 @@ def _bwd(ptrs, ld, grad_ptrs, ld_grad, mask, out, dout, lse, h, seed, thresh,
     """One backward launch (three kernels) writing dq, dk, dv at
     ``grad_ptrs`` with row stride ``ld_grad``. The scratch holds the row sums
     Delta (B, H, T) and then dS^T (B*H, TQ, TQ), TQ = T rounded up to 64,
-    which the dK/dV kernel writes and the dQ kernel reads."""
+    which the dK/dV kernel writes and the dQ kernel reads; dS^T is in the
+    operands' dtype (bf16: two to a float32 slot)."""
     b, t, e = out.shape
     tq = -(-t // 64) * 64
-    scratch = torch.empty((b * h * t + 3) // 4 * 4 + b * h * tq * tq, device=out.device,
+    n_ds = b * h * tq * tq // (4 // out.element_size())
+    scratch = torch.empty((b * h * t + 3) // 4 * 4 + n_ds, device=out.device,
                           dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(out.device):
-        return lib.tsx_attention_bwd(
+        return getattr(lib, "tsx_attention_bwd" + _suffix(out))(
             *ptrs, ld, None if mask is None else mask.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             *grad_ptrs, ld_grad, b, t, h, e // h, seed, thresh, scale,
@@ -166,9 +240,9 @@ def _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, with_lse):
     """K2-fwd on the merged plane: (out (B, T, E), lse or None)."""
     b, t, e3 = qkv.shape
     err, out, lse = _fwd(_thirds(qkv), e3, mask, b, t, n_heads, e3 // 3 // n_heads,
-                         seed, thresh, scale, with_lse, qkv.device)
+                         seed, thresh, scale, with_lse, qkv.device, qkv.dtype)
     _build.check(err, "fused_qkv_self_attention")
-    _build.LAUNCHES["fused_qkv_attention"] += 1
+    _build.LAUNCHES["fused_qkv_attention" + _suffix(qkv)] += 1
     return out, lse
 
 
@@ -178,7 +252,7 @@ def _launch_bwd(qkv, mask, out, dout, lse, n_heads, seed, thresh, scale):
     err = _bwd(_thirds(qkv), qkv.shape[2], _thirds(dqkv), qkv.shape[2], mask,
                out, dout, lse, n_heads, seed, thresh, scale)
     _build.check(err, "fused_qkv_self_attention backward")
-    _build.LAUNCHES["fused_qkv_attention_bwd"] += 1
+    _build.LAUNCHES["fused_qkv_attention_bwd" + _suffix(qkv)] += 1
     return dqkv
 
 
@@ -187,9 +261,9 @@ def _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, with_lse):
     b, t, h, d = q.shape
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     err, out, lse = _fwd(ptrs, h * d, mask, b, t, h, d, seed, thresh, scale,
-                         with_lse, q.device)
+                         with_lse, q.device, q.dtype)
     _build.check(err, "fused_self_attention")
-    _build.LAUNCHES["fused_attention"] += 1
+    _build.LAUNCHES["fused_attention" + _suffix(q)] += 1
     return out.view(b, t, h, d), lse
 
 
@@ -202,7 +276,7 @@ def _launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh, scale):
                out.view(b, t, h * d), dout.view(b, t, h * d), lse, h, seed,
                thresh, scale)
     _build.check(err, "fused_self_attention backward")
-    _build.LAUNCHES["fused_attention_bwd"] += 1
+    _build.LAUNCHES["fused_attention_bwd" + _suffix(q)] += 1
     return grads
 
 
@@ -259,10 +333,11 @@ def _check_common(x, b, t, key_padding_mask, dropout_p, dropout_seed, name):
 
 def _kernel_args(x, d, key_padding_mask, dropout_p, dropout_seed, name):
     """Checks of what the CUDA kernels take; (mask, seed, threshold, scale)."""
-    if x.dtype != torch.float32 or d not in KERNEL_D_HEADS:
+    heads = {torch.float32: KERNEL_D_HEADS, torch.bfloat16: KERNEL_D_HEADS_BF16}
+    if d not in heads.get(x.dtype, ()):
         raise ValueError(
-            f"{name} kernel takes float32 with d_head in {KERNEL_D_HEADS}: "
-            f"got {x.dtype}, d_head={d}"
+            f"{name} kernel takes float32 with d_head in {KERNEL_D_HEADS} or bfloat16 "
+            f"with d_head in {KERNEL_D_HEADS_BF16}: got {x.dtype}, d_head={d}"
         )
     if key_padding_mask is not None and key_padding_mask.device != x.device:
         raise ValueError("key_padding_mask must be on the device of q, k, v")

@@ -21,6 +21,13 @@ Gradients on CUDA, as the JAX VJP computes them: dx by the same kernel on
 the k-flipped, in/out-swapped weights with the complementary left pad
 ``K - 1 - left_pad``; dw by the library's convolution weight gradient (JAX
 leaves dw to XLA's native conv, outside any Pallas kernel).
+
+dtypes: float32 (the kernel's 3xTF32 path, any C/groups <= 64) and bfloat16
+(one bf16 tensor-core pass, C/groups in 16, 32, 48, 64), as the TPU kernel
+takes the activation's dtype (``_fwd_kernel:72-115``, dx in x's dtype,
+``_bwd:222-223``). In bf16 both versions sum the products of the bf16 values
+in float32 and round the output to bf16 once; dw is the library's bf16
+weight gradient, as XLA's bf16 conv gives it.
 """
 
 from __future__ import annotations
@@ -31,46 +38,58 @@ import torch.nn.functional as F
 from tpu_speech_torch.ops import _build
 
 __all__ = ["grouped_conv1d", "grouped_conv1d_plain", "kernel_weights",
-           "KERNEL_MAX_CG", "KERNEL_MAX_K"]
+           "KERNEL_MAX_CG", "KERNEL_MAX_K", "KERNEL_CG_BF16"]
 
-KERNEL_MAX_CG = 64  # channels per group the CUDA kernel takes
-KERNEL_MAX_K = 128  # taps the CUDA kernel takes
+KERNEL_MAX_CG = 64  # channels per group the float32 CUDA kernel takes
+KERNEL_MAX_K = 128  # taps the CUDA kernels take
+KERNEL_CG_BF16 = (16, 32, 48, 64)  # channels per group the bf16 kernel takes
 
 
 def grouped_conv1d_plain(x: torch.Tensor, w: torch.Tensor, groups: int,
                          left_pad: int) -> torch.Tensor:
-    """``F.conv1d(groups=...)`` on the explicitly padded (B, C, T) input.
-    Differentiable by autograd."""
+    """``F.conv1d(groups=...)`` on the explicitly padded (B, C, T) input;
+    bf16 in float32 on the bf16 values, rounded to bf16 once. Differentiable
+    by autograd."""
     k = w.shape[-1]
-    xp = F.pad(x.transpose(1, 2), (left_pad, k - 1 - left_pad))
-    return F.conv1d(xp, w, groups=groups).transpose(1, 2)
+    low = x.dtype == torch.bfloat16
+    xp = F.pad((x.float() if low else x).transpose(1, 2), (left_pad, k - 1 - left_pad))
+    y = F.conv1d(xp, w.float() if low else w, groups=groups).transpose(1, 2)
+    return y.to(x.dtype) if low else y
 
 
 def kernel_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
-    """(C, Cg, K) -> the kernel's (G, K, Cg_in, Cg_out), one copy."""
+    """(C, Cg, K) -> the kernel's weights, one copy: (G, K, Cg_in, Cg_out)
+    for float32, (G, K, Cg_out, Cg_in) for bf16 (a B fragment is two input
+    channels of one output channel)."""
     c, cg, k = w.shape
-    return w.reshape(groups, cg, cg, k).permute(0, 3, 2, 1).contiguous()
+    w4 = w.reshape(groups, cg, cg, k)  # (G, out, in, K)
+    order = (0, 3, 1, 2) if w.dtype == torch.bfloat16 else (0, 3, 2, 1)
+    return w4.permute(*order).contiguous()
 
 
 def _dx_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
     """The kernel weights of dx: tap K-1-k of w with input and output
-    channels swapped, (G, K, Cg_out, Cg_in), one copy."""
+    channels swapped, one copy: (G, K, Cg_out, Cg_in) for float32, (G, K,
+    Cg_in, Cg_out) for bf16."""
     c, cg, k = w.shape
-    return w.reshape(groups, cg, cg, k).flip(3).permute(0, 3, 1, 2).contiguous()
+    w4 = w.reshape(groups, cg, cg, k).flip(3)
+    order = (0, 3, 2, 1) if w.dtype == torch.bfloat16 else (0, 3, 1, 2)
+    return w4.permute(*order).contiguous()
 
 
 def _launch(x, wk, left_pad, counter):
     b, t, c = x.shape
     g, k = wk.shape[0], wk.shape[1]
     out = torch.empty_like(x)
+    suffix = "_bf16" if x.dtype == torch.bfloat16 else ""
     lib = _build.library()
     with torch.cuda.device(x.device):  # the runtime launches on its current device
-        err = lib.tsx_grouped_conv1d(
+        err = getattr(lib, "tsx_grouped_conv1d" + suffix)(
             x.data_ptr(), wk.data_ptr(), out.data_ptr(), b, t, c, g, k, left_pad,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _build.check(err, counter)
-    _build.LAUNCHES[counter] += 1
+    _build.check(err, counter + suffix)
+    _build.LAUNCHES[counter + suffix] += 1
     return out
 
 
@@ -103,8 +122,9 @@ class _GroupedConv1d(torch.autograd.Function):
 def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, groups: int,
                    left_pad: int) -> torch.Tensor:
     """Grouped conv of x (B, T, C) with w (C, C/groups, K) and ``left_pad``
-    zeros before the first frame; the K4 kernel on CUDA (any C/groups <= 64,
-    K <= 128), ``grouped_conv1d_plain`` on CPU."""
+    zeros before the first frame; the K4 kernel on CUDA (float32 with any
+    C/groups <= 64, bf16 with C/groups in 16, 32, 48, 64; K <= 128),
+    ``grouped_conv1d_plain`` on CPU."""
     if x.ndim != 3 or w.ndim != 3:
         raise ValueError(f"x must be (B, T, C) and w (C, Cg, K): "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
@@ -118,12 +138,15 @@ def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, groups: int,
         return grouped_conv1d_plain(x, w, groups, left_pad)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_conv1d: unsupported device {x.device}")
-    if (x.dtype != torch.float32 or w.dtype != torch.float32 or w.device != x.device
-            or c // groups > KERNEL_MAX_CG or k > KERNEL_MAX_K):
+    cg = c // groups
+    cg_ok = {torch.float32: cg <= KERNEL_MAX_CG,
+             torch.bfloat16: cg in KERNEL_CG_BF16}.get(x.dtype, False)
+    if w.dtype != x.dtype or w.device != x.device or not cg_ok or k > KERNEL_MAX_K:
         raise ValueError(
-            f"grouped_conv1d kernel takes float32 x and w on one device with "
-            f"C/groups <= {KERNEL_MAX_CG} and K <= {KERNEL_MAX_K}: got "
-            f"{x.dtype}/{w.dtype} on {x.device}/{w.device}, C/groups={c // groups}, K={k}"
+            f"grouped_conv1d kernel takes x and w of one dtype on one device, "
+            f"float32 with C/groups <= {KERNEL_MAX_CG} or bfloat16 with C/groups in "
+            f"{KERNEL_CG_BF16}, and K <= {KERNEL_MAX_K}: got {x.dtype}/{w.dtype} on "
+            f"{x.device}/{w.device}, C/groups={cg}, K={k}"
         )
     x = x.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):

@@ -1,9 +1,10 @@
 """SPIRAL pretraining: the teacher-student step with the EMA teacher.
 
-Port of ``tpu_speech/train/spiral.py``: ``make_pretrain_step:66`` at
-``accum_steps=1`` and fp32 becomes ``pretrain_step``, and the host-side
-``host_augment_batch:305`` and ``quantize_wire_int16:245`` are numpy twins
-that give equal arrays from one seed.
+Port of ``tpu_speech/train/spiral.py``: ``make_pretrain_step:66`` becomes
+``pretrain_step``, with its bf16 mixed precision and its gradient
+accumulation, and the host-side ``host_augment_batch:305`` and
+``quantize_wire_int16:245`` are numpy twins that give equal arrays from one
+seed.
 
 One step, as the JAX one: wav -> spec for the clean branch (teacher) and the
 perturbed branch (student), with train-mode dither; teacher shift and a
@@ -15,11 +16,24 @@ global-norm clip; the optimizer; then the EMA with the momentum of the step
 count before the increment. BatchNorm running statistics update in the
 student's forward.
 
+Mixed precision (``bf16=True``, ``:100-130``): the optimizer keeps the
+float32 master parameters; each micro-batch's forward runs on bf16 copies of
+the student's and the teacher's parameters (``mixed_precision_params``, a
+differentiable cast, so the gradients reach the masters in float32) through
+``torch.func.functional_call``; the featurizer stays float32 and the specs
+and the mask embedding are cast after it; buffers (BatchNorm statistics) stay
+float32. It is not ``torch.autocast`` (which keeps norms and other ops in
+float32 and casts per op) and not ``model.bfloat16()`` (which would lose the
+masters).
+
+Accumulation (``accum_steps > 1``, ``:183-205``): a list of micro-batch
+dicts; each runs its forward and ``(loss / accum_steps).backward()``, so one
+micro-batch's activations are alive at a time, and the BatchNorm statistics
+move through them in order, as the JAX scan carries them. Then one clip, one
+optimizer step and one EMA; loss and accuracy are the micro-batches' mean.
+
 The random sources are explicit: ``DropoutRng`` (host generator: attention
 seeds and layerdrop; device generator: dither, dropout, negatives).
-
-Not ported yet: ``bf16=True`` (mixed precision) and ``accum_steps > 1``
-(gradient accumulation); both raise.
 """
 
 from __future__ import annotations
@@ -65,39 +79,61 @@ def make_pretrain_state(model: ST2VecEncoder, make_opt) -> SpiralPretrainState:
     return SpiralPretrainState(model, make_opt(model.student_parameters()))
 
 
-def pretrain_step(state: SpiralPretrainState, batch: dict, rng: DropoutRng,
-                  grad_clip: Optional[float] = None, bf16: bool = False,
-                  accum_steps: int = 1,
-                  neg_idx: Optional[torch.Tensor] = None) -> dict:
-    """One update of ``state`` in place from a device batch (the dict of
-    ``host_augment_batch`` as tensors on the model's device; ``shift_k`` and
-    ``shift_r`` stay host ints). ``neg_idx`` (B, T', N) replaces the drawn
-    negative indices (the parity tests pass JAX's). Returns the step's
-    metrics: ``loss`` and ``accuracy`` (0-d device tensors), ``momentum``
-    and ``lr`` (floats), and the transformer layers each tower ran."""
-    if bf16:
-        raise NotImplementedError("bf16 pretraining is not ported yet")
-    if accum_steps != 1:
-        raise NotImplementedError("accum_steps > 1 is not ported yet")
-    model = state.model
+def mixed_precision_params(named_parameters) -> dict:
+    """``{name: parameter.to(torch.bfloat16)}`` of (name, parameter) pairs,
+    for ``torch.func.functional_call``: the cast is differentiable, so a
+    backward through the copies leaves float32 gradients on the float32
+    masters (the JAX step's ``_cast``)."""
+    return {n: p.to(torch.bfloat16) for n, p in named_parameters}
+
+
+def micro_batches(batch, accum_steps: int) -> list:
+    """The step's micro-batches: ``[batch]``, or the list of ``accum_steps``
+    of them."""
+    micro = list(batch) if accum_steps > 1 else [batch]
+    if len(micro) != accum_steps:
+        raise ValueError(f"accum_steps={accum_steps} needs that many micro-batches, "
+                         f"got {len(micro)}")
+    return micro
+
+
+def _pretrain_loss(model: ST2VecEncoder, batch: dict, rng: DropoutRng, bf16: bool,
+                   neg_idx: Optional[torch.Tensor]):
+    """One micro-batch's forward: (loss, accuracy, teacher layers, student
+    layers)."""
     cfg = model.cfg
     emb = torch.tensor(gaussian_mask_emb(cfg.num_features), device=batch["wavs"].device)
-
     t_specs, t_lens = wav_to_spec(cfg, batch["wavs"], batch["wav_lens"],
                                   training=True, generator=rng.device)
     s_specs, s_lens = wav_to_spec(cfg, batch["p_wavs"], batch["p_wav_lens"],
                                   training=True, generator=rng.device)
+    if bf16:
+        # the featurizer stays float32; each tower runs on bf16 copies of its
+        # own parameters (the teacher's made without a graph)
+        named = list(model.named_parameters())
+        with torch.no_grad():
+            params = {"teacher": mixed_precision_params(
+                (n, p) for n, p in named if n.startswith("target_"))}
+        params["student"] = mixed_precision_params(
+            (n, p) for n, p in named if not n.startswith("target_"))
+        emb, t_specs, s_specs = (x.to(torch.bfloat16) for x in (emb, t_specs, s_specs))
+
+        def tower(*args, name):
+            return torch.func.functional_call(model, params[name], args, {"tower": name})
+    else:
+        def tower(*args, name):
+            return model(*args, tower=name)
     k, r = int(batch["shift_k"]), int(batch["shift_r"])
     with torch.no_grad():
         t_sh, t_lens_sh = teacher_shift(t_specs, t_lens, k, r, cfg.shift_unit,
                                         cfg.max_shift, emb)
-        targets, _ = model.encode_teacher(t_sh, t_lens_sh, rng)
+        targets, _ = tower(t_sh, t_lens_sh, rng, name="teacher")
         # trim the k leading shifted frames -> aligned with the student frames
         targets = targets[:, k:k + s_specs.shape[1] // cfg.shift_unit]
     teacher_layers = model.target_feature_encoder.layers_run()
 
     s_specs = apply_mask(s_specs, batch["time_mask"], batch["chan_mask"], emb)
-    pred, feat_lens = model.encode_student(s_specs, s_lens, rng)
+    pred, feat_lens = tower(s_specs, s_lens, rng, name="student")
     student_layers = model.feature_encoder.layers_run()
 
     t_out = pred.shape[1]
@@ -107,11 +143,36 @@ def pretrain_step(state: SpiralPretrainState, batch: dict, rng: DropoutRng,
         neg_idx = draw_negative_indices(feat_lens, t_out, cfg.n_negatives, rng.device)
     negs = gather_negatives(targets, neg_idx)
     loss, acc = contrastive_loss(pred, targets, negs, valid, cfg.logit_temp)
+    return loss, acc, teacher_layers, student_layers
 
+
+def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
+                  grad_clip: Optional[float] = None, bf16: bool = False,
+                  accum_steps: int = 1, neg_idx=None) -> dict:
+    """One update of ``state`` in place from a device batch (the dict of
+    ``host_augment_batch`` as tensors on the model's device; ``shift_k`` and
+    ``shift_r`` stay host ints), or from a list of ``accum_steps`` such
+    micro-batches. ``neg_idx`` (B, T', N), a list of one per micro-batch when
+    accumulating, replaces the drawn negative indices (the parity tests pass
+    JAX's). ``bf16`` runs the network in bf16 on copies of the float32
+    parameters. Returns the step's metrics: ``loss`` and ``accuracy`` (0-d
+    device tensors, the micro-batches' mean), ``momentum`` and ``lr``
+    (floats), and the transformer layers each tower ran (summed over the
+    micro-batches)."""
+    micro = micro_batches(batch, accum_steps)
+    negs = list(neg_idx) if accum_steps > 1 and neg_idx is not None else [neg_idx] * accum_steps
+    model = state.model
+    cfg = model.cfg
     params = model.student_parameters()
     for p in params:
         p.grad = None
-    loss.backward()
+    loss_sum = acc_sum = 0.0
+    teacher_layers = student_layers = 0
+    for mb, neg in zip(micro, negs):
+        loss, acc, t_layers, s_layers = _pretrain_loss(model, mb, rng, bf16, neg)
+        (loss / accum_steps).backward()
+        loss_sum, acc_sum = loss_sum + loss.detach(), acc_sum + acc.detach()
+        teacher_layers, student_layers = teacher_layers + t_layers, student_layers + s_layers
     for p in params:
         if p.grad is None:  # not reached by this forward (layerdrop)
             p.grad = torch.zeros_like(p)
@@ -121,8 +182,8 @@ def pretrain_step(state: SpiralPretrainState, batch: dict, rng: DropoutRng,
                           cfg.target_momentum_final, cfg.target_momentum_steps)
     ema_update(model, m)
     state.step += 1
-    return {"loss": loss.detach(), "accuracy": acc.detach(), "momentum": m,
-            "lr": lr, "teacher_layers": teacher_layers,
+    return {"loss": loss_sum / accum_steps, "accuracy": acc_sum / accum_steps,
+            "momentum": m, "lr": lr, "teacher_layers": teacher_layers,
             "student_layers": student_layers}
 
 

@@ -5,9 +5,12 @@
 ``:461-566``): ``AudioDataset(return_both=True)``, ``AudioBatchCollate``
 and ``DataLoader`` (the port's copies, ``data/``), the host-side
 masks and teacher shifts with the same generator seeding (``_augment``), the
-int16 wire format, ``pretrain_step`` (``train/spiral.py``), a log line per
-epoch with loss, accuracy and ms/step, and a reference-named ``state_dict``
-saved at the end. Not ported yet: ``validate``, resume, archives, orbax
+int16 wire format, ``pretrain_step`` (``train/spiral.py``) with
+``model.precision`` (``bf16`` mixed precision) and
+``trainer.accumulate_grad_batches`` (micro-batches buffered across epochs,
+one update per ``accum`` batches, ``iteration`` counting updates), a log line
+per epoch with loss, accuracy and ms/step, and a reference-named
+``state_dict`` saved at the end. Not ported yet: ``validate``, resume, archives, orbax
 checkpoints, the native C++ batcher, tarred data, the mu-law wire format,
 mesh / FSDP / sequence parallelism.
 
@@ -25,12 +28,15 @@ samples, 512)`` and ``DataLoader``, the host generator ``default_rng(1)``
 (``_device_batches:890``), AdamW with the lr rescale (``:724-733``),
 ``finetune_step`` with the freeze gate decided from the iteration counter,
 ``train_epoch:914`` (metrics read back once per epoch), ``validate:941`` and
-a reference-named ``state_dict`` at the end. Host-side data, tokenizers and
+a reference-named ``state_dict`` at the end; bf16 and accumulation as the
+pretrain runner (``:890-929``). Host-side data, tokenizers and
 scoring are the port's own copies of the JAX package's modules (``data/``,
 ``text/``, ``eval/wer.py``).
 
-Both run in full float32: ``use_full_fp32()`` turns TF32 off for both cuDNN
-convolutions (on by default in PyTorch) and matmuls. Both default to the
+Both keep float32 parameters and run float32 with ``use_full_fp32()``, which
+turns TF32 off for cuDNN convolutions (on by default in PyTorch) and matmuls;
+with ``model.precision = "bf16"`` the training steps run the network on bf16
+copies of the parameters (serving stays float32). Both default to the
 CUDA device and raise when there is none; the CPU runs only when it is asked
 for (``device="cpu"``).
 
@@ -90,9 +96,12 @@ def use_full_fp32() -> None:
     """fp32 serving: PyTorch runs cuDNN convolutions in TF32 by default
     (``torch.backends.cudnn.allow_tf32 = True``), which keeps ~3 decimal
     digits; the reference path is full fp32, so TF32 goes off for
-    convolutions and matmuls alike."""
+    convolutions and matmuls alike. bf16 matmuls (the training steps' mixed
+    precision) accumulate in fp32 throughout, as the TPU's bf16 products do:
+    cuBLAS's reduced-precision reductions go off too."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -172,12 +181,11 @@ class SpiralFinetuneRunner:
             load_pretrained_encoder(model, load_pretrain_file(m.pretrain_chkpt_path),
                                     m.use_teacher_encoder)
         self.model = model.to(self.device).eval()
-        if getattr(m, "precision", "fp32") == "bf16":
-            raise NotImplementedError("bf16 finetuning is not ported yet")
-        if getattr(cfg.trainer, "accumulate_grad_batches", 1) > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet")
-        self.iteration = 0
+        self.accum = max(1, getattr(cfg.trainer, "accumulate_grad_batches", 1))
+        self.bf16 = getattr(m, "precision", "fp32") == "bf16"
+        self.iteration = 0  # optimizer updates
         self.history = []  # per-step metrics, floats
+        self._micro = []  # micro-batches of the next update (kept across epochs)
 
     # the training half is built at first use: serving needs no optimizer,
     # dropout generator, mask generator or training manifest
@@ -186,7 +194,7 @@ class SpiralFinetuneRunner:
     def state(self):
         m = self.cfg.model
         total_steps = m.optim.sched.max_steps if m.optim.sched else 80000
-        scale = lr_scale(m, data_parallel=1, accum=1)
+        scale = lr_scale(m, data_parallel=1, accum=self.accum)
         return make_finetune_state(
             self.model, lambda params: make_optimizer(m.optim, params, total_steps, scale))
 
@@ -356,23 +364,32 @@ class SpiralFinetuneRunner:
         return batch_to_device(batch, self.device)
 
     def step(self, batch) -> dict:
-        # the encoder-freeze gate, from the host-side iteration counter
-        # (step_auto:252-267): no device read
+        """One update from a device batch, or from a list of ``accum`` of
+        them. The encoder-freeze gate comes from the host-side iteration
+        counter (step_auto:252-267), once per update: no device read."""
         n = self.cfg.model.freeze_finetune_updates
         frozen = n > 0 and self.iteration < n
-        m = finetune_step(self.state, batch, self.rng, freeze_encoder=frozen)
+        m = finetune_step(self.state, batch, self.rng, freeze_encoder=frozen,
+                          bf16=self.bf16, accum_steps=self.accum)
         m["frozen"] = frozen
         return m
 
     def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> float:
-        """One pass over the loader, stopping early at ``max_steps`` total
-        steps. Metrics are read back once, at the end of the epoch."""
+        """One pass over the loader, one update per ``accum`` batches (the
+        leftover micro-batches wait for the next epoch), stopping early at
+        ``max_steps`` total updates. Metrics are read back once, at the end
+        of the epoch."""
         pending = []
         t0 = time.perf_counter()
         for raw in self.loader:
             if max_steps and self.iteration >= max_steps:
                 break
-            pending.append(self.step(self.device_batch(raw)))
+            self._micro.append(self.device_batch(raw))
+            if len(self._micro) < self.accum:
+                continue
+            batch = self._micro if self.accum > 1 else self._micro[0]
+            self._micro = []
+            pending.append(self.step(batch))
             self.iteration += 1
         losses = [float(m["loss"]) for m in pending]  # the epoch's one sync
         dt = time.perf_counter() - t0
@@ -459,19 +476,22 @@ class SpiralPretrainRunner:
             lambda params: make_optimizer(m.optim, params, total_steps, self.lr_scale))
         self.rng = DropoutRng.seeded(seed, self.device)
         self.host_rng = np.random.default_rng(0)  # process index 0
-        self.iteration = 0
+        self.iteration = 0  # optimizer updates
         self.history = []  # per-step metrics, floats
+        # micro-batches of the next update and their audio seconds (kept
+        # across epochs; the seconds count when the update consumes them)
+        self._micro, self._micro_sec = [], 0.0
 
-    def _augment(self, raw):
-        # shift scalars seeded by the step that consumes the batch
-        # (spiral_runner.py:468-470, micro index 0)
-        shift_rng = np.random.default_rng(1_000_003 + self.iteration * self.accum)
+    def _augment(self, raw, micro: int = 0):
+        # shift scalars seeded by the update that consumes the batch and the
+        # batch's micro index (spiral_runner.py:461-474)
+        shift_rng = np.random.default_rng(1_000_003 + self.iteration * self.accum + micro)
         return host_augment_batch(
             self.enc_cfg, raw["wavs"], raw["wav_lens"], raw["p_wavs"],
             raw["p_wav_lens"], self.spec_len, self.host_rng, shift_rng)
 
-    def device_batch(self, raw) -> dict:
-        batch = self._augment(raw)
+    def device_batch(self, raw, micro: int = 0) -> dict:
+        batch = self._augment(raw, micro)
         if self.wire == "int16":
             batch = quantize_wire_int16(batch)
         return batch_to_device(batch, self.device)
@@ -481,16 +501,24 @@ class SpiralPretrainRunner:
                              bf16=self.bf16, accum_steps=self.accum)
 
     def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> float:
-        """One pass over the loader, stopping early at ``max_steps`` total
-        steps. Metrics are read back once, at the end of the epoch."""
+        """One pass over the loader, one update per ``accum`` batches (the
+        leftover micro-batches wait for the next epoch), stopping early at
+        ``max_steps`` total updates. Metrics are read back once, at the end
+        of the epoch."""
         sr = self.cfg.model.train_ds.sample_rate
         pending, n_sec = [], 0.0
         t0 = time.perf_counter()
         for raw in self.loader:
             if max_steps and self.iteration >= max_steps:
                 break
-            n_sec += float(np.sum(raw["wav_lens"])) / sr
-            pending.append(self.step(self.device_batch(raw)))
+            self._micro.append(self.device_batch(raw, len(self._micro)))
+            self._micro_sec += float(np.sum(raw["wav_lens"])) / sr
+            if len(self._micro) < self.accum:
+                continue
+            batch = self._micro if self.accum > 1 else self._micro[0]
+            n_sec += self._micro_sec
+            self._micro, self._micro_sec = [], 0.0
+            pending.append(self.step(batch))
             self.iteration += 1
         losses = [float(m["loss"]) for m in pending]  # the epoch's one sync
         dt = time.perf_counter() - t0
