@@ -7,7 +7,9 @@ Drives the port's three SPIRAL-base paths through their normal entry point
 (``tpu_speech_torch.cli.run_spiral.main``), at full width with seeded random
 weights: CTC transcription, the ST2Vec pretrain step and the CTC finetune
 step, the two training steps also in bf16 mixed precision and with gradient
-accumulation. It checks each hand kernel, fp32 and bf16, against its plain
+accumulation; and Grad-TTS + HiFi-GAN text-to-waveform serving through
+``tpu_speech_torch.cli.inference.main``, which reaches no hand kernel (cuDNN
+and cuBLAS). It checks each hand kernel, fp32 and bf16, against its plain
 PyTorch version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
@@ -100,7 +102,23 @@ result):
     memory within 1.1x the accum = 1 step's, the step times;
 22. the finetune step at accum 2 on two halves of 28 utterances against
     accum 1 on all 28 (fp32, SGD, regularisers off): the loss within 1e-5
-    relative, the gradients within 1e-3 x max|g|.
+    relative, the gradients within 1e-3 x max|g|;
+23. Grad-TTS + HiFi-GAN text -> wav through
+    ``tpu_speech_torch.cli.inference.main`` at the LJSpeech width of
+    ``cli/params.py`` and HiFi-GAN V1, seeded random weights saved as a
+    reference-named ``.pt`` and a weight-norm generator ``.pt`` with its
+    V1 ``hifigan-config.json``: three lines (bench.py's text, numbers and
+    abbreviations, one over 256 frames) give int16 wavs of frames x 256
+    samples, none cut; no hand kernel launches on this path;
+24. the same weights and z on the card and on the CPU at bucket 384: 10
+    Euler steps and 6 DPM steps within mel MAE 1e-3, the wav MAE after
+    HiFi-GAN; the sampler and vocoder after the encoder make no host sync
+    (``torch.cuda.set_sync_debug_mode("error")``);
+25. the TTS points bench.py names, fp32, CUDA events (median of 10): e2e
+    text -> int16 wav RTF at B = 1, bucket 384, 10 Euler and 6 DPM steps,
+    the mel-only RTF, B = 16 throughput in x realtime, HiFi-GAN alone at
+    (16, 384, 80), peak memory, and a profile (kernels per utterance, busy
+    share, top device ops).
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -177,6 +195,25 @@ BF16_STEP_GRAD_RL2 = 0.1
 BF16_FT_STEPS = 2
 # the finetune step at accum 2 on two halves against accum 1 on the whole
 ACCUM_LOSS_RTOL = 1e-5
+# Grad-TTS + HiFi-GAN (phases 23-25): bench.py's text (bench.py:69-72) and
+# mel bucket; card against CPU, the mel's mean absolute error (the JAX
+# package's on-chip gate against the reference, README)
+TTS_TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat watches from a "
+            "sunlit windowsill in the early morning.")
+TTS_LINES = (
+    TTS_TEXT,
+    "Dr. Smith paid $3.50 for 2 tickets on Feb. 1st, 1999, at St. John's, 10 minutes early.",
+    "At full width a line this long is predicted at well over two hundred and fifty six "
+    "mel frames, so the command line tool of the JAX package would cut it at that bucket, "
+    "while the port passes the smallest multiple of the bucket that covers the predicted "
+    "length and keeps every frame of it.",
+)
+TTS_BUCKET = 384
+TTS_MEL_MAE = 1e-3
+TTS_SEED = 23
+HIFIGAN_V1 = dict(resblock="1", upsample_rates=[8, 8, 2, 2], upsample_kernel_sizes=[16, 16, 4, 4],
+                  upsample_initial_channel=512, resblock_kernel_sizes=[3, 7, 11],
+                  resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]])
 
 
 def log(msg):
@@ -1649,6 +1686,198 @@ def phase_finetune_accum_equiv(torch):
     return rel_loss
 
 
+def _tts_models(torch):
+    """Grad-TTS at the LJSpeech width of cli/params.py and HiFi-GAN V1, seeded
+    random weights, on the CPU."""
+    from tpu_speech_torch.configs import gradtts as cfg
+    from tpu_speech_torch.models.grad_tts import GradTTS
+    from tpu_speech_torch.models.hifigan import Generator
+    from tpu_speech_torch.text import symbols
+
+    model = GradTTS(**cfg.model_kwargs(len(symbols) + 1))
+    model.init_weights(torch.Generator().manual_seed(TTS_SEED)).eval()
+    voc = Generator(**HIFIGAN_V1).init_weights(torch.Generator().manual_seed(TTS_SEED + 1))
+    return model, voc.eval()
+
+
+def _tts_ids(torch, text, device, batch=1):
+    """bench.py's input: english_cleaners, characters (no dictionary),
+    interspersed with the blank."""
+    from tpu_speech_torch.text import intersperse, symbols, text_to_sequence
+
+    seq = intersperse(text_to_sequence(text), len(symbols))
+    x = torch.tensor([seq] * batch, device=device)
+    return x, torch.full((batch,), len(seq), device=device)
+
+
+def phase_tts_slice(torch, root):
+    """23: text -> wav through tpu_speech_torch.cli.inference.main on the
+    card: a reference-named Grad-TTS .pt, a V1 hifigan-config.json and a
+    generator .pt with weight_g/weight_v pairs (folded at load), a small
+    CMU dictionary, three lines (bench.py's text, numbers and
+    abbreviations, one longer than 256 frames)."""
+    from tpu_speech_torch.cli import inference
+    from tpu_speech_torch.ops import _build
+
+    model, voc = _tts_models(torch)
+    ckpt, hpt = os.path.join(root, "grad-tts.pt"), os.path.join(root, "hifigan.pt")
+    torch.save(model.state_dict(), ckpt)
+    sd = {}
+    for k, v in voc.state_dict().items():  # weight = g * v / ||v||, v = 2 w
+        if k.endswith(".weight"):
+            sd[k[:-7] + ".weight_g"] = v.norm(dim=tuple(range(1, v.dim())), keepdim=True)
+            sd[k[:-7] + ".weight_v"] = 2 * v
+        else:
+            sd[k] = v
+    torch.save({"generator": sd}, hpt)
+    hjson = os.path.join(root, "hifigan-config.json")
+    with open(hjson, "w") as f:
+        json.dump(dict(HIFIGAN_V1, num_mels=80, sampling_rate=22050, hop_size=256), f)
+    texts, cmu = os.path.join(root, "texts.txt"), os.path.join(root, "cmu_dictionary")
+    with open(texts, "w") as f:
+        f.write("\n".join(TTS_LINES) + "\n")
+    with open(cmu, "w", encoding="latin-1") as f:
+        f.write("THE  DH AH0\nQUICK  K W IH1 K\nBROWN  B R AW1 N\nFOX  F AA1 K S\n"
+                "DOCTOR  D AA1 K T ER0\nSMITH  S M IH1 TH\nTICKETS  T IH1 K AH0 T S\n")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_voc = sum(p.numel() for p in voc.parameters())
+    del model, voc
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = inference.main(["-f", texts, "-c", ckpt, "--hifigan", hpt, "--hifigan-config", hjson,
+                          "--cmudict", cmu, "--out-dir", os.path.join(root, "tts_out")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"[23 tts slice] Grad-TTS {res['n_params']} parameters, HiFi-GAN V1 "
+        f"{res['n_vocoder_params']}; {len(res['samples'])} lines through "
+        f"cli.inference.main in {wall:.1f} s; hand-kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} or 0}")
+    check(res["n_params"] == n_params and res["n_vocoder_params"] == n_voc,
+          f"parameter counts {res['n_params']}, {res['n_vocoder_params']}")
+    check(len(res["samples"]) == len(TTS_LINES), f"{len(res['samples'])} samples")
+    import scipy.io.wavfile
+
+    for s in res["samples"]:
+        sr, pcm = scipy.io.wavfile.read(s["path"])
+        log(f"    {os.path.basename(s['path'])}: {s['frames']} frames (predicted "
+            f"{s['predicted_frames']:.2f}, bucket {s['y_max_length']}), {len(pcm)} int16 "
+            f"samples, RTF {s['rtf']:.5f}, peak |pcm| {int(np.abs(pcm.astype(np.int32)).max())}")
+        check(sr == 22050 and pcm.dtype == np.int16, f"{s['path']}: {sr} Hz, {pcm.dtype}")
+        check(pcm.shape == (s["frames"] * 256,), f"{s['path']}: {pcm.shape} samples")
+        check(s["frames"] == int(s["predicted_frames"]), f"a line was cut: {s}")
+        check(np.abs(pcm.astype(np.int32)).max() > 0, f"{s['path']} is silent")
+    check(res["samples"][-1]["frames"] > 256, "the long line is not over 256 frames")
+    return launches
+
+
+def phase_tts_cpu_vs_card(torch):
+    """24: the same weights and z on the card and on the CPU, bench.py's
+    text at bucket 384: 10 Euler steps (mel MAE < 1e-3, the JAX package's
+    on-chip gate) and 6 DPM steps; the wav MAE after HiFi-GAN. A warm call
+    of the sampler and vocoder after the encoder makes no host sync."""
+    from tpu_speech_torch.models.grad_tts import synthesize, synthesize_from_encoding
+
+    model, voc = _tts_models(torch)
+    noise = torch.randn(1, TTS_BUCKET, 80, generator=torch.Generator().manual_seed(TTS_SEED))
+    kw = dict(temperature=1.5, length_scale=0.91)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model.to(dev), voc.to(dev)
+        x, xl = _tts_ids(torch, TTS_TEXT, dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for solver, steps in (("euler", 10), ("dpm", 6)):
+                _, dec, attn, yl = synthesize(model, x, xl, steps, TTS_BUCKET, solver=solver,
+                                              noise=noise.to(dev), **kw)
+                n = int(yl[0])
+                wav = voc(dec[:, :n].transpose(1, 2))
+                out[(dev, solver)] = (dec[0, :n].cpu(), attn.cpu(), n, wav.cpu())
+            if dev == "cuda":
+                mu_x, logw, x_mask = model.encode(x, xl)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    g = torch.Generator("cuda").manual_seed(0)
+                    _, dec, _, _ = synthesize_from_encoding(model, mu_x, logw, x_mask, 10,
+                                                            TTS_BUCKET, generator=g, **kw)
+                    voc(dec.transpose(1, 2))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+        log(f"    [24] {dev}: both samplers and HiFi-GAN in {time.perf_counter() - t0:.1f} s")
+    res = {}
+    for solver in ("euler", "dpm"):
+        (dc, ac, nc, wc), (dg, ag, ng, wg) = out[("cpu", solver)], out[("cuda", solver)]
+        check(nc == ng and torch.equal(ac, ag), f"{solver}: lengths {nc} vs {ng} or the path")
+        check(bool(torch.isfinite(dg).all() and torch.isfinite(wg).all()), f"{solver}: finite")
+        mae, worst = (dg - dc).abs().mean().item(), (dg - dc).abs().max().item()
+        wav_mae = (wg - wc).abs().mean().item()
+        res[solver] = mae
+        log(f"[24 tts card vs cpu] {solver} {dict(euler=10, dpm=6)[solver]} "
+            f"steps, {nc} frames at bucket {TTS_BUCKET}: mel MAE {mae:.3e} (limit "
+            f"{TTS_MEL_MAE}), max {worst:.3e}, mean|mel| {dc.abs().mean().item():.3f}; wav "
+            f"MAE {wav_mae:.3e}, max|wav| {wc.abs().max().item():.4f}")
+        check(mae < TTS_MEL_MAE, f"{solver}: card vs CPU mel MAE {mae}")
+    log("    [24] sampler + vocoder after the encoder under set_sync_debug_mode('error'): "
+        "no host sync")
+    return res
+
+
+def phase_tts_time(torch):
+    """25: the points bench.py names, with CUDA events (median of 10), fp32:
+    e2e text -> int16 wav RTF at B = 1, bucket 384, 10 Euler steps and 6 DPM
+    steps; the mel-only RTF; B = 16 throughput in x realtime; HiFi-GAN alone
+    at (16, 384, 80). As bench.py does, the vocoder takes the whole bucket
+    and the RTF counts the predicted frames. Then kernels per utterance, the
+    busy share and the top device ops (torch.profiler), and peak memory."""
+    from tpu_speech_torch.models.grad_tts import synthesize
+    from tpu_speech_torch.models.hifigan import to_int16_pcm
+
+    model, voc = _tts_models(torch)
+    model.cuda(), voc.cuda()
+    kw = dict(temperature=1.5, length_scale=0.91)
+    res = {}
+
+    def e2e(x, xl, steps, solver, vocode=True):
+        g = torch.Generator("cuda").manual_seed(0)
+        with torch.inference_mode():
+            _, dec, _, yl = synthesize(model, x, xl, steps, TTS_BUCKET, solver=solver,
+                                       generator=g, **kw)
+            return (to_int16_pcm(voc(dec.transpose(1, 2))) if vocode else dec), yl
+
+    x1, xl1 = _tts_ids(torch, TTS_TEXT, "cuda")
+    frames = int(e2e(x1, xl1, 1, "euler", vocode=False)[1][0])
+    audio_s = frames * 256 / 22050
+    for name, steps, solver, vocode in (("e2e_wav_rtf_10step", 10, "euler", True),
+                                        ("e2e_wav_rtf_dpm6", 6, "dpm", True),
+                                        ("mel_rtf_10step", 10, "euler", False)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: e2e(x1, xl1, steps, solver, vocode), n=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[name] = ms / 1e3 / audio_s
+        log(f"[25 tts time] {name}: {ms:.2f} ms for {frames} frames ({audio_s:.3f} s of "
+            f"audio), RTF {res[name]:.5f}, peak {peak:.3f} GiB")
+    x16, xl16 = _tts_ids(torch, TTS_TEXT, "cuda", batch=16)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: e2e(x16, xl16, 10, "euler"), n=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res["e2e_throughput_b16"] = 16 * audio_s / (ms / 1e3)
+    log(f"[25 tts time] e2e_throughput_b16: {ms:.2f} ms for 16 x {frames} frames, "
+        f"{res['e2e_throughput_b16']:.1f} x realtime, peak {peak:.3f} GiB")
+    mel = torch.randn(16, 80, TTS_BUCKET, generator=torch.Generator().manual_seed(0)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: voc(mel), n=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res["hifigan_throughput_b16"] = 16 * TTS_BUCKET * 256 / 22050 / (ms / 1e3)
+    log(f"[25 tts time] hifigan_throughput_b16: {ms:.2f} ms for (16, {TTS_BUCKET}, 80), "
+        f"{res['hifigan_throughput_b16']:.1f} x realtime, peak {peak:.3f} GiB")
+    profile_slice(torch, lambda: e2e(x1, xl1, 10, "euler"), batches=3, top=12,
+                  tag="25 profile, e2e 10 Euler steps, B = 1")
+    return res
+
+
 def write_corpus(root, rng):
     import scipy.io.wavfile
 
@@ -1822,7 +2051,7 @@ def main():
               file=sys.stderr)
         return 2
     from tpu_speech_torch.ops import _build
-    from tpu_speech_torch.train.spiral_runner import use_full_fp32
+    from tpu_speech_torch.utils.device import use_full_fp32
 
     use_full_fp32()
     rng = np.random.default_rng(0)
@@ -1857,6 +2086,11 @@ def main():
         phase_bf16_vs_fp32_finetune(torch)
         phase_accum(torch, root, ft_root)
         phase_finetune_accum_equiv(torch)
+        tts_root = os.path.join(root, "tts")
+        os.makedirs(tts_root)
+        tts_launches = phase_tts_slice(torch, tts_root)
+    phase_tts_cpu_vs_card(torch)
+    phase_tts_time(torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1866,7 +2100,7 @@ def main():
     def by_path(key):
         return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key],
                 "finetune_step": ft_launches[key], "pretrain_step_bf16": pre16_launches[key],
-                "finetune_step_bf16": ft16_launches[key]}
+                "finetune_step_bf16": ft16_launches[key], "tts_e2e": tts_launches[key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",

@@ -1,9 +1,10 @@
 """The port's copies of the host-side code against the JAX package's originals.
 
 ``tpu_speech_torch`` keeps its own copies of the config dataclasses and
-overrides, the tokenizers, the WER tools and the SPIRAL data pipeline
-(``utils/config.py``, ``text/``, ``eval/wer.py``, ``data/``). Each is held
-here against the module it was copied from, on the same inputs.
+overrides, the tokenizers, the TTS text frontend, the WER tools and the
+SPIRAL data pipeline (``utils/config.py``, ``text/``, ``eval/wer.py``,
+``data/``). Each is held here against the module it was copied from, on the
+same inputs.
 """
 
 import dataclasses
@@ -17,13 +18,18 @@ from tpu_speech.data import loader as j_loader
 from tpu_speech.data import spiral as j_data
 from tpu_speech.data.wav import read_wav as j_read_wav
 from tpu_speech.data.wav import write_wav
+from tpu_speech import text as j_text
 from tpu_speech.eval import wer as j_wer
+from tpu_speech.text import cleaners as j_cleaners
 from tpu_speech.text import tokenizers as j_tok
 from tpu_speech.utils import config as j_cfg
 from tpu_speech_torch.data import loader as t_loader
 from tpu_speech_torch.data import spiral as t_data
 from tpu_speech_torch.data.wav import read_wav as t_read_wav
+from tpu_speech_torch import text as t_text
+from tpu_speech_torch.data.wav import write_wav as t_write_wav
 from tpu_speech_torch.eval import wer as t_wer
+from tpu_speech_torch.text import cleaners as t_cleaners
 from tpu_speech_torch.text import tokenizers as t_tok
 from tpu_speech_torch.utils import config as t_cfg
 
@@ -182,3 +188,65 @@ def test_data_pipeline_same_batches(text, tmp_path):
         w2, sr2 = j_read_wav(str(tmp_path / f"u{i}.wav"))
         assert sr == sr2 and w.dtype == w2.dtype
         np.testing.assert_array_equal(w, w2)
+
+
+TTS_TEXTS = (
+    "The quick brown fox jumps over the lazy dog while the curious cat watches from a "
+    "sunlit windowsill in the early morning.",
+    "Dr. Smith paid $3.50 for 2 tickets on Feb. 1st, 1999, at St. John's; Mrs. Lee paid "
+    "\u00a31,000,000.",
+    "Say {HH AH0 L OW1} to the {W ER1 L D}, then hello again.",
+    "{HH AH0 L OW1}",
+    "Caf\u00e9 na\u00efve fa\u00e7ade \u2014 r\u00e9sum\u00e9 \u00fcber 42nd St.",
+    "Lt. Col. Jr. ft. 10:30 (maybe) - it's a test!",
+    "",
+)
+CMU_LINES = (";;; a small dictionary in the CMUdict format\n"
+             "THE  DH AH0\nTHE(1)  DH AH1\nQUICK  K W IH1 K\nBROWN  B R AW1 N\n"
+             "FOX  F AA1 K S\nHELLO  HH AH0 L OW1\nDOCTOR  D AA1 K T ER0\n"
+             "TEST  T EH1 S T\nIT'S  IH1 T S\nBAD  B AE1 D XX9\nshort line\n")
+
+
+@pytest.fixture
+def cmu_path(tmp_path):
+    path = tmp_path / "cmu_dictionary"
+    path.write_text(CMU_LINES, encoding="latin-1")
+    return str(path)
+
+
+@pytest.mark.parametrize("with_dict", [False, True], ids=["chars", "cmudict"])
+def test_text_to_sequence_and_intersperse_same(with_dict, cmu_path):
+    """The TTS frontend: numbers, abbreviations, {ARPA} spans and non-ASCII
+    text, with and without a dictionary (its trailing-space drop included)."""
+    ours = t_text.CMUDict(cmu_path) if with_dict else None
+    theirs = j_text.CMUDict(cmu_path) if with_dict else None
+    if with_dict:
+        assert len(ours) == len(theirs) == 8  # the entry with an unknown phone dropped
+        assert ours.lookup("the") == theirs.lookup("the") == ["DH AH0", "DH AH1"]
+    for text in TTS_TEXTS:
+        ids = j_text.text_to_sequence(text, dictionary=theirs)
+        assert t_text.text_to_sequence(text, dictionary=ours) == ids, text
+        blank = len(j_text.symbols)
+        assert t_text.intersperse(ids, blank) == j_text.intersperse(ids, blank)
+        assert t_text.sequence_to_text(ids) == j_text.sequence_to_text(ids)
+    assert t_text.symbols == j_text.symbols and len(t_text.symbols) == 148
+
+
+def test_tts_cleaners_same():
+    names = ("english_cleaners", "basic_cleaners", "transliteration_cleaners",
+             "expand_abbreviations", "expand_numbers", "lowercase", "collapse_whitespace",
+             "convert_to_ascii")
+    for text in TTS_TEXTS + TEXTS:
+        for name in names:
+            assert getattr(t_cleaners, name)(text) == getattr(j_cleaners, name)(text), name
+    with pytest.raises(ValueError, match="Unknown cleaner"):
+        t_text.text_to_sequence("x", ["nope_cleaners"])
+
+
+def test_write_wav_same(tmp_path):
+    rng = np.random.default_rng(0)
+    for wav in (rng.uniform(-1.2, 1.2, 777).astype(np.float32),
+                rng.integers(-32768, 32767, 555).astype(np.int16)):
+        t_write_wav(str(tmp_path / "t.wav"), wav, 22050)
+        write_wav(str(tmp_path / "j.wav"), wav, 22050)
+        assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()

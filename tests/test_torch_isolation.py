@@ -3,7 +3,8 @@
 In a fresh interpreter, a ``sys.meta_path`` finder raises on any import of
 ``tpu_speech`` (but not ``tpu_speech_torch``) or ``jax``/``jaxlib``; then
 every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
-``chip_smoke`` are imported, and ``run_spiral --help`` runs.
+``chip_smoke`` are imported, and ``run_spiral --help`` and the TTS CLI's
+``inference --help`` run.
 """
 
 import os
@@ -35,12 +36,13 @@ names = ["chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(tpu_speech_torch.__path__, "tpu_speech_torch.")]
 for name in names:
     importlib.import_module(name)
-from tpu_speech_torch.cli import run_spiral
+from tpu_speech_torch.cli import inference, run_spiral
 
-try:
-    run_spiral.main(["--help"])
-except SystemExit as e:
-    assert e.code == 0, e.code
+for cli in (run_spiral, inference):
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not leaked, leaked
 print("IMPORTED", len(names))
@@ -54,4 +56,5 @@ def test_port_imports_no_jax_package():
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     n = int(proc.stdout.split("IMPORTED")[-1])
     assert n > 30, proc.stdout  # every module of the port, not an empty walk
-    assert "--model_type" in proc.stdout  # the CLI's help text ran
+    assert "--model_type" in proc.stdout  # the CLIs' help texts ran
+    assert "--hifigan-config" in proc.stdout

@@ -765,3 +765,44 @@ def test_bf16_pretrain_step_on_the_card_matches_the_cpu(cuda):
     for k, g in g32.items():
         if g.abs().max().item() >= 1e-2 * g_max:
             assert (g_gpu[k] - g).norm() <= 2 * (g_cpu[k] - g).norm() + 1e-2 * g.norm(), k
+
+
+TTS_TEXT = ("The quick brown fox jumps over the lazy dog while the curious cat watches from a "
+            "sunlit windowsill in the early morning.")
+
+
+def test_tts_full_width_card_matches_the_cpu(cuda):
+    """Grad-TTS at cli/params.py's LJSpeech width and HiFi-GAN V1, seeded
+    random weights, bench.py's text, 10 Euler steps at bucket 384 on the
+    same z: the card's mel within MAE 1e-3 of the CPU's (the JAX package's
+    on-chip gate, README), the same lengths and path, the waveforms finite
+    and within MAE 1e-3; no hand kernel launches on this path."""
+    from tpu_speech_torch.configs import gradtts as cfg
+    from tpu_speech_torch.models.grad_tts import GradTTS, synthesize
+    from tpu_speech_torch.models.hifigan import Generator
+    from tpu_speech_torch.text import intersperse, symbols, text_to_sequence
+
+    seq = intersperse(text_to_sequence(TTS_TEXT), len(symbols))
+    x, xl = torch.tensor([seq]), torch.tensor([len(seq)])
+    noise = torch.randn(1, 384, cfg.n_feats, generator=torch.Generator().manual_seed(2))
+    model = GradTTS(**cfg.model_kwargs(len(symbols) + 1))
+    model.init_weights(torch.Generator().manual_seed(0)).eval()
+    voc = Generator().init_weights(torch.Generator().manual_seed(1)).eval()
+    out = {}
+    for dev in ("cpu", cuda):
+        model.to(dev), voc.to(dev)
+        _build.reset_launches()
+        with torch.inference_mode():
+            _, dec, attn, yl = synthesize(model, x.to(dev), xl.to(dev), 10, 384,
+                                          temperature=1.5, length_scale=0.91,
+                                          noise=noise.to(dev))
+            n = int(yl[0])
+            wav = voc(dec[:, :n].transpose(1, 2))
+        assert _build.LAUNCHES == _counts()
+        out[str(dev)] = (dec[0, :n].cpu(), attn.cpu(), n, wav.cpu())
+    (dec_c, attn_c, n_c, wav_c), (dec_g, attn_g, n_g, wav_g) = out.values()
+    assert n_c == n_g and 1 < n_c <= 384  # the bucket clips a longer prediction
+    assert torch.equal(attn_c, attn_g)
+    assert torch.isfinite(dec_g).all() and torch.isfinite(wav_g).all()
+    assert (dec_g - dec_c).abs().mean() < 1e-3
+    assert wav_g.shape == (1, 1, n_c * 256) and (wav_g - wav_c).abs().mean() < 1e-3

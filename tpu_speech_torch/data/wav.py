@@ -1,6 +1,7 @@
 """Waveform input (no soundfile/librosa dependency).
 
-The port's own copy of ``read_wav`` of ``tpu_speech/data/wav.py:9``.
+The port's own copy of ``read_wav`` and ``write_wav`` of
+``tpu_speech/data/wav.py:9, 55-63``.
 """
 
 from __future__ import annotations
@@ -23,3 +24,14 @@ def read_wav(path: str):
     if wav.ndim > 1:
         wav = wav.mean(axis=1)
     return wav, sr
+
+
+def write_wav(path: str, wav: np.ndarray, sr: int):
+    """Write float wav in [-1, 1] — or already-quantized int16 PCM — as a
+    16-bit PCM file."""
+    wav = np.asarray(wav)
+    if wav.dtype == np.int16:
+        scipy.io.wavfile.write(path, sr, wav)
+        return
+    pcm = np.clip(wav, -1.0, 1.0)
+    scipy.io.wavfile.write(path, sr, (pcm * 32767.0).astype(np.int16))

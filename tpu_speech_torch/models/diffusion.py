@@ -1,0 +1,154 @@
+"""Score-SDE (VP, linear beta schedule) reverse dynamics.
+
+The port's counterpart of ``tpu_speech/models/diffusion.py:18-213``: the
+reverse Euler integrator (the reference Diffusion.reverse_diffusion,
+Grad-TTS/model/diffusion.py:254-275) and the DPM-Solver++(2M) sampler on
+the same probability-flow ODE. Each is a Python loop of ``n_timesteps``
+network calls; no step reads the device from the host. ``forward_diffusion``
+and ``diffusion_loss`` wait for Grad-TTS training.
+
+``mask`` broadcasts against ``z``: (B, T, 1) for the JAX package's
+(B, T, F) layout, (B, 1, T) for the reference's (B, F, T).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+
+def get_noise(t, beta_init: float, beta_term: float, cumulative: bool = False):
+    """beta(t) (linear) or its integral from 0 to t."""
+    if cumulative:
+        return beta_init * t + 0.5 * (beta_term - beta_init) * t**2
+    return beta_init + (beta_term - beta_init) * t
+
+
+def _f32(x) -> float:
+    """A host scalar rounded to float32, as the JAX package's float32
+    constants are."""
+    return float(np.float32(x))
+
+
+def reverse_diffusion(
+    score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    z: torch.Tensor,
+    mask: torch.Tensor,
+    mu: torch.Tensor,
+    n_timesteps: int,
+    beta_min: float,
+    beta_max: float,
+    stoc: bool = False,
+    generator: Optional[torch.Generator] = None,
+):
+    """Integrate the reverse SDE/ODE from t=1 to 0 with n_timesteps Euler steps.
+
+    ``score_fn(xt, t)`` evaluates the noise estimator (closure over the
+    model, mask, mu, spk). ``stoc=True`` adds the per-step noise, drawn from
+    ``generator`` on ``z``'s device.
+    """
+    h = np.float32(1.0 / n_timesteps)
+    b = z.shape[0]
+    xt = z * mask
+    for i in range(n_timesteps):
+        t = np.float32(1.0) - (np.float32(i) + np.float32(0.5)) * h  # float32, as JAX's
+        noise_t = _f32(np.float32(beta_min) + np.float32(beta_max - beta_min) * t)
+        t_vec = torch.full((b,), float(t), dtype=z.dtype, device=z.device)
+        score = score_fn(xt, t_vec)
+        if stoc:
+            dxt_det = (0.5 * (mu - xt) - score) * noise_t * float(h)
+            noise = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+            dxt = dxt_det + noise * _f32(np.sqrt(np.float32(noise_t) * h))
+        else:
+            dxt = 0.5 * (mu - xt - score) * noise_t * float(h)
+        xt = (xt - dxt) * mask
+    return xt
+
+
+def _vp_gamma_np(t, beta_min: float, beta_max: float):
+    """Integral of the linear beta schedule from 0 to t (numpy, host-side)."""
+    return beta_min * t + 0.5 * (beta_max - beta_min) * t * t
+
+
+def _vp_t_of_lambda_np(lam, beta_min: float, beta_max: float):
+    """Invert lambda(t) = log(alpha_t / sigma_t) for the linear VP schedule:
+    gamma = softplus(-2 lambda), and gamma(t) is quadratic in t."""
+    gamma = np.logaddexp(0.0, -2.0 * lam)
+    disc = beta_min * beta_min + 2.0 * (beta_max - beta_min) * gamma
+    return (-beta_min + np.sqrt(disc)) / (beta_max - beta_min)
+
+
+def _vp_lambda_np(t, beta_min: float, beta_max: float):
+    g = _vp_gamma_np(t, beta_min, beta_max)
+    a2 = np.exp(-g)
+    return 0.5 * (np.log(a2) - np.log1p(-a2))
+
+
+def dpm_solver_schedule(n_timesteps: int, beta_min: float, beta_max: float,
+                        t_start: float = 1.0, t_end: float = 1e-3):
+    """Uniform-in-lambda step grid for the VP probability-flow ODE: (ts,
+    lambdas) float64 arrays of length n_timesteps+1 from t_start down to
+    t_end (Lu et al. 2022)."""
+    lam0 = _vp_lambda_np(np.asarray(t_start, np.float64), beta_min, beta_max)
+    lam1 = _vp_lambda_np(np.asarray(t_end, np.float64), beta_min, beta_max)
+    lams = np.linspace(lam0, lam1, n_timesteps + 1)
+    ts = _vp_t_of_lambda_np(lams, beta_min, beta_max)
+    return ts, lams
+
+
+def dpm_coefficients(n_timesteps: int, beta_min: float, beta_max: float, order: int = 2,
+                     t_start: float = 1.0, t_end: float = 1e-3) -> np.ndarray:
+    """The (n_timesteps, 7) table of per-step coefficients, computed in
+    float64 and cast to float32 as ``diffusion.py:166-197`` does: the
+    network's time, sigma^2, 1/alpha, the sigma ratio, the weight on D, and
+    the multistep weights on the current and previous x0 estimates."""
+    assert order in (1, 2), order
+    n = n_timesteps
+    ts, lams = dpm_solver_schedule(n, beta_min, beta_max, t_start, t_end)
+    h = lams[1:] - lams[:-1]
+    gam = _vp_gamma_np(ts, beta_min, beta_max)
+    alpha = np.exp(-0.5 * gam)
+    sigma = np.sqrt(-np.expm1(-gam))
+    r = np.ones(n)
+    r[1:] = h[:-1] / h[1:]
+    w_cur = 1.0 + 1.0 / (2.0 * r)
+    w_prev = -1.0 / (2.0 * r)
+    if order == 1:
+        w_cur, w_prev = np.ones(n), np.zeros(n)
+    else:
+        w_cur[0], w_prev[0] = 1.0, 0.0
+    return np.stack([ts[:-1], sigma[:-1] ** 2, 1.0 / alpha[:-1], sigma[1:] / sigma[:-1],
+                     -alpha[1:] * np.expm1(-h), w_cur, w_prev], axis=1).astype(np.float32)
+
+
+def reverse_diffusion_dpm(
+    score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    z: torch.Tensor,
+    mask: torch.Tensor,
+    mu: torch.Tensor,
+    n_timesteps: int,
+    beta_min: float,
+    beta_max: float,
+    order: int = 2,
+    t_start: float = 1.0,
+    t_end: float = 1e-3,
+):
+    """DPM-Solver++(2M) exponential integrator for the probability-flow ODE
+    that ``reverse_diffusion(stoc=False)`` integrates with Euler steps: one
+    network call per step, in the data-prediction parameterisation on
+    y = x - mu, with a 2nd-order multistep correction (order=1 is DDIM).
+    Deterministic."""
+    coeffs = dpm_coefficients(n_timesteps, beta_min, beta_max, order, t_start, t_end)
+    b = z.shape[0]
+    y = (z - mu) * mask
+    prev_x0 = torch.zeros_like(y)
+    for c in coeffs.tolist():  # float32 values as Python floats
+        t_vec = torch.full((b,), c[0], dtype=z.dtype, device=z.device)
+        score = score_fn((y + mu) * mask, t_vec)
+        x0 = (y + c[1] * score) * c[2]
+        d = c[5] * x0 + c[6] * prev_x0
+        y = (c[3] * y + c[4] * d) * mask
+        prev_x0 = x0
+    return (y + mu) * mask

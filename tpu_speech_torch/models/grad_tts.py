@@ -1,0 +1,201 @@
+"""Grad-TTS: score-based diffusion text-to-speech, for serving.
+
+The port's counterpart of ``tpu_speech/models/grad_tts.py:36-93, 159-219``:
+``GradTTS`` with ``encode`` and ``score``, and ``synthesize`` with the JAX
+package's signature and outputs. The module tree is the reference's
+(Grad-TTS/model/tts.py: ``spk_emb``, ``encoder``, ``decoder.estimator``), so
+a reference ``state_dict`` loads with ``load_state_dict(strict=True)``.
+The training ``__call__`` (MAS, the crop, the losses) waits for Grad-TTS
+training.
+
+Public functions keep the JAX package's (B, T, F) layout; inside, the
+sampler runs the estimator in the reference's (B, F, T).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from tpu_speech_torch.models.diffusion import reverse_diffusion, reverse_diffusion_dpm
+from tpu_speech_torch.models.text_encoder import TextEncoder
+from tpu_speech_torch.nn.blocks import RelPosMultiHeadAttention
+from tpu_speech_torch.nn.unet import GradLogPEstimator2d, Rezero
+from tpu_speech_torch.ops.masks import generate_path, sequence_mask
+
+
+class Decoder(nn.Module):
+    """The reference's ``Diffusion`` module, reduced to what holds weights:
+    its ``estimator``. The dynamics are the functions of ``diffusion.py``."""
+
+    def __init__(self, estimator: GradLogPEstimator2d):
+        super().__init__()
+        self.estimator = estimator
+
+
+class GradTTS(nn.Module):
+    def __init__(self, n_vocab: int, n_spks: int = 1, spk_emb_dim: int = 64,
+                 n_enc_channels: int = 192, filter_channels: int = 768,
+                 filter_channels_dp: int = 256, n_heads: int = 2, n_enc_layers: int = 6,
+                 enc_kernel: int = 3, enc_dropout: float = 0.1, window_size: int = 4,
+                 n_feats: int = 80, dec_dim: int = 64, beta_min: float = 0.05,
+                 beta_max: float = 20.0, pe_scale: float = 1000.0):
+        super().__init__()
+        self.n_spks, self.n_feats = n_spks, n_feats
+        self.beta_min, self.beta_max = beta_min, beta_max
+        if n_spks > 1:
+            self.spk_emb = nn.Embedding(n_spks, spk_emb_dim)
+        # as in the reference (tts.py:45-47), the encoder gets no speaker:
+        # speaker conditioning reaches the decoder only
+        self.encoder = TextEncoder(n_vocab, n_feats, n_enc_channels, filter_channels,
+                                   filter_channels_dp, n_heads, n_enc_layers, enc_kernel,
+                                   enc_dropout, window_size)
+        self.decoder = Decoder(GradLogPEstimator2d(dec_dim, n_spks=n_spks,
+                                                   spk_emb_dim=spk_emb_dim, n_feats=n_feats,
+                                                   pe_scale=pe_scale))
+
+    def _spk_vec(self, spk):
+        return self.spk_emb(spk) if self.n_spks > 1 else None
+
+    def encode(self, x, x_lengths, spk=None):
+        """Text ids (B, Tx) -> mu_x (B, Tx, F), logw (B, Tx), x_mask (B, Tx)."""
+        mu, logw, x_mask = self.encoder(x, x_lengths)
+        return mu.transpose(1, 2), logw[:, 0], x_mask[:, 0]
+
+    def score(self, xt, mask, mu, t, spk=None):
+        """One network call of the sampler: xt, mu (B, T, F), mask (B, T),
+        t (B,) -> (B, T, F)."""
+        out = self.decoder.estimator(xt.transpose(1, 2), mask[:, None, :].to(xt.dtype),
+                                     mu.transpose(1, 2), t, self._spk_vec(spk))
+        return out.transpose(1, 2)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "GradTTS":
+        """Seeded random weights: every conv and linear layer uniform in
+        +-1/sqrt(fan_in) (torch's default), the embeddings and relative
+        embeddings normal as the reference inits them, the norms at one and
+        zero. The rezero gains, zero in the reference's init, are drawn from
+        [0.01, 0.02) so that every linear attention shapes the output: the
+        attention is quadratic in its input, and a gain near 1 overflows
+        the U-Net's deeper levels on random weights."""
+        for module in self.modules():
+            if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(module.weight)
+                bound = fan_in ** -0.5
+                for p in (module.weight, module.bias):
+                    if p is not None:
+                        p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound - bound)
+            elif isinstance(module, nn.Embedding):
+                module.weight.copy_(torch.randn(module.weight.shape, generator=generator)
+                                    * module.weight.shape[1] ** -0.5)
+            elif isinstance(module, RelPosMultiHeadAttention) and module.window_size:
+                for p in (module.emb_rel_k, module.emb_rel_v):
+                    p.copy_(torch.randn(p.shape, generator=generator)
+                            * module.k_channels ** -0.5)
+            elif isinstance(module, Rezero):
+                module.g.copy_(0.01 + 0.01 * torch.rand(1, generator=generator))
+        return self
+
+
+def durations(logw: torch.Tensor, x_mask: torch.Tensor, length_scale: float = 1.0):
+    """Per-token mel frames, fractional: ceil(exp(logw)) * length_scale in
+    logw's dtype (``ceil`` comes first, ``grad_tts.py:191-192``), widened to
+    float64 so that their sums are exact. At length_scale 0.91 the exact
+    sum comes within 1e-5 of an integer frame wherever the ceilings add up
+    to a multiple of 100; a float32 sum's rounding there, which differs
+    between the CPU and the card and between ``sum`` and ``cumsum``, would
+    decide whether that frame is in. The JAX package sums in float32."""
+    return (torch.ceil(torch.exp(logw) * x_mask) * length_scale).double()
+
+
+def duration_path(logw: torch.Tensor, x_mask: torch.Tensor, length_scale: float,
+                  y_max_length: int):
+    """The lengths (B,), clipped to [1, y_max_length] and truncated as
+    ``grad_tts.py:193`` does, the mel mask (B, y_max_length) and the
+    monotone alignment (B, Tx, y_max_length), in x_mask's dtype."""
+    w_ceil = durations(logw, x_mask, length_scale)
+    y_lengths = torch.clamp(torch.sum(w_ceil, dim=1), 1, y_max_length).long()
+    y_mask = sequence_mask(y_lengths, y_max_length).to(x_mask.dtype)
+    attn = generate_path(w_ceil, x_mask[:, :, None] * y_mask[:, None, :])
+    return y_lengths, y_mask, attn
+
+
+def synthesize_from_encoding(
+    model: GradTTS,
+    mu_x: torch.Tensor,
+    logw: torch.Tensor,
+    x_mask: torch.Tensor,
+    n_timesteps: int,
+    y_max_length: int,
+    temperature: float = 1.0,
+    stoc: bool = False,
+    spk: Optional[torch.Tensor] = None,
+    length_scale: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+    solver: str = "euler",
+    solver_order: int = 2,
+    noise: Optional[torch.Tensor] = None,
+):
+    """``synthesize`` after ``model.encode``: the duration path, the prior
+    mu_y and the sampler. No step reads the device from the host."""
+    y_lengths, y_mask, attn = duration_path(logw, x_mask, length_scale, y_max_length)
+    mu_y = torch.matmul(attn.transpose(1, 2), mu_x)  # (B, Ty, F)
+
+    if noise is None:
+        noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype,
+                            device=mu_y.device)
+    mu_cf = mu_y.transpose(1, 2)  # the estimator's (B, F, T)
+    z = mu_cf + noise.transpose(1, 2) / temperature
+    mask = y_mask[:, None, :]
+    spk_vec = model._spk_vec(spk)
+    estimator = model.decoder.estimator
+
+    def score_fn(xt, t):
+        return estimator(xt, mask, mu_cf, t, spk_vec)
+
+    if solver == "dpm":
+        if stoc:
+            raise ValueError("solver='dpm' is deterministic; stoc must be False")
+        dec = reverse_diffusion_dpm(score_fn, z, mask, mu_cf, n_timesteps, model.beta_min,
+                                    model.beta_max, order=solver_order)
+    elif solver == "euler":
+        dec = reverse_diffusion(score_fn, z, mask, mu_cf, n_timesteps, model.beta_min,
+                                model.beta_max, stoc=stoc, generator=generator)
+    else:
+        raise ValueError(f"unknown solver {solver!r}")
+    return mu_y, dec.transpose(1, 2), attn, y_lengths
+
+
+def synthesize(
+    model: GradTTS,
+    x: torch.Tensor,
+    x_lengths: torch.Tensor,
+    n_timesteps: int,
+    y_max_length: int,
+    temperature: float = 1.0,
+    stoc: bool = False,
+    spk: Optional[torch.Tensor] = None,
+    length_scale: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+    solver: str = "euler",
+    solver_order: int = 2,
+    noise: Optional[torch.Tensor] = None,
+):
+    """Text -> mel (inference) with a fixed ``y_max_length`` (a multiple of 4).
+
+    Returns (encoder_outputs mu_y, decoder_outputs, attn, y_lengths):
+    mu_y and the decoder outputs are (B, y_max_length, F) with frames beyond
+    y_lengths zero; y_lengths is clipped to [1, y_max_length], as the JAX
+    package's is. ``noise`` is the standard-normal draw for z = mu_y +
+    noise / temperature, of mu_y's shape; without it the draw comes from
+    ``generator`` (as do the per-step draws of ``stoc=True``).
+    solver='euler' is the reference integrator; solver='dpm' is
+    DPM-Solver++(2M) on the same probability-flow ODE (solver_order=1: DDIM).
+    """
+    mu_x, logw, x_mask = model.encode(x, x_lengths, spk)
+    return synthesize_from_encoding(
+        model, mu_x, logw, x_mask, n_timesteps, y_max_length, temperature=temperature,
+        stoc=stoc, spk=spk, length_scale=length_scale, generator=generator, solver=solver,
+        solver_order=solver_order, noise=noise)

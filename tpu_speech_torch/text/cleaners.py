@@ -1,8 +1,12 @@
-"""Text cleaners that the char parser uses.
+"""Text cleaners (English pipeline).
 
-The port's own copy of ``collapse_whitespace`` and ``convert_to_ascii`` of
-``tpu_speech/text/cleaners.py:57-64``. Transliteration uses unicode NFKD
-decomposition instead of the ``unidecode`` package.
+The port's own copy of ``tpu_speech/text/cleaners.py``: ascii
+transliteration -> lowercase -> number expansion -> abbreviation expansion
+-> whitespace collapse, as the reference Grad-TTS cleaners do. The char
+parser uses ``collapse_whitespace`` and ``convert_to_ascii``; the TTS
+frontend (``text_to_sequence``) looks the cleaners up by name.
+Transliteration uses unicode NFKD decomposition instead of the
+``unidecode`` package.
 """
 
 from __future__ import annotations
@@ -10,7 +14,47 @@ from __future__ import annotations
 import re
 import unicodedata
 
+from tpu_speech_torch.text.numbers import normalize_numbers
+
 _whitespace_re = re.compile(r"\s+")
+
+_abbreviations = [
+    (re.compile(r"\b%s\." % abbr, re.IGNORECASE), expansion)
+    for abbr, expansion in [
+        ("mrs", "misess"),
+        ("mr", "mister"),
+        ("dr", "doctor"),
+        ("st", "saint"),
+        ("co", "company"),
+        ("jr", "junior"),
+        ("maj", "major"),
+        ("gen", "general"),
+        ("drs", "doctors"),
+        ("rev", "reverend"),
+        ("lt", "lieutenant"),
+        ("hon", "honorable"),
+        ("sgt", "sergeant"),
+        ("capt", "captain"),
+        ("esq", "esquire"),
+        ("ltd", "limited"),
+        ("col", "colonel"),
+        ("ft", "fort"),
+    ]
+]
+
+
+def expand_abbreviations(text: str) -> str:
+    for regex, replacement in _abbreviations:
+        text = re.sub(regex, replacement, text)
+    return text
+
+
+def expand_numbers(text: str) -> str:
+    return normalize_numbers(text)
+
+
+def lowercase(text: str) -> str:
+    return text.lower()
 
 
 def collapse_whitespace(text: str) -> str:
@@ -21,3 +65,20 @@ def convert_to_ascii(text: str) -> str:
     return (
         unicodedata.normalize("NFKD", text).encode("ascii", "ignore").decode("ascii")
     )
+
+
+def basic_cleaners(text: str) -> str:
+    return collapse_whitespace(lowercase(text))
+
+
+def transliteration_cleaners(text: str) -> str:
+    return collapse_whitespace(lowercase(convert_to_ascii(text)))
+
+
+def english_cleaners(text: str) -> str:
+    text = convert_to_ascii(text)
+    text = lowercase(text)
+    text = expand_numbers(text)
+    text = expand_abbreviations(text)
+    text = collapse_whitespace(text)
+    return text

@@ -85,35 +85,12 @@ from tpu_speech_torch.train.spiral import (
     pretrain_step,
     quantize_wire_int16,
 )
+from tpu_speech_torch.utils.device import resolve_device
 
 # reference-checkpoint buffers that are constants here (the JAX converter
 # drops them the same way, compat/torch_spiral.py:200-204)
 _REFERENCE_CONSTANTS = ("encoder.mask_emb", "encoder.wav2spec.featurizer.window",
                         "encoder.wav2spec.featurizer.fb")
-
-
-def use_full_fp32() -> None:
-    """fp32 serving: PyTorch runs cuDNN convolutions in TF32 by default
-    (``torch.backends.cudnn.allow_tf32 = True``), which keeps ~3 decimal
-    digits; the reference path is full fp32, so TF32 goes off for
-    convolutions and matmuls alike. bf16 matmuls (the training steps' mixed
-    precision) accumulate in fp32 throughout, as the TPU's bf16 products do:
-    cuBLAS's reduced-precision reductions go off too."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The runner's device: CUDA unless another is named; no silent fall
-    back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    if device.type == "cuda":
-        use_full_fp32()
-    return device
 
 
 def build_model(cfg, num_classes: int, device=None) -> CTCFinetuneModel:
