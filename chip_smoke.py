@@ -7,10 +7,11 @@ Drives the port's three SPIRAL-base paths through their normal entry point
 (``tpu_speech_torch.cli.run_spiral.main``), at full width with seeded random
 weights: CTC transcription, the ST2Vec pretrain step and the CTC finetune
 step, the two training steps also in bf16 mixed precision and with gradient
-accumulation; and Grad-TTS + HiFi-GAN text-to-waveform serving through
+accumulation; Grad-TTS + HiFi-GAN text-to-waveform serving through
 ``tpu_speech_torch.cli.inference.main``, which reaches no hand kernel (cuDNN
-and cuBLAS). It checks each hand kernel, fp32 and bf16, against its plain
-PyTorch version. Phases
+and cuBLAS); and Grad-TTS training through ``tpu_speech_torch.cli.train.main``,
+whose monotonic alignment search is a hand kernel. It checks each hand
+kernel, fp32 and bf16, against its plain PyTorch version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
 
@@ -118,7 +119,30 @@ result):
     text -> int16 wav RTF at B = 1, bucket 384, 10 Euler and 6 DPM steps,
     the mel-only RTF, B = 16 throughput in x realtime, HiFi-GAN alone at
     (16, 384, 80), peak memory, and a profile (kernels per utterance, busy
-    share, top device ops).
+    share, top device ops);
+26. the MAS kernel (``csrc/monotonic_align.cu``) against
+    ``maximum_path_plain`` on the card, paths equal bit for bit: bench.py's
+    (16, 72, 512) at full lengths, LJSpeech-like rows (Tx 30-400, Ty
+    100-900, mixed, one with Tx = Ty) and an integer grid full of ties;
+    each timed beside the plain loop and the bound;
+27. Grad-TTS training through ``tpu_speech_torch.cli.train.main`` at the
+    LJSpeech width, B = 16, out_size 172, on 40 synthetic 22 050 Hz
+    utterances of 1-8 s: 2 epochs of 2 steps, then a second ``main()`` on
+    the same log dir with 3 epochs that resumes at step 4 and takes 2 steps,
+    then the multi-speaker entry (n_spks 4) for 2 steps; per step MAS
+    launches once and no other hand kernel, the losses are finite; the
+    encoder and the estimator moved; ``train.log`` has a line per epoch; the
+    final ``gradtts.pt`` gives an uncut wav through ``cli.inference.main``;
+28. one full-width training step on the card against the CPU (B = 2, Ty
+    256, the same weights, batch, offsets, t and z, dropout off, Adam
+    1e-4): the MAS paths equal, the losses within 1e-4 relative, each
+    gradient within 1e-3 x its max|g|, the parameters within 1e-5 x max(1,
+    |p|) of the CPU's Adam on the card's gradients (Adam's first step is
+    about lr sign(g), so where g is rounding noise the two sides' own steps
+    may differ by 2 lr); the card's step makes no host sync;
+29. bench.py's train-step point (B = 16, Tx 72, Ty 512, out_size 172, fp32):
+    step time (CUDA events, median of 10), peak memory, kernels per step,
+    the busy share and a profile with MAS's rank.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -225,13 +249,13 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
-def speech_like(rng, n):
-    """Voiced-speech stand-in: a gliding f0 (100-250 Hz) with 1/h harmonics
-    up to 3.4 kHz under a 4 Hz syllable envelope, plus noise 40 dB below
-    the 0.15 peak."""
-    t = np.arange(n) / SR
+def speech_like(rng, n, sr=SR):
+    """Voiced-speech stand-in at ``sr`` Hz: a gliding f0 (100-250 Hz) with
+    1/h harmonics up to 3.4 kHz under a 4 Hz syllable envelope, plus noise
+    40 dB below the 0.15 peak."""
+    t = np.arange(n) / sr
     f0 = rng.uniform(100, 250) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.2, 1) * t))
-    phase = 2 * np.pi * np.cumsum(f0) / SR
+    phase = 2 * np.pi * np.cumsum(f0) / sr
     y = np.zeros(n)
     for h in range(1, int(3400 / 250) + 1):
         y += np.sin(h * phase + rng.uniform(0, 2 * np.pi)) / h
@@ -342,7 +366,8 @@ def sass_counts(so_path):
 
 def kernel_name(text):
     """``attn_fwd_kernel<64>`` from a line that holds a kernel's mangled name."""
-    m = re.search(r"(attn_[a-z0-9_]+?_kernel|grouped_conv1d(?:_bf16)?_kernel|logmel_fft_kernel)"
+    m = re.search(r"(attn_[a-z0-9_]+?_kernel|grouped_conv1d(?:_bf16)?_kernel|logmel_fft_kernel"
+                  r"|maximum_path_kernel)"
                   r"((?:ILi\d+E)?(?:Li\d+E)*)", text)
     if m is None:
         return text.strip()
@@ -1710,18 +1735,11 @@ def _tts_ids(torch, text, device, batch=1):
     return x, torch.full((batch,), len(seq), device=device)
 
 
-def phase_tts_slice(torch, root):
-    """23: text -> wav through tpu_speech_torch.cli.inference.main on the
-    card: a reference-named Grad-TTS .pt, a V1 hifigan-config.json and a
-    generator .pt with weight_g/weight_v pairs (folded at load), a small
-    CMU dictionary, three lines (bench.py's text, numbers and
-    abbreviations, one longer than 256 frames)."""
-    from tpu_speech_torch.cli import inference
-    from tpu_speech_torch.ops import _build
-
-    model, voc = _tts_models(torch)
-    ckpt, hpt = os.path.join(root, "grad-tts.pt"), os.path.join(root, "hifigan.pt")
-    torch.save(model.state_dict(), ckpt)
+def write_vocoder(torch, root, voc):
+    """HiFi-GAN V1 as a reference training checkpoint stores it: a generator
+    .pt with weight_g/weight_v pairs (folded at load) and its
+    hifigan-config.json. Returns both paths."""
+    hpt = os.path.join(root, "hifigan.pt")
     sd = {}
     for k, v in voc.state_dict().items():  # weight = g * v / ||v||, v = 2 w
         if k.endswith(".weight"):
@@ -1733,6 +1751,22 @@ def phase_tts_slice(torch, root):
     hjson = os.path.join(root, "hifigan-config.json")
     with open(hjson, "w") as f:
         json.dump(dict(HIFIGAN_V1, num_mels=80, sampling_rate=22050, hop_size=256), f)
+    return hpt, hjson
+
+
+def phase_tts_slice(torch, root):
+    """23: text -> wav through tpu_speech_torch.cli.inference.main on the
+    card: a reference-named Grad-TTS .pt, a V1 hifigan-config.json and a
+    generator .pt with weight_g/weight_v pairs (folded at load), a small
+    CMU dictionary, three lines (bench.py's text, numbers and
+    abbreviations, one longer than 256 frames)."""
+    from tpu_speech_torch.cli import inference
+    from tpu_speech_torch.ops import _build
+
+    model, voc = _tts_models(torch)
+    ckpt = os.path.join(root, "grad-tts.pt")
+    torch.save(model.state_dict(), ckpt)
+    hpt, hjson = write_vocoder(torch, root, voc)
     texts, cmu = os.path.join(root, "texts.txt"), os.path.join(root, "cmu_dictionary")
     with open(texts, "w") as f:
         f.write("\n".join(TTS_LINES) + "\n")
@@ -1876,6 +1910,395 @@ def phase_tts_time(torch):
     profile_slice(torch, lambda: e2e(x1, xl1, 10, "euler"), batches=3, top=12,
                   tag="25 profile, e2e 10 Euler steps, B = 1")
     return res
+
+# ---- Grad-TTS training (phases 26-29) -----------------------------------------
+
+# the fp32 rate of the CUDA cores (NVIDIA's H100 SXM data sheet): MAS's adds
+# and maxes run there
+PEAK_FP32 = 67e12
+MAS_BENCH = (16, 72, 512)  # bench.py's train-step point: B, Tx, Ty
+GT_UTTS = 40
+GT_SEED = 28
+GT_LETTERS = list("abcdefghijklmnopqrstuvwxyz")
+# one step, card against CPU: parameters after Adam within 1e-5 x max(1, |p|)
+GT_PARAM_RTOL = 1e-5
+# and each gradient leaf within GRAD_RTOL x its max|g| or GT_GRAD_FLOOR x the
+# largest gradient, whichever is larger: the floor is about 8 fp32 roundings
+# of the largest, the level of the leaves whose gradient is exactly zero
+# (conv biases under GroupNorm, the key biases: both sides hold noise there)
+GT_GRAD_FLOOR = 1e-6
+
+
+def _mas_grid(torch, gen, b, t_x, t_y, x_len, y_len, ties=False):
+    """A Gaussian log-prior grid of random 80-feature mu and mels, formed as
+    GradTTS.alignment forms it, and its (B, Tx, Ty) mask, on the card; an
+    integer grid full of ties with ``ties``."""
+    from tpu_speech_torch.ops.masks import sequence_mask
+
+    mu = torch.randn(b, t_x, 80, generator=gen).cuda()
+    y = torch.randn(b, t_y, 80, generator=gen).cuda()
+    value = (-0.5 * (y ** 2).sum(-1)[:, None, :] + mu @ y.transpose(1, 2)
+             - 0.5 * (mu ** 2).sum(-1)[:, :, None] - 0.5 * np.log(2 * np.pi) * 80)
+    if ties:
+        value = torch.round(value / 40.0)
+    xm = sequence_mask(torch.as_tensor(x_len).cuda(), t_x).float()
+    ym = sequence_mask(torch.as_tensor(y_len).cuda(), t_y).float()
+    return value, xm[:, :, None] * ym[:, None, :]
+
+
+def mas_bound(x_len, y_len, t_x, t_y):
+    """(bound_ms, bound_by): value and mask read, the path written, (B, Tx,
+    Ty) fp32 each, against an add and a max per computed cell (x < t_x,
+    y < t_y) at the CUDA cores' fp32 rate."""
+    nbytes = 3 * 4 * len(x_len) * t_x * t_y
+    ops = 2 * int(np.sum(np.asarray(x_len) * np.asarray(y_len)))
+    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_mas(torch, gen):
+    """26: the MAS kernel against maximum_path_plain on the card, paths bit
+    for bit: bench.py's (16, 72, 512) at full lengths, LJSpeech-like rows
+    (Tx 30-400, Ty 100-900, mixed, one row with Tx = Ty) and an integer grid
+    full of ties; times with CUDA events beside the plain loop and the
+    bound."""
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops.monotonic_align import maximum_path, maximum_path_plain
+
+    r = np.random.default_rng(26)
+    b, t_x, t_y = MAS_BENCH
+    x_lj = r.integers(30, 401, size=16)
+    y_lj = np.clip((x_lj * r.uniform(1.6, 3.0, size=16)).astype(int), 100, 900)
+    x_lj[0], y_lj[0] = 400, 900
+    x_lj[1] = y_lj[1] = 250
+    x_tie, y_tie = r.integers(8, 65, size=8), r.integers(64, 257, size=8)
+    x_tie[0], y_tie[0] = 64, 64
+    cases = [("bench", (b, t_x, t_y), [t_x] * b, [t_y] * b, False),
+             ("ljspeech", (16, 400, 900), x_lj, y_lj, False),
+             ("ties", (8, 64, 256), x_tie, y_tie, True)]
+    _build.reset_launches()
+    res, worst = {}, 0.0
+    for name, (bb, tx, ty), xl, yl, ties in cases:
+        v, m = _mas_grid(torch, gen, bb, tx, ty, xl, yl, ties)
+        path = maximum_path(v, m)
+        ref = maximum_path_plain(v, m)
+        torch.cuda.synchronize()
+        err = (path - ref).abs().max().item()
+        worst = max(worst, err)
+        per_frame = path.sum(1)  # one token per valid frame
+        check(torch.equal(path, ref), f"MAS {name}: the kernel's path differs from the plain "
+                                      f"version's in {int((path != ref).sum())} cells")
+        check(torch.equal(per_frame, m[:, 0, :]), f"MAS {name}: not one token per frame")
+        ms = cuda_ms(lambda: maximum_path(v, m), n=20, warmup=3)
+        plain_ms = cuda_ms(lambda: maximum_path_plain(v, m), n=3, warmup=1)
+        bound = mas_bound(xl, yl, tx, ty)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+        log(f"[26 mas] {name} ({bb}, {tx}, {ty}), Tx {min(xl)}-{max(xl)}, Ty {min(yl)}-"
+            f"{max(yl)}{', integer ties' if ties else ''}: paths equal ({int(path.sum())} "
+            f"ones); kernel {ms:.4f} ms, plain loop {plain_ms:.2f} ms, bound {bound[0]:.5f} ms "
+            f"({bound[1]})")
+    log(f"    [26] the kernel's own launches in this phase: {_build.LAUNCHES['maximum_path']}")
+    bench = res["bench"]
+    lj = res["ljspeech"]
+    return dict(max_abs_err=worst, ms=bench["ms"], plain_ms=bench["plain_ms"],
+                bound_ms=bench["bound"][0], bound_by=bench["bound"][1], library_ms=None,
+                shape=f"value, mask (16, 72, 512) full lengths, bench.py's train-step point "
+                      f"(max_abs_err: the paths' difference); LJSpeech-like (16, 400, 900): "
+                      f"{lj['ms']:.4f} ms vs plain {lj['plain_ms']:.2f} ms, bound "
+                      f"{lj['bound'][0]:.5f} ms; no library call computes MAS")
+
+
+def write_tts_corpus(root, rng, n):
+    """n speech-like 22 050 Hz wavs of 1-8 s with random character lines
+    (about 14 characters a second), and their filelist 'wav|text'."""
+    from tpu_speech_torch.data.wav import write_wav
+
+    lines = []
+    for i in range(n):
+        secs = rng.uniform(1.0, 8.0)
+        path = os.path.join(root, f"tts{i:02d}.wav")
+        write_wav(path, speech_like(rng, int(secs * 22050), sr=22050), 22050)
+        words = ["".join(rng.choice(GT_LETTERS, size=int(rng.integers(2, 9))))
+                 for _ in range(max(1, int(secs * 2.5)))]
+        lines.append(f"{path}|{' '.join(words)}")
+    filelist = os.path.join(root, "train.txt")
+    with open(filelist, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return filelist, lines
+
+
+def _watch_gradtts_steps(torch, seen):
+    """Wrap train/gradtts.py's train_step (the trainer looks it up at each
+    step) to record each step's launches and metrics; returns the original."""
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import gradtts as tg
+
+    step = tg.train_step
+
+    def watched(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        m = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen.append(({k: v - before[k] for k, v in _build.LAUNCHES.items()},
+                     {k: float(v) for k, v in m.items()}))
+        return m
+
+    tg.train_step = watched
+    return step
+
+
+def phase_gradtts_train_slice(torch, rng, root):
+    """27: Grad-TTS training through tpu_speech_torch.cli.train.main at the
+    full LJSpeech width, B = 16, out_size 172, on a synthetic corpus: 2
+    epochs of 2 steps, then a second main() on the same log dir with 3
+    epochs (resumes at step 4, takes 2 steps), then the multi-speaker entry
+    (n_spks 4) for 2 steps. Per step the MAS kernel launches once and no
+    other hand kernel; losses finite; the encoder and the estimator moved;
+    train.log a line per epoch; the final gradtts.pt serves an uncut wav
+    through cli.inference.main."""
+    import importlib.util
+
+    from tpu_speech_torch.cli import inference, train, train_multi_speaker
+    from tpu_speech_torch.configs import gradtts as cfg
+    from tpu_speech_torch.models.hifigan import Generator
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import gradtts as tg
+
+    filelist, lines = write_tts_corpus(root, rng, GT_UTTS)
+    spk_list = os.path.join(root, "train_spk.txt")
+    with open(spk_list, "w", encoding="utf-8") as f:
+        f.write("\n".join(f"{ln}|{i % 4}" for i, ln in enumerate(lines)) + "\n")
+    test_list = os.path.join(root, "test.txt")
+    if importlib.util.find_spec("matplotlib") is not None:
+        with open(test_list, "w", encoding="utf-8") as f:
+            f.write("preview.wav|a preview line for the alignment images|1\n")
+        previews = "previews on (one test line)"
+    else:
+        previews = "matplotlib is missing: no test filelist, previews off"
+    log_dir, spk_dir = os.path.join(root, "gradtts_logs"), os.path.join(root, "gradtts_spk")
+    keys = ("train_filelist_path", "test_filelist_path", "log_dir", "n_epochs", "batch_size",
+            "cmudict_path", "n_spks")
+    saved = {k: getattr(cfg, k) for k in keys}
+    init = {k: v.clone() for k, v in train.build_model().state_dict().items()}
+    seen = []
+    step = _watch_gradtts_steps(torch, seen)
+    runs = []
+    _build.reset_launches()
+    try:
+        for k, v in dict(train_filelist_path=filelist, test_filelist_path=test_list,
+                         log_dir=log_dir, batch_size=16, cmudict_path="").items():
+            setattr(cfg, k, v)
+        for epochs, entry in ((2, train.main), (3, train.main), (1, train_multi_speaker.main)):
+            if entry is train_multi_speaker.main:
+                cfg.n_spks, cfg.train_filelist_path, cfg.log_dir = 4, spk_list, spk_dir
+            cfg.n_epochs = epochs
+            t0 = time.perf_counter()
+            res = entry([])
+            torch.cuda.synchronize()
+            runs.append((res, time.perf_counter() - t0, len(seen)))
+    finally:
+        tg.train_step = step
+        for k, v in saved.items():
+            setattr(cfg, k, v)
+    launches = dict(_build.LAUNCHES)
+    (r1, w1, n1), (r2, w2, n2), (r3, w3, n3) = runs
+    log(f"[27 gradtts train slice] {r1['n_params']} parameters, {GT_UTTS} utterances of 1-8 s, "
+        f"B = 16, out_size {cfg.out_size}; {previews}; run 1 (2 epochs) {n1} steps in "
+        f"{w1:.1f} s, run 2 (3 epochs) resumed at step {r1['iteration']}, epoch "
+        f"{r2['first_epoch']}: {n2 - n1} steps in {w2:.1f} s; multi-speaker (4) {n3 - n2} steps "
+        f"in {w3:.1f} s; launches {({k: v for k, v in launches.items() if v})}")
+    for i, (d, m) in enumerate(seen):
+        log(f"    step {i}: loss {m['loss']:.4f} (dur {m['dur_loss']:.4f}, prior "
+            f"{m['prior_loss']:.4f}, diff {m['diff_loss']:.4f}), grad norms enc "
+            f"{m['enc_grad_norm']:.3f} dec {m['dec_grad_norm']:.3f}")
+        check(d == dict(dict.fromkeys(d, 0), maximum_path=1), f"step {i} launches {d}")
+        check(all(np.isfinite(v) for v in m.values()), f"step {i} metrics {m}")
+    check((n1, n2 - n1, n3 - n2) == (4, 2, 2), f"steps per run {n1}, {n2 - n1}, {n3 - n2}")
+    check(r1["iteration"] == 4 and r2["first_epoch"] == 3 and r2["iteration"] == 6,
+          f"resume: {r1['iteration']} -> epoch {r2['first_epoch']}, {r2['iteration']}")
+    with open(os.path.join(log_dir, "train.log")) as f:
+        log_lines = f.read().splitlines()
+    log(f"    train.log: {log_lines}")
+    check(len(log_lines) == 3, f"train.log has {len(log_lines)} lines for 3 epochs")
+    sd = torch.load(r2["state_dict"], weights_only=True)
+    moved = {part: _max_diff([sd[k] for k in init if k.startswith(part)],
+                             [init[k] for k in init if k.startswith(part)])
+             for part in tg.ENCODER + tg.ESTIMATOR}
+    log(f"    moved (max |w - w0| after 6 steps): {moved}")
+    check(all(v > 0 for v in moved.values()), f"a module did not move: {moved}")
+    spk = torch.load(r3["state_dict"], weights_only=True)["spk_emb.weight"]
+    check(r3["iteration"] == 2 and spk.shape == (4, cfg.spk_emb_dim),
+          f"multi-speaker: {r3['iteration']} steps, spk_emb {tuple(spk.shape)}")
+
+    voc = Generator(**HIFIGAN_V1).init_weights(torch.Generator().manual_seed(TTS_SEED + 1))
+    hpt, hjson = write_vocoder(torch, root, voc)
+    texts = os.path.join(root, "texts.txt")
+    with open(texts, "w") as f:
+        f.write(TTS_TEXT + "\n")
+    out = inference.main(["-f", texts, "-c", r2["state_dict"], "--hifigan", hpt,
+                          "--hifigan-config", hjson, "--cmudict", "", "--out-dir",
+                          os.path.join(root, "gradtts_out")])
+    import scipy.io.wavfile
+
+    (smp,) = out["samples"]
+    _, pcm = scipy.io.wavfile.read(smp["path"])
+    log(f"    the trained gradtts.pt through cli.inference.main: {smp['frames']} frames "
+        f"(predicted {smp['predicted_frames']:.2f}), {len(pcm)} int16 samples")
+    check(smp["frames"] == int(smp["predicted_frames"]) and len(pcm) == smp["frames"] * 256,
+          f"the trained model's wav was cut: {smp}")
+    return launches
+
+
+def _gradtts_full_width(torch, seed):
+    from tpu_speech_torch.configs import gradtts as cfg
+    from tpu_speech_torch.models.grad_tts import GradTTS
+    from tpu_speech_torch.text import symbols
+
+    model = GradTTS(**cfg.model_kwargs(len(symbols) + 1))
+    return model.init_weights(torch.Generator().manual_seed(seed))
+
+
+def phase_gradtts_cpu_vs_card(torch):
+    """28: one full-width step on the card against the CPU: B = 2, Ty 256,
+    out_size 172, the same weights (gains drawn), batch, offsets, t and z,
+    dropout off, Adam 1e-4. The MAS paths equal; the losses within 1e-4
+    relative; each gradient within 1e-3 x its max|g| or 1e-6 x the largest
+    (GT_GRAD_FLOOR); the parameters after Adam within 1e-5 x
+    max(1, |p|) of the CPU's Adam on the card's gradients. The card's step
+    runs under set_sync_debug_mode('error')."""
+    import copy
+
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops.masks import sequence_mask
+    from tpu_speech_torch.text import symbols
+    from tpu_speech_torch.train.gradtts import batch_to_device, train_step
+    from tpu_speech_torch.train.optim import AdamW
+
+    model = _gradtts_full_width(torch, GT_SEED).eval()  # dropout off
+    r = np.random.default_rng(GT_SEED)
+    t_x, t_y, out_size, lr = 64, 256, 172, 1e-4
+    batch = {"x": r.integers(1, len(symbols), size=(2, t_x)).astype(np.int32),
+             "x_lengths": np.array([t_x, 47], np.int32),
+             "y": r.standard_normal((2, t_y, 80)).astype(np.float32),
+             "y_lengths": np.array([t_y, 201], np.int32)}
+    g = torch.Generator().manual_seed(GT_SEED)
+    high = torch.clamp(torch.tensor(batch["y_lengths"]).long() - out_size, min=1)
+    draws = dict(offsets=torch.minimum((torch.rand(2, generator=g) * high).long(), high - 1),
+                 t=torch.clamp(torch.rand(2, generator=g), 1e-5, 1 - 1e-5),
+                 z=torch.randn(2, out_size, 80, generator=g))
+    side = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        b = batch_to_device(batch, dev)
+        with torch.no_grad():
+            mu_x, _, x_mask = m.encode(b["x"], b["x_lengths"])
+            y_mask = sequence_mask(b["y_lengths"], t_y).float()
+            attn = m.alignment(mu_x, b["y"], x_mask[:, :, None] * y_mask[:, None, :])
+        side[dev] = [m, AdamW(m.parameters(), lr), b, attn.cpu()]
+    same_path = torch.equal(side["cpu"][3], side["cuda"][3])
+    m, opt, b, _ = side["cuda"]
+    dev_draws = {k: v.cuda() for k, v in draws.items()}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        met_card = train_step(m, opt, b, None, out_size, **dev_draws)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES["maximum_path"] == 1, f"card step launches {_build.LAUNCHES}")
+    m_cpu, opt_cpu, b_cpu, _ = side["cpu"]
+    met_cpu = train_step(m_cpu, opt_cpu, b_cpu, None, out_size,
+                         attn=None if same_path else side["cuda"][3], **draws)
+    # Adam's first step moves each element by lr g / (|g| + eps), about lr
+    # sign(g): where g is rounding noise (the attention's key bias, which the
+    # softmax cancels, and elements near 0) the two sides' own steps differ
+    # by up to 2 lr. So the card's parameters are held to the CPU's Adam on
+    # the card's (clipped) gradients, and the gradients to the CPU's.
+    ref = copy.deepcopy(model)
+    p_ref = dict(ref.named_parameters())
+    for k, p in m.named_parameters():
+        p_ref[k].grad = p.grad.cpu()
+    AdamW(ref.parameters(), lr).step()
+    names = [n for n, _ in m_cpu.named_parameters()]
+    p_cpu, p_card = dict(m_cpu.named_parameters()), dict(m.named_parameters())
+    g_max = max(p.grad.abs().max().item() for p in p_cpu.values())
+    worst_g, worst_p, own, worst_own = (0.0, ""), (0.0, ""), 0.0, (0.0, "")
+    for k in names:
+        gc, gg = p_cpu[k].grad, p_card[k].grad.cpu()
+        err, scale = (gg - gc).abs().max().item(), gc.abs().max().item()
+        worst_g = max(worst_g, (err / max(GRAD_RTOL * scale, GT_GRAD_FLOOR * g_max), k))
+        if scale > GT_GRAD_FLOOR * g_max:  # above rounding noise
+            worst_own = max(worst_own, (err / scale, k))
+        pg = p_card[k].detach().cpu()
+        worst_p = max(worst_p, (((pg - p_ref[k].detach()).abs()
+                                 / p_ref[k].detach().abs().clamp(min=1.0)).max().item(), k))
+        own = max(own, (pg - p_cpu[k].detach()).abs().max().item())
+    rel_loss = {k: abs(met_card[k].item() - met_cpu[k].item()) / abs(met_cpu[k].item())
+                for k in ("dur_loss", "prior_loss", "diff_loss")}
+    log(f"[28 gradtts card vs cpu] B = 2, Tx {t_x}, Ty {t_y}, out_size {out_size}, Adam "
+        f"{lr}: MAS paths {'equal' if same_path else 'DIFFER: the CPU step ran on the card path'}"
+        f"; losses card {[round(met_card[k].item(), 6) for k in rel_loss]} cpu "
+        f"{[round(met_cpu[k].item(), 6) for k in rel_loss]} (worst rel "
+        f"{max(rel_loss.values()):.2e}, limit {STEP_LOSS_RTOL}); worst gradient at "
+        f"{worst_g[0]:.3f} of its bound ({worst_g[1]}: {GRAD_RTOL} x its max|g| or "
+        f"{GT_GRAD_FLOOR} x the largest, {g_max:.3e}) over {len(names)} tensors; above "
+        f"{GT_GRAD_FLOOR} x the largest, worst {worst_own[0]:.2e} x its own max|g| "
+        f"({worst_own[1]}); parameters after Adam {worst_p[0]:.2e} x max(1, |p|) from the "
+        f"CPU's Adam on the card's gradients ({worst_p[1]}; limit {GT_PARAM_RTOL}), at most "
+        f"{own:.2e} from the CPU's own step; the card's step under "
+        f"set_sync_debug_mode('error')")
+    check(max(rel_loss.values()) <= STEP_LOSS_RTOL, f"losses {rel_loss}")
+    check(worst_g[0] <= 1.0, f"gradient {worst_g}")
+    check(worst_p[0] <= GT_PARAM_RTOL, f"parameters after Adam {worst_p}")
+    return same_path
+
+
+def phase_gradtts_train_time(torch):
+    """29: bench.py's train-step point (bench.py:302-321): B = 16, Tx 72, Ty
+    512, out_size 172, n_vocab len(symbols) + 1, the reference init, dropout
+    on, Adam 1e-4, fp32 with TF32 off; CUDA events, median of 10 after
+    warm-up, the batch on the card. Peak memory, kernels per step, the busy
+    share and a profile with where MAS stands."""
+    from tpu_speech_torch.cli import train
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.text import symbols
+    from tpu_speech_torch.train.gradtts import batch_to_device, step_generator, train_step
+    from tpu_speech_torch.train.optim import AdamW
+
+    b, t_x, t_y = MAS_BENCH
+    model = train.build_model().cuda().train()
+    opt = AdamW(model.parameters(), 1e-4)
+    r = np.random.default_rng(0)
+    batch = batch_to_device({
+        "x": r.integers(1, len(symbols), size=(b, t_x)).astype(np.int32),
+        "x_lengths": np.full((b,), t_x, np.int32),
+        "y": r.standard_normal((b, t_y, 80)).astype(np.float32),
+        "y_lengths": np.full((b,), t_y, np.int32)}, "cuda")
+    it = [0]
+
+    def step():
+        it[0] += 1
+        return train_step(model, opt, batch, step_generator(0, it[0], "cuda"), 172)
+
+    ms, peak = _timed_step(torch, step)
+    _build.reset_launches()
+    m = step()
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES == dict(dict.fromkeys(_build.LAUNCHES, 0), maximum_path=1),
+          f"bench step launches {_build.LAUNCHES}")
+    check(all(torch.isfinite(v) for v in m.values()), f"bench step metrics {m}")
+    log(f"[29 gradtts train step time] bench.py's point B = 16, Tx 72, Ty 512, out_size 172, "
+        f"fp32: {ms:.2f} ms per step (median of 10), peak device memory {peak:.3f} GiB")
+    prof = profile_slice(torch, step, batches=3, top=12, tag="29 profile, train step")
+    if prof is not None:
+        ranks = [i for i, (name, _, _) in enumerate(prof["ranked"]) if "maximum_path" in name]
+        if ranks:
+            name, mas_ms, n = prof["ranked"][ranks[0]]
+            log(f"    MAS: rank {ranks[0] + 1} of {len(prof['ranked'])} kernels by device time, "
+                f"{mas_ms:.4f} ms x{n} per step ({mas_ms / prof['busy_ms']:.4f} of the busy "
+                f"time)")
+    return ms, peak
 
 
 def write_corpus(root, rng):
@@ -2039,8 +2462,12 @@ def profile_slice(torch, run, batches=3, top=8, tag="6 profile"):
     log(f"[{tag}] {len(spans) // batches} kernels per run; device busy "
         f"{busy / batches / 1e3:.2f} ms of a {span / batches / 1e3:.2f} ms span per "
         f"run (share {busy / span:.3f})")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in ranked[:top]:
         log(f"    {us / batches / 1e3:8.3f} ms  x{n // batches:<3d} {name[:90]}")
+    return {"ranked": [(name, us / batches / 1e3, n // batches) for name, (us, n) in ranked],
+            "kernels": len(spans) // batches, "busy_ms": busy / batches / 1e3,
+            "span_ms": span / batches / 1e3, "share": busy / span}
 
 
 def main():
@@ -2091,6 +2518,11 @@ def main():
         tts_launches = phase_tts_slice(torch, tts_root)
     phase_tts_cpu_vs_card(torch)
     phase_tts_time(torch)
+    k_mas = phase_mas(torch, gen)
+    with tempfile.TemporaryDirectory() as root:
+        gt_launches = phase_gradtts_train_slice(torch, rng, root)
+    phase_gradtts_cpu_vs_card(torch)
+    phase_gradtts_train_time(torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2100,7 +2532,8 @@ def main():
     def by_path(key):
         return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key],
                 "finetune_step": ft_launches[key], "pretrain_step_bf16": pre16_launches[key],
-                "finetune_step_bf16": ft16_launches[key], "tts_e2e": tts_launches[key]}
+                "finetune_step_bf16": ft16_launches[key], "tts_e2e": tts_launches[key],
+                "gradtts_train_step": gt_launches[key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -2203,7 +2636,11 @@ def main():
                     "k4_dx_t", "bf16 dx alone at (14, 604, 512), the weight rearrangement "
                     "included; library: cuDNN's bf16 dgrad"),
     ]
-    check(len(kernels) == 13, f"{len(kernels)} kernel entries")  # K1, 6 fp32, 6 bf16
+    # MAS (phase 26): a port-only kernel, the JAX package's lax.scan
+    kernels.append(path_kernel("maximum_path", "maximum_path",
+                               "tpu_speech/ops/monotonic_align.py:27",
+                               src="monotonic_align.cu", **k_mas))
+    check(len(kernels) == 14, f"{len(kernels)} kernel entries")  # K1, 6 fp32, 6 bf16, MAS
     for k in kernels:
         path_launches = {p: n for p, n in k["launches_by_path"].items() if not p.startswith("k3_")}
         if not k["name"].startswith("fused_self_attention"):  # K3: no path reaches it

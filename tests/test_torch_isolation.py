@@ -3,8 +3,8 @@
 In a fresh interpreter, a ``sys.meta_path`` finder raises on any import of
 ``tpu_speech`` (but not ``tpu_speech_torch``) or ``jax``/``jaxlib``; then
 every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
-``chip_smoke`` are imported, and ``run_spiral --help`` and the TTS CLI's
-``inference --help`` run.
+``chip_smoke`` are imported, and ``run_spiral --help``, the TTS CLI's
+``inference --help`` and the Grad-TTS training CLI's ``train --help`` run.
 """
 
 import os
@@ -36,9 +36,9 @@ names = ["chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(tpu_speech_torch.__path__, "tpu_speech_torch.")]
 for name in names:
     importlib.import_module(name)
-from tpu_speech_torch.cli import inference, run_spiral
+from tpu_speech_torch.cli import inference, run_spiral, train
 
-for cli in (run_spiral, inference):
+for cli in (run_spiral, inference, train):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -58,3 +58,4 @@ def test_port_imports_no_jax_package():
     assert n > 30, proc.stdout  # every module of the port, not an empty walk
     assert "--model_type" in proc.stdout  # the CLIs' help texts ran
     assert "--hifigan-config" in proc.stdout
+    assert "Grad-TTS training CLI" in proc.stdout

@@ -25,6 +25,7 @@ from tpu_speech_torch.ops.fused_attention import (
 )
 from tpu_speech_torch.ops.fused_logmel import fused_logmel, logmel_plain
 from tpu_speech_torch.ops.fused_posconv import grouped_conv1d, grouped_conv1d_plain
+from tpu_speech_torch.ops.monotonic_align import maximum_path, maximum_path_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -806,3 +807,28 @@ def test_tts_full_width_card_matches_the_cpu(cuda):
     assert torch.isfinite(dec_g).all() and torch.isfinite(wav_g).all()
     assert (dec_g - dec_c).abs().mean() < 1e-3
     assert wav_g.shape == (1, 1, n_c * 256) and (wav_g - wav_c).abs().mean() < 1e-3
+
+
+@pytest.mark.parametrize("shape,ties", [((16, 72, 512), False), ((4, 400, 900), False),
+                                        ((6, 33, 80), True)],
+                         ids=["bench_point", "ljspeech_long", "integer_ties"])
+def test_maximum_path_kernel_equals_plain(cuda, shape, ties):
+    """The MAS kernel's path equals maximum_path_plain's bit for bit: mixed
+    lengths, one row with Tx = Ty, and an integer grid full of ties."""
+    b, t_x, t_y = shape
+    g = torch.Generator().manual_seed(t_x)
+    value = -torch.rand(b, t_x, t_y, generator=g) * 200.0
+    if ties:
+        value = value.round()
+    x_len = torch.randint(1, t_x + 1, (b,), generator=g)
+    y_len = torch.maximum(torch.randint(1, t_y + 1, (b,), generator=g), x_len)
+    x_len[0], y_len[0] = t_x, t_y
+    x_len[1], y_len[1] = min(t_x, t_y), min(t_x, t_y)
+    mask = ((torch.arange(t_x)[None, :, None] < x_len[:, None, None])
+            & (torch.arange(t_y)[None, None, :] < y_len[:, None, None])).float()
+    _build.reset_launches()
+    path = maximum_path(value.to(cuda), mask.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == _counts(maximum_path=1)
+    assert torch.equal(path.cpu(), maximum_path_plain(value, mask))
+    assert path.sum().item() == y_len.sum().item()  # one token per valid frame

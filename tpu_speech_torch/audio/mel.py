@@ -1,9 +1,11 @@
-"""Mel filterbanks and windows (numpy, host side).
+"""Mel filterbanks, windows and the host log-mel (numpy, host side).
 
-Port of ``tpu_speech/audio/mel.py:28-84``: the librosa-compatible slaney mel
-scale and filterbank, and the periodic Hann window. These are constants built
-once on the host; the device work (framing, FFT, mel product, log) lives in
-``tpu_speech_torch/ops/fused_logmel.py``.
+Port of ``tpu_speech/audio/mel.py:28-84, 147-175``: the librosa-compatible
+slaney mel scale and filterbank, the periodic Hann window, and
+``mel_spectrogram_np``, the HiFi-GAN-convention log-mel that Grad-TTS's data
+pipeline computes on host threads. The filterbank and window are constants
+built once on the host; the SPIRAL featurizer's device work (framing, FFT,
+mel product, log) lives in ``tpu_speech_torch/ops/fused_logmel.py``.
 """
 
 from __future__ import annotations
@@ -70,3 +72,32 @@ def hann_window(win_length: int) -> np.ndarray:
     """Periodic Hann window (torch.hann_window default)."""
     n = np.arange(win_length, dtype=np.float64)
     return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))).astype(np.float32)
+
+
+def mel_spectrogram_np(
+    y: np.ndarray,
+    n_fft: int = 1024,
+    num_mels: int = 80,
+    sampling_rate: int = 22050,
+    hop_size: int = 256,
+    win_size: int = 1024,
+    fmin: float = 0.0,
+    fmax: float = 8000.0,
+) -> np.ndarray:
+    """Host-side (numpy) log-mel, the HiFi-GAN convention
+    (Grad-TTS/hifi-gan/meldataset.py:51-74): reflect-pad (n_fft - hop) / 2,
+    frames without centering, |.| = sqrt(re^2 + im^2 + 1e-9), the slaney mel
+    product, log(clamp(., 1e-5)). (N,) or (B, N) wav -> (..., T, num_mels)."""
+    y = np.asarray(y, dtype=np.float32)
+    mel_w = mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)
+    window = hann_window(win_size)
+    pad = (n_fft - hop_size) // 2
+    y = np.pad(y, [(0, 0)] * (y.ndim - 1) + [(pad, pad)], mode="reflect")
+    n = y.shape[-1]
+    num_frames = 1 + (n - n_fft) // hop_size
+    idx = np.arange(num_frames)[:, None] * hop_size + np.arange(n_fft)[None, :]
+    frames = y[..., idx] * window
+    spec = np.fft.rfft(frames, axis=-1)
+    mag = np.sqrt(spec.real**2 + spec.imag**2 + 1e-9).astype(np.float32)
+    mel = mag @ mel_w.T
+    return np.log(np.clip(mel, 1e-5, None))

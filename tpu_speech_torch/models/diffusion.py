@@ -1,11 +1,14 @@
-"""Score-SDE (VP, linear beta schedule) reverse dynamics.
+"""Score-SDE (VP, linear beta schedule) forward and reverse dynamics.
 
-The port's counterpart of ``tpu_speech/models/diffusion.py:18-213``: the
-reverse Euler integrator (the reference Diffusion.reverse_diffusion,
+The port's counterpart of ``tpu_speech/models/diffusion.py``: the
+closed-form forward moments and the score-matching loss of training
+(``forward_diffusion:25``, ``diffusion_loss:216``), the reverse Euler
+integrator (the reference Diffusion.reverse_diffusion,
 Grad-TTS/model/diffusion.py:254-275) and the DPM-Solver++(2M) sampler on
-the same probability-flow ODE. Each is a Python loop of ``n_timesteps``
-network calls; no step reads the device from the host. ``forward_diffusion``
-and ``diffusion_loss`` wait for Grad-TTS training.
+the same probability-flow ODE. Each sampler is a Python loop of
+``n_timesteps`` network calls; no step reads the device from the host.
+The training draws (``t``, ``z``) are arguments: a ``generator`` draws them
+only when they are not given, so tests can replay the JAX package's draws.
 
 ``mask`` broadcasts against ``z``: (B, T, 1) for the JAX package's
 (B, T, F) layout, (B, 1, T) for the reference's (B, F, T).
@@ -30,6 +33,58 @@ def _f32(x) -> float:
     """A host scalar rounded to float32, as the JAX package's float32
     constants are."""
     return float(np.float32(x))
+
+
+def forward_diffusion(
+    x0: torch.Tensor,
+    mask: torch.Tensor,
+    mu: torch.Tensor,
+    t: torch.Tensor,
+    beta_min: float,
+    beta_max: float,
+    z: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Sample x_t ~ N(mean(t), var(t)) given x_0 (closed-form OU moments).
+
+    x0, mu and ``z`` (the standard-normal draw, from ``generator`` when not
+    given) of one shape; mask broadcasts against them; t (B,). Returns
+    (xt, z), both masked."""
+    time = t[:, None, None]
+    cum_noise = get_noise(time, beta_min, beta_max, cumulative=True)
+    mean = x0 * torch.exp(-0.5 * cum_noise) + mu * (1.0 - torch.exp(-0.5 * cum_noise))
+    variance = 1.0 - torch.exp(-cum_noise)
+    if z is None:
+        z = torch.randn(x0.shape, generator=generator, dtype=x0.dtype, device=x0.device)
+    xt = mean + z * torch.sqrt(variance)
+    return xt * mask, z * mask
+
+
+def diffusion_loss(
+    score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    mask: torch.Tensor,
+    mu: torch.Tensor,
+    n_feats: int,
+    beta_min: float,
+    beta_max: float,
+    offset: float = 1e-5,
+    t: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Score-matching loss at t ~ U[offset, 1 - offset] (the reference
+    Diffusion.loss_t, diffusion.py:281-294). ``t`` (B,) and ``z`` (x0's
+    shape) are drawn from ``generator`` in that order when not given.
+    Returns (loss, xt)."""
+    if t is None:
+        t = torch.rand(x0.shape[0], generator=generator, dtype=x0.dtype, device=x0.device)
+        t = torch.clamp(t, offset, 1.0 - offset)
+    xt, z = forward_diffusion(x0, mask, mu, t, beta_min, beta_max, z=z, generator=generator)
+    cum_noise = get_noise(t[:, None, None], beta_min, beta_max, cumulative=True)
+    noise_estimation = score_fn(xt, t) * torch.sqrt(1.0 - torch.exp(-cum_noise))
+    loss = torch.sum((noise_estimation + z) ** 2) / (torch.sum(mask) * n_feats)
+    return loss, xt
 
 
 def reverse_diffusion(

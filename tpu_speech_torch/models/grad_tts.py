@@ -1,12 +1,11 @@
-"""Grad-TTS: score-based diffusion text-to-speech, for serving.
+"""Grad-TTS: score-based diffusion text-to-speech.
 
-The port's counterpart of ``tpu_speech/models/grad_tts.py:36-93, 159-219``:
-``GradTTS`` with ``encode`` and ``score``, and ``synthesize`` with the JAX
-package's signature and outputs. The module tree is the reference's
+The port's counterpart of ``tpu_speech/models/grad_tts.py``: ``GradTTS`` with
+``encode``, ``score`` and the training ``forward`` (the JAX ``__call__:97``:
+MAS, the crop, the three losses), and ``synthesize`` with the JAX package's
+signature and outputs. The module tree is the reference's
 (Grad-TTS/model/tts.py: ``spk_emb``, ``encoder``, ``decoder.estimator``), so
 a reference ``state_dict`` loads with ``load_state_dict(strict=True)``.
-The training ``__call__`` (MAS, the crop, the losses) waits for Grad-TTS
-training.
 
 Public functions keep the JAX package's (B, T, F) layout; inside, the
 sampler runs the estimator in the reference's (B, F, T).
@@ -14,16 +13,22 @@ sampler runs the estimator in the reference's (B, F, T).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from tpu_speech_torch.models.diffusion import reverse_diffusion, reverse_diffusion_dpm
+from tpu_speech_torch.models.diffusion import (
+    diffusion_loss,
+    reverse_diffusion,
+    reverse_diffusion_dpm,
+)
 from tpu_speech_torch.models.text_encoder import TextEncoder
 from tpu_speech_torch.nn.blocks import RelPosMultiHeadAttention
 from tpu_speech_torch.nn.unet import GradLogPEstimator2d, Rezero
-from tpu_speech_torch.ops.masks import generate_path, sequence_mask
+from tpu_speech_torch.ops.masks import duration_loss, generate_path, sequence_mask
+from tpu_speech_torch.ops.monotonic_align import maximum_path
 
 
 class Decoder(nn.Module):
@@ -70,6 +75,65 @@ class GradTTS(nn.Module):
         out = self.decoder.estimator(xt.transpose(1, 2), mask[:, None, :].to(xt.dtype),
                                      mu.transpose(1, 2), t, self._spk_vec(spk))
         return out.transpose(1, 2)
+
+    @torch.no_grad()
+    def alignment(self, mu_x, y, attn_mask):
+        """MAS on the Gaussian log-prior: mu_x (B, Tx, F), y (B, Ty, F),
+        attn_mask (B, Tx, Ty) -> the (B, Tx, Ty) 0/1 path, outside autograd.
+        log N(y_t; mu_x, I) = -|y|^2 / 2 + <mu, y> - |mu|^2 / 2 + const is one
+        batched product, summed in the JAX package's order."""
+        const = -0.5 * math.log(2 * math.pi) * self.n_feats
+        y_sq = -0.5 * torch.sum(y ** 2, dim=-1)  # (B, Ty)
+        mu_sq = -0.5 * torch.sum(mu_x ** 2, dim=-1)  # (B, Tx)
+        cross = torch.matmul(mu_x, y.transpose(1, 2))  # (B, Tx, Ty)
+        log_prior = y_sq[:, None, :] + cross + mu_sq[:, :, None] + const
+        return maximum_path(log_prior, attn_mask)
+
+    def forward(self, x, x_lengths, y, y_lengths, spk=None, out_size: Optional[int] = None,
+                generator: Optional[torch.Generator] = None, offsets=None, t=None, z=None,
+                attn=None):
+        """Training loss: x (B, Tx) ids, y (B, Ty, F) mels with their
+        lengths -> (dur_loss, prior_loss, diff_loss), 0-d tensors.
+
+        The crop applies when ``out_size < Ty``: offsets in [0, max(y_len -
+        out_size, 1)), y and the path cut by a gather on the device, the cut
+        lengths min(y_len, out_size). The draws are arguments, drawn from
+        ``generator`` (on the batch's device) in this order when not given:
+        ``offsets`` (B,) of the crop, ``t`` (B,) in [1e-5, 1 - 1e-5] and
+        ``z`` (B, T, F) of the diffusion loss. ``attn``, the (B, Tx, Ty) MAS
+        path, replaces the search (to hold two devices to one path)."""
+        spk_e = self._spk_vec(spk)
+        mu_x, logw, x_mask = self.encode(x, x_lengths)
+        y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)
+        if attn is None:
+            attn = self.alignment(mu_x, y, x_mask[:, :, None] * y_mask[:, None, :])
+
+        logw_gt = torch.log(1e-8 + torch.sum(attn, dim=-1)) * x_mask
+        dur_loss = duration_loss(logw * x_mask, logw_gt, x_lengths)
+
+        if out_size is not None and out_size < y.shape[1]:
+            b = y.shape[0]
+            if offsets is None:
+                high = torch.clamp(y_lengths - out_size, min=1)
+                u = torch.rand(b, generator=generator, device=y.device)
+                offsets = torch.minimum((u * high).long(), high - 1)
+            idx = offsets.long()[:, None] + torch.arange(out_size, device=y.device)  # (B, out)
+            y = torch.gather(y, 1, idx[:, :, None].expand(-1, -1, y.shape[2]))
+            attn = torch.gather(attn, 2, idx[:, None, :].expand(-1, attn.shape[1], -1))
+            y_mask = sequence_mask(torch.clamp(y_lengths, max=out_size), out_size).to(y_mask.dtype)
+
+        mu_y = torch.matmul(attn.transpose(1, 2), mu_x)  # (B, T, F)
+        # the diffusion loss in the estimator's (B, F, T) layout
+        mask, mu_cf = y_mask[:, None, :], mu_y.transpose(1, 2)
+        estimator = self.decoder.estimator
+        diff_loss, _ = diffusion_loss(
+            lambda xt, tt: estimator(xt, mask, mu_cf, tt, spk_e), y.transpose(1, 2), mask,
+            mu_cf, self.n_feats, self.beta_min, self.beta_max, t=t,
+            z=None if z is None else z.transpose(1, 2), generator=generator)
+
+        prior_loss = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi)) * y_mask[:, :, None])
+        prior_loss = prior_loss / (torch.sum(y_mask) * self.n_feats)
+        return dur_loss, prior_loss, diff_loss
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "GradTTS":

@@ -52,6 +52,8 @@ SIGNATURES = {
                           _I, _I, _I, _I, _U, _U, _F, _P],
     # x, w, out, B, T, C, G, K, left_pad, stream
     "tsx_grouped_conv1d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # value, mask, DP scratch, path, B, Tx, Ty, stream
+    "tsx_maximum_path": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 # the bf16 variants take the same arguments
 for _name in ("tsx_attention_fwd", "tsx_attention_bwd", "tsx_grouped_conv1d"):
@@ -63,7 +65,7 @@ for _name in ("tsx_attention_fwd", "tsx_attention_bwd", "tsx_grouped_conv1d"):
 _KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd", "fused_attention",
             "fused_attention_bwd", "grouped_conv1d", "grouped_conv1d_dx")
 LAUNCHES = {"fused_logmel": 0, **dict.fromkeys(_KERNELS, 0),
-            **dict.fromkeys((k + "_bf16" for k in _KERNELS), 0)}
+            **dict.fromkeys((k + "_bf16" for k in _KERNELS), 0), "maximum_path": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -2,8 +2,8 @@
 
 The port's counterpart of ``tpu_speech/ops/masks.py:15-48`` (the reference
 helpers of Grad-TTS/model/utils.py): ``sequence_mask``,
-``fix_len_compatibility`` and ``generate_path``. ``duration_loss`` waits for
-Grad-TTS training.
+``fix_len_compatibility``, ``generate_path`` and ``duration_loss``
+(``masks.py:51-53``).
 """
 
 from __future__ import annotations
@@ -37,3 +37,8 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     path = (pos[None, None, :] < cum[:, :, None]).to(mask.dtype)
     path_prev = torch.nn.functional.pad(path, (0, 0, 1, 0))[:, :-1]
     return (path - path_prev) * mask
+
+
+def duration_loss(logw: torch.Tensor, logw_gt: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """MSE between predicted and target log-durations, normalized by token count."""
+    return torch.sum((logw - logw_gt) ** 2) / torch.sum(lengths)

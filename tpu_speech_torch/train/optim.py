@@ -1,7 +1,9 @@
 """Optimizers with optax's semantics, and the global-norm gradient clip.
 
 Port of ``tpu_speech/train/optim.py::make_optimizer:125`` for the optimizers
-the SPIRAL recipes use, and of the clip in ``train/spiral.py:210-215``.
+the SPIRAL recipes use (Grad-TTS's ``optax.adam`` is ``AdamW`` with
+``weight_decay = 0``), of the clip in ``train/spiral.py:210-215``, and of
+``clip_subtree_by_global_norm:24``, Grad-TTS's per-module clip.
 
 ``AdamW`` is ``optax.adamw`` step for step, which ``torch.optim.AdamW`` is
 not quite:
@@ -121,6 +123,15 @@ def clip_by_global_norm(grads, max_norm: Optional[float]) -> Optional[torch.Tens
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return norm
+
+
+def clip_subtree_by_global_norm(named_params, prefixes, max_norm: float) -> torch.Tensor:
+    """Clip the gradients of the parameters whose names start with one of
+    ``prefixes`` (``"encoder."``, ``"decoder.estimator."``) to their joint
+    global norm, in place, as ``clip_by_global_norm`` does; the others are
+    left as they are. Returns the norm before clipping."""
+    grads = [p.grad for name, p in named_params if name.startswith(tuple(prefixes))]
+    return clip_by_global_norm(grads, max_norm)
 
 
 def lr_scale(model_cfg, data_parallel: int = 1, accum: int = 1) -> float:
