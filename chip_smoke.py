@@ -9,8 +9,10 @@ weights: CTC transcription, the ST2Vec pretrain step and the CTC finetune
 step, the two training steps also in bf16 mixed precision and with gradient
 accumulation; Grad-TTS + HiFi-GAN text-to-waveform serving through
 ``tpu_speech_torch.cli.inference.main``, which reaches no hand kernel (cuDNN
-and cuBLAS); and Grad-TTS training through ``tpu_speech_torch.cli.train.main``,
-whose monotonic alignment search is a hand kernel. It checks each hand
+and cuBLAS); Grad-TTS training through ``tpu_speech_torch.cli.train.main``,
+whose monotonic alignment search is a hand kernel; and DiffVC voice
+conversion through ``tpu_speech_torch.cli.inference_vc.main`` (cuDNN, cuBLAS
+and cuFFT, no hand kernel). It checks each hand
 kernel, fp32 and bf16, against its plain PyTorch version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
@@ -142,7 +144,30 @@ result):
     may differ by 2 lr); the card's step makes no host sync;
 29. bench.py's train-step point (B = 16, Tx 72, Ty 512, out_size 172, fp32):
     step time (CUDA events, median of 10), peak memory, kernels per step,
-    the busy share and a profile with MAS's rank.
+    the busy share and a profile with MAS's rank;
+30. DiffVC voice conversion through ``tpu_speech_torch.cli.inference_vc.main``
+    at the width of ``cli/params_vc.py`` (126 259 128 parameters), seeded
+    random weights saved as a reference-named ``diffvc.pt`` (rezero gains
+    zero) and a ``{'model_state': ...}`` speaker-encoder ``.pt``, on
+    speech-like 22 050 Hz wavs (source 3.0 s, target 2.5 s): ``--mode ml -n
+    30``, ``--mode dpm -n 6``, then ml again warm; each wav has hop x (frames
+    - 1) samples (the JAX CLI's Griffin-Lim length), the converted mel is
+    finite, no hand kernel launches (``launches_by_path`` key
+    ``diffvc_conversion``). On untrained weights the sampler's mel reaches
+    hundreds and the reference's denoiser overflows, so the wav's finiteness
+    is printed, not required;
+31. the same weights and inputs on the card and on the CPU: the
+    average-voice encoder and one estimator call at T = 256, ``voice_convert``
+    with 3 ml and 2 dpm steps at T = 128 (draws given, scaled as in the CPU
+    tests), the speaker embedding, ``istft`` and 32 Griffin-Lim iterations
+    (spectral convergence): mels within MAE 1e-3, the embedding and istft
+    1e-4; the sampler and Griffin-Lim again under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+32. bench.py's conversion points in fp32 (CUDA events, median of 10): B = 1,
+    256-frame source and reference, 30 ml steps and 6 dpm steps, each as RTF
+    beside its bound (convolution and product FLOP at the CUDA cores' fp32
+    rate) and peak memory; Griffin-Lim alone; the CLI's wav -> wav time by
+    stage; a profile (kernels per conversion, busy share, top device ops).
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -2301,6 +2326,289 @@ def phase_gradtts_train_time(torch):
     return ms, peak
 
 
+# ---- DiffVC voice conversion (phases 30-32) -----------------------------------
+
+VC_SEED = 31
+VC_SR = 22050
+VC_FRAMES = 256  # bench.py's conversion point: B = 1, 256-frame source and reference
+# card against CPU: the mels' mean absolute error (PR 7's phase-24 gate) and the
+# speaker embedding's largest difference
+VC_MEL_MAE = 1e-3
+VC_EMB_ATOL = 1e-4
+VC_WAV_ATOL = 1e-4
+# The samplers on random weights, card against CPU: an untrained estimator
+# does not cancel the drift away from the average voice, so the state grows
+# up to 1/gamma(0, 1) ~ 150x the noise, and the U-Net turns to NaN at inputs
+# of a few hundred (its linear attention is quadratic in its input). As in
+# tests/test_torch_diffvc.py, the draws are scaled by 0.01 and the
+# estimator's last conv by 0.02 there: the state stays within tens.
+VC_NOISE_SCALE = 0.01
+VC_SCORE_SCALE = 0.02
+
+
+def _vc_models(torch, zero_gains=False):
+    """DiffVC at cli/params_vc.py's width and the GE2E speaker encoder,
+    seeded random weights, on the CPU. ``zero_gains``: the rezero gains at
+    zero, the reference's init, with which the U-Net stays finite at the
+    hundreds that the untrained sampler's state reaches."""
+    from tpu_speech_torch.configs import diffvc as vc_cfg
+    from tpu_speech_torch.models.diffvc import DiffVC
+    from tpu_speech_torch.models.speaker_encoder import SpeakerEncoder
+
+    model = DiffVC(**vc_cfg.model_kwargs()).init_weights(torch.Generator().manual_seed(VC_SEED))
+    if zero_gains:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(".fn.g"):
+                    p.zero_()
+    spk = SpeakerEncoder().init_weights(torch.Generator().manual_seed(VC_SEED + 1))
+    return model.eval(), spk.eval()
+
+
+def _vc_wav(rng, n):
+    return speech_like(rng, n, sr=VC_SR)
+
+
+def phase_vc_slice(torch, rng, root):
+    """30: source wav + target wav -> converted wav through
+    tpu_speech_torch.cli.inference_vc.main on the card, at cli/params_vc.py's
+    width: a reference-named diffvc.pt (seeded random weights, rezero gains
+    zero) and a {'model_state': ...} speaker encoder; speech-like 22 050 Hz
+    wavs, the source 3.0 s, the target 2.5 s; --mode ml -n 30, --mode dpm -n
+    6, then ml again warm. Each wav has hop x (frames - 1) samples (the JAX
+    CLI's fast_griffin_lim length), the converted mel is finite, and no hand
+    kernel launches. Returns the launch counts and the warm run's result."""
+    import scipy.io.wavfile
+
+    from tpu_speech_torch.cli import inference_vc
+    from tpu_speech_torch.data.wav import write_wav
+    from tpu_speech_torch.ops import _build
+
+    model, spk = _vc_models(torch, zero_gains=True)
+    ckpt, spk_pt = os.path.join(root, "diffvc.pt"), os.path.join(root, "encoder.pt")
+    torch.save(model.state_dict(), ckpt)
+    torch.save({"model_state": spk.state_dict()}, spk_pt)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, spk
+    src, tgt = os.path.join(root, "source.wav"), os.path.join(root, "target.wav")
+    src_wav = _vc_wav(rng, 3 * VC_SR)
+    write_wav(src, src_wav, VC_SR)
+    write_wav(tgt, _vc_wav(rng, VC_SR * 5 // 2), VC_SR)
+    frames = len(src_wav) // 256
+    _build.reset_launches()
+    runs = []
+    for mode, n, name in (("ml", 30, "ml30.wav"), ("dpm", 6, "dpm6.wav"), ("ml", 30, "warm.wav")):
+        t0 = time.perf_counter()
+        res = inference_vc.main(["-s", src, "-t", tgt, "-c", ckpt, "--spk-encoder", spk_pt,
+                                 "-n", str(n), "--mode", mode, "-o", os.path.join(root, name)])
+        wall = time.perf_counter() - t0
+        sr, pcm = scipy.io.wavfile.read(res["output"])
+        stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in res["times"].items())
+        log(f"    [30] {mode} -n {n}: {res['frames']} frames -> {len(pcm)} int16 samples "
+            f"({res['seconds']:.3f} s) in {wall:.2f} s by main(); stages: {stages}; max "
+            f"|converted mel| {res['max_abs_mel']:.1f}; finite {res['finite']}")
+        check(sr == VC_SR and pcm.dtype == np.int16, f"{name}: {sr} Hz, {pcm.dtype}")
+        check(res["frames"] == frames and pcm.shape == ((frames - 1) * 256,),
+              f"{name}: {res['frames']} frames, {pcm.shape} samples")
+        check(res["finite"]["mel"], f"{name}: the converted mel is not finite")
+        runs.append(res)
+    launches = dict(_build.LAUNCHES)
+    check(not any(launches.values()), f"hand kernels on the conversion path: {launches}")
+    log(f"[30 vc slice] DiffVC {n_params} parameters at cli/params_vc.py's width; source "
+        f"{frames} frames, target 2.5 s; ml 30 and dpm 6 through cli.inference_vc.main; "
+        f"hand-kernel launches 0")
+    return launches, runs[-1]
+
+
+def phase_vc_cpu_vs_card(torch):
+    """31: the same weights and inputs on the card and on the CPU: the
+    average-voice encoder and one estimator call at T = 256, voice_convert
+    with 3 ml steps and 2 dpm steps at T = 128 (the draws replayed, see
+    VC_NOISE_SCALE), the speaker embedding of a 2.5 s utterance, istft, and
+    32 Griffin-Lim iterations (by spectral convergence, as the CPU tests).
+    The mels within MAE 1e-3, the embedding 1e-4. voice_convert and
+    Griffin-Lim run again on the card under set_sync_debug_mode("error")."""
+    import copy
+
+    from tpu_speech_torch.audio.mel import hann_window, mel_spectrogram_np
+    from tpu_speech_torch.audio.vocode import (
+        fast_griffin_lim,
+        griffin_lim_constants,
+        istft,
+        stft_complex,
+    )
+    from tpu_speech_torch.models.diffvc import voice_convert
+    from tpu_speech_torch.models.speaker_encoder import embed_utterance, preprocess_wav
+
+    model, spk = _vc_models(torch)
+    small = copy.deepcopy(model)
+    with torch.no_grad():
+        small.decoder.estimator.final_conv.weight.mul_(VC_SCORE_SCALE)
+        small.decoder.estimator.final_conv.bias.mul_(VC_SCORE_SCALE)
+    r = np.random.default_rng(VC_SEED)
+    g = torch.Generator().manual_seed(VC_SEED)
+    wav = _vc_wav(r, 256 * VC_FRAMES)
+    mel = torch.from_numpy(mel_spectrogram_np(wav[None]))  # (1, 256, 80)
+    ref = torch.from_numpy(mel_spectrogram_np(_vc_wav(r, VC_SR * 5 // 2)[None]))
+    tgt_wav = preprocess_wav(_vc_wav(r, VC_SR * 5 // 2), VC_SR)
+    lens, rlens = torch.tensor([VC_FRAMES]), torch.tensor([ref.shape[1]])
+    c = torch.randn(1, 256, generator=g)
+    c = c / c.norm()
+    xt = torch.randn(1, VC_FRAMES, 80, generator=g)
+    half = VC_FRAMES // 2
+    z_noise = VC_NOISE_SCALE * torch.randn(1, half, 80, generator=g)
+    step_noise = VC_NOISE_SCALE * torch.randn(3, 1, half, 80, generator=g)
+    spec = stft_complex(torch.from_numpy(np.stack([wav, _vc_wav(r, len(wav))])), 1024, 256,
+                        torch.from_numpy(hann_window(1024)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model.to(dev), small.to(dev), spk.to(dev)
+        d = {k: v.to(dev) for k, v in dict(mel=mel, ref=ref, lens=lens, rlens=rlens, c=c, xt=xt,
+                                           z=z_noise, steps=step_noise, spec=spec).items()}
+        mask = torch.ones(1, VC_FRAMES, device=dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            mean = model.encode(d["mel"], mask)
+            score = model.score(mean + d["xt"], mask, mean, d["ref"],
+                                torch.ones(1, ref.shape[1], device=dev), d["c"],
+                                torch.full((1,), 0.5, device=dev))
+            conv = {}
+            for mode, n in (("ml", 3), ("dpm", 2)):
+                conv[mode] = voice_convert(
+                    small, d["mel"][:, :half], d["lens"] // 2, d["ref"], d["rlens"], d["c"], n,
+                    mode, z_noise=d["z"], step_noise=d["steps"] if mode == "ml" else None)[1]
+            emb = embed_utterance(spk, tgt_wav)
+            _, window = griffin_lim_constants(VC_SR, 1024, 80, torch.device(dev))
+            back = istft(d["spec"], 1024, 256, window)
+            gl = fast_griffin_lim(d["mel"], n_iters=32)
+        out[dev] = {k: v.cpu() for k, v in dict(mean=mean, score=score, ml=conv["ml"],
+                                                dpm=conv["dpm"], emb=emb, istft=back,
+                                                gl=gl).items()}
+        log(f"    [31] {dev}: encoder, estimator, ml 3 + dpm 2 at T = {half}, embedding, istft "
+            f"and Griffin-Lim in {time.perf_counter() - t0:.1f} s")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.inference_mode():
+                    gen = torch.Generator("cuda").manual_seed(0)
+                    voice_convert(small, d["mel"][:, :half], d["lens"] // 2, d["ref"],
+                                  d["rlens"], d["c"], 3, "ml", generator=gen)
+                    voice_convert(small, d["mel"][:, :half], d["lens"] // 2, d["ref"],
+                                  d["rlens"], d["c"], 2, "dpm", generator=gen)
+                    fast_griffin_lim(d["mel"], n_iters=32)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    cpu, card = out["cpu"], out["cuda"]
+    res = {}
+    for name in ("mean", "score", "ml", "dpm"):
+        a, b = cpu[name], card[name]
+        check(bool(torch.isfinite(b).all()), f"{name}: not finite on the card")
+        mae, worst = (b - a).abs().mean().item(), (b - a).abs().max().item()
+        res[name] = mae
+        log(f"[31 vc card vs cpu] {name}: MAE {mae:.3e} (limit {VC_MEL_MAE}), max {worst:.3e}, "
+            f"mean|cpu| {a.abs().mean().item():.3f}, max|cpu| {a.abs().max().item():.3f}")
+        check(mae < VC_MEL_MAE, f"{name}: card vs CPU MAE {mae}")
+    emb_err = (card["emb"] - cpu["emb"]).abs().max().item()
+    wav_err = (card["istft"] - cpu["istft"]).abs().max().item()
+    log(f"[31 vc card vs cpu] speaker embedding max diff {emb_err:.3e} (limit {VC_EMB_ATOL}); "
+        f"istft max diff {wav_err:.3e} (limit {VC_WAV_ATOL}) at max|wav| "
+        f"{cpu['istft'].abs().max().item():.3f}")
+    check(emb_err <= VC_EMB_ATOL, f"speaker embedding: {emb_err}")
+    check(wav_err <= VC_WAV_ATOL, f"istft: {wav_err}")
+    sc = {dev: _spectral_convergence(torch, out[dev]["gl"], mel) for dev in out}
+    gl_err = (card["gl"] - cpu["gl"]).abs().max().item()
+    log(f"[31 vc card vs cpu] Griffin-Lim 32 iterations: spectral convergence card "
+        f"{sc['cuda']:.6f}, cpu {sc['cpu']:.6f}; max sample diff {gl_err:.3e} at max|wav| "
+        f"{cpu['gl'].abs().max().item():.3f}")
+    check(abs(sc["cuda"] - sc["cpu"]) < 1e-3, f"Griffin-Lim spectral convergence {sc}")
+    log("    [31] voice_convert (ml 3, dpm 2) and Griffin-Lim under "
+        "set_sync_debug_mode('error'): no host sync")
+    res.update(embedding=emb_err, istft=wav_err, gl_sc=sc)
+    return res
+
+
+def _spectral_convergence(torch, wav, log_mel):
+    """||S - |STFT(wav)||| / ||S|| in float64 on the CPU, S the magnitude
+    that Griffin-Lim aims at (the pseudo-inverted mels)."""
+    from tpu_speech_torch.audio.mel import hann_window
+    from tpu_speech_torch.audio.vocode import mel_pseudo_inverse, stft_complex
+
+    inv = torch.from_numpy(mel_pseudo_inverse(VC_SR, 1024, 80).astype(np.float64))
+    target = torch.exp(log_mel.double()) @ inv.T
+    mag = stft_complex(wav.double(), 1024, 256, torch.from_numpy(hann_window(1024)).double()).abs()
+    return ((mag - target).norm() / target.norm()).item()
+
+
+def phase_vc_time(torch, cli_res):
+    """32: bench.py's conversion points (bench.py:430-475), fp32, CUDA events
+    (median of 10): B = 1, 256-frame source and reference (standard normal,
+    as bench.py's), 30 ml steps (diffvc_conversion_rtf_30step) and 6 dpm
+    steps (_dpm6); RTF = t x 22 050 / (256 x 256). Beside each its bound:
+    the convolutions' and products' FLOP (torch.utils.flop_counter: one
+    estimator call and one encode at these shapes) at the CUDA cores' fp32
+    rate. Then Griffin-Lim alone, the CLI's wav -> wav stages (phase 30's
+    warm run), peak memory, and a profile (kernels per conversion, the busy
+    share, the top device ops)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpu_speech_torch.audio.vocode import fast_griffin_lim
+    from tpu_speech_torch.models.diffvc import voice_convert
+
+    model, _ = _vc_models(torch, zero_gains=True)
+    model.cuda()
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.standard_normal((1, VC_FRAMES, 80)).astype(np.float32)).cuda()
+    xr = torch.from_numpy(r.standard_normal((1, VC_FRAMES, 80)).astype(np.float32)).cuda()
+    c = torch.from_numpy(r.standard_normal((1, 256)).astype(np.float32)).cuda()
+    lens = torch.tensor([VC_FRAMES], device="cuda")
+    mask = torch.ones(1, VC_FRAMES, device="cuda")
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc_enc:
+        mean = model.encode(x, mask)
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc_score:
+        model.score(x, mask, mean, xr, mask, c, torch.full((1,), 0.5, device="cuda"))
+    enc_flop, score_flop = fc_enc.get_total_flops(), fc_score.get_total_flops()
+    audio_s = VC_FRAMES * 256 / VC_SR
+    res = {}
+
+    def convert(n, mode):
+        g = torch.Generator("cuda").manual_seed(0)
+        with torch.inference_mode():
+            return voice_convert(model, x, lens, xr, lens, c, n, mode, generator=g)[1]
+
+    for name, n, mode in (("diffvc_conversion_rtf_30step", 30, "ml"),
+                          ("diffvc_conversion_rtf_dpm6", 6, "dpm")):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: convert(n, mode), n=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flop = n * score_flop + 2 * enc_flop
+        bound_ms = flop / PEAK_FP32 * 1e3
+        res[name] = dict(ms=ms, rtf=ms / 1e3 / audio_s, peak_gib=peak, tflop=flop / 1e12,
+                         bound_ms=bound_ms)
+        log(f"[32 vc time] {name}: {ms:.2f} ms for {VC_FRAMES} frames ({audio_s:.3f} s of "
+            f"audio), RTF {ms / 1e3 / audio_s:.5f}; bound {bound_ms:.2f} ms ({flop / 1e12:.2f} "
+            f"TFLOP at {PEAK_FP32 / 1e12:.0f} TFLOP/s fp32; {ms / bound_ms:.2f}x); peak "
+            f"{peak:.3f} GiB")
+    log(f"    per call: estimator {score_flop / 1e9:.1f} GFLOP, encode {enc_flop / 1e9:.1f} "
+        f"GFLOP (convolutions and products)")
+    log_mel = torch.randn(1, VC_FRAMES, 80, generator=torch.Generator().manual_seed(0)).cuda() - 4
+    with torch.inference_mode():
+        gl_ms = cuda_ms(lambda: fast_griffin_lim(log_mel, n_iters=32), n=10, warmup=2)
+    res["griffin_lim_ms"] = gl_ms
+    log(f"[32 vc time] Griffin-Lim, 32 iterations at {VC_FRAMES} frames: {gl_ms:.2f} ms")
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in cli_res["times"].items())
+    total = sum(cli_res["times"].values())
+    log(f"[32 vc time] CLI wav -> wav, ml 30, {cli_res['frames']} frames ({cli_res['seconds']:.3f}"
+        f" s out), host clock by stage (phase 30's warm run): {stages}; {total * 1e3:.1f} ms "
+        f"in all, RTF {total / cli_res['seconds']:.4f}")
+    prof = profile_slice(torch, lambda: convert(30, "ml"), batches=2, top=12,
+                         tag="32 profile, ml 30 conversion, B = 1 x 256 frames")
+    res["profile"] = None if prof is None else {k: prof[k] for k in ("kernels", "busy_ms",
+                                                                      "span_ms", "share")}
+    return res
+
+
 def write_corpus(root, rng):
     import scipy.io.wavfile
 
@@ -2523,6 +2831,10 @@ def main():
         gt_launches = phase_gradtts_train_slice(torch, rng, root)
     phase_gradtts_cpu_vs_card(torch)
     phase_gradtts_train_time(torch)
+    with tempfile.TemporaryDirectory() as root:
+        vc_launches, vc_cli = phase_vc_slice(torch, rng, root)
+    phase_vc_cpu_vs_card(torch)
+    phase_vc_time(torch, vc_cli)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2533,7 +2845,7 @@ def main():
         return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key],
                 "finetune_step": ft_launches[key], "pretrain_step_bf16": pre16_launches[key],
                 "finetune_step_bf16": ft16_launches[key], "tts_e2e": tts_launches[key],
-                "gradtts_train_step": gt_launches[key]}
+                "gradtts_train_step": gt_launches[key], "diffvc_conversion": vc_launches[key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",

@@ -9,6 +9,7 @@ same inputs.
 
 import dataclasses
 import json
+import os
 import random
 
 import numpy as np
@@ -32,6 +33,8 @@ from tpu_speech_torch.eval import wer as t_wer
 from tpu_speech_torch.text import cleaners as t_cleaners
 from tpu_speech_torch.text import tokenizers as t_tok
 from tpu_speech_torch.utils import config as t_cfg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CONFIG_CLASSES = ("AdamWParams", "SchedParams", "AudioDatasetConfig", "DecoderConfig",
                   "NoisePerturbConfig", "TrainerConfig", "ExpManagerConfig",
@@ -250,3 +253,80 @@ def test_write_wav_same(tmp_path):
         t_write_wav(str(tmp_path / "t.wav"), wav, 22050)
         write_wav(str(tmp_path / "j.wav"), wav, 22050)
         assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+
+
+# ---------------------------------------------------------------- DiffVC serving
+
+
+def _jax_vc_cli(monkeypatch):
+    """The JAX package's cli/inference_vc.py, which imports params_vc from
+    its own directory."""
+    monkeypatch.syspath_prepend(os.path.join(REPO, "cli"))
+    import inference_vc
+    import params_vc
+
+    return inference_vc, params_vc
+
+
+def test_diffvc_config_copy_equals_cli_params_vc(monkeypatch):
+    from tpu_speech_torch.configs import diffvc as t_params
+
+    _, theirs = _jax_vc_cli(monkeypatch)
+    names = [n for n in vars(theirs) if not n.startswith("_")]
+    assert len(names) == 20
+    for n in names:
+        assert getattr(t_params, n) == getattr(theirs, n), n
+
+
+def _vc_wav(seed, seconds, sr):
+    rng = np.random.default_rng(seed)
+    n = int(sr * seconds)
+    t = np.arange(n) / sr
+    y = sum(np.sin(2 * np.pi * 150 * h * t + rng.uniform(0, 6)) / h for h in range(1, 10))
+    y *= (1 + np.sin(2 * np.pi * 2.5 * t)) ** 2  # syllables
+    y[n // 3: n // 2] = 0  # a long pause for the silence trim
+    return (0.1 * y / np.abs(y).max() + 1e-4 * rng.standard_normal(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("sr", [22050, 16000], ids=["resampled", "16k"])
+def test_speaker_frontend_same(sr):
+    """preprocess_wav (scipy resample_poly, volume, silence trim),
+    trim_long_silences, wav_to_mel_spectrogram and compute_partial_slices,
+    the port's copies against the JAX package's, equal."""
+    from tpu_speech.models import speaker_encoder as j_spk
+    from tpu_speech_torch.models import speaker_encoder as t_spk
+
+    wav = _vc_wav(sr, 2.7, sr)
+    pre_t, pre_j = t_spk.preprocess_wav(wav, source_sr=sr), j_spk.preprocess_wav(wav, sr)
+    assert pre_t.dtype == pre_j.dtype and len(pre_t) < len(wav) * 16000 / sr
+    np.testing.assert_array_equal(pre_t, pre_j)
+    np.testing.assert_array_equal(t_spk.trim_long_silences(wav), j_spk.trim_long_silences(wav))
+    np.testing.assert_array_equal(t_spk.normalize_volume(wav), j_spk.normalize_volume(wav))
+    np.testing.assert_array_equal(t_spk.wav_to_mel_spectrogram(pre_t),
+                                  j_spk.wav_to_mel_spectrogram(pre_j))
+    for n in (0, 100, 1600 * 10, len(pre_t), 16000 * 7 + 3):
+        assert t_spk.compute_partial_slices(n) == j_spk.compute_partial_slices(n), n
+
+
+def test_vc_denoiser_same(monkeypatch, tmp_path):
+    """noise_median_smoothing and mel_spectral_subtraction (host numpy, the
+    notebook's denoiser), the port's CLI against the JAX CLI, equal."""
+    from tpu_speech_torch.cli import inference_vc as t_cli
+
+    j_cli, _ = _jax_vc_cli(monkeypatch)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0, 1, 80).astype(np.float32)
+    for w in (1, 5):
+        np.testing.assert_array_equal(t_cli.noise_median_smoothing(x, w),
+                                      j_cli.noise_median_smoothing(x, w))
+    src = rng.normal(-4, 2, (90, 80)).astype(np.float32)
+    src[30:37] = -11.0
+    synth = rng.normal(-5, 2, (90, 80)).astype(np.float32)
+    for sw in (1, None):
+        np.testing.assert_array_equal(
+            t_cli.mel_spectral_subtraction(synth, src, smoothing_window=sw),
+            j_cli.mel_spectral_subtraction(synth, src, smoothing_window=sw))
+    wav = _vc_wav(5, 1.3, 22050)
+    path = str(tmp_path / "vc.wav")
+    write_wav(path, wav, 22050)
+    np.testing.assert_array_equal(t_cli.get_mel(path), j_cli.get_mel(path))

@@ -4,7 +4,8 @@ In a fresh interpreter, a ``sys.meta_path`` finder raises on any import of
 ``tpu_speech`` (but not ``tpu_speech_torch``) or ``jax``/``jaxlib``; then
 every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
 ``chip_smoke`` are imported, and ``run_spiral --help``, the TTS CLI's
-``inference --help`` and the Grad-TTS training CLI's ``train --help`` run.
+``inference --help``, the Grad-TTS training CLI's ``train --help`` and the
+voice-conversion CLI's ``inference_vc --help`` run.
 """
 
 import os
@@ -36,9 +37,9 @@ names = ["chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(tpu_speech_torch.__path__, "tpu_speech_torch.")]
 for name in names:
     importlib.import_module(name)
-from tpu_speech_torch.cli import inference, run_spiral, train
+from tpu_speech_torch.cli import inference, inference_vc, run_spiral, train
 
-for cli in (run_spiral, inference, train):
+for cli in (run_spiral, inference, train, inference_vc):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -59,3 +60,4 @@ def test_port_imports_no_jax_package():
     assert "--model_type" in proc.stdout  # the CLIs' help texts ran
     assert "--hifigan-config" in proc.stdout
     assert "Grad-TTS training CLI" in proc.stdout
+    assert "--spk-encoder" in proc.stdout

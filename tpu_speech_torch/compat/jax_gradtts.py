@@ -60,9 +60,9 @@ def _groupnorm(tr, path, sd, key):
     sd[f"{key}.bias"] = _t(tr.get(*path, "bias"))
 
 
-def _text_encoder(tr, sd, n_layers):
-    p, k = ("encoder",), "encoder"
-    sd[f"{k}.emb.weight"] = _t(tr.get(*p, "emb", "embedding"))
+def _prenet_transformer(tr, p, sd, k, n_layers):
+    """The glow-tts prenet (``ConvReluNorm``) and rel-pos transformer under
+    flax path ``p`` -> keys ``{k}.prenet.*`` and ``{k}.encoder.*``."""
     for i in range(3):
         _conv(tr, p + ("prenet", f"conv_{i}"), sd, f"{k}.prenet.conv_layers.{i}")
         _layernorm(tr, p + ("prenet", f"norm_{i}"), sd, f"{k}.prenet.norm_layers.{i}")
@@ -78,6 +78,12 @@ def _text_encoder(tr, sd, n_layers):
         for c in ("conv_1", "conv_2"):
             _conv(tr, enc + (f"ffn_{i}", c), sd, f"{ek}.ffn_layers.{i}.{c}")
         _layernorm(tr, enc + (f"norm2_{i}",), sd, f"{ek}.norm_layers_2.{i}")
+
+
+def _text_encoder(tr, sd, n_layers):
+    p, k = ("encoder",), "encoder"
+    sd[f"{k}.emb.weight"] = _t(tr.get(*p, "emb", "embedding"))
+    _prenet_transformer(tr, p, sd, k, n_layers)
     _conv(tr, p + ("proj_m",), sd, f"{k}.proj_m")
     for c in ("conv_1", "conv_2", "proj"):
         _conv(tr, p + ("proj_w", c), sd, f"{k}.proj_w.{c}")
@@ -104,13 +110,10 @@ def _rezero_attn(tr, path, sd, key):
     _dense_conv(tr, path + ("fn", "to_out"), sd, f"{key}.fn.fn.to_out", 4)
 
 
-def _estimator(tr, sd, n_spks):
-    p, k = ("estimator",), "decoder.estimator"
-    if n_spks > 1:
-        _dense(tr, p + ("spk_mlp_0",), sd, f"{k}.spk_mlp.0")
-        _dense(tr, p + ("spk_mlp_1",), sd, f"{k}.spk_mlp.2")
-    _dense(tr, p + ("mlp_0",), sd, f"{k}.mlp.0")
-    _dense(tr, p + ("mlp_1",), sd, f"{k}.mlp.2")
+def _unet(tr, p, sd, k):
+    """The U-Net body that Grad-TTS's and DiffVC's estimators share
+    (``nn/unet.py::UNet``) under flax path ``p`` -> keys ``{k}.downs.*`` ...
+    ``{k}.final_conv``."""
     i = 0
     while tr.has(*p, f"down_{i}_res1"):
         _resnet(tr, p + (f"down_{i}_res1",), sd, f"{k}.downs.{i}.0")
@@ -133,6 +136,16 @@ def _estimator(tr, sd, n_spks):
         j += 1
     _block(tr, p + ("final_block",), sd, f"{k}.final_block")
     _conv2d(tr, p + ("final_conv",), sd, f"{k}.final_conv")
+
+
+def _estimator(tr, sd, n_spks):
+    p, k = ("estimator",), "decoder.estimator"
+    if n_spks > 1:
+        _dense(tr, p + ("spk_mlp_0",), sd, f"{k}.spk_mlp.0")
+        _dense(tr, p + ("spk_mlp_1",), sd, f"{k}.spk_mlp.2")
+    _dense(tr, p + ("mlp_0",), sd, f"{k}.mlp.0")
+    _dense(tr, p + ("mlp_1",), sd, f"{k}.mlp.2")
+    _unet(tr, p, sd, k)
 
 
 def _unwrap(params: Mapping) -> Mapping:

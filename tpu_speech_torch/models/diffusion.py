@@ -20,6 +20,17 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch import nn
+
+
+class Decoder(nn.Module):
+    """The references' ``Diffusion`` module (Grad-TTS's and DiffVC's),
+    reduced to what holds weights: its ``estimator``. The dynamics are
+    functions."""
+
+    def __init__(self, estimator: nn.Module):
+        super().__init__()
+        self.estimator = estimator
 
 
 def get_noise(t, beta_init: float, beta_term: float, cumulative: bool = False):

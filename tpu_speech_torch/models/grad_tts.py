@@ -20,24 +20,16 @@ import torch
 from torch import nn
 
 from tpu_speech_torch.models.diffusion import (
+    Decoder,
     diffusion_loss,
     reverse_diffusion,
     reverse_diffusion_dpm,
 )
 from tpu_speech_torch.models.text_encoder import TextEncoder
-from tpu_speech_torch.nn.blocks import RelPosMultiHeadAttention
-from tpu_speech_torch.nn.unet import GradLogPEstimator2d, Rezero
+from tpu_speech_torch.nn.init import seeded_init_
+from tpu_speech_torch.nn.unet import GradLogPEstimator2d
 from tpu_speech_torch.ops.masks import duration_loss, generate_path, sequence_mask
 from tpu_speech_torch.ops.monotonic_align import maximum_path
-
-
-class Decoder(nn.Module):
-    """The reference's ``Diffusion`` module, reduced to what holds weights:
-    its ``estimator``. The dynamics are the functions of ``diffusion.py``."""
-
-    def __init__(self, estimator: GradLogPEstimator2d):
-        super().__init__()
-        self.estimator = estimator
 
 
 class GradTTS(nn.Module):
@@ -135,32 +127,9 @@ class GradTTS(nn.Module):
         prior_loss = prior_loss / (torch.sum(y_mask) * self.n_feats)
         return dur_loss, prior_loss, diff_loss
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "GradTTS":
-        """Seeded random weights: every conv and linear layer uniform in
-        +-1/sqrt(fan_in) (torch's default), the embeddings and relative
-        embeddings normal as the reference inits them, the norms at one and
-        zero. The rezero gains, zero in the reference's init, are drawn from
-        [0.01, 0.02) so that every linear attention shapes the output: the
-        attention is quadratic in its input, and a gain near 1 overflows
-        the U-Net's deeper levels on random weights."""
-        for module in self.modules():
-            if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(module.weight)
-                bound = fan_in ** -0.5
-                for p in (module.weight, module.bias):
-                    if p is not None:
-                        p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound - bound)
-            elif isinstance(module, nn.Embedding):
-                module.weight.copy_(torch.randn(module.weight.shape, generator=generator)
-                                    * module.weight.shape[1] ** -0.5)
-            elif isinstance(module, RelPosMultiHeadAttention) and module.window_size:
-                for p in (module.emb_rel_k, module.emb_rel_v):
-                    p.copy_(torch.randn(p.shape, generator=generator)
-                            * module.k_channels ** -0.5)
-            elif isinstance(module, Rezero):
-                module.g.copy_(0.01 + 0.01 * torch.rand(1, generator=generator))
-        return self
+        """Seeded random weights (``nn/init.py::seeded_init_``)."""
+        return seeded_init_(self, generator)
 
 
 def durations(logw: torch.Tensor, x_mask: torch.Tensor, length_scale: float = 1.0):

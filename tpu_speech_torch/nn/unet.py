@@ -143,62 +143,43 @@ class Upsample(nn.Module):
         return self.conv(x)
 
 
-class GradLogPEstimator2d(nn.Module):
-    """U-Net noise estimator.
+class UNet(nn.Module):
+    """The U-Net body that Grad-TTS's and DiffVC's estimators share
+    (diffusion.py:127-216 in both references): 3 resolutions (dim_mults 1,
+    2, 4), two resnet blocks and a rezero linear attention per level, masks
+    downsampled by ``[..., ::2]``, then the final block and a 1x1 conv to one
+    channel. ``F`` and ``T`` must be multiples of 4
+    (``fix_len_compatibility``). The modules are attributes of the estimator
+    itself, as the references' ``downs``, ``ups``, ``mid_block1`` ...
+    ``final_conv`` are."""
 
-    ``forward(x, mask, mu, t, spk)`` takes the reference's layout: x and mu
-    (B, F, T), mask (B, 1, T), t (B,), spk (B, spk_emb_dim) for a
-    multi-speaker model; returns (B, F, T). Inputs are stacked as channels
-    [mu, x (, spk)]; 3 resolutions (dim_mults 1, 2, 4), two resnet blocks and
-    a rezero linear attention per level; masks are downsampled by
-    ``[..., ::2]``. ``F`` and ``T`` must be multiples of 4
-    (``fix_len_compatibility``).
-    """
-
-    def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4), groups: int = 8,
-                 n_spks: int = 1, spk_emb_dim: int = 64, n_feats: int = 80,
-                 pe_scale: float = 1000.0):
-        super().__init__()
-        self.dim, self.n_spks, self.pe_scale = dim, n_spks, pe_scale
-        if n_spks > 1:
-            self.spk_mlp = nn.Sequential(nn.Linear(spk_emb_dim, spk_emb_dim * 4), Mish(),
-                                         nn.Linear(spk_emb_dim * 4, n_feats))
-        self.time_pos_emb = SinusoidalPosEmb(dim)
-        self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(), nn.Linear(dim * 4, dim))
-
-        dims = [2 + (1 if n_spks > 1 else 0), *(dim * m for m in dim_mults)]
+    def _build_unet(self, dim_in: int, dim: int, dim_mults: Sequence[int], groups: int):
+        dims = [dim_in, *(dim * m for m in dim_mults)]
         in_out = list(zip(dims[:-1], dims[1:]))
         self.downs = nn.ModuleList()
         self.ups = nn.ModuleList()
-        for ind, (dim_in, dim_out) in enumerate(in_out):
+        for ind, (d_in, d_out) in enumerate(in_out):
             is_last = ind >= len(in_out) - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlock(dim_in, dim_out, time_emb_dim=dim, groups=groups),
-                ResnetBlock(dim_out, dim_out, time_emb_dim=dim, groups=groups),
-                Residual(Rezero(LinearAttention(dim_out))),
-                Downsample(dim_out) if not is_last else nn.Identity()]))
+                ResnetBlock(d_in, d_out, time_emb_dim=dim, groups=groups),
+                ResnetBlock(d_out, d_out, time_emb_dim=dim, groups=groups),
+                Residual(Rezero(LinearAttention(d_out))),
+                Downsample(d_out) if not is_last else nn.Identity()]))
         mid_dim = dims[-1]
         self.mid_block1 = ResnetBlock(mid_dim, mid_dim, time_emb_dim=dim, groups=groups)
         self.mid_attn = Residual(Rezero(LinearAttention(mid_dim)))
         self.mid_block2 = ResnetBlock(mid_dim, mid_dim, time_emb_dim=dim, groups=groups)
-        for dim_in, dim_out in reversed(in_out[1:]):
+        for d_in, d_out in reversed(in_out[1:]):
             self.ups.append(nn.ModuleList([
-                ResnetBlock(dim_out * 2, dim_in, time_emb_dim=dim, groups=groups),
-                ResnetBlock(dim_in, dim_in, time_emb_dim=dim, groups=groups),
-                Residual(Rezero(LinearAttention(dim_in))),
-                Upsample(dim_in)]))
+                ResnetBlock(d_out * 2, d_in, time_emb_dim=dim, groups=groups),
+                ResnetBlock(d_in, d_in, time_emb_dim=dim, groups=groups),
+                Residual(Rezero(LinearAttention(d_in))),
+                Upsample(d_in)]))
         self.final_block = Block(dim, dim, groups=groups)
         self.final_conv = nn.Conv2d(dim, 1, 1)
 
-    def forward(self, x, mask, mu, t, spk=None):
-        t = self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
-        chans = [mu, x]
-        if self.n_spks > 1:
-            s = self.spk_mlp(spk)  # (B, F): the decoder's speaker conditioning
-            chans.append(s[:, :, None].expand(-1, -1, x.shape[-1]))
-        x = torch.stack(chans, 1)  # (B, C, F, T)
-        mask = mask.unsqueeze(1)  # (B, 1, 1, T)
-
+    def _unet(self, x, mask, t):
+        """x (B, C, F, T), mask (B, 1, 1, T), t (B, dim) -> (B, F, T)."""
         hiddens = []
         masks = [mask]
         for i, (resnet1, resnet2, attn, downsample) in enumerate(self.downs):
@@ -226,3 +207,34 @@ class GradLogPEstimator2d(nn.Module):
 
         x = self.final_block(x, mask)
         return (self.final_conv(x * mask) * mask).squeeze(1)
+
+
+class GradLogPEstimator2d(UNet):
+    """U-Net noise estimator.
+
+    ``forward(x, mask, mu, t, spk)`` takes the reference's layout: x and mu
+    (B, F, T), mask (B, 1, T), t (B,), spk (B, spk_emb_dim) for a
+    multi-speaker model; returns (B, F, T). Inputs are stacked as channels
+    [mu, x (, spk)] into the ``UNet`` body.
+    """
+
+    def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4), groups: int = 8,
+                 n_spks: int = 1, spk_emb_dim: int = 64, n_feats: int = 80,
+                 pe_scale: float = 1000.0):
+        super().__init__()
+        self.dim, self.n_spks, self.pe_scale = dim, n_spks, pe_scale
+        if n_spks > 1:
+            self.spk_mlp = nn.Sequential(nn.Linear(spk_emb_dim, spk_emb_dim * 4), Mish(),
+                                         nn.Linear(spk_emb_dim * 4, n_feats))
+        self.time_pos_emb = SinusoidalPosEmb(dim)
+        self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(), nn.Linear(dim * 4, dim))
+        self._build_unet(2 + (1 if n_spks > 1 else 0), dim, dim_mults, groups)
+
+    def forward(self, x, mask, mu, t, spk=None):
+        t = self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
+        chans = [mu, x]
+        if self.n_spks > 1:
+            s = self.spk_mlp(spk)  # (B, F): the decoder's speaker conditioning
+            chans.append(s[:, :, None].expand(-1, -1, x.shape[-1]))
+        x = torch.stack(chans, 1)  # (B, C, F, T)
+        return self._unet(x, mask.unsqueeze(1), t)  # mask (B, 1, 1, T)
