@@ -10,9 +10,13 @@ step, the two training steps also in bf16 mixed precision and with gradient
 accumulation; Grad-TTS + HiFi-GAN text-to-waveform serving through
 ``tpu_speech_torch.cli.inference.main``, which reaches no hand kernel (cuDNN
 and cuBLAS); Grad-TTS training through ``tpu_speech_torch.cli.train.main``,
-whose monotonic alignment search is a hand kernel; and DiffVC voice
+whose monotonic alignment search is a hand kernel; DiffVC voice
 conversion through ``tpu_speech_torch.cli.inference_vc.main`` (cuDNN, cuBLAS
-and cuFFT, no hand kernel). It checks each hand
+and cuFFT, no hand kernel); and DiffVC's two-stage training and the GE2E
+speaker encoder's training through their CLIs (``preprocess_spk``,
+``train_spk_encoder``, ``get_avg_mels``, ``train_enc``, ``train_dec``; no
+hand kernel), ending in a conversion on the checkpoints they wrote. It
+checks each hand
 kernel, fp32 and bf16, against its plain PyTorch version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
@@ -167,7 +171,38 @@ result):
     256-frame source and reference, 30 ml steps and 6 dpm steps, each as RTF
     beside its bound (convolution and product FLOP at the CUDA cores' fp32
     rate) and peak memory; Griffin-Lim alone; the CLI's wav -> wav time by
-    stage; a profile (kernels per conversion, busy share, top device ops).
+    stage; a profile (kernels per conversion, busy share, top device ops);
+33. the GE2E speaker encoder's training: 256 speech-like 22 050 Hz wavs of
+    2.0-2.6 s from 16 speakers (each around a base f0 of its own) ->
+    ``cli.preprocess_spk.main`` -> ``cli.train_spk_encoder.main`` at the full
+    width (3 x 256 LSTM) for 4 steps of 16 speakers x 10 utterances x 160
+    frames, then a run that resumes at step 4 and takes 2: the losses
+    finite, the EER in [0, 1], no hand kernel (``launches_by_path`` key
+    ``ge2e_train``), the ``.pt`` loads through ``cli.inference_vc``'s
+    ``--spk-encoder`` loader;
+34. DiffVC's training at ``cli/params_vc.py``'s width: phase 33's wavs ->
+    host mels, embeddings by phase 33's encoder and TextGrids of random
+    phone intervals -> ``cli.get_avg_mels.main`` -> ``cli.train_enc.main``
+    at B = 128 x 128 frames, 2 epochs (4 steps), then a resumed epoch (2
+    steps) -> ``cli.train_dec.main`` from its ``enc.pt`` at B = 32, 2 epochs
+    (16 steps), then a resumed epoch (8 steps) -> ``cli.inference_vc.main``
+    on the trained ``diffvc.pt`` and phase 33's encoder (ml 30). Every
+    step's loss finite, no hand kernel (keys ``diffvc_enc_train``,
+    ``diffvc_dec_train``), the encoder in ``diffvc.pt`` bit for bit
+    ``enc.pt``'s, the estimator moved, the converted mel finite;
+35. the encoder step, the decoder step and the GE2E step at full width and
+    B = 2 (4 x 5 for GE2E) on the card against the CPU, the same weights
+    and batch, dropout off, the decoder's t and z given: phase 28's limits
+    (loss 1e-4 relative, gradients 1e-3 x max|g|, parameters 1e-5 x max(1,
+    |p|) of the CPU's Adam on the card's gradients), each card step under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+36. the recipe's points, fp32, the batch on the card, CUDA events (median
+    of 5): the encoder step at B = 128 x 128, the decoder step at B = 32 x
+    128, the GE2E step at 64 x 10 x 160 x 40; each with its peak memory,
+    kernels per step, busy share, top device ops and FLOP bound
+    (``torch.utils.flop_counter``, plus the LSTM's products counted by hand,
+    at the CUDA cores' fp32 rate); the GE2E sampler's host time a batch
+    (640 ``.npy`` loads) beside its device time.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -274,12 +309,14 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
-def speech_like(rng, n, sr=SR):
-    """Voiced-speech stand-in at ``sr`` Hz: a gliding f0 (100-250 Hz) with
-    1/h harmonics up to 3.4 kHz under a 4 Hz syllable envelope, plus noise
-    40 dB below the 0.15 peak."""
+def speech_like(rng, n, sr=SR, f0=None):
+    """Voiced-speech stand-in at ``sr`` Hz: a gliding f0 (``f0``, else drawn
+    from 100-250 Hz) with 1/h harmonics up to 3.4 kHz under a 4 Hz syllable
+    envelope, plus noise 40 dB below the 0.15 peak."""
     t = np.arange(n) / sr
-    f0 = rng.uniform(100, 250) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.2, 1) * t))
+    if f0 is None:
+        f0 = rng.uniform(100, 250)
+    f0 = f0 * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.2, 1) * t))
     phase = 2 * np.pi * np.cumsum(f0) / sr
     y = np.zeros(n)
     for h in range(1, int(3400 / 250) + 1):
@@ -2609,6 +2646,418 @@ def phase_vc_time(torch, cli_res):
     return res
 
 
+# ---- DiffVC and GE2E speaker-encoder training (phases 33-36) --------------------
+
+TR_SEED = 33
+TR_SPEAKERS = 16
+TR_UTTS = 16  # per speaker: 256 utterances, two of the encoder's 128-batches an epoch
+TR_SECONDS = (2.0, 2.6)  # 160+ frames at 16 kHz after the trim, 172+ mel frames at 22 050 Hz
+TR_PHONES = ("sil", "AH0", "B", "D", "EH1", "IY1", "K", "L", "M", "N", "S", "T")
+TR_GE2E = dict(speakers=16, utterances=10)  # the CLI run's batch; phase 36 times the recipe's
+ENC_POINT = (128, 128)  # the recipe's batches: B x train_frames (cli/train_enc.py:49)
+DEC_POINT = (32, 128)  # cli/train_dec.py:146
+GE2E_POINT = (64, 10, 160)  # speakers x utterances x frames (cli/train_spk_encoder.py:332-334)
+
+
+def write_speaker_corpus(root, rng):
+    """TR_SPEAKERS x TR_UTTS speech-like 22 050 Hz wavs of TR_SECONDS, each
+    speaker around a base f0 of its own: ``<root>/<spk>/<spk>_<u>.wav``.
+    Returns {speaker: [paths]}."""
+    from tpu_speech_torch.data.wav import write_wav
+
+    wavs = {}
+    for s in range(TR_SPEAKERS):
+        spk = f"spk{s:02d}"
+        os.makedirs(os.path.join(root, spk))
+        f0 = 90 + 170 * s / (TR_SPEAKERS - 1)
+        wavs[spk] = []
+        for u in range(TR_UTTS):
+            path = os.path.join(root, spk, f"{spk}_{u:03d}.wav")
+            n = int(rng.uniform(*TR_SECONDS) * 22050)
+            write_wav(path, speech_like(rng, n, sr=22050, f0=f0 * rng.uniform(0.95, 1.05)),
+                      22050)
+            wavs[spk].append(path)
+    return wavs
+
+
+def phase_spk_train(torch, rng, root):
+    """33: the speaker encoder's data and training on the card. Synthetic
+    per-speaker wav directories -> tpu_speech_torch.cli.preprocess_spk.main
+    -> cli.train_spk_encoder.main at the full width (3 x 256 LSTM) for 4
+    steps of 16 speakers x 10 utterances x 160 frames, then a second run
+    that resumes at step 4 and takes 2. The losses finite, the EER in [0,
+    1], no hand kernel; the .pt loads through cli.inference_vc's
+    --spk-encoder loader. Returns the launches, the .pt, the wavs and the
+    preprocessed root."""
+    from tpu_speech_torch.cli import inference_vc, preprocess_spk, train_spk_encoder
+    from tpu_speech_torch.ops import _build
+
+    raw, clean, models = (os.path.join(root, d) for d in ("raw", "clean", "models"))
+    t0 = time.perf_counter()
+    wavs = write_speaker_corpus(raw, rng)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = preprocess_spk.main([raw, "-o", clean, "-n", "smoke"])
+    t_prep = time.perf_counter() - t0
+    check(n == TR_SPEAKERS * TR_UTTS, f"preprocess_spk kept {n} utterances")
+    args = ["smoke", clean, "-m", models, "-v", "2", "-u", "0", "-s", "2", "-b", "0",
+            "--speakers_per_batch", str(TR_GE2E["speakers"]),
+            "--utterances_per_speaker", str(TR_GE2E["utterances"])]
+    runs = []
+    _build.reset_launches()
+    for max_steps in (4, 6):
+        t0 = time.perf_counter()
+        runs.append(train_spk_encoder.main(args + ["--max_steps", str(max_steps)]))
+        torch.cuda.synchronize()
+        runs[-1]["wall"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    r1, r2 = runs
+    log(f"[33 ge2e train] {n} utterances of {TR_SECONDS[0]}-{TR_SECONDS[1]} s from "
+        f"{TR_SPEAKERS} speakers (written in {t_write:.1f} s, preprocess_spk {t_prep:.1f} s); "
+        f"cli.train_spk_encoder at 3 x 256, {TR_GE2E['speakers']} speakers x "
+        f"{TR_GE2E['utterances']} utterances x 160 frames: run 1 to step {r1['step']} in "
+        f"{r1['wall']:.1f} s, run 2 resumed to step {r2['step']} in {r2['wall']:.1f} s; host "
+        f"batch time {r2['times']['batch']['mean_s'] * 1e3:.1f} ms a step; hand-kernel "
+        f"launches {sum(launches.values())}")
+    for step, loss, eer in r1["reports"] + r2["reports"]:
+        log(f"    step {step}: loss {loss:.4f}, EER {eer:.4f}")
+        check(np.isfinite(loss) and 0.0 <= eer <= 1.0, f"step {step}: loss {loss}, EER {eer}")
+    check([r[0] for r in r1["reports"]] == [2, 4] and [r[0] for r in r2["reports"]] == [6],
+          f"reports {r1['reports']}, {r2['reports']}")
+    check(not any(launches.values()), f"hand kernels on the GE2E path: {launches}")
+    spk = inference_vc.load_speaker_encoder(r2["model_path"], torch.device("cuda"))
+    saved = torch.load(r2["model_path"], weights_only=True)
+    check(saved["step"] == 6 and all(torch.equal(v.cpu(), saved["model_state"][k])
+                                     for k, v in spk.state_dict().items()),
+          "the trained .pt does not load as it is through --spk-encoder")
+    return launches, r2["model_path"], wavs, clean
+
+
+def _textgrid(intervals, xmax):
+    """A long-format Praat TextGrid with one 'phones' tier."""
+    items = "".join(f"        intervals [{i + 1}]:\n            xmin = {a:.4f}\n"
+                    f"            xmax = {b:.4f}\n            text = \"{text}\"\n"
+                    for i, (a, b, text) in enumerate(intervals))
+    return ('File type = "ooTextFile"\nObject class = "TextGrid"\n\nxmin = 0\n'
+            f'xmax = {xmax:.4f}\ntiers? <exists>\nsize = 1\nitem []:\n    item [1]:\n'
+            '        class = "IntervalTier"\n        name = "phones"\n        xmin = 0\n'
+            f'        xmax = {xmax:.4f}\n        intervals: size = {len(intervals)}\n{items}')
+
+
+def write_vc_data(torch, root, rng, wavs, spk_model):
+    """A DiffVC data dir from phase 33's wavs: HiFi-GAN-convention host mels
+    (80, T), each utterance's embedding by phase 33's encoder, and a
+    TextGrid of random phone intervals (60-160 ms)."""
+    from tpu_speech_torch.audio.mel import mel_spectrogram_np
+    from tpu_speech_torch.data.wav import read_wav
+    from tpu_speech_torch.models.speaker_encoder import embed_utterance, preprocess_wav
+
+    for spk, paths in wavs.items():
+        for d in ("mels", "embeds", "textgrids"):
+            os.makedirs(os.path.join(root, d, spk))
+        for path in paths:
+            uid = os.path.splitext(os.path.basename(path))[0]
+            wav, sr = read_wav(path)
+            wav = wav[: len(wav) // 256 * 256]
+            np.save(os.path.join(root, "mels", spk, f"{uid}_mel.npy"),
+                    mel_spectrogram_np(wav[None])[0].T)
+            with torch.inference_mode():
+                emb = embed_utterance(spk_model, preprocess_wav(wav, sr)).cpu().numpy()
+            np.save(os.path.join(root, "embeds", spk, f"{uid}_embed.npy"), emb)
+            secs, edges = len(wav) / sr, [0.0]
+            while edges[-1] < secs:
+                edges.append(min(secs, edges[-1] + rng.uniform(0.06, 0.16)))
+            phones = [(a, b, TR_PHONES[int(rng.integers(len(TR_PHONES)))])
+                      for a, b in zip(edges[:-1], edges[1:])]
+            with open(os.path.join(root, "textgrids", spk, f"{uid}.TextGrid"), "w") as f:
+                f.write(_textgrid(phones, secs))
+
+
+def phase_vc_train_slice(torch, rng, root, wavs, spk_pt):
+    """34: DiffVC's two-stage training at cli/params_vc.py's width on the
+    card. Phase 33's 256 utterances -> mels, embeddings by phase 33's
+    encoder, TextGrids -> cli.get_avg_mels.main -> cli.train_enc.main at B =
+    128 x 128 frames for 2 epochs (4 steps), then a second run that resumes
+    at epoch 3 (2 steps) -> cli.train_dec.main from its enc.pt at B = 32 for
+    2 epochs (16 steps), then a resumed epoch (8 steps) -> the trained
+    diffvc.pt and phase 33's encoder through cli.inference_vc.main (ml 30).
+    Every step's loss finite; no hand kernel on either stage; the encoder in
+    diffvc.pt bit for bit enc.pt's; the estimator moved in the resumed
+    epoch; the converted mel finite."""
+    from tpu_speech_torch.cli import get_avg_mels, inference_vc, train_dec, train_enc
+    from tpu_speech_torch.ops import _build
+
+    data = os.path.join(root, "vc")
+    t0 = time.perf_counter()
+    write_vc_data(torch, data, rng, wavs, inference_vc.load_speaker_encoder(spk_pt, "cuda"))
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    modes = get_avg_mels.main(["--data-dir", data])
+    t_avg = time.perf_counter() - t0
+    check(set(modes) == set(TR_PHONES), f"average mels for {sorted(modes)}")
+    enc_dir, dec_dir = os.path.join(root, "enc"), os.path.join(root, "dec")
+    launches, runs = {}, {}
+    for stage, cli, extra, epochs in (("enc", train_enc, ["--log-dir", enc_dir], (2, 3)),
+                                      ("dec", train_dec, ["--log-dir", dec_dir], (2, 3))):
+        if stage == "dec":
+            extra = extra + ["--enc-ckpt", runs["enc"][-1]["state_dict"]]
+        _build.reset_launches()
+        runs[stage] = []
+        for n in epochs:
+            t0 = time.perf_counter()
+            res = cli.main(["--data-dir", data, "--epochs", str(n)] + extra)
+            torch.cuda.synchronize()
+            res["wall"] = time.perf_counter() - t0
+            res["sd"] = torch.load(res["state_dict"], weights_only=True)
+            runs[stage].append(res)
+        launches[stage] = dict(_build.LAUNCHES)
+    (e1, e2), (d1, d2) = runs["enc"], runs["dec"]
+    log(f"[34 vc train slice] data: 256 mels, embeddings and TextGrids in {t_data:.1f} s, "
+        f"get_avg_mels {t_avg:.1f} s ({len(modes)} phones); train_enc ({e1['n_params']} "
+        f"parameters, B = 128): {e1['iteration']} steps in {e1['wall']:.1f} s, resumed at epoch "
+        f"{e2['first_epoch']}: {e2['iteration'] - e1['iteration']} steps in {e2['wall']:.1f} s; "
+        f"train_dec ({d1['n_params']} parameters, B = 32): {d1['iteration']} steps in "
+        f"{d1['wall']:.1f} s, resumed at epoch {d2['first_epoch']}: "
+        f"{d2['iteration'] - d1['iteration']} steps in {d2['wall']:.1f} s; hand-kernel launches "
+        f"{sum(launches['enc'].values()) + sum(launches['dec'].values())}")
+    for tag, (r1, r2) in (("enc", runs["enc"]), ("dec", runs["dec"])):
+        hist = r1["history"] + r2["history"]
+        log(f"    {tag} losses {[round(h['loss'], 4) for h in hist]}; grad norms "
+            f"{[round(h['grad_norm'], 3) for h in hist]}")
+        check(all(np.isfinite(list(h.values())).all() for h in hist), f"{tag}: {hist}")
+        check(not any(launches[tag].values()), f"hand kernels on {tag}: {launches[tag]}")
+        with open(os.path.join(r2["log_dir"], "train.log")) as f:
+            check(len(f.read().splitlines()) == 3, f"{tag}: train.log lines")
+    check((e1["iteration"], e2["first_epoch"], e2["iteration"]) == (4, 3, 6),
+          f"enc steps {e1['iteration']} -> epoch {e2['first_epoch']}, {e2['iteration']}")
+    check((d1["iteration"], d2["first_epoch"], d2["iteration"]) == (16, 3, 24),
+          f"dec steps {d1['iteration']} -> epoch {d2['first_epoch']}, {d2['iteration']}")
+    enc_sd = e2["sd"]
+    check(all(torch.equal(d2["sd"][f"encoder.{k}"], v) for k, v in enc_sd.items()),
+          "the decoder's steps moved the encoder")
+    moved = max((d2["sd"][k] - d1["sd"][k]).abs().max().item() for k in d2["sd"]
+                if k.startswith("decoder.estimator."))
+    check(moved > 0, "the estimator did not move in the resumed epoch")
+    src, tgt = wavs["spk00"][0], wavs[f"spk{TR_SPEAKERS - 1:02d}"][0]
+    out = inference_vc.main(["-s", src, "-t", tgt, "-c", d2["state_dict"], "--spk-encoder",
+                             spk_pt, "-n", "30", "-o", os.path.join(root, "converted.wav")])
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in out["times"].items())
+    log(f"    the encoder in diffvc.pt equals enc.pt bit for bit; the estimator moved "
+        f"{moved:.3e} in the resumed epoch; cli.inference_vc on the trained diffvc.pt and "
+        f"phase 33's encoder (ml 30): {out['frames']} frames, max |mel| "
+        f"{out['max_abs_mel']:.2f}, finite {out['finite']}; {stages}")
+    check(out["finite"]["mel"], "the trained model's converted mel is not finite")
+    return {"diffvc_enc_train": launches["enc"], "diffvc_dec_train": launches["dec"]}
+
+
+def _hold_train_step(torch, tag, model, lr, batches, step):
+    """One step on the CPU and on the card from the same weights and batch
+    (``batches[dev]``), the card's under set_sync_debug_mode("error"): the
+    loss within STEP_LOSS_RTOL, each gradient within GRAD_RTOL x its max|g|
+    or GT_GRAD_FLOOR x the largest, the card's parameters within
+    GT_PARAM_RTOL x max(1, |p|) of the CPU's Adam on the card's gradients
+    (phase 28's limits). ``step(model, opt, batch)`` returns the metrics."""
+    import copy
+
+    from tpu_speech_torch.train.optim import AdamW
+
+    side = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        opt = AdamW(m.parameters(), lr)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            met = step(m, opt, batches[dev])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        side[dev] = (dict(m.named_parameters()), float(met["loss"]))
+    (p_cpu, loss_cpu), (p_card, loss_card) = side["cpu"], side["cuda"]
+    ref = copy.deepcopy(model)
+    p_ref = dict(ref.named_parameters())
+    for k, p in p_card.items():
+        p_ref[k].grad = p.grad.cpu()
+    AdamW(ref.parameters(), lr).step()
+    g_max = max(p.grad.abs().max().item() for p in p_cpu.values())
+    worst_g, worst_p = (0.0, ""), (0.0, "")
+    for k, p in p_cpu.items():
+        err = (p_card[k].grad.cpu() - p.grad).abs().max().item()
+        worst_g = max(worst_g, (err / max(GRAD_RTOL * p.grad.abs().max().item(),
+                                          GT_GRAD_FLOOR * g_max), k))
+        rel = ((p_card[k].detach().cpu() - p_ref[k].detach()).abs()
+               / p_ref[k].detach().abs().clamp(min=1.0)).max().item()
+        worst_p = max(worst_p, (rel, k))
+    rel_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"[35 train card vs cpu] {tag}: loss card {loss_card:.6f} cpu {loss_cpu:.6f} (rel "
+        f"{rel_loss:.2e}, limit {STEP_LOSS_RTOL}); worst gradient at {worst_g[0]:.3f} of its "
+        f"bound ({worst_g[1]}) over {len(p_cpu)} tensors; parameters after Adam "
+        f"{worst_p[0]:.2e} x max(1, |p|) from the CPU's Adam on the card's gradients "
+        f"({worst_p[1]}; limit {GT_PARAM_RTOL}); no host sync in the card's step")
+    check(rel_loss <= STEP_LOSS_RTOL, f"{tag}: loss {loss_card} vs {loss_cpu}")
+    check(worst_g[0] <= 1.0, f"{tag}: gradient {worst_g}")
+    check(worst_p[0] <= GT_PARAM_RTOL, f"{tag}: parameters after Adam {worst_p}")
+    return {"loss_rel": rel_loss, "grad": worst_g[0], "param": worst_p[0]}
+
+
+def phase_train_cpu_vs_card(torch):
+    """35: the encoder step, the decoder step and the GE2E step at full
+    width and a small batch on the card against the CPU: the same seeded
+    weights (rezero gains drawn), the same batch, dropout off (the encoder
+    in eval mode; the decoder in train mode, whose loss runs the encoder
+    frozen), the decoder's t and z given; phase 28's limits; the card's
+    steps make no host sync."""
+    from tpu_speech_torch.configs import diffvc as vc_cfg
+    from tpu_speech_torch.models.diffvc import DiffVC
+    from tpu_speech_torch.models.speaker_encoder import SpeakerEncoder
+    from tpu_speech_torch.train.diffvc import dec_train_step, enc_train_step
+    from tpu_speech_torch.train.speaker_encoder import ge2e_train_step
+
+    g = torch.Generator().manual_seed(TR_SEED)
+    model = DiffVC(**vc_cfg.model_kwargs()).init_weights(g)
+    b, t = 2, vc_cfg.train_frames
+    r = np.random.default_rng(TR_SEED)
+    enc_batch = {"x": r.normal(-5, 2, (b, t, 80)).astype(np.float32),
+                 "y": r.normal(-5, 2, (b, t, 80)).astype(np.float32),
+                 "lengths": np.array([t, t * 3 // 4], np.int32)}
+    c = r.standard_normal((b, 256)).astype(np.float32)
+    dec_batch = {"mel1": r.normal(-5, 2, (b, t, 80)).astype(np.float32),
+                 "mel2": r.normal(-5, 2, (b, t, 80)).astype(np.float32),
+                 "mel_lengths": np.array([t, t * 5 // 8], np.int32),
+                 "c": c / np.linalg.norm(c, axis=1, keepdims=True)}
+    draws = {"t": np.array([0.23, 0.81], np.float32),
+             "z": r.standard_normal((b, t, 80)).astype(np.float32)}
+    frames = (r.uniform(0, 1, (4, 5, 160, 40)) ** 4 * 5).astype(np.float32)
+
+    def on(dev, arrays):
+        return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+    res = {"enc": _hold_train_step(
+        torch, f"encoder step, B = {b} x {t} (eval: dropout off), Adam 5e-4",
+        model.encoder.eval(), 5e-4, {d: on(d, enc_batch) for d in ("cpu", "cuda")},
+        enc_train_step)}
+    dec_inputs = {d: (on(d, dec_batch), on(d, draws)) for d in ("cpu", "cuda")}
+    res["dec"] = _hold_train_step(
+        torch, f"decoder step, B = {b} x {t}, t and z given, Adam 1e-4", model.train(), 1e-4,
+        dec_inputs, lambda m, opt, bd: dec_train_step(m, opt, bd[0], **bd[1]))
+    spk = SpeakerEncoder().init_weights(torch.Generator().manual_seed(TR_SEED + 1)).train()
+    res["ge2e"] = _hold_train_step(
+        torch, "GE2E step, 4 speakers x 5 utterances x 160 frames, Adam 1e-4", spk, 1e-4,
+        {d: torch.from_numpy(frames).to(d) for d in ("cpu", "cuda")}, ge2e_train_step)
+    return res
+
+
+def _lstm_flop(batch, frames, n_in, hidden, layers):
+    """A multi-layer LSTM's products in training: forward 2 x B x T x 4H x
+    (in + H) a layer, backward twice that."""
+    fwd = sum(2 * batch * frames * 4 * hidden * ((n_in if i == 0 else hidden) + hidden)
+              for i in range(layers))
+    return 3 * fwd
+
+
+def _train_point(torch, tag, step, extra_flop=0, host_ms=None):
+    """A training step's recipe point: CUDA events (median of 5 after 2
+    warm-ups), peak memory, no hand kernel, the FLOP bound (convolutions and
+    products by torch.utils.flop_counter over one step, forward and
+    backward, plus ``extra_flop``, at the CUDA cores' fp32 rate), and a
+    profile (kernels per step, busy share, top device ops)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpu_speech_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, n=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _build.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()), f"{tag}: hand kernels {_build.LAUNCHES}")
+    counted = fc.get_total_flops()
+    ops = {str(op) for counts in fc.get_flop_counts().values() for op in counts}
+    if any("rnn" in op or "lstm" in op for op in ops):
+        extra_flop = 0  # the counter saw the recurrence itself
+    flop = counted + extra_flop
+    bound_ms = flop / PEAK_FP32 * 1e3
+    host = "" if host_ms is None else f"; the host's batch {host_ms:.1f} ms a step"
+    log(f"[36 train step time] {tag}: {ms:.2f} ms a step (median of 5), peak {peak:.2f} GiB; "
+        f"bound {bound_ms:.2f} ms ({flop / 1e12:.3f} TFLOP at {PEAK_FP32 / 1e12:.0f} TFLOP/s "
+        f"fp32, {counted / 1e12:.3f} counted + {extra_flop / 1e12:.3f} by hand; "
+        f"{ms / bound_ms:.2f}x){host}")
+    prof = profile_slice(torch, step, batches=2, top=8, tag=f"36 profile, {tag}")
+    return {"ms": ms, "peak_gib": peak, "tflop": flop / 1e12, "bound_ms": bound_ms,
+            "host_ms": host_ms, "profile": None if prof is None else {
+                k: prof[k] for k in ("kernels", "busy_ms", "span_ms", "share")}}
+
+
+def phase_train_time(torch, clean):
+    """36: the recipe's points, fp32 with TF32 off, the batch on the card:
+    the encoder step at B = 128 x 128 (dropout on, Adam 5e-4), the decoder
+    step at B = 32 x 128 (Adam 1e-4, t and z drawn), the GE2E step at 64
+    speakers x 10 utterances x 160 frames x 40 mels (Adam 1e-4), each with
+    _train_point's numbers; the GE2E sampler's host time (640 .npy loads
+    and crops a batch from phase 33's data) beside its device time."""
+    from tpu_speech_torch.cli import train_enc
+    from tpu_speech_torch.configs import diffvc as vc_cfg
+    from tpu_speech_torch.data.speaker_verification import SpeakerVerificationSampler
+    from tpu_speech_torch.models.diffvc import DiffVC
+    from tpu_speech_torch.models.speaker_encoder import SpeakerEncoder
+    from tpu_speech_torch.train.diffvc import dec_train_step, enc_train_step
+    from tpu_speech_torch.train.optim import AdamW
+    from tpu_speech_torch.train.speaker_encoder import ge2e_train_step
+    from tpu_speech_torch.train.trainer import step_generator
+
+    r = np.random.default_rng(0)
+    res = {}
+    b, t = ENC_POINT
+    enc = train_enc.build_encoder().cuda().train()
+    opt = AdamW(enc.parameters(), 5e-4)
+    batch = {"x": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+             "y": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+             "lengths": torch.full((b,), t, device="cuda")}
+    res["enc"] = _train_point(torch, f"encoder step, B = {b} x {t}",
+                              lambda: enc_train_step(enc, opt, batch))
+    del enc, opt, batch
+    torch.cuda.empty_cache()
+
+    b, t = DEC_POINT
+    torch.manual_seed(vc_cfg.seed)
+    model = DiffVC(**vc_cfg.model_kwargs()).cuda().train()
+    opt = AdamW(model.parameters(), 1e-4)
+    c = torch.randn(b, 256, generator=torch.Generator().manual_seed(0))
+    batch = {"mel1": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+             "mel2": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+             "mel_lengths": torch.full((b,), t, device="cuda"),
+             "c": (c / c.norm(dim=1, keepdim=True)).cuda()}
+    it = [0]
+
+    def dec_step():
+        it[0] += 1
+        return dec_train_step(model, opt, batch, step_generator(0, it[0], "cuda"))
+
+    res["dec"] = _train_point(torch, f"decoder step, B = {b} x {t}", dec_step)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+    s, u, n = GE2E_POINT
+    sampler = SpeakerVerificationSampler(clean, s, u, n, seed=0)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        frames = sampler.next_batch()
+        host.append((time.perf_counter() - t0) * 1e3)
+    frames = torch.from_numpy(frames.reshape(s, u, n, -1)).cuda()
+    spk = SpeakerEncoder().init_weights(torch.Generator().manual_seed(0)).cuda().train()
+    opt = AdamW(spk.parameters(), 1e-4)
+    res["ge2e"] = _train_point(
+        torch, f"GE2E step, {s} speakers x {u} utterances x {n} frames",
+        lambda: ge2e_train_step(spk, opt, frames),
+        extra_flop=_lstm_flop(s * u, n, 40, spk.lstm.hidden_size, spk.lstm.num_layers),
+        host_ms=float(np.median(host)))
+    return res
+
+
 def write_corpus(root, rng):
     import scipy.io.wavfile
 
@@ -2835,6 +3284,13 @@ def main():
         vc_launches, vc_cli = phase_vc_slice(torch, rng, root)
     phase_vc_cpu_vs_card(torch)
     phase_vc_time(torch, vc_cli)
+    tr_rng = np.random.default_rng(TR_SEED)
+    with tempfile.TemporaryDirectory() as root:
+        ge2e_launches, spk_pt, tr_wavs, clean = phase_spk_train(torch, tr_rng, root)
+        tr_launches = phase_vc_train_slice(torch, tr_rng, root, tr_wavs, spk_pt)
+        phase_train_cpu_vs_card(torch)
+        phase_train_time(torch, clean)
+    tr_launches["ge2e_train"] = ge2e_launches
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2845,7 +3301,8 @@ def main():
         return {"ctc_transcription": launches[key], "pretrain_step": pre_launches[key],
                 "finetune_step": ft_launches[key], "pretrain_step_bf16": pre16_launches[key],
                 "finetune_step_bf16": ft16_launches[key], "tts_e2e": tts_launches[key],
-                "gradtts_train_step": gt_launches[key], "diffvc_conversion": vc_launches[key]}
+                "gradtts_train_step": gt_launches[key], "diffvc_conversion": vc_launches[key],
+                **{path: counts[key] for path, counts in tr_launches.items()}}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -2954,6 +3411,8 @@ def main():
                                src="monotonic_align.cu", **k_mas))
     check(len(kernels) == 14, f"{len(kernels)} kernel entries")  # K1, 6 fp32, 6 bf16, MAS
     for k in kernels:
+        check(all(k["launches_by_path"][path] == 0 for path in tr_launches),
+              f"{k['name']} launched on a training path of phases 33-34")
         path_launches = {p: n for p, n in k["launches_by_path"].items() if not p.startswith("k3_")}
         if not k["name"].startswith("fused_self_attention"):  # K3: no path reaches it
             check(sum(path_launches.values()) > 0, f"{k['name']} never ran on a path")

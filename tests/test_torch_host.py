@@ -1,9 +1,10 @@
 """The port's copies of the host-side code against the JAX package's originals.
 
 ``tpu_speech_torch`` keeps its own copies of the config dataclasses and
-overrides, the tokenizers, the TTS text frontend, the WER tools and the
-SPIRAL data pipeline (``utils/config.py``, ``text/``, ``eval/wer.py``,
-``data/``). Each is held here against the module it was copied from, on the
+overrides, the tokenizers, the TTS text frontend, the WER tools, the SPIRAL
+data pipeline, the DiffVC and GE2E data paths (``utils/config.py``,
+``text/``, ``eval/wer.py``, ``data/``), the plotting helpers and the
+speaker-data preprocessing CLI. Each is held here against the module it was copied from, on the
 same inputs.
 """
 
@@ -11,6 +12,7 @@ import dataclasses
 import json
 import os
 import random
+import shutil
 
 import numpy as np
 import pytest
@@ -330,3 +332,219 @@ def test_vc_denoiser_same(monkeypatch, tmp_path):
     path = str(tmp_path / "vc.wav")
     write_wav(path, wav, 22050)
     np.testing.assert_array_equal(t_cli.get_mel(path), j_cli.get_mel(path))
+
+
+# ---------------------------------------------------------------- DiffVC and GE2E training
+
+TEXTGRID = """File type = "ooTextFile"
+Object class = "TextGrid"
+
+xmin = 0
+xmax = {xmax}
+tiers? <exists>
+size = 2
+item []:
+    item [1]:
+        class = "IntervalTier"
+        name = "words"
+        xmin = 0
+        xmax = {xmax}
+        intervals: size = 1
+        intervals [1]:
+            xmin = 0
+            xmax = {xmax}
+            text = "word"
+    item [2]:
+        class = "IntervalTier"
+        name = "phones"
+        xmin = 0
+        xmax = {xmax}
+        intervals: size = {n}
+{items}"""
+
+
+def _write_textgrid(path, phones, xmax):
+    edges = np.linspace(0, xmax, len(phones) + 1)
+    items = "".join(f"        intervals [{i + 1}]:\n            xmin = {edges[i]:.4f}\n"
+                    f"            xmax = {edges[i + 1]:.4f}\n            text = \"{p}\"\n"
+                    for i, p in enumerate(phones))
+    with open(path, "w") as f:
+        f.write(TEXTGRID.format(xmax=xmax, n=len(phones), items=items))
+
+
+def _vc_tree(root, rng, speakers=("p225", "p252", "s1"), n_utts=11):
+    """A DiffVC data dir: mels (80, T), embeddings and TextGrids; VCTK-like
+    ids '<spk>_<sentence>', one utterance per speaker with an 'spn' phone."""
+    phones = ["sil", "AH0", "S", "IY1", "T"]
+    for spk in speakers:
+        for d in ("mels", "embeds", "textgrids"):
+            os.makedirs(os.path.join(root, d, spk), exist_ok=True)
+        for u in range(n_utts):
+            uid = f"{spk}_{u + 1:03d}"
+            t = int(rng.integers(40, 90))
+            mel = np.round(rng.normal(-5, 2, (80, t)), 1).astype(np.float32)
+            np.save(os.path.join(root, "mels", spk, f"{uid}_mel.npy"), mel)
+            np.save(os.path.join(root, "embeds", spk, f"{uid}_embed.npy"),
+                    rng.standard_normal(256).astype(np.float32))
+            ph = list(rng.choice(phones, size=6)) + (["spn"] if u == 2 else [])
+            _write_textgrid(os.path.join(root, "textgrids", spk, f"{uid}.TextGrid"), ph,
+                            t * 256 / 22050)
+    return root
+
+
+def test_textgrid_reader_same(tmp_path):
+    from tpu_speech.data import textgrid as j_tg
+    from tpu_speech_torch.data import textgrid as t_tg
+
+    path = str(tmp_path / "a.TextGrid")
+    _write_textgrid(path, ["sil", "AH0", "spn", "T"], 0.73)
+    for tier in ("phones", "words"):
+        assert t_tg.get_tier(path, tier) == [t_tg.Interval(iv.start_time, iv.end_time, iv.text)
+                                            for iv in j_tg.get_tier(path, tier)]
+    assert t_tg.has_phone(path) and j_tg.has_phone(path)
+    assert t_tg.has_phone(str(tmp_path / "absent")) == j_tg.has_phone(str(tmp_path / "absent"))
+    with pytest.raises(KeyError):
+        t_tg.get_tier(path, "syllables")
+
+
+def test_diffvc_data_pipeline_same(tmp_path):
+    """VCEncDataset (the 'spn' filter, exclusions), VCDecDataset (the
+    speakers with enough utterances, a validation file), their collates'
+    crops, and the VCTK variants: the same order, items and batches."""
+    from tpu_speech.data import diffvc as j_vc
+    from tpu_speech_torch.data import diffvc as t_vc
+
+    root = _vc_tree(str(tmp_path), np.random.default_rng(0))
+    os.makedirs(os.path.join(root, "mels_mode"), exist_ok=True)
+    for spk in os.listdir(os.path.join(root, "mels")):
+        shutil.copytree(os.path.join(root, "mels", spk), os.path.join(root, "mels_mode", spk))
+        for name in os.listdir(os.path.join(root, "mels_mode", spk)):
+            base = os.path.join(root, "mels_mode", spk, name)
+            os.rename(base, base.replace("_mel.npy", "_avgmel.npy"))
+    exc = str(tmp_path / "exc.txt")
+    with open(exc, "w") as f:
+        f.write("p225_004\ns1_007\n")
+    pairs = [
+        (t_vc.VCEncDataset(root, exc), j_vc.VCEncDataset(root, exc)),
+        (t_vc.VCDecDataset(root, exc, exc), j_vc.VCDecDataset(root, exc, exc)),
+        (t_vc.VCDecDataset(root, min_utts_per_speaker=12),
+         j_vc.VCDecDataset(root, min_utts_per_speaker=12)),
+        (t_vc.VCTKEncDataset(root), j_vc.VCTKEncDataset(root)),
+        (t_vc.VCTKDecDataset(root), j_vc.VCTKDecDataset(root)),
+    ]
+    for ours, theirs in pairs:
+        assert ours.train_info == theirs.train_info
+        assert len(ours) == len(theirs)
+    assert len(pairs[0][0]) == 3 * 11 - 3 - 2  # an 'spn' utterance per speaker, 2 excluded
+    assert len(pairs[2][0]) == 0 and pairs[1][0].valid_info == pairs[1][1].valid_info
+    for (ours, theirs), cls in ((pairs[0], "VCEncBatchCollate"), (pairs[1], "VCDecBatchCollate")):
+        ct, cj = getattr(t_vc, cls)(64, 80, seed=5), getattr(j_vc, cls)(64, 80, seed=5)
+        for start in (0, 6):
+            idx = range(start, start + 6)
+            bt = ct([ours[i] for i in idx])
+            bj = cj([theirs[i] for i in idx])
+            assert bt.keys() == bj.keys()
+            for k in bt:
+                assert bt[k].dtype == bj[k].dtype, k
+                np.testing.assert_array_equal(bt[k], bj[k])
+
+
+def test_build_average_mels_same(tmp_path):
+    """Per-phoneme medians, their corpus mode and the painted targets:
+    equal, file for file."""
+    from tpu_speech.data import diffvc as j_vc
+    from tpu_speech_torch.data import diffvc as t_vc
+
+    root = _vc_tree(str(tmp_path), np.random.default_rng(1), n_utts=4)
+    modes_t = t_vc.build_average_mels(root, avg_type="t")
+    modes_j = j_vc.build_average_mels(root, avg_type="j")
+    assert sorted(modes_t) == sorted(modes_j)
+    for ph in modes_t:
+        np.testing.assert_array_equal(modes_t[ph], modes_j[ph])
+    for spk in os.listdir(os.path.join(root, "mels_t")):
+        names = sorted(os.listdir(os.path.join(root, "mels_t", spk)))
+        assert names == sorted(os.listdir(os.path.join(root, "mels_j", spk))) and names
+        for name in names:
+            np.testing.assert_array_equal(np.load(os.path.join(root, "mels_t", spk, name)),
+                                          np.load(os.path.join(root, "mels_j", spk, name)))
+
+
+def test_random_cycler_same():
+    """RandomCycler's bounded-starvation order, the same generator seed:
+    the same items (all of them at least count // n times)."""
+    from tpu_speech.data.speaker_verification import RandomCycler as JCycler
+    from tpu_speech_torch.data.speaker_verification import RandomCycler as TCycler
+
+    items = list("abcdefg")
+    ours, theirs = (c(items, np.random.default_rng(4)) for c in (TCycler, JCycler))
+    for count in (3, 7, 5, 16, 1, 9):
+        got = ours.sample(count)
+        assert got == theirs.sample(count)
+        assert min(got.count(i) for i in items) >= count // len(items)
+    with pytest.raises(ValueError, match="empty"):
+        TCycler([], np.random.default_rng(0))
+
+
+def test_pca_project_same():
+    from tpu_speech.utils.plotting import pca_project as j_pca
+    from tpu_speech_torch.utils.plotting import pca_project as t_pca
+
+    x = np.random.default_rng(2).standard_normal((30, 12)).astype(np.float32)
+    for k in (2, 3):
+        np.testing.assert_array_equal(t_pca(x, k), j_pca(x, k))
+
+
+def test_read_audio_same(tmp_path):
+    """A wav reads natively, alike; a compressed file goes through the
+    host's decoder, or, without one, raises alike."""
+    from tpu_speech.data.wav import read_audio as j_read
+    from tpu_speech_torch.data.wav import read_audio as t_read
+
+    wav = _vc_wav(3, 0.4, 22050)
+    path = str(tmp_path / "a.WAV")
+    write_wav(path, wav, 22050)
+    (a, sr_a), (b, sr_b) = t_read(path), j_read(path)
+    assert sr_a == sr_b == 22050
+    np.testing.assert_array_equal(a, b)
+    bogus = str(tmp_path / "b.flac")
+    with open(bogus, "wb") as f:
+        f.write(b"not audio")
+    outcomes = []
+    for read in (t_read, j_read):
+        try:
+            outcomes.append(("ok", read(bogus)[1]))
+        except RuntimeError as e:
+            outcomes.append(("raised", str(e)))
+    assert outcomes[0] == outcomes[1]
+
+
+def test_preprocess_speaker_dirs_same(tmp_path, monkeypatch):
+    """cli/preprocess_spk.py::preprocess_speaker_dirs, the port's CLI
+    against the JAX CLI on the same tree: the same files, frames and
+    sources (the log's timestamps aside)."""
+    monkeypatch.syspath_prepend(os.path.join(REPO, "cli"))
+    import preprocess_spk as j_cli
+    from tpu_speech_torch.cli import preprocess_spk as t_cli
+
+    raw = tmp_path / "raw"
+    for s, f0 in enumerate((120.0, 210.0)):
+        (raw / f"spk{s}" / "ch1").mkdir(parents=True)
+        for u in range(2):
+            write_wav(str(raw / f"spk{s}" / "ch1" / f"u{u}.wav"), _vc_wav(s * 2 + u, 1.9, 22050),
+                      22050)
+    write_wav(str(raw / "spk1" / "tiny.wav"), _vc_wav(9, 0.3, 16000), 16000)
+    n_t = t_cli.preprocess_speaker_dirs(str(raw), str(tmp_path / "t"), "toy")
+    n_j = j_cli.preprocess_speaker_dirs(str(raw), str(tmp_path / "j"), "toy")
+    assert n_t == n_j == 4
+    for spk in ("spk0", "spk1"):
+        names = sorted(os.listdir(tmp_path / "t" / spk))
+        assert names == sorted(os.listdir(tmp_path / "j" / spk))
+        for name in names:
+            a, b = tmp_path / "t" / spk / name, tmp_path / "j" / spk / name
+            if name.endswith(".npy"):
+                np.testing.assert_array_equal(np.load(a), np.load(b))
+            else:
+                assert a.read_text() == b.read_text()
+    stats = [[ln for ln in (tmp_path / d / "Log_toy.txt").read_text().splitlines()
+              if ln.startswith("\t")] for d in ("t", "j")]
+    assert stats[0] == stats[1] and stats[0]

@@ -4,8 +4,9 @@ In a fresh interpreter, a ``sys.meta_path`` finder raises on any import of
 ``tpu_speech`` (but not ``tpu_speech_torch``) or ``jax``/``jaxlib``; then
 every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
 ``chip_smoke`` are imported, and ``run_spiral --help``, the TTS CLI's
-``inference --help``, the Grad-TTS training CLI's ``train --help`` and the
-voice-conversion CLI's ``inference_vc --help`` run.
+``inference --help``, the Grad-TTS training CLI's ``train --help``, the
+voice-conversion CLI's ``inference_vc --help`` and the five DiffVC and
+speaker-encoder training CLIs' ``--help`` run.
 """
 
 import os
@@ -37,15 +38,18 @@ names = ["chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(tpu_speech_torch.__path__, "tpu_speech_torch.")]
 for name in names:
     importlib.import_module(name)
-from tpu_speech_torch.cli import inference, inference_vc, run_spiral, train
+from tpu_speech_torch.cli import (get_avg_mels, inference, inference_vc, preprocess_spk,
+                                  run_spiral, train, train_dec, train_enc, train_spk_encoder)
 
-for cli in (run_spiral, inference, train, inference_vc):
+for cli in (run_spiral, inference, train, inference_vc, get_avg_mels, train_enc, train_dec,
+            preprocess_spk, train_spk_encoder):
     try:
         cli.main(["--help"])
     except SystemExit as e:
         assert e.code == 0, e.code
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not leaked, leaked
+print(" ".join(names))
 print("IMPORTED", len(names))
 """
 
@@ -61,3 +65,9 @@ def test_port_imports_no_jax_package():
     assert "--hifigan-config" in proc.stdout
     assert "Grad-TTS training CLI" in proc.stdout
     assert "--spk-encoder" in proc.stdout
+    for flag in ("--avg-type", "--exc-file", "--enc-ckpt", "--val-file", "--skip_existing",
+                 "--speakers_per_batch", "--backup_every"):
+        assert flag in proc.stdout, flag
+    for name in ("train.diffvc", "train.speaker_encoder", "data.diffvc", "data.textgrid",
+                 "data.speaker_verification", "cli.train_spk_encoder"):
+        assert f"tpu_speech_torch.{name}" in proc.stdout, name

@@ -50,6 +50,11 @@ class DataLoader:
         self.batch_fn = batch_fn
         self._epoch = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """The next iteration shuffles as epoch ``epoch + 1`` does (a
+        resumed run continues the straight run's order)."""
+        self._epoch = epoch
+
     def __len__(self):
         n = len(self.dataset) // self.num_shards
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)

@@ -1,7 +1,8 @@
-"""Waveform input (no soundfile/librosa dependency).
+"""Waveform input and output (no soundfile/librosa dependency).
 
-The port's own copy of ``read_wav`` and ``write_wav`` of
-``tpu_speech/data/wav.py:9, 55-63``.
+The port's own copy of ``tpu_speech/data/wav.py``: ``read_wav``,
+``decode_to_wav`` (compressed audio through whichever of ffmpeg, flac or sox
+the host has), ``read_audio`` and ``write_wav``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,36 @@ def read_wav(path: str):
     if wav.ndim > 1:
         wav = wav.mean(axis=1)
     return wav, sr
+
+
+def decode_to_wav(src_path: str, wav_path: str) -> bool:
+    """Decode a compressed audio file (flac, ...) to 16-bit wav with
+    whichever host tool exists (ffmpeg/flac/sox). Returns success."""
+    import subprocess
+
+    for cmd in (
+        ["ffmpeg", "-y", "-loglevel", "quiet", "-i", src_path, wav_path],
+        ["flac", "-s", "-f", "-d", src_path, "-o", wav_path],
+        ["sox", src_path, wav_path],
+    ):
+        try:
+            subprocess.run(cmd, check=True, capture_output=True)
+            return True
+        except (subprocess.CalledProcessError, FileNotFoundError):
+            continue
+    return False
+
+
+def read_audio(path: str):
+    """Read wav natively; decode other formats via decode_to_wav first."""
+    if path.lower().endswith(".wav"):
+        return read_wav(path)
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=".wav") as tmp:
+        if not decode_to_wav(path, tmp.name):
+            raise RuntimeError(f"no decoder available for {path}")
+        return read_wav(tmp.name)
 
 
 def write_wav(path: str, wav: np.ndarray, sr: int):

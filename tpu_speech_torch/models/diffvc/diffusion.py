@@ -1,8 +1,10 @@
-"""DiffVC diffusion: the closed-form VP-SDE algebra and the pf/em/ml/dpm
-samplers.
+"""DiffVC diffusion: the closed-form VP-SDE algebra, the pf/em/ml/dpm
+samplers and the decoder's score-matching loss.
 
-The port's counterpart of ``tpu_speech/models/diffvc/diffusion.py:18-164``
-(the reference DiffVC/model/diffusion.py:109-205). The per-step
+The port's counterpart of ``tpu_speech/models/diffvc/diffusion.py:18-193``
+(the reference DiffVC/model/diffusion.py:109-222). ``forward_diffusion`` and
+``diffusion_loss`` take their draws (t, z) as optional arguments; without
+them they come from ``generator`` on the state's device, t first. The per-step
 coefficients depend only on the step index: they are one numpy float32
 table, built vectorised in the JAX package's order of operations (kappa
 divides 1 - gamma(t - h, t) by gamma0 * beta * h, a cancellation where a
@@ -76,6 +78,43 @@ def compute_diffused_mean(x0, mask, mean, t, beta_min, beta_max):
     else:
         one_minus_w = 1.0 - w
     return (x0 * w + mean * one_minus_w) * mask
+
+
+def forward_diffusion(x0, mask, mean, t, beta_min: float, beta_max: float,
+                      z: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
+    """x_t ~ N(gamma x0 + (1 - gamma) mean, 1 - gamma^2) at t (B,): x0, mean
+    and ``z`` (the standard-normal draw, from ``generator`` when not given)
+    of one shape, mask broadcasting against them. Returns (xt, z), both
+    masked."""
+    tb = t.view(-1, *(1,) * (x0.dim() - 1))
+    xt_mean = x0 * get_gamma(0.0, tb, beta_min, beta_max) + mean * (
+        1.0 - get_gamma(0.0, tb, beta_min, beta_max))
+    variance = 1.0 - get_gamma(0.0, tb, beta_min, beta_max, p=2.0)
+    if z is None:
+        z = torch.randn(x0.shape, generator=generator, dtype=x0.dtype, device=x0.device)
+    xt = xt_mean * mask + z * torch.sqrt(variance)
+    return xt * mask, z * mask
+
+
+def diffusion_loss(score_fn, x0, mask, mean, ref, mean_ref, n_feats: int, beta_min: float,
+                   beta_max: float, offset: float = 1e-5, t: Optional[torch.Tensor] = None,
+                   z: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Score matching at t ~ U[offset, 1 - offset] (B,): the reference is
+    diffused to the same t as the source, with the source's mask.
+    ``score_fn(xt, xt_ref, t)`` evaluates the estimator; ``t`` and ``z``
+    (x0's shape) replace the draws."""
+    if t is None:
+        t = torch.rand(x0.shape[0], generator=generator, dtype=x0.dtype, device=x0.device)
+        t = torch.clamp(t, offset, 1.0 - offset)
+    xt, z = forward_diffusion(x0, mask, mean, t, beta_min, beta_max, z=z, generator=generator)
+    tb = t.view(-1, *(1,) * (x0.dim() - 1))
+    xt_ref = (ref * get_gamma(0.0, tb, beta_min, beta_max)
+              + mean_ref * (1.0 - get_gamma(0.0, tb, beta_min, beta_max))) * mask
+    z_est = score_fn(xt, xt_ref, t)
+    z_est = z_est * torch.sqrt(1.0 - get_gamma(0.0, tb, beta_min, beta_max, p=2.0))
+    return torch.sum((z_est + z) ** 2) / (torch.sum(mask) * n_feats)
 
 
 def step_table(n_timesteps: int, beta_min: float, beta_max: float, mode: str) -> np.ndarray:

@@ -84,15 +84,22 @@ class PostNet(nn.Module):
 
 class FwdDiffusion(nn.Module):
     """MelEncoder + PostNet (vc.py:19-48): mel (B, F, T), mask (B, 1, T) ->
-    the average-voice mel (B, F, T)."""
+    the average-voice mel (B, F, T). ``compute_loss`` is stage 1's training
+    loss (``tpu_speech/models/diffvc/encoder.py:100``)."""
 
     def __init__(self, n_feats: int = 80, channels: int = 192, filters: int = 768,
                  heads: int = 2, layers: int = 6, kernel: int = 3, dropout: float = 0.1,
                  window_size: int = 4, dim: int = 128):
         super().__init__()
+        self.n_feats = n_feats
         self.encoder = MelEncoder(n_feats, channels, filters, heads, layers, kernel, dropout,
                                   window_size)
         self.postnet = PostNet(dim)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return self.postnet(self.encoder(x, mask), mask)
+
+    def compute_loss(self, x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The masked MSE to the phoneme-averaged mel ``y`` (B, F, T), over
+        sum(mask) x n_feats."""
+        return torch.sum((self(x, mask) - y) ** 2 * mask) / (torch.sum(mask) * self.n_feats)

@@ -1,8 +1,8 @@
 """DiffVC: the average-voice encoder and the speaker-conditional diffusion
-decoder, and any-to-any conversion.
+decoder, the decoder's training loss, and any-to-any conversion.
 
 The port's counterpart of ``tpu_speech/models/diffvc/vc.py:27-118`` (the
-reference DiffVC/model/vc.py:53-127). The module tree is the reference's
+reference DiffVC/model/vc.py:53-144). The module tree is the reference's
 (``encoder``, ``decoder.estimator``), so a reference ``state_dict`` loads
 with ``load_state_dict(strict=True)``. The public functions take and return
 the JAX package's (B, T, F); inside, activations are channels-first (B, F,
@@ -11,17 +11,35 @@ T) and (B, C, F, T), cuDNN's layout.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
 
 from tpu_speech_torch.models.diffusion import Decoder
-from tpu_speech_torch.models.diffvc.diffusion import compute_diffused_mean, reverse_diffusion
+from tpu_speech_torch.models.diffvc.diffusion import (
+    compute_diffused_mean,
+    diffusion_loss,
+    reverse_diffusion,
+)
 from tpu_speech_torch.models.diffvc.encoder import FwdDiffusion
 from tpu_speech_torch.models.diffvc.unet import GradLogPEstimatorVC
 from tpu_speech_torch.nn.init import seeded_init_
 from tpu_speech_torch.ops.masks import sequence_mask
+
+
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """Within: ``module`` in eval mode (its dropout off) and no autograd;
+    after: its mode as before."""
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        module.train(was_training)
 
 
 class DiffVC(nn.Module):
@@ -49,6 +67,29 @@ class DiffVC(nn.Module):
             xt.transpose(1, 2), x_mask[:, None, :].to(xt.dtype), mean.transpose(1, 2),
             xt_ref.transpose(1, 2), ref_mask[:, None, :].to(xt.dtype), c, t)
         return out.transpose(1, 2)
+
+    def forward(self, x, x_lengths, x_ref, c, t: Optional[torch.Tensor] = None,
+                z: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The decoder's score-matching loss (``tpu_speech/models/diffvc/vc.py:61``):
+        x and x_ref (B, T, F) two crops of one utterance, x_lengths (B,), c
+        (B, 256) its speaker embedding. Both means come from the encoder
+        with its dropout off and without gradient, whatever this module's
+        mode; the reference is encoded and diffused under the source's mask.
+        ``t`` (B,) and ``z`` (B, T, F) replace the draws of ``generator``."""
+        x_mask = sequence_mask(x_lengths, x.shape[1]).to(x.dtype)[:, None, :]  # (B, 1, T)
+        xc, refc = x.transpose(1, 2), x_ref.transpose(1, 2)
+        with frozen(self.encoder):
+            mean = self.encoder(xc, x_mask)
+            mean_ref = self.encoder(refc, x_mask)
+        estimator = self.decoder.estimator
+
+        def score_fn(xt, xt_ref, t):
+            return estimator(xt, x_mask, mean, xt_ref, x_mask, c, t)
+
+        return diffusion_loss(score_fn, xc, x_mask, mean, refc, mean_ref, self.n_feats,
+                              self.beta_min, self.beta_max, t=t,
+                              z=None if z is None else z.transpose(1, 2), generator=generator)
 
     def init_weights(self, generator: torch.Generator) -> "DiffVC":
         """Seeded random weights (``nn/init.py::seeded_init_``)."""

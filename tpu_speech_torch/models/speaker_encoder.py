@@ -1,17 +1,17 @@
 """The GE2E speaker encoder (Real-Time-Voice-Cloning style) and its host
 frontend.
 
-The port's counterpart of ``tpu_speech/models/speaker_encoder.py:21-102,
-158-267`` (the reference DiffVC/speaker_encoder/encoder/{model,audio,
-inference}.py): a 3-layer LSTM over 40-mel power frames at 16 kHz, the last
-layer's final hidden state -> Linear -> ReLU -> L2 normalisation (floor
-1e-12), a 256-d embedding; at inference the utterance is cut into
+The port's counterpart of ``tpu_speech/models/speaker_encoder.py`` (the
+reference DiffVC/speaker_encoder/encoder/{model,audio,inference}.py): a
+3-layer LSTM over 40-mel power frames at 16 kHz, the last layer's final
+hidden state -> Linear -> ReLU -> L2 normalisation (floor 1e-12), a 256-d
+embedding; at inference the utterance is cut into
 overlapping 160-frame partials whose embeddings are averaged and
 normalised. The module tree is the reference's (``lstm.weight_ih_l0``,
 ``linear``, ``similarity_weight``/``similarity_bias``), so a reference
 ``{'model_state': ...}`` checkpoint loads as it is; the two GE2E scalars
-score training only. GE2E's loss, ``similarity_matrix`` and the EER wait
-for the encoder's training (ROADMAP.md, Queue 1).
+score training only, in ``similarity_matrix`` and ``ge2e_loss`` (on the
+device) and ``equal_error_rate`` (host numpy).
 
 The frontend (``wav_to_mel_spectrogram``, ``normalize_volume``,
 ``trim_long_silences``, ``preprocess_wav``, ``compute_partial_slices``) is
@@ -78,6 +78,56 @@ class SpeakerEncoder(nn.Module):
         w.copy_(torch.randn(w.shape, generator=generator) * w.shape[1] ** -0.5)
         self.linear.bias.zero_()
         return self
+
+
+def similarity_matrix(embeds: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """GE2E similarity (model.py:64-110): embeds (S, U, E) -> (S, U, S),
+    each utterance against every speaker's centroid, its own speaker's
+    centroid without it; scaled by ``weight`` and shifted by ``bias``."""
+    s, u, _ = embeds.shape
+    centroids_incl = embeds.mean(1, keepdim=True)  # (S, 1, E)
+    centroids_incl = centroids_incl / torch.linalg.vector_norm(centroids_incl, dim=2,
+                                                               keepdim=True)
+    centroids_excl = (embeds.sum(1, keepdim=True) - embeds) / (u - 1)
+    centroids_excl = centroids_excl / torch.linalg.vector_norm(centroids_excl, dim=2,
+                                                               keepdim=True)
+    sim_incl = torch.einsum("sue,te->sut", embeds, centroids_incl[:, 0, :])
+    sim_excl = torch.sum(embeds * centroids_excl, dim=2)  # (S, U)
+    eye = torch.eye(s, dtype=embeds.dtype, device=embeds.device)[:, None, :]
+    sim = sim_incl * (1 - eye) + sim_excl[:, :, None] * eye
+    return sim * weight + bias
+
+
+def ge2e_loss(embeds: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
+    """GE2E softmax loss (model.py:112-140): (mean cross-entropy of each
+    utterance's row against its speaker, the (S U, S) similarity)."""
+    s, u, _ = embeds.shape
+    sim = similarity_matrix(embeds, weight, bias).reshape(s * u, s)
+    target = torch.arange(s * u, device=embeds.device) // u  # each row's speaker
+    logp = torch.log_softmax(sim, dim=-1)
+    loss = -torch.mean(torch.gather(logp, 1, target[:, None]))
+    return loss, sim
+
+
+def equal_error_rate(sim: np.ndarray, n_speakers: int) -> float:
+    """EER from the flattened similarity matrix (host numpy)."""
+    sim = np.asarray(sim).reshape(-1, n_speakers)
+    n = sim.shape[0]
+    u = n // n_speakers
+    labels = np.zeros_like(sim, dtype=bool)
+    for i in range(n):
+        labels[i, i // u] = True
+    scores = sim.flatten()
+    truth = labels.flatten()
+    order = np.argsort(-scores)
+    truth = truth[order]
+    tpr = np.cumsum(truth) / max(truth.sum(), 1)
+    fpr = np.cumsum(~truth) / max((~truth).sum(), 1)
+    # EER: point where FPR crosses 1 - TPR
+    diffs = fpr - (1 - tpr)
+    idx = int(np.argmin(np.abs(diffs)))
+    return float((fpr[idx] + (1 - tpr[idx])) / 2)
 
 
 # ---------------------------------------------------------------------------

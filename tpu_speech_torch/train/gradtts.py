@@ -8,18 +8,17 @@ and the estimator clipped separately to norm 1 (``spk_emb`` left unclipped,
 as the JAX step leaves it), then Adam (``AdamW`` with ``weight_decay = 0``,
 which is ``optax.adam`` step for step). It makes no host sync. Its draws (t,
 z, the crop offsets) come from a ``torch.Generator`` on the batch's device,
-seeded per step from (seed, iteration) by ``step_generator``: the
-counterpart of ``fold_in(base_rng, iteration)`` (``:231``), so a resumed run
-draws what a straight run would. Dropout stays on torch's default generator,
-whose state the checkpoint keeps.
+seeded per step from (seed, iteration) by ``train/trainer.py::step_generator``:
+the counterpart of ``fold_in(base_rng, iteration)`` (``:231``), so a resumed
+run draws what a straight run would. Dropout stays on torch's default
+generator, whose state the checkpoint keeps.
 
-``GradTTSTrainer`` (``:86-274``) runs epochs: the ``train.log`` line per
-epoch, TensorBoard scalars every 10 steps, a checkpoint every ``save_every``
-epochs (``utils/checkpoint.py``: the model, Adam's moments and count, the
-step), ``resume_if_exists``, synthesis previews, and at the end
-``save_state_dict``: a reference-named ``.pt`` (the reference's own
-checkpoint format, Grad-TTS/train.py:174-175) that ``cli/inference.py``
-loads.
+``GradTTSTrainer`` (``:86-274``) runs epochs on ``train/trainer.py::Trainer``:
+the ``train.log`` line per epoch, TensorBoard scalars every 10 steps, a
+checkpoint every ``save_every`` epochs, ``resume_if_exists``, synthesis
+previews, and at the end ``save_state_dict``: a reference-named ``.pt`` (the
+reference's own checkpoint format, Grad-TTS/train.py:174-175) that
+``cli/inference.py`` loads.
 """
 
 from __future__ import annotations
@@ -33,32 +32,13 @@ import torch
 
 from tpu_speech_torch.models.grad_tts import GradTTS, synthesize
 from tpu_speech_torch.train.optim import AdamW, clip_subtree_by_global_norm
-from tpu_speech_torch.utils.checkpoint import Checkpointer
-from tpu_speech_torch.utils.profiling import StepTimer
+from tpu_speech_torch.train.trainer import Trainer, batch_to_device, step_generator
 
 ENCODER = ("encoder.",)
 ESTIMATOR = ("decoder.estimator.",)
 MAX_GRAD_NORM = 1.0  # per module (Grad-TTS/train.py:115-118)
 PREVIEW_TIMESTEPS = 50  # reverse-diffusion steps of the synthesis previews
 PREVIEW_MAX_FRAMES = 512  # their mel length
-
-
-def step_generator(seed: int, iteration: int, device) -> torch.Generator:
-    """The generator of one step's t, z and crop offsets, on ``device``,
-    seeded from (seed, iteration)."""
-    return torch.Generator(device).manual_seed((seed << 32) + iteration)
-
-
-def batch_to_device(batch: dict, device) -> dict:
-    """A numpy batch of ``TextMelBatchCollate`` -> tensors on ``device``
-    (through pinned memory for a CUDA device)."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v))
-        if torch.device(device).type == "cuda":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
 
 
 def train_step(model: GradTTS, opt: AdamW, batch: dict,
@@ -88,73 +68,19 @@ def train_step(model: GradTTS, opt: AdamW, batch: dict,
             "diff_loss": diff.detach(), "enc_grad_norm": enc_norm, "dec_grad_norm": dec_norm}
 
 
-class GradTTSTrainer:
+class GradTTSTrainer(Trainer):
     """The epoch loop: train.log, TensorBoard, checkpoints, resume, previews
     (mel and alignment images, Grad-TTS/train.py:142-175)."""
 
     def __init__(self, model: GradTTS, log_dir: str, learning_rate: float = 1e-4,
                  out_size: Optional[int] = None, save_every: int = 1, seed: int = 0, exp=None,
                  preview_batch=None):
-        """model: on its training device. exp: an optional
-        ``utils/exp_manager.py::ExpManager`` that owns the log dir and the
-        TensorBoard writer. preview_batch: a dict of padded int32 ``x`` (B,
-        Tx) and ``x_lengths`` (and ``spk``) for the per-epoch synthesis
-        previews the reference logs as its de facto integration test."""
-        self.model = model
-        self.device = next(model.parameters()).device
-        self.exp = exp
-        self.log_dir = exp.log_dir if exp is not None else log_dir
-        os.makedirs(self.log_dir, exist_ok=True)
-        self.opt = AdamW(model.parameters(), learning_rate)
+        """preview_batch: a dict of padded int32 ``x`` (B, Tx) and
+        ``x_lengths`` (and ``spk``) for the per-epoch synthesis previews the
+        reference logs as its de facto integration test."""
+        super().__init__(model, log_dir, learning_rate, save_every, seed, exp)
         self.out_size = out_size
-        self.seed = seed
-        self.ckpt = Checkpointer(os.path.join(self.log_dir, "ckpt"))
-        self.save_every = save_every
-        self.tb = exp.tb if exp is not None else None
         self.preview_batch = preview_batch
-        self.timer = StepTimer()
-        self.iteration = 0
-
-    def state(self) -> dict:
-        """What a checkpoint holds: the model's state_dict, Adam's moments
-        (by parameter name) and count, the step, and the state of torch's
-        default generator (and the device's, on a card), which dropout
-        draws from."""
-        names = {p: n for n, p in self.model.named_parameters()}
-        st = self.opt.state
-        out = {"model": self.model.state_dict(),
-               "mu": {names[p]: s["mu"] for p, s in st.items()},
-               "nu": {names[p]: s["nu"] for p, s in st.items()},
-               "count": self.opt.count, "step": self.iteration,
-               "rng_cpu": torch.get_rng_state()}
-        if self.device.type == "cuda":
-            out["rng_cuda"] = torch.cuda.get_rng_state(self.device)
-        return out
-
-    def load_state(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        for name, p in self.model.named_parameters():
-            if name in state["mu"]:
-                self.opt.state[p] = {"mu": state["mu"][name].to(p.device),
-                                     "nu": state["nu"][name].to(p.device)}
-        self.opt.count = int(state["count"])
-        self.iteration = int(state["step"])
-        torch.set_rng_state(state["rng_cpu"])
-        if self.device.type == "cuda" and "rng_cuda" in state:
-            torch.cuda.set_rng_state(state["rng_cuda"], self.device)
-
-    def resume_if_exists(self) -> bool:
-        state = self.ckpt.restore_latest()
-        if state is None:
-            return False
-        self.load_state(state)
-        return True
-
-    def save_state_dict(self, name: str = "gradtts") -> str:
-        """The final weights, reference-named, as ``<log_dir>/<name>.pt``."""
-        path = os.path.join(self.log_dir, f"{name}.pt")
-        torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()}, path)
-        return path
 
     def log_ground_truth(self, batch, n: int = 3):
         """Log target mels once at startup (Grad-TTS/train.py:89-95)."""
