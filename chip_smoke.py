@@ -15,8 +15,9 @@ conversion through ``tpu_speech_torch.cli.inference_vc.main`` (cuDNN, cuBLAS
 and cuFFT, no hand kernel); and DiffVC's two-stage training and the GE2E
 speaker encoder's training through their CLIs (``preprocess_spk``,
 ``train_spk_encoder``, ``get_avg_mels``, ``train_enc``, ``train_dec``; no
-hand kernel), ending in a conversion on the checkpoints they wrote. It
-checks each hand
+hand kernel), ending in a conversion on the checkpoints they wrote; and
+the SPIRAL loops as the JAX CLI runs them (its defaults, a checkpoint every
+epoch and resume, validation, ``.tpu_speech`` archives). It checks each hand
 kernel, fp32 and bf16, against its plain PyTorch version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
@@ -202,7 +203,33 @@ result):
     kernels per step, busy share, top device ops and FLOP bound
     (``torch.utils.flop_counter``, plus the LSTM's products counted by hand,
     at the CUDA cores' fp32 rate); the GE2E sampler's host time a batch
-    (640 ``.npy`` loads) beside its device time.
+    (640 ``.npy`` loads) beside its device time;
+37. pretraining through ``run_spiral.main`` with no --model_type and no
+    --run_mode (the JAX CLI's defaults: spiral, train) at
+    spiral_base_pretrain_ls960's width on phase 9's corpus (48 utterances, a
+    validation manifest of 24 more), one loader thread: 2 epochs of 2 steps
+    with validation and a checkpoint after each; then 1 epoch, and a second
+    ``main`` call in the same directory that resumes for the second. The
+    straight and the resumed run end with the same student, teacher and
+    AdamW moments, bit for bit (with cuDNN's deterministic algorithms: its
+    default weight gradients sum in a run-dependent order); every kernel of
+    the step launched; both train.logs hold the validation loss and the
+    four collapse scalars, finite; the checkpoint's size and its write time
+    on the Checkpointer's thread (``launches_by_path`` key
+    ``pretrain_cli_resume``);
+38. validation on the card: a validate pass of phase 37's weights over its
+    validation manifest, per batch K1 twice, K2-fwd once per layer of both
+    towers, K4 four times, no K2-bwd, no K4-dx and no bf16 kernel
+    (``pretrain_validation``); the pass's time and one batch's; one batch
+    (B = 2 x 4 s) on the card against the CPU with the same weights, batch
+    and negative indices, the loss within phase 10's limit;
+39. archives: CTC finetuning through ``run_spiral.main`` on phase 14's
+    corpus from phase 37's ``st2vec.tpu_speech`` (2 steps,
+    ``finetune_cli_archive``) writes ``ctc_finetune.tpu_speech``; ``--run_mode
+    test`` with ``--init_archive`` on it, with ``--init_chkpt_file
+    ctc_finetune.pt``, with a step checkpoint, and with ``--use_chkpt_hparams
+    true`` under a pretrain ``--config_name`` give the same log-probs bit for
+    bit and the same WER.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -211,6 +238,7 @@ Needs one CUDA card; fails without one.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -1133,7 +1161,8 @@ def phase_finetune_slice(torch, rng, root, st2vec_pt):
         f"validation of {val['n']} utts: WER {val['wer']:.3f}); launches over the "
         f"steps {totals}")
     results = run_spiral.main([
-        "--run_mode", "test", "--config_name", "spiral_base_finetune_ls100_char",
+        "--model_type", "ctc_finetune", "--run_mode", "test",
+        "--config_name", "spiral_base_finetune_ls100_char",
         "--test_manifest", os.path.join(root, "librivox-dev-other.json"),
         "--model_save_dir", os.path.join(root, "finetune_test"),
         "--init_chkpt_dir", run_dir, "--init_chkpt_file", os.path.basename(res["state_dict"])])
@@ -3090,7 +3119,7 @@ def phase_slice(torch, rng, root):
     torch.save(model.state_dict(), ckpt)
     del model
     run_dir = os.path.join(root, "run")
-    argv = ["--config_name", "spiral_base_finetune_ls100_char",
+    argv = ["--config_name", "spiral_base_finetune_ls100_char", "--model_type", "ctc_finetune",
             "--run_mode", "test", "--test_manifest", manifest,
             "--model_save_dir", run_dir, "--init_chkpt_dir", root,
             "--init_chkpt_file", os.path.basename(ckpt), "--save_logits", "true"]
@@ -3227,6 +3256,346 @@ def profile_slice(torch, run, batches=3, top=8, tag="6 profile"):
             "span_ms": span / batches / 1e3, "share": busy / span}
 
 
+# ---- 37-39: SPIRAL runs as the JAX CLI runs them ----------------------------
+
+RESUME_STEPS = 2  # pretrain updates an epoch in phase 37 (B = 24)
+ARCHIVE_FT_STEPS = 2  # finetune updates in phase 39 (B = 14)
+
+
+def drop_run_outputs(root):
+    """Delete the weight files under ``root`` (step checkpoints, ``.pt``,
+    ``.tpu_speech``): full-width runs write gigabytes each, and the later
+    phases need only the corpora."""
+    import shutil
+
+    for dirpath, dirnames, filenames in os.walk(root, topdown=True):
+        if "ckpt" in dirnames:
+            shutil.rmtree(os.path.join(dirpath, "ckpt"))
+            dirnames.remove("ckpt")
+        for name in filenames:
+            if name.endswith((".pt", ".tpu_speech")):
+                os.remove(os.path.join(dirpath, name))
+
+
+def _write_lines(path, lines):
+    with open(path, "w") as f:
+        f.writelines(lines)
+
+
+def phase_pretrain_resume(torch, root):
+    """37: pretraining through ``run_spiral.main`` with no --model_type and no
+    --run_mode (the JAX CLI's defaults) at spiral_base_pretrain_ls960's width
+    on phase 9's corpus: 2 epochs of RESUME_STEPS steps with validation after
+    each; then the same run as 1 epoch and a second ``main`` call in the same
+    directory that resumes. The straight and the resumed run end with the
+    same student, teacher and AdamW moments, bit for bit; the checkpoint's
+    size and write time.
+
+    cuDNN's default weight-gradient algorithms (the feature encoder's convs,
+    K4's dw) may sum in an order of their own from call to call, so two
+    straight runs of the same step differ in rounding, and Adam turns that
+    into +-lr on the leaves whose gradient is rounding noise (the key
+    biases). The phase asks cuDNN for its deterministic algorithms, which
+    makes the step deterministic on the card (the hand kernels use no
+    atomics), and then requires the resumed run to equal the straight one
+    bit for bit. The CLI itself leaves cuDNN's defaults: two more straight
+    runs under them show how far apart two runs that never stopped end, and
+    the step's time under each setting is printed beside it."""
+    import shutil
+
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+    from tpu_speech_torch.utils.checkpoint import Checkpointer
+
+    d = os.path.join(root, "p37")
+    os.makedirs(d)
+    with open(os.path.join(root, "librivox-train-clean-100.json")) as f:
+        lines = f.readlines()
+    n = RESUME_STEPS * PRETRAIN_BATCH
+    _write_lines(os.path.join(d, "librivox-train-clean-100.json"), lines[:n])
+    for other in ("librivox-train-clean-360.json", "librivox-train-other-500.json"):
+        _write_lines(os.path.join(d, other), [])
+    _write_lines(os.path.join(d, "librivox-dev-clean.json"), lines[n:n + PRETRAIN_BATCH])
+    # one loader thread: the crops of utterances past 250 000 samples come
+    # from one generator, in the order the threads reach it
+    base = ["--config_name", "spiral_base_pretrain_ls960", "--manifest_dir", d,
+            "--set", "trainer.val_check_interval_epochs=1",
+            "--set", "model.optim.sched.warmup_steps=2",
+            "--set", "model.train_ds.num_workers=1", "--set", "model.validation_ds.num_workers=1"]
+    writes, saves, steps = [], [], []
+    write, save, step = Checkpointer._write, Checkpointer.save, SpiralPretrainRunner.step
+
+    def timed_write(self, at, state):
+        t0 = time.perf_counter()
+        write(self, at, state)
+        writes.append((os.path.getsize(self._path(at)), time.perf_counter() - t0, t0,
+                       time.perf_counter()))
+
+    def timed_save(self, at, state):
+        t0 = time.perf_counter()
+        save(self, at, state)
+        saves.append(time.perf_counter() - t0)
+
+    def timed_step(self, batch):
+        steps.append(time.perf_counter())
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(self, batch)
+        ev[1].record()
+        step_events.append(ev)
+        return out
+
+    step_events, spans = [], {}
+
+    def straight_pair(mode, *names):
+        """Runs of 2 epochs, each from its own directory; the step spans of
+        each run after its first step (CUDA events around ``step``)."""
+        out = []
+        for name in names:
+            step_events.clear()
+            out.append(run_spiral.main(base + ["--model_save_dir", os.path.join(d, name),
+                                               "--max_epochs", "2"]))
+            torch.cuda.synchronize()
+            spans.setdefault(mode, []).extend(a.elapsed_time(b) for a, b in step_events[1:])
+        return out
+
+    Checkpointer._write, Checkpointer.save = timed_write, timed_save
+    SpiralPretrainRunner.step = timed_step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        straight, = straight_pair("deterministic", "a")
+        first = run_spiral.main(base + ["--model_save_dir", os.path.join(d, "b"),
+                                        "--max_epochs", "1"])
+        resumed = run_spiral.main(base + ["--model_save_dir", os.path.join(d, "b"),
+                                          "--max_epochs", "2"])
+        torch.backends.cudnn.deterministic = deterministic
+        straight_pair("cuDNN's defaults", "c", "e")
+    finally:
+        Checkpointer._write, Checkpointer.save = write, save
+        SpiralPretrainRunner.step = step
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"[37 pretrain resume] run_spiral.main with the JAX defaults (model_type spiral, "
+        f"run_mode train): 2 epochs of {RESUME_STEPS} steps straight, then 1 epoch + a "
+        f"resumed epoch (cuDNN's deterministic algorithms), then two straight runs under "
+        f"cuDNN's defaults, B = {PRETRAIN_BATCH} x 250 000, in {wall:.1f} s; launches "
+        f"{launches}")
+    for key in ("fused_logmel", "fused_qkv_attention", "fused_qkv_attention_bwd",
+                "grouped_conv1d", "grouped_conv1d_dx"):
+        check(launches[key] > 0, f"phase 37 never launched {key}")
+    check(first["epoch"] == 1 and resumed["epoch"] == straight["epoch"] == 2, "epochs")
+    check(straight["iteration"] == resumed["iteration"] == 2 * RESUME_STEPS,
+          f"iterations {straight['iteration']} / {resumed['iteration']}")
+    cks = {k: Checkpointer(os.path.join(d, k, "ckpt")) for k in ("a", "b", "c", "e")}
+    check(all(c.all_steps() == [RESUME_STEPS, 2 * RESUME_STEPS] for c in cks.values()),
+          f"checkpoints {[c.all_steps() for c in cks.values()]}")
+
+    def part_diffs(a, b):
+        """The largest |difference| and the relative L2 difference of each part."""
+        student = [k for k in a["model"] if not k.startswith("target_")]
+        teacher = [k for k in a["model"] if k.startswith("target_")]
+        out = {}
+        for what, ref, other, keys in (("student", a["model"], b["model"], student),
+                                       ("teacher", a["model"], b["model"], teacher),
+                                       ("mu", a["mu"], b["mu"], list(a["mu"])),
+                                       ("nu", a["nu"], b["nu"], list(a["nu"]))):
+            dif = [(other[k].double() - ref[k].double()) for k in keys]
+            out[what] = (max(x.abs().max().item() for x in dif),
+                         math.sqrt(sum(x.square().sum().item() for x in dif))
+                         / max(math.sqrt(sum(ref[k].double().square().sum().item()
+                                             for k in keys)), 1e-30))
+        return out
+
+    a, b = (cks[k].restore(2 * RESUME_STEPS) for k in ("a", "b"))
+    diffs = {k: v[0] for k, v in part_diffs(a, b).items()}
+    default = part_diffs(*(cks[k].restore(2 * RESUME_STEPS) for k in ("c", "e")))
+    log(f"    straight vs resumed at step {2 * RESUME_STEPS} (deterministic algorithms), max "
+        f"|difference| of each part: {diffs}")
+    log("    two straight runs under cuDNN's defaults at step "
+        f"{2 * RESUME_STEPS}, max |difference| and relative L2 difference of each part: "
+        + ", ".join(f"{k} {m:.3e} / {r:.3e}" for k, (m, r) in default.items()))
+    log("    step span (CUDA events around the step, each run's first step left out): "
+        + ", ".join(f"{k} {np.median(v):.2f} ms (median of {len(v)})"
+                    for k, v in spans.items()))
+    for k in ("c", "e"):  # 3 GiB of checkpoints each; later phases need only a and b
+        shutil.rmtree(os.path.join(d, k))
+    check(not any(diffs.values()), f"the resumed run is not the straight one: {diffs}")
+    check(a["count"] == b["count"] == 2 * RESUME_STEPS and a["step"] == b["step"],
+          "optimizer counts")
+    check([m["loss"] for m in resumed["steps"]]
+          == [m["loss"] for m in straight["steps"]][RESUME_STEPS:], "the resumed losses")
+    for lines_of in ("a", "b"):
+        with open(os.path.join(d, lines_of, "train.log")) as f:
+            val = [ln for ln in f if ln.startswith("Validation")]
+        nums = [float(x.split(" = ")[1]) for ln in val for x in ln.split(" | ")]
+        check(len(val) == 2 and len(nums) == 10 and all(np.isfinite(nums)),
+              f"train.log validation lines of run {lines_of}: {val}")
+    size, sec, w0, w1 = writes[0]
+    during = sum(1 for t in steps if w0 <= t <= w1)
+    log(f"    checkpoint: {size} bytes ({size / 2**30:.3f} GiB: student, teacher, two AdamW "
+        f"moments, statistics, generators); save() returned in {np.median(saves):.3f} s "
+        f"(copy to host), the write took {np.median([w[1] for w in writes]):.3f} s on its "
+        f"thread (median of {len(writes)}); steps started during the first write: {during}")
+    log(f"    validation lines: {val[-1].strip()}")
+    return launches, os.path.join(d, "a")
+
+
+def phase_validation(torch, root, run_dir):
+    """38: validation on the card. A validate pass at full width over phase
+    37's validation manifest with phase 37's weights: per batch K1 twice,
+    K2-fwd once per layer of both towers and K4 four times, no K2-bwd and no
+    K4-dx; the pass's time; then one validation batch (B = 2 x 4 s) on the
+    card against the CPU with the same weights, batch and negative indices:
+    the loss within phase 10's limit."""
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, draw_negative_indices
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import spiral as tspiral
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+
+    d = os.path.join(root, "p37")
+    cfg = spiral_base_pretrain_ls960()
+    cfg.model.train_ds.manifest_filepath = os.path.join(d, "librivox-train-clean-100.json")
+    cfg.model.validation_ds.manifest_filepath = os.path.join(d, "librivox-dev-clean.json")
+    cfg.model.validation_ds.num_workers = 1
+    runner = SpiralPretrainRunner(cfg, os.path.join(root, "p38"), device="cuda")
+    runner.restore_from_checkpoint(os.path.join(run_dir, "st2vec.pt"))
+    layers = 2 * sum(b.transformer.encoder_layers for b in cfg.model.encoder.blocks
+                     if b.transformer is not None)
+    seen, vstep = [], SpiralPretrainRunner.validation_step
+
+    def watched(self, batch, neg_idx=None):
+        before = dict(_build.LAUNCHES)
+        out = vstep(self, batch, neg_idx)
+        torch.cuda.synchronize()
+        seen.append({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+        return out
+
+    SpiralPretrainRunner.validation_step = watched
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        val = runner.validate()
+    finally:
+        SpiralPretrainRunner.validation_step = vstep
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(len(seen) == runner.last_validation["batches"] >= 1, f"{len(seen)} batches")
+    for i, c in enumerate(seen):
+        check(c["fused_logmel"] == 2 and c["fused_qkv_attention"] == layers
+              and c["grouped_conv1d"] == 4, f"validation batch {i}: launches {c}")
+        check(c["fused_qkv_attention_bwd"] == 0 and c["grouped_conv1d_dx"] == 0
+              and not any(c[k] for k in c if k.endswith("_bf16")),
+              f"validation batch {i} launched a backward or bf16 kernel: {c}")
+    check(np.isfinite(val) and all(np.isfinite(v) for v in runner.last_validation.values()),
+          f"validation {runner.last_validation}")
+    on_card = tspiral.batch_to_device(runner._augment(next(iter(runner.val_loader))), "cuda")
+    ms = cuda_ms(lambda: runner.validation_step(on_card), n=5, warmup=1)
+    log(f"[38 validation] {len(seen)} batch(es) of B = {PRETRAIN_BATCH} x 250 000 in "
+        f"{wall:.2f} s (loader, host masks, the forward pass, one read back); one batch "
+        f"{ms:.2f} ms on the card (CUDA events, median of 5); launches per batch "
+        f"{seen[0]}; {runner.last_validation}")
+
+    enc = cfg.model.encoder
+    n = 4 * SR
+    spec_len = ((1 + n // 160 + 15) // 16) * 16
+    r = np.random.default_rng(9)
+    wavs = np.stack([speech_like(r, n) for _ in range(2)])
+    lens = np.array([n, 3 * SR], np.int32)
+    wavs[1, lens[1]:] = 0
+    batch = tspiral.host_augment_batch(enc, wavs, lens, wavs * 0.8, lens, spec_len,
+                                       np.random.default_rng(10), np.random.default_rng(11))
+    feat_lens = torch.tensor(np.ceil(lens / 160).astype(np.int64))
+    for _ in range(3):
+        feat_lens = (feat_lens + 1) // 2
+    neg = draw_negative_indices(feat_lens, spec_len // 8, enc.n_negatives,
+                                torch.Generator().manual_seed(12))
+    sd = torch.load(os.path.join(run_dir, "st2vec.pt"), weights_only=True)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = ST2VecEncoder(enc, pretraining=True)
+        model.load_state_dict(sd)
+        model.to(dev).train()
+        loss, acc, diag = tspiral.validation_loss(model, tspiral.batch_to_device(batch, dev),
+                                                  neg_idx=neg.to(dev))
+        out[dev] = (float(loss), float(acc), {k: float(v) for k, v in diag.items()})
+    (l_cpu, a_cpu, d_cpu), (l_card, a_card, d_card) = out["cpu"], out["cuda"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    diag_err = max(abs(d_card[k] - d_cpu[k]) for k in d_cpu)
+    log(f"    one batch, B = 2 x 4 s, card vs CPU (same weights, batch, negatives): loss "
+        f"{l_card:.6f} vs {l_cpu:.6f} (rel {rel:.2e}, limit {STEP_LOSS_RTOL}); accuracy "
+        f"{a_card:.4f} vs {a_cpu:.4f}; collapse scalars max |diff| {diag_err:.2e}")
+    check(rel <= STEP_LOSS_RTOL, f"validation loss card {l_card} vs cpu {l_cpu}")
+    return launches
+
+
+def phase_archives(torch, root, ft_root, pre_dir):
+    """39: archives. CTC finetuning through ``run_spiral.main`` on phase 14's
+    corpus from phase 37's pretraining archive writes
+    ``ctc_finetune.tpu_speech``; ``--run_mode test`` with ``--init_archive``
+    on it gives the same log-probs as ``--init_chkpt_file ctc_finetune.pt``
+    and as a step checkpoint; ``--use_chkpt_hparams true`` with a pretrain
+    config rebuilds the model from the archive alone, to the same
+    log-probs."""
+    import glob
+
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.ops import _build
+
+    d = os.path.join(root, "p39")
+    argv = ["--model_type", "ctc_finetune", "--config_name", "spiral_base_finetune_ls100_char",
+            "--manifest_dir", ft_root, "--init_chkpt_dir", pre_dir,
+            "--init_chkpt_file", "st2vec.tpu_speech", "--model_save_dir", d,
+            "--set", f"trainer.max_steps={ARCHIVE_FT_STEPS}",
+            "--set", "model.freeze_finetune_updates=0",
+            "--set", "model.optim.sched.warmup_ratio=0", "--set", f"model.optim.lr={FT_LR}",
+            "--set", "model.train_ds.num_workers=1"]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_spiral.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for key in ("fused_logmel", "fused_qkv_attention", "fused_qkv_attention_bwd",
+                "grouped_conv1d", "grouped_conv1d_dx"):
+        check(launches[key] > 0, f"phase 39 never launched {key}")
+    check(os.path.basename(res["archive"]) == "ctc_finetune.tpu_speech", res["archive"])
+    check(all(np.isfinite(m["loss"]) for m in res["steps"]), "finetune losses")
+    dev = os.path.join(ft_root, "librivox-dev-other.json")
+    runs = {"archive": ["--init_archive", res["archive"]],
+            "state_dict": ["--init_chkpt_dir", d, "--init_chkpt_file", "ctc_finetune.pt"],
+            "step": ["--init_chkpt_dir", os.path.join(d, "ckpt"), "--init_chkpt_file",
+                     "step_*.pt"],
+            "hparams": ["--config_name", "spiral_base_pretrain_ls960", "--use_chkpt_hparams",
+                        "true", "--init_archive", res["archive"]]}
+    logits, wer = {}, {}
+    for name, extra in runs.items():
+        out_dir = os.path.join(d, f"test_{name}")
+        argv = ["--model_type", "ctc_finetune", "--run_mode", "test", "--config_name",
+                "spiral_base_finetune_ls100_char", "--test_manifest", dev, "--save_logits",
+                "true", "--model_save_dir", out_dir] + extra
+        wer[name] = run_spiral.main(argv)["wer"]
+        files = sorted(glob.glob(os.path.join(out_dir, "logits", "*.npy")))
+        logits[name] = np.concatenate([np.load(f).reshape(-1) for f in files])
+    ref = logits["archive"]
+    diffs = {k: float(np.abs(v - ref).max()) if v.shape == ref.shape else float("inf")
+             for k, v in logits.items()}
+    log(f"[39 archives] finetuning from st2vec.tpu_speech, {len(res['steps'])} steps, "
+        f"{wall:.1f} s; {os.path.getsize(res['archive'])} bytes in "
+        f"{os.path.basename(res['archive'])}; test mode max |log-prob - archive's| {diffs}; "
+        f"WER {wer}")
+    check(all(v == 0.0 for v in diffs.values()), f"test-mode log-probs differ: {diffs}")
+    check(len(set(wer.values())) == 1, f"WER differs: {wer}")
+    return launches
+
+
 def main():
     import torch
 
@@ -3252,27 +3621,29 @@ def main():
     bwd_err, k2_bwd_t = phase_k2_bwd(torch, gen)
     k4_err, k4_dx_err, k4_t = phase_k4(torch, gen)
     k3_err, k3_t, k3_launches = phase_k3(torch, gen)
-    with tempfile.TemporaryDirectory() as root:
-        pre_launches, st2vec_pt = phase_pretrain_slice(torch, rng, root)
-        phase_pretrain_cpu_vs_card(torch)
-        phase_pretrain_time(torch, root)
-        ft_root = os.path.join(root, "ft")
-        os.makedirs(ft_root)
-        ft_launches = phase_finetune_slice(torch, rng, ft_root, st2vec_pt)
-        phase_finetune_cpu_vs_card(torch)
-        phase_finetune_time(torch, ft_root)
-        k16 = phase_bf16_kernels(torch, gen)
-        pre16_launches = phase_bf16_pretrain_slice(torch, root)
-        phase_bf16_pretrain_time(torch, root)
-        phase_bf16_vs_fp32_pretrain(torch, root)
-        ft16_launches = phase_bf16_finetune_slice(torch, ft_root, st2vec_pt)
-        phase_bf16_finetune_time(torch, ft_root)
-        phase_bf16_vs_fp32_finetune(torch)
-        phase_accum(torch, root, ft_root)
-        phase_finetune_accum_equiv(torch)
-        tts_root = os.path.join(root, "tts")
-        os.makedirs(tts_root)
-        tts_launches = phase_tts_slice(torch, tts_root)
+    spiral_tmp = tempfile.TemporaryDirectory()  # phase 9's and 14's corpora, for 37-39
+    root = spiral_tmp.name
+    pre_launches, st2vec_pt = phase_pretrain_slice(torch, rng, root)
+    phase_pretrain_cpu_vs_card(torch)
+    phase_pretrain_time(torch, root)
+    ft_root = os.path.join(root, "ft")
+    os.makedirs(ft_root)
+    ft_launches = phase_finetune_slice(torch, rng, ft_root, st2vec_pt)
+    phase_finetune_cpu_vs_card(torch)
+    phase_finetune_time(torch, ft_root)
+    k16 = phase_bf16_kernels(torch, gen)
+    pre16_launches = phase_bf16_pretrain_slice(torch, root)
+    phase_bf16_pretrain_time(torch, root)
+    phase_bf16_vs_fp32_pretrain(torch, root)
+    ft16_launches = phase_bf16_finetune_slice(torch, ft_root, st2vec_pt)
+    phase_bf16_finetune_time(torch, ft_root)
+    phase_bf16_vs_fp32_finetune(torch)
+    phase_accum(torch, root, ft_root)
+    phase_finetune_accum_equiv(torch)
+    drop_run_outputs(root)
+    tts_root = os.path.join(root, "tts")
+    os.makedirs(tts_root)
+    tts_launches = phase_tts_slice(torch, tts_root)
     phase_tts_cpu_vs_card(torch)
     phase_tts_time(torch)
     k_mas = phase_mas(torch, gen)
@@ -3291,6 +3662,11 @@ def main():
         phase_train_cpu_vs_card(torch)
         phase_train_time(torch, clean)
     tr_launches["ge2e_train"] = ge2e_launches
+    root = spiral_tmp.name
+    resume_launches, pre_dir = phase_pretrain_resume(torch, root)
+    val_launches = phase_validation(torch, root, pre_dir)
+    arch_launches = phase_archives(torch, root, os.path.join(root, "ft"), pre_dir)
+    spiral_tmp.cleanup()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3302,7 +3678,10 @@ def main():
                 "finetune_step": ft_launches[key], "pretrain_step_bf16": pre16_launches[key],
                 "finetune_step_bf16": ft16_launches[key], "tts_e2e": tts_launches[key],
                 "gradtts_train_step": gt_launches[key], "diffvc_conversion": vc_launches[key],
-                **{path: counts[key] for path, counts in tr_launches.items()}}
+                **{path: counts[key] for path, counts in tr_launches.items()},
+                "pretrain_cli_resume": resume_launches[key],
+                "pretrain_validation": val_launches[key],
+                "finetune_cli_archive": arch_launches[key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",

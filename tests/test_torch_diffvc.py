@@ -51,6 +51,17 @@ BMIN, BMAX = CFG["beta_min"], CFG["beta_max"]
 SAMPLER_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for torch: the tiny models' ops are small, and
+    under the suite's six workers a team of threads per op spins on shared
+    cores (a step that takes 0.5 s alone took minutes there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a, dtype=None):
     return torch.tensor(np.asarray(a), dtype=dtype)
 

@@ -573,7 +573,8 @@ def test_cli_finetune_train_then_test_mode(tmp_path, capsys):
     w_pre = sd["feature_encoder.block_modules.0.conv.conv.weight"]
     assert not torch.equal(saved["encoder.feature_encoder.block_modules.0.conv.conv.weight"], w_pre)
     results = run_spiral.main([
-        "--run_mode", "test", "--config_name", "spiral_tiny_ctc_char",
+        "--model_type", "ctc_finetune", "--run_mode", "test",
+        "--config_name", "spiral_tiny_ctc_char",
         "--test_manifest", str(tmp_path / "librivox-dev-other.json"),
         "--model_save_dir", str(tmp_path / "test"), "--device", "cpu",
         "--init_chkpt_dir", str(tmp_path / "run"), "--init_chkpt_file", "ctc_finetune.pt",

@@ -51,6 +51,17 @@ CFG = dict(
 F = CFG["n_feats"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for torch: the tiny models' ops are small, and
+    under the suite's six workers a team of threads per op spins on shared
+    cores (a step that takes 0.5 s alone took minutes there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_model(seed, **over):
     model = GradTTS(**dict(CFG, **over))
     return model.init_weights(torch.Generator().manual_seed(seed)).eval()

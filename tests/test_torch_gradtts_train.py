@@ -60,6 +60,17 @@ TINY = dict(n_vocab=30, n_enc_channels=16, filter_channels=32, filter_channels_d
 F = TINY["n_feats"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for torch: the tiny models' ops are small, and
+    under the suite's six workers a team of threads per op spins on shared
+    cores (a step that takes 0.5 s alone took minutes there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a, dtype=None):
     return torch.tensor(np.asarray(a), dtype=dtype)
 

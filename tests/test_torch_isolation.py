@@ -3,7 +3,8 @@
 In a fresh interpreter, a ``sys.meta_path`` finder raises on any import of
 ``tpu_speech`` (but not ``tpu_speech_torch``) or ``jax``/``jaxlib``; then
 every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
-``chip_smoke`` are imported, and ``run_spiral --help``, the TTS CLI's
+``chip_smoke`` are imported, the archive reader rebuilds every SPIRAL config
+from its JAX-namespace tags, and ``run_spiral --help``, the TTS CLI's
 ``inference --help``, the Grad-TTS training CLI's ``train --help``, the
 voice-conversion CLI's ``inference_vc --help`` and the five DiffVC and
 speaker-encoder training CLIs' ``--help`` run.
@@ -47,6 +48,15 @@ for cli in (run_spiral, inference, train, inference_vc, get_avg_mels, train_enc,
         cli.main(["--help"])
     except SystemExit as e:
         assert e.code == 0, e.code
+# an archive's config names the JAX package's classes; the port's reader
+# maps them to its own and imports no tpu_speech. module
+from tpu_speech_torch.configs.spiral import CONFIGS
+from tpu_speech_torch.utils import archive
+
+for make in CONFIGS.values():
+    blob = archive._to_jsonable(make())
+    assert blob["__dataclass__"] == "tpu_speech.utils.config.RunConfig", blob["__dataclass__"]
+    assert type(archive.config_object(blob)).__module__ == "tpu_speech_torch.utils.config"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not leaked, leaked
 print(" ".join(names))
@@ -69,5 +79,6 @@ def test_port_imports_no_jax_package():
                  "--speakers_per_batch", "--backup_every"):
         assert flag in proc.stdout, flag
     for name in ("train.diffvc", "train.speaker_encoder", "data.diffvc", "data.textgrid",
-                 "data.speaker_verification", "cli.train_spk_encoder"):
+                 "data.speaker_verification", "cli.train_spk_encoder", "utils.surgery",
+                 "utils.msgpack", "utils.archive"):
         assert f"tpu_speech_torch.{name}" in proc.stdout, name

@@ -22,10 +22,7 @@ from tpu_speech_torch.cli import run_spiral
 from tpu_speech_torch.compat.jax_spiral import ctc_finetune_from_jax
 from tpu_speech_torch.configs.spiral import spiral_tiny_ctc_char
 from tpu_speech_torch.ops import _build
-from tpu_speech_torch.train.spiral_runner import (
-    SpiralFinetuneRunner,
-    load_state_dict_file,
-)
+from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
 from tests.test_torch_spiral_ctc import jax_ctc_model, jax_encoder_cfg
 
 jax.config.update("jax_default_matmul_precision", "highest")
@@ -97,8 +94,8 @@ def test_cli_test_mode_matches_jax(tmp_path, jax_tiny, capsys):
     before = dict(_build.LAUNCHES)
     run_dir = str(tmp_path / "run")
     results = run_spiral.main([
-        "--config_name", "spiral_tiny_ctc_char", "--run_mode", "test",
-        "--test_manifest", manifest, "--model_save_dir", run_dir,
+        "--config_name", "spiral_tiny_ctc_char", "--model_type", "ctc_finetune",
+        "--run_mode", "test", "--test_manifest", manifest, "--model_save_dir", run_dir,
         "--init_chkpt_dir", str(tmp_path), "--init_chkpt_file", "weights.npz",
         "--save_logits", "true", "--device", "cpu",
     ])
@@ -118,10 +115,18 @@ def test_pt_and_npz_weights_load_the_same_model(tmp_path, jax_tiny):
     params, _ = jax_tiny
     np.savez(tmp_path / "w.npz", **_flat(params, "params"))
     torch.save(ctc_finetune_from_jax(params, {}), tmp_path / "w.pt")
-    a, b = (load_state_dict_file(str(tmp_path / f)) for f in ("w.npz", "w.pt"))
+    loaded = []
+    for f in ("w.npz", "w.pt"):  # the CLI's --init_chkpt_file path
+        runner = SpiralFinetuneRunner(spiral_tiny_ctc_char(), str(tmp_path / f"run_{f}"),
+                                      CharTokenizer(), device="cpu")
+        runner.restore_from_checkpoint(str(tmp_path / f))
+        loaded.append(runner.model.state_dict())
+    a, b = loaded
     assert a.keys() == b.keys()
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+    for k, v in ctc_finetune_from_jax(params, {}).items():
+        torch.testing.assert_close(a[k], v, rtol=0, atol=0)
 
 
 def test_state_dict_file_unwraps_lightning_and_drops_reference_buffers(tmp_path, jax_tiny):
@@ -131,7 +136,9 @@ def test_state_dict_file_unwraps_lightning_and_drops_reference_buffers(tmp_path,
     torch.save(wrapped, tmp_path / "ref.ckpt")
     runner = SpiralFinetuneRunner(spiral_tiny_ctc_char(), str(tmp_path / "run"),
                                   CharTokenizer(), device="cpu")
-    runner.load_weights(str(tmp_path / "ref.ckpt"))
+    runner.restore_from_checkpoint(str(tmp_path / "ref.ckpt"))
+    for k, v in ctc_finetune_from_jax(params, {}).items():
+        torch.testing.assert_close(runner.model.state_dict()[k], v, rtol=0, atol=0)
     del sd["decoder.decoder_layers.0.bias"]
     with pytest.raises(RuntimeError, match="Missing key"):
         runner.load_state_dict(sd)

@@ -79,7 +79,7 @@ def main(argv=None, multispeaker: bool = False) -> dict:
         raise NotImplementedError(f"precision {cfg.precision!r}: Grad-TTS training runs in "
                                   "fp32; bf16 is not ported yet (ROADMAP.md, Queue 1)")
     name = "gradtts_multi" if multispeaker else "gradtts"
-    exp = ExpManager(cfg.log_dir)
+    exp = ExpManager(name=name, explicit_log_dir=cfg.log_dir)
     exp.save_config({k: v for k, v in vars(cfg).items() if not k.startswith("_")
                      and isinstance(v, (int, float, str, bool, list, tuple))})
 

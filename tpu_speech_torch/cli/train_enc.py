@@ -92,7 +92,7 @@ def main(argv=None) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Number of encoder parameters = {n_params / 1e6:.2f}m")
 
-    exp = ExpManager(args.log_dir)
+    exp = ExpManager(name="diffvc_enc", explicit_log_dir=args.log_dir)
     exp.save_config(vars(args))
     # the preview's crops draw from a collate of their own, not the loader's
     preview_batch = VCEncBatchCollate(params.train_frames, params.n_mels, params.seed)(

@@ -1,4 +1,4 @@
-"""tpu_speech (JAX/flax) SPIRAL trees -> reference-named PyTorch state_dicts.
+"""tpu_speech (JAX/flax) SPIRAL trees <-> reference-named PyTorch state_dicts.
 
 The inverses of ``tpu_speech/compat/torch_spiral.py``'s converters:
 
@@ -9,7 +9,17 @@ The inverses of ``tpu_speech/compat/torch_spiral.py``'s converters:
   trees back exactly;
 - ``st2vec_from_jax(params, batch_stats, teacher)`` does the same for the
   pretraining model, ``ST2VecEncoder(cfg, pretraining=True)``, against
-  ``convert_st2vec``.
+  ``convert_st2vec``;
+- ``ctc_finetune_to_jax(state_dict)`` and ``st2vec_to_jax(state_dict)`` go
+  the other way: the port's state_dicts -> the JAX package's flax trees
+  (``(params, batch_stats)`` and ``(params, batch_stats, teacher)``, numpy
+  leaves), as ``convert_ctc_finetune`` / ``convert_st2vec`` give them. The
+  port's ``.tpu_speech`` archives hold these trees, and its weight surgery
+  (``utils/surgery.py``) addresses their paths, so ``--load_model_skip_var``
+  matches the same strings in both packages. BatchNorm's
+  ``num_batches_tracked`` has no flax counterpart: it is dropped going to JAX
+  and 0 coming back (the port's BatchNorm has a momentum, so it never reads
+  it).
 
 Layout translation (flax channels-last -> torch channels-first):
 - conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
@@ -31,7 +41,7 @@ pretraining model) with ``/``-joined flax paths.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +68,8 @@ class _Tree:
         if path in self.used:
             raise ValueError(f"{self.name} leaf consumed twice: {'/'.join(path)}")
         self.used.add(path)
+        if torch.is_tensor(node):  # a bfloat16 leaf of an archive (exact in float32)
+            return node.detach().float().numpy()
         return np.asarray(node)
 
     def leftover(self):
@@ -196,6 +208,166 @@ def st2vec_from_jax(params: Mapping, batch_stats: Mapping = None,
     if leftover:
         raise ValueError(f"unconsumed JAX leaves: {leftover[:8]}")
     return sd
+
+
+# ---- the other direction: port state_dicts -> flax trees --------------------
+
+def _np_leaf(t) -> np.ndarray:
+    return t.detach().cpu().numpy().copy() if torch.is_tensor(t) else np.array(t)
+
+
+class _StateDict:
+    """Tensor reader over a state_dict that records what was consumed."""
+
+    def __init__(self, sd: Mapping):
+        self.sd, self.used = dict(sd), set()
+
+    def has(self, key: str) -> bool:
+        return key in self.sd
+
+    def get(self, key: str) -> np.ndarray:
+        if key in self.used:
+            raise ValueError(f"state_dict tensor consumed twice: {key}")
+        self.used.add(key)
+        return _np_leaf(self.sd[key])
+
+    def leftover(self):
+        return sorted(k for k in self.sd if k not in self.used
+                      and not k.endswith(".num_batches_tracked"))
+
+
+def _put(tree: Dict, path, value) -> None:
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    if path[-1] in node:
+        raise ValueError(f"flax leaf written twice: {'/'.join(path)}")
+    node[path[-1]] = value
+
+
+def _conv_to(sd, key, tree, path):
+    _put(tree, path + ("kernel",), np.transpose(sd.get(f"{key}.weight"), (2, 1, 0)))
+    if sd.has(f"{key}.bias"):
+        _put(tree, path + ("bias",), sd.get(f"{key}.bias"))
+
+
+def _dense_to(sd, key, tree, path):
+    _put(tree, path + ("kernel",), np.transpose(sd.get(f"{key}.weight"), (1, 0)))
+    _put(tree, path + ("bias",), sd.get(f"{key}.bias"))
+
+
+def _norm_to(sd, key, tree, bs, path):
+    _put(tree, path + ("scale",), sd.get(f"{key}.weight"))
+    _put(tree, path + ("bias",), sd.get(f"{key}.bias"))
+    if sd.has(f"{key}.running_mean"):
+        if bs is None:
+            raise NotImplementedError(
+                f"{key}: teacher BatchNorm statistics have no slot in the flax trees")
+        _put(bs, path + ("mean",), sd.get(f"{key}.running_mean"))
+        _put(bs, path + ("var",), sd.get(f"{key}.running_var"))
+
+
+def _transformer_to(sd, key, tree, path):
+    _put(tree, path + ("pos_conv", "g"), sd.get(f"{key}.pos_conv.0.weight_g").reshape(-1))
+    _put(tree, path + ("pos_conv", "v"),
+         np.transpose(sd.get(f"{key}.pos_conv.0.weight_v"), (2, 1, 0)))
+    _put(tree, path + ("pos_conv", "bias"), sd.get(f"{key}.pos_conv.0.bias"))
+    j = 0
+    while sd.has(f"{key}.layers.{j}.self_attn.q_proj.weight"):
+        lk, lp = f"{key}.layers.{j}", path + (f"layer_{j}",)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense_to(sd, f"{lk}.self_attn.{proj}", tree, lp + ("self_attn", proj))
+        _dense_to(sd, f"{lk}.fc1", tree, lp + ("fc1",))
+        _dense_to(sd, f"{lk}.fc2", tree, lp + ("fc2",))
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            _norm_to(sd, f"{lk}.{ln}", tree, None, lp + (ln,))
+        j += 1
+    _norm_to(sd, f"{key}.layer_norm", tree, None, path + ("layer_norm",))
+
+
+def _feature_encoder_to(sd, key, tree, bs, path):
+    """The interleaved ``block_modules`` list -> ``block{B}_conv{C}`` /
+    ``block{B}_transformer``."""
+    i, block, conv = 0, 0, 0
+    while True:
+        src = f"{key}.block_modules.{i}"
+        if sd.has(f"{src}.conv.conv.weight"):
+            dst = path + (f"block{block}_conv{conv}",)
+            _conv_to(sd, f"{src}.conv.conv", tree, dst + ("conv",))
+            _norm_to(sd, f"{src}.norm", tree, bs, dst + ("norm",))
+            conv += 1
+        elif sd.has(f"{src}.pos_conv.0.weight_v"):
+            _transformer_to(sd, src, tree, path + (f"block{block}_transformer",))
+            block, conv = block + 1, 0
+        else:
+            break
+        i += 1
+    if i == 0:
+        raise ValueError(f"no block_modules under {key}")
+
+
+def _projector_to(sd, key, tree, bs, path):
+    i = 0
+    while sd.has(f"{key}.conv_layers.{i}.conv.conv.weight"):
+        cp = path + (f"conv{i}",)
+        _conv_to(sd, f"{key}.conv_layers.{i}.conv.conv", tree, cp + ("conv",))
+        _norm_to(sd, f"{key}.conv_layers.{i}.norm", tree, bs, cp + ("norm",))
+        i += 1
+    _dense_to(sd, f"{key}.output_proj", tree, path + ("output_proj",))
+
+
+def _check_consumed(sd: _StateDict):
+    leftover = sd.leftover()
+    if leftover:
+        raise ValueError(f"unconsumed state_dict tensors: {leftover[:8]}")
+
+
+def ctc_finetune_to_jax(state_dict: Mapping) -> Tuple[Dict, Dict]:
+    """The CTC finetune model's reference-named state_dict -> its flax trees
+    ``(params, batch_stats)``."""
+    sd = _StateDict(state_dict)
+    params: Dict = {}
+    bs: Dict = {}
+    _feature_encoder_to(sd, "encoder.feature_encoder", params, bs,
+                        ("encoder", "feature_encoder"))
+    if sd.has("decoder.proj_upsampling.proj.conv.conv.weight"):
+        _conv_to(sd, "decoder.proj_upsampling.proj.conv.conv", params,
+                 ("decoder", "proj_upsampling", "proj"))
+        if sd.has("decoder.proj_upsampling.norm.weight"):
+            _norm_to(sd, "decoder.proj_upsampling.norm", params, bs,
+                     ("decoder", "proj_upsampling", "norm"))
+    i = 0
+    while sd.has(f"decoder.conv_layers.{i}.conv.conv.weight"):
+        cp = ("decoder", f"conv_{i}")
+        _conv_to(sd, f"decoder.conv_layers.{i}.conv.conv", params, cp + ("conv",))
+        if sd.has(f"decoder.conv_layers.{i}.norm.weight"):
+            _norm_to(sd, f"decoder.conv_layers.{i}.norm", params, bs, cp + ("norm",))
+        i += 1
+    w = sd.get("decoder.decoder_layers.0.weight")  # (V, C, 1)
+    _put(params, ("decoder", "decoder_proj", "kernel"), np.transpose(w[:, :, 0], (1, 0)))
+    _put(params, ("decoder", "decoder_proj", "bias"), sd.get("decoder.decoder_layers.0.bias"))
+    _check_consumed(sd)
+    return params, bs
+
+
+def st2vec_to_jax(state_dict: Mapping) -> Tuple[Dict, Dict, Dict]:
+    """The pretraining model's reference-named state_dict -> its flax trees
+    ``(params, batch_stats, teacher)`` (the teacher empty when the
+    state_dict has no ``target_*`` towers)."""
+    sd = _StateDict(state_dict)
+    params: Dict = {}
+    bs: Dict = {}
+    teacher: Dict = {}
+    _feature_encoder_to(sd, "feature_encoder", params, bs, ("feature_encoder",))
+    for name in ("projector", "predictor"):
+        if sd.has(f"{name}.output_proj.weight"):
+            _projector_to(sd, name, params, bs, (name,))
+    if sd.has("target_feature_encoder.block_modules.0.conv.conv.weight") or sd.has(
+            "target_feature_encoder.block_modules.0.pos_conv.0.weight_v"):
+        _feature_encoder_to(sd, "target_feature_encoder", teacher, None, ("feature_encoder",))
+        _projector_to(sd, "target_projector", teacher, None, ("projector",))
+    _check_consumed(sd)
+    return params, bs, teacher
 
 
 def load_jax_npz(path: str, roots=("params", "batch_stats")):

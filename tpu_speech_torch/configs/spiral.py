@@ -18,7 +18,9 @@ convs, blank after the 28-char vocab), test batches of 14 padded to 24 s.
 CPU test size of the pretrain step.
 
 ``CONFIGS`` maps the ``--config_name`` values of the port's run_spiral CLI to
-these builders.
+these functions (``spiral_tiny_test``, the JAX package's name, is
+``spiral_tiny_pretrain``). The other experiment files of ``cli/conf/spiral/``
+are not ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -261,4 +263,5 @@ CONFIGS = {
     "spiral_tiny_ctc_char": spiral_tiny_ctc_char,
     "spiral_base_pretrain_ls960": spiral_base_pretrain_ls960,
     "spiral_tiny_pretrain": spiral_tiny_pretrain,
+    "spiral_tiny_test": spiral_tiny_pretrain,  # the JAX package's name for it
 }

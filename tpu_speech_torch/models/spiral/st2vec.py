@@ -6,7 +6,8 @@ field-for-field twin), ``spiral_base_config:70``, ``wav_to_spec:157`` (the
 float32, int16 and mu-law wire formats), ``ST2VecEncoder:93`` and the
 pretraining functions ``ema_update:141``, ``momentum_schedule:150``,
 ``teacher_shift:192``, ``sample_negatives:224`` (split into an index draw and
-a gather that takes the index array) and ``contrastive_loss:286``.
+a gather that takes the index array), ``check_collapse:240`` (the validation
+diagnostics) and ``contrastive_loss:286``.
 
 ``ST2VecEncoder(cfg)`` is the encoder as CTC finetuning uses it (feature
 encoder only). ``ST2VecEncoder(cfg, pretraining=True)`` adds the student's
@@ -14,8 +15,6 @@ projector and predictor and the EMA teacher towers under the reference
 state_dict names ``target_feature_encoder.*`` / ``target_projector.*``, which
 ``tpu_speech/compat/torch_spiral.py::convert_st2vec`` reads. The teacher's
 parameters do not require gradients.
-
-Not ported yet: ``check_collapse`` (the validation diagnostics).
 """
 
 from __future__ import annotations
@@ -258,6 +257,38 @@ def gather_negatives(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b = feats.shape[0]
     rows = torch.arange(b, device=feats.device)[:, None, None]
     return feats[rows, idx].permute(2, 0, 1, 3)
+
+
+def check_collapse(pred, targets, feat_lens, trunc: int = 80) -> dict:
+    """Representation-collapse diagnostics (``check_collapse:240``; the
+    reference's st2vec_model.py:287-312 prints the matrices these reduce).
+    Over the first ``min(min(feat_lens), trunc)`` frames, float32 0-d
+    tensors: ``self_sim`` (mean off-diagonal cosine similarity of pred[0]
+    with itself; a collapsed representation drives it toward 1),
+    ``target_self_sim`` (the same for targets[0]), ``pred_target_sim`` (mean
+    per-frame cos(pred[0], targets[0])) and, with B >= 2, ``cross_utt_sim``
+    (mean per-frame cos(pred[0], pred[1]))."""
+    t = min(trunc, pred.shape[1])
+    n = torch.clamp(feat_lens.min(), max=t)
+    frame_ok = (torch.arange(t, device=pred.device) < n).to(torch.float32)
+
+    def unit(x):
+        x = x.to(torch.float32)
+        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-8)
+
+    def offdiag_mean(u):
+        w = frame_ok[:, None] * frame_ok[None, :] * (1.0 - torch.eye(t, device=u.device))
+        return (u @ u.T * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+    def frame_mean(a, b):
+        return ((a * b).sum(-1) * frame_ok).sum() / torch.clamp(frame_ok.sum(), min=1.0)
+
+    p0, g0 = unit(pred[0, :t]), unit(targets[0, :t])
+    out = {"self_sim": offdiag_mean(p0), "target_self_sim": offdiag_mean(g0),
+           "pred_target_sim": frame_mean(p0, g0)}
+    if pred.shape[0] >= 2:
+        out["cross_utt_sim"] = frame_mean(p0, unit(pred[1, :t]))
+    return out
 
 
 def contrastive_loss(logits, targets, negatives, valid_mask, logit_temp: float):

@@ -6,6 +6,9 @@ accumulation, and the host-side ``host_augment_batch:305`` and
 ``quantize_wire_int16:245`` are numpy twins that give equal arrays from one
 seed.
 
+``validation_loss`` is the no-update loss of the pretrain runner's
+validation (train=False), with ``check_collapse`` on the same tensors.
+
 One step, as the JAX one: wav -> spec for the clean branch (teacher) and the
 perturbed branch (student), with train-mode dither; teacher shift and a
 no-grad teacher encode in train mode; the student's masked encode;
@@ -52,6 +55,7 @@ from tpu_speech_torch.models.spiral.masking import (
 )
 from tpu_speech_torch.models.spiral.st2vec import (
     ST2VecEncoder,
+    check_collapse,
     contrastive_loss,
     draw_negative_indices,
     ema_update,
@@ -185,6 +189,42 @@ def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
     return {"loss": loss_sum / accum_steps, "accuracy": acc_sum / accum_steps,
             "momentum": m, "lr": lr, "teacher_layers": teacher_layers,
             "student_layers": student_layers}
+
+
+@torch.no_grad()
+def validation_loss(model: ST2VecEncoder, batch: dict, neg_idx=None,
+                    generator: Optional[torch.Generator] = None):
+    """The no-update contrastive loss of one device batch with train=False
+    (the JAX runner's ``validate:365-423``): no dither, dropout or layerdrop,
+    BatchNorm on its running statistics; the EMA teacher on the shifted clean
+    specs, the student on the masked perturbed specs, InfoNCE, and
+    ``check_collapse`` on the same tensors. The negatives' indices are
+    ``neg_idx`` (B, T', N), or are drawn from ``generator``. Returns (loss,
+    accuracy, diagnostics) as 0-d tensors; the model's mode is restored."""
+    cfg = model.cfg
+    was_training = model.training
+    model.eval()
+    try:
+        emb = torch.tensor(gaussian_mask_emb(cfg.num_features), device=batch["wavs"].device)
+        t_specs, t_lens = wav_to_spec(cfg, batch["wavs"], batch["wav_lens"])
+        s_specs, s_lens = wav_to_spec(cfg, batch["p_wavs"], batch["p_wav_lens"])
+        k, r = int(batch["shift_k"]), int(batch["shift_r"])
+        t_sh, t_lens_sh = teacher_shift(t_specs, t_lens, k, r, cfg.shift_unit, cfg.max_shift,
+                                        emb)
+        targets, _ = model(t_sh, t_lens_sh, tower="teacher")
+        targets = targets[:, k:k + s_specs.shape[1] // cfg.shift_unit]
+        s_specs = apply_mask(s_specs, batch["time_mask"], batch["chan_mask"], emb)
+        pred, feat_lens = model(s_specs, s_lens, tower="student")
+        t_out = pred.shape[1]
+        valid = (torch.arange(t_out, device=pred.device)[None, :]
+                 < feat_lens[:, None]).to(pred.dtype)
+        if neg_idx is None:
+            neg_idx = draw_negative_indices(feat_lens, t_out, cfg.n_negatives, generator)
+        loss, acc = contrastive_loss(pred, targets, gather_negatives(targets, neg_idx), valid,
+                                     cfg.logit_temp)
+        return loss, acc, check_collapse(pred, targets, feat_lens)
+    finally:
+        model.train(was_training)
 
 
 def quantize_wire_int16(batch: dict) -> dict:

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``tpu_speech/utils/checkpoint.py`` (orbax there,
 which imports JAX): one file a step, ``<dir>/step_{step:010d}.pt``, holding
-whatever dict of tensors and numbers the caller passes (a trainer's model
-``state_dict``, its optimizer's moments and count, the step). Each save is
+whatever dict of tensors, numbers and generator states the caller passes (a
+trainer's model ``state_dict``, its optimizer's moments and count, the step,
+buffered batches). Each save is
 written to a temporary name and renamed, so a file under the final name is
 always whole. ``save`` copies the state to host memory and writes it on a
 background thread; the next save, restore or ``wait`` drains it first, so at
@@ -22,11 +23,14 @@ import torch
 
 
 def _to_host(obj: Any) -> Any:
-    """A copy of ``obj`` (nested dicts) with every tensor detached on the CPU."""
+    """A copy of ``obj`` (nested dicts and lists) with every tensor detached
+    on the CPU."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to_host(v) for v in obj]
     return obj
 
 

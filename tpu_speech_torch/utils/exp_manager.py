@@ -1,10 +1,13 @@
-"""Experiment manager: the log dir, environment capture, TensorBoard.
+"""Experiment manager: the run directory, environment capture, TensorBoard.
 
-The port's own copy of what the Grad-TTS CLI uses of
-``tpu_speech/utils/exp_manager.py`` (SPIRAL's nemo/utils/exp_manager.py:
-105-604): it creates the log dir, records the git hash, branch and diff
-(``env.json``, ``git-diff.patch``) and the config (``config.json``), and opens
-a TensorBoard writer when ``tensorboardX`` is installed.
+The port's own copy of ``tpu_speech/utils/exp_manager.py::ExpManager:27``
+(SPIRAL's nemo/utils/exp_manager.py:105-604): the run directory is
+``explicit_log_dir`` when given, else ``<base_dir>/<name>/run_<N>``, where
+``N`` is the next free version, or the latest one when ``resume_if_exists``
+(so that a resumed run finds its checkpoints). It records the git hash,
+branch and diff (``env.json``, ``git-diff.patch``) and the config
+(``config.json``), and opens a TensorBoard writer in ``tensorboard_dir`` (or
+the run directory) when ``tensorboardX`` is installed.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import json
 import os
 import subprocess
 import time
-from typing import Any
+from typing import Any, Optional
 
 
 def _git(cmd, cwd):
@@ -27,8 +30,18 @@ def _git(cmd, cwd):
 
 
 class ExpManager:
-    def __init__(self, log_dir: str):
-        self.log_dir = log_dir
+    def __init__(self, name: str = "exp", base_dir: str = "experiments",
+                 explicit_log_dir: Optional[str] = None, resume_if_exists: bool = True,
+                 tensorboard_dir: Optional[str] = None):
+        if explicit_log_dir:
+            self.log_dir = explicit_log_dir
+        else:
+            version = 0
+            while os.path.exists(os.path.join(base_dir, name, f"run_{version}")):
+                version += 1
+            if resume_if_exists and version > 0:
+                version -= 1
+            self.log_dir = os.path.join(base_dir, name, f"run_{version}")
         os.makedirs(self.log_dir, exist_ok=True)
         self._capture_environment()
         try:
@@ -36,7 +49,7 @@ class ExpManager:
         except ImportError:
             self.tb = None
         else:
-            self.tb = SummaryWriter(self.log_dir)
+            self.tb = SummaryWriter(tensorboard_dir or self.log_dir)
 
     def _capture_environment(self):
         """Record the git hash, branch and diff and the working directory."""

@@ -1,15 +1,33 @@
-"""Step timing: the port's own copy of ``StepTimer`` of
-``tpu_speech/utils/profiling.py:33`` (the role of DiffVC's speaker-encoder
-Profiler, speaker_encoder/utils/profiler.py:1-46)."""
+"""Profiler traces and step timing: the port's counterparts of ``trace`` and
+``StepTimer`` of ``tpu_speech/utils/profiling.py:19,33`` (``StepTimer`` has
+the role of DiffVC's speaker-encoder Profiler,
+speaker_encoder/utils/profiler.py:1-46)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Trace the block with ``torch.profiler`` (the host, and the card when
+    there is one) into ``<log_dir>/plugins/profile``, where TensorBoard's
+    profile tab finds it, as ``jax.profiler.start_trace(log_dir)`` writes its
+    trace."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = os.path.join(log_dir, "plugins", "profile")
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(out)) as prof:
+        yield prof
 
 
 class StepTimer:
