@@ -17,8 +17,10 @@ speaker encoder's training through their CLIs (``preprocess_spk``,
 ``train_spk_encoder``, ``get_avg_mels``, ``train_enc``, ``train_dec``; no
 hand kernel), ending in a conversion on the checkpoints they wrote; and
 the SPIRAL loops as the JAX CLI runs them (its defaults, a checkpoint every
-epoch and resume, validation, ``.tpu_speech`` archives). It checks each hand
-kernel, fp32 and bf16, against its plain PyTorch version. Phases
+epoch and resume, validation, ``.tpu_speech`` archives); HiFi-GAN V1's GAN
+training through ``tpu_speech_torch.cli.train_hifigan.main`` (fp32, bf16,
+resume, fine-tuning; no hand kernel) and Grad-TTS training in bf16. It
+checks each hand kernel, fp32 and bf16, against its plain PyTorch version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
 
@@ -229,7 +231,38 @@ result):
     test`` with ``--init_archive`` on it, with ``--init_chkpt_file
     ctc_finetune.pt``, with a step checkpoint, and with ``--use_chkpt_hparams
     true`` under a pretrain ``--config_name`` give the same log-probs bit for
-    bit and the same WER.
+    bit and the same WER;
+40. HiFi-GAN V1 training through ``tpu_speech_torch.cli.train_hifigan.main``
+    on 48 speech-like 22 050 Hz wavs of 2 s (8 more for validation), the V1
+    config written out (B = 16 x 8192, AdamW 2e-4, b 0.8/0.99, decay
+    0.999): 2 epochs of 3 steps with validation, then ``--resume_if_exists``
+    to a 3rd, then ``--fine_tuning`` on host mels stored (80, T) for a 4th;
+    per step the seven metrics finite and no hand kernel
+    (``launches_by_path`` key ``hifigan_train_step``); the generator and
+    both discriminators moved; the final ``generator.pt`` vocodes through
+    ``cli.inference.main``;
+41. one V1 GAN step (B = 2 x 8192) on the card against the CPU, the
+    generator's half against a CPU step that meets the card's updated
+    discriminators: metrics 1e-4 relative, each gradient leaf within 1e-3
+    relative L2 (the L1 mel loss flips single elements' signs, so phase
+    28's elementwise bound is printed only), parameters 1e-5 x max(1, |p|)
+    of the CPU's AdamW on the card's gradients; the card's step under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+42. bf16 training: ``train_hifigan.main --bf16`` for 2 epochs on phase 40's
+    corpus, and Grad-TTS through ``cli.train.main`` with ``precision =
+    "bf16"`` (2 epochs of 2 steps at B = 16, MAS once a step: key
+    ``gradtts_train_step_bf16``), float32 weights saved; one bf16 step of
+    each held to its fp32 step (the loss within 2e-2, the gradients by the
+    2x rule of phase 19): the GAN step at B = 16 x 8192 (no hand kernel, so
+    its yardstick is the step itself) and the Grad-TTS step at bench.py's
+    point with one set of draws and MAS path (yardstick: MAS's plain loop);
+43. the GAN step at B = 16 x 8192, fp32 with TF32 off and bf16: CUDA events
+    (median of 10), peak memory, kernels per step, busy share, and the FLOP
+    bound (at 67 TFLOP/s fp32 or 989 TFLOP/s bf16) of 4 F_G + 9 F_D, the
+    generator's and the discriminators' forwards by
+    ``torch.utils.flop_counter``;
+44. bench.py's train-step point in bf16 (``gradtts_train_step_ms_bf16``):
+    as phase 29.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -241,6 +274,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2345,32 +2379,27 @@ def phase_gradtts_cpu_vs_card(torch):
     return same_path
 
 
-def phase_gradtts_train_time(torch):
-    """29: bench.py's train-step point (bench.py:302-321): B = 16, Tx 72, Ty
-    512, out_size 172, n_vocab len(symbols) + 1, the reference init, dropout
-    on, Adam 1e-4, fp32 with TF32 off; CUDA events, median of 10 after
+def phase_gradtts_train_time(torch, bf16=False):
+    """29 (44 with bf16): bench.py's train-step point (bench.py:302-321): B =
+    16, Tx 72, Ty 512, out_size 172, n_vocab len(symbols) + 1, the reference
+    init, dropout on, Adam 1e-4, fp32 with TF32 off (or the bf16 step,
+    bench.py's gradtts_train_step_ms_bf16); CUDA events, median of 10 after
     warm-up, the batch on the card. Peak memory, kernels per step, the busy
     share and a profile with where MAS stands."""
     from tpu_speech_torch.cli import train
     from tpu_speech_torch.ops import _build
-    from tpu_speech_torch.text import symbols
-    from tpu_speech_torch.train.gradtts import batch_to_device, step_generator, train_step
+    from tpu_speech_torch.train.gradtts import step_generator, train_step
     from tpu_speech_torch.train.optim import AdamW
 
-    b, t_x, t_y = MAS_BENCH
     model = train.build_model().cuda().train()
     opt = AdamW(model.parameters(), 1e-4)
-    r = np.random.default_rng(0)
-    batch = batch_to_device({
-        "x": r.integers(1, len(symbols), size=(b, t_x)).astype(np.int32),
-        "x_lengths": np.full((b,), t_x, np.int32),
-        "y": r.standard_normal((b, t_y, 80)).astype(np.float32),
-        "y_lengths": np.full((b,), t_y, np.int32)}, "cuda")
+    batch = _gradtts_bench_batch(torch)
     it = [0]
+    phase, tag = ("44", "bf16") if bf16 else ("29", "fp32")
 
     def step():
         it[0] += 1
-        return train_step(model, opt, batch, step_generator(0, it[0], "cuda"), 172)
+        return train_step(model, opt, batch, step_generator(0, it[0], "cuda"), 172, bf16=bf16)
 
     ms, peak = _timed_step(torch, step)
     _build.reset_launches()
@@ -2379,9 +2408,9 @@ def phase_gradtts_train_time(torch):
     check(_build.LAUNCHES == dict(dict.fromkeys(_build.LAUNCHES, 0), maximum_path=1),
           f"bench step launches {_build.LAUNCHES}")
     check(all(torch.isfinite(v) for v in m.values()), f"bench step metrics {m}")
-    log(f"[29 gradtts train step time] bench.py's point B = 16, Tx 72, Ty 512, out_size 172, "
-        f"fp32: {ms:.2f} ms per step (median of 10), peak device memory {peak:.3f} GiB")
-    prof = profile_slice(torch, step, batches=3, top=12, tag="29 profile, train step")
+    log(f"[{phase} gradtts train step time] bench.py's point B = 16, Tx 72, Ty 512, out_size "
+        f"172, {tag}: {ms:.2f} ms per step (median of 10), peak device memory {peak:.3f} GiB")
+    prof = profile_slice(torch, step, batches=3, top=12, tag=f"{phase} profile, {tag} train step")
     if prof is not None:
         ranks = [i for i, (name, _, _) in enumerate(prof["ranked"]) if "maximum_path" in name]
         if ranks:
@@ -3596,6 +3625,480 @@ def phase_archives(torch, root, ft_root, pre_dir):
     return launches
 
 
+# ---- 40-44: HiFi-GAN training, bf16 Grad-TTS training -----------------------
+
+HG_SEED = 41
+HG_UTTS = 48  # 2 s each: three V1 batches of 16 an epoch
+HG_VAL_UTTS = 8
+HG_POINT = (16, 8192)  # the V1 recipe's batch: B x segment_size
+HG_GRAD_RL2 = 1e-3  # the GAN step's gradients, card against CPU, relative L2 per leaf
+# cli/train_hifigan.py's defaults (build_generator:35, mel_cfg_from:49) and
+# the V1 recipe's training keys (:81-82, 112-118), written out as a config
+HG_CONFIG = dict(HIFIGAN_V1, n_fft=1024, num_mels=80, sampling_rate=22050, hop_size=256,
+                 win_size=1024, fmin=0.0, fmax=8000.0, segment_size=8192, batch_size=16,
+                 learning_rate=2e-4, adam_b1=0.8, adam_b2=0.99, lr_decay=0.999, seed=1234)
+
+
+def write_hifigan_corpus(root, rng):
+    """HG_UTTS + HG_VAL_UTTS speech-like 22 050 Hz wavs of 2 s, the
+    filelists (ids, and text after '|' in the training one) and the V1
+    config. Returns (wav dir, train list, validation list, config)."""
+    from tpu_speech_torch.data.wav import write_wav
+
+    wavs = os.path.join(root, "wavs")
+    os.makedirs(wavs)
+    names = []
+    for i in range(HG_UTTS + HG_VAL_UTTS):
+        names.append(f"hg{i:02d}")
+        write_wav(os.path.join(wavs, names[-1] + ".wav"),
+                  speech_like(rng, 2 * 22050, sr=22050), 22050)
+    train, val, config = (os.path.join(root, n) for n in ("train.txt", "val.txt",
+                                                           "config.json"))
+    _write_lines(train, [f"{n}|a line of text\n" for n in names[:HG_UTTS]])
+    _write_lines(val, [f"{n}\n" for n in names[HG_UTTS:]])
+    with open(config, "w") as f:
+        json.dump(HG_CONFIG, f)
+    return wavs, train, val, config
+
+
+def _watch_gan_steps(torch, seen):
+    """Wrap train/hifigan.py's gan_train_step (the trainer looks it up at
+    each step) to record each step's launches and metrics; returns the
+    original."""
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import hifigan as th
+
+    step = th.gan_train_step
+
+    def watched(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        m = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen.append(({k: v - before[k] for k, v in _build.LAUNCHES.items()},
+                     {k: float(v) for k, v in m.items()}))
+        return m
+
+    th.gan_train_step = watched
+    return step
+
+
+def _hg_cli(corpus, log_dir, epochs, *extra):
+    from tpu_speech_torch.cli import train_hifigan
+
+    wavs, train, val, config = corpus
+    t0 = time.perf_counter()
+    res = train_hifigan.main(["--config", config, "--input_wavs_dir", wavs,
+                              "--input_training_file", train, "--input_validation_file", val,
+                              "--log_dir", log_dir, "--training_epochs", str(epochs),
+                              "--validation_interval", "1", *extra])
+    return res, time.perf_counter() - t0
+
+
+def phase_hifigan_train_slice(torch, rng, root):
+    """40: HiFi-GAN V1 training through tpu_speech_torch.cli.train_hifigan
+    .main on the card: 2 epochs of 3 steps (B = 16 x 8192) with validation,
+    then --resume_if_exists to a 3rd epoch, then --fine_tuning on host mels
+    stored (80, T) for a 4th; per step no hand kernel, the seven metrics
+    finite; the generator and both discriminators moved; train.log has a
+    line per epoch; the final generator.pt vocodes through
+    cli.inference.main."""
+    import scipy.io.wavfile
+
+    from tpu_speech_torch.audio.mel import mel_spectrogram_np
+    from tpu_speech_torch.cli import inference, train_hifigan
+    from tpu_speech_torch.data.wav import read_wav
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import hifigan as th
+
+    corpus = write_hifigan_corpus(root, rng)
+    mels = os.path.join(root, "mels")
+    os.makedirs(mels)
+    for name in sorted(os.listdir(corpus[0])):
+        wav, _ = read_wav(os.path.join(corpus[0], name))
+        np.save(os.path.join(mels, name[:-4] + ".npy"), mel_spectrogram_np(wav).T)
+    log_dir = os.path.join(root, "hifigan_logs")
+    seen, runs = [], []
+    step = _watch_gan_steps(torch, seen)
+    _build.reset_launches()
+    try:
+        for epochs, extra in ((2, ()), (3, ("--resume_if_exists",)),
+                              (4, ("--resume_if_exists", "--fine_tuning", "--input_mels_dir",
+                                   mels))):
+            res, wall = _hg_cli(corpus, log_dir, epochs, *extra)
+            runs.append((res, wall, len(seen)))
+    finally:
+        th.gan_train_step = step
+    launches = dict(_build.LAUNCHES)
+    (r1, w1, n1), (r2, w2, n2), (r3, w3, n3) = runs
+    log(f"[40 hifigan train slice] parameters {r1['n_params']}; {HG_UTTS} wavs of 2 s, "
+        f"B = 16 x 8192; run 1 (2 epochs) {n1} steps in {w1:.1f} s, run 2 resumed at epoch "
+        f"{r2['first_epoch']}: {n2 - n1} steps in {w2:.1f} s, run 3 (--fine_tuning) at "
+        f"epoch {r3['first_epoch']}: {n3 - n2} steps in {w3:.1f} s; hand-kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} or 0}")
+    for i, (d, m) in enumerate(seen):
+        log("    step %d: %s" % (i, ", ".join(f"{k} {v:.4f}" for k, v in m.items())))
+        check(not any(d.values()), f"step {i} launches {d}")
+        check(all(np.isfinite(v) for v in m.values()), f"step {i} metrics {m}")
+    check((n1, n2 - n1, n3 - n2) == (6, 3, 3), f"steps per run {n1}, {n2 - n1}, {n3 - n2}")
+    check((r2["first_epoch"], r3["first_epoch"], r3["iteration"]) == (2, 3, 12),
+          f"resume: epochs {r2['first_epoch']}, {r3['first_epoch']}, {r3['iteration']} steps")
+    vals = [e["val_mel_error"] for r in (r1, r2, r3) for e in r["epochs"]]
+    log(f"    validation mel error per epoch: {[round(v, 4) for v in vals]}")
+    check(len(vals) == 4 and all(np.isfinite(vals)), f"validation {vals}")
+    with open(os.path.join(log_dir, "train.log")) as f:
+        log_lines = f.read().splitlines()
+    log(f"    train.log: {log_lines}")
+    check(len(log_lines) == 4, f"train.log has {len(log_lines)} lines for 4 epochs")
+    gen0, mpd0, msd0 = train_hifigan.build_models(HG_CONFIG)
+    g0 = gen0.state_dict()
+    d0 = torch.nn.ModuleDict({"mpd": mpd0, "msd": msd0}).state_dict()
+    ckpt = torch.load(os.path.join(log_dir, "ckpt", "step_0000000012.pt"), weights_only=True)
+    g = torch.load(r3["generator"], weights_only=True)["generator"]
+    moved = {"generator": _max_diff(list(g.values()), [g0[k] for k in g]),
+             "mpd": _max_diff([ckpt["disc"][k] for k in d0 if k.startswith("mpd.")],
+                              [d0[k] for k in d0 if k.startswith("mpd.")]),
+             "msd": _max_diff([ckpt["disc"][k] for k in d0 if k.startswith("msd.")],
+                              [d0[k] for k in d0 if k.startswith("msd.")])}
+    log(f"    moved (max |w - w0| after 12 steps): {moved}; checkpoints "
+        f"{sorted(os.listdir(os.path.join(log_dir, 'ckpt')))}, "
+        f"{os.path.getsize(os.path.join(log_dir, 'ckpt', 'step_0000000012.pt')) / 2**30:.3f} "
+        f"GiB each")
+    check(all(v > 0 for v in moved.values()), f"a network did not move: {moved}")
+    check(all(torch.equal(g[k], ckpt["gen"][k]) for k in g), "generator.pt is not the last step's")
+    del ckpt
+    shutil.rmtree(os.path.join(log_dir, "ckpt"))  # 1 GiB a checkpoint
+
+    gt_pt = os.path.join(root, "grad-tts.pt")
+    torch.save(_gradtts_full_width(torch, HG_SEED).state_dict(), gt_pt)
+    texts = os.path.join(root, "texts.txt")
+    _write_lines(texts, [TTS_TEXT + "\n"])
+    out = inference.main(["-f", texts, "-c", gt_pt, "--hifigan", r3["generator"],
+                          "--hifigan-config", corpus[3], "--cmudict", "", "--out-dir",
+                          os.path.join(root, "hifigan_out")])
+    (smp,) = out["samples"]
+    _, pcm = scipy.io.wavfile.read(smp["path"])
+    log(f"    the trained generator.pt through cli.inference.main: {smp['frames']} frames, "
+        f"{len(pcm)} int16 samples, peak |pcm| {int(np.abs(pcm.astype(np.int32)).max())}")
+    check(len(pcm) == smp["frames"] * 256 and out["n_vocoder_params"] == r1["n_params"][
+        "generator"], f"vocoder output {smp}, {out['n_vocoder_params']} parameters")
+    return launches, corpus
+
+
+def _hg_models(torch, seed):
+    """HiFi-GAN V1 and the reference discriminators with the CLI's init
+    from ``seed``, on the CPU."""
+    from tpu_speech_torch.cli import train_hifigan
+
+    return train_hifigan.build_models(dict(HG_CONFIG, seed=seed))
+
+
+def _hg_batch(rng, b, n):
+    return {"wav": np.stack([0.95 * w / np.abs(w).max()
+                             for w in (speech_like(rng, n, sr=22050) for _ in range(b))])}
+
+
+def _gan_step_on(torch, models, batch, device, bf16=False, debug=False, frozen_disc=False):
+    """One gan_train_step of copies of ``models`` on ``device``: (metrics,
+    {name: gradient} of the generator and of the discriminators, the models
+    after the step). ``frozen_disc``: the discriminators' AdamW at lr 0, so
+    that the generator's half of the step meets the discriminators as
+    given."""
+    import copy
+
+    from tpu_speech_torch.train import hifigan as th
+    from tpu_speech_torch.train.optim import AdamW
+    from tpu_speech_torch.train.trainer import batch_to_device
+
+    gen, mpd, msd = (copy.deepcopy(m).to(device) for m in models)
+    disc = torch.nn.ModuleDict({"mpd": mpd, "msd": msd})
+    opt_g, opt_d = th.make_optimizers(gen, disc)
+    if frozen_disc:
+        opt_d = AdamW(disc.parameters(), 0.0)
+    b = batch_to_device(batch, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if debug else 0)
+    try:
+        m = th.gan_train_step(gen, mpd, msd, opt_g, opt_d, b, bf16=bf16)
+    finally:
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    grads = {f"gen.{n}": p.grad.cpu() for n, p in gen.named_parameters()}
+    grads.update({f"disc.{n}": p.grad.cpu() for n, p in disc.named_parameters()})
+    return {k: float(v) for k, v in m.items()}, grads, (gen, disc)
+
+
+def phase_hifigan_cpu_vs_card(torch):
+    """41: one V1 GAN step on the card against the CPU (B = 2 x 8192, the
+    same weights and batch, AdamW as the recipe's). The discriminators'
+    half against the CPU's step, the generator's half against a CPU step
+    that meets the card's updated discriminators (theirs at lr 0): AdamW's
+    first update is about lr sign(g), so where a discriminator's gradient
+    is rounding noise the two sides' own updates differ by 2 lr, and the
+    generator's gradients with them. The seven metrics within 1e-4
+    relative; each gradient leaf (max|g| at least 1 % of the largest)
+    within HG_GRAD_RL2 relative L2 (phase 28's elementwise bound, 1e-3 x
+    max|g|, is printed: the L1 mel loss and the leaky ReLUs can flip single
+    elements' signs); both networks' parameters within 1e-5 x max(1, |p|)
+    of the CPU's AdamW on the card's gradients; the card's step (after a
+    warm one on other copies) under set_sync_debug_mode('error')."""
+    import copy
+
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import hifigan as th
+
+    models = _hg_models(torch, HG_SEED)
+    batch = _hg_batch(np.random.default_rng(HG_SEED), 2, HG_POINT[1])
+    _gan_step_on(torch, models, batch, "cuda")  # warm: cuDNN's plans, the mel constants
+    _build.reset_launches()
+    m_card, g_card, (gen, disc) = _gan_step_on(torch, models, batch, "cuda", debug=True)
+    check(not any(_build.LAUNCHES.values()), f"card step launches {_build.LAUNCHES}")
+    m_cpu, g_cpu, _ = _gan_step_on(torch, models, batch, "cpu")
+    met_g, g_gen, _ = _gan_step_on(torch, (models[0], copy.deepcopy(disc["mpd"]).cpu(),
+                                           copy.deepcopy(disc["msd"]).cpu()), batch, "cpu",
+                                   frozen_disc=True)
+    for k in ("loss_gen", "mel_error", "loss_fm", "loss_adv"):
+        m_cpu[k] = met_g[k]
+    g_cpu.update({k: g for k, g in g_gen.items() if k.startswith("gen.")})
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    g_max = max(g.abs().max().item() for g in g_cpu.values())
+    worst_g = max(((g_card[k] - g).abs().max().item()
+                   / max(GRAD_RTOL * g.abs().max().item(), GT_GRAD_FLOOR * g_max), k)
+                  for k, g in g_cpu.items())
+    worst_l2 = max(((g_card[k] - g).norm().item() / g.norm().item(), k)
+                   for k, g in g_cpu.items() if g.abs().max().item() >= 1e-2 * g_max)
+    # the card's parameters against the CPU's AdamW on the card's gradients
+    ref = {"gen": copy.deepcopy(models[0]),
+           "disc": torch.nn.ModuleDict({"mpd": copy.deepcopy(models[1]),
+                                        "msd": copy.deepcopy(models[2])})}
+    for part, model in ref.items():
+        for n, p in model.named_parameters():
+            p.grad = g_card[f"{part}.{n}"]
+    for opt in th.make_optimizers(ref["gen"], ref["disc"]):
+        opt.step()
+    worst_p = (0.0, "")
+    for part, card in (("gen", gen), ("disc", disc)):
+        want = dict(ref[part].named_parameters())
+        for n, p in card.named_parameters():
+            w = want[n].detach()
+            worst_p = max(worst_p, (((p.detach().cpu() - w).abs() / w.abs().clamp(min=1.0))
+                                    .max().item(), f"{part}.{n}"))
+    log(f"[41 hifigan card vs cpu] V1, B = 2 x {HG_POINT[1]}: metrics card "
+        f"{ {k: round(v, 5) for k, v in m_card.items()} } (worst rel {max(rel.values()):.2e}, "
+        f"limit {STEP_LOSS_RTOL}); gradients: worst relative L2 {worst_l2[0]:.2e} "
+        f"({worst_l2[1]}; limit {HG_GRAD_RL2}, leaves above 1 % of the largest), worst "
+        f"max |diff| at {worst_g[0]:.3f} x phase 28's bound ({worst_g[1]}) over "
+        f"{len(g_cpu)} tensors; parameters after AdamW {worst_p[0]:.2e} x max(1, |p|) from "
+        f"the CPU's AdamW on the card's gradients ({worst_p[1]}; limit {GT_PARAM_RTOL}); "
+        f"the card's step under set_sync_debug_mode('error')")
+    check(max(rel.values()) <= STEP_LOSS_RTOL, f"metrics {rel}")
+    check(worst_l2[0] <= HG_GRAD_RL2, f"gradient {worst_l2}")
+    check(worst_p[0] <= GT_PARAM_RTOL, f"parameters after AdamW {worst_p}")
+
+
+def phase_bf16_tts_train(torch, rng, root, corpus):
+    """42: bf16 training of both TTS networks. HiFi-GAN: cli.train_hifigan
+    .main --bf16 on phase 40's corpus for 2 epochs (6 steps), float32
+    weights saved. Grad-TTS: cli.train.main with precision = "bf16" at the
+    LJSpeech width, B = 16, on a synthetic corpus for 2 epochs of 2 steps,
+    MAS once a step. Then one bf16 step of each held to its fp32 step on
+    the same weights and batch (_hold_bf16_step: the loss within 2e-2,
+    gradient leaves within 0.1 relative L2 or the rule's bound): the GAN
+    step at B = 16 x 8192, the Grad-TTS step at bench.py's point with the
+    fp32 step's draws and MAS path given to both (t and z rounded to
+    bf16)."""
+    from tpu_speech_torch.cli import train
+    from tpu_speech_torch.configs import gradtts as cfg
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import gradtts as tg
+    from tpu_speech_torch.train import hifigan as th
+
+    seen = []
+    step = _watch_gan_steps(torch, seen)
+    _build.reset_launches()
+    try:
+        res, wall = _hg_cli(corpus, os.path.join(root, "hifigan_bf16"), 2, "--bf16")
+    finally:
+        th.gan_train_step = step
+    hg_launches = dict(_build.LAUNCHES)
+    g = torch.load(res["generator"], weights_only=True)["generator"]
+    log(f"[42 bf16 hifigan cli] {len(seen)} steps in {wall:.1f} s; validation "
+        f"{[round(e['val_mel_error'], 4) for e in res['epochs']]}")
+    for i, (d, m) in enumerate(seen):
+        log("    step %d: %s" % (i, ", ".join(f"{k} {v:.4f}" for k, v in m.items())))
+        check(not any(d.values()) and all(np.isfinite(v) for v in m.values()),
+              f"bf16 step {i}: {d}, {m}")
+    check(len(seen) == 6 and all(v.dtype == torch.float32 for v in g.values()),
+          f"bf16 hifigan: {len(seen)} steps, dtypes {({v.dtype for v in g.values()})}")
+
+    filelist, _ = write_tts_corpus(root, rng, GT_UTTS)
+    keys = ("train_filelist_path", "test_filelist_path", "log_dir", "n_epochs", "batch_size",
+            "cmudict_path", "precision")
+    saved = {k: getattr(cfg, k) for k in keys}
+    gseen = []
+    gstep = _watch_gradtts_steps(torch, gseen)
+    _build.reset_launches()
+    try:
+        for k, v in dict(train_filelist_path=filelist,
+                         test_filelist_path=os.path.join(root, "absent.txt"),
+                         log_dir=os.path.join(root, "gradtts_bf16"), n_epochs=2, batch_size=16,
+                         cmudict_path="", precision="bf16").items():
+            setattr(cfg, k, v)
+        t0 = time.perf_counter()
+        gres = train.main([])
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t0
+    finally:
+        tg.train_step = gstep
+        for k, v in saved.items():
+            setattr(cfg, k, v)
+    gt_launches = dict(_build.LAUNCHES)
+    log(f"[42 bf16 gradtts cli] precision bf16, B = 16: {len(gseen)} steps in {gwall:.1f} s")
+    for i, (d, m) in enumerate(gseen):
+        log(f"    step {i}: loss {m['loss']:.4f} (dur {m['dur_loss']:.4f}, prior "
+            f"{m['prior_loss']:.4f}, diff {m['diff_loss']:.4f}), grad norms enc "
+            f"{m['enc_grad_norm']:.3f} dec {m['dec_grad_norm']:.3f}")
+        check(d == dict(dict.fromkeys(d, 0), maximum_path=1), f"bf16 step {i} launches {d}")
+        check(all(np.isfinite(v) for v in m.values()), f"bf16 step {i} metrics {m}")
+    sd = torch.load(gres["state_dict"], weights_only=True)
+    check(len(gseen) == 4 and all(v.dtype == torch.float32 for v in sd.values()),
+          f"bf16 gradtts: {len(gseen)} steps")
+
+    models = _hg_models(torch, HG_SEED + 1)
+    batch = _hg_batch(np.random.default_rng(HG_SEED + 1), *HG_POINT)
+
+    def gan_run(bf16):
+        m, grads, _ = _gan_step_on(torch, models, batch, "cuda", bf16=bf16)
+        return m["loss_gen"], grads
+
+    _hold_bf16_step("42 hifigan bf16 vs fp32 (no hand kernel: the yardstick is the same "
+                    "step)", gan_run)
+    _hold_bf16_step("42 gradtts bf16 vs fp32 (yardstick: MAS's plain loop)",
+                    _gradtts_bf16_run(torch))
+    return hg_launches, gt_launches
+
+
+def _gradtts_bench_batch(torch):
+    """bench.py's train-step point (bench.py:285-321): B = 16, Tx 72, Ty 512,
+    on the card."""
+    from tpu_speech_torch.text import symbols
+    from tpu_speech_torch.train.gradtts import batch_to_device
+
+    b, t_x, t_y = MAS_BENCH
+    r = np.random.default_rng(0)
+    return batch_to_device({
+        "x": r.integers(1, len(symbols), size=(b, t_x)).astype(np.int32),
+        "x_lengths": np.full((b,), t_x, np.int32),
+        "y": r.standard_normal((b, t_y, 80)).astype(np.float32),
+        "y_lengths": np.full((b,), t_y, np.int32)}, "cuda")
+
+
+def _gradtts_bf16_run(torch):
+    """run(bf16) for _hold_bf16_step: one Grad-TTS step at bench.py's point
+    from one set of weights (dropout off), SGD with lr 1 so that the
+    gradients stay on .grad, the fp32 draws (in bf16 for the bf16 step) and
+    the fp32 step's MAS path given to both: (loss, {name: gradient})."""
+    import copy
+
+    from tpu_speech_torch.ops.masks import sequence_mask
+    from tpu_speech_torch.train.gradtts import train_step
+
+    model = _gradtts_full_width(torch, GT_SEED + 1).eval().cuda()
+    batch = _gradtts_bench_batch(torch)
+    b, _, t_y = MAS_BENCH
+    g = torch.Generator("cuda").manual_seed(GT_SEED)
+    draws = dict(offsets=torch.randint(0, t_y - 172, (b,), generator=g, device="cuda"),
+                 t=torch.clamp(torch.rand(b, generator=g, device="cuda"), 1e-5, 1 - 1e-5),
+                 z=torch.randn(b, 172, 80, generator=g, device="cuda"))
+    with torch.no_grad():
+        mu_x, _, x_mask = model.encode(batch["x"], batch["x_lengths"])
+        y_mask = sequence_mask(batch["y_lengths"], t_y).float()
+        attn = model.alignment(mu_x, batch["y"], x_mask[:, :, None] * y_mask[:, None, :])
+
+    def run(bf16):
+        m = copy.deepcopy(model)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        out = train_step(m, torch.optim.SGD(m.parameters(), lr=1.0), batch, None, 172,
+                         offsets=draws["offsets"], t=draws["t"].to(dt), z=draws["z"].to(dt),
+                         attn=attn.to(dt), bf16=bf16)
+        return out["loss"].item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    return run
+
+
+def _gan_flop(torch, models, b, n):
+    """(flop of one GAN step as it runs: torch.utils.flop_counter over
+    gan_train_step, forward and backward; the generator's forward F_G and
+    the discriminators' forward F_D on one wav batch) at B = b x n."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    gen, mpd, msd = (m.cuda() for m in models)
+    wav = torch.zeros(b, n, device="cuda")
+    mel = torch.zeros(b, 80, n // 256, device="cuda")
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as fc:
+            gen(mel)
+        f_g = fc.get_total_flops()
+        with FlopCounterMode(display=False) as fc:
+            mpd(wav)
+            msd(wav)
+        f_d = fc.get_total_flops()
+    return f_g, f_d
+
+
+def phase_hifigan_time(torch):
+    """43: the GAN step at the recipe's point, B = 16 x 8192, fp32 with TF32
+    off and bf16: CUDA events (median of 10 after warm-up), peak memory,
+    kernels per step, the busy share (profile of 3 steps) and the FLOP
+    bound at the CUDA cores' fp32 rate or the bf16 tensor-core rate. The
+    operations: the generator's forward F_G and the discriminators' F_D on
+    one wav batch, counted by torch.utils.flop_counter, and the step runs
+    4 F_G (a forward without a graph, one with its two backwards) and 9 F_D
+    (forward and both backwards on the real and the generated wav for their
+    update, then forward on both and the input gradient on the generated
+    one), less the first layers' input gradients. The counter's count of
+    the whole step is printed beside it: it counts a grouped conv's weight
+    gradient once per group."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import hifigan as th
+    from tpu_speech_torch.train.trainer import batch_to_device
+
+    b, n = HG_POINT
+    models = _hg_models(torch, HG_SEED + 2)
+    f_g, f_d = _gan_flop(torch, models, b, n)
+    gen, mpd, msd = (m.cuda() for m in models)
+    disc = torch.nn.ModuleDict({"mpd": mpd, "msd": msd})
+    opt_g, opt_d = th.make_optimizers(gen, disc, steps_per_epoch=3)
+    batch = batch_to_device(_hg_batch(np.random.default_rng(HG_SEED + 2), b, n), "cuda")
+    out = {}
+    for bf16 in (False, True):
+        def step():
+            return th.gan_train_step(gen, mpd, msd, opt_g, opt_d, batch, bf16=bf16)
+
+        tag = "bf16" if bf16 else "fp32"
+        ms, peak = _timed_step(torch, step)
+        _build.reset_launches()
+        with FlopCounterMode(display=False) as fc:
+            m = step()
+        torch.cuda.synchronize()
+        check(not any(_build.LAUNCHES.values()), f"{tag} GAN step launches {_build.LAUNCHES}")
+        check(all(torch.isfinite(v) for v in m.values()), f"{tag} GAN step metrics {m}")
+        flop = 4 * f_g + 9 * f_d
+        bound = flop / (PEAK_BF16 if bf16 else PEAK_FP32) * 1e3
+        log(f"[43 hifigan step time] V1, B = {b} x {n}, {tag}: {ms:.2f} ms per step (median "
+            f"of 10), peak {peak:.3f} GiB; 4 F_G + 9 F_D = {flop / 1e12:.3f} TFLOP (F_G "
+            f"{f_g / 1e12:.4f}, F_D {f_d / 1e12:.4f}; the counter over the step: "
+            f"{fc.get_total_flops() / 1e12:.3f}), bound {bound:.2f} ms at "
+            f"{(PEAK_BF16 if bf16 else PEAK_FP32) / 1e12:.0f} TFLOP/s ({ms / bound:.1f}x)")
+        prof = profile_slice(torch, step, batches=3, top=10, tag=f"43 profile, {tag} GAN step")
+        out[tag] = {"ms": ms, "peak_gib": peak, "tflop": flop / 1e12, "bound_ms": bound,
+                    "profile": None if prof is None else {
+                        k: prof[k] for k in ("kernels", "busy_ms", "span_ms", "share")}}
+    return out
+
+
 def main():
     import torch
 
@@ -3667,6 +4170,14 @@ def main():
     val_launches = phase_validation(torch, root, pre_dir)
     arch_launches = phase_archives(torch, root, os.path.join(root, "ft"), pre_dir)
     spiral_tmp.cleanup()
+    with tempfile.TemporaryDirectory() as root:
+        hg_launches, hg_corpus = phase_hifigan_train_slice(
+            torch, np.random.default_rng(HG_SEED), root)
+        phase_hifigan_cpu_vs_card(torch)
+        hg16_launches, gt16_launches = phase_bf16_tts_train(
+            torch, np.random.default_rng(HG_SEED + 3), root, hg_corpus)
+    phase_hifigan_time(torch)
+    phase_gradtts_train_time(torch, bf16=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3681,7 +4192,9 @@ def main():
                 **{path: counts[key] for path, counts in tr_launches.items()},
                 "pretrain_cli_resume": resume_launches[key],
                 "pretrain_validation": val_launches[key],
-                "finetune_cli_archive": arch_launches[key]}
+                "finetune_cli_archive": arch_launches[key],
+                "hifigan_train_step": hg_launches[key] + hg16_launches[key],
+                "gradtts_train_step_bf16": gt16_launches[key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -3792,6 +4305,12 @@ def main():
     for k in kernels:
         check(all(k["launches_by_path"][path] == 0 for path in tr_launches),
               f"{k['name']} launched on a training path of phases 33-34")
+        check(k["launches_by_path"]["hifigan_train_step"] == 0,
+              f"{k['name']} launched on HiFi-GAN training (phases 40 and 42)")
+        check((k["launches_by_path"]["gradtts_train_step_bf16"] > 0)
+              == (k["name"] == "maximum_path"),
+              f"{k['name']}: {k['launches_by_path']['gradtts_train_step_bf16']} launches on "
+              f"bf16 Grad-TTS training (phase 42)")
         path_launches = {p: n for p, n in k["launches_by_path"].items() if not p.startswith("k3_")}
         if not k["name"].startswith("fused_self_attention"):  # K3: no path reaches it
             check(sum(path_launches.values()) > 0, f"{k['name']} never ran on a path")

@@ -548,3 +548,57 @@ def test_preprocess_speaker_dirs_same(tmp_path, monkeypatch):
     stats = [[ln for ln in (tmp_path / d / "Log_toy.txt").read_text().splitlines()
               if ln.startswith("\t")] for d in ("t", "j")]
     assert stats[0] == stats[1] and stats[0]
+
+
+def test_hifigan_data_pipeline_same(tmp_path):
+    """load_wav_files (ids and paths, text past '|' ignored, blank lines),
+    MelAudioDataset (peak normalisation, crops from its seeded generator,
+    zero-padding of short wavs, fine-tuning mels stored (T, n_mels) and
+    (n_mels, T), split off) and MelAudioBatchCollate: the same files, items
+    and batches; the same errors."""
+    from tpu_speech.data import hifigan as j_hifi
+    from tpu_speech_torch.data import hifigan as t_hifi
+
+    rng = np.random.default_rng(4)
+    hop, seg, names = 16, 256, []
+    for i, length in enumerate((700, 256, 100, 513)):
+        write_wav(str(tmp_path / f"u{i}.wav"),
+                  (0.4 * rng.standard_normal(length)).astype(np.float32), 1600)
+        names.append(f"u{i}")
+    flist = tmp_path / "list.txt"
+    flist.write_text(f"{names[0]}|a text\n\n{names[1]}.wav\n{names[2]}|x|y\n{names[3]}\n")
+    files = t_hifi.load_wav_files(str(flist), str(tmp_path))
+    assert files == j_hifi.load_wav_files(str(flist), str(tmp_path))
+    assert t_hifi.load_wav_files(str(flist)) == j_hifi.load_wav_files(str(flist))
+    mels = tmp_path / "mels"
+    mels.mkdir()
+    for i, n in enumerate(names):
+        frames = (700, 256, 100, 513)[i] // hop + 4  # T > n_mels: stored either way
+        mel = rng.standard_normal((frames, 8)).astype(np.float32)
+        np.save(mels / f"{n}.npy", mel.T if i % 2 else mel)  # (n_mels, T) for two of them
+    for kw in (dict(), dict(seed=9), dict(split=False),
+               dict(fine_tuning=True, input_mels_dir=str(mels)),
+               dict(fine_tuning=True, input_mels_dir=str(mels), split=False)):
+        kw = dict(dict(segment_size=seg, sampling_rate=1600, hop_size=hop), **kw)
+        ours, theirs = t_hifi.MelAudioDataset(files, **kw), j_hifi.MelAudioDataset(files, **kw)
+        assert len(ours) == len(theirs) == 4
+        for i in (0, 3, 2, 0, 1, 3):  # the generator advances alike
+            a, b = ours[i], theirs[i]
+            assert a.keys() == b.keys()
+            for k in a:
+                assert a[k].dtype == b[k].dtype, k
+                np.testing.assert_array_equal(a[k], b[k])
+        if kw.get("split", True):
+            bt = t_hifi.MelAudioBatchCollate()([ours[i] for i in range(4)])
+            bj = j_hifi.MelAudioBatchCollate()([theirs[i] for i in range(4)])
+            assert bt.keys() == bj.keys()
+            for k in bt:
+                np.testing.assert_array_equal(bt[k], bj[k])
+    for bad in (dict(fine_tuning=True), dict(segment_size=250), dict(sampling_rate=22050)):
+        kw = dict(dict(segment_size=seg, sampling_rate=1600, hop_size=hop), **bad)
+        errors = []
+        for mod in (t_hifi, j_hifi):
+            with pytest.raises(ValueError) as e:
+                mod.MelAudioDataset(files, **kw)[0]
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]

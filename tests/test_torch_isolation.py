@@ -6,8 +6,9 @@ every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
 ``chip_smoke`` are imported, the archive reader rebuilds every SPIRAL config
 from its JAX-namespace tags, and ``run_spiral --help``, the TTS CLI's
 ``inference --help``, the Grad-TTS training CLI's ``train --help``, the
-voice-conversion CLI's ``inference_vc --help`` and the five DiffVC and
-speaker-encoder training CLIs' ``--help`` run.
+voice-conversion CLI's ``inference_vc --help``, the five DiffVC and
+speaker-encoder training CLIs' ``--help`` and the HiFi-GAN training CLI's
+``train_hifigan --help`` run.
 """
 
 import os
@@ -40,10 +41,11 @@ names = ["chip_smoke"] + [
 for name in names:
     importlib.import_module(name)
 from tpu_speech_torch.cli import (get_avg_mels, inference, inference_vc, preprocess_spk,
-                                  run_spiral, train, train_dec, train_enc, train_spk_encoder)
+                                  run_spiral, train, train_dec, train_enc, train_hifigan,
+                                  train_spk_encoder)
 
 for cli in (run_spiral, inference, train, inference_vc, get_avg_mels, train_enc, train_dec,
-            preprocess_spk, train_spk_encoder):
+            preprocess_spk, train_spk_encoder, train_hifigan):
     try:
         cli.main(["--help"])
     except SystemExit as e:

@@ -1,11 +1,14 @@
-"""Mel filterbanks, windows and the host log-mel (numpy, host side).
+"""Mel filterbanks, windows and the HiFi-GAN-convention log-mel.
 
-Port of ``tpu_speech/audio/mel.py:28-84, 147-175``: the librosa-compatible
-slaney mel scale and filterbank, the periodic Hann window, and
-``mel_spectrogram_np``, the HiFi-GAN-convention log-mel that Grad-TTS's data
-pipeline computes on host threads. The filterbank and window are constants
-built once on the host; the SPIRAL featurizer's device work (framing, FFT,
-mel product, log) lives in ``tpu_speech_torch/ops/fused_logmel.py``.
+Port of ``tpu_speech/audio/mel.py:28-211``: the librosa-compatible slaney
+mel scale and filterbank, the periodic Hann window, ``mel_spectrogram_np``,
+the log-mel that Grad-TTS's data pipeline computes on host threads, and
+``mel_spectrogram``, the same log-mel as a differentiable torch function on
+the wav's device (HiFi-GAN training's input mel and both loss mels). The
+filterbank and window are constants built once on the host (and once per
+device for ``mel_spectrogram``); the SPIRAL featurizer's device work
+(framing, FFT, mel product, log) lives in
+``tpu_speech_torch/ops/fused_logmel.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import functools
 import math
 
 import numpy as np
+import torch
+from torch.nn import functional as F
 
 _F_SP = 200.0 / 3.0
 _MIN_LOG_HZ = 1000.0
@@ -101,3 +106,49 @@ def mel_spectrogram_np(
     mag = np.sqrt(spec.real**2 + spec.imag**2 + 1e-9).astype(np.float32)
     mel = mag @ mel_w.T
     return np.log(np.clip(mel, 1e-5, None))
+
+
+@functools.lru_cache(maxsize=16)
+def _mel_constants(sampling_rate, n_fft, num_mels, fmin, fmax, win_size, device):
+    """(mel_w.T (n_fft//2 + 1, num_mels), the window zero-padded to n_fft)
+    on ``device``, built once per configuration and device. Made outside
+    inference mode so that they are ordinary tensors wherever they are used."""
+    window = hann_window(win_size)
+    if win_size < n_fft:  # centred, as stft_magnitude pads it (mel.py:131-133)
+        lpad = (n_fft - win_size) // 2
+        window = np.pad(window, (lpad, n_fft - win_size - lpad))
+    mel_w = mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)
+    with torch.inference_mode(False), torch.no_grad():
+        return (torch.tensor(mel_w.T, device=device).contiguous(),
+                torch.tensor(window, device=device))
+
+
+def mel_spectrogram(
+    y: torch.Tensor,
+    n_fft: int = 1024,
+    num_mels: int = 80,
+    sampling_rate: int = 22050,
+    hop_size: int = 256,
+    win_size: int = 1024,
+    fmin: float = 0.0,
+    fmax: float = 8000.0,
+) -> torch.Tensor:
+    """Log-mel spectrogram, HiFi-GAN convention, differentiable: (..., N)
+    wav -> (..., T, num_mels) float32 on the wav's device, T = N // hop. The counterpart of ``tpu_speech/audio/mel.py::
+    mel_spectrogram:190`` (with ``stft_magnitude:117`` and
+    ``frame_signal:85``): the wav in fp32, reflect-pad (n_fft - hop) / 2,
+    frames without centering times the Hann window, ``torch.fft.rfft``,
+    sqrt(re^2 + im^2 + 1e-9), the slaney mel product, log(clamp(., 1e-5)).
+    The SPIRAL featurizer's fused kernel (K1) is another function: other
+    padding, magnitude and log guard, and no backward."""
+    mel_wt, window = _mel_constants(int(sampling_rate), int(n_fft), int(num_mels),
+                                    float(fmin), float(fmax), int(win_size), y.device)
+    lead = y.shape[:-1]
+    y = y.float().reshape(-1, y.shape[-1])
+    pad = (n_fft - hop_size) // 2
+    y = F.pad(y, (pad, pad), mode="reflect")
+    frames = y.unfold(-1, n_fft, hop_size) * window  # (B, T, n_fft)
+    spec = torch.fft.rfft(frames, dim=-1)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    mel = torch.matmul(mag, mel_wt)
+    return torch.log(torch.clamp(mel, min=1e-5)).reshape(*lead, -1, num_mels)

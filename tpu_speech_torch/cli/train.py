@@ -13,8 +13,10 @@ the multi-speaker entry) -> mels and ids on host threads -> padded batches ->
 the latest one, at the epoch after it. At the end it writes
 ``<log_dir>/gradtts.pt`` (``gradtts_multi.pt``), a reference-named
 state_dict that ``tpu_speech_torch.cli.inference -c`` loads. ``--device``
-defaults to ``cuda`` and raises without a card. fp32 only: the config's
-``precision = "bf16"`` raises (ROADMAP.md, Queue 1).
+defaults to ``cuda`` and raises without a card. The config's ``precision =
+"bf16"`` trains with the mixed-precision step (float32 masters, bf16
+forward and backward), as the JAX CLI reads it (``cli/train.py:111``); any
+other value trains in fp32.
 """
 
 from __future__ import annotations
@@ -75,9 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, multispeaker: bool = False) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    if cfg.precision != "fp32":
-        raise NotImplementedError(f"precision {cfg.precision!r}: Grad-TTS training runs in "
-                                  "fp32; bf16 is not ported yet (ROADMAP.md, Queue 1)")
     name = "gradtts_multi" if multispeaker else "gradtts"
     exp = ExpManager(name=name, explicit_log_dir=cfg.log_dir)
     exp.save_config({k: v for k, v in vars(cfg).items() if not k.startswith("_")
@@ -99,6 +98,7 @@ def main(argv=None, multispeaker: bool = False) -> dict:
     trainer = GradTTSTrainer(
         model, cfg.log_dir, learning_rate=cfg.learning_rate, out_size=cfg.out_size,
         save_every=cfg.save_every, seed=cfg.seed, exp=exp,
+        bf16=getattr(cfg, "precision", "fp32") == "bf16",
         preview_batch=build_preview_batch(dataset, cfg.test_filelist_path, multispeaker))
     first_epoch = 1
     if trainer.resume_if_exists():

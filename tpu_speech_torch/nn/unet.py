@@ -48,6 +48,19 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([args.sin(), args.cos()], dim=-1)
 
 
+def promoted(layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """``layers`` on x, each ``nn.Linear`` in the promoted dtype of its input
+    and weight, as flax's ``Dense`` computes: the fp32 time embedding meets
+    bf16 weights in fp32. In fp32 this is ``layers(x)``."""
+    for layer in layers:
+        if isinstance(layer, nn.Linear):
+            dt = torch.promote_types(x.dtype, layer.weight.dtype)
+            x = F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+        else:
+            x = layer(x)
+    return x
+
+
 class Block(nn.Module):
     """conv3x3 -> GroupNorm -> Mish, mask-aware (diffusion.py:49-58)."""
 
@@ -57,7 +70,9 @@ class Block(nn.Module):
                                    nn.GroupNorm(groups, dim_out), Mish())
 
     def forward(self, x, mask):
-        return self.block(x * mask) * mask
+        # the conv in its weight's dtype, as ``nn/convops.py`` casts a mixed
+        # input (the fp32 sum of a bf16 block and the fp32 time embedding)
+        return self.block((x * mask).to(self.block[0].weight.dtype)) * mask
 
 
 class ResnetBlock(nn.Module):
@@ -72,7 +87,7 @@ class ResnetBlock(nn.Module):
         self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
     def forward(self, x, mask, time_emb):
-        h = self.block1(x, mask) + self.mlp(time_emb)[:, :, None, None]
+        h = self.block1(x, mask) + promoted(self.mlp, time_emb)[:, :, None, None]
         h = self.block2(h, mask)
         return h + self.res_conv(x * mask)
 
@@ -231,7 +246,9 @@ class GradLogPEstimator2d(UNet):
         self._build_unet(2 + (1 if n_spks > 1 else 0), dim, dim_mults, groups)
 
     def forward(self, x, mask, mu, t, spk=None):
-        t = self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
+        # t, the mask and mu in x's dtype (``nn/unet.py:221-226``)
+        t, mask, mu = t.to(x.dtype), mask.to(x.dtype), mu.to(x.dtype)
+        t = promoted(self.mlp, self.time_pos_emb(t, scale=self.pe_scale))
         chans = [mu, x]
         if self.n_spks > 1:
             s = self.spk_mlp(spk)  # (B, F): the decoder's speaker conditioning

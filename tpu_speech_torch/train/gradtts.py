@@ -11,7 +11,14 @@ z, the crop offsets) come from a ``torch.Generator`` on the batch's device,
 seeded per step from (seed, iteration) by ``train/trainer.py::step_generator``:
 the counterpart of ``fold_in(base_rng, iteration)`` (``:231``), so a resumed
 run draws what a straight run would. Dropout stays on torch's default
-generator, whose state the checkpoint keeps.
+generator, whose state the checkpoint keeps. ``bf16=True`` is the JAX step's
+mixed precision (``make_train_step(..., bf16)``, ``:30-46``): bf16 copies of
+the float32 parameters and of ``y`` run the forward through
+``torch.func.functional_call``; the network follows the JAX package's dtype
+promotion (MAS takes the bf16 log-prior times the mask in fp32, the draws
+come in y's dtype, the time embedding's dense layers in fp32); the loss is
+summed in bf16 and returned in float32; the gradients land on the float32
+masters, which the clip and Adam update.
 
 ``GradTTSTrainer`` (``:86-274``) runs epochs on ``train/trainer.py::Trainer``:
 the ``train.log`` line per epoch, TensorBoard scalars every 10 steps, a
@@ -32,6 +39,7 @@ import torch
 
 from tpu_speech_torch.models.grad_tts import GradTTS, synthesize
 from tpu_speech_torch.train.optim import AdamW, clip_subtree_by_global_norm
+from tpu_speech_torch.train.spiral import mixed_precision_params
 from tpu_speech_torch.train.trainer import Trainer, batch_to_device, step_generator
 
 ENCODER = ("encoder.",)
@@ -43,20 +51,28 @@ PREVIEW_MAX_FRAMES = 512  # their mel length
 
 def train_step(model: GradTTS, opt: AdamW, batch: dict,
                generator: Optional[torch.Generator] = None, out_size: Optional[int] = None,
-               offsets=None, t=None, z=None, attn=None) -> dict:
+               offsets=None, t=None, z=None, attn=None, bf16: bool = False) -> dict:
     """One update of ``model`` in place from a device batch (``x``,
     ``x_lengths``, ``y`` (B, Ty, F), ``y_lengths``, optional ``spk``).
     ``offsets``, ``t``, ``z`` and ``attn`` replace the draws and the MAS
-    path (``GradTTS.forward``). Returns the JAX package's metrics as 0-d
-    device tensors: loss, dur_loss, prior_loss, diff_loss and the pre-clip
-    enc_grad_norm and dec_grad_norm."""
+    path (``GradTTS.forward``; under bf16, t and z in bf16). Returns the JAX
+    package's metrics as 0-d device tensors: loss (float32), dur_loss,
+    prior_loss, diff_loss (bf16 under bf16) and the pre-clip enc_grad_norm
+    and dec_grad_norm."""
     params = list(model.named_parameters())
     for _, p in params:
         p.grad = None
-    dur, prior, diff = model(batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"],
-                             spk=batch.get("spk"), out_size=out_size, generator=generator,
-                             offsets=offsets, t=t, z=z, attn=attn)
-    loss = dur + prior + diff
+    y, forward = batch["y"], model
+    if bf16:
+        copies = mixed_precision_params((n, p) for n, p in params if p.is_floating_point())
+        y = y.to(torch.bfloat16)
+
+        def forward(*args, **kwargs):
+            return torch.func.functional_call(model, copies, args, kwargs)
+    dur, prior, diff = forward(batch["x"], batch["x_lengths"], y, batch["y_lengths"],
+                               spk=batch.get("spk"), out_size=out_size, generator=generator,
+                               offsets=offsets, t=t, z=z, attn=attn)
+    loss = (dur + prior + diff).float()
     loss.backward()
     for _, p in params:
         if p.grad is None:  # a leaf the loss does not reach: JAX's gradient is zero
@@ -74,13 +90,15 @@ class GradTTSTrainer(Trainer):
 
     def __init__(self, model: GradTTS, log_dir: str, learning_rate: float = 1e-4,
                  out_size: Optional[int] = None, save_every: int = 1, seed: int = 0, exp=None,
-                 preview_batch=None):
+                 preview_batch=None, bf16: bool = False):
         """preview_batch: a dict of padded int32 ``x`` (B, Tx) and
         ``x_lengths`` (and ``spk``) for the per-epoch synthesis previews the
-        reference logs as its de facto integration test."""
+        reference logs as its de facto integration test. bf16: the
+        mixed-precision step (``train_step``)."""
         super().__init__(model, log_dir, learning_rate, save_every, seed, exp)
         self.out_size = out_size
         self.preview_batch = preview_batch
+        self.bf16 = bf16
 
     def log_ground_truth(self, batch, n: int = 3):
         """Log target mels once at startup (Grad-TTS/train.py:89-95)."""
@@ -134,7 +152,8 @@ class GradTTSTrainer(Trainer):
             n_frames += int(np.sum(batch["y_lengths"]))  # from the host batch: no sync
             batch = batch_to_device(batch, self.device)
             self.timer.tick("step")
-            metrics = train_step(self.model, self.opt, batch, generator, self.out_size)
+            metrics = train_step(self.model, self.opt, batch, generator, self.out_size,
+                                 bf16=self.bf16)
             # one read of every metric: the sync that closes the step
             m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
             self.timer.tock("step")

@@ -40,6 +40,24 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
+def optimizer_state(model: torch.nn.Module, opt: AdamW) -> dict:
+    """An ``AdamW``'s moments by parameter name, and its count."""
+    names = {p: n for n, p in model.named_parameters()}
+    st = opt.state
+    return {"mu": {names[p]: s["mu"] for p, s in st.items()},
+            "nu": {names[p]: s["nu"] for p, s in st.items()}, "count": opt.count}
+
+
+def load_optimizer_state(model: torch.nn.Module, opt: AdamW, state: dict) -> None:
+    """The inverse of ``optimizer_state``: the moments onto the parameters'
+    devices."""
+    for name, p in model.named_parameters():
+        if name in state["mu"]:
+            opt.state[p] = {"mu": state["mu"][name].to(p.device),
+                            "nu": state["nu"][name].to(p.device)}
+    opt.count = int(state["count"])
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, log_dir: str, learning_rate: float,
                  save_every: int = 1, seed: int = 0, exp=None):
@@ -64,24 +82,15 @@ class Trainer:
         (by parameter name) and count, the step, and the state of torch's
         default generator (and the device's, on a card), which dropout
         draws from."""
-        names = {p: n for n, p in self.model.named_parameters()}
-        st = self.opt.state
-        out = {"model": self.model.state_dict(),
-               "mu": {names[p]: s["mu"] for p, s in st.items()},
-               "nu": {names[p]: s["nu"] for p, s in st.items()},
-               "count": self.opt.count, "step": self.iteration,
-               "rng_cpu": torch.get_rng_state()}
+        out = {"model": self.model.state_dict(), **optimizer_state(self.model, self.opt),
+               "step": self.iteration, "rng_cpu": torch.get_rng_state()}
         if self.device.type == "cuda":
             out["rng_cuda"] = torch.cuda.get_rng_state(self.device)
         return out
 
     def load_state(self, state: dict) -> None:
         self.model.load_state_dict(state["model"])
-        for name, p in self.model.named_parameters():
-            if name in state["mu"]:
-                self.opt.state[p] = {"mu": state["mu"][name].to(p.device),
-                                     "nu": state["nu"][name].to(p.device)}
-        self.opt.count = int(state["count"])
+        load_optimizer_state(self.model, self.opt, state)
         self.iteration = int(state["step"])
         torch.set_rng_state(state["rng_cpu"])
         if self.device.type == "cuda" and "rng_cuda" in state:
