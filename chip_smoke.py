@@ -28,7 +28,9 @@ result):
    print each kernel's registers and spills (``-Xptxas -v``) and its
    tensor-core instructions (``cuobjdump -sass``: HMMA for mma.sync, HGMMA
    for wgmma), and fail if an attention or positional-conv kernel has none,
-   or if a bf16 variant has no bf16 ones;
+   if a bf16 variant has no bf16 ones, or if one of the 18 bf16 attention
+   kernels of ``csrc/fused_attention_sm90.cu`` has no HGMMA or spills (a
+   missing ``cuobjdump`` fails too);
 2. K1 (fused log-mel) against ``logmel_plain`` in fp32 and in float64 at
    the SPIRAL shape (14 x 384 512 featurizer-input samples), at frame-count
    edges, at the HiFi-GAN mel (n_fft 1024, hop 256, mag_eps and clip) and
@@ -93,12 +95,15 @@ result):
     plain versions (which round where the kernels do) at the shapes of
     phases 7, 8, 12 and 13, each timed beside its plain version, its bound
     (FLOP at the bf16 peak) and the library's bf16 call (SDPA, cuDNN's conv
-    and dgrad);
+    and dgrad); for K2 and K3 also the achieved TFLOP/s, the backward's
+    scratch bytes, and two runs of forward and backward at p = 0 and 0.1
+    that must give equal bits (out, lse, dq, dk, dv);
 18. the pretrain slice with ``--set model.precision=bf16`` through
     ``run_spiral.main`` on phase 9's corpus for 3 steps: per step the bf16
     kernels' launches and none of the fp32 attention or K4 kernels, finite
     losses, float32 weights saved; then the bf16 step's time, peak memory
-    and profile;
+    and profile, and the step time beside its device busy time and the bf16
+    attention kernels' part of it (the same for phase 20);
 19. one full-width pretrain step in bf16 against fp32 on the card (B = 24 x
     250 000, the same weights, batch and negatives, regularisers off, SGD lr
     = 1): the loss within 2e-2 relative, each gradient leaf (at least 1 % of
@@ -452,14 +457,28 @@ def sdpa(q, k, v, mask, p):
                                           dropout_p=p, scale=1.0)
 
 
-def sdpa_times(torch, q, k, v, mask, dout, p):
-    """(forward ms, backward-alone ms) of ``sdpa`` on (B, T, H, D) q, k, v
+def sdpa_calls(torch, q, k, v, mask, dout, p):
+    """(forward, backward-alone) calls of ``sdpa`` on (B, T, H, D) q, k, v
     and dout, passed as (B, H, T, D) views."""
     q, k, v, dout = (a.transpose(1, 2) for a in (q, k, v, dout))
-    fwd = cuda_ms(lambda: sdpa(q, k, v, mask, p))
     xs = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
     out = sdpa(*xs, mask, p)
-    return fwd, cuda_ms(lambda: torch.autograd.grad(out, xs, dout, retain_graph=True))
+    return (lambda: sdpa(q, k, v, mask, p),
+            lambda: torch.autograd.grad(out, xs, dout, retain_graph=True))
+
+
+def sdpa_times(torch, q, k, v, mask, dout, p):
+    """(forward ms, backward-alone ms) of ``sdpa`` (``cuda_ms``)."""
+    return tuple(cuda_ms(fn) for fn in sdpa_calls(torch, q, k, v, mask, dout, p))
+
+
+def back_to_back_ms(fn, reps=20):
+    """The time of one call of ``fn`` among ``reps`` calls back to back
+    (CUDA events, median of 10 samples): the device's time a call wherever
+    the host enqueues a call faster than the device runs it. ``cuda_ms`` of
+    a single call also counts the host's work before the launch, on which a
+    kernel of tens of microseconds waits."""
+    return cuda_ms(fn, n=10, warmup=3, reps=reps)
 
 
 def qkv_views(qkv, h):
@@ -469,34 +488,42 @@ def qkv_views(qkv, h):
 
 
 def sass_counts(so_path):
-    """({kernel: tensor-core instructions}, {kernel: bf16 ones}, the HMMA
-    TF32 lines) from ``cuobjdump -sass`` of the built library (HMMA:
-    mma.sync; HGMMA: wgmma), or None without the tool."""
+    """({kernel: tensor-core instructions}, {kernel: bf16 ones}, {kernel:
+    HGMMA ones}, the HMMA TF32 lines) from ``cuobjdump -sass`` of the built
+    library (HMMA: mma.sync; HGMMA: wgmma), or None without the tool."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
         return None
     sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
                           check=True).stdout.splitlines()
-    counts, bf16, fn = {}, {}, None
+    counts, bf16, hgmma, fn = {}, {}, {}, None
     for line in sass:
         if "Function :" in line:
             fn = line.split("Function :")[-1].strip()
-            counts[fn] = bf16[fn] = 0
+            counts[fn] = bf16[fn] = hgmma[fn] = 0
         elif fn is not None and ("HMMA" in line or "HGMMA" in line):
             counts[fn] += 1
             bf16[fn] += "BF16" in line
-    return counts, bf16, [ln for ln in sass if "HMMA" in ln and "TF32" in ln]
+            hgmma[fn] += "HGMMA" in line
+    return counts, bf16, hgmma, [ln for ln in sass if "HMMA" in ln and "TF32" in ln]
 
 
 def kernel_name(text):
-    """``attn_fwd_kernel<64>`` from a line that holds a kernel's mangled name."""
+    """``attn_fwd_kernel<64>`` (``attn_fwd_sm90_kernel<64,1>``: the second
+    argument a bool) from a line that holds a kernel's mangled name."""
     m = re.search(r"(attn_[a-z0-9_]+?_kernel|grouped_conv1d(?:_bf16)?_kernel|logmel_fft_kernel"
                   r"|maximum_path_kernel)"
-                  r"((?:ILi\d+E)?(?:Li\d+E)*)", text)
+                  r"((?:IL[ib]\d+E)?(?:L[ib]\d+E)*)", text)
     if m is None:
         return text.strip()
-    args = re.findall(r"Li(\d+)E", m.group(2))
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+# the bf16 attention kernels of csrc/fused_attention_sm90.cu: three kernels,
+# each at d_head 16, 32, 64, with and without dropout
+SM90_KERNELS = {f"attn_{k}_sm90_kernel<{d},{p}>" for k in ("fwd", "bwd_dq", "bwd_dkdv")
+                for d in (16, 32, 64) for p in (0, 1)}
 
 
 def phase_build(_build):
@@ -505,19 +532,26 @@ def phase_build(_build):
     secs = time.perf_counter() - t0
     log(f"[1 build] {secs:.1f} s, compiled={_build.build_info['compiled']} "
         f"-> {_build.build_info['path']}")
-    name = None
+    name, spills = None, {}
     for line in _build.build_info["log"].splitlines():
         if "Compiling entry function" in line:
             name = kernel_name(line)
         elif "registers" in line or "spill" in line:
             log(f"    ptxas {name}: {line.strip().replace('ptxas info    : ', '')}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
+    # the sm90 kernels: no spills, and wgmma in each (a missing cuobjdump fails)
+    check(SM90_KERNELS <= set(spills), f"sm90 kernels not in the ptxas log: "
+          f"{sorted(SM90_KERNELS - set(spills))}")
+    check(all(spills[k] == 0 for k in SM90_KERNELS),
+          f"sm90 kernels spill: { {k: spills[k] for k in SM90_KERNELS if spills[k]} }")
     sass = sass_counts(_build.build_info["path"])
-    if sass is None:
-        log("    cuobjdump not found: tensor-core instructions not counted")
-        return
-    counts, bf16, tf32 = sass
+    check(sass is not None, "cuobjdump not found: the sm90 kernels' HGMMA cannot be checked")
+    counts, bf16, hgmma, tf32 = sass
     for fn, n in sorted(counts.items()):
-        log(f"    SASS: {n:5d} HMMA/HGMMA ({bf16[fn]} of them BF16) in {kernel_name(fn)}")
+        log(f"    SASS: {n:5d} HMMA/HGMMA ({bf16[fn]} of them BF16, {hgmma[fn]} HGMMA) in "
+            f"{kernel_name(fn)}")
     log(f"    SASS: {len(tf32)} HMMA ... TF32 instructions in all, e.g. "
         f"{tf32[0].split('*/')[1].split(';')[0].strip() if tf32 else None}")
     # the attention and positional-conv kernels run their products on the
@@ -526,11 +560,17 @@ def phase_build(_build):
           if ("attn_" in fn and "delta" not in fn) or "grouped_conv1d" in fn}
     check(tc and all(n > 0 for n in tc.values()),
           f"kernels without tensor-core instructions: {tc}")
-    # ... and the bf16 variants on bf16 ones
+    # ... the bf16 variants on bf16 ones
     tc16 = {kernel_name(fn): n for fn, n in bf16.items()
-            if "_bf16_" in kernel_name(fn) and "delta" not in fn}
+            if "_bf16_" in kernel_name(fn) or "_sm90_" in kernel_name(fn)}
     check(len(tc16) >= 4 and all(n > 0 for n in tc16.values()),
           f"bf16 kernels without bf16 tensor-core instructions: {tc16}")
+    # ... and the bf16 attention kernels on wgmma
+    wg = {kernel_name(fn): n for fn, n in hgmma.items() if "_sm90_" in fn}
+    check(set(wg) == SM90_KERNELS and all(n > 0 for n in wg.values()),
+          f"sm90 kernels without HGMMA: {wg}")
+    log(f"    the {len(wg)} sm90 attention kernels: HGMMA in each "
+        f"({min(wg.values())}-{max(wg.values())}), no spills")
 
 
 def tones_over_noise(n, seed):
@@ -1292,10 +1332,123 @@ def _bf16_err(got, ref):
                for g, r in zip(got, ref))
 
 
+def _same_bits_twice(torch, run):
+    """Two calls of ``run`` (a list of tensors each) give equal bits."""
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _time_attention(torch, key, shape, calls, bounds):
+    """Phase 17's times of the bf16 K2 or K3 forward and backward at the
+    timed shape: each call (kernel, plain version, SDPA) from event to event
+    (``cuda_ms``, comparable with earlier PRs), and the kernel's and SDPA's
+    time a call back to back (``back_to_back_ms``)."""
+    res = {}
+    for k, (kernel, plain, lib), bound in zip((key + "_t", key + "_bwd_t"), calls, bounds):
+        res[k] = r = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+                          back_to_back_ms=back_to_back_ms(kernel),
+                          library_back_to_back_ms=back_to_back_ms(lib), bound=bound)
+        log(f"    {k[:-2]} bf16 at {shape} p=0.1: {r['ms']:.4f} ms a call "
+            f"({r['back_to_back_ms']:.4f} ms back to back) vs plain {r['plain_ms']:.3f} ms, SDPA "
+            f"bf16 {r['library_ms']:.4f} ms a call ({r['library_back_to_back_ms']:.4f} ms back to "
+            f"back), bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return res
+
+
+def _scratch_bytes(torch, bwd):
+    """Device memory that one call of ``bwd`` asks for beside the gradients
+    it returns: the caching allocator's peak of requested bytes over the
+    call, less the bytes requested before it and the gradients' bytes (the C
+    entries allocate nothing of their own). Also the same from the
+    allocated bytes, which count the allocator's rounding of the blocks."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    grads = bwd()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    grads = grads if isinstance(grads, (tuple, list)) else (grads,)
+    out = sum(g.nbytes for g in grads)
+    return tuple(after[k + ".all.peak"] - before[k + ".all.current"] - out
+                 for k in ("requested_bytes", "allocated_bytes"))
+
+
+def _host_us(torch, fn, n=20):
+    """Host microseconds of one call of ``fn``: the host clock over n calls
+    issued after a sync (the device's queue stays far from full)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def _attention_extras(torch, res, key, b, t, h, d, fa, runs, bwd):
+    """Phase 17's extras for the timed K2 or K3 shape: the achieved TFLOP/s
+    of the forward and the backward (the bound's FLOP count, 4 and 10 B H T^2
+    D, over the time a call back to back), the backward's scratch bytes as
+    the allocator saw them over one call of ``bwd``, and equal bits from two
+    runs of the forward (out, lse) and the backward (dq, dk, dv) at p = 0 and
+    0.1."""
+    for k, units in ((key + "_t", 4), (key + "_bwd_t", 10)):
+        res[k]["tflops"] = units * b * h * t * t * d / (res[k]["back_to_back_ms"] * 1e-3) / 1e12
+    scratch, blocks = _scratch_bytes(torch, bwd)
+    tq = -(-t // 64) * 64
+    res[key + "_bwd_t"]["scratch_bytes"] = scratch
+    same = {p: _same_bits_twice(torch, run) for p, run in runs.items()}
+    log(f"    {key} bf16 at {(b, t, h, d)}: forward {res[key + '_t']['tflops']:.1f} TFLOP/s, "
+        f"backward {res[key + '_bwd_t']['tflops']:.1f} TFLOP/s (4 and 10 B H T^2 D FLOP over "
+        f"the time back to back; the backward executes 14); backward scratch {scratch} bytes "
+        f"(the allocator's peak of requested bytes over one call less its gradients; "
+        f"{blocks} in allocated blocks; the wrapper's formula gives "
+        f"{4 * fa.bwd_scratch_floats(b, t, h, torch.bfloat16)}: L and Delta in rows of {tq}; "
+        f"the mma.sync kernels' bf16 dS^T was {2 * b * h * tq * tq} bytes)")
+    log(f"[17 determinism {key} bf16] two runs, out, lse, dq, dk, dv equal bit for bit: "
+        + ", ".join(f"p={p}: {ok}" for p, ok in same.items()))
+    check(all(same.values()), f"{key} bf16: two runs differ {same}")
+
+
+def _k2_host_split(torch, res, fa, qkv, mask, out, dout, lse, h, seed, thresh, scale):
+    """Host microseconds of one bf16 K2 call at the timed shape, through the
+    Python wrapper and through the C entry alone (ctypes, outputs and
+    scratch made beforehand): what the wrapper adds, and what the entry's
+    checks, tensor-map encodes and launches take."""
+    from tpu_speech_torch.ops import _build
+
+    lib, (b, t, e3) = _build.library(), qkv.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs, d = fa._thirds(qkv), e3 // 3 // h
+    o, ls = torch.empty_like(out), torch.empty_like(lse)
+    stats = torch.empty(fa.bwd_scratch_floats(b, t, h, qkv.dtype), device="cuda")
+    dqkv = torch.empty_like(qkv)
+    tail = (b, t, h, d, seed, thresh, scale, stream)
+    pairs = {
+        "fwd": (lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed),
+                lambda: lib.tsx_attention_fwd_bf16(*ptrs, e3, mask.data_ptr(), o.data_ptr(),
+                                                   ls.data_ptr(), *tail)),
+        "bwd": (lambda: fa._launch_bwd(qkv, mask, out, dout, lse, h, seed, thresh, scale),
+                lambda: lib.tsx_attention_bwd_bf16(
+                    *ptrs, e3, mask.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                    stats.data_ptr(), *fa._thirds(dqkv), e3, *tail))}
+    for k, (wrapper, entry) in pairs.items():
+        r = res["k2_t" if k == "fwd" else "k2_bwd_t"]
+        r["host_us"], r["c_entry_host_us"] = _host_us(torch, wrapper), _host_us(torch, entry)
+        check(entry() == 0, f"K2 bf16 {k}: the C entry failed")
+        log(f"    k2 bf16 {k} host time a call: {r['host_us']:.1f} us through "
+            f"{'fused_qkv_self_attention' if k == 'fwd' else '_launch_bwd'}, "
+            f"{r['c_entry_host_us']:.1f} us through the C entry alone (its checks, tensor-map "
+            f"encodes and launches, and the ctypes call)")
+
+
 def phase_bf16_kernels(torch, gen):
     """17: each bf16 kernel against its plain version (which rounds at the
     kernel's points) at every shape of the paths, timed beside its plain
-    version, its bound and the library's bf16 call."""
+    version, its bound and the library's bf16 call; the attention kernels
+    also for equal bits run to run, their TFLOP/s and scratch bytes."""
     from tpu_speech_torch.ops import _build
     from tpu_speech_torch.ops import fused_attention as fa
     from tpu_speech_torch.ops import fused_posconv as fp
@@ -1333,21 +1486,27 @@ def phase_bf16_kernels(torch, gen):
     out, lse = fa._launch_fwd(qkv, mask, h, seed, thresh, scale, True)
     x = qkv.clone().requires_grad_(True)
     plain_out = fa.qkv_attention_plain(x, h, mask, DROP_P, seed)
-    lib_fwd, lib_bwd = sdpa_times(torch, *qkv_views(qkv, h), mask, dout.view(b, t, h, e // h),
+    lib_fwd, lib_bwd = sdpa_calls(torch, *qkv_views(qkv, h), mask, dout.view(b, t, h, e // h),
                                   DROP_P)
-    res["k2_t"] = dict(
-        ms=cuda_ms(lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed)),
-        plain_ms=cuda_ms(lambda: fa.qkv_attention_plain(qkv, h, mask, DROP_P, seed)),
-        library_ms=lib_fwd, bound=attention_bound(b, t, h, e // h, False, itemsize=2))
-    res["k2_bwd_t"] = dict(
-        ms=cuda_ms(lambda: fa._launch_bwd(qkv, mask, out, dout, lse, h, seed, thresh, scale)),
-        plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_out, x, dout, retain_graph=True)),
-        library_ms=lib_bwd, bound=attention_bound(b, t, h, e // h, True, itemsize=2))
-    for k in ("k2_t", "k2_bwd_t"):
-        r = res[k]
-        log(f"    {k[:-2]} bf16 at {(b, t, 3 * e)} p=0.1: {r['ms']:.3f} ms vs plain "
-            f"{r['plain_ms']:.3f} ms, SDPA bf16 {r['library_ms']:.3f} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    res.update(_time_attention(torch, "k2", (b, t, 3 * e), (
+        (lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed),
+         lambda: fa.qkv_attention_plain(qkv, h, mask, DROP_P, seed), lib_fwd),
+        (lambda: fa._launch_bwd(qkv, mask, out, dout, lse, h, seed, thresh, scale),
+         lambda: torch.autograd.grad(plain_out, x, dout, retain_graph=True), lib_bwd)),
+        [attention_bound(b, t, h, e // h, bwd, itemsize=2) for bwd in (False, True)]))
+
+    def k2_run(p):
+        th, sc = fa.dropout_threshold(p) if p else 0, 1.0 / (1.0 - p)
+
+        def run():
+            o, ls = fa._launch_fwd(qkv, mask, h, seed, th, sc, True)
+            return [o, ls, fa._launch_bwd(qkv, mask, o, dout, ls, h, seed, th, sc)]
+        return run
+
+    _attention_extras(torch, res, "k2", b, t, h, e // h, fa,
+                      {p: k2_run(p) for p in (0.0, DROP_P)},
+                      lambda: fa._launch_bwd(qkv, mask, out, dout, lse, h, seed, thresh, scale))
+    _k2_host_split(torch, res, fa, qkv, mask, out, dout, lse, h, seed, thresh, scale)
 
     _build.reset_launches()
     for b, t, h, d in K3_SHAPES:
@@ -1382,21 +1541,25 @@ def phase_bf16_kernels(torch, gen):
     out, lse = fa._launch_attn_fwd(q, k, v, mask, seed, thresh, scale, True)
     xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
     plain_out = fa.attention_plain(*xs, mask, DROP_P, seed)
-    lib_fwd, lib_bwd = sdpa_times(torch, q, k, v, mask, dout, DROP_P)
-    res["k3_t"] = dict(
-        ms=cuda_ms(lambda: fa.fused_self_attention(q, k, v, mask, DROP_P, seed)),
-        plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, mask, DROP_P, seed)),
-        library_ms=lib_fwd, bound=attention_bound(b, t, h, d, False, itemsize=2))
-    res["k3_bwd_t"] = dict(
-        ms=cuda_ms(lambda: fa._launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh,
-                                               scale)),
-        plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_out, xs, dout, retain_graph=True)),
-        library_ms=lib_bwd, bound=attention_bound(b, t, h, d, True, itemsize=2))
-    for k_ in ("k3_t", "k3_bwd_t"):
-        r = res[k_]
-        log(f"    {k_[:-2]} bf16 at {(b, t, h, d)} p=0.1: {r['ms']:.3f} ms vs plain "
-            f"{r['plain_ms']:.3f} ms, SDPA bf16 {r['library_ms']:.3f} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    lib_fwd, lib_bwd = sdpa_calls(torch, q, k, v, mask, dout, DROP_P)
+    res.update(_time_attention(torch, "k3", (b, t, h, d), (
+        (lambda: fa.fused_self_attention(q, k, v, mask, DROP_P, seed),
+         lambda: fa.attention_plain(q, k, v, mask, DROP_P, seed), lib_fwd),
+        (lambda: fa._launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh, scale),
+         lambda: torch.autograd.grad(plain_out, xs, dout, retain_graph=True), lib_bwd)),
+        [attention_bound(b, t, h, d, bwd, itemsize=2) for bwd in (False, True)]))
+
+    def k3_run(p):
+        th, sc = fa.dropout_threshold(p) if p else 0, 1.0 / (1.0 - p)
+
+        def run():
+            o, ls = fa._launch_attn_fwd(q, k, v, mask, seed, th, sc, True)
+            return [o, ls, *fa._launch_attn_bwd(q, k, v, mask, o, dout, ls, seed, th, sc)]
+        return run
+
+    _attention_extras(torch, res, "k3", b, t, h, d, fa, {p: k3_run(p) for p in (0.0, DROP_P)},
+                      lambda: fa._launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh,
+                                                  scale))
 
     for b, t, c in K4_SHAPES:
         cg, k = c // 16, 128
@@ -1550,6 +1713,17 @@ def _timed_step(torch, fn, n=10):
     return ms, torch.cuda.max_memory_allocated() / 2**30
 
 
+def _log_busy(tag, ms, prof):
+    """A step's time beside its device busy time and the bf16 attention
+    kernels' share of it (the profile's sums by kernel name)."""
+    if prof is None:
+        log(f"[{tag}] {ms:.2f} ms a step; device busy not measured")
+        return
+    attn = sum(t for name, t, _ in prof["ranked"] if "_sm90_kernel" in name)
+    log(f"[{tag}] {ms:.2f} ms a step (CUDA events), device busy {prof['busy_ms']:.2f} ms "
+        f"(share {prof['share']:.3f}); bf16 attention kernels {attn:.2f} ms of the busy time")
+
+
 def phase_bf16_pretrain_time(torch, root):
     """18: the bf16 pretrain step's time and peak memory, as phase 11."""
     runner = _pretrain_runner(root, "bf16")
@@ -1557,7 +1731,8 @@ def phase_bf16_pretrain_time(torch, root):
     ms, peak = _timed_step(torch, lambda: runner.step(batch))
     log(f"[18 bf16 pretrain step time] B = 24 x 250 000 samples, batch on the card: "
         f"{ms:.2f} ms per step (median of 10), peak device memory {peak:.2f} GiB")
-    profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="18 profile")
+    prof = profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="18 profile")
+    _log_busy("18 bf16 pretrain step", ms, prof)
     return ms, peak
 
 
@@ -1711,7 +1886,8 @@ def phase_bf16_finetune_time(torch, root):
     ms, peak = _timed_step(torch, lambda: runner.step(batch))
     log(f"[20 bf16 finetune step time] B = 14 x 24 s, unfrozen, batch on the card: "
         f"{ms:.2f} ms per step (median of 10), peak device memory {peak:.2f} GiB")
-    profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="20 profile")
+    prof = profile_slice(torch, lambda: runner.step(batch), batches=3, top=12, tag="20 profile")
+    _log_busy("20 bf16 finetune step", ms, prof)
     return ms, peak
 
 
@@ -4201,12 +4377,12 @@ def main():
                     replaces=replaces, launches=sum(by_path(key).values()),
                     launches_by_path=by_path(key), **measured)
 
-    def k3_kernel(name, key, replaces, **measured):
+    def k3_kernel(name, key, replaces, src="fused_attention.cu", **measured):
         # no path reaches K3: its launches are those of its own checks (phase
         # 13, and phase 17 for bf16)
         own = (k16["k3_launches"] if key.endswith("_bf16") else k3_launches)[key]
         phase = "k3_phase_17" if key.endswith("_bf16") else "k3_phase_13"
-        return dict(name=name, route="cuda", source="tpu_speech_torch/csrc/fused_attention.cu",
+        return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{src}",
                     replaces=replaces, launches=own,
                     launches_by_path=dict(by_path(key), **{phase: own}), **measured)
 
@@ -4215,9 +4391,12 @@ def main():
         measured = dict(max_abs_err=k16[err], ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound"][0], bound_by=r["bound"][1],
                         library_ms=r["library_ms"],
-                        shape=shape + "; error relative to max(1, max|plain|)")
+                        shape=shape + "; error relative to max(1, max|plain|)",
+                        **{k: r[k] for k in ("back_to_back_ms", "library_back_to_back_ms",
+                                             "tflops", "scratch_bytes", "host_us",
+                                             "c_entry_host_us") if k in r})
         if key.startswith("fused_attention"):
-            return k3_kernel(name, key, replaces, **measured)
+            return k3_kernel(name, key, replaces, src=src, **measured)
         return path_kernel(name, key, replaces, src=src, **measured)
 
     k2 = dict(k2, max_abs_err=max(k2["max_abs_err"], drop_err), **k2_drop_t,
@@ -4278,16 +4457,18 @@ def main():
     # against the plain versions that round at the kernels' points
     kernels += [
         bf16_kernel("fused_qkv_self_attention_bf16", "fused_qkv_attention_bf16",
-                    "tpu_speech/ops/fused_attention.py:384", "fused_attention.cu", "k2", "k2_t",
+                    "tpu_speech/ops/fused_attention.py:384", "fused_attention_sm90.cu", "k2",
+                    "k2_t",
                     "bf16 qkv (24, 392, 1536) H=8 p=0.1 (no grad); library: SDPA in bf16"),
         bf16_kernel("fused_qkv_self_attention_bwd_bf16", "fused_qkv_attention_bwd_bf16",
-                    "tpu_speech/ops/fused_attention.py:401", "fused_attention.cu", "k2_bwd",
+                    "tpu_speech/ops/fused_attention.py:401", "fused_attention_sm90.cu", "k2_bwd",
                     "k2_bwd_t", "bf16 dqkv (24, 392, 1536) H=8 p=0.1, backward alone"),
         bf16_kernel("fused_self_attention_bf16", "fused_attention_bf16",
-                    "tpu_speech/ops/fused_attention.py:222", "fused_attention.cu", "k3", "k3_t",
+                    "tpu_speech/ops/fused_attention.py:222", "fused_attention_sm90.cu", "k3",
+                    "k3_t",
                     "bf16 q, k, v (14, 604, 8, 64) p=0.1 (no grad)"),
         bf16_kernel("fused_self_attention_bwd_bf16", "fused_attention_bwd_bf16",
-                    "tpu_speech/ops/fused_attention.py:239", "fused_attention.cu", "k3_bwd",
+                    "tpu_speech/ops/fused_attention.py:239", "fused_attention_sm90.cu", "k3_bwd",
                     "k3_bwd_t", "bf16 dq, dk, dv (14, 604, 8, 64) p=0.1, backward alone"),
         bf16_kernel("grouped_conv1d_bf16", "grouped_conv1d_bf16",
                     "tpu_speech/ops/fused_posconv.py:132", "fused_posconv.cu", "k4", "k4_t",

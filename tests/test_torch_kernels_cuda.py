@@ -14,6 +14,7 @@ import torch
 from tpu_speech_torch.audio.mel import hann_window, mel_filterbank
 from tpu_speech_torch.models.spiral.features import hann_window_symmetric
 from tpu_speech_torch.ops import _build
+from tpu_speech_torch.ops import fused_attention as fa
 from tpu_speech_torch.ops.fused_attention import (
     KERNEL_D_HEADS,
     KERNEL_D_HEADS_BF16,
@@ -552,9 +553,10 @@ def test_tiny_finetune_step_on_the_card_matches_the_cpu(cuda):
 
 # ---- the bf16 variants -------------------------------------------------------
 
-# lengths around the 64 x 64 tiles and the 16-wide bf16 k steps, and the
-# pretrain and finetune block-1 lengths
-BF16_EDGE_T = [1, 15, 16, 17, 63, 64, 65, 392, 604]
+# lengths around the 64-row tiles of the wgmma kernels (one, two and four
+# key tiles and their edges) and the 16-wide k steps, and the pretrain and
+# finetune block-1 lengths
+BF16_EDGE_T = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 257, 392, 604]
 # against the plain version, which rounds at the same points: x max(1,
 # max|plain|), about one bf16 step at the largest value
 BF16_FWD_RTOL, BF16_GRAD_RTOL = 8e-3, 1.6e-2
@@ -638,6 +640,53 @@ def test_bf16_attention_k2_and_k3_match_plain(cuda, d_head, t, p):
         if name == "K2":
             padded_row = padded_row[:, :2 * e]
         assert padded_row.abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("d_head", KERNEL_D_HEADS_BF16)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_bf16_attention_is_deterministic(cuda, d_head, p):
+    """Two launches of the bf16 K2 and K3 kernels on the same inputs give the
+    same bits: out and lse forward, dq, dk and dv backward (no atomics, every
+    sum in a fixed order)."""
+    b, t, h = 3, 200, 2
+    qkv32, mask = _qkv_case(cuda, b, t, h, d_head, 31 * d_head)
+    qkv = qkv32.bfloat16()
+    dout = torch.randn(b, t, h * d_head, generator=torch.Generator().manual_seed(3))
+    dout = dout.to(cuda).bfloat16()
+    q, k, v = (a.contiguous() for a in qkv.view(b, t, 3, h, d_head).unbind(2))
+    thresh, scale = fa.dropout_threshold(p) if p else 0, 1.0 / (1.0 - p)
+
+    def k2():
+        out, lse = fa._launch_fwd(qkv, mask, h, 9, thresh, scale, True)
+        return out, lse, fa._launch_bwd(qkv, mask, out, dout, lse, h, 9, thresh, scale)
+
+    def k3():
+        out, lse = fa._launch_attn_fwd(q, k, v, mask, 9, thresh, scale, True)
+        g = dout.view(b, t, h, d_head)
+        return (out, lse, *fa._launch_attn_bwd(q, k, v, mask, out, g, lse, 9, thresh, scale))
+
+    for run in (k2, k3):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+
+
+def test_bf16_attention_raises_on_misaligned_operands(cuda):
+    """The bf16 kernels load tiles by TMA, which needs 16-byte aligned rows:
+    a q that starts 2 bytes into its storage, and a row stride that is not a
+    multiple of 16 bytes, are refused at launch, not computed another way."""
+    q = torch.randn(1 * 8 * 2 * 16 + 1, device=cuda).bfloat16()[1:].view(1, 8, 2, 16)
+    k, v = torch.randn(2, 1, 8, 2, 16, device=cuda).bfloat16().unbind(0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_self_attention(q, k, v)
+    plane = torch.randn(1, 8, 3 * 32 + 4, device=cuda).bfloat16()  # rows of 100 elements
+    ptrs = (plane.data_ptr(), plane.data_ptr() + 64, plane.data_ptr() + 128)
+    err, _, _ = fa._fwd(ptrs, plane.shape[2], None, 1, 8, 2, 16, 0, 0, 1.0, False, cuda,
+                        torch.bfloat16)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(err, "fused_qkv_self_attention")
 
 
 # (B, T, C, groups, K): Cg 16, 32, 48, 64 around the 128-frame tile, and the

@@ -22,10 +22,11 @@
 //
 // Dropout. The TPU kernel draws its keep bits from the core's PRNG, which
 // nothing else can reproduce. Here the bits are a counter-based function
-// of (seed, b*H + h, i*T + j), defined ONCE below (dropout_stream /
-// dropout_bits) and mirrored bit for bit by the plain PyTorch version
-// (ops/fused_attention.py::dropout_keep_mask). Every kernel and every tiling
-// therefore regenerates the same mask; nothing (B, H, T, T) is stored.
+// of (seed, b*H + h, i*T + j), defined once in dropout_bits.cuh
+// (dropout_stream / dropout_bits) and mirrored bit for bit by the plain
+// PyTorch version (ops/fused_attention.py::dropout_keep_mask). Every kernel
+// and every tiling therefore regenerates the same mask; nothing (B, H, T, T)
+// is stored.
 // keep = bits >= threshold, threshold = min(floor(p * 2^32), 2^32 - 1), as
 // the TPU kernel's _keep_mask.
 //
@@ -81,23 +82,14 @@
 //   The first design recomputed S and dP for dQ: 14 instead of 10
 //   B H T^2 D FLOP.
 //
-// bf16 operands (the *_bf16 kernels, entry points tsx_attention_*_bf16), as
-// the TPU kernels run them on bf16 activations: every product is one
-// mma.sync.m16n8k16 bf16 pass with fp32 accumulators (no split), so the bound
-// is FLOP / 989 TFLOP/s. The casts are the Pallas kernels': S, the -1e9 fill,
-// the softmax, the dropout bits, L and Delta stay fp32; P~ is rounded to bf16
-// before P~ v and before dV = P~^T dO; dS is rounded to bf16 before dQ and dK
-// (so the dS^T scratch is bf16, half the bytes); out, dq, dk, dv are stored in
-// bf16. The m16n8k16 accumulator of two adjacent 8-column slabs, packed in
-// pairs, is exactly the A operand of the 16-wide k step over those columns,
-// so V and dO are read in their natural order (the TF32 path's permuted read
-// is not needed). Tiles are bf16 rows padded to D + 8 elements (16 bytes),
-// which keeps the 32-bit fragment loads conflict-free. Head widths 16, 32, 64.
+// bf16 operands (entry points tsx_attention_*_bf16) run on the Hopper
+// kernels of fused_attention_sm90.cu (wgmma, TMA), with the same semantics.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_bits.cuh"
 
 namespace {
 
@@ -107,27 +99,6 @@ constexpr int NW = 4;         // warps per block, 16 tile rows each
 constexpr int NT = NW * 32;
 constexpr float FILL = -1e9f;
 constexpr unsigned char KEY_VALID = 0, KEY_PADDED = 1, KEY_OUT = 2;
-
-// ---- the dropout bits: the one definition (plain twin in Python) --------
-__device__ __forceinline__ unsigned fmix32(unsigned h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// per (seed, b*H + h) stream key
-__device__ __forceinline__ unsigned dropout_stream(unsigned seed, unsigned bh) {
-  return fmix32(seed ^ fmix32(bh + 0x9E3779B9u));
-}
-
-// bits of element idx = i*T + j of that stream
-__device__ __forceinline__ unsigned dropout_bits(unsigned stream, unsigned idx) {
-  return fmix32(stream ^ (idx * 0x9E3779B1u));
-}
-// --------------------------------------------------------------------------
 
 // ---- 3xTF32 products on the tensor cores ---------------------------------
 // A 16 x 8 operand (a0..a3 of mma.m16n8k8) and an 8 x 8 one (b0, b1), each
@@ -213,76 +184,7 @@ __device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
 }
 // --------------------------------------------------------------------------
 
-// ---- bf16 products on the tensor cores -----------------------------------
-// mma.m16n8k16, bf16 operands, fp32 accumulators. Fragment layouts (lane =
-// 4g + t), each 32-bit register two bf16 with the lower column (or k) in the
-// low half: A (16 x 16) a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-// a3 (g+8, 2t+8..); B (16 x 8, k x n) b0 (2t..2t+1, g), b1 (2t+8..2t+9, g);
-// C as m16n8k8's.
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats rounded to bf16 (to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// two bf16 of shared memory, lo in the low half
-__device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
-  return (uint32_t)(*reinterpret_cast<const unsigned short*>(lo)) |
-         ((uint32_t)(*reinterpret_cast<const unsigned short*>(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A = rows r0.. and columns c0.. (16 x 16) of a row-major shared tile
-__device__ __forceinline__ void load_a16(uint32_t (&a)[4], const bf16* s, int ss,
-                                         int r0, int c0, int g, int t) {
-  const bf16* p = s + (r0 + g) * ss + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ss);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ss + 8);
-}
-
-// B[k][n] = s[n0 + n][k0 + k] (16 x 8): a tile whose rows are B's columns
-__device__ __forceinline__ void load_bt16(uint32_t (&b)[2], const bf16* s, int ss,
-                                          int n0, int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * ss + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B[k][n] = s[k0 + k][n0 + n] (16 x 8): a row-major tile read down its columns
-__device__ __forceinline__ void load_b16(uint32_t (&b)[2], const bf16* s, int ss,
-                                         int k0, int n0, int g, int t) {
-  const bf16* p = s + (k0 + 2 * t) * ss + n0 + g;
-  b[0] = pack2(p, p + ss);
-  b[1] = pack2(p + 8 * ss, p + 9 * ss);
-}
-
-// the accumulator tiles of columns 8j.. and 8j + 8.., rounded to bf16, as the
-// A operand of the k step over those 16 columns
-__device__ __forceinline__ void acc_pair_as_a(uint32_t (&a)[4], const float (&c0)[4],
-                                              const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 // --------------------------------------------------------------------------
 
 // ---- staging: cp.async, 16 bytes a copy, zero-filled past T --------------
@@ -311,18 +213,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
     const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
     const bool ok = t < T;
     cp_async16(dst + r * (D + 4) + c, ok ? src + t * stride + c : src, ok);
-  }
-}
-
-// the same for bf16 rows of W elements into a shared [64][W + 8] tile
-template <int W>
-__device__ __forceinline__ void stage_rows_bf16(bf16* dst, const bf16* src,
-                                                long long stride, int t0, int T, int tid) {
-  constexpr int C8 = W / 8;
-  for (int i = tid; i < 64 * C8; i += NT) {
-    const int r = i / C8, c = (i % C8) * 8, t = t0 + r;
-    const bool ok = t < T;
-    cp_async16(dst + r * (W + 8) + c, ok ? src + t * stride + c : src, ok);
   }
 }
 
@@ -520,8 +410,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Delta[b, h, t] = sum_c dO[b, t, h*D + c] * out[b, t, h*D + c] in fp32 (out
-// and dO fp32 or bf16); one block per (b, t), one warp per head.
+// Delta[b, h, t] = sum_c dO[b, t, h*D + c] * out[b, t, h*D + c] in fp32; one
+// block per (b, t), one warp per head.
 template <typename X>
 __global__ void attn_bwd_delta_kernel(const X* __restrict__ out,
                                       const X* __restrict__ dout,
@@ -803,383 +693,6 @@ attn_bwd_dq_kernel(const float* __restrict__ k, int ld, const float* __restrict_
   }
 }
 
-// ---- the bf16 kernels: the same tiling and semantics, one m16n8k16 pass ---
-
-template <int D>
-constexpr size_t fwd_bf16_smem_bytes() {  // q tile; 2 x (k, v) tiles; 2 x key flags
-  return sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + 8) + 2 * BK;
-}
-
-template <int D>
-constexpr size_t dkdv_bf16_smem_bytes() {  // 2 x (L, Delta); k, v tiles; 2 x (q, dO) tiles
-  return sizeof(float) * 4 * BQ + sizeof(bf16) * (size_t)(2 * BK + 4 * BQ) * (D + 8);
-}
-
-template <int D>
-constexpr size_t dq_bf16_smem_bytes() {  // 2 x (dS^T, k) tiles
-  return sizeof(bf16) * (size_t)2 * BK * ((BQ + 8) + (D + 8));
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT, 2)
-attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, int ld,
-                     const unsigned char* __restrict__ key_pad,
-                     bf16* __restrict__ out, float* __restrict__ lse, int T, int H,
-                     unsigned seed, unsigned thresh, float drop_scale) {
-  constexpr int SS = D + 8;
-  constexpr int KD = D / 16;  // 16-wide slabs of d: the k steps of S
-  constexpr int ND = D / 8;   // 8-wide slabs of d: the n tiles of out
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x SS
-  bf16* kbuf = qs + BQ * SS;                     // 2 x BK x SS
-  bf16* vbuf = kbuf + 2 * BK * SS;               // 2 x BK x SS
-  unsigned char* flags = reinterpret_cast<unsigned char*>(vbuf + 2 * BK * SS);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (tid >> 5) * 16;  // the warp's rows of the tile
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int E = H * D;
-  const long long row = ld;
-  const long long head = (long long)b * T * row + (long long)h * D;
-  const bf16* kg = k + head;
-  const bf16* vg = v + head;
-  const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
-  const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
-  const int n_tiles = (T + BK - 1) / BK;
-
-  stage_rows_bf16<D>(qs, q + head, row, q0, T, tid);
-  cp_async_commit();
-  stage_rows_bf16<D>(kbuf, kg, row, 0, T, tid);
-  stage_rows_bf16<D>(vbuf, vg, row, 0, T, tid);
-  stage_key_flags(flags, pad, 0, T, tid);
-  cp_async_commit();
-  wait_tile(true);  // the q tile; the first key tile stays in flight
-
-  uint32_t qf[KD][4];  // the warp's 16 query rows
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) load_a16(qf[kd], qs, SS, r0, 16 * kd, g, t);
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const unsigned qrow[2] = {(unsigned)(q0 + r0 + g) * (unsigned)T,
-                            (unsigned)(q0 + r0 + g + 8) * (unsigned)T};
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    const bool more = it + 1 < n_tiles;
-    if (more) {
-      const int k1 = (it + 1) * BK;
-      stage_rows_bf16<D>(kbuf + (cur ^ 1) * BK * SS, kg, row, k1, T, tid);
-      stage_rows_bf16<D>(vbuf + (cur ^ 1) * BK * SS, vg, row, k1, T, tid);
-      stage_key_flags(flags + (cur ^ 1) * BK, pad, k1, T, tid);
-      cp_async_commit();
-    }
-    wait_tile(more);
-    const bf16* ks = kbuf + cur * BK * SS;
-    const bf16* vs = vbuf + cur * BK * SS;
-    const unsigned char* fl = flags + cur * BK;
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bk[2];
-        load_bt16(bk, ks, SS, 8 * j, 16 * kd, g, t);
-        mma_bf16(s[j], qf[kd], bk);
-      }
-
-    float alpha[2];
-    softmax_tile(s, fl, t, (unsigned)it * BK, qrow, stream, thresh, drop_scale, m, l, alpha);
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    // out += P~ v: keys 16jj .. 16jj + 15 of P~ (rounded to bf16) are the
-    // accumulator tiles 2jj and 2jj + 1
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      uint32_t pa[4];
-      acc_pair_as_a(pa, s[2 * jj], s[2 * jj + 1]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t bv[2];
-        load_b16(bv, vs, SS, 16 * jj, 8 * n, g, t);
-        mma_bf16(o[n], pa, bv);
-      }
-    }
-    __syncthreads();  // the next iteration refills this buffer
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int tq = q0 + r0 + g + 8 * i;
-    if (tq < T) {
-      const float inv = 1.f / l[i];
-      bf16* dst = out + ((long long)b * T + tq) * E + h * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-            pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-      if (lse != nullptr && t == 0) lse[(long long)bh * T + tq] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-// dK, dV of one tile of 64 keys, CH queries per pass; dS^T (rounded to bf16)
-// to the scratch for attn_bwd_dq_bf16_kernel
-template <int D, int CH>
-__global__ void __launch_bounds__(NT, 2)
-attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, int ld,
-                          const unsigned char* __restrict__ key_pad,
-                          const bf16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, bf16* __restrict__ dst, int ld_grad,
-                          int T, int H, unsigned seed, unsigned thresh,
-                          float drop_scale, float inv_t) {
-  constexpr int SS = D + 8;
-  constexpr int KD = D / 16;  // k steps of S^T and dP^T over d
-  constexpr int ND = D / 8;   // n tiles of dK and dV
-  constexpr int NJ = CH / 8;  // query tiles of a pass
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* rowl = reinterpret_cast<float*>(smem_raw);   // 2 x BQ: L
-  float* rowd = rowl + 2 * BQ;                        // 2 x BQ: Delta
-  bf16* ks = reinterpret_cast<bf16*>(rowd + 2 * BQ);  // BK x SS
-  bf16* vs = ks + BK * SS;                            // BK x SS
-  bf16* qbuf = vs + BK * SS;                          // 2 x BQ x SS
-  bf16* dobuf = qbuf + 2 * BQ * SS;                   // 2 x BQ x SS
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (tid >> 5) * 16;  // the warp's keys of the tile
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;
-  const int E = H * D;
-  const long long row = ld;
-  const long long head = (long long)b * T * row + (long long)h * D;
-  const bf16* qg = q + head;
-  const bf16* dog = dout + (long long)b * T * E + h * D;
-  const float* lg = lse + (long long)bh * T;
-  const float* dg = delta + (long long)bh * T;
-  const int TQ = (T + BQ - 1) / BQ * BQ;  // the scratch's row length
-  bf16* dsT = dst + (long long)bh * TQ * TQ;
-  const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
-  const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
-  const int n_tiles = (T + BQ - 1) / BQ;
-
-  stage_rows_bf16<D>(ks, k + head, row, k0, T, tid);
-  stage_rows_bf16<D>(vs, v + head, row, k0, T, tid);
-  stage_rows_bf16<D>(qbuf, qg, row, 0, T, tid);
-  stage_rows_bf16<D>(dobuf, dog, E, 0, T, tid);
-  stage_row_stats(rowl, rowd, lg, dg, 0, T, tid);
-  cp_async_commit();
-
-  int key[2];
-  bool kin[2], kpad[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    key[i] = k0 + r0 + g + 8 * i;
-    kin[i] = key[i] < T;
-    kpad[i] = kin[i] && pad != nullptr && pad[key[i]] != 0;
-  }
-  float dkr[ND][4], dvr[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dkr[n][e] = 0.f;
-      dvr[n][e] = 0.f;
-    }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    const bool more = it + 1 < n_tiles;
-    if (more) {
-      const int q1 = (it + 1) * BQ, nxt = cur ^ 1;
-      stage_rows_bf16<D>(qbuf + nxt * BQ * SS, qg, row, q1, T, tid);
-      stage_rows_bf16<D>(dobuf + nxt * BQ * SS, dog, E, q1, T, tid);
-      stage_row_stats(rowl + nxt * BQ, rowd + nxt * BQ, lg, dg, q1, T, tid);
-      cp_async_commit();
-    }
-    wait_tile(more);
-    const bf16* qs = qbuf + cur * BQ * SS;
-    const bf16* dos = dobuf + cur * BQ * SS;
-    const float* L = rowl + cur * BQ;
-    const float* Dl = rowd + cur * BQ;
-    const int q0 = it * BQ;
-    // the warp's 16 keys and their values as A operands
-    uint32_t kf[KD][4], vf[KD][4];
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      load_a16(kf[kd], ks, SS, r0, 16 * kd, g, t);
-      load_a16(vf[kd], vs, SS, r0, 16 * kd, g, t);
-    }
-
-#pragma unroll 1
-    for (int c = 0; c < BQ; c += CH) {
-      float st[NJ][4], dpt[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[j][e] = 0.f;
-          dpt[j][e] = 0.f;
-        }
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          uint32_t bq[2], bo[2];
-          load_bt16(bq, qs, SS, c + 8 * j, 16 * kd, g, t);
-          load_bt16(bo, dos, SS, c + 8 * j, 16 * kd, g, t);
-          mma_bf16(st[j], kf[kd], bq);
-          mma_bf16(dpt[j], vf[kd], bo);
-        }
-      // element e of tile j: key row g + 8 (e >> 1), query c + 8j + 2t + (e & 1)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int ql = c + 8 * j + 2 * t + (e & 1);
-          const int qi = q0 + ql;
-          const bool drop = thresh != 0u &&
-                            dropout_bits(stream, (unsigned)qi * (unsigned)T +
-                                                     (unsigned)key[i]) < thresh;
-          const ElemGrad gr = elem_grad(st[j][e], dpt[j][e], L[ql], Dl[ql],
-                                        kin[i] && qi < T, kpad[i], drop, drop_scale,
-                                        inv_t);
-          st[j][e] = gr.pd;
-          dpt[j][e] = gr.ds;
-        }
-      // dS^T in bf16 to the scratch, rows = keys
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          *reinterpret_cast<uint32_t*>(dsT + (long long)(key[i]) * TQ + q0 + c + 8 * j + 2 * t) =
-              pack_bf16(dpt[j][2 * i], dpt[j][2 * i + 1]);
-      // dV += P~^T dO, dK += dS^T q over these queries, 16 at a k step
-#pragma unroll
-      for (int jj = 0; jj < NJ / 2; ++jj) {
-        uint32_t pa[4], da[4];
-        acc_pair_as_a(pa, st[2 * jj], st[2 * jj + 1]);
-        acc_pair_as_a(da, dpt[2 * jj], dpt[2 * jj + 1]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          uint32_t bo[2], bq[2];
-          load_b16(bo, dos, SS, c + 16 * jj, 8 * n, g, t);
-          load_b16(bq, qs, SS, c + 16 * jj, 8 * n, g, t);
-          mma_bf16(dvr[n], pa, bo);
-          mma_bf16(dkr[n], da, bq);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration refills this buffer
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (kin[i]) {
-      const long long off = ((long long)b * T + key[i]) * ld_grad + h * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack_bf16(dkr[n][2 * i], dkr[n][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * n) = pack_bf16(dvr[n][2 * i], dvr[n][2 * i + 1]);
-      }
-    }
-  }
-}
-
-// dQ = dS k for one tile of 64 queries from the bf16 dS^T scratch
-template <int D>
-__global__ void __launch_bounds__(NT, 2)
-attn_bwd_dq_bf16_kernel(const bf16* __restrict__ k, int ld, const bf16* __restrict__ dst,
-                        bf16* __restrict__ dq, int ld_grad, int T, int H) {
-  constexpr int SS = D + 8;
-  constexpr int PS = BQ + 8;  // dS^T tile row stride
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sbuf = reinterpret_cast<bf16*>(smem_raw);  // 2 x BK x PS: dS^T rows of the key tile
-  bf16* kbuf = sbuf + 2 * BK * PS;                 // 2 x BK x SS
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (tid >> 5) * 16;  // the warp's queries of the tile
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int TQ = (T + BQ - 1) / BQ * BQ;
-  const bf16* kg = k + (long long)b * T * ld + (long long)h * D;
-  const bf16* sg = dst + (long long)bh * TQ * TQ + q0;
-  const int n_tiles = (T + BK - 1) / BK;
-
-  stage_rows_bf16<BQ>(sbuf, sg, TQ, 0, T, tid);
-  stage_rows_bf16<D>(kbuf, kg, ld, 0, T, tid);
-  cp_async_commit();
-
-  float dqr[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqr[n][e] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    const bool more = it + 1 < n_tiles;
-    if (more) {
-      const int k1 = (it + 1) * BK, nxt = cur ^ 1;
-      stage_rows_bf16<BQ>(sbuf + nxt * BK * PS, sg, TQ, k1, T, tid);
-      stage_rows_bf16<D>(kbuf + nxt * BK * SS, kg, ld, k1, T, tid);
-      cp_async_commit();
-    }
-    wait_tile(more);
-    const bf16* ss = sbuf + cur * BK * PS;
-    const bf16* ks = kbuf + cur * BK * SS;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      // A[query][key] = dS^T[key][query] over keys 16jj .. 16jj + 15
-      const bf16* p = ss + (16 * jj + 2 * t) * PS + r0 + g;
-      uint32_t da[4];
-      da[0] = pack2(p, p + PS);
-      da[1] = pack2(p + 8, p + PS + 8);
-      da[2] = pack2(p + 8 * PS, p + 9 * PS);
-      da[3] = pack2(p + 8 * PS + 8, p + 9 * PS + 8);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t bk[2];
-        load_b16(bk, ks, SS, 16 * jj, 8 * n, g, t);
-        mma_bf16(dqr[n], da, bk);
-      }
-    }
-    __syncthreads();  // the next iteration refills this buffer
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int tq = q0 + r0 + g + 8 * i;
-    if (tq < T) {
-      bf16* drow = dq + ((long long)b * T + tq) * ld_grad + h * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<uint32_t*>(drow + 8 * n) = pack_bf16(dqr[n][2 * i], dqr[n][2 * i + 1]);
-    }
-  }
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1187,7 +700,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // Row strides and pointers of one attention call: q, k, v rows at stride ld;
-// dq, dk, dv rows at stride ld_grad (backward only). X is float or bf16.
+// dq, dk, dv rows at stride ld_grad (backward only). X is float.
 template <typename X>
 struct Operands {
   const X *q, *k, *v;
@@ -1199,7 +712,7 @@ struct Operands {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // What the kernels take: q, k, v rows start on 16 bytes (cp.async), the
-// gradient rows on two elements (float2 or bf16-pair stores).
+// gradient rows on two elements (float2 stores).
 template <typename X>
 bool operands_ok(const Operands<X>& a, bool backward) {
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
@@ -1224,20 +737,6 @@ int launch_fwd(const Operands<float>& a, const unsigned char* key_pad, float* ou
                                                  lse, T, H, seed, thresh, drop_scale);
   return cudaGetLastError();
 }
-
-template <int D>
-int launch_fwd(const Operands<bf16>& a, const unsigned char* key_pad, bf16* out,
-               float* lse, int B, int T, int H, unsigned seed, unsigned thresh,
-               float drop_scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_bf16_smem_bytes<D>();
-  cudaError_t err = allow_smem(attn_fwd_bf16_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  attn_fwd_bf16_kernel<D><<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.ld, key_pad, out,
-                                                      lse, T, H, seed, thresh, drop_scale);
-  return cudaGetLastError();
-}
-
 template <int D>
 int launch_bwd(const Operands<float>& a, const unsigned char* key_pad, const float* out,
                const float* dout, const float* lse, float* delta, int B, int T,
@@ -1269,40 +768,6 @@ int launch_bwd(const Operands<float>& a, const unsigned char* key_pad, const flo
                                                          a.ld_grad, T, H);
   return cudaGetLastError();
 }
-
-template <int D>
-int launch_bwd(const Operands<bf16>& a, const unsigned char* key_pad, const bf16* out,
-               const bf16* dout, const float* lse, float* delta, int B, int T,
-               int H, unsigned seed, unsigned thresh, float drop_scale,
-               cudaStream_t stream) {
-  constexpr int CH = 32;  // queries per pass of the dK/dV kernel
-  const float inv_t = 1.f / (float)T;
-  // the scratch: Delta (B, H, T) fp32, then dS^T (B*H, TQ, TQ) bf16 on a
-  // 16-byte boundary
-  bf16* dst = reinterpret_cast<bf16*>(delta + ((long long)B * H * T + 3) / 4 * 4);
-  attn_bwd_delta_kernel<bf16><<<B * T, 128, 0, stream>>>(out, dout, delta, T, H, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr size_t smem_kv = dkdv_bf16_smem_bytes<D>();
-  err = allow_smem(attn_bwd_dkdv_bf16_kernel<D, CH>, smem_kv);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((T + BK - 1) / BK, B * H);
-  attn_bwd_dkdv_bf16_kernel<D, CH><<<grid_kv, NT, smem_kv, stream>>>(
-      a.q, a.k, a.v, a.ld, key_pad, dout, lse, delta, a.dk, a.dv, dst, a.ld_grad, T,
-      H, seed, thresh, drop_scale, inv_t);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr size_t smem_q = dq_bf16_smem_bytes<D>();
-  err = allow_smem(attn_bwd_dq_bf16_kernel<D>, smem_q);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((T + BQ - 1) / BQ, B * H);
-  attn_bwd_dq_bf16_kernel<D><<<grid_q, NT, smem_q, stream>>>(a.k, a.ld, dst, a.dq,
-                                                              a.ld_grad, T, H);
-  return cudaGetLastError();
-}
-
 // One forward call in element type X over the head widths X is built for.
 template <typename X>
 int attention_fwd(const void* q, const void* k, const void* v, int ld, const void* key_pad,
@@ -1317,11 +782,7 @@ int attention_fwd(const void* q, const void* k, const void* v, int ld, const voi
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8:  // the bf16 kernels step 16 along d
-      if constexpr (sizeof(X) == 4)
-        return launch_fwd<8>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-      else
-        return cudaErrorInvalidValue;
+    case 8: return launch_fwd<8>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 16: return launch_fwd<16>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 32: return launch_fwd<32>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 64: return launch_fwd<64>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
@@ -1347,11 +808,7 @@ int attention_bwd(const void* q, const void* k, const void* v, int ld, const voi
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8:
-      if constexpr (sizeof(X) == 4)
-        return launch_bwd<8>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
-      else
-        return cudaErrorInvalidValue;
+    case 8: return launch_bwd<8>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 16: return launch_bwd<16>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 32: return launch_bwd<32>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 64: return launch_bwd<64>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
@@ -1372,16 +829,6 @@ extern "C" int tsx_attention_fwd(const void* q, const void* k, const void* v,
                               drop_scale, stream);
 }
 
-// The same in bf16 (out bf16, lse fp32); D in 16, 32, 64.
-extern "C" int tsx_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                      int ld, const void* key_pad, void* out,
-                                      void* lse, int B, int T, int H, int D,
-                                      unsigned seed, unsigned thresh, float drop_scale,
-                                      void* stream) {
-  return attention_fwd<bf16>(q, k, v, ld, key_pad, out, lse, B, T, H, D, seed, thresh,
-                             drop_scale, stream);
-}
-
 // dq, dk, dv (rows at stride ld_grad) from q, k, v, out, dout (B, T, H*D) and
 // the forward's lse. delta is scratch of ceil4(B*H*T) + B*H*TQ*TQ floats,
 // TQ = T rounded up to 64, 16-byte aligned: Delta, then dS^T.
@@ -1393,16 +840,4 @@ extern "C" int tsx_attention_bwd(const void* q, const void* k, const void* v,
                                  unsigned thresh, float drop_scale, void* stream) {
   return attention_bwd<float>(q, k, v, ld, key_pad, out, dout, lse, delta, dq, dk, dv,
                               ld_grad, B, T, H, D, seed, thresh, drop_scale, stream);
-}
-
-// The same in bf16 (lse and Delta fp32). delta is scratch of ceil4(B*H*T)
-// floats, then B*H*TQ*TQ bf16 (dS^T).
-extern "C" int tsx_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                      int ld, const void* key_pad, const void* out,
-                                      const void* dout, const void* lse, void* delta,
-                                      void* dq, void* dk, void* dv, int ld_grad, int B,
-                                      int T, int H, int D, unsigned seed,
-                                      unsigned thresh, float drop_scale, void* stream) {
-  return attention_bwd<bf16>(q, k, v, ld, key_pad, out, dout, lse, delta, dq, dk, dv,
-                             ld_grad, B, T, H, D, seed, thresh, drop_scale, stream);
 }

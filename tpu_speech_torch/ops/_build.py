@@ -7,9 +7,9 @@ through ``ctypes``. The build runs at first use, never at import:
 the CPU test tier imports every module on a machine without ``nvcc``.
 
 The library lands in ``<repo>/build/tpu_speech_torch/<key>/`` where ``key``
-hashes the sources and the compiler flags, so a stale library is never
-loaded after a source edit. Concurrent builders write to a temporary name and
-rename atomically.
+hashes the sources (and the ``csrc/*.cuh`` headers they include) and the
+compiler flags, so a stale library is never loaded after a source edit.
+Concurrent builders write to a temporary name and rename atomically.
 
 Each C entry point takes pointers and the CUDA stream as ``void*``, launches
 on that stream without synchronising or allocating, and returns
@@ -45,9 +45,10 @@ SIGNATURES = {
     # q, k, v, row stride, key_pad (nullable), out, lse (nullable), B, T, H, D,
     # seed, dropout threshold, dropout scale, stream
     "tsx_attention_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _P],
-    # q, k, v, row stride, key_pad (nullable), out, dout, lse, scratch (Delta,
-    # then dS^T), dq, dk, dv, gradient row stride, B, T, H, D, seed, dropout
-    # threshold, dropout scale, stream
+    # q, k, v, row stride, key_pad (nullable), out, dout, lse, scratch (fp32:
+    # Delta, then dS^T; bf16: L and Delta in rows of T rounded up to 64), dq,
+    # dk, dv, gradient row stride, B, T, H, D, seed, dropout threshold,
+    # dropout scale, stream
     "tsx_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _I, _I, _U, _U, _F, _P],
     # x, w, out, B, T, C, G, K, left_pad, stream
@@ -96,7 +97,7 @@ def _nvcc() -> str:
 
 def _build_key(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -108,7 +109,8 @@ def _run(cmd):
 
 
 def _compile(sources, out_dir: Path, so_path: Path) -> str:
-    """One nvcc per source, all at once, then one link; returns the log."""
+    """One nvcc per source, all at once, then one link; returns the log,
+    which it also keeps beside the library (``build.log``)."""
     nvcc = _nvcc()
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
     try:
@@ -130,6 +132,8 @@ def _compile(sources, out_dir: Path, so_path: Path) -> str:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{' '.join(cmd)}\n{out}")
+        (tmp / "build.log").write_text(log + out)
+        os.replace(tmp / "build.log", out_dir / "build.log")
         os.replace(so_tmp, so_path)
         return log + out
     finally:
@@ -148,11 +152,13 @@ def library():
         out_dir = BUILD_ROOT / _build_key(sources)
         so_path = out_dir / "libtpu_speech_kernels.so"
         t0 = time.perf_counter()
-        log = ""
         compiled = not so_path.exists()
         if compiled:
             out_dir.mkdir(parents=True, exist_ok=True)
             log = _compile(sources, out_dir, so_path)
+        else:  # the log of the build that made it (registers, spills)
+            log_path = out_dir / "build.log"
+            log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(so_path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -11,10 +11,11 @@ Ports of two entry points of ``tpu_speech/ops/fused_attention.py``:
   (``_fused_attn_bwd:234``): q, k, v are separate (B, T, H, D) arrays;
   returns (B, T, H, D).
 
-Both launch the same hand-written CUDA kernels of ``csrc/fused_attention.cu``
-on a CUDA tensor (forward, and backward through ``torch.autograd``), which
+Both launch the same hand-written CUDA kernels on a CUDA tensor (forward,
+and backward through ``torch.autograd``): ``csrc/fused_attention.cu`` in
+float32, ``csrc/fused_attention_sm90.cu`` (wgmma and TMA) in bfloat16. They
 read q, k and v by a row stride (3E for the merged plane, H*D for separate
-arrays), and compute their plain version on a CPU tensor; a CUDA tensor they
+arrays). On a CPU tensor both compute their plain version; a CUDA tensor they
 cannot take raises.
 
 Semantics (every version): q already carries the d_head**-0.5 scale. Padded
@@ -31,7 +32,7 @@ JAX package's XLA path gives it; its Pallas backwards differ at a fully
 padded row (ROADMAP Queue 3).
 
 dtypes: float32 (the kernels' 3xTF32 path, d_head 8, 16, 32 or 64) and
-bfloat16 (one bf16 tensor-core pass, d_head 16, 32 or 64), as the TPU kernels
+bfloat16 (one bf16 wgmma pass, d_head 16, 32 or 64), as the TPU kernels
 take the activation's dtype. In bf16 every version rounds where the Pallas
 kernels cast (``_qkv_fwd_kernel:282``, ``_qkv_bwd_kernel:312,322``): the
 products accumulate in float32 from the bf16 values, the fill and the softmax
@@ -54,11 +55,11 @@ from tpu_speech_torch.ops import _build
 __all__ = [
     "fused_qkv_self_attention", "qkv_attention_plain", "fused_self_attention",
     "attention_plain", "dropout_keep_mask", "dropout_threshold", "KERNEL_D_HEADS",
-    "KERNEL_D_HEADS_BF16",
+    "KERNEL_D_HEADS_BF16", "bwd_scratch_floats",
 ]
 
 KERNEL_D_HEADS = (8, 16, 32, 64)  # head widths the float32 CUDA kernels are built for
-KERNEL_D_HEADS_BF16 = (16, 32, 64)  # ... and the bf16 ones (16-wide k steps)
+KERNEL_D_HEADS_BF16 = (16, 32, 64)  # ... and the bf16 ones (rows of 32-128 bytes)
 _M32 = 0xFFFFFFFF
 
 
@@ -208,17 +209,25 @@ def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device, dtyp
     return err, out, lse
 
 
+def bwd_scratch_floats(b: int, t: int, h: int, dtype: torch.dtype) -> int:
+    """float32 slots of one backward's scratch, TQ = T rounded up to 64. In
+    float32: the row sums Delta (B, H, T), then dS^T (B*H, TQ, TQ), which the
+    dK/dV kernel writes and the dQ kernel reads. In bf16: L and Delta of each
+    (b, h) in rows of TQ, which the dQ kernel writes and the dK/dV kernel
+    reads; it recomputes dS and keeps no T x T scratch."""
+    tq = -(-t // 64) * 64
+    if dtype == torch.float32:
+        return (b * h * t + 3) // 4 * 4 + b * h * tq * tq
+    return b * h * 2 * tq
+
+
 def _bwd(ptrs, ld, grad_ptrs, ld_grad, mask, out, dout, lse, h, seed, thresh,
          scale):
-    """One backward launch (three kernels) writing dq, dk, dv at
-    ``grad_ptrs`` with row stride ``ld_grad``. The scratch holds the row sums
-    Delta (B, H, T) and then dS^T (B*H, TQ, TQ), TQ = T rounded up to 64,
-    which the dK/dV kernel writes and the dQ kernel reads; dS^T is in the
-    operands' dtype (bf16: two to a float32 slot)."""
+    """One backward call writing dq, dk, dv at ``grad_ptrs`` with row stride
+    ``ld_grad``: three launches in float32 (Delta, dK/dV, dQ), two in bf16
+    (Delta with dQ, then dK/dV). Scratch: ``bwd_scratch_floats``."""
     b, t, e = out.shape
-    tq = -(-t // 64) * 64
-    n_ds = b * h * tq * tq // (4 // out.element_size())
-    scratch = torch.empty((b * h * t + 3) // 4 * 4 + n_ds, device=out.device,
+    scratch = torch.empty(bwd_scratch_floats(b, t, h, out.dtype), device=out.device,
                           dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(out.device):
