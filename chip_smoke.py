@@ -29,8 +29,9 @@ result):
    tensor-core instructions (``cuobjdump -sass``: HMMA for mma.sync, HGMMA
    for wgmma), and fail if an attention or positional-conv kernel has none,
    if a bf16 variant has no bf16 ones, or if one of the 18 bf16 attention
-   kernels of ``csrc/fused_attention_sm90.cu`` has no HGMMA or spills (a
-   missing ``cuobjdump`` fails too);
+   kernels of ``csrc/fused_attention_sm90.cu`` or the four bf16 K4 kernels
+   of ``csrc/fused_posconv_sm90.cu`` has no HGMMA or spills (a missing
+   ``cuobjdump`` fails too);
 2. K1 (fused log-mel) against ``logmel_plain`` in fp32 and in float64 at
    the SPIRAL shape (14 x 384 512 featurizer-input samples), at frame-count
    edges, at the HiFi-GAN mel (n_fft 1024, hop 256, mag_eps and clip) and
@@ -97,13 +98,20 @@ result):
     (FLOP at the bf16 peak) and the library's bf16 call (SDPA, cuDNN's conv
     and dgrad); for K2 and K3 also the achieved TFLOP/s, the backward's
     scratch bytes, and two runs of forward and backward at p = 0 and 0.1
-    that must give equal bits (out, lse, dq, dk, dv);
+    that must give equal bits (out, lse, dq, dk, dv); K4 and K4-dx at all
+    six K4 shapes a call (with the weights' rearrangement) and back to back
+    (the kernel alone), beside the plain version, cuDNN's bf16 conv and
+    dgrad (a call and back to back) and the bound, with their TFLOP/s and two
+    runs that must give equal bits; the weights' layout kernel held to its
+    plain version bit for bit and timed beside it; and a line of the weight bytes a call
+    reads from L2 by the tiling (computed from the kernel's frames a block,
+    which its library reports);
 18. the pretrain slice with ``--set model.precision=bf16`` through
     ``run_spiral.main`` on phase 9's corpus for 3 steps: per step the bf16
     kernels' launches and none of the fp32 attention or K4 kernels, finite
     losses, float32 weights saved; then the bf16 step's time, peak memory
     and profile, and the step time beside its device busy time and the bf16
-    attention kernels' part of it (the same for phase 20);
+    attention and K4 kernels' parts of it (the same for phase 20);
 19. one full-width pretrain step in bf16 against fp32 on the card (B = 24 x
     250 000, the same weights, batch and negatives, regularisers off, SGD lr
     = 1): the loss within 2e-2 relative, each gradient leaf (at least 1 % of
@@ -511,8 +519,8 @@ def sass_counts(so_path):
 def kernel_name(text):
     """``attn_fwd_kernel<64>`` (``attn_fwd_sm90_kernel<64,1>``: the second
     argument a bool) from a line that holds a kernel's mangled name."""
-    m = re.search(r"(attn_[a-z0-9_]+?_kernel|grouped_conv1d(?:_bf16)?_kernel|logmel_fft_kernel"
-                  r"|maximum_path_kernel)"
+    m = re.search(r"(attn_[a-z0-9_]+?_kernel|grouped_conv1d(?:_sm90)?_kernel|logmel_fft_kernel"
+                  r"|maximum_path_kernel|posconv_weight_layout_kernel)"
                   r"((?:IL[ib]\d+E)?(?:L[ib]\d+E)*)", text)
     if m is None:
         return text.strip()
@@ -524,6 +532,10 @@ def kernel_name(text):
 # each at d_head 16, 32, 64, with and without dropout
 SM90_KERNELS = {f"attn_{k}_sm90_kernel<{d},{p}>" for k in ("fwd", "bwd_dq", "bwd_dkdv")
                 for d in (16, 32, 64) for p in (0, 1)}
+# the bf16 K4 kernel of csrc/fused_posconv_sm90.cu at <Cg, 64-frame tiles a
+# warpgroup>
+K4_SM90_KERNELS = {f"grouped_conv1d_sm90_kernel<{cg},{mw}>"
+                   for cg, mw in ((16, 2), (32, 2), (48, 2), (64, 1))}
 
 
 def phase_build(_build):
@@ -542,10 +554,13 @@ def phase_build(_build):
             if m:
                 spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
     # the sm90 kernels: no spills, and wgmma in each (a missing cuobjdump fails)
-    check(SM90_KERNELS <= set(spills), f"sm90 kernels not in the ptxas log: "
-          f"{sorted(SM90_KERNELS - set(spills))}")
-    check(all(spills[k] == 0 for k in SM90_KERNELS),
-          f"sm90 kernels spill: { {k: spills[k] for k in SM90_KERNELS if spills[k]} }")
+    sm90 = SM90_KERNELS | K4_SM90_KERNELS
+    check(sm90 <= set(spills), f"sm90 kernels not in the ptxas log: "
+          f"{sorted(sm90 - set(spills))}")
+    check(all(spills[k] == 0 for k in sm90),
+          f"sm90 kernels spill: { {k: spills[k] for k in sm90 if spills[k]} }")
+    c7514 = [ln.strip() for ln in _build.build_info["log"].splitlines() if "C7514" in ln]
+    log(f"    ptxas C7514 (wgmma serialized) lines: {len(c7514)}")
     sass = sass_counts(_build.build_info["path"])
     check(sass is not None, "cuobjdump not found: the sm90 kernels' HGMMA cannot be checked")
     counts, bf16, hgmma, tf32 = sass
@@ -565,12 +580,14 @@ def phase_build(_build):
             if "_bf16_" in kernel_name(fn) or "_sm90_" in kernel_name(fn)}
     check(len(tc16) >= 4 and all(n > 0 for n in tc16.values()),
           f"bf16 kernels without bf16 tensor-core instructions: {tc16}")
-    # ... and the bf16 attention kernels on wgmma
-    wg = {kernel_name(fn): n for fn, n in hgmma.items() if "_sm90_" in fn}
-    check(set(wg) == SM90_KERNELS and all(n > 0 for n in wg.values()),
+    # ... and the bf16 attention and K4 kernels on wgmma
+    wg = {kernel_name(fn): n for fn, n in hgmma.items() if "_sm90_" in kernel_name(fn)}
+    check(set(wg) == sm90 and all(n > 0 for n in wg.values()),
           f"sm90 kernels without HGMMA: {wg}")
-    log(f"    the {len(wg)} sm90 attention kernels: HGMMA in each "
-        f"({min(wg.values())}-{max(wg.values())}), no spills")
+    for name, group in (("attention", SM90_KERNELS), ("K4", K4_SM90_KERNELS)):
+        n = [wg[k] for k in group]
+        log(f"    the {len(group)} sm90 {name} kernels: HGMMA in each ({min(n)}-{max(n)}), "
+            f"no spills")
 
 
 def tones_over_noise(n, seed):
@@ -1561,10 +1578,10 @@ def phase_bf16_kernels(torch, gen):
                       lambda: fa._launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh,
                                                   scale))
 
+    res["k4_shapes"] = []
     for b, t, c in K4_SHAPES:
-        cg, k = c // 16, 128
-        x = torch.randn(b, t, c, generator=gen).to("cuda").bfloat16()
-        w = (torch.randn(c, cg, k, generator=gen) * (cg * k) ** -0.5).to("cuda").bfloat16()
+        cg = c // 16
+        x, w, dy = _k4_bf16_inputs(torch, gen, b, t, c)
         errs = []
         for left in (64, 63, 127):
             out = fp.grouped_conv1d(x, w, 16, left)
@@ -1573,7 +1590,6 @@ def phase_bf16_kernels(torch, gen):
             errs.append(_bf16_err([out], [ref]))
             check(out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all()),
                   "K4 bf16: dtype or non-finite")
-        dy = torch.randn(b, t, c, generator=gen).to("cuda").bfloat16()
         grads = []
         for fn in (fp.grouped_conv1d, fp.grouped_conv1d_plain):
             xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
@@ -1587,28 +1603,94 @@ def phase_bf16_kernels(torch, gen):
         check(max(errs) <= BF16_FWD_RTOL, f"K4 bf16 {(b, t, c)}: {errs}")
         check(e_dx <= BF16_GRAD_RTOL and e_dw <= BF16_GRAD_RTOL, f"K4 bf16 dx/dw {(b, t, c)}")
         res["k4"], res["k4_dx"] = max(res["k4"], *errs), max(res["k4_dx"], e_dx)
+        fwd_t, dx_t = _time_k4_bf16(torch, fp, x, w, dy)
+        lib, stream, layout = _build.library(), torch.cuda.current_stream().cuda_stream, []
+        for dx, fn in ((False, fp.kernel_weights), (True, fp._dx_weights)):
+            wl = fn(w, 16)
+            check(torch.equal(wl, fp.weights_plain(w, 16, dx)),
+                  f"K4 bf16 weight layout {(b, t, c)} dx={dx}: not the plain version's bits")
+            layout += [back_to_back_ms(lambda: lib.tsx_grouped_conv1d_bf16_weights(
+                           w.data_ptr(), wl.data_ptr(), 16, cg, w.shape[-1], int(dx), stream)),
+                       back_to_back_ms(lambda: fn(w, 16)),
+                       back_to_back_ms(lambda: fp.weights_plain(w, 16, dx))]
+        log(f"    k4 bf16 weight layout at {(b, t, c)}, forward and dx, back to back: the layout "
+            f"kernel through its C entry {layout[0]:.4f} and {layout[3]:.4f} ms (at most the "
+            f"kernel's time), through the wrapper {layout[1]:.4f} and {layout[4]:.4f}, PyTorch's "
+            f"permute-copy {layout[2]:.4f} and {layout[5]:.4f}; equal bits")
+        frames = _build.library().tsx_grouped_conv1d_bf16_frames(cg)
+        log(f"    k4 and k4_dx bf16 at {(b, t, c)}: weights read from L2 by the tiling "
+            f"({frames} frames a block, computed, not measured) "
+            f"{k4_weight_l2_bytes(b, t, c, frames) / 1e6:.1f} MB a call; from device memory "
+            f"not measured")
+        res["k4_shapes"].append({"shape": [b, t, c], "cg": cg, "fwd": fwd_t, "dx": dx_t})
         if (b, t, c) == K4_SHAPES[0]:
-            xg = x.clone().requires_grad_(True)
-            plain_y = fp.grouped_conv1d_plain(xg, w, 16, 64)
-            xp = torch.nn.functional.pad(x.transpose(1, 2), (64, 63)).contiguous()
-            dyt = dy.transpose(1, 2).contiguous()
-            bound = roofline(2 * b * t * c * cg * k, 2 * (2 * b * t * c + c * cg * k), bf16=True)
-            res["k4_t"] = dict(
-                ms=cuda_ms(lambda: fp.grouped_conv1d(x, w, 16, 64)),
-                plain_ms=cuda_ms(lambda: fp.grouped_conv1d_plain(x, w, 16, 64)),
-                library_ms=cuda_ms(lambda: torch.nn.functional.conv1d(xp, w, groups=16)),
-                bound=bound)
-            res["k4_dx_t"] = dict(
-                ms=cuda_ms(lambda: fp._launch(dy, fp._dx_weights(w, 16), 63, "grouped_conv1d_dx")),
-                plain_ms=cuda_ms(lambda: torch.autograd.grad(plain_y, xg, dy, retain_graph=True)),
-                library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(xp.shape, w, dyt, groups=16)),
-                bound=bound)
-            for k_ in ("k4_t", "k4_dx_t"):
-                r = res[k_]
-                log(f"    {k_[:-2]} bf16 at {(b, t, c)}: {r['ms']:.3f} ms vs plain "
-                    f"{r['plain_ms']:.3f} ms, cuDNN bf16 {r['library_ms']:.3f} ms, bound "
-                    f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            res["k4_t"], res["k4_dx_t"] = fwd_t, dx_t
     return res
+
+
+def _k4_bf16_inputs(torch, gen, b, t, c, k=128):
+    """Phase 17's bf16 K4 operands at one shape, drawn from ``gen``: x (B, T,
+    C), w (C, C/16, K) at the scale of a unit-variance sum, dy (B, T, C)."""
+    cg = c // 16
+    x = torch.randn(b, t, c, generator=gen).to("cuda").bfloat16()
+    w = (torch.randn(c, cg, k, generator=gen) * (cg * k) ** -0.5).to("cuda").bfloat16()
+    return x, w, torch.randn(b, t, c, generator=gen).to("cuda").bfloat16()
+
+
+def k4_weight_l2_bytes(b, t, c, frames, k=128, groups=16):
+    """Weight bytes a K4 call reads from L2 by the tiling: every block reads
+    its group's K Cg^2 bf16 weights once, and there are B G ceil(T / frames)
+    blocks (computed, not measured)."""
+    cg = c // groups
+    return b * groups * -(-t // frames) * k * cg * cg * 2
+
+
+def _time_k4_bf16(torch, fp, x, w, dy, references=True):
+    """Phase 17's times of the bf16 K4 and K4-dx of the port module ``fp``
+    at one shape (K 128, left pad 64 and its complement 63): a call
+    (``cuda_ms``: the wrapper, the weights' rearrangement and the kernel, as
+    earlier PRs timed it) and back to back (``back_to_back_ms``: the kernel
+    alone on weights prepared once), the bound, the achieved TFLOP/s and
+    equal bits over two runs; with ``references`` also the plain version and
+    cuDNN's bf16 conv and dgrad (a call and back to back)."""
+    b, t, c = x.shape
+    cg, k = c // 16, w.shape[-1]
+    xg = x.clone().requires_grad_(True)
+    plain_y = fp.grouped_conv1d_plain(xg, w, 16, 64)
+    xp = torch.nn.functional.pad(x.transpose(1, 2), (64, 63)).contiguous()
+    dyt = dy.transpose(1, 2).contiguous()
+    wk, wdx = fp.kernel_weights(w, 16), fp._dx_weights(w, 16)
+    flop = 2 * b * t * c * cg * k
+    bound = roofline(flop, 2 * (2 * b * t * c + c * cg * k), bf16=True)
+    calls = {
+        "fwd": (lambda: fp.grouped_conv1d(x, w, 16, 64),
+                lambda: fp._launch(x, wk, 64, "grouped_conv1d"),
+                lambda: fp.grouped_conv1d_plain(x, w, 16, 64),
+                lambda: torch.nn.functional.conv1d(xp, w, groups=16)),
+        "dx": (lambda: fp._launch(dy, fp._dx_weights(w, 16), 63, "grouped_conv1d_dx"),
+               lambda: fp._launch(dy, wdx, 63, "grouped_conv1d_dx"),
+               lambda: torch.autograd.grad(plain_y, xg, dy, retain_graph=True),
+               lambda: torch.nn.grad.conv1d_input(xp.shape, w, dyt, groups=16))}
+    out = []
+    for name, (call, kernel, plain, lib) in calls.items():
+        r = dict(ms=cuda_ms(call), back_to_back_ms=back_to_back_ms(kernel), bound=bound,
+                 same_bits=_same_bits_twice(torch, lambda: [kernel()]))
+        r["tflops"] = flop / (r["back_to_back_ms"] * 1e-3) / 1e12
+        beside = ""
+        if references:
+            r.update(plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+                     library_back_to_back_ms=back_to_back_ms(lib))
+            beside = (f", plain {r['plain_ms']:.3f} ms, cuDNN bf16 "
+                      f"{'conv' if name == 'fwd' else 'dgrad'} {r['library_ms']:.4f} ms a call "
+                      f"({r['library_back_to_back_ms']:.4f} back to back)")
+        log(f"    k4{'' if name == 'fwd' else '_dx'} bf16 at {(b, t, c)} Cg {cg}: "
+            f"{r['ms']:.4f} ms a call (weights rearranged), {r['back_to_back_ms']:.4f} ms back to "
+            f"back ({r['tflops']:.1f} TFLOP/s){beside}, bound {bound[0]:.4f} ms ({bound[1]})")
+        log(f"[17 determinism k4{'' if name == 'fwd' else '_dx'} bf16 {(b, t, c)}] two runs equal "
+            f"bit for bit: {r['same_bits']}")
+        check(r["same_bits"], f"K4 bf16 {name} {(b, t, c)}: two runs differ")
+        out.append(r)
+    return out
 
 
 FP32_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd", "fused_attention",
@@ -1714,14 +1796,16 @@ def _timed_step(torch, fn, n=10):
 
 
 def _log_busy(tag, ms, prof):
-    """A step's time beside its device busy time and the bf16 attention
-    kernels' share of it (the profile's sums by kernel name)."""
+    """A step's time beside its device busy time and the bf16 attention and
+    K4 kernels' parts of it (the profile's sums by kernel name)."""
     if prof is None:
         log(f"[{tag}] {ms:.2f} ms a step; device busy not measured")
         return
-    attn = sum(t for name, t, _ in prof["ranked"] if "_sm90_kernel" in name)
+    attn = sum(t for name, t, _ in prof["ranked"] if "attn_" in name and "_sm90_kernel" in name)
+    k4 = [(t, n) for name, t, n in prof["ranked"] if "grouped_conv1d_sm90_kernel" in name]
     log(f"[{tag}] {ms:.2f} ms a step (CUDA events), device busy {prof['busy_ms']:.2f} ms "
-        f"(share {prof['share']:.3f}); bf16 attention kernels {attn:.2f} ms of the busy time")
+        f"(share {prof['share']:.3f}); bf16 attention kernels {attn:.2f} ms of the busy time; "
+        f"bf16 K4 and K4-dx {sum(t for t, _ in k4):.3f} ms in {sum(n for _, n in k4)} launches")
 
 
 def phase_bf16_pretrain_time(torch, root):
@@ -4395,6 +4479,13 @@ def main():
                         **{k: r[k] for k in ("back_to_back_ms", "library_back_to_back_ms",
                                              "tflops", "scratch_bytes", "host_us",
                                              "c_entry_host_us") if k in r})
+        if key.startswith("grouped_conv1d"):  # phase 17's six shapes
+            part = "fwd" if key == "grouped_conv1d_bf16" else "dx"
+            measured["by_shape"] = [
+                dict(shape=sh["shape"], cg=sh["cg"], bound_ms=sh[part]["bound"][0],
+                     **{k: sh[part][k] for k in ("ms", "back_to_back_ms", "plain_ms", "library_ms",
+                                                 "library_back_to_back_ms", "tflops")})
+                for sh in k16["k4_shapes"]]
         if key.startswith("fused_attention"):
             return k3_kernel(name, key, replaces, src=src, **measured)
         return path_kernel(name, key, replaces, src=src, **measured)
@@ -4471,12 +4562,15 @@ def main():
                     "tpu_speech/ops/fused_attention.py:239", "fused_attention_sm90.cu", "k3_bwd",
                     "k3_bwd_t", "bf16 dq, dk, dv (14, 604, 8, 64) p=0.1, backward alone"),
         bf16_kernel("grouped_conv1d_bf16", "grouped_conv1d_bf16",
-                    "tpu_speech/ops/fused_posconv.py:132", "fused_posconv.cu", "k4", "k4_t",
-                    "bf16 x (14, 604, 512) Cg 32 K 128, forward; library: cuDNN's bf16 conv1d"),
+                    "tpu_speech/ops/fused_posconv.py:132", "fused_posconv_sm90.cu", "k4", "k4_t",
+                    "bf16 x (14, 604, 512) Cg 32 K 128, forward, a call with the weight "
+                    "rearrangement (back_to_back_ms: the kernel alone); by_shape: the six "
+                    "K4_SHAPES; library: cuDNN's bf16 conv1d"),
         bf16_kernel("grouped_conv1d_dx_bf16", "grouped_conv1d_dx_bf16",
-                    "tpu_speech/ops/fused_posconv.py:132", "fused_posconv.cu", "k4_dx",
-                    "k4_dx_t", "bf16 dx alone at (14, 604, 512), the weight rearrangement "
-                    "included; library: cuDNN's bf16 dgrad"),
+                    "tpu_speech/ops/fused_posconv.py:132", "fused_posconv_sm90.cu", "k4_dx",
+                    "k4_dx_t", "bf16 dx alone at (14, 604, 512), a call with the weight "
+                    "rearrangement (back_to_back_ms: the kernel alone); by_shape: the six "
+                    "K4_SHAPES; library: cuDNN's bf16 dgrad"),
     ]
     # MAS (phase 26): a port-only kernel, the JAX package's lax.scan
     kernels.append(path_kernel("maximum_path", "maximum_path",
@@ -4504,5 +4598,44 @@ def main():
     return 0
 
 
+def k4_times_of(root):
+    """``python3 chip_smoke.py --k4-of ROOT``: phase 17's timing of the bf16
+    K4 and K4-dx (``_time_k4_bf16`` without its references) on the port
+    checked out at ROOT, its own ``tpu_speech_torch`` built from its own
+    ``csrc``, at the six K4 shapes, each held to its plain version first. It
+    sets another commit's kernel (a parent unpacked with ``git archive``)
+    beside this one in one chip call, each tree in a process of its own; run
+    it as parent, change, change, parent. Ends with one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on a GPU only", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops import fused_posconv as fp
+
+    check(fp.__file__.startswith(root + os.sep), f"{fp.__file__} is not under {root}")
+    _build.library()
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    for b, t, c in K4_SHAPES:
+        x, w, dy = _k4_bf16_inputs(torch, gen, b, t, c)
+        err = _bf16_err([fp.grouped_conv1d(x, w, 16, 64)], [fp.grouped_conv1d_plain(x, w, 16, 64)])
+        check(err <= BF16_FWD_RTOL, f"K4 bf16 of {root} at {(b, t, c)}: {err}")
+        log(f"[k4 of {root}] {(b, t, c)}: forward error {err:.2e} x max(1, max|plain|)")
+        fwd, dx = _time_k4_bf16(torch, fp, x, w, dy, references=False)
+        rows.append({"shape": [b, t, c], "max_abs_err": err,
+                     **{part: {k: r[k] for k in ("ms", "back_to_back_ms", "tflops")}
+                        for part, r in (("fwd", fwd), ("dx", dx))}})
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    print(json.dumps({"k4_of": root, "device": torch.cuda.get_device_name(0), "rows": rows}))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--k4-of":
+        sys.exit(k4_times_of(sys.argv[2]))
     sys.exit(main())

@@ -15,6 +15,7 @@ from tpu_speech_torch.audio.mel import hann_window, mel_filterbank
 from tpu_speech_torch.models.spiral.features import hann_window_symmetric
 from tpu_speech_torch.ops import _build
 from tpu_speech_torch.ops import fused_attention as fa
+from tpu_speech_torch.ops import fused_posconv as fp
 from tpu_speech_torch.ops.fused_attention import (
     KERNEL_D_HEADS,
     KERNEL_D_HEADS_BF16,
@@ -689,11 +690,16 @@ def test_bf16_attention_raises_on_misaligned_operands(cuda):
         _build.check(err, "fused_qkv_self_attention")
 
 
-# (B, T, C, groups, K): Cg 16, 32, 48, 64 around the 128-frame tile, and the
-# SPIRAL-base blocks (Cg 32 and 48, K 128)
+# (B, T, C, groups, K): Cg 16, 32, 48, 64 around the kernel's 64-frame tiles
+# and its blocks (256 frames, 128 at Cg 64), K not a multiple of the taps a
+# chunk (7, 9), and the six SPIRAL-base shapes of the paths (Cg 32 and 48, K
+# 128: chip_smoke.py's K4_SHAPES)
 BF16_K4_SHAPES = [(2, 1, 256, 16, 128), (2, 17, 64, 4, 7), (3, 127, 512, 16, 16),
-                  (2, 128, 768, 16, 128), (2, 129, 1024, 16, 128), (14, 604, 512, 16, 128),
-                  (14, 302, 768, 16, 128)]
+                  (2, 128, 768, 16, 128), (2, 129, 1024, 16, 128), (1, 63, 256, 16, 8),
+                  (2, 64, 512, 16, 16), (2, 65, 512, 16, 128), (1, 255, 768, 16, 16),
+                  (1, 256, 512, 16, 128), (2, 257, 1024, 16, 128), (1, 513, 256, 16, 9),
+                  (14, 604, 512, 16, 128), (14, 302, 768, 16, 128), (24, 392, 512, 16, 128),
+                  (24, 456, 512, 16, 128), (24, 196, 768, 16, 128), (24, 228, 768, 16, 128)]
 
 
 @pytest.mark.parametrize("b,t,c,g,k", BF16_K4_SHAPES)
@@ -724,6 +730,56 @@ def test_bf16_grouped_conv1d_matches_plain(cuda, b, t, c, g, k):
     assert gw.dtype == torch.bfloat16
     torch.testing.assert_close(gw.float(), rw.float(), rtol=0,
                                atol=BF16_GRAD_RTOL * max(1.0, rw.float().abs().max().item()))
+
+
+@pytest.mark.parametrize("c", [512, 768])
+def test_bf16_grouped_conv1d_is_deterministic(cuda, c):
+    """Two launches of the bf16 K4 kernel on the same inputs give the same
+    bits, forward and dx (K4 on the flipped weights): every sum runs in a
+    fixed order and no block adds into another's output."""
+    x32, w32 = _conv_case(cuda, 3, 300, c, 16, 128, c)
+    x, w = x32.bfloat16(), w32.bfloat16()
+    dy = torch.randn(3, 300, c, generator=torch.Generator().manual_seed(c)).to(cuda).bfloat16()
+
+    def run():
+        xx = x.clone().requires_grad_(True)
+        out = grouped_conv1d(xx, w, 16, 64)
+        out.backward(dy)
+        return out.detach(), xx.grad
+
+    (out1, dx1), (out2, dx2) = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(dx1, dx2)
+
+
+@pytest.mark.parametrize("cg", (16, 32, 48, 64))
+@pytest.mark.parametrize("k", (1, 9, 128))
+def test_bf16_weight_layout_kernel_matches_plain(cuda, cg, k):
+    """The bf16 layout kernel gives the bits of ``weights_plain``, forward and
+    dx (channels swapped, taps flipped), at every Cg the conv takes."""
+    w = torch.randn(3 * cg, cg, k, generator=torch.Generator().manual_seed(cg + k)).bfloat16()
+    for dx, launch in ((False, fp.kernel_weights), (True, fp._dx_weights)):
+        got = launch(w.to(cuda), 3)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == (3, k, cg // 8, cg, 8)
+        assert torch.equal(got.cpu(), fp.weights_plain(w, 3, dx)), dx
+
+
+def test_bf16_grouped_conv1d_raises_on_misaligned_operands(cuda):
+    """The bf16 K4 kernel loads x and the weights by TMA, which needs
+    16-byte aligned bases: an x that starts 2 bytes into its storage, and
+    kernel-layout weights that do, are refused at launch, not computed
+    another way."""
+    x = torch.randn(2 * 9 * 512 + 1, device=cuda).bfloat16()[1:].view(2, 9, 512)
+    w = torch.randn(512, 32, 8, device=cuda).bfloat16()
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        grouped_conv1d(x, w, 16, 4)
+    wk = fp.kernel_weights(w, 16)
+    wk_off = torch.empty(wk.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(wk.shape)
+    wk_off.copy_(wk)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fp._launch(x.contiguous().clone(), wk_off, 4, "grouped_conv1d")
 
 
 def test_bf16_wrappers_raise_instead_of_falling_back(cuda):

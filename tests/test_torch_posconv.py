@@ -196,12 +196,16 @@ def test_bf16_matches_jax_pallas_forward_dx_and_dw(rng, b, t, c, g, k, causal):
 
 
 def test_bf16_kernel_weight_layout():
-    """The bf16 kernel reads (G, K, Cg_out, Cg_in): kernel_weights(w)[g, k,
-    co, ci] == w[g*Cg + co, ci, k]; dx's weights swap the two and flip k."""
-    c, g, k = 12, 3, 5
-    w = torch.arange(c * (c // g) * k, dtype=torch.float32).view(c, c // g, k).bfloat16()
-    wk, wd = fp.kernel_weights(w, g), fp._dx_weights(w, g)
+    """The bf16 kernel reads (G, K, Cg_in/8, Cg_out, 8), tap k's slab in
+    wgmma's K-major layout of 8-channel core matrices:
+    kernel_weights(w)[g, k, ci // 8, co, ci % 8] == w[g*Cg + co, ci, k]; dx's
+    weights swap the two channels and flip k."""
+    c, g, k = 48, 3, 5
     cg = c // g
-    for gi, ki, co, ci in ((0, 0, 0, 0), (1, 4, 2, 3), (2, 3, 1, 0)):
-        assert wk[gi, ki, co, ci] == w[gi * cg + co, ci, ki]
-        assert wd[gi, ki, ci, co] == w[gi * cg + co, ci, k - 1 - ki]
+    w = torch.randn(c, cg, k, generator=torch.Generator().manual_seed(0)).bfloat16()
+    wk, wd = fp.kernel_weights(w, g), fp._dx_weights(w, g)
+    assert wk.shape == wd.shape == (g, k, cg // 8, cg, 8)
+    assert wk.is_contiguous() and wd.is_contiguous()
+    for gi, ki, co, ci in ((0, 0, 0, 0), (1, 4, 2, 13), (2, 3, 15, 7), (1, 1, 9, 8)):
+        assert wk[gi, ki, ci // 8, co, ci % 8] == w[gi * cg + co, ci, ki]
+        assert wd[gi, ki, co // 8, ci, co % 8] == w[gi * cg + co, ci, k - 1 - ki]

@@ -106,6 +106,7 @@
 #include <atomic>
 
 #include "dropout_bits.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -126,68 +127,7 @@ struct Tile {
   static constexpr int ACC = D / 2;         // accumulators of a 64 x D product
 };
 
-// ---- shared memory, mbarriers, TMA ----------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// one arrival that also expects `bytes` of TMA data
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed; a wait that
-// cannot complete (a load that never lands) traps after some 2^24 tries, a
-// launch error instead of a hung card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 24)) asm volatile("trap;");
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// box (c0, c1, c2) of a 3-D map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
-      : "memory");
-}
-
+// ---- TMA (the mbarrier and load helpers are in sm90.cuh) --------------------
 // two 64-row tiles of two maps at (col, row, b) into dst_a, dst_b
 template <int D>
 __device__ __forceinline__ void load_tile_pair(void* dst_a, const CUtensorMap* map_a,
@@ -210,26 +150,6 @@ __device__ __forceinline__ uint64_t make_desc(const void* tile) {
   constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return (uint64_t)((smem_u32(tile) & 0x3FFFFu) >> 4) | (1ull << 16) |
          ((uint64_t)(8 * SW / 16) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// after a wait: the accumulators are read only from here on
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d = a b (+ d if accumulate): a (64 x 16) and b (16 x 64) from shared
@@ -318,11 +238,6 @@ __device__ __forceinline__ void issue_rows(float (&acc)[D / 2], const uint32_t (
 // is row 16w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2t + (i & 1), the
 // m16n8 layout of each 8-column slab. Two adjacent slabs, rounded to bf16
 // pairs, are the A fragment of the k step over their 16 columns.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&s)[32]) {
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
@@ -898,30 +813,6 @@ attn_bwd_dkdv_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
 
 // ---- host side ------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A (B, T, cols) bf16 array whose rows lie ld elements apart, read in boxes
 // of D columns x TILE rows of one batch item (rows past T read as zeros),
 // swizzled over a row's 2D bytes.
@@ -953,32 +844,6 @@ bool encode_vector(CUtensorMap* map, const float* base, long long n) {
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-// cuTensorMapEncodeTiled needs the device's context current on the calling
-// thread, and a thread of PyTorch's autograd engine may not have bound it
-// yet: cudaSetDevice binds the runtime's primary context.
-cudaError_t bind_context(int* dev) {
-  cudaError_t err = cudaGetDevice(dev);
-  return err == cudaSuccess ? cudaSetDevice(*dev) : err;
-}
-
-// A kernel instance's dynamic shared memory limit is the same on every call:
-// it is set once a device, the first time the instance launches there. `done`
-// is the instance's own flag word, bit d for device d (devices past 63 set
-// it on every call).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done,
-                       int dev) {
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
 }
 
 // q, k, v maps of one call: (B, T, H*D) at row stride ld

@@ -44,18 +44,8 @@
 // Takes any Cg <= 64 (padded to a multiple of 8 with zeros), any K <= 128
 // and any 0 <= left_pad < K.
 //
-// bf16 (grouped_conv1d_bf16_kernel, entry tsx_grouped_conv1d_bf16), as the
-// TPU kernel runs bf16 activations: x and w in bf16, every product one
-// mma.sync.m16n8k16 bf16 pass into fp32 accumulators that start fresh for
-// each chunk of KC taps (as above), the output rounded to bf16 once. The
-// bound is FLOP / 989 TFLOP/s. The same implicit GEMM and tiles; the weights
-// arrive as (G, K, Cg_out, Cg_in), so a B fragment (two input channels of one
-// output channel) is one 32-bit load, and the chunks stream double-buffered by
-// 16-byte cp.async with no split step. Rows of Cg + 8 bf16 (16 bytes of pad)
-// keep the fragment loads conflict-free. Takes Cg in 16, 32, 48, 64 (the
-// SPIRAL blocks have 32 and 48), any K <= 128 and any 0 <= left_pad < K.
+// The bf16 kernel (entry tsx_grouped_conv1d_bf16) is in fused_posconv_sm90.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -284,192 +274,6 @@ int launch(const float* x, const float* w, float* out, int B, int T, int C,
   return cudaGetLastError();
 }
 
-// ---- bf16 ------------------------------------------------------------------
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               ::"r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// A (16 x 16): window rows r.., input channels c0.. (lane = 4g + t holds
-// (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..), low column low)
-__device__ __forceinline__ void load_a16(uint32_t (&a)[4], const bf16* s, int ss, int r,
-                                         int c0, int g, int t) {
-  const bf16* p = s + (r + g) * ss + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ss);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ss + 8);
-}
-
-// B (16 x 8, k = input channel, n = output channel) from weight rows of one
-// output channel each: b0 (2t..2t+1, g), b1 (2t+8..2t+9, g)
-__device__ __forceinline__ void load_b16(uint32_t (&b)[2], const bf16* s, int ss, int n0,
-                                         int c0, int g, int t) {
-  const bf16* p = s + (n0 + g) * ss + c0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-template <int CG, int KC>
-size_t smem_bf16_bytes(int k) {  // the window; two chunks of weights
-  const int rows = TT + ceil_to(k, KC) - 1;
-  return sizeof(bf16) * ((size_t)rows * (CG + 8) + (size_t)2 * KC * CG * (CG + 8));
-}
-
-// CG: channels per group; KC: taps per chunk
-template <int CG, int KC>
-__global__ void __launch_bounds__(NT, 2)
-grouped_conv1d_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                           bf16* __restrict__ out, int T, int C, int K, int left_pad) {
-  constexpr int RS = CG + 8;   // row stride of the window and of the weight rows
-  constexpr int NN = CG / 8;   // output-channel tiles
-  constexpr int KS = CG / 16;  // k steps over the input channels
-  constexpr int C8 = CG / 8;   // 16-byte copies per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Kp = ceil_to(K, KC);
-  const int rows = TT + Kp - 1;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // rows x RS
-  bf16* wbuf = xs + rows * RS;                   // 2 x KC x CG x RS
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (tid >> 5) * 32;  // the warp's frames of the tile
-  const int t0 = blockIdx.x * TT;
-  const int grp = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* xb = x + (long long)b * T * C + grp * CG;
-  const bf16* wg = w + (long long)grp * K * CG * CG;
-
-  // window row r holds input frame t0 - left_pad + r; rows past the true
-  // window (the tap padding) and outside [0, T) are zero
-  const int live = TT + K - 1;
-  for (int i = tid; i < rows * C8; i += NT) {
-    const int r = i / C8, c = (i % C8) * 8;
-    const int tf = t0 - left_pad + r;
-    const bool ok = r < live && tf >= 0 && tf < T;
-    cp_async16(xs + r * RS + c, ok ? xb + (long long)tf * C + c : xb, ok);
-  }
-  // taps k0 .. k0 + KC - 1: KC * CG rows (tap, output channel) of CG input
-  // channels, zeros past K
-  auto stage_chunk = [&](int k0, bf16* dst) {
-    for (int i = tid; i < KC * CG * C8; i += NT) {
-      const int rr = i / C8, c = (i % C8) * 8;
-      const bool ok = k0 + rr / CG < K;
-      cp_async16(dst + rr * RS + c, ok ? wg + ((long long)k0 * CG + rr) * CG + c : wg, ok);
-    }
-    cp_async_commit();
-  };
-  stage_chunk(0, wbuf);
-
-  float acc[2][NN][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-
-  const int n_chunks = Kp / KC;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int cur = ch & 1;
-    const bool more = ch + 1 < n_chunks;
-    if (more) stage_chunk((ch + 1) * KC, wbuf + (cur ^ 1) * KC * CG * RS);
-    if (more)
-      cp_async_wait<1>();  // this chunk (and, first, the window) has landed
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    const bf16* ws = wbuf + cur * KC * CG * RS;
-    float part[2][NN][4];  // the chunk's sum, added to acc in fp32
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < NN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const bf16* wk = ws + kk * CG * RS;
-      const int r = r0 + ch * KC + kk;  // frame f at tap k reads window row f + k
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a0[4], a1[4];
-        load_a16(a0, xs, RS, r, 16 * ks, g, t);
-        load_a16(a1, xs, RS, r + 16, 16 * ks, g, t);
-#pragma unroll
-        for (int n = 0; n < NN; ++n) {
-          uint32_t bw[2];
-          load_b16(bw, wk, RS, 8 * n, 16 * ks, g, t);
-          mma_bf16(part[0][n], a0, bw);
-          mma_bf16(part[1][n], a1, bw);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < NN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
-    __syncthreads();  // the next iteration refills the other buffer
-  }
-
-  // element e of tile (m, n): frame r0 + 16m + g + 8 (e >> 1), channel
-  // 8n + 2t + (e & 1)
-  bf16* ob = out + (long long)b * T * C + grp * CG;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int tf = t0 + r0 + 16 * m + g + 8 * i;
-      if (tf < T) {
-#pragma unroll
-        for (int n = 0; n < NN; ++n)
-          *reinterpret_cast<uint32_t*>(ob + (long long)tf * C + 8 * n + 2 * t) =
-              pack_bf16(acc[m][n][2 * i], acc[m][n][2 * i + 1]);
-      }
-    }
-}
-
-template <int CG, int KC>
-int launch_bf16(const bf16* x, const bf16* w, bf16* out, int B, int T, int C, int G,
-                int K, int left_pad, cudaStream_t stream) {
-  const size_t smem = smem_bf16_bytes<CG, KC>(K);
-  cudaError_t err = cudaFuncSetAttribute(grouped_conv1d_bf16_kernel<CG, KC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + TT - 1) / TT, G, B);
-  grouped_conv1d_bf16_kernel<CG, KC><<<grid, NT, smem, stream>>>(x, w, out, T, C, K,
-                                                                 left_pad);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // out (B, T, C) from x (B, T, C) and w (G, K, C/G, C/G), all contiguous fp32.
@@ -495,33 +299,6 @@ extern "C" int tsx_grouped_conv1d(const void* x, const void* w, void* out, int B
     case 6: return launch<6, 2>(xf, wf, of, B, T, C, G, K, left_pad, s);
     case 7: return launch<7, 1>(xf, wf, of, B, T, C, G, K, left_pad, s);
     case 8: return launch<8, 1>(xf, wf, of, B, T, C, G, K, left_pad, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// out (B, T, C) from x (B, T, C) and w (G, K, C/G_out, C/G_in), all contiguous
-// bf16, x and w 16-byte aligned; C/G in 16, 32, 48, 64.
-extern "C" int tsx_grouped_conv1d_bf16(const void* x, const void* w, void* out, int B,
-                                       int T, int C, int G, int K, int left_pad,
-                                       void* stream) {
-  if (G <= 0 || C % G != 0 || (C / G) % 16 != 0 || C / G > MAX_CG || K < 1 ||
-      K > MAX_K || left_pad < 0 || left_pad >= K || B > 65535 || G > 65535)
-    return cudaErrorInvalidValue;
-  if (B <= 0 || T <= 0) return cudaSuccess;
-  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15u) != 0 ||
-      (reinterpret_cast<uintptr_t>(out) & 3u) != 0)
-    return cudaErrorMisalignedAddress;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(w);
-  bf16* ob = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // taps per chunk: two double-buffered chunks and the window keep two blocks
-  // on an SM up to Cg = 64 (60 KB a block at Cg = 32, 72 KB at 48, 110 KB at 64)
-  switch (C / G) {
-    case 16: return launch_bf16<16, 8>(xb, wb, ob, B, T, C, G, K, left_pad, s);
-    case 32: return launch_bf16<32, 8>(xb, wb, ob, B, T, C, G, K, left_pad, s);
-    case 48: return launch_bf16<48, 4>(xb, wb, ob, B, T, C, G, K, left_pad, s);
-    case 64: return launch_bf16<64, 4>(xb, wb, ob, B, T, C, G, K, left_pad, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -59,6 +59,10 @@ SIGNATURES = {
 # the bf16 variants take the same arguments
 for _name in ("tsx_attention_fwd", "tsx_attention_bwd", "tsx_grouped_conv1d"):
     SIGNATURES[_name + "_bf16"] = SIGNATURES[_name]
+# the bf16 grouped conv's weights: w, out, G, Cg, K, dx, stream
+SIGNATURES["tsx_grouped_conv1d_bf16_weights"] = [_P, _P, _I, _I, _I, _I, _P]
+# Cg -> output frames a block of the bf16 grouped conv (a count, not an error)
+SIGNATURES["tsx_grouped_conv1d_bf16_frames"] = [_I]
 
 # Launches made through each wrapper: a plain integer per kernel, bumped
 # where the wrapper launches its kernel and nowhere else. A bf16 launch

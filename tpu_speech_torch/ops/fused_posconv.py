@@ -2,10 +2,13 @@
 kernel, the autograd function around it, and its plain version.
 
 Port of ``tpu_speech/ops/fused_posconv.py::grouped_conv1d:190`` (K4,
-``_pallas_fwd:121``; its VJP ``_bwd:198``). ``grouped_conv1d`` launches the
-hand-written CUDA kernel of ``csrc/fused_posconv.cu`` on a CUDA tensor and
-computes ``grouped_conv1d_plain`` on a CPU tensor; a CUDA tensor or shape it
-cannot take raises.
+``_pallas_fwd:121``; its VJP ``_bwd:198``). ``grouped_conv1d`` launches a
+hand-written CUDA kernel on a CUDA tensor (``csrc/fused_posconv.cu`` for
+float32, ``csrc/fused_posconv_sm90.cu`` for bf16) and computes
+``grouped_conv1d_plain`` on a CPU tensor; a CUDA tensor or shape it cannot
+take raises. On CUDA the bf16 weights are laid out for the kernel by a second
+kernel of ``csrc/fused_posconv_sm90.cu`` (``kernel_weights``, ``_dx_weights``),
+whose plain version is ``weights_plain``.
 
 Semantics (both versions), channels last as in JAX: x (B, T, C), w (C, Cg, K)
 in PyTorch's grouped conv layout (``F.conv1d``'s weight, Cg = C / groups),
@@ -23,7 +26,7 @@ the k-flipped, in/out-swapped weights with the complementary left pad
 leaves dw to XLA's native conv, outside any Pallas kernel).
 
 dtypes: float32 (the kernel's 3xTF32 path, any C/groups <= 64) and bfloat16
-(one bf16 tensor-core pass, C/groups in 16, 32, 48, 64), as the TPU kernel
+(one bf16 wgmma pass, C/groups in 16, 32, 48, 64), as the TPU kernel
 takes the activation's dtype (``_fwd_kernel:72-115``, dx in x's dtype,
 ``_bwd:222-223``). In bf16 both versions sum the products of the bf16 values
 in float32 and round the output to bf16 once; dw is the library's bf16
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 
 from tpu_speech_torch.ops import _build
 
-__all__ = ["grouped_conv1d", "grouped_conv1d_plain", "kernel_weights",
+__all__ = ["grouped_conv1d", "grouped_conv1d_plain", "kernel_weights", "weights_plain",
            "KERNEL_MAX_CG", "KERNEL_MAX_K", "KERNEL_CG_BF16"]
 
 KERNEL_MAX_CG = 64  # channels per group the float32 CUDA kernel takes
@@ -58,23 +61,54 @@ def grouped_conv1d_plain(x: torch.Tensor, w: torch.Tensor, groups: int,
 
 
 def kernel_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
-    """(C, Cg, K) -> the kernel's weights, one copy: (G, K, Cg_in, Cg_out)
-    for float32, (G, K, Cg_out, Cg_in) for bf16 (a B fragment is two input
-    channels of one output channel)."""
-    c, cg, k = w.shape
-    w4 = w.reshape(groups, cg, cg, k)  # (G, out, in, K)
-    order = (0, 3, 1, 2) if w.dtype == torch.bfloat16 else (0, 3, 2, 1)
-    return w4.permute(*order).contiguous()
+    """(C, Cg, K) -> the kernel's weights: (G, K, Cg_in, Cg_out) for
+    float32; for bf16 (G, K, Cg_in/8, Cg_out, 8), [g, k, ci // 8, co, ci %
+    8], tap k's slab in wgmma's K-major layout of 8-channel core matrices.
+    bf16 on CUDA: one launch of the layout kernel; else one copy
+    (``weights_plain``)."""
+    if w.dtype == torch.bfloat16 and w.device.type == "cuda":
+        return _layout_bf16(w, groups, dx=False)
+    return weights_plain(w, groups, dx=False)
 
 
 def _dx_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
     """The kernel weights of dx: tap K-1-k of w with input and output
-    channels swapped, one copy: (G, K, Cg_out, Cg_in) for float32, (G, K,
-    Cg_in, Cg_out) for bf16."""
+    channels swapped: (G, K, Cg_out, Cg_in) for float32, (G, K, Cg_out/8,
+    Cg_in, 8) for bf16 (w's output channels are dx's inputs). bf16 on CUDA:
+    one launch of the layout kernel; else ``weights_plain``."""
+    if w.dtype == torch.bfloat16 and w.device.type == "cuda":
+        return _layout_bf16(w, groups, dx=True)
+    return weights_plain(w, groups, dx=True)
+
+
+def weights_plain(w: torch.Tensor, groups: int, dx: bool = False) -> torch.Tensor:
+    """``kernel_weights`` (or with ``dx`` ``_dx_weights``) by PyTorch's
+    permute and copy: the plain version of the bf16 layout kernel, and the
+    float32 kernel's layout on any device."""
     c, cg, k = w.shape
-    w4 = w.reshape(groups, cg, cg, k).flip(3)
-    order = (0, 3, 2, 1) if w.dtype == torch.bfloat16 else (0, 3, 1, 2)
-    return w4.permute(*order).contiguous()
+    w4 = w.reshape(groups, cg, cg, k)  # (G, out, in, K)
+    if dx:
+        w4 = w4.flip(3)
+        if w.dtype == torch.bfloat16:  # (G, out/8, 8, in, K)
+            return w4.reshape(groups, cg // 8, 8, cg, k).permute(0, 4, 1, 3, 2).contiguous()
+        return w4.permute(0, 3, 1, 2).contiguous()
+    if w.dtype == torch.bfloat16:  # (G, out, in/8, 8, K)
+        return w4.reshape(groups, cg, cg // 8, 8, k).permute(0, 4, 2, 1, 3).contiguous()
+    return w4.permute(0, 3, 2, 1).contiguous()
+
+
+def _layout_bf16(w, groups, dx):
+    """The bf16 layout kernel (``csrc/fused_posconv_sm90.cu``) on w's stream."""
+    c, cg, k = w.shape
+    w = w.contiguous()
+    out = torch.empty(groups, k, cg // 8, cg, 8, dtype=w.dtype, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _build.library().tsx_grouped_conv1d_bf16_weights(
+            w.data_ptr(), out.data_ptr(), groups, cg, k, int(dx),
+            torch.cuda.current_stream(w.device).cuda_stream,
+        )
+    _build.check(err, "grouped_conv1d_bf16_weights")
+    return out
 
 
 def _launch(x, wk, left_pad, counter):
