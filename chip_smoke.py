@@ -31,12 +31,19 @@ result):
    if a bf16 variant has no bf16 ones, or if one of the 18 bf16 attention
    kernels of ``csrc/fused_attention_sm90.cu`` or the four bf16 K4 kernels
    of ``csrc/fused_posconv_sm90.cu`` has no HGMMA or spills (a missing
-   ``cuobjdump`` fails too);
+   ``cuobjdump`` fails too); the MAS kernels' (warp path V = 1-32, block
+   path K = 2-32) and K1's direct DFT's (16-1 frames a tile) registers and
+   spills, failing if one is missing or the MAS warp path spills;
 2. K1 (fused log-mel) against ``logmel_plain`` in fp32 and in float64 at
    the SPIRAL shape (14 x 384 512 featurizer-input samples), at frame-count
    edges, at the HiFi-GAN mel (n_fft 1024, hop 256, mag_eps and clip) and
    on tones over a weak noise floor; a warm call must make no host copy and
-   no sync (``torch.cuda.set_sync_debug_mode``);
+   no sync (``torch.cuda.set_sync_debug_mode``); then at the sizes that
+   reach K1's other code: n_fft 512 at hops 110, 161 and 1024 (each frame
+   staged on its own where hop is odd or >= n_fft) and the direct DFT at
+   n_fft 400, 321 and 4096 x hop 110 and 160, on the same wavs and tones,
+   one launch each, held to plain fp32 and float64 and timed beside the
+   plain version;
 3. K2 (merged-qkv attention forward) against ``qkv_attention_plain`` at both
    SPIRAL blocks' shapes, lengths over 30-100 % of T, one fully padded row;
 4. the slice: synthetic wavs + manifest -> ``tpu_speech_torch.cli.run_spiral
@@ -145,8 +152,12 @@ result):
 26. the MAS kernel (``csrc/monotonic_align.cu``) against
     ``maximum_path_plain`` on the card, paths equal bit for bit: bench.py's
     (16, 72, 512) at full lengths, LJSpeech-like rows (Tx 30-400, Ty
-    100-900, mixed, one with Tx = Ty) and an integer grid full of ties;
-    each timed beside the plain loop and the bound;
+    100-900, mixed, one with Tx = Ty), an integer grid full of ties, Tx = 33
+    with a row of t_x > t_y, (4, 2000, 3000) (decision bits in device
+    memory) and (2, 2500, 2600) (the block path); each a call (the wrapper,
+    event to event) and back to back (the C entry alone on prepared buffers,
+    20 calls a sample) beside the plain loop, the bound and the latency floor
+    of its two chains (from the kernel's clock stamps), with its launch plan;
 27. Grad-TTS training through ``tpu_speech_torch.cli.train.main`` at the
     LJSpeech width, B = 16, out_size 172, on 40 synthetic 22 050 Hz
     utterances of 1-8 s: 2 epochs of 2 steps, then a second ``main()`` on
@@ -520,7 +531,8 @@ def kernel_name(text):
     """``attn_fwd_kernel<64>`` (``attn_fwd_sm90_kernel<64,1>``: the second
     argument a bool) from a line that holds a kernel's mangled name."""
     m = re.search(r"(attn_[a-z0-9_]+?_kernel|grouped_conv1d(?:_sm90)?_kernel|logmel_fft_kernel"
-                  r"|maximum_path_kernel|posconv_weight_layout_kernel)"
+                  r"|logmel_dft_kernel|mas_warp_kernel|mas_block_kernel"
+                  r"|posconv_weight_layout_kernel)"
                   r"((?:IL[ib]\d+E)?(?:L[ib]\d+E)*)", text)
     if m is None:
         return text.strip()
@@ -536,6 +548,12 @@ SM90_KERNELS = {f"attn_{k}_sm90_kernel<{d},{p}>" for k in ("fwd", "bwd_dq", "bwd
 # warpgroup>
 K4_SM90_KERNELS = {f"grouped_conv1d_sm90_kernel<{cg},{mw}>"
                    for cg, mw in ((16, 2), (32, 2), (48, 2), (64, 1))}
+# MAS (csrc/monotonic_align.cu): the warp path at V = 1 .. 32 cells a lane
+# (its DP warp must not spill) and the block path at K = 2 .. 32 cells a
+# thread; K1's direct DFT (csrc/fused_logmel.cu) at 16 .. 1 frames a tile
+MAS_WARP_KERNELS = {f"mas_warp_kernel<{v}>" for v in (1, 2, 4, 8, 16, 32)}
+MAS_BLOCK_KERNELS = {f"mas_block_kernel<{k}>" for k in (2, 4, 8, 16, 32)}
+K1_DFT_KERNELS = {f"logmel_dft_kernel<{tf}>" for tf in (1, 2, 4, 8, 16)}
 
 
 def phase_build(_build):
@@ -544,7 +562,7 @@ def phase_build(_build):
     secs = time.perf_counter() - t0
     log(f"[1 build] {secs:.1f} s, compiled={_build.build_info['compiled']} "
         f"-> {_build.build_info['path']}")
-    name, spills = None, {}
+    name, spills, regs = None, {}, {}
     for line in _build.build_info["log"].splitlines():
         if "Compiling entry function" in line:
             name = kernel_name(line)
@@ -553,6 +571,19 @@ def phase_build(_build):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs[name] = int(m.group(1))
+    # MAS and K1's direct DFT: every instance built; the MAS DP warp keeps
+    # its cells in registers, so the warp path may not spill
+    new = MAS_WARP_KERNELS | MAS_BLOCK_KERNELS | K1_DFT_KERNELS
+    check(new <= set(spills) and new <= set(regs),
+          f"MAS / K1 DFT kernels not in the ptxas log: {sorted(new - set(spills))}")
+    check(all(spills[k] == 0 for k in MAS_WARP_KERNELS),
+          f"the MAS warp path spills: { {k: spills[k] for k in MAS_WARP_KERNELS if spills[k]} }")
+    for group in (MAS_WARP_KERNELS, MAS_BLOCK_KERNELS, K1_DFT_KERNELS):
+        log("    " + ", ".join(f"{k}: {regs[k]} registers, {spills[k]} bytes spilled"
+                               for k in sorted(group, key=lambda k: int(k.split("<")[1][:-1]))))
     # the sm90 kernels: no spills, and wgmma in each (a missing cuobjdump fails)
     sm90 = SM90_KERNELS | K4_SM90_KERNELS
     check(sm90 <= set(spills), f"sm90 kernels not in the ptxas log: "
@@ -600,10 +631,12 @@ def tones_over_noise(n, seed):
             + 1e-4 * noise).astype(np.float32)
 
 
-def phase_k1(torch, rng):
-    from tpu_speech_torch.audio.mel import hann_window, mel_filterbank
+def k1_spiral_input(torch, rng):
+    """(wav (14, 384 000) numpy, x, window, filterbank): phase 2's SPIRAL
+    featurizer input on the card, the signal K1 reads on the main path
+    (normalized, preemphasized, reflect-padded (14, 384 512))."""
+    from tpu_speech_torch.audio.mel import mel_filterbank
     from tpu_speech_torch.models.spiral.features import hann_window_symmetric, stft_input
-    from tpu_speech_torch.ops.fused_logmel import fused_logmel, logmel_plain
 
     dev = "cuda"
     win = np.zeros(512, np.float32)
@@ -614,9 +647,90 @@ def phase_k1(torch, rng):
     wav = np.zeros((BATCH, MAX_SAMPLES), np.float32)
     for i, n in enumerate(lens.astype(int)):
         wav[i, :n] = speech_like(rng, n)
-    # the signal K1 reads on the main path: normalized, preemphasized,
-    # reflect-padded (14, 384 512)
-    x = stft_input(torch.tensor(wav, device=dev), 512)
+    return wav, stft_input(torch.tensor(wav, device=dev), 512), window, fb
+
+
+# K1 where the FFT stages each frame on its own (n_fft 512 at an odd hop and
+# a hop past n_fft; 110 is even, not a multiple of 4) and where the direct
+# DFT runs (n_fft 400, 321, 4096), on phase 2's wavs and tones
+K1_FFT_HOPS = (110, 161, 1024)
+K1_DFT_CASES = tuple((n, h) for n in (400, 321, 4096) for h in (110, 160))
+
+
+def k1_other_sizes(torch, wav, tones):
+    """Phase 2's second half: K1 at ``K1_FFT_HOPS`` and ``K1_DFT_CASES``,
+    the SPIRAL featurizer's window (symmetric Hann of 320 centred in n_fft)
+    and 128 slaney mels; one launch each (never the plain version), held to
+    plain fp32 and float64 by the tones rule of phase 2 (plain fp32 is
+    itself p_e64 off float64 at these sizes: K1 within p_e64 + 2e-4 of it and
+    min(2e-4, p_e64 + 1e-4) of float64), each timed beside the plain version
+    on the speech-like wavs. Returns one row a (n_fft, hop)."""
+    from tpu_speech_torch.models.spiral.features import featurizer_constants, stft_input
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops.fused_logmel import (
+        fused_logmel,
+        kernel_launch_config,
+        kernel_transform,
+        logmel_plain,
+    )
+
+    dev = torch.device("cuda")
+    lib = _build.library()
+    rows = []
+    for n_fft, hop in [(512, h) for h in K1_FFT_HOPS] + list(K1_DFT_CASES):
+        w, fb = featurizer_constants(SR, 320, n_fft, 128, 0.0, SR / 2, dev)
+        tf = kernel_launch_config(n_fft, hop, 128)[0]
+        route = kernel_transform(n_fft)
+        if route == "dft":
+            check(lib.tsx_fused_logmel_dft_frames(n_fft, 128) == tf,
+                  f"K1 n_fft {n_fft}: the library's tile is not kernel_launch_config's {tf}")
+        row = dict(n_fft=n_fft, hop=hop, route=route, frames_a_tile=tf)
+        for name, data in (("speech", wav), ("tones", tones)):
+            x = stft_input(torch.tensor(data, device=dev), n_fft)
+            kw = dict(n_fft=n_fft, hop_length=hop, num_frames=1 + (x.shape[1] - n_fft) // hop)
+            before = _build.LAUNCHES["fused_logmel"]
+            out = fused_logmel(x, w, fb, **kw)
+            check(_build.LAUNCHES["fused_logmel"] == before + 1,
+                  f"K1 ({n_fft}, {hop}): not one kernel launch")
+            p32 = logmel_plain(x, w, fb, **kw)
+            p64 = logmel_plain(x.double(), w.double(), fb.double(), **kw)
+            torch.cuda.synchronize()
+            check(out.shape == p32.shape and bool(torch.isfinite(out).all()),
+                  f"K1 ({n_fft}, {hop}) {name}: bad output")
+            e32 = (out - p32).abs().max().item()
+            e64 = (out.double() - p64).abs().max().item()
+            p_e64 = (p32.double() - p64).abs().max().item()
+            lim32, lim64 = p_e64 + K1_ATOL_PLAIN32, min(K1_ATOL_PLAIN64, p_e64 + 1e-4)
+            log(f"[2 K1 n_fft={n_fft} hop={hop} {route} {name}] shape {tuple(out.shape)}, "
+                f"{tf} frames a tile: max|K1-plain32| {e32:.3e} (limit {lim32:.1e}; within "
+                f"2e-4: {e32 <= K1_ATOL_PLAIN32}), max|K1-plain64| {e64:.3e} (limit "
+                f"{lim64:.1e}); plain32 itself {p_e64:.3e} off plain64")
+            check(e32 <= lim32, f"K1 ({n_fft}, {hop}) {name}: {e32} > {lim32} vs plain fp32")
+            check(e64 <= lim64, f"K1 ({n_fft}, {hop}) {name}: {e64} > {lim64} vs plain fp64")
+            row[name] = dict(max_abs_err=e32, err_f64=e64, plain_err_f64=p_e64)
+            if name == "speech":
+                reps = 1 if n_fft > 2048 else 10
+                row["ms"] = cuda_ms(lambda: fused_logmel(x, w, fb, **kw), n=5, warmup=1,
+                                    reps=reps)
+                row["plain_ms"] = cuda_ms(lambda: logmel_plain(x, w, fb, **kw), n=5, warmup=1,
+                                          reps=reps)
+                frames, nnz = x.shape[0] * kw["num_frames"], int((fb != 0).sum().item())
+                row["bound_ms"] = roofline(
+                    frames * (2.5 * n_fft * math.log2(n_fft) + 3 * (n_fft // 2 + 1) + 2 * nnz
+                              + 128), 4 * (x.numel() + n_fft + fb.numel() + frames * 128))[0]
+                log(f"    K1 ({n_fft}, {hop}) {route}: {row['ms']:.4f} ms a call, plain "
+                    f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+        rows.append(row)
+    return rows
+
+
+def phase_k1(torch, rng):
+    from tpu_speech_torch.audio.mel import hann_window, mel_filterbank
+    from tpu_speech_torch.models.spiral.features import stft_input
+    from tpu_speech_torch.ops.fused_logmel import fused_logmel, logmel_plain
+
+    dev = "cuda"
+    wav, x, window, fb = k1_spiral_input(torch, rng)
     spiral = (window, fb, dict(n_fft=512, hop_length=160))
     # the HiFi-GAN mel: periodic Hann of 1024, hop 256, 80 slaney mels at
     # 22.05 kHz, sqrt(power + eps), log(max(mel, 1e-5)); 4 x 8 s
@@ -625,8 +739,8 @@ def phase_k1(torch, rng):
                dict(n_fft=1024, hop_length=256, mag_mode="mag_eps", log_mode="clip",
                     log_guard=1e-5))
     x_hifi = torch.tensor(np.stack([speech_like(rng, 8 * 22050) for _ in range(4)]), device=dev)
-    x_tones = stft_input(torch.tensor(np.stack([tones_over_noise(8 * SR, s) for s in (1, 2)]),
-                                      device=dev), 512)
+    tones_wav = np.stack([tones_over_noise(8 * SR, s) for s in (1, 2)])
+    x_tones = stft_input(torch.tensor(tones_wav, device=dev), 512)
     cases = [("spiral", x, spiral)] + [
         (f"frames={nf}", x[:3, : (nf - 1) * 160 + 512].contiguous(), spiral)
         # the kernel's tile is 16 frames at n_fft 512: its edges, two tiles, ragged
@@ -677,6 +791,7 @@ def phase_k1(torch, rng):
     hifi_ms = cuda_ms(lambda: fused_logmel(x_hifi, hw, hf, **hkw), reps=10)
     hifi_plain_ms = cuda_ms(lambda: logmel_plain(x_hifi, hw, hf, **hkw), reps=10)
     tones = worst.pop("tones")
+    other = k1_other_sizes(torch, wav, tones_wav)
     res = {
         # against plain fp32 on the cases held to 2e-4; the tones in "shape"
         "max_abs_err": max(e32 for e32, _, _ in worst.values()),
@@ -689,7 +804,11 @@ def phase_k1(torch, rng):
                  f"{(4, hkw['num_frames'], 80)}: {hifi_ms:.4f} ms vs plain {hifi_plain_ms:.4f} ms; "
                  f"max error against float64 {max(e64 for _, e64, _ in worst.values()):.3e}; "
                  f"on tones over noise {tones[1]:.3e} against float64 (plain fp32 itself "
-                 f"{tones[2]:.3e}), {tones[0]:.3e} against plain fp32",
+                 f"{tones[2]:.3e}), {tones[0]:.3e} against plain fp32; other sizes (n_fft, "
+                 f"hop: ms vs plain): " + ", ".join(
+                     f"{r['n_fft']} {r['hop']} {r['route']}: {r['ms']:.4f} vs {r['plain_ms']:.4f}"
+                     for r in other),
+        "other_sizes": other,
     }
     log(f"    K1 no host copy or sync once warm; HiFi-GAN {hifi_ms:.4f} ms, plain "
         f"{hifi_plain_ms:.4f} ms; bound at the SPIRAL shape {k1_bound[0]:.4f} ms "
@@ -2341,15 +2460,13 @@ def mas_bound(x_len, y_len, t_x, t_y):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def phase_mas(torch, gen):
-    """26: the MAS kernel against maximum_path_plain on the card, paths bit
-    for bit: bench.py's (16, 72, 512) at full lengths, LJSpeech-like rows
-    (Tx 30-400, Ty 100-900, mixed, one row with Tx = Ty) and an integer grid
-    full of ties; times with CUDA events beside the plain loop and the
-    bound."""
-    from tpu_speech_torch.ops import _build
-    from tpu_speech_torch.ops.monotonic_align import maximum_path, maximum_path_plain
-
+def mas_cases():
+    """Phase 26's grids: (name, (B, Tx, Ty), x lengths, y lengths, ties).
+    bench.py's (16, 72, 512) at full lengths; LJSpeech-like rows (Tx 30-400,
+    Ty 100-900, mixed, one with Tx = Ty); an integer grid full of ties;
+    Tx = 33 (past one cell a lane) with a row of t_x > t_y (an impossible
+    alignment, which the scan still defines); (4, 2000, 3000), where the
+    decision bits leave shared memory; (2, 2500, 2600), the block path."""
     r = np.random.default_rng(26)
     b, t_x, t_y = MAS_BENCH
     x_lj = r.integers(30, 401, size=16)
@@ -2358,39 +2475,133 @@ def phase_mas(torch, gen):
     x_lj[1] = y_lj[1] = 250
     x_tie, y_tie = r.integers(8, 65, size=8), r.integers(64, 257, size=8)
     x_tie[0], y_tie[0] = 64, 64
-    cases = [("bench", (b, t_x, t_y), [t_x] * b, [t_y] * b, False),
-             ("ljspeech", (16, 400, 900), x_lj, y_lj, False),
-             ("ties", (8, 64, 256), x_tie, y_tie, True)]
+    x_33 = r.integers(5, 34, size=16)
+    y_33 = np.clip((x_33 * r.uniform(1.2, 3.0, size=16)).astype(int), 1, 96)
+    x_33[0], y_33[0] = 33, 96
+    x_33[1], y_33[1] = 33, 20  # t_x > t_y
+    return [("bench", (b, t_x, t_y), [t_x] * b, [t_y] * b, False),
+            ("ljspeech", (16, 400, 900), x_lj, y_lj, False),
+            ("ties", (8, 64, 256), x_tie, y_tie, True),
+            ("tx33", (16, 33, 96), x_33, y_33, False),
+            ("bits_global", (4, 2000, 3000), [2000, 1500, 700, 2000], [3000, 2600, 1500, 2000],
+             False),
+            ("block_path", (2, 2500, 2600), [2500, 1800], [2600, 2400], False)]
+
+
+def mas_kernel_alone(torch, ma, _build, v, m):
+    """() -> None: one launch of the MAS kernel through its C entry on
+    prepared buffers (path, and the decision-bit scratch where the plan asks
+    for one; a parent tree's entry takes its fp32 DP scratch instead), for
+    timing the kernel back to back without the wrapper's host work, which at
+    these sizes takes longer than the kernel. Launches counted nowhere."""
+    b, t_x, t_y = v.shape
+    lib = _build.library()
+    path = torch.empty_like(v)
+    stream = torch.cuda.current_stream().cuda_stream
+    if len(_build.SIGNATURES["tsx_maximum_path"]) == 8:  # value, mask, dp, path, B, Tx, Ty, stream
+        dp = torch.empty((b, t_y, t_x), device=v.device)
+        args = (v.data_ptr(), m.data_ptr(), dp.data_ptr(), path.data_ptr(), b, t_x, t_y, stream)
+    else:
+        words = ma.kernel_plan(t_x, t_y)["scratch_words"]
+        bits = torch.empty(b * words, dtype=torch.int32, device=v.device) if words else None
+        args = (v.data_ptr(), m.data_ptr(), None if bits is None else bits.data_ptr(),
+                path.data_ptr(), b, t_x, t_y, None, stream)
+
+    def call():
+        check(lib.tsx_maximum_path(*args) == 0, "MAS C entry")
+    call()
+    torch.cuda.synchronize()
+    check(torch.equal(path, ma.maximum_path_plain(v, m)), "MAS C entry: not the plain path")
+    return call
+
+
+def mas_chains(stamps, y_len):
+    """The kernel's clock stamps of one call (``maximum_path(..., stamps=)``):
+    per block the SM clock (GHz, its cycles over the global timer's ns), the
+    DP's cycles a column and the backtrace's cycles a step (over t_y), and
+    the latency floor of the slowest block: its two chains, t_y columns and
+    t_y steps at those cycles, in ms. Also the block's phases in us and the
+    DP's wait for boxes and a producer's for free stages (warp path)."""
+    st = stamps.cpu().numpy().astype(np.float64)
+    rows = []
+    for i, ty in enumerate(y_len):
+        ghz = (st[i, 4] - st[i, 0]) / max(st[i, 6] - st[i, 5], 1.0)
+        dp, walk = st[i, 2] - st[i, 1], st[i, 3]
+        rows.append(dict(ghz=ghz, col_cycles=dp / max(ty, 1), step_cycles=walk / max(ty, 1),
+                         floor_ms=(dp + walk) / ghz * 1e-6,
+                         lengths_us=(st[i, 1] - st[i, 0]) / ghz * 1e-3, dp_us=dp / ghz * 1e-3,
+                         rest_us=(st[i, 4] - st[i, 2]) / ghz * 1e-3,
+                         dp_wait_us=st[i, 7] / ghz * 1e-3, producer_wait_us=st[i, 9] / ghz * 1e-3))
+    worst = max(rows, key=lambda r: r["floor_ms"])
+    return dict(worst, row=rows.index(worst))
+
+
+def phase_mas(torch, gen):
+    """26: the MAS kernel against maximum_path_plain on the card, paths bit
+    for bit, at ``mas_cases``' grids; each timed a call and back to back
+    (CUDA events) beside the plain loop, the bound and the chains' latency
+    floor from the kernel's own clock stamps; the kernel's launch plan (path,
+    cells a lane, where the decision bits live)."""
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops import monotonic_align as ma
+    from tpu_speech_torch.ops.monotonic_align import kernel_plan, maximum_path, maximum_path_plain
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    log(f"[26 mas] SM clock now, max: {smi}")
     _build.reset_launches()
     res, worst = {}, 0.0
-    for name, (bb, tx, ty), xl, yl, ties in cases:
+    for name, (bb, tx, ty), xl, yl, ties in mas_cases():
         v, m = _mas_grid(torch, gen, bb, tx, ty, xl, yl, ties)
+        plan = kernel_plan(tx, ty)
         path = maximum_path(v, m)
         ref = maximum_path_plain(v, m)
         torch.cuda.synchronize()
         err = (path - ref).abs().max().item()
         worst = max(worst, err)
-        per_frame = path.sum(1)  # one token per valid frame
         check(torch.equal(path, ref), f"MAS {name}: the kernel's path differs from the plain "
                                       f"version's in {int((path != ref).sum())} cells")
-        check(torch.equal(per_frame, m[:, 0, :]), f"MAS {name}: not one token per frame")
+        check(torch.equal(path.sum(1), m[:, 0, :]), f"MAS {name}: not one token per frame")
+        stamps = torch.zeros(bb, 10, dtype=torch.int64, device="cuda")
+        check(torch.equal(maximum_path(v, m, stamps=stamps), ref), f"MAS {name}: stamped call")
+        chains = mas_chains(stamps, yl)
         ms = cuda_ms(lambda: maximum_path(v, m), n=20, warmup=3)
+        b2b = back_to_back_ms(mas_kernel_alone(torch, ma, _build, v, m))
         plain_ms = cuda_ms(lambda: maximum_path_plain(v, m), n=3, warmup=1)
         bound = mas_bound(xl, yl, tx, ty)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+        res[name] = dict(shape=[bb, tx, ty], ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1], latency_floor_ms=chains["floor_ms"],
+                         chains=chains, plan=plan)
+        where = "shared memory" if plan["bits_in_smem"] else (
+            f"a {bb * plan['scratch_words'] * 4} B device scratch")
         log(f"[26 mas] {name} ({bb}, {tx}, {ty}), Tx {min(xl)}-{max(xl)}, Ty {min(yl)}-"
             f"{max(yl)}{', integer ties' if ties else ''}: paths equal ({int(path.sum())} "
-            f"ones); kernel {ms:.4f} ms, plain loop {plain_ms:.2f} ms, bound {bound[0]:.5f} ms "
-            f"({bound[1]})")
+            f"ones); {'block path, K' if plan['block_path'] else 'warp path, V'} = "
+            f"{plan['width']}, ring {plan['stages']} x {plan['cols']} columns, decision bits in "
+            f"{where}, {plan['smem_bytes']} B shared; kernel {ms:.4f} ms a call, {b2b:.4f} ms "
+            f"back to back, plain loop {plain_ms:.2f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
+        log(f"    [26 mas] {name} chains (row {chains['row']}, clock stamps): DP "
+            f"{chains['col_cycles']:.1f} cycles a column, backtrace {chains['step_cycles']:.1f} "
+            f"cycles a step at {chains['ghz']:.3f} GHz: latency floor "
+            f"{chains['floor_ms']:.4f} ms; lengths {chains['lengths_us']:.2f} us, DP "
+            f"{chains['dp_us']:.2f} us (of it waiting for boxes {chains['dp_wait_us']:.2f}), "
+            f"backtrace and path {chains['rest_us']:.2f} us; producers waiting for stages "
+            f"{chains['producer_wait_us']:.2f} us")
     log(f"    [26] the kernel's own launches in this phase: {_build.LAUNCHES['maximum_path']}")
-    bench = res["bench"]
-    lj = res["ljspeech"]
+    bench, lj = res["bench"], res["ljspeech"]
     return dict(max_abs_err=worst, ms=bench["ms"], plain_ms=bench["plain_ms"],
-                bound_ms=bench["bound"][0], bound_by=bench["bound"][1], library_ms=None,
+                bound_ms=bench["bound_ms"], bound_by=bench["bound_by"], library_ms=None,
+                back_to_back_ms=bench["back_to_back_ms"],
+                latency_floor_ms=bench["latency_floor_ms"],
+                by_case={k: {f: r[f] for f in ("shape", "ms", "back_to_back_ms", "plain_ms",
+                                                "bound_ms", "latency_floor_ms")}
+                         for k, r in res.items()},
                 shape=f"value, mask (16, 72, 512) full lengths, bench.py's train-step point "
-                      f"(max_abs_err: the paths' difference); LJSpeech-like (16, 400, 900): "
-                      f"{lj['ms']:.4f} ms vs plain {lj['plain_ms']:.2f} ms, bound "
-                      f"{lj['bound'][0]:.5f} ms; no library call computes MAS")
+                      f"(max_abs_err: the paths' difference; latency_floor_ms: the DP's and "
+                      f"the backtrace's chains at the kernel's measured cycles, an estimate "
+                      f"beside bound_ms); LJSpeech-like (16, 400, 900): {lj['ms']:.4f} ms, back "
+                      f"to back {lj['back_to_back_ms']:.4f}, vs plain {lj['plain_ms']:.2f} ms; "
+                      f"no library call computes MAS")
 
 
 def write_tts_corpus(root, rng, n):
@@ -4635,7 +4846,54 @@ def k4_times_of(root):
     return 0
 
 
+def mas_k1_times_of(root):
+    """``python3 chip_smoke.py --mas-k1-of ROOT``: the MAS kernel of the port
+    checked out at ROOT (its own ``tpu_speech_torch``, built from its own
+    ``csrc``) at phase 26's grids, each held to the plain version first, a
+    call and back to back; and K1 at phase 2's SPIRAL shape (14, 384 512),
+    n_fft 512, hop 160, 10 calls a sample. It sets another commit's kernels
+    (a parent unpacked with ``git archive``) beside this one in one chip
+    call, each tree in a process of its own: run it as parent, change,
+    change, parent. Ends with one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on a GPU only", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops import fused_logmel as fl
+    from tpu_speech_torch.ops import monotonic_align as ma
+
+    check(ma.__file__.startswith(root + os.sep), f"{ma.__file__} is not under {root}")
+    _build.library()
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    for name, (bb, tx, ty), xl, yl, ties in mas_cases():
+        v, m = _mas_grid(torch, gen, bb, tx, ty, xl, yl, ties)
+        check(torch.equal(ma.maximum_path(v, m), ma.maximum_path_plain(v, m)),
+              f"MAS of {root} at {name}: not the plain version's path")
+        rows.append(dict(case=name, shape=[bb, tx, ty],
+                         ms=cuda_ms(lambda: ma.maximum_path(v, m), n=20, warmup=3),
+                         back_to_back_ms=back_to_back_ms(
+                             mas_kernel_alone(torch, ma, _build, v, m))))
+        log(f"[mas of {root}] {name} ({bb}, {tx}, {ty}): {rows[-1]['ms']:.4f} ms a call, "
+            f"{rows[-1]['back_to_back_ms']:.4f} ms back to back")
+    _, x, window, fb = k1_spiral_input(torch, np.random.default_rng(0))
+    kw = dict(n_fft=512, hop_length=160, num_frames=1 + (x.shape[1] - 512) // 160)
+    k1 = cuda_ms(lambda: fl.fused_logmel(x, window, fb, **kw), reps=10)
+    log(f"[k1 of {root}] SPIRAL (14, 384 512), n_fft 512, hop 160: {k1:.4f} ms")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    print(json.dumps({"mas_k1_of": root, "device": torch.cuda.get_device_name(0), "mas": rows,
+                      "k1_spiral_ms": k1}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--k4-of":
         sys.exit(k4_times_of(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--mas-k1-of":
+        sys.exit(mas_k1_times_of(sys.argv[2]))
     sys.exit(main())

@@ -204,24 +204,92 @@ def test_mel_bands_cover_every_nonzero(sr, n_fft, n_mels):
     np.testing.assert_allclose(banded, p @ fb.T, rtol=1e-6, atol=0)
 
 
+def _staged_frames(x, n_fft, hop, tf, t0):
+    """The FFT kernel's staging of one tile (frames t0 .. t0 + tf - 1), index
+    for index: the span at stride hop, or each frame on its own at stride
+    n_fft where hop is odd or >= n_fft; the frames it then reads."""
+    fs = hop if hop % 2 == 0 and hop < n_fft else n_fft
+    span = ((tf - 1) * fs + n_fft + 3) & ~3
+    start, avail = t0 * hop, x.shape[0] - t0 * hop
+    wav = np.zeros(span, x.dtype)
+    for i in range(span):
+        f = i // fs
+        src = i if fs == hop else f * hop + (i - f * fs)
+        if (fs == hop or f < tf) and src < avail:
+            wav[i] = x[start + src]
+    return np.stack([wav[f * fs:f * fs + n_fft] for f in range(tf)])
+
+
 def test_kernel_launch_config_takes_powers_of_two_only():
+    """The FFT takes the powers of two 128-2048 at any hop, the direct DFT
+    every other n_fft up to 8192; both fit in shared memory (the FFT two
+    blocks an SM at hop 256). The FFT's staging reads every frame right at
+    odd, non-multiple-of-4 and larger-than-n_fft hops."""
     for n_fft in (128, 256, 512, 1024, 2048):
         tf, smem = fused_logmel_ops.kernel_launch_config(n_fft, 256, 40)
         assert 2 * smem <= 232448 and tf >= 8  # two blocks fit an SM
-    for n_fft in (400, 320, 64, 4096):
-        with pytest.raises(ValueError, match=r"\(128, 256, 512, 1024, 2048\)"):
-            fused_logmel_ops.kernel_launch_config(n_fft, 160, 40)
-    with pytest.raises(ValueError):
-        fused_logmel_ops.kernel_launch_config(512, 162, 128)  # hop % 4
+        assert fused_logmel_ops.kernel_transform(n_fft) == "fft"
+    for n_fft in (400, 320, 321, 64, 4096):
+        tf, smem = fused_logmel_ops.kernel_launch_config(n_fft, 160, min(40, n_fft // 2 + 1))
+        assert fused_logmel_ops.kernel_transform(n_fft) == "dft"
+        assert tf in (16, 8, 4, 2, 1) and smem <= 232448
+    assert fused_logmel_ops.kernel_launch_config(4096, 160, 128)[0] == 4
+    for hop in (110, 162, 1, 3):
+        assert fused_logmel_ops.kernel_launch_config(512, hop, 128)[0] == 16
+        assert fused_logmel_ops.kernel_launch_config(400, hop, 128)[0] == 16
+    # the old shared-memory case: each frame staged on its own
+    assert fused_logmel_ops.kernel_launch_config(512, 4096, 128)[1] <= 232448
+    x = np.arange(1, 20001, dtype=np.float32)
+    for n_fft, hop in ((512, 160), (512, 110), (512, 162), (512, 161), (512, 4096), (128, 128)):
+        tf = fused_logmel_ops.kernel_launch_config(n_fft, hop, 40)[0]
+        for t0 in (0, tf, 3 * tf):
+            padded = np.pad(x, (0, (t0 + tf) * hop + n_fft))  # zeros past the row
+            want = np.stack([padded[(t0 + f) * hop:(t0 + f) * hop + n_fft] for f in range(tf)])
+            np.testing.assert_array_equal(_staged_frames(x, n_fft, hop, tf, t0), want)
     with pytest.raises(ValueError):
         fused_logmel_ops.kernel_launch_config(512, 160, 258)  # n_mels > n_freq
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_logmel_ops.kernel_launch_config(512, 4096, 128)
+    with pytest.raises(ValueError, match="8192"):
+        fused_logmel_ops.kernel_launch_config(8193, 160, 40)
+    with pytest.raises(ValueError):
+        fused_logmel_ops.kernel_launch_config(512, 0, 40)
     # the CPU takes any n_fft through the plain version
     x = torch.randn(1, 2000)
     win, fb = torch.ones(400), torch.tensor(mel.mel_filterbank(16000, 400, 40, 0.0, 8000.0))
+    before = dict(_build.LAUNCHES)
     torch.testing.assert_close(fused_logmel(x, win, fb, n_fft=400, hop_length=160, num_frames=5),
                                logmel_plain(x, win, fb, n_fft=400, hop_length=160, num_frames=5))
+    assert _build.LAUNCHES == before
+
+
+def _kernel_dft_power(frames, n_fft):
+    """csrc/fused_logmel.cu's direct DFT in float64 numpy over the wrapper's
+    table: every bin k at once, n in order, the table index a = kn mod N
+    kept by an add and a compare, one FMA pair a term; the power of bins
+    0..n_fft/2."""
+    tab = fused_logmel_ops.dft_table(n_fft, torch.device("cpu")).numpy()
+    k = np.arange(n_fft // 2 + 1)
+    a = np.zeros_like(k)
+    re = np.zeros((frames.shape[0], k.size))
+    im = np.zeros_like(re)
+    for n in range(n_fft):
+        w = tab[a]
+        a = a + k
+        a -= np.where(a >= n_fft, n_fft, 0)
+        re += frames[:, n:n + 1] * w[None, :, 0]
+        im += frames[:, n:n + 1] * w[None, :, 1]
+    return re * re + im * im
+
+
+@pytest.mark.parametrize("n_fft", [400, 321, 4096])
+def test_kernel_dft_over_its_table_is_the_rfft(rng, n_fft):
+    """The direct DFT's arithmetic over ``dft_table`` is the float64 rfft
+    (torch.fft.rfft), odd n_fft included."""
+    frames = rng.standard_normal((3, n_fft))
+    tab = fused_logmel_ops.dft_table(n_fft, torch.device("cpu"))
+    assert tab.dtype == torch.float64 and tab.shape == (n_fft, 2)
+    ref = torch.fft.rfft(torch.tensor(frames), dim=1).abs().square().numpy()
+    np.testing.assert_allclose(_kernel_dft_power(frames, n_fft), ref, rtol=0,
+                               atol=1e-11 * ref.max())
 
 
 def test_constant_tables_are_built_once():
@@ -278,6 +346,46 @@ def test_filterbank_features_matches_jax_pallas_interpret(rng):
     ref, _ = jax_features.filterbank_features(
         jnp.asarray(x), jnp.asarray(lens), use_fused_kernel=True)
     out, _ = features.filterbank_features(torch.tensor(x), torch.tensor(lens))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3)
+
+
+# n_fft 400 (not a power of two) at hop 160, and at 22 050 Hz with a 5 ms
+# stride: hop 110, not a multiple of 4; 80 filters leave no filter empty
+N_FFT_400 = {"hop160": dict(sample_rate=16000, window_size=0.02, window_stride=0.01),
+             "hop110": dict(sample_rate=22050, window_size=0.015, window_stride=0.005)}
+
+
+@pytest.mark.parametrize("conv", sorted(N_FFT_400))
+def test_filterbank_features_n_fft_400_matches_jax_rfft_path(rng, conv, monkeypatch):
+    """At n_fft 400 the two fp32 rfft pipelines (torch's and JAX's) each land
+    about 1e-4 from the float64 features, on opposite sides in the first
+    frame, so they are held to each other within 2e-4, and the port to the
+    same pipeline in float64 within 1e-4 (at n_fft 512 they agree within
+    2e-5 and test_filterbank_features_matches_jax_rfft_path holds 1e-4)."""
+    kw = dict(N_FFT_400[conv], n_fft=400, nfilt=80)
+    x, lens = _wavs(rng)
+    ref, ref_lens = jax_features.filterbank_features(
+        jnp.asarray(x), jnp.asarray(lens), use_fused_kernel=False, **kw)
+    out, out_lens = features.filterbank_features(torch.tensor(x), torch.tensor(lens), **kw)
+    np.testing.assert_array_equal(out_lens.numpy(), np.asarray(ref_lens))
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4)
+    constants = features.featurizer_constants
+    monkeypatch.setattr(features, "featurizer_constants",
+                        lambda *a: tuple(t.double() for t in constants(*a)))
+    out64, _ = features.filterbank_features(torch.tensor(x).double(), torch.tensor(lens), **kw)
+    np.testing.assert_allclose(out.numpy(), out64.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("conv", sorted(N_FFT_400))
+def test_filterbank_features_n_fft_400_matches_jax_pallas_interpret(rng, conv):
+    """The JAX featurizer's Pallas kernel (interpret mode) takes n_fft 400 and
+    these hops too: the port's output is the same within its bound."""
+    kw = dict(N_FFT_400[conv], n_fft=400, nfilt=80)
+    x, lens = _wavs(rng, b=2, n=12000)
+    ref, _ = jax_features.filterbank_features(
+        jnp.asarray(x), jnp.asarray(lens), use_fused_kernel=True, **kw)
+    out, _ = features.filterbank_features(torch.tensor(x), torch.tensor(lens), **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3)
 
 

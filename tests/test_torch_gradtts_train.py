@@ -78,10 +78,13 @@ def _t(a, dtype=None):
 # ---------------------------------------------------------------- MAS
 
 
-def _grid(rng, b, t_x, t_y, x_lens, y_lens, ties=False):
+def _grid(rng, b, t_x, t_y, x_lens, y_lens, ties=False, special=False):
     value = rng.standard_normal((b, t_x, t_y)).astype(np.float32) * 4
     if ties:  # an integer grid: equal sums everywhere
         value = np.round(value / 2)
+    if special:  # a NaN and a -inf inside row 0's valid cells, a -inf outside
+        value[0, 2, 5], value[0, 7, 20] = np.nan, -np.inf
+        value[0, -1, -1] = -np.inf  # masked: -inf * 0 is a NaN no valid cell reads
     xm = np.arange(t_x)[None, :] < np.asarray(x_lens)[:, None]
     ym = np.arange(t_y)[None, :] < np.asarray(y_lens)[:, None]
     return value, (xm[:, :, None] & ym[:, None, :]).astype(np.float32)
@@ -94,15 +97,26 @@ MAS_CASES = {
     "ties": (4, 10, 30, [10, 10, 6, 8], [30, 17, 30, 8], True),
     "empty_rows": (3, 6, 12, [6, 0, 4], [12, 0, 0], False),
     "tx_over_ty": (2, 14, 10, [14, 9], [10, 4], False),
+    # Tx not a multiple of 32, on either side of the kernel's V = 1, 2, 4 steps
+    "tx31": (2, 31, 70, [31, 20], [70, 45], False),
+    "tx33": (2, 33, 90, [33, 33], [90, 50], False),
+    "tx65": (2, 65, 150, [65, 40], [150, 99], False),
+    "nan_inf": (2, 12, 40, [12, 9], [40, 30], "special"),
 }
+
+
+def _case(case, seed):
+    b, t_x, t_y, xl, yl, kind = MAS_CASES[case]
+    return _grid(np.random.default_rng(seed), b, t_x, t_y, xl, yl, ties=kind is True,
+                 special=kind == "special")
 
 
 @pytest.mark.parametrize("case", sorted(MAS_CASES))
 def test_maximum_path_plain_equals_jax(case):
     """Random grids with mixed lengths, rows with Tx = Ty, an integer grid
-    full of ties, empty and impossible rows: the paths are equal."""
-    b, t_x, t_y, xl, yl, ties = MAS_CASES[case]
-    value, mask = _grid(np.random.default_rng(len(case)), b, t_x, t_y, xl, yl, ties)
+    full of ties, empty and impossible rows, Tx across multiples of 32, a
+    NaN and a -inf: the paths are equal."""
+    value, mask = _case(case, len(case))
     want = np.asarray(j_maximum_path(jnp.asarray(value), jnp.asarray(mask)))
     before = dict(_build.LAUNCHES)
     got = maximum_path(_t(value), _t(mask))
@@ -111,39 +125,148 @@ def test_maximum_path_plain_equals_jax(case):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _kernel_steps(value, mask):
-    """``csrc/monotonic_align.cu``'s loops in numpy, cell for cell: the DP
-    only over x < t_x, y < t_y, the lengths from the mask's first row and
-    column, one walk from (t_x - 1, t_y - 1) over the stored columns."""
-    v = value.astype(np.float32) * mask.astype(np.float32)
-    path = np.zeros_like(v)
-    for b in range(v.shape[0]):
-        t_x, t_y = int(mask[b, :, 0].sum()), int(mask[b, 0, :].sum())
-        dp = np.zeros((v.shape[2], v.shape[1]), np.float32)
-        prev = np.full(v.shape[1], MAX_NEG, np.float32)
-        for y in range(t_y):
-            cur = prev.copy()
-            for x in range(t_x):
-                stay = np.float32(MAX_NEG) if x == y else prev[x]
-                adv = (np.float32(0.0 if y == 0 else MAX_NEG) if x == 0 else prev[x - 1])
-                cur[x] = v[b, x, y] + max(stay, adv)
-            dp[y], prev = cur, cur
+def _kernel_width(t_x):
+    """The warp path's V: cells a lane, the power of two >= ceil(Tx / 32)."""
+    v = 1
+    while 32 * v < t_x:
+        v *= 2
+    return v
+
+
+def _spread(g, v):
+    """The kernel's spread4 / spread2: bit t of an 8-bit (16-bit) g to bit v t."""
+    steps = ((12, 0x000F000F), (6, 0x03030303), (3, 0x11111111)) if v == 4 else (
+        (8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555))
+    for sh, mask in steps:
+        g = (g | (g << sh)) & mask
+    return g
+
+
+def _column_words(bit, v):
+    """One column's decision bits (bit[l, j]: lane l, slot j, x = l V + j) as
+    the kernel stores them, V words: V = 2, 4 a ballot a slot (word j, bit
+    l); else each lane's V-bit field at bit l V (a ballot at V = 1; bytes,
+    halfwords, words at V = 8, 16, 32), which puts x at bit x."""
+    if v in (2, 4):
+        return [sum(int(bit[l, j]) << l for l in range(32)) for j in range(v)]
+    fields = [sum(int(bit[l, j]) << j for j in range(v)) for l in range(32)]
+    raw = b"".join(f.to_bytes(max(v, 8) // 8, "little") for f in fields)
+    if v < 8:  # V = 1: the ballot's word
+        raw = sum(f << l for l, f in enumerate(fields)).to_bytes(4, "little")
+    return list(np.frombuffer(raw, "<u4"))
+
+
+def _window(col, x0, index, layout):
+    """The kernel's window<LAYOUT>: bit e is the decision at x0 + e."""
+    if layout == 0:
+        wl = (x0 + 32) // 32 - 1
+        lo = int(col[wl]) if wl >= 0 else 0
+        hi = int(col[wl + 1]) if 32 * (wl + 1) <= index else 0
+        return ((hi << 32 | lo) >> (x0 - 32 * wl)) & 0xffffffff
+    v, t = layout, 32 // layout
+    l0 = x0 // v
+    lo = hi = 0
+    for j in range(v):
+        w = int(col[j])
+        f = (w >> l0 if l0 >= 0 else w << -l0) & 0xffffffff  # lane l0 at bit 0
+        lo |= _spread(f & ((1 << t) - 1), v) << j
+        hi |= ((w >> (l0 + t)) & 1 if l0 + t < 32 else 0) << j
+    return ((hi << 32 | lo) >> (x0 - l0 * v)) & 0xffffffff
+
+
+def _kernel_steps(value, mask, width=None, chunk=None):
+    """``csrc/monotonic_align.cu``'s warp path in numpy, step for step: lane
+    l's V cells x = l V + j in registers, updated from the top slot down with
+    one neighbour shuffled up; each cell's decision bit (x == y or D[x, y-1] <
+    D[x-1, y-1]) stored as the kernel stores it (``_column_words``); the
+    backtrace 32 columns a round, each lane's 32-bit window of its column
+    (``_window``) and the walk a one-hot bit over them; idx in chunks of
+    ``chunk`` columns, the walk in groups of 32 aligned columns over
+    reversed windows (bit k: index I - k, the one-hot d += d & u); the path
+    from idx. Rows the kernel does not fill
+    (x >= t_x) hold NaN here, to show that no valid cell reads them."""
+    v_all = value.astype(np.float32) * mask.astype(np.float32)
+    b, tx, ty = v_all.shape
+    V = width or _kernel_width(tx)
+    layout = V if V in (2, 4) else 0
+    chunk = chunk or min((ty + 31) // 32 * 32, 2048)
+    x = np.arange(32 * V).reshape(32, V)
+    path = np.zeros_like(v_all)
+    for i in range(b):
+        t_x = min(int(mask[i, :, 0].sum()), tx)
+        t_y = min(int(mask[i, 0, :].sum()), ty)
+        bits = np.zeros((ty, V), np.uint64)
+        d = np.full((32, V), MAX_NEG, np.float32)
+        for y in range(t_y if t_x > 0 else 0):
+            col = np.full(32 * V, np.nan, np.float32)
+            col[:t_x] = v_all[i, :t_x, y]
+            left = np.concatenate([[0.0 if y == 0 else MAX_NEG], d[:-1, V - 1]]).astype(np.float32)
+            lft = np.concatenate([left[:, None], d[:, :-1]], axis=1)
+            diag = x == y
+            with np.errstate(invalid="ignore"):
+                bit = diag | (d < lft)
+                d = col.reshape(32, V) + np.maximum(np.where(diag, np.float32(MAX_NEG), d), lft)
+            bits[y] = _column_words(bit, V)
+        idx = np.full(ty, -1)
         index = t_x - 1
-        for y in range(t_y - 1, -1, -1) if t_x > 0 else ():
-            path[b, index, y] = 1
-            if y > 0 and index != 0:
-                index -= int(index == y or dp[y - 1, index] < dp[y - 1, index - 1])
+        for c0 in range((ty - 1) // chunk * chunk, -1, -chunk):
+            end = max(c0, min(c0 + chunk, ty, t_y)) if t_x > 0 else c0
+            for g0 in range((end - 1) // 32 * 32, c0 - 1, -32) if end > c0 else ():
+                top = min(g0 + 31, end - 1)  # groups of 32 aligned columns
+                x0 = index - 31
+                u = [0] * 32
+                for lane in range(32):
+                    y = top - lane
+                    if y >= g0 and y > 0:
+                        u[lane] = _window(bits[y], x0, index, layout)
+                        if x0 <= 0:
+                            u[lane] &= ~(1 << -x0)
+                # reversed windows (bit k: index - k); the one-hot moves up
+                r = [int(f"{w:032b}"[::-1], 2) for w in u]
+                one_hot, mine = 1, [0] * 32
+                for k in range(31):
+                    mine[k] = one_hot
+                    one_hot += one_hot & r[k]
+                mine[31] = one_hot
+                for lane in range(top - g0 + 1):
+                    idx[top - lane] = index - 31 + (32 - mine[lane].bit_length())
+                index = index - 31 + (32 - one_hot.bit_length()) - (1 if one_hot & r[31] else 0)
+        path[i] = np.arange(tx)[:, None] == idx[None, :]
     return path
 
 
-@pytest.mark.parametrize("case", ["mixed_lengths", "ties", "tx_over_ty"])
+@pytest.mark.parametrize("case", sorted(MAS_CASES))
 def test_kernel_loops_equal_the_plain_version(case):
-    """The CUDA kernel computes only the cells the backtrace reads; its
-    loops, emulated in numpy, give the plain version's path (the card's
-    check of the kernel itself is in test_torch_kernels_cuda.py)."""
-    b, t_x, t_y, xl, yl, ties = MAS_CASES[case]
-    value, mask = _grid(np.random.default_rng(7), b, t_x, t_y, xl, yl, ties)
-    np.testing.assert_array_equal(_kernel_steps(value, mask),
+    """The CUDA kernel's algorithm, emulated in numpy (register slots, decision
+    bits, the one-hot walk over them), gives the plain version's path and
+    JAX's bit for bit (the card's check of the kernel itself is in
+    test_torch_kernels_cuda.py and chip_smoke.py's phase 26)."""
+    value, mask = _case(case, 7)
+    got = _kernel_steps(value, mask)
+    np.testing.assert_array_equal(got, maximum_path_plain(_t(value), _t(mask)).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(j_maximum_path(jnp.asarray(value), jnp.asarray(mask))))
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16, 32])
+def test_kernel_bit_layout_at_every_width(width):
+    """Every V the warp path compiles, with its layout of the decision bits
+    (ballots a slot at 2 and 4, each lane's own field from 8 on) and the
+    backtrace's windows over it: the emulation at a forced V equals the
+    plain version on a 70-token grid and a 31-token one."""
+    value, mask = _grid(np.random.default_rng(width), 2, 70, 160, [70, 51], [160, 120])
+    np.testing.assert_array_equal(_kernel_steps(value, mask, width=max(width, 4)),
+                                  maximum_path_plain(_t(value), _t(mask)).numpy())
+    small, small_mask = _case("tx31", width)  # V = 1 and 2 need Tx <= 32 V
+    np.testing.assert_array_equal(_kernel_steps(small, small_mask, width=width),
+                                  maximum_path_plain(_t(small), _t(small_mask)).numpy())
+
+
+def test_kernel_backtrace_in_chunks():
+    """idx in chunks of 32 columns (the kernel's are 2048): the walk carries
+    its index across chunks, and whole chunks past t_y hold -1."""
+    value, mask = _grid(np.random.default_rng(5), 3, 40, 200, [40, 17, 30], [200, 70, 33])
+    np.testing.assert_array_equal(_kernel_steps(value, mask, chunk=32),
                                   maximum_path_plain(_t(value), _t(mask)).numpy())
 
 

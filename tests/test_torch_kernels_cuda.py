@@ -136,6 +136,45 @@ def test_fused_logmel_tones_against_float64(cuda):
     assert err <= plain_err + 1e-4, (err, plain_err)
 
 
+# K1 past the FFT's sizes and hops: the direct DFT (n_fft 400, 321, 4096,
+# 64) and the FFT's frame-by-frame staging (odd hop, hop >= n_fft)
+K1_OTHER = [(400, 160), (400, 110), (321, 110), (321, 160), (4096, 160), (64, 32), (512, 161),
+            (512, 1024), (128, 3)]
+
+
+@pytest.mark.parametrize("n_fft,hop", K1_OTHER)
+def test_fused_logmel_other_sizes_match_plain(cuda, n_fft, hop):
+    """One launch of the kernel (never the plain version), both modes, frame
+    counts around the tile, against the plain version on white noise (2e-4)
+    and, on speech-like tones, against float64 within the plain version's
+    own distance from it plus 1e-4."""
+    from tpu_speech_torch.models.spiral.features import featurizer_constants, stft_input
+    from tpu_speech_torch.ops.fused_logmel import kernel_launch_config
+
+    n_mels = min(80, n_fft // 2 + 1)
+    win, fb = featurizer_constants(16000, min(320, n_fft), n_fft, n_mels, 0.0, 8000.0, cuda)
+    tf, _ = kernel_launch_config(n_fft, hop, n_mels)
+    g = torch.Generator().manual_seed(n_fft + hop)
+    for frames in (1, tf + 1, 3 * tf + 5):
+        x = (torch.randn(2, (frames - 1) * hop + n_fft - 7, generator=g) * 0.1).to(cuda)
+        for mag_mode, log_mode in (("power", "guard"), ("mag_eps", "clip")):
+            kw = dict(n_fft=n_fft, hop_length=hop, num_frames=frames, mag_mode=mag_mode,
+                      log_mode=log_mode, log_guard=1e-5 if log_mode == "clip" else 2 ** -24)
+            _build.reset_launches()
+            out = fused_logmel(x, win, fb, **kw)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES == _counts(fused_logmel=1)
+            torch.testing.assert_close(out, logmel_plain(x, win, fb, **kw), rtol=0, atol=2e-4,
+                                       msg=lambda m: f"{kw}: {m}")
+    x = stft_input(torch.tensor(np.stack([tones_over_noise(2 * 16000, seed=s) for s in (1, 2)]),
+                                device=cuda), n_fft)
+    kw = dict(n_fft=n_fft, hop_length=hop, num_frames=1 + (x.shape[1] - n_fft) // hop)
+    out = fused_logmel(x, win, fb, **kw).double()
+    p64 = logmel_plain(x.double(), win.double(), fb.double(), **kw)
+    plain_err = (logmel_plain(x, win, fb, **kw).double() - p64).abs().max().item()
+    assert (out - p64).abs().max().item() <= plain_err + 1e-4
+
+
 def test_fused_logmel_steady_state_makes_no_copy_or_sync(cuda):
     """After the first call builds the tables, the featurizer on the card (and
     K1 in it) copies nothing from the host and never synchronises."""
@@ -320,9 +359,10 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         fused_logmel(torch.randn(1, 2000, device=cuda).double(), win, fb,
                      n_fft=512, hop_length=160, num_frames=9)
-    with pytest.raises(ValueError):
-        fused_logmel(torch.randn(1, 2000, device=cuda), win, fb,
-                     n_fft=512, hop_length=162, num_frames=9)
+    with pytest.raises(ValueError):  # past the direct DFT's 8192
+        fused_logmel(torch.randn(1, 20000, device=cuda), torch.ones(8200, device=cuda),
+                     torch.ones(40, 4101, device=cuda), n_fft=8200, hop_length=162,
+                     num_frames=9)
     q = torch.randn(1, 4, 2, 8, device=cuda)
     with pytest.raises(ValueError):
         fused_self_attention(q, q, q, dropout_p=0.1)  # no seed
@@ -915,11 +955,17 @@ def test_tts_full_width_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("shape,ties", [((16, 72, 512), False), ((4, 400, 900), False),
-                                        ((6, 33, 80), True)],
-                         ids=["bench_point", "ljspeech_long", "integer_ties"])
+                                        ((6, 33, 80), True), ((16, 33, 96), False),
+                                        ((3, 1024, 1100), False), ((2, 2000, 3000), False),
+                                        ((2, 2500, 2600), False), ((3, 70, 99), False)],
+                         ids=["bench_point", "ljspeech_long", "integer_ties", "tx33",
+                              "warp_path_v32", "bits_in_device_memory", "block_path",
+                              "ty_not_multiple_of_4"])
 def test_maximum_path_kernel_equals_plain(cuda, shape, ties):
     """The MAS kernel's path equals maximum_path_plain's bit for bit: mixed
-    lengths, one row with Tx = Ty, and an integer grid full of ties."""
+    lengths, one row with Tx = Ty, a row with t_x > t_y, an integer grid full
+    of ties; the warp path at V = 2, 4, 16, 32, its decision bits in device
+    memory, the block path, unaligned rows (Ty % 4 != 0)."""
     b, t_x, t_y = shape
     g = torch.Generator().manual_seed(t_x)
     value = -torch.rand(b, t_x, t_y, generator=g) * 200.0
@@ -929,6 +975,8 @@ def test_maximum_path_kernel_equals_plain(cuda, shape, ties):
     y_len = torch.maximum(torch.randint(1, t_y + 1, (b,), generator=g), x_len)
     x_len[0], y_len[0] = t_x, t_y
     x_len[1], y_len[1] = min(t_x, t_y), min(t_x, t_y)
+    if b > 2:  # a row with t_x > t_y: an impossible alignment the scan still defines
+        x_len[2], y_len[2] = t_x, max(1, t_x // 3)
     mask = ((torch.arange(t_x)[None, :, None] < x_len[:, None, None])
             & (torch.arange(t_y)[None, None, :] < y_len[:, None, None])).float()
     _build.reset_launches()
@@ -937,3 +985,10 @@ def test_maximum_path_kernel_equals_plain(cuda, shape, ties):
     assert _build.LAUNCHES == _counts(maximum_path=1)
     assert torch.equal(path.cpu(), maximum_path_plain(value, mask))
     assert path.sum().item() == y_len.sum().item()  # one token per valid frame
+    if b > 2:  # the kernel's clock stamps: the chains ran and the clock is sane
+        stamps = torch.zeros(b, 10, dtype=torch.int64, device=cuda)
+        assert torch.equal(maximum_path(value.to(cuda), mask.to(cuda), stamps=stamps).cpu(),
+                           maximum_path_plain(value, mask))
+        st = stamps.cpu()
+        assert (st[:, 4] > st[:, 2]).all() and (st[:, 2] >= st[:, 1]).all()
+        assert (st[:, 6] > st[:, 5]).all()

@@ -53,8 +53,11 @@ SIGNATURES = {
                           _I, _I, _I, _I, _U, _U, _F, _P],
     # x, w, out, B, T, C, G, K, left_pad, stream
     "tsx_grouped_conv1d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # value, mask, DP scratch, path, B, Tx, Ty, stream
-    "tsx_maximum_path": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # value, mask, decision-bit scratch (nullable), path, B, Tx, Ty, clock
+    # stamps (nullable), stream
+    "tsx_maximum_path": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # Tx, Ty, out (9 ints): the launch plan (an error code where none exists)
+    "tsx_maximum_path_plan": [_I, _I, _P],
 }
 # the bf16 variants take the same arguments
 for _name in ("tsx_attention_fwd", "tsx_attention_bwd", "tsx_grouped_conv1d"):
@@ -63,6 +66,8 @@ for _name in ("tsx_attention_fwd", "tsx_attention_bwd", "tsx_grouped_conv1d"):
 SIGNATURES["tsx_grouped_conv1d_bf16_weights"] = [_P, _P, _I, _I, _I, _I, _P]
 # Cg -> output frames a block of the bf16 grouped conv (a count, not an error)
 SIGNATURES["tsx_grouped_conv1d_bf16_frames"] = [_I]
+# n_fft, n_mels -> frames a tile of K1's direct DFT (a count, 0 where none fits)
+SIGNATURES["tsx_fused_logmel_dft_frames"] = [_I, _I]
 
 # Launches made through each wrapper: a plain integer per kernel, bumped
 # where the wrapper launches its kernel and nowhere else. A bf16 launch

@@ -1,9 +1,12 @@
 """Fused wav -> log-mel: the Hopper kernel and its plain PyTorch version.
 
 Port of ``tpu_speech/ops/fused_logmel.py`` (K1). ``fused_logmel`` launches
-the hand-written CUDA kernel ``csrc/fused_logmel.cu`` (a real FFT per frame
-in float64, a banded mel product) on a CUDA tensor and computes
-``logmel_plain`` on a CPU tensor; a CUDA tensor it cannot take raises.
+the hand-written CUDA kernel ``csrc/fused_logmel.cu`` on a CUDA tensor and
+computes ``logmel_plain`` on a CPU tensor. The kernel's transform is a
+float64 real FFT per frame for a power-of-two n_fft in ``KERNEL_N_FFT`` (the
+SPIRAL and HiFi-GAN path) and a float64 direct DFT over a table of n_fft
+twiddles for any other n_fft up to ``DFT_MAX_N_FFT``; any hop >= 1; then a
+banded mel product. A CUDA tensor past those limits raises.
 ``logmel_plain`` is the counterpart of ``logmel_reference:233``: strided
 frames (``unfold``) -> window -> ``torch.fft.rfft`` -> power -> mel -> log.
 
@@ -15,7 +18,7 @@ caller's STFT convention; frame ``t`` reads ``x[:, t*hop : t*hop + n_fft]``
 Returns (B, num_frames, n_mels) float32.
 
 The kernel's constant inputs are built once and cached: the twiddle tables
-per (n_fft, device) (``fft_tables``) and each filterbank's nonzero bands per
+per (n_fft, device) (``fft_tables``, ``dft_table``) and each filterbank's nonzero bands per
 filterbank tensor (``mel_bands``, on the device, no host sync). A call with
 warm caches copies nothing to the card and does not synchronise.
 """
@@ -32,13 +35,14 @@ import torch.nn.functional as F
 
 from tpu_speech_torch.ops import _build
 
-__all__ = ["fused_logmel", "logmel_plain", "make_dft_mats", "fft_tables", "mel_bands",
-           "kernel_launch_config"]
+__all__ = ["fused_logmel", "logmel_plain", "make_dft_mats", "fft_tables", "dft_table",
+           "mel_bands", "kernel_launch_config", "kernel_transform"]
 
 _MAG_MODES = {"power": 0, "mag_eps": 1}
 _LOG_MODES = {"guard": 0, "clip": 1}
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
-KERNEL_N_FFT = (128, 256, 512, 1024, 2048)  # the kernel's transform sizes
+KERNEL_N_FFT = (128, 256, 512, 1024, 2048)  # the FFT's transform sizes
+DFT_MAX_N_FFT = 8192  # the direct DFT's largest n_fft (csrc/fused_logmel.cu)
 
 
 def make_dft_mats(n_fft: int, window: torch.Tensor, mel_fb: torch.Tensor):
@@ -134,6 +138,17 @@ def fft_tables(n_fft: int, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(tab).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def dft_table(n_fft: int, device: torch.device) -> torch.Tensor:
+    """The direct DFT's float64 table (n_fft, 2) = (cos, -sin) of
+    2 pi a / n_fft for a < n_fft, on ``device``: the kernel reads W_N^(kn)
+    at a = kn mod n_fft. Built once per (n_fft, device). Shared: read only."""
+    ang = (2.0 * np.pi / n_fft) * np.arange(n_fft, dtype=np.float64)
+    tab = np.stack([np.cos(ang), -np.sin(ang)], axis=1)
+    with torch.inference_mode(False):  # a cached tensor outlives any inference region
+        return torch.from_numpy(tab).to(device)
+
+
 # filterbank tensor id -> (weak reference, version, data pointer, bands)
 _BANDS: dict = {}
 
@@ -168,26 +183,45 @@ def mel_bands(mel_fb: torch.Tensor) -> torch.Tensor:
     return bands
 
 
+def kernel_transform(n_fft: int) -> str:
+    """"fft" for the power-of-two sizes of ``KERNEL_N_FFT``, else "dft"."""
+    return "fft" if n_fft in KERNEL_N_FFT else "dft"
+
+
+def _dft_smem(n_fft: int, tf: int, n_mels: int) -> int:
+    n_freq = n_fft // 2 + 1
+    return 16 * n_fft + 8 * n_fft * tf + 4 * (tf * (n_freq + n_freq // 32 + 1) + 2 * n_mels)
+
+
 def kernel_launch_config(n_fft: int, hop_length: int, n_mels: int):
     """(frames per tile, shared-memory bytes) of the kernel's launch, as
     ``csrc/fused_logmel.cu`` computes them; raises ValueError for what the
-    kernel does not take."""
-    if n_fft not in KERNEL_N_FFT:
-        raise ValueError(f"fused_logmel kernel takes n_fft in {KERNEL_N_FFT} "
-                         f"(powers of two), not {n_fft}")
-    if hop_length <= 0 or hop_length % 4:
-        raise ValueError(f"fused_logmel kernel needs hop % 4 == 0 (hop={hop_length})")
-    m = n_fft // 2
-    if not 0 < n_mels <= m + 1:
+    kernel does not take. The FFT stages a tile's span of wav, or each frame
+    on its own where hop is odd or at least n_fft (``frame_stride``), and
+    always fits; the direct DFT halves its 16 frames a tile until the tile
+    fits."""
+    if hop_length <= 0:
+        raise ValueError(f"fused_logmel kernel needs hop >= 1 (hop={hop_length})")
+    if not 1 <= n_fft <= DFT_MAX_N_FFT:
+        raise ValueError(f"fused_logmel kernel takes n_fft from 1 to {DFT_MAX_N_FFT}, "
+                         f"not {n_fft}")
+    if not 0 < n_mels <= n_fft // 2 + 1:
         raise ValueError(f"fused_logmel kernel needs 0 < n_mels <= n_fft/2 + 1 ({n_mels})")
-    v = m // 32
-    tf = 16 if v <= 16 else 8
-    n_tab = m + m // 2 + v // 2 + 16
-    span_pad = ((tf - 1) * hop_length + n_fft + 3) & ~3
-    smem = 16 * n_tab + 4 * (n_fft + span_pad + tf * (m + m // 32 + 2) + 2 * n_mels)
+    if kernel_transform(n_fft) == "fft":
+        m = n_fft // 2
+        v = m // 32
+        tf = 16 if v <= 16 else 8
+        fs = hop_length if hop_length % 2 == 0 and hop_length < n_fft else n_fft
+        n_tab = m + m // 2 + v // 2 + 16
+        span_pad = ((tf - 1) * fs + n_fft + 3) & ~3
+        smem = 16 * n_tab + 4 * (n_fft + span_pad + tf * (m + m // 32 + 2) + 2 * n_mels)
+    else:
+        tf = next((t for t in (16, 8, 4, 2, 1) if _dft_smem(n_fft, t, n_mels) <= _MAX_SMEM), 0)
+        smem = _dft_smem(n_fft, max(tf, 1), n_mels)
     if smem > _MAX_SMEM:
-        raise ValueError(f"fused_logmel kernel: n_fft={n_fft}, hop={hop_length} need "
-                         f"{smem} bytes of shared memory (at most {_MAX_SMEM})")
+        raise ValueError(f"fused_logmel kernel: n_fft={n_fft}, hop={hop_length}, "
+                         f"n_mels={n_mels} need {smem} bytes of shared memory "
+                         f"(at most {_MAX_SMEM})")
     return tf, smem
 
 
@@ -227,7 +261,8 @@ def fused_logmel(
     n_mels = mel_fb.shape[0]
     kernel_launch_config(n_fft, hop_length, n_mels)
     x, window, mel_fb = x.contiguous(), window.contiguous(), mel_fb.contiguous()
-    tables, bands = fft_tables(n_fft, x.device), mel_bands(mel_fb)
+    tables = (fft_tables if kernel_transform(n_fft) == "fft" else dft_table)(n_fft, x.device)
+    bands = mel_bands(mel_fb)
     b, n = x.shape
     out = torch.empty((b, num_frames, n_mels), device=x.device, dtype=torch.float32)
     lib = _build.library()
