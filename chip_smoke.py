@@ -286,7 +286,40 @@ result):
     generator's and the discriminators' forwards by
     ``torch.utils.flop_counter``;
 44. bench.py's train-step point in bf16 (``gradtts_train_step_ms_bf16``):
-    as phase 29.
+    as phase 29;
+45. bf16 Grad-TTS + HiFi-GAN serving on bf16 copies of the parameters at
+    bench.py's point (227 ids, bucket 384, 10 Euler and 6 DPM steps): the
+    bf16 mel against the fp32 mel with the same noise and duration path,
+    relative L2 within 0.1 (phase 42's rule for a tensor), then bench.py's
+    bf16 RTF points beside phase 25's, with peak memory
+    (``tts_e2e_bf16``, no hand kernel);
+46. export: ``cli.export_tts.main`` at full width with HiFi-GAN V1, fp32
+    and ``--bf16``; each ``.pt2`` loaded in a fresh process that imports
+    only ``tpu_speech_torch``: the same seed the same wav, another seed
+    another (the vocoder's weights uniform in +-1/sqrt(fan_in), so that the
+    wav follows the mel); against the eager serving function within 1e-5
+    (fp32) and by
+    phase 42's rule (bf16); the exported call's time beside the eager one's
+    (``tts_export``);
+47. ``run_spiral --export_model`` from phase 14's finetuned weights: the
+    graph holds 1 K1, 12 K2-fwd and 2 K4 ``tpu_speech::`` ops, a call of
+    the reloaded program launches exactly those kernels (``ctc_export``)
+    and matches the eager runner within 1e-5 with equal greedy transcripts;
+    each op's call beside the old wrapper's direct launch (``op_ms``,
+    ``wrapper_ms`` in the kernels line);
+48. bf16 DiffVC conversion at cli/params_vc.py's width, B = 1 x 256 frames,
+    ml 30 and dpm 6: against fp32 with the same draws on phase 31's scaled
+    model (relative L2 within 0.5), then bench.py's bf16 RTF beside phase
+    32's (``diffvc_conversion_bf16``, no hand kernel);
+49. bf16 DiffVC training: ``train_enc.main`` and ``train_dec.main
+    --precision bf16`` for 2 steps each on phase 34's data (float32 weights
+    saved; ``diffvc_enc_train_bf16``, ``diffvc_dec_train_bf16``), one bf16
+    step of each held to its fp32 step at phase 36's batches (phase 42's
+    rule), the bf16 steps' time and peak beside phase 36's, float32 masters
+    and Adam moments.
+
+Phase 47 runs after phase 16 (it needs phase 14's weights), 45-46 after 25,
+48 after 32 and 49 after 36.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -388,6 +421,11 @@ HIFIGAN_V1 = dict(resblock="1", upsample_rates=[8, 8, 2, 2], upsample_kernel_siz
 
 def log(msg):
     print(msg, flush=True)
+
+
+def elapsed(done):
+    """The run's time so far, after the phases named."""
+    log(f"[elapsed] {time.perf_counter() - T0:.1f} s after {done}")
 
 
 def check(ok, msg):
@@ -1958,36 +1996,53 @@ class plain_kernels:
         wav2vec.fused_qkv_self_attention, wav2vec.grouped_conv1d = self.saved
 
 
-def _hold_bf16_step(tag, run):
+def _hold_bf16_step(tag, run, grad_limit=None, control=None):
     """A bf16 step against the fp32 step on the same weights and batch.
     ``run(bf16)`` gives (loss, {name: gradient}); the plain versions' bf16
     step (``plain_kernels``) is the yardstick of the bf16 scheme's own error.
     The loss within BF16_STEP_LOSS_RTOL relative; each gradient leaf (max|g|
     at least 1 % of the largest) within BF16_STEP_GRAD_RL2 relative L2 or,
     where the bf16 scheme itself is farther, no farther than the JAX parity
-    tests' bound: 2 x the plain bf16 step's distance + 1e-2 ||g32||."""
+    tests' bound: 2 x the plain bf16 step's distance + 1e-2 ||g32||.
+
+    A path with no hand kernel has no yardstick (its plain run is the same
+    step), so there ``grad_limit``, set from the card's readings of the
+    sound step, holds every leaf, and ``control()``, a broken bf16 step
+    giving (loss, gradients) in the same way, must put a leaf beyond it."""
     l32, g32 = run(False)
     l16, g16 = run(True)
-    with plain_kernels():
-        lp, gp = run(True)
+    if grad_limit is None:
+        with plain_kernels():
+            lp, gp = run(True)
+    else:
+        lp, gp = l16, g16
     rel_loss, rel_plain = abs(l16 - l32) / abs(l32), abs(lp - l32) / abs(l32)
     g_max = max(g.abs().max().item() for g in g32.values())
-    rows = []
-    for k, g in g32.items():
-        if g.abs().max().item() < 1e-2 * g_max:
-            continue
-        n32 = g.norm().item()
-        rows.append((((g16[k] - g).norm().item() / n32), (gp[k] - g).norm().item() / n32, k))
-    rows.sort(reverse=True)
-    over = [r for r in rows if r[0] > BF16_STEP_GRAD_RL2]
-    bad = [r for r in over if r[0] > 2 * r[1] + 1e-2]
+    kept = [k for k, g in g32.items() if g.abs().max().item() >= 1e-2 * g_max]
+
+    def dist(g, k):
+        return (g[k] - g32[k]).norm().item() / g32[k].norm().item()
+
+    rows = sorted(((dist(g16, k), dist(gp, k), k) for k in kept), reverse=True)
+    if grad_limit is None:
+        over = [r for r in rows if r[0] > BF16_STEP_GRAD_RL2]
+        bad = [r for r in over if r[0] > 2 * r[1] + 1e-2]
+    else:
+        over = bad = [r for r in rows if r[0] > grad_limit]
     log(f"[{tag}] loss fp32 {l32:.6f} bf16 {l16:.6f} (rel {rel_loss:.3e}, limit "
         f"{BF16_STEP_LOSS_RTOL}); plain-version bf16 {lp:.6f} (rel {rel_plain:.3e}); "
         f"{len(rows)} gradient leaves above 1 % of the largest, {len(over)} of them beyond "
-        f"{BF16_STEP_GRAD_RL2} relative L2; worst leaves (kernels' bf16, plain bf16 "
-        f"relative L2):")
+        f"{grad_limit or BF16_STEP_GRAD_RL2} relative L2; worst leaves (kernels' bf16, "
+        f"plain bf16 relative L2):")
     for r16, rp, k in rows[:6]:
         log(f"    {r16:.3e} {rp:.3e} {k}")
+    if grad_limit is not None:
+        lc, gc = control()
+        worst_c = max((dist(gc, k), k) for k in kept)
+        log(f"    no hand kernel: every leaf within {grad_limit} relative L2 of fp32; the "
+            f"control's loss {lc:.6f}, its worst leaf {worst_c[0]:.3e} ({worst_c[1]}), "
+            f"which must exceed {grad_limit}")
+        check(worst_c[0] > grad_limit, f"the control's gradients are within {grad_limit}")
     check(rel_loss <= BF16_STEP_LOSS_RTOL, f"bf16 loss {l16} vs fp32 {l32}")
     check(not bad, f"bf16 gradients beyond both bounds: {bad}")
     return rel_loss, rows[0][0]
@@ -4103,6 +4158,13 @@ HG_UTTS = 48  # 2 s each: three V1 batches of 16 an epoch
 HG_VAL_UTTS = 8
 HG_POINT = (16, 8192)  # the V1 recipe's batch: B x segment_size
 HG_GRAD_RL2 = 1e-3  # the GAN step's gradients, card against CPU, relative L2 per leaf
+# phase 42, no hand kernel: each gradient leaf of a bf16 step within these
+# relative L2 of the fp32 step's; the card's sound readings of the worst leaf
+# are 0.134 (GAN step, the one-element conv_post.bias) and 0.092 (Grad-TTS),
+# and each step's control (a broken bf16 step) must exceed its limit (the GAN
+# step's, the wavs x 0.5, reads 0.296)
+HG_BF16_GRAD_RL2 = 0.2
+GT_BF16_GRAD_RL2 = 0.2
 # cli/train_hifigan.py's defaults (build_generator:35, mel_cfg_from:49) and
 # the V1 recipe's training keys (:81-82, 112-118), written out as a config
 HG_CONFIG = dict(HIFIGAN_V1, n_fft=1024, num_mels=80, sampling_rate=22050, hop_size=256,
@@ -4373,11 +4435,12 @@ def phase_bf16_tts_train(torch, rng, root, corpus):
     weights saved. Grad-TTS: cli.train.main with precision = "bf16" at the
     LJSpeech width, B = 16, on a synthetic corpus for 2 epochs of 2 steps,
     MAS once a step. Then one bf16 step of each held to its fp32 step on
-    the same weights and batch (_hold_bf16_step: the loss within 2e-2,
-    gradient leaves within 0.1 relative L2 or the rule's bound): the GAN
-    step at B = 16 x 8192, the Grad-TTS step at bench.py's point with the
-    fp32 step's draws and MAS path given to both (t and z rounded to
-    bf16)."""
+    the same weights and batch (_hold_bf16_step: the loss within 2e-2;
+    neither step launches a hand kernel, so every gradient leaf within
+    HG_BF16_GRAD_RL2 or GT_BF16_GRAD_RL2, and a broken bf16 step, the
+    control, beyond it): the GAN step at B = 16 x 8192, the Grad-TTS step at
+    bench.py's point with the fp32 step's draws and MAS path given to both
+    (t and z rounded to bf16)."""
     from tpu_speech_torch.cli import train
     from tpu_speech_torch.configs import gradtts as cfg
     from tpu_speech_torch.ops import _build
@@ -4438,14 +4501,17 @@ def phase_bf16_tts_train(torch, rng, root, corpus):
     models = _hg_models(torch, HG_SEED + 1)
     batch = _hg_batch(np.random.default_rng(HG_SEED + 1), *HG_POINT)
 
-    def gan_run(bf16):
+    def gan_run(bf16, batch=batch):
         m, grads, _ = _gan_step_on(torch, models, batch, "cuda", bf16=bf16)
         return m["loss_gen"], grads
 
-    _hold_bf16_step("42 hifigan bf16 vs fp32 (no hand kernel: the yardstick is the same "
-                    "step)", gan_run)
-    _hold_bf16_step("42 gradtts bf16 vs fp32 (yardstick: MAS's plain loop)",
-                    _gradtts_bf16_run(torch))
+    _hold_bf16_step("42 hifigan bf16 vs fp32 (no hand kernel; control: the wavs x 0.5)",
+                    gan_run, grad_limit=HG_BF16_GRAD_RL2,
+                    control=lambda: gan_run(True, {"wav": 0.5 * batch["wav"]}))
+    gt_run = _gradtts_bf16_run(torch)
+    _hold_bf16_step("42 gradtts bf16 vs fp32 (no hand kernel: MAS's path given; control: "
+                    "z x 2)", gt_run, grad_limit=GT_BF16_GRAD_RL2,
+                    control=lambda: gt_run(True, z_scale=2.0))
     return hg_launches, gt_launches
 
 
@@ -4468,7 +4534,8 @@ def _gradtts_bf16_run(torch):
     """run(bf16) for _hold_bf16_step: one Grad-TTS step at bench.py's point
     from one set of weights (dropout off), SGD with lr 1 so that the
     gradients stay on .grad, the fp32 draws (in bf16 for the bf16 step) and
-    the fp32 step's MAS path given to both: (loss, {name: gradient})."""
+    the fp32 step's MAS path given to both: (loss, {name: gradient});
+    ``z_scale`` mis-scales the draw z (a control)."""
     import copy
 
     from tpu_speech_torch.ops.masks import sequence_mask
@@ -4486,12 +4553,12 @@ def _gradtts_bf16_run(torch):
         y_mask = sequence_mask(batch["y_lengths"], t_y).float()
         attn = model.alignment(mu_x, batch["y"], x_mask[:, :, None] * y_mask[:, None, :])
 
-    def run(bf16):
+    def run(bf16, z_scale=1.0):
         m = copy.deepcopy(model)
         dt = torch.bfloat16 if bf16 else torch.float32
         out = train_step(m, torch.optim.SGD(m.parameters(), lr=1.0), batch, None, 172,
-                         offsets=draws["offsets"], t=draws["t"].to(dt), z=draws["z"].to(dt),
-                         attn=attn.to(dt), bf16=bf16)
+                         offsets=draws["offsets"], t=draws["t"].to(dt),
+                         z=(z_scale * draws["z"]).to(dt), attn=attn.to(dt), bf16=bf16)
         return out["loss"].item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
 
     return run
@@ -4570,6 +4637,597 @@ def phase_hifigan_time(torch):
     return out
 
 
+# ---- bf16 serving, export and bf16 DiffVC (phases 45-49) ---------------------
+
+# phase 42's rule for a tensor held bf16 against fp32: relative L2 (its 2e-2
+# bound is the scalar loss's); phases 45-46 hold mels and wavs by it
+BF16_TENSOR_RL2 = BF16_STEP_GRAD_RL2
+# DiffVC conversion in bf16 on random weights (phase 48), relative L2 of the
+# bf16 mel from the fp32 one: the samplers amplify the bf16 rounding of the
+# state, and the card reads 0.076 (ml 30) and 0.069 (dpm 6) at the phase's
+# size; a broken bf16 sampler (phase 48's controls) must read beyond the bound
+VC_BF16_RL2 = 0.2
+# phase 49, no hand kernel: each gradient leaf of a bf16 DiffVC step within
+# these relative L2 of the fp32 step's; the card's sound readings of the worst
+# leaf are 5.0e-3 (encoder) and 0.236 (decoder, a rezero gain), and each
+# step's control (a broken bf16 step) must exceed its limit
+VC_ENC_GRAD_RL2 = 1e-2
+VC_DEC_GRAD_RL2 = 0.5
+# the controls of phase 48 that the bound must catch
+VC_CONTROLS_CAUGHT = ("score x2", "step noise dropped", "draws x2")
+EXPORT_TEXT_LEN = 256  # the exported TTS graph's text bucket (TTS_TEXT's ids padded)
+EXPORT_SEED = 47
+EXPORT_ATOL = 1e-5  # reloaded against eager, fp32 (tests/test_export_tts.py:89)
+# the ops of the exported CTC graph, and the kernels a call of it launches
+CTC_EXPORT_OPS = {"fused_logmel": 1, "fused_qkv_attention_fwd": 12, "grouped_posconv": 2}
+CTC_EXPORT_LAUNCHES = {"fused_logmel": 1, "fused_qkv_attention": 12, "grouped_conv1d": 2}
+
+
+def _rel_l2(got, ref):
+    got, ref = got.float(), ref.float()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def phase_bf16_tts(torch, fp32_res=None):
+    """45: bf16 Grad-TTS + HiFi-GAN serving at bench.py's point on bf16
+    copies of both models' parameters (``utils/precision.py``): phase 25's
+    text and bucket 384, 10 Euler and 6 DPM steps. The bf16 mel against the
+    card's fp32 mel with the same noise and the fp32 run's duration path
+    (relative L2 over the valid frames, phase 42's rule for a tensor:
+    BF16_TENSOR_RL2); dtypes bf16, lengths int32, the wav finite; no hand
+    kernel (``tts_e2e_bf16``). Then bench.py's bf16 points with CUDA events
+    (median of 10): e2e RTF at B = 1 (Euler 10, DPM 6), mel-only RTF, B = 16
+    x realtime, each beside phase 25's fp32 number, with peak memory."""
+    from tpu_speech_torch.models.grad_tts import synthesize
+    from tpu_speech_torch.models.hifigan import to_int16_pcm
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.utils.precision import cast_params_bf16
+
+    model, voc = _tts_models(torch)
+    model.cuda(), voc.cuda()
+    m16, v16 = cast_params_bf16(model), cast_params_bf16(voc)
+    check(all(p.dtype == torch.bfloat16 for p in list(m16.parameters()) + list(v16.parameters())),
+          "bf16 copies")
+    kw = dict(temperature=1.5, length_scale=0.91)
+    x1, xl1 = _tts_ids(torch, TTS_TEXT, "cuda")
+    noise = torch.randn(1, TTS_BUCKET, 80, generator=torch.Generator().manual_seed(TTS_SEED))
+    noise = noise.cuda()
+    for solver, steps in (("euler", 10), ("dpm", 6)):
+        with torch.inference_mode():
+            _, d32, attn, yl = synthesize(model, x1, xl1, steps, TTS_BUCKET, solver=solver,
+                                          noise=noise, **kw)
+            _build.reset_launches()
+            _, d16, a16, yl16 = synthesize(m16, x1, xl1, steps, TTS_BUCKET, solver=solver,
+                                           noise=noise.bfloat16(), path=(yl, attn.bfloat16()),
+                                           **kw)
+            n = int(yl[0])
+            wav = v16(d16[:, :n].transpose(1, 2))
+            torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        rel = _rel_l2(d16[0, :n], d32[0, :n])
+        log(f"[45 bf16 tts] {solver} {steps} steps, {x1.shape[1]} ids, {n} frames: bf16 mel "
+            f"against fp32 (same noise and path) relative L2 {rel:.3e} (limit "
+            f"{BF16_TENSOR_RL2}), max "
+            f"|diff| {(d16[0, :n].float() - d32[0, :n]).abs().max().item():.3e}, max|mel| "
+            f"{d32[0, :n].abs().max().item():.3f}; dtypes mel {d16.dtype}, path {a16.dtype}, "
+            f"lengths {yl16.dtype}, wav {wav.dtype}")
+        check(d16.dtype == a16.dtype == wav.dtype == torch.bfloat16 and yl16.dtype == torch.int32,
+              "bf16 dtypes")
+        check(bool(torch.isfinite(d16).all() and torch.isfinite(wav).all()), "bf16 finite")
+        check(rel <= BF16_TENSOR_RL2, f"bf16 {solver} mel: relative L2 {rel}")
+        check(not any(launches.values()), f"hand kernels on bf16 TTS: {launches}")
+
+    def e2e(mdl, vcd, x, xl, steps, solver, vocode=True):
+        g = torch.Generator("cuda").manual_seed(0)
+        with torch.inference_mode():
+            _, dec, _, yl = synthesize(mdl, x, xl, steps, TTS_BUCKET, solver=solver,
+                                       generator=g, **kw)
+            return (to_int16_pcm(vcd(dec.transpose(1, 2)).float()) if vocode else dec), yl
+
+    _build.reset_launches()
+    frames = int(e2e(m16, v16, x1, xl1, 1, "euler", vocode=False)[1][0])
+    e2e(m16, v16, x1, xl1, 10, "euler")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    audio_s = frames * 256 / 22050
+    res = {}
+    fp32 = fp32_res or {}
+    for name, steps, solver, vocode in (("e2e_wav_rtf_10step", 10, "euler", True),
+                                        ("e2e_wav_rtf_dpm6", 6, "dpm", True),
+                                        ("mel_rtf_10step", 10, "euler", False)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: e2e(m16, v16, x1, xl1, steps, solver, vocode), n=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[name] = ms / 1e3 / audio_s
+        log(f"[45 bf16 tts time] {name}_bf16: {ms:.2f} ms for {frames} frames, RTF "
+            f"{res[name]:.5f} (fp32, phase 25: {fp32.get(name, float('nan')):.5f}), peak "
+            f"{peak:.3f} GiB")
+    x16, xl16 = _tts_ids(torch, TTS_TEXT, "cuda", batch=16)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: e2e(m16, v16, x16, xl16, 10, "euler"), n=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res["e2e_throughput_b16"] = 16 * audio_s / (ms / 1e3)
+    log(f"[45 bf16 tts time] e2e_throughput_b16_bf16: {ms:.2f} ms for 16 x {frames} frames, "
+        f"{res['e2e_throughput_b16']:.1f} x realtime (fp32, phase 25: "
+        f"{fp32.get('e2e_throughput_b16', float('nan')):.1f}), peak {peak:.3f} GiB")
+    return launches, res
+
+
+def _tts_export_script():
+    """The fresh process of phase 46: it imports the port only (no JAX, no
+    JAX package), loads each artifact, runs it at seeds 0, 0 and 1, times a
+    call with CUDA events (median of 10) and saves the outputs."""
+    return r'''
+import json, sys, time
+import numpy as np, torch
+t0 = time.perf_counter()
+from tpu_speech_torch.utils.export import load_exported
+x, xl = (torch.from_numpy(np.load(p)).cuda() for p in sys.argv[1:3])
+out = {"import_s": time.perf_counter() - t0}
+for path in sys.argv[3:]:
+    t0 = time.perf_counter()
+    art = load_exported(path)
+    load_s = time.perf_counter() - t0
+    runs = []
+    for seed in (0, 0, 1):
+        wav, n = art.call(x, xl, torch.tensor(seed, dtype=torch.int32, device="cuda"))
+        runs.append((wav.float().cpu().numpy(), n.cpu().numpy()))
+    np.save(path + ".wav0.npy", runs[0][0])
+    np.save(path + ".wav0b.npy", runs[1][0])
+    np.save(path + ".n0.npy", runs[0][1])
+    np.save(path + ".wav1.npy", runs[2][0])
+    seed = torch.tensor(0, dtype=torch.int32, device="cuda")
+    for _ in range(2):
+        art.call(x, xl, seed)
+    times = []
+    for _ in range(10):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(); art.call(x, xl, seed); b.record(); torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    out[path] = {"load_s": load_s, "ms": float(np.median(times)),
+                 "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32],
+                 "dtype": str(wav.dtype), "lengths_dtype": str(n.dtype)}
+bad = sorted(m for m in sys.modules if m in ("jax", "tpu_speech") or
+             m.startswith(("jax.", "tpu_speech.")))
+out["foreign_modules"] = bad
+print(json.dumps(out))
+'''
+
+
+def phase_tts_export(torch, root):
+    """46: ``cli.export_tts.main`` at full width with HiFi-GAN V1, fp32 and
+    ``--bf16`` (text bucket EXPORT_TEXT_LEN, mel bucket 384, 10 Euler
+    steps, B = 1), from phase 23's kind of files (a reference-named .pt, a
+    weight-normed generator .pt, its weights uniform in +-1/sqrt(fan_in) so
+    that the wav follows the mel, and its config); each .pt2 loaded in one
+    fresh process that imports only the port and calls nothing but
+    ``load_exported(path).call`` (which must turn TF32 off: checked), run
+    on bench.py's text at seeds 0, 0 and 1: the same seed the same wav
+    (cuDNN's default algorithms are not bit for bit: within EXPORT_ATOL in
+    fp32, phase 42's rule in bf16), another seed another (by more than
+    1e-3 and 10x that spread);
+    the wav against the eager serving function (``build_serving_fn`` on
+    the same files' weights, seed 0): fp32 within EXPORT_ATOL, bf16 by
+    phase 42's rule (BF16_TENSOR_RL2); the lengths equal. No hand kernel
+    (``tts_export``). The exported call's time beside the eager call's."""
+    from tpu_speech_torch.cli import export_tts
+    from tpu_speech_torch.cli.inference import load_gradtts_state_dict, load_hifigan
+    from tpu_speech_torch.configs import gradtts as cfg
+    from tpu_speech_torch.models.grad_tts import GradTTS
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.text import symbols
+
+    model, voc = _tts_models(torch)
+    with torch.no_grad():  # uniform in +-1/sqrt(fan_in): a wav of order one that follows
+        g = torch.Generator().manual_seed(TTS_SEED + 46)  # the mel (N(0, 0.01) is near-silent)
+        for m in voc.modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+                fan_in, _ = torch.nn.init._calculate_fan_in_and_fan_out(m.weight)
+                for p in (m.weight, m.bias):
+                    p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * fan_in ** -0.5)
+    ckpt = os.path.join(root, "grad-tts.pt")
+    torch.save(model.state_dict(), ckpt)
+    hpt, hjson = write_vocoder(torch, root, voc)
+    del model, voc
+    x, xl = _tts_ids(torch, TTS_TEXT, "cpu")
+    xp = torch.zeros(1, EXPORT_TEXT_LEN, dtype=torch.int32)
+    xp[:, :x.shape[1]] = x
+    np.save(os.path.join(root, "x.npy"), xp.numpy())
+    np.save(os.path.join(root, "xl.npy"), xl.int().numpy())
+    paths, walls = {}, {}
+    _build.reset_launches()
+    for bf16 in (False, True):
+        path = os.path.join(root, f"tts_{'bf16' if bf16 else 'fp32'}.pt2")
+        t0 = time.perf_counter()
+        res = export_tts.main(["-c", ckpt, "-o", path, "--hifigan", hpt, "--hifigan-config",
+                               hjson, "--max-text-len", str(EXPORT_TEXT_LEN), "--max-frames",
+                               str(TTS_BUCKET)] + (["--bf16"] if bf16 else []))
+        walls[bf16] = time.perf_counter() - t0
+        check(res["vocoder"], "exported without the vocoder")
+        paths[bf16] = path
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", _tts_export_script(),
+                          os.path.join(root, "x.npy"), os.path.join(root, "xl.npy"),
+                          paths[False], paths[True]], capture_output=True, text=True, cwd=here,
+                         env={**os.environ, "PYTHONPATH": here}, timeout=600)
+    sub_wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"the fresh process failed:\n{run.stderr[-4000:]}")
+    sub = json.loads(run.stdout.strip().splitlines()[-1])
+    check(not sub["foreign_modules"], f"the fresh process imported {sub['foreign_modules']}")
+    model = GradTTS(**cfg.model_kwargs(len(symbols) + 1))
+    model.load_state_dict(load_gradtts_state_dict(ckpt, cfg.n_enc_layers, cfg.n_spks))
+    voc = load_hifigan(hjson, hpt)
+    xc, xlc = xp.cuda(), xl.int().cuda()
+    seed = torch.zeros((), dtype=torch.int32, device="cuda")
+    for bf16 in (False, True):
+        fn, _ = export_tts.build_serving_fn(model, voc, y_max_length=TTS_BUCKET,
+                                            max_text_len=EXPORT_TEXT_LEN,
+                                            hop_length=cfg.hop_length, bf16=bf16,
+                                            device="cuda")
+        with torch.no_grad():
+            wav, n = fn(xc, xlc, seed)
+            eager_ms = cuda_ms(lambda: fn(xc, xlc, seed), n=10, warmup=2)
+        got = torch.from_numpy(np.load(paths[bf16] + ".wav0.npy"))
+        other = torch.from_numpy(np.load(paths[bf16] + ".wav1.npy"))
+        again = torch.from_numpy(np.load(paths[bf16] + ".wav0b.npy"))
+        same = (again - got).abs().max().item()
+        apart = (other - got).abs().max().item()
+        n_got = np.load(paths[bf16] + ".n0.npy")
+        s = sub[paths[bf16]]
+        wav = wav.float().cpu()
+        err = (got - wav).abs().max().item()
+        rel = _rel_l2(got, wav)
+        tag = "bf16" if bf16 else "fp32"
+        log(f"[46 export tts] {tag}: export {walls[bf16]:.1f} s, "
+            f"{os.path.getsize(paths[bf16]) / 1e6:.1f} MB; fresh process: import "
+            f"{sub['import_s']:.1f} s, load {s['load_s']:.1f} s, wav {s['dtype']} "
+            f"{tuple(got.shape)}, lengths {n_got.tolist()} ({s['lengths_dtype']}); reloaded "
+            f"against eager: max |diff| {err:.3e}, relative L2 {rel:.3e}; seed 0 twice: max "
+            f"|diff| {same:.3e}, relative L2 {_rel_l2(again, got):.3e} (cuDNN's default "
+            f"algorithms are not bit for bit), seed 1 differs by {apart:.3e}; "
+            f"a call: exported {s['ms']:.2f} ms, eager {eager_ms:.2f} ms; TF32 (cuDNN, "
+            f"matmul) after load_exported {s['tf32']}")
+        check(s["tf32"] == [False, False], f"{tag}: load_exported left TF32 on: {s['tf32']}")
+        check(np.array_equal(n_got, n.cpu().numpy()), f"{tag}: lengths {n_got} vs {n}")
+        check((same <= EXPORT_ATOL if not bf16 else _rel_l2(again, got) <= BF16_TENSOR_RL2)
+              and apart > max(1e-3, 10 * same), f"{tag}: seeds")
+        check(bool(torch.isfinite(got).all()), f"{tag}: the reloaded wav is not finite")
+        check(err <= EXPORT_ATOL if not bf16 else rel <= BF16_TENSOR_RL2,
+              f"{tag}: reloaded against eager {err}, {rel}")
+    log(f"    the fresh process took {sub_wall:.1f} s")
+    for p in paths.values():
+        os.remove(p)
+    return dict(_build.LAUNCHES)
+
+
+def _op_nodes(torch, path):
+    counts = {}
+    for node in torch.export.load(path).graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("tpu_speech."):
+            counts[name.split(".")[1]] = counts.get(name.split(".")[1], 0) + 1
+    return counts
+
+
+def _op_and_wrapper_times(torch):
+    """Each registered op of the CTC graph, one call, beside the old
+    wrapper's direct launch (ctypes), at the CTC path's shapes: K1 on (14,
+    384 512), K2-fwd on (14, 604, 1536) H 8 with padded keys, K4 on (14,
+    604, 512) Cg 32 K 128; both routes held equal first."""
+    from tpu_speech_torch.ops import fused_attention as fa
+    from tpu_speech_torch.ops import fused_logmel as fl
+    from tpu_speech_torch.ops import fused_posconv as fp
+
+    _, x, window, fb = k1_spiral_input(torch, np.random.default_rng(EXPORT_SEED))
+    kw = dict(n_fft=512, hop_length=160, num_frames=1 + (x.shape[1] - 512) // 160,
+              mag_mode="power", log_mode="guard", log_guard=2.0 ** -24, mag_eps=0.0)
+    g = torch.Generator(device="cuda").manual_seed(EXPORT_SEED)
+    qkv = torch.randn(14, 604, 1536, device="cuda", generator=g) * 0.3
+    mask = torch.arange(604, device="cuda")[None, :] >= torch.linspace(
+        300, 604, 14, device="cuda").long()[:, None]
+    xc = torch.randn(14, 604, 512, device="cuda", generator=g)
+    w = torch.randn(512, 32, 128, device="cuda", generator=g) * 0.02
+    cases = {
+        "fused_logmel": (lambda: torch.ops.tpu_speech.fused_logmel(
+            x, window, fb, kw["n_fft"], kw["hop_length"], kw["num_frames"], "power", "guard",
+            2.0 ** -24, 0.0), lambda: fl._launch(x, window, fb, **kw)),
+        "fused_qkv_attention_fwd": (
+            lambda: torch.ops.tpu_speech.fused_qkv_attention_fwd(qkv, 8, mask),
+            lambda: fa._launch_fwd(qkv, mask, 8, 0, 0, 1.0, False)[0]),
+        "grouped_posconv": (lambda: torch.ops.tpu_speech.grouped_posconv(xc, w, 16, 64),
+                            lambda: fp._launch(xc, fp.kernel_weights(w, 16), 64,
+                                               "grouped_conv1d")),
+    }
+    res = {}
+    with torch.inference_mode():
+        for name, (op, wrapper) in cases.items():
+            check(torch.equal(op(), wrapper()), f"{name}: the op and the wrapper differ")
+            op_ms, wr_ms = cuda_ms(op, n=20, warmup=3), cuda_ms(wrapper, n=20, warmup=3)
+            res[name] = {"op_ms": op_ms, "wrapper_ms": wr_ms}
+            log(f"[47 op vs wrapper] {name}: a call through torch.ops.tpu_speech {op_ms:.4f} ms, "
+                f"the old wrapper's direct launch {wr_ms:.4f} ms (equal outputs)")
+    return res
+
+
+def phase_spiral_export(torch, ft_root):
+    """47: ``run_spiral --run_mode test --export_model`` from phase 14's
+    finetuned ``ctc_finetune.pt`` on a batch like phase 6's (write_corpus's
+    generator, 14 utterances of up to 24 s): the .pt2 graph holds 1 K1, 12
+    K2-fwd and 2 K4 ``tpu_speech::`` ops; the reloaded program on the batch
+    launches K1 once, K2-fwd 12 times and K4 twice, nothing else
+    (``ctc_export``), and its log-probs equal the eager runner's within
+    EXPORT_ATOL with equal greedy transcripts, its lengths equal; the
+    exported call's time beside the eager one's; each op's time beside the
+    old wrapper's (``_op_and_wrapper_times``)."""
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.eval.wer import ctc_greedy_decode
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.utils.export import load_exported
+
+    root = os.path.join(ft_root, "export")
+    os.makedirs(root)
+    manifest = write_corpus(root, np.random.default_rng(EXPORT_SEED))
+    with open(manifest) as f:
+        lines = f.readlines()[:BATCH]
+    with open(manifest, "w") as f:
+        f.writelines(lines)
+    path = os.path.join(root, "ctc.pt2")
+    ckpt_dir = os.path.join(ft_root, "finetune")
+    t0 = time.perf_counter()
+    res = run_spiral.main(["--config_name", "spiral_base_finetune_ls100_char", "--model_type",
+                           "ctc_finetune", "--run_mode", "test", "--test_manifest", manifest,
+                           "--model_save_dir", os.path.join(root, "run"), "--init_chkpt_dir",
+                           ckpt_dir, "--init_chkpt_file", "ctc_finetune.pt",
+                           "--export_model", path])
+    wall = time.perf_counter() - t0
+    ops = _op_nodes(torch, path)
+    log(f"[47 export spiral] run_spiral --export_model: {res['n']} utts decoded and "
+        f"exported in {wall:.1f} s, {os.path.getsize(path) / 1e6:.1f} MB; tpu_speech:: ops "
+        f"in the graph {ops}")
+    check(ops == CTC_EXPORT_OPS, f"ops in the exported graph: {ops}")
+    wavs, lens = load_batch(manifest, BATCH)
+    wavs, lens = torch.tensor(wavs, device="cuda"), torch.tensor(lens, device="cuda")
+    art = load_exported(path)
+    _build.reset_launches()
+    lp, out_lens = art.call(wavs, lens)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check({k: v for k, v in launches.items() if v} == CTC_EXPORT_LAUNCHES,
+          f"launches of one exported call: {launches}")
+    enc_cfg, model = load_model(torch, os.path.join(ckpt_dir, "ctc_finetune.pt"), "cuda")
+    lp_e, lens_e = infer(torch, enc_cfg, model, wavs, lens)
+    check(torch.equal(out_lens, lens_e), f"lengths {out_lens} vs {lens_e}")
+    worst = max((lp[i, :int(lens_e[i])] - lp_e[i, :int(lens_e[i])]).abs().max().item()
+                for i in range(BATCH))
+    ids = [ctc_greedy_decode(a.cpu().numpy(), lens_e.cpu().numpy(), 0) for a in (lp, lp_e)]
+    with torch.no_grad():
+        exp_ms = cuda_ms(lambda: art.call(wavs, lens), n=10, warmup=2)
+    eager_ms = cuda_ms(lambda: infer(torch, enc_cfg, model, wavs, lens), n=10, warmup=2)
+    log(f"[47 export spiral] reloaded (this process) on (14, 384 000): max |log-prob - "
+        f"eager| {worst:.3e} (limit {EXPORT_ATOL}), greedy transcripts equal "
+        f"{ids[0] == ids[1]}; launches {CTC_EXPORT_LAUNCHES}; a batch: exported "
+        f"{exp_ms:.2f} ms, eager {eager_ms:.2f} ms")
+    check(worst <= EXPORT_ATOL and ids[0] == ids[1], f"exported vs eager: {worst}")
+    os.remove(path)
+    return launches, _op_and_wrapper_times(torch)
+
+
+def phase_bf16_vc(torch, fp32_res=None):
+    """48: bf16 DiffVC conversion at cli/params_vc.py's width, B = 1 x 256
+    frames (bench.py:452-459: parameters, x, x_ref and c in bf16, the U-Net
+    in the input's dtype): ml 30 and dpm 6 against fp32 with the same draws
+    on phase 31's scaled model and draws (VC_SCORE_SCALE, VC_NOISE_SCALE),
+    relative L2 within VC_BF16_RL2, dtypes bf16, finite; no hand kernel
+    (``diffvc_conversion_bf16``). Three broken bf16 runs are controls: the
+    score term x2, the step noise dropped, the draws x2; those named in
+    VC_CONTROLS_CAUGHT must read beyond VC_BF16_RL2. Then bench.py's
+    diffvc_conversion_rtf_30step_bf16 and _dpm6_bf16 on phase 32's model,
+    CUDA events (median of 10), each beside phase 32's fp32 RTF, with peak
+    memory."""
+    import copy
+
+    from tpu_speech_torch.models.diffvc import voice_convert
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.utils.precision import cast_params_bf16
+
+    model, _ = _vc_models(torch)
+    small = copy.deepcopy(model)
+    with torch.no_grad():
+        small.decoder.estimator.final_conv.weight.mul_(VC_SCORE_SCALE)
+        small.decoder.estimator.final_conv.bias.mul_(VC_SCORE_SCALE)
+    small.cuda()
+    s16 = cast_params_bf16(small)
+    s16_score2 = copy.deepcopy(s16)  # a control: the score term mis-scaled
+    with torch.no_grad():
+        s16_score2.decoder.estimator.final_conv.weight.mul_(2)
+        s16_score2.decoder.estimator.final_conv.bias.mul_(2)
+    r = np.random.default_rng(1)
+    x = torch.from_numpy(r.standard_normal((1, VC_FRAMES, 80)).astype(np.float32)).cuda()
+    xr = torch.from_numpy(r.standard_normal((1, VC_FRAMES, 80)).astype(np.float32)).cuda()
+    c = torch.from_numpy(r.standard_normal((1, 256)).astype(np.float32)).cuda()
+    c = c / c.norm()
+    lens = torch.tensor([VC_FRAMES], device="cuda")
+    g = torch.Generator().manual_seed(VC_SEED + 48)
+    b16 = torch.bfloat16
+    _build.reset_launches()
+    for mode, n in (("ml", 30), ("dpm", 6)):
+        zn = (VC_NOISE_SCALE * torch.randn(1, VC_FRAMES, 80, generator=g)).cuda()
+        sn = (VC_NOISE_SCALE * torch.randn(n, 1, VC_FRAMES, 80, generator=g)).cuda()
+        with torch.inference_mode():
+            m32, y32 = voice_convert(small, x, lens, xr, lens, c, n, mode, z_noise=zn,
+                                     step_noise=sn)
+            m16, y16 = voice_convert(s16, x.to(b16), lens, xr.to(b16), lens, c.to(b16), n, mode,
+                                     z_noise=zn.to(b16), step_noise=sn.to(b16))
+            ctl = {name: _rel_l2(voice_convert(mdl, x.to(b16), lens, xr.to(b16), lens,
+                                               c.to(b16), n, mode, z_noise=z.to(b16),
+                                               step_noise=st.to(b16))[1], y32)
+                   for name, mdl, z, st in (("score x2", s16_score2, zn, sn),
+                                            ("step noise dropped", s16, zn, 0 * sn),
+                                            ("draws x2", s16, 2 * zn, 2 * sn))
+                   if mode == "ml" or name != "step noise dropped"}  # dpm: no step noise
+        rel = _rel_l2(y16, y32)
+        log(f"[48 bf16 vc] {mode} {n}: bf16 mel against fp32 (same draws) relative L2 "
+            f"{rel:.3e} (limit {VC_BF16_RL2}), mean_x {_rel_l2(m16, m32):.3e}; max|mel| "
+            f"{y32.abs().max().item():.2f}; dtypes {m16.dtype}, {y16.dtype}; broken bf16 "
+            f"runs (controls): " + ", ".join(f"{k} {v:.3e}" for k, v in ctl.items()))
+        check(y16.dtype == m16.dtype == b16 and bool(torch.isfinite(y16).all()), f"{mode} bf16")
+        check(rel <= VC_BF16_RL2, f"bf16 {mode} conversion: relative L2 {rel}")
+        check(all(v > VC_BF16_RL2 for k, v in ctl.items() if k in VC_CONTROLS_CAUGHT),
+              f"bf16 {mode}: a broken run within the bound: {ctl}")
+    launches = dict(_build.LAUNCHES)
+    check(not any(launches.values()), f"hand kernels on bf16 conversion: {launches}")
+    del small, s16, s16_score2
+    model, _ = _vc_models(torch, zero_gains=True)
+    m16 = cast_params_bf16(model.cuda())
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.standard_normal((1, VC_FRAMES, 80)).astype(np.float32)).cuda()
+    xr = torch.from_numpy(r.standard_normal((1, VC_FRAMES, 80)).astype(np.float32)).cuda()
+    c = torch.from_numpy(r.standard_normal((1, 256)).astype(np.float32)).cuda()
+    x, xr, c = x.to(b16), xr.to(b16), c.to(b16)
+    audio_s = VC_FRAMES * 256 / VC_SR
+    fp32 = fp32_res or {}
+    res = {}
+    for name, n, mode in (("diffvc_conversion_rtf_30step", 30, "ml"),
+                          ("diffvc_conversion_rtf_dpm6", 6, "dpm")):
+        def convert():
+            gg = torch.Generator("cuda").manual_seed(0)
+            with torch.inference_mode():
+                return voice_convert(m16, x, lens, xr, lens, c, n, mode, generator=gg)[1]
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(convert, n=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[name] = dict(ms=ms, rtf=ms / 1e3 / audio_s, peak_gib=peak)
+        log(f"[48 bf16 vc time] {name}_bf16: {ms:.2f} ms, RTF {ms / 1e3 / audio_s:.5f} (fp32, "
+            f"phase 32: {fp32.get(name, {}).get('rtf', float('nan')):.5f}), peak {peak:.3f} GiB")
+    return launches, res
+
+
+def _vc_subset(data, root, n_speakers):
+    """A DiffVC data dir of the first ``n_speakers`` of ``data``'s, by links."""
+    sub = os.path.join(root, "vc_subset")
+    for d in ("mels", "embeds", "textgrids", "mels_mode"):
+        os.makedirs(os.path.join(sub, d))
+        for spk in sorted(os.listdir(os.path.join(data, "mels")))[:n_speakers]:
+            os.symlink(os.path.join(data, d, spk), os.path.join(sub, d, spk))
+    return sub
+
+
+def phase_bf16_vc_train(torch, root, fp32_res=None):
+    """49: bf16 DiffVC training. ``train_enc.main --precision bf16`` for one
+    epoch of 2 steps at B = 128 on phase 34's data, then ``train_dec.main
+    --precision bf16`` from its enc.pt for one epoch of 2 steps at B = 32 on
+    its first 4 speakers: the losses finite, the saved weights float32, no
+    hand kernel (``diffvc_enc_train_bf16``, ``diffvc_dec_train_bf16``). One
+    bf16 step of each held to its fp32 step at phase 36's batches on the
+    same weights, batch and draws (_hold_bf16_step: the loss within 2e-2;
+    no hand kernel, so every gradient leaf within VC_ENC_GRAD_RL2 or
+    VC_DEC_GRAD_RL2, and a broken bf16 step, the control, beyond it); the
+    bf16 steps' time and peak
+    memory beside phase 36's fp32 ones, float32 masters and Adam moments
+    after them."""
+    import copy
+
+    from tpu_speech_torch.cli import train_dec, train_enc
+    from tpu_speech_torch.configs import diffvc as vc_cfg
+    from tpu_speech_torch.models.diffvc import DiffVC
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.diffvc import dec_train_step, enc_train_step
+    from tpu_speech_torch.train.optim import AdamW
+
+    data = os.path.join(root, "vc")
+    launches, runs = {}, {}
+    sub = _vc_subset(data, root, 4)
+    for stage, cli, extra in (
+            ("enc", train_enc, ["--data-dir", data, "--batch-size", "128"]),
+            ("dec", train_dec, ["--data-dir", sub, "--batch-size", "32"])):
+        if stage == "dec":
+            extra = extra + ["--enc-ckpt", runs["enc"]["state_dict"]]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = cli.main(extra + ["--epochs", "1", "--precision", "bf16", "--log-dir",
+                                os.path.join(root, f"{stage}_bf16")])
+        torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - t0
+        launches[stage] = dict(_build.LAUNCHES)
+        runs[stage] = res
+        sd = torch.load(res["state_dict"], weights_only=True)
+        losses = [h["loss"] for h in res["history"]]
+        log(f"[49 bf16 vc train cli] {stage} --precision bf16: {res['iteration']} steps in "
+            f"{res['wall']:.1f} s, losses {[round(v, 4) for v in losses]}; weights saved "
+            f"{sorted({str(v.dtype) for v in sd.values()})}")
+        check(res["iteration"] == 2 and np.isfinite(losses).all(), f"{stage}: {losses}")
+        check(all(v.dtype == torch.float32 for v in sd.values()), f"{stage}: saved dtypes")
+        check(not any(launches[stage].values()), f"hand kernels on bf16 {stage}: {launches}")
+
+    r = np.random.default_rng(49)
+    b, t = ENC_POINT
+    enc = train_enc.build_encoder().cuda().eval()  # dropout off: one mask for both steps
+    ebatch = {"x": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+              "y": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+              "lengths": torch.full((b,), t, device="cuda")}
+
+    def enc_run(bf16, batch=ebatch):
+        m = copy.deepcopy(enc)
+        out = enc_train_step(m, torch.optim.SGD(m.parameters(), lr=1.0), batch, bf16=bf16)
+        check(out["loss"].dtype == torch.float32, "enc loss dtype")
+        return out["loss"].item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    # the control: a mask that drops the last eighth of every row's frames
+    short = dict(ebatch, lengths=torch.full((b,), t - t // 8, device="cuda"))
+    _hold_bf16_step("49 diffvc encoder step bf16 vs fp32, B = 128 x 128 (control: the last "
+                    "eighth of the frames masked)", enc_run, grad_limit=VC_ENC_GRAD_RL2,
+                    control=lambda: enc_run(True, short))
+    b, t = DEC_POINT
+    torch.manual_seed(vc_cfg.seed)
+    dec = DiffVC(**vc_cfg.model_kwargs()).cuda().train()
+    c = torch.randn(b, 256, generator=torch.Generator().manual_seed(49))
+    dbatch = {"mel1": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+              "mel2": torch.from_numpy(r.normal(-5, 2, (b, t, 80)).astype(np.float32)).cuda(),
+              "mel_lengths": torch.full((b,), t, device="cuda"),
+              "c": (c / c.norm(dim=1, keepdim=True)).cuda()}
+    g = torch.Generator().manual_seed(49)
+    tt = torch.clamp(torch.rand(b, generator=g), 1e-5, 1 - 1e-5).cuda()
+    zz = torch.randn(b, t, 80, generator=g).cuda()
+
+    def dec_run(bf16, z=zz):
+        m = copy.deepcopy(dec)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        out = dec_train_step(m, torch.optim.SGD(m.parameters(), lr=1.0), dbatch, t=tt.to(dt),
+                             z=z.to(dt), bf16=bf16)
+        check(out["loss"].dtype == torch.float32, "dec loss dtype")
+        return out["loss"].item(), {n: p.grad.cpu() for n, p in m.named_parameters()
+                                    if not n.startswith("encoder.")}
+
+    _hold_bf16_step("49 diffvc decoder step bf16 vs fp32, B = 32 x 128 (the same t and z; "
+                    "control: z x 2)", dec_run, grad_limit=VC_DEC_GRAD_RL2,
+                    control=lambda: dec_run(True, 2 * zz))
+    fp32 = fp32_res or {}
+    res = {}
+    for stage, model, batch, step, lr in (("enc", enc.train(), ebatch, enc_train_step, 5e-4),
+                                          ("dec", dec, dbatch, dec_train_step, 1e-4)):
+        opt = AdamW(model.parameters(), lr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(model, opt, batch, None, bf16=True), n=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[stage] = {"ms": ms, "peak_gib": peak}
+        check(all(p.dtype == opt.state[p]["mu"].dtype == opt.state[p]["nu"].dtype
+                  == torch.float32 for p in model.parameters()),
+              f"{stage}: masters or moments not float32")
+        ref = fp32.get(stage, {})
+        log(f"[49 bf16 vc train time] {stage} step bf16, B = "
+            f"{ENC_POINT if stage == 'enc' else DEC_POINT}: {ms:.2f} ms (fp32, phase 36: "
+            f"{ref.get('ms', float('nan')):.2f} ms), peak {peak:.2f} GiB (fp32 "
+            f"{ref.get('peak_gib', float('nan')):.2f} GiB); masters and Adam moments float32")
+        del opt
+    del enc, dec
+    torch.cuda.empty_cache()
+    return {"diffvc_enc_train_bf16": launches["enc"],
+            "diffvc_dec_train_bf16": launches["dec"]}, res
+
+
 def main():
     import torch
 
@@ -4595,6 +5253,7 @@ def main():
     bwd_err, k2_bwd_t = phase_k2_bwd(torch, gen)
     k4_err, k4_dx_err, k4_t = phase_k4(torch, gen)
     k3_err, k3_t, k3_launches = phase_k3(torch, gen)
+    elapsed("phases 1-13")
     spiral_tmp = tempfile.TemporaryDirectory()  # phase 9's and 14's corpora, for 37-39
     root = spiral_tmp.name
     pre_launches, st2vec_pt = phase_pretrain_slice(torch, rng, root)
@@ -4605,6 +5264,9 @@ def main():
     ft_launches = phase_finetune_slice(torch, rng, ft_root, st2vec_pt)
     phase_finetune_cpu_vs_card(torch)
     phase_finetune_time(torch, ft_root)
+    elapsed("phases 14-16")
+    ctc_export_launches, op_times = phase_spiral_export(torch, ft_root)
+    elapsed("phase 47")
     k16 = phase_bf16_kernels(torch, gen)
     pre16_launches = phase_bf16_pretrain_slice(torch, root)
     phase_bf16_pretrain_time(torch, root)
@@ -4615,32 +5277,44 @@ def main():
     phase_accum(torch, root, ft_root)
     phase_finetune_accum_equiv(torch)
     drop_run_outputs(root)
+    elapsed("phases 17-22")
     tts_root = os.path.join(root, "tts")
     os.makedirs(tts_root)
     tts_launches = phase_tts_slice(torch, tts_root)
     phase_tts_cpu_vs_card(torch)
-    phase_tts_time(torch)
+    tts_res = phase_tts_time(torch)
+    elapsed("phases 23-25")
+    tts16_launches, _ = phase_bf16_tts(torch, tts_res)
+    tts_export_launches = phase_tts_export(torch, tts_root)
+    elapsed("phases 45-46")
     k_mas = phase_mas(torch, gen)
     with tempfile.TemporaryDirectory() as root:
         gt_launches = phase_gradtts_train_slice(torch, rng, root)
     phase_gradtts_cpu_vs_card(torch)
     phase_gradtts_train_time(torch)
+    elapsed("phases 26-29")
     with tempfile.TemporaryDirectory() as root:
         vc_launches, vc_cli = phase_vc_slice(torch, rng, root)
     phase_vc_cpu_vs_card(torch)
-    phase_vc_time(torch, vc_cli)
+    vc_res = phase_vc_time(torch, vc_cli)
+    vc16_launches, _ = phase_bf16_vc(torch, vc_res)
+    elapsed("phases 30-32, 48")
     tr_rng = np.random.default_rng(TR_SEED)
     with tempfile.TemporaryDirectory() as root:
         ge2e_launches, spk_pt, tr_wavs, clean = phase_spk_train(torch, tr_rng, root)
         tr_launches = phase_vc_train_slice(torch, tr_rng, root, tr_wavs, spk_pt)
         phase_train_cpu_vs_card(torch)
-        phase_train_time(torch, clean)
+        train_res = phase_train_time(torch, clean)
+        tr16_launches, _ = phase_bf16_vc_train(torch, root, train_res)
     tr_launches["ge2e_train"] = ge2e_launches
+    tr_launches.update(tr16_launches)
+    elapsed("phases 33-36, 49")
     root = spiral_tmp.name
     resume_launches, pre_dir = phase_pretrain_resume(torch, root)
     val_launches = phase_validation(torch, root, pre_dir)
     arch_launches = phase_archives(torch, root, os.path.join(root, "ft"), pre_dir)
     spiral_tmp.cleanup()
+    elapsed("phases 37-39")
     with tempfile.TemporaryDirectory() as root:
         hg_launches, hg_corpus = phase_hifigan_train_slice(
             torch, np.random.default_rng(HG_SEED), root)
@@ -4665,7 +5339,10 @@ def main():
                 "pretrain_validation": val_launches[key],
                 "finetune_cli_archive": arch_launches[key],
                 "hifigan_train_step": hg_launches[key] + hg16_launches[key],
-                "gradtts_train_step_bf16": gt16_launches[key]}
+                "gradtts_train_step_bf16": gt16_launches[key],
+                "tts_e2e_bf16": tts16_launches[key], "tts_export": tts_export_launches[key],
+                "ctc_export": ctc_export_launches[key],
+                "diffvc_conversion_bf16": vc16_launches[key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -4707,6 +5384,11 @@ def main():
                     + k2["shape"].split("; ")[-1])
     k4_b1, k4_b2 = k4_t[K4_SHAPES[0]], k4_t[K4_SHAPES[1]]
     k3_b1, k3_b2 = k3_t[K3_SHAPES[0]], k3_t[K3_SHAPES[1]]
+    # phase 47: a call through the registered op beside the old wrapper's
+    k1 = dict(k1, op_ms=op_times["fused_logmel"]["op_ms"],
+              wrapper_ms=op_times["fused_logmel"]["wrapper_ms"])
+    k2 = dict(k2, op_ms=op_times["fused_qkv_attention_fwd"]["op_ms"],
+              wrapper_ms=op_times["fused_qkv_attention_fwd"]["wrapper_ms"])
     kernels = [
         path_kernel("fused_logmel", "fused_logmel", "tpu_speech/ops/fused_logmel.py:203",
                     src="fused_logmel.cu", **k1),
@@ -4741,6 +5423,8 @@ def main():
                     src="fused_posconv.cu", max_abs_err=k4_err, ms=k4_b1["ms"],
                     plain_ms=k4_b1["plain_ms"], bound_ms=k4_b1["bound"][0],
                     bound_by=k4_b1["bound"][1], library_ms=k4_b1["library_ms"],
+                    op_ms=op_times["grouped_posconv"]["op_ms"],
+                    wrapper_ms=op_times["grouped_posconv"]["wrapper_ms"],
                     shape=f"x (14, 604, 512) Cg 32 K 128, forward; forward + backward "
                           f"{k4_b1['fb_ms']:.4f} ms vs plain {k4_b1['fb_plain_ms']:.4f} ms; "
                           f"at (14, 302, 768) Cg 48: forward {k4_b2['ms']:.4f} vs "
@@ -4790,7 +5474,10 @@ def main():
     check(len(kernels) == 14, f"{len(kernels)} kernel entries")  # K1, 6 fp32, 6 bf16, MAS
     for k in kernels:
         check(all(k["launches_by_path"][path] == 0 for path in tr_launches),
-              f"{k['name']} launched on a training path of phases 33-34")
+              f"{k['name']} launched on a training path of phases 33-34 or 49")
+        check(all(k["launches_by_path"][path] == 0
+                  for path in ("tts_e2e_bf16", "tts_export", "diffvc_conversion_bf16")),
+              f"{k['name']} launched on bf16 TTS, TTS export or bf16 conversion (45, 46, 48)")
         check(k["launches_by_path"]["hifigan_train_step"] == 0,
               f"{k['name']} launched on HiFi-GAN training (phases 40 and 42)")
         check((k["launches_by_path"]["gradtts_train_step_bf16"] > 0)

@@ -556,12 +556,16 @@ def test_clis_raise_without_a_card(tmp_path):
 
 
 def test_clis_refuse_bf16_and_orbax(tmp_path):
-    for cli, extra in ((train_enc, []), (train_dec, ["--enc-ckpt", "enc.pt"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(["--data-dir", str(tmp_path), "--device", "cpu", "--precision", "bf16"]
-                     + extra)
+    """Orbax stays refused (an --enc-ckpt directory); --precision bf16 is
+    ported (``tests/test_torch_diffvc_bf16.py`` trains with it), so both
+    CLIs parse it and neither refuses it any more."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_dec.load_encoder_params(str(tmp_path))
+    for cli, extra in ((train_enc, []), (train_dec, ["--enc-ckpt", "enc.pt"])):
+        args = cli.build_parser().parse_args(
+            ["--data-dir", str(tmp_path), "--precision", "bf16"] + extra)
+        assert args.precision == "bf16"
+        assert not hasattr(cli, "refuse_bf16")
 
 
 # ---------------------------------------------------------------- checkpoints across packages

@@ -497,6 +497,17 @@ def test_port_cli_raises_without_a_card(tmp_path):
 
 
 def test_port_cli_refuses_unported_checkpoints(tmp_path):
-    for path in (str(tmp_path), str(tmp_path / "model.tpu_speech")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            inference.load_gradtts_state_dict(path, 2, 1)
+    """An orbax directory stays refused; a ``.tpu_speech`` archive, as the
+    JAX package's ``GradTTSTrainer.save_archive`` writes it, loads to the
+    state_dict it was made from, bit for bit (``test_torch_tts_bf16.py``
+    serves one)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        inference.load_gradtts_state_dict(str(tmp_path), 2, 1)
+    from tpu_speech.utils.archive import save_archive
+
+    model = _port_model(5)
+    path = str(tmp_path / "model.tpu_speech")
+    save_archive(path, {}, _to_jax(model)["params"])
+    sd = inference.load_gradtts_state_dict(path, CFG["n_enc_layers"], 1)
+    ref = model.state_dict()
+    assert sd.keys() == ref.keys() and all(torch.equal(sd[k], ref[k]) for k in ref)

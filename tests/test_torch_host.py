@@ -602,3 +602,30 @@ def test_hifigan_data_pipeline_same(tmp_path):
                 mod.MelAudioDataset(files, **kw)[0]
             errors.append(str(e.value))
         assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("eta,window_size", [(0.15, 0), (0.0, 0), (0.15, 321)],
+                         ids=["default", "frozen-profile", "odd-window"])
+def test_logmmse_same(eta, window_size):
+    """``audio/logmmse.py``'s copy: ``profile_noise`` and ``denoise`` equal
+    the JAX package's on the same numpy input (a tone under noise, a noise
+    clip), bit for bit; a clip shorter than a window raises alike."""
+    from tpu_speech.audio import logmmse as j_lm
+    from tpu_speech_torch.audio import logmmse as t_lm
+
+    sr = 16000
+    rng = np.random.default_rng(3)
+    t = np.arange(sr) / sr
+    noise = 0.2 * rng.standard_normal(sr)
+    noisy = (0.5 * np.sin(2 * np.pi * 440 * t) + noise).astype(np.float32)
+    ours, theirs = (m.profile_noise(noise[: sr // 2], sr, window_size) for m in (t_lm, j_lm))
+    for f in ("sampling_rate", "window_size", "len1", "len2", "n_fft"):
+        assert getattr(ours, f) == getattr(theirs, f)
+    for f in ("win", "noise_mu2"):
+        np.testing.assert_array_equal(getattr(ours, f), getattr(theirs, f))
+    a, b = t_lm.denoise(noisy, ours, eta), j_lm.denoise(noisy, theirs, eta)
+    assert a.dtype == b.dtype == np.float32 and a.shape == noisy.shape
+    np.testing.assert_array_equal(a, b)
+    for m in (t_lm, j_lm):
+        with pytest.raises(ValueError, match="shorter than one analysis window"):
+            m.profile_noise(noise[:100], sr)

@@ -992,3 +992,73 @@ def test_maximum_path_kernel_equals_plain(cuda, shape, ties):
         st = stamps.cpu()
         assert (st[:, 4] > st[:, 2]).all() and (st[:, 2] >= st[:, 1]).all()
         assert (st[:, 6] > st[:, 5]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_registered_ops_launch_their_kernels_and_match_plain(cuda, dtype):
+    """``tpu_speech::fused_logmel`` (fp32 only), ``::fused_qkv_attention_fwd``
+    and ``::grouped_posconv`` on CUDA tensors: each launches its hand kernel
+    once (the counters say so) and equals its plain version on the same
+    inputs within the kernels' limits (K1 2e-4, K2 1e-4, K4 1e-4 x max(1,
+    max|plain|); bf16 8e-3 x max(1, max|plain|)); the fake implementations
+    give the kernels' shapes and dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    g = torch.Generator().manual_seed(16)
+    qkv = (torch.randn(3, 77, 3 * 128, generator=g) * 0.3).to(cuda, dtype)
+    mask = torch.zeros(3, 77, dtype=torch.bool)
+    mask[1, 50:] = True
+    mask = mask.to(cuda)
+    x = torch.randn(2, 90, 256, generator=g).to(cuda, dtype)
+    w = (torch.randn(256, 32, 17, generator=g) * 0.05).to(cuda, dtype)
+    cases = [("fused_qkv_attention", torch.ops.tpu_speech.fused_qkv_attention_fwd,
+              (qkv, 4, mask), qkv_attention_plain(qkv, 4, mask), 1e-4),
+             ("grouped_conv1d", torch.ops.tpu_speech.grouped_posconv, (x, w, 8, 8),
+              grouped_conv1d_plain(x, w, 8, 8), 1e-4)]
+    if dtype == torch.float32:
+        win, fb = _spiral_consts(cuda)
+        wav = torch.randn(2, 16512, generator=g).to(cuda)
+        kw = (512, 160, 100, "power", "guard", 2.0 ** -24, 0.0)
+        cases.append(("fused_logmel", torch.ops.tpu_speech.fused_logmel, (wav, win, fb) + kw,
+                      logmel_plain(wav, win, fb, n_fft=512, hop_length=160, num_frames=100,
+                                   mag_eps=0.0), 2e-4))
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    for key, op, args, plain, tol in cases:
+        _build.reset_launches()
+        got = op(*args)
+        torch.cuda.synchronize()
+        name = key if key == "fused_logmel" else key + suffix
+        assert _build.LAUNCHES == _counts(**{name: 1}), (key, _build.LAUNCHES)
+        assert got.dtype == plain.dtype and got.shape == plain.shape
+        scale = 1.0 if key == "fused_logmel" else max(1.0, plain.float().abs().max().item())
+        bound = 8e-3 if dtype == torch.bfloat16 else tol
+        assert (got.float() - plain.float()).abs().max().item() <= bound * scale, key
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                        for a in args))
+        assert fake.shape == got.shape and fake.dtype == got.dtype and fake.device == got.device
+
+
+def test_load_exported_runs_a_card_program_in_full_fp32(cuda, tmp_path):
+    """A program traced on the card and loaded with ``load_exported`` turns
+    TF32 off for the process (cuDNN's convolutions and cuBLAS's matmuls), so
+    an fp32 conv program equals the eager fp32 conv within 1e-5."""
+    from tpu_speech_torch.utils.export import export_fn, load_exported
+
+    g = torch.Generator().manual_seed(46)
+    conv = torch.nn.Conv1d(80, 256, 7, padding=3).to(cuda)
+    x = torch.randn(4, 80, 384, generator=g).to(cuda)
+    path = str(tmp_path / "conv.pt2")
+    export_fn(conv, (x,), path)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        art = load_exported(path)
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        got = art.call(x)
+        with torch.no_grad():
+            want = conv(x)
+        assert (got - want).abs().max().item() <= 1e-5
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -459,7 +459,7 @@ def test_every_jax_flag_parses_with_the_jax_default():
     ("--config_path", "conf/other", 6), ("--structured_config", "false", 6),
     ("--tokenizer_file", "tok.model", 6), ("--beam_size", "4", 6),
     ("--lm_manifest", "lm.json", 6), ("--lm_alpha", "0.3", 6), ("--lm_order", "3", 6),
-    ("--streaming_eval", "true", 9), ("--export_model", "m.pt", 9),
+    ("--streaming_eval", "true", 9),
     ("--seq_parallel", "2", 10), ("--fsdp", "true", 10), ("--num_nodes", "2", 10),
     ("--node_rank", "0", 10), ("--master_addr", "h:1", 10), ("--num_gpus", "2", 10),
     ("--num_devices", "4", 10), ("--config_name", "spiral_tiny_stream_test", 6),

@@ -16,8 +16,9 @@ Checkpoints: ``-c`` takes a reference PyTorch state_dict (``.pt``; its
 names are the port's) or JAX trees in an ``.npz`` (``params/<path>`` keys,
 through ``compat/jax_gradtts.py::gradtts_from_jax``); ``--hifigan`` a
 reference generator state_dict (``weight_g``/``weight_v`` pairs are folded,
-a ``{"generator": ...}`` wrapper is unwrapped). Orbax directories and
-``.tpu_speech`` archives raise (ROADMAP.md, Queue 1).
+a ``{"generator": ...}`` wrapper is unwrapped). ``-c`` also takes the
+``.tpu_speech`` archive that the JAX package's ``GradTTSTrainer.save_archive``
+writes (``utils/archive.py``). Orbax directories raise (ROADMAP.md, Queue 1).
 ``--cmudict`` names the CMU dictionary (default the config's
 ``resources/cmu_dictionary``; an empty string gives character input).
 
@@ -47,6 +48,7 @@ from tpu_speech_torch.data.wav import write_wav
 from tpu_speech_torch.models.grad_tts import GradTTS, durations, synthesize_from_encoding
 from tpu_speech_torch.models.hifigan import Generator, to_int16_pcm
 from tpu_speech_torch.text import CMUDict, intersperse, symbols, text_to_sequence
+from tpu_speech_torch.utils.archive import load_archive
 from tpu_speech_torch.utils.device import resolve_device
 
 HIFIGAN_CONFIG = "./checkpts/hifigan-config.json"
@@ -54,10 +56,10 @@ HIFIGAN_CHECKPT = "./checkpts/hifigan.pt"
 
 
 def _refuse_unported(path: str) -> None:
-    if os.path.isdir(path) or path.endswith(".tpu_speech"):
+    if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path}: orbax checkpoints and .tpu_speech archives are not ported yet "
-            "(ROADMAP.md, Queue 1); pass a .pt state_dict or an .npz of JAX trees")
+            f"{path}: orbax checkpoints are not ported (ROADMAP.md, Queue 1); pass a .pt "
+            "state_dict, an .npz of JAX trees or a .tpu_speech archive")
 
 
 def load_gradtts_state_dict(path: str, n_enc_layers: int, n_spks: int):
@@ -65,6 +67,8 @@ def load_gradtts_state_dict(path: str, n_enc_layers: int, n_spks: int):
     _refuse_unported(path)
     if path.endswith(".npz"):
         return gradtts_from_jax(load_jax_npz(path, ("params",))[0], n_enc_layers, n_spks)
+    if path.endswith(".tpu_speech"):  # GradTTSTrainer.save_archive's (gradtts.py:153-164)
+        return gradtts_from_jax(load_archive(path)[1], n_enc_layers, n_spks)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

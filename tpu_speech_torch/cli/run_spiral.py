@@ -68,8 +68,11 @@ card.
 Flags that parse but are not ported yet stop the run when set to anything but
 their default, naming the ROADMAP Queue 1 item that will port them (``NOT_PORTED``):
 YAML configs, subword tokenizers, beam search and the n-gram LM (item 6),
-streaming evaluation and export (item 9), and the multi-device and
-multi-node modes (item 10). ``--use_horovod`` warns and ``--test_mode`` is
+streaming evaluation (item 9), and the multi-device and multi-node modes
+(item 10). ``--export_model PATH`` (test mode) saves the wav -> log-probs
+graph after the evaluation as a ``torch.export`` program
+(``SpiralFinetuneRunner.export_model``), which
+``utils/export.py::load_exported`` runs. ``--use_horovod`` warns and ``--test_mode`` is
 ignored, as in the JAX CLI.
 """
 
@@ -98,7 +101,7 @@ from tpu_speech_torch.utils.surgery import parse_skip_vars
 NOT_PORTED = {
     "config_path": 6, "structured_config": 6, "tokenizer_file": 6, "beam_size": 6,
     "lm_manifest": 6, "lm_alpha": 6, "lm_order": 6,
-    "streaming_eval": 9, "export_model": 9,
+    "streaming_eval": 9,
     "seq_parallel": 10, "fsdp": 10, "num_nodes": 10, "node_rank": 10, "master_addr": 10,
 }
 _ITEMS = {6: "decoding, text and configs", 9: "remaining families and tools",
@@ -194,7 +197,9 @@ def build_parser():
     p.add_argument("--lm_manifest", type=str, default="", help="not ported (item 6)")
     p.add_argument("--lm_alpha", type=float, default=0.5, help="not ported (item 6)")
     p.add_argument("--lm_order", type=int, default=4, help="not ported (item 6)")
-    p.add_argument("--export_model", type=str, default="", help="not ported (item 9)")
+    p.add_argument("--export_model", type=str, default="",
+                   help="test mode: save the wav -> log-probs graph as a torch.export "
+                   ".pt2 at this path (utils/export.py)")
     p.add_argument("--tokenizer_file", type=str, default="",
                    help="subword tokenizers are item 6")
     p.add_argument("--max_epochs", type=int, default=0,
@@ -372,6 +377,9 @@ def main(argv=None) -> dict:
     print(f"TEST: WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
           f"| {results['n']} utts")
     print(f"per-utterance diagnosis: {results['diagnosis_html']}")
+    if args.export_model:
+        results["exported"] = runner.export_model(args.export_model)
+        print(f"exported: {results['exported']}")
     return results
 
 

@@ -21,7 +21,8 @@ model's reference-named state_dict, which ``cli.inference_vc -c`` loads.
 (``params/<path>`` keys); an orbax directory raises (ROADMAP.md, Queue 1).
 The decoder's initial weights are the reference's after
 ``torch.manual_seed(seed)``. ``--device`` defaults to ``cuda`` and raises
-without a card. fp32 only: ``--precision bf16`` raises.
+without a card. ``--precision bf16`` trains on bf16 copies of the float32
+parameters (``train/diffvc.py``, the JAX step's ``bf16``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import Dict
 
 import torch
 
-from tpu_speech_torch.cli.train_enc import images_available, refuse_bf16
+from tpu_speech_torch.cli.train_enc import images_available
 from tpu_speech_torch.compat.jax_diffvc import fwd_diffusion_from_jax
 from tpu_speech_torch.compat.jax_spiral import load_jax_npz
 from tpu_speech_torch.configs import diffvc as params
@@ -49,7 +50,7 @@ def load_encoder_params(enc_path: str) -> Dict[str, torch.Tensor]:
     reference-named state_dict (``cli/train_dec.py::load_encoder_params:23``)."""
     if os.path.isdir(enc_path):
         raise NotImplementedError(
-            f"{enc_path}: orbax checkpoints are not ported yet (ROADMAP.md, Queue 1); pass the "
+            f"{enc_path}: orbax checkpoints are not ported (ROADMAP.md, Queue 1); pass the "
             "encoder's .pt state_dict or an .npz of its JAX params")
     if enc_path.endswith(".npz"):
         return fwd_diffusion_from_jax(load_jax_npz(enc_path, ("params",))[0], params.layers)
@@ -67,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=110)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
-                    help="fp32 only; bf16 raises (ROADMAP.md, Queue 1)")
+                    help="bf16: the forward and backward on bf16 copies of the float32 "
+                         "parameters")
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; 'cpu' runs on the CPU")
@@ -77,7 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    refuse_bf16(args.precision)
 
     dataset = VCDecDataset(args.data_dir, args.val_file, args.exc_file,
                            shuffle_seed=params.seed)
@@ -100,7 +101,7 @@ def main(argv=None) -> dict:
     trainer = DiffVCTrainer(model, dec_train_step, args.log_dir, args.lr, seed=params.seed,
                             exp=exp, preview_fn=make_dec_preview(
                                 preview_batch, sample_rate=params.sampling_rate,
-                                images=images_available()))
+                                images=images_available()), bf16=args.precision == "bf16")
     res = trainer.fit(loader, args.epochs)
     res["state_dict"] = trainer.save_state_dict("diffvc")
     res["n_params"] = n_params

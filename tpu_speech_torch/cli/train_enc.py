@@ -17,8 +17,9 @@ reference-named state_dict (the reference's ``FwdDiffusion`` names), which
 ``cli.train_dec --enc-ckpt`` and the JAX package's ``cli/train_dec.py``
 load. The model's initial weights are the reference's (each module's
 PyTorch default) after ``torch.manual_seed(seed)``. ``--device`` defaults
-to ``cuda`` and raises without a card. fp32 only: ``--precision bf16``
-raises (ROADMAP.md, Queue 1).
+to ``cuda`` and raises without a card. ``--precision bf16`` trains on bf16
+copies of the float32 parameters (``train/diffvc.py``, the JAX step's
+``bf16``).
 """
 
 from __future__ import annotations
@@ -35,12 +36,6 @@ from tpu_speech_torch.models.diffvc import FwdDiffusion
 from tpu_speech_torch.train.diffvc import DiffVCTrainer, enc_train_step, make_enc_preview
 from tpu_speech_torch.utils.device import resolve_device
 from tpu_speech_torch.utils.exp_manager import ExpManager
-
-
-def refuse_bf16(precision: str) -> None:
-    if precision != "fp32":
-        raise NotImplementedError(f"precision {precision!r}: DiffVC training runs in fp32; "
-                                  "bf16 is not ported yet (ROADMAP.md, Queue 1)")
 
 
 def images_available() -> bool:
@@ -61,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=300)
     ap.add_argument("--batch-size", type=int, default=128)
     ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
-                    help="fp32 only; bf16 raises (ROADMAP.md, Queue 1)")
+                    help="bf16: the forward and backward on bf16 copies of the float32 "
+                         "parameters")
     ap.add_argument("--lr", type=float, default=5e-4)
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; 'cpu' runs on the CPU")
@@ -80,7 +76,6 @@ def build_encoder() -> FwdDiffusion:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    refuse_bf16(args.precision)
 
     dataset = VCEncDataset(args.data_dir, args.exc_file, args.avg_type,
                            shuffle_seed=params.seed)
@@ -100,7 +95,7 @@ def main(argv=None) -> dict:
     trainer = DiffVCTrainer(model, enc_train_step, args.log_dir, args.lr, seed=params.seed,
                             exp=exp, preview_fn=make_enc_preview(
                                 preview_batch, sample_rate=params.sampling_rate,
-                                images=images_available()))
+                                images=images_available()), bf16=args.precision == "bf16")
     res = trainer.fit(loader, args.epochs)
     res["state_dict"] = trainer.save_state_dict("enc")
     res["n_params"] = n_params

@@ -40,10 +40,20 @@ def get_noise(t, beta_init: float, beta_term: float, cumulative: bool = False):
     return beta_init + (beta_term - beta_init) * t
 
 
-def _f32(x) -> float:
-    """A host scalar rounded to float32, as the JAX package's float32
-    constants are."""
-    return float(np.float32(x))
+def _step_scalars(i: int, n_timesteps: int, beta_min: float, beta_max: float,
+                  dtype: torch.dtype):
+    """(t, beta(t), h, sqrt(beta(t) h)) of Euler step ``i`` as Python floats,
+    computed in ``dtype`` as the JAX scan computes them in z's dtype: every
+    constant rounded to the dtype first (JAX's weak types) and every
+    operation rounded (``diffusion.py:75-83``). In float32 this is the
+    float32 arithmetic of numpy."""
+    def r(x):  # a constant as it meets an array of the dtype
+        return torch.tensor(x, dtype=dtype)
+
+    h = r(1.0 / n_timesteps)
+    t = r(1.0) - (r(float(i)) + r(0.5)) * h
+    noise_t = r(beta_min) + r(beta_max - beta_min) * t
+    return float(t), float(noise_t), float(h), float(torch.sqrt(noise_t * h))
 
 
 def forward_diffusion(
@@ -115,20 +125,18 @@ def reverse_diffusion(
     model, mask, mu, spk). ``stoc=True`` adds the per-step noise, drawn from
     ``generator`` on ``z``'s device.
     """
-    h = np.float32(1.0 / n_timesteps)
     b = z.shape[0]
     xt = z * mask
     for i in range(n_timesteps):
-        t = np.float32(1.0) - (np.float32(i) + np.float32(0.5)) * h  # float32, as JAX's
-        noise_t = _f32(np.float32(beta_min) + np.float32(beta_max - beta_min) * t)
-        t_vec = torch.full((b,), float(t), dtype=z.dtype, device=z.device)
+        t, noise_t, h, sd = _step_scalars(i, n_timesteps, beta_min, beta_max, z.dtype)
+        t_vec = torch.full((b,), t, dtype=z.dtype, device=z.device)
         score = score_fn(xt, t_vec)
         if stoc:
-            dxt_det = (0.5 * (mu - xt) - score) * noise_t * float(h)
+            dxt_det = (0.5 * (mu - xt) - score) * noise_t * h
             noise = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
-            dxt = dxt_det + noise * _f32(np.sqrt(np.float32(noise_t) * h))
+            dxt = dxt_det + noise * sd
         else:
-            dxt = 0.5 * (mu - xt - score) * noise_t * float(h)
+            dxt = 0.5 * (mu - xt - score) * noise_t * h
         xt = (xt - dxt) * mask
     return xt
 
@@ -164,10 +172,9 @@ def dpm_solver_schedule(n_timesteps: int, beta_min: float, beta_max: float,
     return ts, lams
 
 
-def dpm_coefficients(n_timesteps: int, beta_min: float, beta_max: float, order: int = 2,
-                     t_start: float = 1.0, t_end: float = 1e-3) -> np.ndarray:
-    """The (n_timesteps, 7) table of per-step coefficients, computed in
-    float64 and cast to float32 as ``diffusion.py:166-197`` does: the
+def _dpm_table(n_timesteps: int, beta_min: float, beta_max: float, order: int = 2,
+               t_start: float = 1.0, t_end: float = 1e-3) -> np.ndarray:
+    """The (n_timesteps, 7) table of per-step coefficients in float64: the
     network's time, sigma^2, 1/alpha, the sigma ratio, the weight on D, and
     the multistep weights on the current and previous x0 estimates."""
     assert order in (1, 2), order
@@ -186,7 +193,14 @@ def dpm_coefficients(n_timesteps: int, beta_min: float, beta_max: float, order: 
     else:
         w_cur[0], w_prev[0] = 1.0, 0.0
     return np.stack([ts[:-1], sigma[:-1] ** 2, 1.0 / alpha[:-1], sigma[1:] / sigma[:-1],
-                     -alpha[1:] * np.expm1(-h), w_cur, w_prev], axis=1).astype(np.float32)
+                     -alpha[1:] * np.expm1(-h), w_cur, w_prev], axis=1)
+
+
+def dpm_coefficients(n_timesteps: int, beta_min: float, beta_max: float, order: int = 2,
+                     t_start: float = 1.0, t_end: float = 1e-3) -> np.ndarray:
+    """``_dpm_table`` cast to float32, as ``diffusion.py:166-197`` does."""
+    return _dpm_table(n_timesteps, beta_min, beta_max, order, t_start,
+                      t_end).astype(np.float32)
 
 
 def reverse_diffusion_dpm(
@@ -205,12 +219,14 @@ def reverse_diffusion_dpm(
     that ``reverse_diffusion(stoc=False)`` integrates with Euler steps: one
     network call per step, in the data-prediction parameterisation on
     y = x - mu, with a 2nd-order multistep correction (order=1 is DDIM).
-    Deterministic."""
-    coeffs = dpm_coefficients(n_timesteps, beta_min, beta_max, order, t_start, t_end)
+    Deterministic. The coefficients are rounded once from float64 to z's
+    dtype, as JAX's table is (float32, or bf16 under bf16 serving)."""
+    coeffs = _dpm_table(n_timesteps, beta_min, beta_max, order, t_start, t_end)
     b = z.shape[0]
     y = (z - mu) * mask
     prev_x0 = torch.zeros_like(y)
-    for c in coeffs.tolist():  # float32 values as Python floats
+    # z's dtype's values as Python floats
+    for c in torch.from_numpy(coeffs).to(z.dtype).double().tolist():
         t_vec = torch.full((b,), c[0], dtype=z.dtype, device=z.device)
         score = score_fn((y + mu) * mask, t_vec)
         x0 = (y + c[1] * score) * c[2]

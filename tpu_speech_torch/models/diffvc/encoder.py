@@ -102,4 +102,10 @@ class FwdDiffusion(nn.Module):
     def compute_loss(self, x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The masked MSE to the phoneme-averaged mel ``y`` (B, F, T), over
         sum(mask) x n_feats."""
-        return torch.sum((self(x, mask) - y) ** 2 * mask) / (torch.sum(mask) * self.n_feats)
+        return masked_mse(self(x, mask), y, mask, self.n_feats)
+
+
+def masked_mse(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+               n_feats: int) -> torch.Tensor:
+    """``FwdDiffusion.compute_loss`` on a prediction (``encoder.py:100-103``)."""
+    return torch.sum((pred - y) ** 2 * mask) / (torch.sum(mask) * n_feats)

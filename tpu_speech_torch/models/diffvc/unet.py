@@ -20,7 +20,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from tpu_speech_torch.nn.unet import Mish, SinusoidalPosEmb, UNet
+from tpu_speech_torch.nn.unet import Mish, SinusoidalPosEmb, UNet, promoted
 
 
 def _ref_conv(dim_in: int, dim_out: int) -> nn.Sequential:
@@ -48,16 +48,24 @@ class RefBlock(nn.Module):
         self.final_conv = nn.Conv2d(4 * base, out_dim, 1)
 
     def forward(self, x, mask, time_emb):
-        # x (B, 1, F, Tr), mask (B, 1, 1, Tr), time_emb (B, time_emb_dim)
-        y = self.block11(x * mask)
-        y = self.block12(y * mask)
-        y = y + self.mlp1(time_emb)[:, :, None, None]
-        y = self.block21(y * mask)
-        y = self.block22(y * mask)
-        y = y + self.mlp2(time_emb)[:, :, None, None]
-        y = self.block31(y * mask)
-        y = self.block32(y * mask)
-        y = self.final_conv(y * mask) * mask
+        # x (B, 1, F, Tr), mask (B, 1, 1, Tr), time_emb (B, time_emb_dim).
+        # Each conv in its weight's dtype (the JAX package's conv2d casts its
+        # input) and each dense layer in the promoted dtype: on bf16 weights
+        # the float32 time embedding makes the sums after mlp1 and mlp2
+        # float32, as in JAX
+        def conv(layer, y):
+            first = layer[0] if isinstance(layer, nn.Sequential) else layer
+            return layer((y * mask).to(first.weight.dtype))
+
+        y = conv(self.block11, x)
+        y = conv(self.block12, y)
+        y = y + promoted(self.mlp1, time_emb)[:, :, None, None]
+        y = conv(self.block21, y)
+        y = conv(self.block22, y)
+        y = y + promoted(self.mlp2, time_emb)[:, :, None, None]
+        y = conv(self.block31, y)
+        y = conv(self.block32, y)
+        y = conv(self.final_conv, y) * mask
         # the masked mean: denominator sum(mask) * n_feats
         return y.sum((2, 3)) / (mask.sum((2, 3)) * x.shape[2])
 
@@ -84,12 +92,15 @@ class GradLogPEstimatorVC(UNet):
         self._build_unet(2 + dim_cond, dim_base, dim_mults, groups)
 
     def forward(self, x, x_mask, mean, ref, ref_mask, c, t):
+        # the dtypes of the JAX estimator (``unet.py:111-130``) on bf16
+        # weights and inputs: the time embedding and the condition float32,
+        # so that [mean, x, cond] enters the U-Net body in float32
         condition = self.time_pos_emb(t)
-        t = self.mlp(condition)
+        t = promoted(self.mlp, condition)
         if self.use_ref_t:
             ref_feat = self.ref_block(ref.unsqueeze(1), ref_mask.unsqueeze(1), t)
             condition = torch.cat([condition, ref_feat], 1)
-        cond = self.cond_block(torch.cat([condition, c], 1))
+        cond = promoted(self.cond_block, torch.cat([condition, c], 1))
         h = torch.stack([mean, x], 1)  # (B, 2, F, T)
         h = torch.cat([h, cond[:, :, None, None].expand(-1, -1, *h.shape[2:])], 1)
         return self._unet(h, x_mask.unsqueeze(1), t)

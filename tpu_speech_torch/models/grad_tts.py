@@ -133,23 +133,27 @@ class GradTTS(nn.Module):
 
 
 def durations(logw: torch.Tensor, x_mask: torch.Tensor, length_scale: float = 1.0):
-    """Per-token mel frames, fractional: ceil(exp(logw)) * length_scale in
-    logw's dtype (``ceil`` comes first, ``grad_tts.py:191-192``), widened to
-    float64 so that their sums are exact. At length_scale 0.91 the exact
-    sum comes within 1e-5 of an integer frame wherever the ceilings add up
-    to a multiple of 100; a float32 sum's rounding there, which differs
-    between the CPU and the card and between ``sum`` and ``cumsum``, would
-    decide whether that frame is in. The JAX package sums in float32."""
-    return (torch.ceil(torch.exp(logw) * x_mask) * length_scale).double()
+    """Per-token mel frames, fractional: ceil(exp(logw)) in logw's dtype
+    (``ceil`` comes first, ``grad_tts.py:191-192``), times length_scale in
+    float32, widened to float64 so that their sums are exact. At
+    length_scale 0.91 the exact sum comes within 1e-5 of an integer frame
+    wherever the ceilings add up to a multiple of 100; a float32 sum's
+    rounding there, which differs between the CPU and the card and between
+    ``sum`` and ``cumsum``, would decide whether that frame is in. The JAX
+    package sums in float32, and under bf16 serving scales and sums in bf16,
+    where the path's cumsum rounds every boundary past 256 frames to an
+    even frame (ROADMAP Queue 3); the ceilings, integers, are exact in bf16,
+    so here the scale and the sums are float32's whatever logw's dtype."""
+    return (torch.ceil(torch.exp(logw) * x_mask).float() * length_scale).double()
 
 
 def duration_path(logw: torch.Tensor, x_mask: torch.Tensor, length_scale: float,
                   y_max_length: int):
-    """The lengths (B,), clipped to [1, y_max_length] and truncated as
+    """The int32 lengths (B,), clipped to [1, y_max_length] and truncated as
     ``grad_tts.py:193`` does, the mel mask (B, y_max_length) and the
     monotone alignment (B, Tx, y_max_length), in x_mask's dtype."""
     w_ceil = durations(logw, x_mask, length_scale)
-    y_lengths = torch.clamp(torch.sum(w_ceil, dim=1), 1, y_max_length).long()
+    y_lengths = torch.clamp(torch.sum(w_ceil, dim=1), 1, y_max_length).int()
     y_mask = sequence_mask(y_lengths, y_max_length).to(x_mask.dtype)
     attn = generate_path(w_ceil, x_mask[:, :, None] * y_mask[:, None, :])
     return y_lengths, y_mask, attn
@@ -170,10 +174,18 @@ def synthesize_from_encoding(
     solver: str = "euler",
     solver_order: int = 2,
     noise: Optional[torch.Tensor] = None,
+    path: Optional[tuple] = None,
 ):
     """``synthesize`` after ``model.encode``: the duration path, the prior
-    mu_y and the sampler. No step reads the device from the host."""
-    y_lengths, y_mask, attn = duration_path(logw, x_mask, length_scale, y_max_length)
+    mu_y and the sampler. No step reads the device from the host. ``path``,
+    a pair (y_lengths (B,), attn (B, Tx, y_max_length)), replaces the
+    duration path (to replay another run's)."""
+    if path is None:
+        y_lengths, y_mask, attn = duration_path(logw, x_mask, length_scale, y_max_length)
+    else:
+        y_lengths, attn = path
+        y_mask = sequence_mask(y_lengths, y_max_length).to(x_mask.dtype)
+        attn = attn.to(x_mask.dtype)
     mu_y = torch.matmul(attn.transpose(1, 2), mu_x)  # (B, Ty, F)
 
     if noise is None:
@@ -215,6 +227,7 @@ def synthesize(
     solver: str = "euler",
     solver_order: int = 2,
     noise: Optional[torch.Tensor] = None,
+    path: Optional[tuple] = None,
 ):
     """Text -> mel (inference) with a fixed ``y_max_length`` (a multiple of 4).
 
@@ -223,7 +236,11 @@ def synthesize(
     y_lengths zero; y_lengths is clipped to [1, y_max_length], as the JAX
     package's is. ``noise`` is the standard-normal draw for z = mu_y +
     noise / temperature, of mu_y's shape; without it the draw comes from
-    ``generator`` (as do the per-step draws of ``stoc=True``).
+    ``generator`` (as do the per-step draws of ``stoc=True``). ``path``
+    replaces the duration path (``synthesize_from_encoding``). On a model
+    whose parameters are bf16 (``utils/precision.py::cast_params_bf16``,
+    JAX's bf16 serving) every stage computes in bf16 as JAX's does, the
+    duration path aside (``durations``).
     solver='euler' is the reference integrator; solver='dpm' is
     DPM-Solver++(2M) on the same probability-flow ODE (solver_order=1: DDIM).
     """
@@ -231,4 +248,4 @@ def synthesize(
     return synthesize_from_encoding(
         model, mu_x, logw, x_mask, n_timesteps, y_max_length, temperature=temperature,
         stoc=stoc, spk=spk, length_scale=length_scale, generator=generator, solver=solver,
-        solver_order=solver_order, noise=noise)
+        solver_order=solver_order, noise=noise, path=path)

@@ -38,6 +38,16 @@ def hann_window_symmetric(win_length: int) -> np.ndarray:
     )
 
 
+def _featurizer_constants(sample_rate: int, win_length: int, n_fft: int, nfilt: int,
+                          lowfreq: float, highfreq: float, device: torch.device):
+    window = hann_window_symmetric(win_length)
+    lpad = (n_fft - win_length) // 2
+    window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    fb = mel_filterbank(sample_rate, n_fft, nfilt, lowfreq, highfreq)
+    with torch.inference_mode(False):  # a cached tensor outlives any inference region
+        return torch.tensor(window, device=device), torch.tensor(fb, device=device)
+
+
 @functools.lru_cache(maxsize=16)
 def featurizer_constants(sample_rate: int, win_length: int, n_fft: int, nfilt: int,
                          lowfreq: float, highfreq: float, device: torch.device):
@@ -45,12 +55,8 @@ def featurizer_constants(sample_rate: int, win_length: int, n_fft: int, nfilt: i
     ``device``, built and copied once per configuration and device: the
     center=True STFT's symmetric Hann of win_length zero-padded to n_fft, and
     the slaney filterbank. Shared by every call: read only."""
-    window = hann_window_symmetric(win_length)
-    lpad = (n_fft - win_length) // 2
-    window = np.pad(window, (lpad, n_fft - win_length - lpad))
-    fb = mel_filterbank(sample_rate, n_fft, nfilt, lowfreq, highfreq)
-    with torch.inference_mode(False):  # a cached tensor outlives any inference region
-        return torch.tensor(window, device=device), torch.tensor(fb, device=device)
+    return _featurizer_constants(sample_rate, win_length, n_fft, nfilt, lowfreq, highfreq,
+                                 device)
 
 
 def normalize_time_domain(x: torch.Tensor) -> torch.Tensor:
@@ -115,8 +121,10 @@ def filterbank_features(
     xp = stft_input(x, n_fft, preemph, do_normalize_time_domain,
                     dither if training else 0.0, generator)
 
-    window, fb = featurizer_constants(sample_rate, win_length, n_fft, nfilt, lowfreq,
-                                      highfreq, x.device)
+    # under torch.export the tables are built anew, as the graph's constants:
+    # the cache must not keep the trace's stand-in tensors
+    constants = _featurizer_constants if torch.compiler.is_exporting() else featurizer_constants
+    window, fb = constants(sample_rate, win_length, n_fft, nfilt, lowfreq, highfreq, x.device)
     num_frames = 1 + (xp.shape[-1] - n_fft) // hop_length
     feats = fused_logmel(
         xp, window, fb,

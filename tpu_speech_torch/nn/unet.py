@@ -61,6 +61,25 @@ def promoted(layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def conv_as(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` (an ``nn.Conv2d`` or ``nn.ConvTranspose2d``) on x with x,
+    its weight and its bias in ``dtype``: the JAX package's convs cast their
+    input to the weight's dtype, its dense layers compute in the promoted
+    dtype and the linear attention's projection in the input's. In fp32
+    this is ``conv(x)``."""
+    if x.dtype == dtype == conv.weight.dtype:
+        return conv(x)
+    w = conv.weight.to(dtype)
+    b = None if conv.bias is None else conv.bias.to(dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x.to(dtype), w, b, conv.stride, conv.padding)
+    return F.conv2d(x.to(dtype), w, b, conv.stride, conv.padding)
+
+
+def _promote(x: torch.Tensor, layer: nn.Module) -> torch.dtype:
+    return torch.promote_types(x.dtype, layer.weight.dtype)
+
+
 class Block(nn.Module):
     """conv3x3 -> GroupNorm -> Mish, mask-aware (diffusion.py:49-58)."""
 
@@ -89,7 +108,11 @@ class ResnetBlock(nn.Module):
     def forward(self, x, mask, time_emb):
         h = self.block1(x, mask) + promoted(self.mlp, time_emb)[:, :, None, None]
         h = self.block2(h, mask)
-        return h + self.res_conv(x * mask)
+        if isinstance(self.res_conv, nn.Identity):
+            return h + x * mask
+        # a dense layer in JAX: the promoted dtype (float32 where DiffVC's
+        # float32 condition channels enter the body on bf16 weights)
+        return h + conv_as(self.res_conv, x * mask, _promote(x, self.res_conv))
 
 
 class LinearAttention(nn.Module):
@@ -109,12 +132,15 @@ class LinearAttention(nn.Module):
     def forward(self, x):
         b, _, f, t = x.shape
         # channels ordered (qkv, head, d), the reference's rearrange
-        qkv = self.to_qkv(x).reshape(b, 3, self.heads, self.dim_head, f * t)
+        # the projection in x's dtype, to_out in the promoted one (JAX's
+        # ``_QKVProj`` and dense ``to_out``)
+        qkv = conv_as(self.to_qkv, x, x.dtype).reshape(b, 3, self.heads, self.dim_head, f * t)
         q, k, v = qkv.unbind(1)  # (B, H, d, N)
         k = k.softmax(dim=-1)
         context = torch.matmul(k, v.transpose(-1, -2))  # (B, H, d, e)
         out = torch.matmul(context.transpose(-1, -2), q)  # (B, H, e, N)
-        return self.to_out(out.reshape(b, self.heads * self.dim_head, f, t))
+        out = out.reshape(b, self.heads * self.dim_head, f, t)
+        return conv_as(self.to_out, out, _promote(out, self.to_out))
 
 
 class Rezero(nn.Module):
@@ -144,7 +170,7 @@ class Downsample(nn.Module):
         self.conv = nn.Conv2d(dim, dim, 3, 2, 1)
 
     def forward(self, x):
-        return self.conv(x)
+        return conv_as(self.conv, x, self.conv.weight.dtype)
 
 
 class Upsample(nn.Module):
@@ -155,7 +181,7 @@ class Upsample(nn.Module):
         self.conv = nn.ConvTranspose2d(dim, dim, 4, 2, 1)
 
     def forward(self, x):
-        return self.conv(x)
+        return conv_as(self.conv, x, self.conv.weight.dtype)
 
 
 class UNet(nn.Module):

@@ -53,9 +53,9 @@ import torch
 from tpu_speech_torch.ops import _build
 
 __all__ = [
-    "fused_qkv_self_attention", "qkv_attention_plain", "fused_self_attention",
-    "attention_plain", "dropout_keep_mask", "dropout_threshold", "KERNEL_D_HEADS",
-    "KERNEL_D_HEADS_BF16", "bwd_scratch_floats",
+    "fused_qkv_self_attention", "fused_qkv_attention_fwd", "qkv_attention_plain",
+    "fused_self_attention", "attention_plain", "dropout_keep_mask", "dropout_threshold",
+    "KERNEL_D_HEADS", "KERNEL_D_HEADS_BF16", "bwd_scratch_floats",
 ]
 
 KERNEL_D_HEADS = (8, 16, 32, 64)  # head widths the float32 CUDA kernels are built for
@@ -356,6 +356,27 @@ def _kernel_args(x, d, key_padding_mask, dropout_p, dropout_seed, name):
     return mask, seed, thresh, 1.0 / (1.0 - dropout_p)
 
 
+@torch.library.custom_op("tpu_speech::fused_qkv_attention_fwd", mutates_args=())
+def fused_qkv_attention_fwd(qkv: torch.Tensor, n_heads: int,
+                            key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2-fwd without dropout as a registered op, which ``torch.export``
+    keeps in its graph: the kernel on a CUDA tensor (float32 or bf16),
+    ``qkv_attention_plain`` on a CPU one. No backward: training keeps
+    ``_FusedQKVAttention``."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_plain(qkv, n_heads, key_padding_mask)
+    mask, seed, thresh, scale = _kernel_args(qkv, qkv.shape[2] // 3 // n_heads,
+                                             key_padding_mask, 0.0, None,
+                                             "fused_qkv_self_attention")
+    return _launch_fwd(qkv.contiguous(), mask, n_heads, seed, thresh, scale, False)[0]
+
+
+@fused_qkv_attention_fwd.register_fake
+def _(qkv, n_heads, key_padding_mask=None):
+    b, t, e3 = qkv.shape
+    return qkv.new_empty((b, t, e3 // 3))
+
+
 def fused_qkv_self_attention(
     qkv: torch.Tensor, n_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,
@@ -363,6 +384,8 @@ def fused_qkv_self_attention(
 ) -> torch.Tensor:
     """softmax(q k^T, -1e9 at padded keys) [dropout] v over the merged
     (B, T, 3E) plane; the kernels on CUDA, ``qkv_attention_plain`` on CPU.
+    A forward without dropout or autograd goes through the registered op
+    ``tpu_speech::fused_qkv_attention_fwd``.
 
     ``dropout_seed``: a non-negative int (< 2**31) per (layer, step);
     required when ``dropout_p > 0``.
@@ -372,6 +395,9 @@ def fused_qkv_self_attention(
     b, t, e3 = qkv.shape
     _check_common(qkv, b, t, key_padding_mask, dropout_p, dropout_seed,
                   "fused_qkv_self_attention")
+    grad = torch.is_grad_enabled() and qkv.requires_grad
+    if dropout_p == 0.0 and not grad:
+        return fused_qkv_attention_fwd(qkv, n_heads, key_padding_mask)
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, n_heads, key_padding_mask, dropout_p,
                                    dropout_seed)
@@ -379,7 +405,7 @@ def fused_qkv_self_attention(
                                              dropout_p, dropout_seed,
                                              "fused_qkv_self_attention")
     qkv = qkv.contiguous()
-    if torch.is_grad_enabled() and qkv.requires_grad:
+    if grad:
         return _FusedQKVAttention.apply(qkv, mask, n_heads, seed, thresh, scale)
     return _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, False)[0]
 

@@ -1,8 +1,10 @@
 """Fused wav -> log-mel: the Hopper kernel and its plain PyTorch version.
 
-Port of ``tpu_speech/ops/fused_logmel.py`` (K1). ``fused_logmel`` launches
-the hand-written CUDA kernel ``csrc/fused_logmel.cu`` on a CUDA tensor and
-computes ``logmel_plain`` on a CPU tensor. The kernel's transform is a
+Port of ``tpu_speech/ops/fused_logmel.py`` (K1). ``fused_logmel`` calls the
+registered op ``tpu_speech::fused_logmel`` (``fused_logmel_op``), which
+launches the hand-written CUDA kernel ``csrc/fused_logmel.cu`` on a CUDA
+tensor and computes ``logmel_plain`` on a CPU tensor; ``torch.export``
+keeps the op in its graph. The kernel's transform is a
 float64 real FFT per frame for a power-of-two n_fft in ``KERNEL_N_FFT`` (the
 SPIRAL and HiFi-GAN path) and a float64 direct DFT over a table of n_fft
 twiddles for any other n_fft up to ``DFT_MAX_N_FFT``; any hop >= 1; then a
@@ -35,8 +37,8 @@ import torch.nn.functional as F
 
 from tpu_speech_torch.ops import _build
 
-__all__ = ["fused_logmel", "logmel_plain", "make_dft_mats", "fft_tables", "dft_table",
-           "mel_bands", "kernel_launch_config", "kernel_transform"]
+__all__ = ["fused_logmel", "fused_logmel_op", "logmel_plain", "make_dft_mats", "fft_tables",
+           "dft_table", "mel_bands", "kernel_launch_config", "kernel_transform"]
 
 _MAG_MODES = {"power": 0, "mag_eps": 1}
 _LOG_MODES = {"guard": 0, "clip": 1}
@@ -225,37 +227,10 @@ def kernel_launch_config(n_fft: int, hop_length: int, n_mels: int):
     return tf, smem
 
 
-def fused_logmel(
-    x: torch.Tensor,
-    window: torch.Tensor,
-    mel_fb: torch.Tensor,
-    *,
-    n_fft: int,
-    hop_length: int,
-    num_frames: int,
-    mag_mode: str = "power",
-    log_mode: str = "guard",
-    log_guard: float = 2.0 ** -24,
-    mag_eps: float = 1e-9,
-) -> torch.Tensor:
-    """Fused wav -> log-mel; the kernel on CUDA, ``logmel_plain`` on CPU."""
-    if mag_mode not in _MAG_MODES or log_mode not in _LOG_MODES:
-        raise ValueError(f"unknown mode: mag_mode={mag_mode!r}, log_mode={log_mode!r}")
-    if x.ndim != 2 or num_frames < 1:
-        raise ValueError(f"x must be (B, N) with num_frames >= 1: {tuple(x.shape)}, {num_frames}")
-    n_freq = n_fft // 2 + 1
-    if window.shape != (n_fft,) or mel_fb.ndim != 2 or mel_fb.shape[1] != n_freq:
-        raise ValueError(
-            f"window {tuple(window.shape)} / mel_fb {tuple(mel_fb.shape)} do not "
-            f"match n_fft={n_fft}"
-        )
-    kw = dict(n_fft=n_fft, hop_length=hop_length, num_frames=num_frames,
-              mag_mode=mag_mode, log_mode=log_mode, log_guard=log_guard,
-              mag_eps=mag_eps)
-    if x.device.type == "cpu":
-        return logmel_plain(x, window, mel_fb, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_logmel: unsupported device {x.device}")
+def _launch(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode, log_mode,
+            log_guard, mag_eps):
+    """One launch of the kernel on CUDA tensors (the old wrapper's direct
+    route, which the registered op's CUDA implementation takes)."""
     if any(t.dtype != torch.float32 or t.device != x.device for t in (x, window, mel_fb)):
         raise ValueError("fused_logmel: x, window and mel_fb must be float32 on one device")
     n_mels = mel_fb.shape[0]
@@ -276,3 +251,54 @@ def fused_logmel(
     _build.check(err, "fused_logmel")
     _build.LAUNCHES["fused_logmel"] += 1
     return out
+
+
+@torch.library.custom_op("tpu_speech::fused_logmel", mutates_args=())
+def fused_logmel_op(x: torch.Tensor, window: torch.Tensor, mel_fb: torch.Tensor, n_fft: int,
+                    hop_length: int, num_frames: int, mag_mode: str, log_mode: str,
+                    log_guard: float, mag_eps: float) -> torch.Tensor:
+    """K1 as a registered op, which ``torch.export`` keeps in its graph:
+    the kernel on a CUDA tensor, ``logmel_plain`` on a CPU one. The twiddle
+    tables and mel bands stay cached inside (not graph inputs)."""
+    kw = dict(n_fft=n_fft, hop_length=hop_length, num_frames=num_frames, mag_mode=mag_mode,
+              log_mode=log_mode, log_guard=log_guard, mag_eps=mag_eps)
+    if x.device.type == "cpu":
+        return logmel_plain(x, window, mel_fb, **kw)
+    return _launch(x, window, mel_fb, **kw)
+
+
+@fused_logmel_op.register_fake
+def _(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode, log_mode, log_guard,
+      mag_eps):
+    return x.new_empty((x.shape[0], num_frames, mel_fb.shape[0]), dtype=torch.float32)
+
+
+def fused_logmel(
+    x: torch.Tensor,
+    window: torch.Tensor,
+    mel_fb: torch.Tensor,
+    *,
+    n_fft: int,
+    hop_length: int,
+    num_frames: int,
+    mag_mode: str = "power",
+    log_mode: str = "guard",
+    log_guard: float = 2.0 ** -24,
+    mag_eps: float = 1e-9,
+) -> torch.Tensor:
+    """Fused wav -> log-mel through ``tpu_speech::fused_logmel``: the kernel
+    on CUDA, ``logmel_plain`` on CPU."""
+    if mag_mode not in _MAG_MODES or log_mode not in _LOG_MODES:
+        raise ValueError(f"unknown mode: mag_mode={mag_mode!r}, log_mode={log_mode!r}")
+    if x.ndim != 2 or num_frames < 1:
+        raise ValueError(f"x must be (B, N) with num_frames >= 1: {tuple(x.shape)}, {num_frames}")
+    n_freq = n_fft // 2 + 1
+    if window.shape != (n_fft,) or mel_fb.ndim != 2 or mel_fb.shape[1] != n_freq:
+        raise ValueError(
+            f"window {tuple(window.shape)} / mel_fb {tuple(mel_fb.shape)} do not "
+            f"match n_fft={n_fft}"
+        )
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_logmel: unsupported device {x.device}")
+    return fused_logmel_op(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode,
+                           log_mode, float(log_guard), float(mag_eps))

@@ -40,8 +40,8 @@ import torch.nn.functional as F
 
 from tpu_speech_torch.ops import _build
 
-__all__ = ["grouped_conv1d", "grouped_conv1d_plain", "kernel_weights", "weights_plain",
-           "KERNEL_MAX_CG", "KERNEL_MAX_K", "KERNEL_CG_BF16"]
+__all__ = ["grouped_conv1d", "grouped_posconv", "grouped_conv1d_plain", "kernel_weights",
+           "weights_plain", "KERNEL_MAX_CG", "KERNEL_MAX_K", "KERNEL_CG_BF16"]
 
 KERNEL_MAX_CG = 64  # channels per group the float32 CUDA kernel takes
 KERNEL_MAX_K = 128  # taps the CUDA kernels take
@@ -153,12 +153,30 @@ class _GroupedConv1d(torch.autograd.Function):
         return dx, dw, None, None
 
 
+@torch.library.custom_op("tpu_speech::grouped_posconv", mutates_args=())
+def grouped_posconv(x: torch.Tensor, w: torch.Tensor, groups: int,
+                    left_pad: int) -> torch.Tensor:
+    """K4's forward as a registered op, which ``torch.export`` keeps in its
+    graph: the kernel on a CUDA tensor (float32 or bf16; ``grouped_conv1d``
+    checks what it takes), ``grouped_conv1d_plain`` on a CPU one. No
+    backward: training keeps ``_GroupedConv1d``."""
+    if x.device.type == "cpu":  # contiguous, as the kernel's output and the fake's
+        return grouped_conv1d_plain(x, w, groups, left_pad).contiguous()
+    return _launch(x.contiguous(), kernel_weights(w, groups), left_pad, "grouped_conv1d")
+
+
+@grouped_posconv.register_fake
+def _(x, w, groups, left_pad):
+    return torch.empty_like(x)
+
+
 def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, groups: int,
                    left_pad: int) -> torch.Tensor:
     """Grouped conv of x (B, T, C) with w (C, C/groups, K) and ``left_pad``
     zeros before the first frame; the K4 kernel on CUDA (float32 with any
     C/groups <= 64, bf16 with C/groups in 16, 32, 48, 64; K <= 128),
-    ``grouped_conv1d_plain`` on CPU."""
+    ``grouped_conv1d_plain`` on CPU. A forward without autograd goes through
+    the registered op ``tpu_speech::grouped_posconv``."""
     if x.ndim != 3 or w.ndim != 3:
         raise ValueError(f"x must be (B, T, C) and w (C, Cg, K): "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
@@ -168,8 +186,10 @@ def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, groups: int,
                          f"{tuple(w.shape)}")
     if not 0 <= left_pad < k:
         raise ValueError(f"left_pad must be in [0, K = {k}): {left_pad}")
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     if x.device.type == "cpu":
-        return grouped_conv1d_plain(x, w, groups, left_pad)
+        return grouped_conv1d_plain(x, w, groups, left_pad) if grad else grouped_posconv(
+            x, w, groups, left_pad)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_conv1d: unsupported device {x.device}")
     cg = c // groups
@@ -182,7 +202,6 @@ def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, groups: int,
             f"{KERNEL_CG_BF16}, and K <= {KERNEL_MAX_K}: got {x.dtype}/{w.dtype} on "
             f"{x.device}/{w.device}, C/groups={cg}, K={k}"
         )
-    x = x.contiguous()
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _GroupedConv1d.apply(x, w, groups, left_pad)
-    return _launch(x, kernel_weights(w, groups), left_pad, "grouped_conv1d")
+    if grad:
+        return _GroupedConv1d.apply(x.contiguous(), w, groups, left_pad)
+    return grouped_posconv(x, w, groups, left_pad)

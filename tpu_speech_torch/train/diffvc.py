@@ -1,7 +1,8 @@
 """DiffVC's two-stage training: the average-voice encoder, then the decoder.
 
 The port's counterpart of ``tpu_speech/train/diffvc.py`` (the reference
-DiffVC/train_enc.py:50-132 and train_dec.py:57-140), fp32 on one device:
+DiffVC/train_enc.py:50-132 and train_dec.py:57-140), fp32 or bf16 on one
+device:
 
 - ``enc_train_step`` (``make_enc_train_step:35``): the masked MSE to the
   phoneme-averaged mels with dropout on, backward, every gradient clipped to
@@ -20,6 +21,13 @@ iteration)``, ``:251``); dropout draws from torch's default generator, whose
 state the checkpoint keeps. The previews (``make_enc_preview``,
 ``make_dec_preview``) write each item's Griffin-Lim wav to the log dir and,
 with ``images``, its mel as a PNG and to TensorBoard.
+
+``bf16=True`` is the JAX steps' mixed precision (``make_enc_train_step(...,
+bf16)``, ``:27-52, 73-86``): the forward and backward run through
+``torch.func.functional_call`` on bf16 copies of the float32 parameters
+(``train/spiral.py::mixed_precision_params``), with the mels (and the speaker
+embedding) in bf16; the loss comes back float32, the gradients land on the
+float32 masters, and the clip and Adam run in float32.
 """
 
 from __future__ import annotations
@@ -32,8 +40,10 @@ import numpy as np
 import torch
 
 from tpu_speech_torch.models.diffvc import DiffVC, FwdDiffusion, voice_convert
+from tpu_speech_torch.models.diffvc.encoder import masked_mse
 from tpu_speech_torch.ops.masks import sequence_mask
 from tpu_speech_torch.train.optim import AdamW, clip_by_global_norm, clip_subtree_by_global_norm
+from tpu_speech_torch.train.spiral import mixed_precision_params
 from tpu_speech_torch.train.trainer import Trainer, batch_to_device, step_generator
 
 ESTIMATOR = ("decoder.estimator.",)
@@ -47,18 +57,34 @@ def _zero_missing_grads(params) -> None:
             p.grad = torch.zeros_like(p)
 
 
+def _forward(model: torch.nn.Module, bf16: bool):
+    """``model``'s forward, on bf16 copies of its floating parameters under
+    ``bf16`` (differentiable casts: the gradients reach the masters)."""
+    if not bf16:
+        return model
+    copies = mixed_precision_params(
+        (n, p) for n, p in model.named_parameters() if p.is_floating_point())
+
+    def forward(*args, **kwargs):
+        return torch.func.functional_call(model, copies, args, kwargs)
+    return forward
+
+
 def enc_train_step(model: FwdDiffusion, opt: AdamW, batch: dict,
-                   generator: Optional[torch.Generator] = None) -> dict:
+                   generator: Optional[torch.Generator] = None, bf16: bool = False) -> dict:
     """One update of the average-voice encoder from a device batch (``x``,
     ``y`` (B, T, F), ``lengths``). It draws nothing but dropout's masks;
-    ``generator`` is the trainer's common argument. Returns the loss and
-    the pre-clip global norm as 0-d device tensors."""
+    ``generator`` is the trainer's common argument. ``bf16``: the mixed
+    precision of the module docstring. Returns the float32 loss and the
+    pre-clip global norm as 0-d device tensors."""
     params = list(model.parameters())
     for p in params:
         p.grad = None
     x, y = batch["x"].transpose(1, 2), batch["y"].transpose(1, 2)
+    if bf16:
+        x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
     mask = sequence_mask(batch["lengths"], x.shape[2]).to(x.dtype)[:, None, :]
-    loss = model.compute_loss(x, y, mask)
+    loss = masked_mse(_forward(model, bf16)(x, mask), y, mask, model.n_feats).float()
     loss.backward()
     _zero_missing_grads(params)
     norm = clip_by_global_norm([p.grad for p in params], MAX_GRAD_NORM)
@@ -68,16 +94,21 @@ def enc_train_step(model: FwdDiffusion, opt: AdamW, batch: dict,
 
 def dec_train_step(model: DiffVC, opt: AdamW, batch: dict,
                    generator: Optional[torch.Generator] = None,
-                   t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None) -> dict:
+                   t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
+                   bf16: bool = False) -> dict:
     """One update of the decoder from a device batch (``mel1``, ``mel2`` (B,
     T, F), ``mel_lengths``, ``c`` (B, 256)). ``t`` (B,) and ``z`` (B, T, F)
-    replace the draws of ``generator``. Returns the loss and the estimator's
-    pre-clip norm as 0-d device tensors."""
+    replace the draws of ``generator`` (drawn in the mels' dtype: bf16 under
+    ``bf16``, the module docstring's mixed precision). Returns the float32
+    loss and the estimator's pre-clip norm as 0-d device tensors."""
     named = list(model.named_parameters())
     for _, p in named:
         p.grad = None
-    loss = model(batch["mel1"], batch["mel_lengths"], batch["mel2"], batch["c"], t=t, z=z,
-                 generator=generator)
+    mel1, mel2, c = batch["mel1"], batch["mel2"], batch["c"]
+    if bf16:
+        mel1, mel2, c = (v.to(torch.bfloat16) for v in (mel1, mel2, c))
+    loss = _forward(model, bf16)(mel1, batch["mel_lengths"], mel2, c, t=t, z=z,
+                                 generator=generator).float()
     loss.backward()
     _zero_missing_grads(p for _, p in named)  # the encoder's, all of them
     norm = clip_subtree_by_global_norm(named, ESTIMATOR, MAX_GRAD_NORM)
@@ -183,11 +214,13 @@ class DiffVCTrainer(Trainer):
 
     def __init__(self, model: torch.nn.Module, step_fn: Callable, log_dir: str,
                  learning_rate: float, save_every: int = 1, seed: int = 0, exp=None,
-                 preview_fn: Optional[Callable] = None):
+                 preview_fn: Optional[Callable] = None, bf16: bool = False):
         """step_fn: ``enc_train_step`` or ``dec_train_step``. preview_fn:
-        called as ``preview_fn(trainer, epoch)`` after each checkpoint."""
+        called as ``preview_fn(trainer, epoch)`` after each checkpoint.
+        bf16: the steps' mixed precision."""
         super().__init__(model, log_dir, learning_rate, save_every, seed, exp)
         self.step_fn = step_fn
+        self.bf16 = bf16
         self.preview_fn = preview_fn
         self.history = []  # every step's metrics, read from the device once a step
 
@@ -199,7 +232,7 @@ class DiffVCTrainer(Trainer):
             generator = step_generator(self.seed, self.iteration, self.device)
             batch = batch_to_device(batch, self.device)
             self.timer.tick("step")
-            metrics = self.step_fn(self.model, self.opt, batch, generator)
+            metrics = self.step_fn(self.model, self.opt, batch, generator, bf16=self.bf16)
             # one read of every metric: the sync that closes the step
             m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
             self.timer.tock("step")

@@ -330,6 +330,20 @@ class _Runner:
 
 
 
+class InferenceGraph(torch.nn.Module):
+    """wav -> ``wav_to_spec`` -> ``CTCFinetuneModel`` -> (log-probs, lengths),
+    the graph that ``SpiralFinetuneRunner.export_model`` traces (the JAX
+    runner's ``infer`` of ``export_model:1111``)."""
+
+    def __init__(self, model: CTCFinetuneModel, enc_cfg):
+        super().__init__()
+        self.model, self.enc_cfg = model, enc_cfg
+
+    def forward(self, wavs, wav_lens):
+        specs, spec_lens = wav_to_spec(self.enc_cfg, wavs, wav_lens)
+        return self.model(specs, spec_lens)
+
+
 class SpiralFinetuneRunner(_Runner):
     """Single-device CTC finetuning and serving."""
 
@@ -415,6 +429,12 @@ class SpiralFinetuneRunner(_Runner):
     def load_state_dict(self, state_dict) -> None:
         self.model.load_state_dict(state_dict, strict=True)
 
+    @property
+    def _graph(self) -> InferenceGraph:
+        """The wav -> log-probs composition that ``infer`` runs and
+        ``export_model`` traces."""
+        return InferenceGraph(self.model, self.enc_cfg)
+
     @torch.inference_mode()
     def infer(self, wavs, wav_lens):
         """wavs (B, N) float32 / int16 / uint8, lengths (B,) -> (log_probs
@@ -422,8 +442,28 @@ class SpiralFinetuneRunner(_Runner):
         self.model.eval()
         wavs = torch.as_tensor(wavs).to(self.device)
         wav_lens = torch.as_tensor(wav_lens).to(self.device)
-        specs, spec_lens = wav_to_spec(self.enc_cfg, wavs, wav_lens)
-        return self.model(specs, spec_lens)
+        return self._graph(wavs, wav_lens)
+
+    def export_model(self, path: str, n_samples: Optional[int] = None) -> str:
+        """Save the wav -> log-probs inference graph as a ``torch.export``
+        program (``utils/export.py``; the JAX runner's StableHLO
+        ``export_model:1111``) at ``path``, traced on the runner's device in
+        eval mode for wavs of ``n_samples`` (default ``max_samples``) with
+        the batch dynamic. K1, K2's forward and K4 stay in the graph as the
+        ``tpu_speech::`` ops; ``load_exported`` runs it."""
+        from torch.export import Dim
+
+        from tpu_speech_torch.utils.export import export_fn
+
+        n = n_samples or self.max_samples
+        self.model.eval()
+        # two rows: a batch of one would fix the batch dimension at 1
+        example = (torch.zeros((2, n), device=self.device),
+                   torch.full((2,), n, dtype=torch.int32, device=self.device))
+        batch = Dim("batch", min=1)
+        export_fn(self._graph, example, path,
+                  dynamic_shapes=({0: batch}, {0: batch}))
+        return path
 
     def _decode(self, log_probs, lens):
         return ctc_greedy_decode(log_probs.cpu().numpy(), lens.cpu().numpy(),
