@@ -424,10 +424,15 @@ def test_wav_to_spec_mulaw_wire_matches_jax(rng):
 
 
 def test_unported_featurizer_options_raise():
-    x, lens = torch.zeros(1, 4000), torch.tensor([4000])
-    with pytest.raises(NotImplementedError):
-        features.filterbank_features(x, lens, normalize="per_feature_causal")
-    with pytest.raises(NotImplementedError):
-        features.filterbank_features(x, lens, mag_power=1.5)
+    """The normalizations and magnitude powers that raised before they were
+    ported now run (tests/test_torch_subword_slice.py holds them to JAX);
+    training with dither and no generator still raises."""
+    x = torch.randn(1, 4000, generator=torch.Generator().manual_seed(0)) * 0.1
+    lens = torch.tensor([4000])
+    for kw in (dict(normalize="per_feature_causal"), dict(mag_power=1.5),
+               dict(normalize="all_features", mag_power=1.0)):
+        out, out_lens = features.filterbank_features(x, lens, **kw)
+        assert out.shape == (1, 32, 128) and bool(torch.isfinite(out).all()), kw
+        assert out_lens.tolist() == [25]
     with pytest.raises(ValueError):
         features.filterbank_features(x, lens, training=True)  # dither, no generator

@@ -175,6 +175,30 @@ def test_fused_logmel_other_sizes_match_plain(cuda, n_fft, hop):
     assert (out - p64).abs().max().item() <= plain_err + 1e-4
 
 
+@pytest.mark.parametrize("n_fft,hop", [(512, 160), (400, 160), (1024, 256)])
+@pytest.mark.parametrize("power", [0.5, 1.5, 3.0])
+def test_fused_logmel_pow_matches_plain(cuda, n_fft, hop, power):
+    """mag_mode "pow" (|X|^p, the featurizer's mag_power other than 1 or 2):
+    the kernel's float64 power^(p/2) against the plain version run in
+    float64 at K1's 2e-4, and in fp32 (sqrt(power)^p after an fp32 rfft,
+    whose rounding in the low-power bins p < 2 weighs more) at 5e-4."""
+    win = torch.hann_window(n_fft, periodic=False).to(cuda)
+    fb = torch.tensor(mel_filterbank(16000, n_fft, 80, 0.0, 8000.0), device=cuda)
+    frames = 203
+    g = torch.Generator().manual_seed(n_fft + int(power * 10))
+    x = (torch.randn(3, (frames - 1) * hop + n_fft, generator=g) * 0.1).to(cuda)
+    kw = dict(n_fft=n_fft, hop_length=hop, num_frames=frames, mag_mode="pow",
+              mag_power=power)
+    before = _build.LAUNCHES["fused_logmel"]
+    out = fused_logmel(x, win, fb, **kw)
+    ref = logmel_plain(x, win, fb, **kw)
+    ref64 = logmel_plain(x.double(), win.double(), fb.double(), **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_logmel"] == before + 1
+    torch.testing.assert_close(out.double(), ref64, rtol=0, atol=2e-4)
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-4)
+
+
 def test_fused_logmel_steady_state_makes_no_copy_or_sync(cuda):
     """After the first call builds the tables, the featurizer on the card (and
     K1 in it) copies nothing from the host and never synchronises."""
@@ -446,12 +470,46 @@ def test_tiny_pretrain_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(g_gpu[k], g_cpu[k], rtol=0, atol=bound, msg=k)
 
 
+# SPIRAL-large's two transformer blocks at 42 s (B = 18): (B, T, H, d_head)
+LARGE_ATTENTION = [(18, 1050, 8, 64), (18, 525, 16, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,h,d_head", LARGE_ATTENTION)
+def test_k2_at_the_large_shapes_matches_plain(cuda, dtype, b, t, h, d_head):
+    """K2-fwd and K2-bwd at SPIRAL-large's shapes, with padded keys and
+    dropout 0.1, against the plain version and its autograd: fp32 at 1e-4 x
+    max(1, max|plain|), bf16 at the bf16 limits (8e-3, 1.6e-2)."""
+    e = h * d_head
+    gen = torch.Generator().manual_seed(t + h)
+    qkv = torch.randn(b, t, 3 * e, generator=gen)
+    qkv[..., :e] *= d_head ** -0.5
+    qkv = qkv.to(cuda).to(dtype)
+    lens = torch.linspace(t // 2, t, b).long().to(cuda)
+    mask = torch.arange(t, device=cuda)[None, :] >= lens[:, None]
+    dout = torch.randn(b, t, e, generator=gen).to(cuda).to(dtype)
+    res = []
+    for fn in (fused_qkv_self_attention, qkv_attention_plain):
+        x = qkv.clone().requires_grad_(True)
+        out = fn(x, h, mask, 0.1, 17)
+        out.backward(dout)
+        res.append((out.detach().float(), x.grad.float()))
+    torch.cuda.synchronize()
+    (out, grad), (ref, ref_grad) = res
+    fwd, bwd = (1e-4, 1e-4) if dtype == torch.float32 else (8e-3, 1.6e-2)
+    torch.testing.assert_close(out, ref, rtol=0, atol=fwd * max(1.0, ref.abs().max().item()))
+    torch.testing.assert_close(grad, ref_grad, rtol=0,
+                               atol=bwd * max(1.0, ref_grad.abs().max().item()))
+
+
 # ---- K4: the grouped positional conv ----------------------------------------
 
 # (B, T, C, groups, K): the tiny and toy configs' Cg 8 and 12, odd K, ragged
-# tiles; SPIRAL-base's two blocks (Cg 32 and 48, K 128); large's Cg 64
+# tiles; SPIRAL-base's two blocks (Cg 32 and 48, K 128); large's Cg 64, and
+# SPIRAL-large's two blocks at 42 s (B = 18)
 K4_SHAPES = [(2, 37, 32, 4, 8), (3, 50, 48, 4, 7), (2, 129, 192, 16, 16),
-             (14, 604, 512, 16, 128), (14, 302, 768, 16, 128), (2, 300, 1024, 16, 128)]
+             (14, 604, 512, 16, 128), (14, 302, 768, 16, 128), (2, 300, 1024, 16, 128),
+             (18, 1050, 512, 16, 128), (18, 525, 1024, 16, 128)]
 
 
 def _conv_case(dev, b, t, c, g, k, seed):
@@ -732,14 +790,15 @@ def test_bf16_attention_raises_on_misaligned_operands(cuda):
 
 # (B, T, C, groups, K): Cg 16, 32, 48, 64 around the kernel's 64-frame tiles
 # and its blocks (256 frames, 128 at Cg 64), K not a multiple of the taps a
-# chunk (7, 9), and the six SPIRAL-base shapes of the paths (Cg 32 and 48, K
-# 128: chip_smoke.py's K4_SHAPES)
+# chunk (7, 9), the six SPIRAL-base shapes of the paths (Cg 32 and 48, K
+# 128: chip_smoke.py's K4_SHAPES) and SPIRAL-large's two (Cg 32 and 64)
 BF16_K4_SHAPES = [(2, 1, 256, 16, 128), (2, 17, 64, 4, 7), (3, 127, 512, 16, 16),
                   (2, 128, 768, 16, 128), (2, 129, 1024, 16, 128), (1, 63, 256, 16, 8),
                   (2, 64, 512, 16, 16), (2, 65, 512, 16, 128), (1, 255, 768, 16, 16),
                   (1, 256, 512, 16, 128), (2, 257, 1024, 16, 128), (1, 513, 256, 16, 9),
                   (14, 604, 512, 16, 128), (14, 302, 768, 16, 128), (24, 392, 512, 16, 128),
-                  (24, 456, 512, 16, 128), (24, 196, 768, 16, 128), (24, 228, 768, 16, 128)]
+                  (24, 456, 512, 16, 128), (24, 196, 768, 16, 128), (24, 228, 768, 16, 128),
+                  (18, 1050, 512, 16, 128), (18, 525, 1024, 16, 128)]
 
 
 @pytest.mark.parametrize("b,t,c,g,k", BF16_K4_SHAPES)

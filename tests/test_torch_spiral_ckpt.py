@@ -456,14 +456,11 @@ def test_every_jax_flag_parses_with_the_jax_default():
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--config_path", "conf/other", 6), ("--structured_config", "false", 6),
-    ("--tokenizer_file", "tok.model", 6), ("--beam_size", "4", 6),
-    ("--lm_manifest", "lm.json", 6), ("--lm_alpha", "0.3", 6), ("--lm_order", "3", 6),
     ("--streaming_eval", "true", 9),
     ("--seq_parallel", "2", 10), ("--fsdp", "true", 10), ("--num_nodes", "2", 10),
     ("--node_rank", "0", 10), ("--master_addr", "h:1", 10), ("--num_gpus", "2", 10),
-    ("--num_devices", "4", 10), ("--config_name", "spiral_tiny_stream_test", 6),
-    ("--config_name", "exp.yaml", 6),
+    ("--num_devices", "4", 10), ("--config_name", "spiral_tiny_stream_test", 9),
+    ("--config_name", "spiral_base_finetune_ls100_char_streaming", 9),
 ])
 def test_unported_flags_stop_the_run_and_name_their_item(tmp_path, flag, value, item):
     argv = ["--config_name", "spiral_tiny_test", "--device", "cpu",

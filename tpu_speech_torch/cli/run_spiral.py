@@ -32,16 +32,24 @@ every one of its flags:
         --init_chkpt_dir PRE --init_chkpt_file st2vec.pt \\
         --set trainer.max_steps=N --model_save_dir OUT
 
-- ``--model_type ctc_finetune --run_mode test``: build the configured model,
-  load test weights (``--init_chkpt_dir/--init_chkpt_file``: a reference-named
-  ``.pt``, a step checkpoint, a ``.tpu_speech`` archive or an ``.npz``; or
-  ``--init_archive``), decode the test manifest greedily and print
-  ``TEST: WER = ... | CER = ... | N utts``::
+- ``--model_type ctc_finetune --run_mode test`` (``:348-430``): build the
+  configured model, load test weights (``--init_chkpt_dir/--init_chkpt_file``:
+  a reference-named ``.pt``, a step checkpoint, a ``.tpu_speech`` archive or
+  an ``.npz``; or ``--init_archive``), decode the test manifest (greedily, or
+  by prefix beam search with ``--beam_size`` > 1, shallow-fused with an n-gram
+  LM of ``--lm_order`` fit on ``--lm_manifest``'s transcripts in the model's
+  id space at ``--lm_alpha``) and print ``TEST: WER = ... | CER = ... | N
+  utts``::
 
     python -m tpu_speech_torch.cli.run_spiral --model_type ctc_finetune \\
-        --run_mode test --config_name spiral_base_finetune_ls100_char \\
-        --test_manifest test.json --model_save_dir logs/test \\
-        --init_archive OUT/ctc_finetune.tpu_speech
+        --run_mode test --config_name spiral_large_finetune_ls100_subword \\
+        --tokenizer_file vocab.tsv --beam_size 16 --lm_manifest train.json \\
+        --lm_order 4 --lm_alpha 0.5 --test_manifest test.json \\
+        --model_save_dir logs/test --init_archive OUT/ctc_finetune.tpu_speech
+
+  ``--tokenizer_file`` (both finetune modes) is a subword vocab file
+  (``piece\\tscore`` lines, ``text/tokenizers.py::SubwordTokenizer``), else
+  the config's char labels are the targets.
 
 Resume: a second run in the same run directory (or ``--chkpt_dir``) starts
 from the latest step checkpoint, at the epoch after it, and equals a run that
@@ -55,8 +63,17 @@ Weights: ``--init_archive`` (all three modes) loads a ``.tpu_speech`` archive
 that either package wrote, strictly, or partially with ``--init_model_partial
 true``, leaving out the flax paths that contain a ``--load_model_skip_var``
 pattern; ``--use_chkpt_hparams true`` takes the model config from the
-archive. ``--config_name`` is a key of
-``tpu_speech_torch.configs.spiral.CONFIGS``. ``--manifest_dir`` (else
+archive.
+
+Configs (``:190-240``): ``--config_name`` is a key of
+``tpu_speech_torch.configs.spiral.CONFIGS`` (the JAX experiment files'
+names), or a YAML experiment file (``NAME.yaml``, as a path or under
+``--config_path``; ``--structured_config false`` requires
+``<config_path>/<name>.yaml``; a ``<config_path>/<name>.yaml`` that exists is
+taken first) whose ``base:`` is a key of ``CONFIGS`` and whose other keys
+override its leaves (``utils/config.py::load_yaml_experiment``). The JAX
+CLI imports ``base`` from its python config modules, which import JAX; the
+port resolves it against ``CONFIGS``. ``--manifest_dir`` (else
 ``--data_dir``) rebases the configured manifests' file names onto a
 directory (``:270-277``); ``--set KEY=VALUE`` overrides a config leaf
 (``:148-153``); both train modes take ``--set model.precision=bf16`` and
@@ -67,10 +84,9 @@ card.
 
 Flags that parse but are not ported yet stop the run when set to anything but
 their default, naming the ROADMAP Queue 1 item that will port them (``NOT_PORTED``):
-YAML configs, subword tokenizers, beam search and the n-gram LM (item 6),
-streaming evaluation (item 9), and the multi-device and multi-node modes
-(item 10). ``--export_model PATH`` (test mode) saves the wav -> log-probs
-graph after the evaluation as a ``torch.export`` program
+streaming evaluation and the streaming configs (item 9), and the multi-device
+and multi-node modes (item 10). ``--export_model PATH`` (test mode) saves the
+wav -> log-probs graph after the evaluation as a ``torch.export`` program
 (``SpiralFinetuneRunner.export_model``), which
 ``utils/export.py::load_exported`` runs. ``--use_horovod`` warns and ``--test_mode`` is
 ignored, as in the JAX CLI.
@@ -85,13 +101,20 @@ import os
 import sys
 
 from tpu_speech_torch.configs.spiral import CONFIGS
-from tpu_speech_torch.text.tokenizers import CharTokenizer
+from tpu_speech_torch.data.spiral import read_manifest
+from tpu_speech_torch.eval.ctc_beam import NGramLM
+from tpu_speech_torch.text.tokenizers import CharTokenizer, SubwordTokenizer
 from tpu_speech_torch.train.spiral_runner import (
     SpiralFinetuneRunner,
     SpiralPretrainRunner,
 )
 from tpu_speech_torch.utils.archive import config_object, read_config
-from tpu_speech_torch.utils.config import apply_override, parse_cli_override
+from tpu_speech_torch.utils.config import (
+    apply_override,
+    apply_overrides,
+    load_yaml_experiment,
+    parse_cli_override,
+)
 from tpu_speech_torch.utils.exp_manager import ExpManager
 from tpu_speech_torch.utils.profiling import trace
 from tpu_speech_torch.utils.surgery import parse_skip_vars
@@ -99,13 +122,12 @@ from tpu_speech_torch.utils.surgery import parse_skip_vars
 # flag -> the ROADMAP Queue 1 item that ports it; any value but the default
 # stops the run
 NOT_PORTED = {
-    "config_path": 6, "structured_config": 6, "tokenizer_file": 6, "beam_size": 6,
-    "lm_manifest": 6, "lm_alpha": 6, "lm_order": 6,
     "streaming_eval": 9,
     "seq_parallel": 10, "fsdp": 10, "num_nodes": 10, "node_rank": 10, "master_addr": 10,
 }
-_ITEMS = {6: "decoding, text and configs", 9: "remaining families and tools",
-          10: "distributed modes"}
+_ITEMS = {9: "remaining families and tools", 10: "distributed modes"}
+# the JAX experiment files that need the streaming encoder (item 9)
+STREAMING_CONFIGS = ("spiral_base_finetune_ls100_char_streaming", "spiral_tiny_stream_test")
 
 
 def str2bool(v):
@@ -145,12 +167,13 @@ def build_parser():
     p.add_argument("--chkpt_dir", type=str, default="",
                    help="step checkpoint dir; default: <run dir>/ckpt")
     p.add_argument("--config_path", type=str, default="conf/spiral",
-                   help="not ported (Queue 1 item 6): the configs are "
+                   help="directory of YAML experiment files (<name>.yaml); their "
+                   "base: and --config_name are keys of "
                    "tpu_speech_torch.configs.spiral.CONFIGS")
     p.add_argument("--config_name", type=str, required=True,
-                   help=f"one of {', '.join(sorted(CONFIGS))}")
+                   help=f"a YAML experiment file or one of {', '.join(sorted(CONFIGS))}")
     p.add_argument("--structured_config", type=str2bool, default=True,
-                   help="false (YAML experiment files) is not ported (item 6)")
+                   help="false: the config is the YAML file <config_path>/<name>.yaml")
     p.add_argument("--num_devices", type=int, default=0,
                    help="devices to use: 0 or 1 (one card; more is item 10)")
     p.add_argument("--num_gpus", type=int, default=0, help="alias of --num_devices")
@@ -193,15 +216,17 @@ def build_parser():
     p.add_argument("--streaming_eval", type=str2bool, default=False,
                    help="not ported (item 9)")
     p.add_argument("--beam_size", type=int, default=1,
-                   help="1 = greedy decoding; beam search is item 6")
-    p.add_argument("--lm_manifest", type=str, default="", help="not ported (item 6)")
-    p.add_argument("--lm_alpha", type=float, default=0.5, help="not ported (item 6)")
-    p.add_argument("--lm_order", type=int, default=4, help="not ported (item 6)")
+                   help="test mode: 1 = greedy decoding, more = CTC prefix beam search")
+    p.add_argument("--lm_manifest", type=str, default="",
+                   help="beam search: fit an n-gram LM on this manifest's transcripts")
+    p.add_argument("--lm_alpha", type=float, default=0.5, help="the LM's fusion weight")
+    p.add_argument("--lm_order", type=int, default=4, help="the LM's n-gram order")
     p.add_argument("--export_model", type=str, default="",
                    help="test mode: save the wav -> log-probs graph as a torch.export "
                    ".pt2 at this path (utils/export.py)")
     p.add_argument("--tokenizer_file", type=str, default="",
-                   help="subword tokenizers are item 6")
+                   help="ctc_finetune: a subword vocab file (piece<TAB>score lines); "
+                   "default: the config's char labels")
     p.add_argument("--max_epochs", type=int, default=0,
                    help="overrides trainer.max_epochs when > 0")
     p.add_argument("--dev_data_dup_factor", type=int, default=0,
@@ -225,16 +250,44 @@ def _refuse_unported(args, parser) -> None:
         if getattr(args, flag) != parser.get_default(flag):
             raise SystemExit(f"--{flag}={getattr(args, flag)} is not ported yet: ROADMAP.md "
                              f"Queue 1 item {item} ({_ITEMS[item]})")
-    if args.config_name.endswith((".yaml", ".yml")):
-        raise SystemExit("YAML experiment configs are not ported yet: ROADMAP.md Queue 1 "
-                         f"item 6 ({_ITEMS[6]})")
-    if args.config_name not in CONFIGS:
-        raise SystemExit(f"--config_name {args.config_name}: the port has "
-                         f"{', '.join(sorted(CONFIGS))}; the other experiment files are "
-                         f"ROADMAP.md Queue 1 item 6 ({_ITEMS[6]})")
     if max(args.num_devices, args.num_gpus) > 1:
         raise SystemExit("more than one device is not ported yet: ROADMAP.md Queue 1 "
                          f"item 10 ({_ITEMS[10]})")
+
+
+def _config(name: str):
+    """A fresh RunConfig of ``CONFIGS[name]``; SystemExit for a name the
+    port does not have."""
+    if name in STREAMING_CONFIGS:
+        raise SystemExit(f"config {name} needs the streaming encoder, which is not ported "
+                         f"yet: ROADMAP.md Queue 1 item 9 ({_ITEMS[9]})")
+    if name not in CONFIGS:
+        raise SystemExit(f"config {name!r}: the port's configs are "
+                         f"{', '.join(sorted(CONFIGS))}")
+    return CONFIGS[name]()
+
+
+def load_config(args):
+    """The run config of ``--config_name`` (``cli/run_spiral.py:190-240``): a
+    YAML experiment file (a path, or under ``--config_path``), composed from
+    its ``base:`` config and its overrides, or a key of ``CONFIGS``."""
+    yaml_path = None
+    cand = os.path.join(args.config_path, args.config_name + ".yaml")
+    if args.config_name.endswith((".yaml", ".yml")):
+        yaml_path = (args.config_name if os.path.isfile(args.config_name)
+                     else os.path.join(args.config_path, args.config_name))
+    elif not args.structured_config:
+        if not os.path.isfile(cand):
+            raise SystemExit(f"--structured_config=false but no YAML config at {cand}")
+        yaml_path = cand
+    elif os.path.isfile(cand):
+        yaml_path = cand
+    if yaml_path is None:
+        return _config(args.config_name)
+    base, overrides = load_yaml_experiment(yaml_path)
+    cfg = _config(base)
+    apply_overrides(cfg, overrides)
+    return cfg
 
 
 def _epochs(cfg, runner, profile: bool):
@@ -296,7 +349,7 @@ def main(argv=None) -> dict:
     run_dir = args.model_save_dir or args.log_dir or "logs/spiral"
     skip_vars = parse_skip_vars(args.load_model_skip_var)
 
-    cfg = CONFIGS[args.config_name]()
+    cfg = load_config(args)
     for spec in args.overrides:
         apply_override(cfg, *parse_cli_override(spec))
     if args.use_chkpt_hparams:
@@ -352,8 +405,15 @@ def main(argv=None) -> dict:
         # encoder file of the run that trained it
         cfg.model.pretrain_chkpt_path = None
     cfg.model.use_teacher_encoder = args.use_teacher_encoder
-    runner = SpiralFinetuneRunner(cfg, run_dir, CharTokenizer(cfg.model.labels),
-                                  device=args.device, exp=exp, ckpt_dir=args.chkpt_dir)
+    if args.tokenizer_file:
+        tokenizer = SubwordTokenizer(args.tokenizer_file)
+    elif cfg.model.labels is None:
+        raise SystemExit(f"{args.config_name} has subword targets "
+                         f"({cfg.model.tokenizer_file}): pass --tokenizer_file")
+    else:
+        tokenizer = CharTokenizer(cfg.model.labels)
+    runner = SpiralFinetuneRunner(cfg, run_dir, tokenizer, device=args.device, exp=exp,
+                                  ckpt_dir=args.chkpt_dir)
     if cfg.model.pretrain_chkpt_path:
         print(f"Loaded the pretrained encoder from: {cfg.model.pretrain_chkpt_path}")
     if args.init_archive:
@@ -371,8 +431,16 @@ def main(argv=None) -> dict:
     if args.run_mode == "train":
         return train_ctc(cfg, runner, profile=args.profile)
 
+    lm = None
+    if args.beam_size > 1 and args.lm_manifest:
+        # shallow fusion: the n-gram LM in the model's id space, blank offset
+        # included (cli/run_spiral.py:402-416)
+        texts = [e["text"] for e in read_manifest(args.lm_manifest, 0.0, None)]
+        lm = NGramLM.from_texts(texts, runner.tokenizer, order=args.lm_order)
+        print(f"n-gram LM (order {args.lm_order}) fit on {len(texts)} transcripts")
     results = runner.evaluate(
         save_logits_dir=os.path.join(runner.log_dir, "logits") if args.save_logits else None,
+        beam_width=args.beam_size, lm=lm, lm_alpha=args.lm_alpha,
     )
     print(f"TEST: WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
           f"| {results['n']} utts")

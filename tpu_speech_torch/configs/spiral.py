@@ -17,10 +17,19 @@ convs, blank after the 28-char vocab), test batches of 14 padded to 24 s.
 ``spiral_tiny_pretrain()`` is ``cli/conf/spiral/spiral_tiny_test.py``, the
 CPU test size of the pretrain step.
 
+The other experiment files of ``cli/conf/spiral/`` under their own names:
+the subword recipes (``subword_decoder``: two plain convs, the blank first;
+``tokenizer_file`` names the sentencepiece model the JAX recipe names), the
+noise recipes (``dns_noise``), the SPIRAL-large finetune recipes (char and
+subword at LS-100 and LS-960) and Libri-Light pretraining, and
+``spiral_toy_quality`` (the small learnable model of the toy corpus).
+
 ``CONFIGS`` maps the ``--config_name`` values of the port's run_spiral CLI to
 these functions (``spiral_tiny_test``, the JAX package's name, is
-``spiral_tiny_pretrain``). The other experiment files of ``cli/conf/spiral/``
-are not ported yet (ROADMAP Queue 1 item 6).
+``spiral_tiny_pretrain``); a YAML experiment file's ``base:`` resolves
+against it too. The two streaming configs (``*_streaming``,
+``spiral_tiny_stream_test``) wait for the streaming encoder (ROADMAP Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -32,13 +41,18 @@ from tpu_speech_torch.models.spiral.encoder import (
     ConvTransformerBlockCfg,
     TransformerCfg,
 )
-from tpu_speech_torch.models.spiral.st2vec import ST2VecConfig, spiral_base_config
+from tpu_speech_torch.models.spiral.st2vec import (
+    ST2VecConfig,
+    spiral_base_config,
+    spiral_large_config,
+)
 from tpu_speech_torch.text.tokenizers import DEFAULT_CHAR_LABELS
 from tpu_speech_torch.utils.config import (
     AdamWParams,
     AudioDatasetConfig,
     DecoderConfig,
     ExpManagerConfig,
+    NoisePerturbConfig,
     RunConfig,
     SchedParams,
     SpiralModelConfig,
@@ -182,16 +196,41 @@ def char_decoder(norm_type=None, filters=512) -> DecoderConfig:
     )
 
 
-def finetune_run_config(config_name, encoder, decoder, labels=None,
+def subword_decoder() -> DecoderConfig:
+    """Subword CTC head (``_common.py:49``): 2 plain convs, blank first."""
+    return DecoderConfig(
+        conv_layers=tuple(
+            ConvLayerCfg(512, (5,), (1,), None, "relu", 0.1) for _ in range(2)
+        ),
+        blank_pos="vocab_first",
+    )
+
+
+def dns_noise(noise_dir: str = "/path/to/noise_data",
+              sample_rate: int = 16000) -> NoisePerturbConfig:
+    """Multi-condition training noise source (``_common.py:128``): point
+    ``model.noise_perturb.manifest_path`` at a JSON-lines manifest of the DNS
+    noise set."""
+    return NoisePerturbConfig(
+        manifest_path=noise_dir + "/noise/ms_dns_train.json",
+        min_snr_db=0.0, max_snr_db=30.0, ratio=0.5,
+        target_sr=sample_rate, cache_noise=True,
+    )
+
+
+def finetune_run_config(config_name, encoder, decoder, labels=None, tokenizer_file=None,
                         train_manifest="manifest_json/librivox-train-clean-100.json",
                         batch_size=14, max_duration=24.0, max_steps=80000,
                         expected_gpu_num=8, freeze_finetune_updates=2000,
-                        max_epochs=320, sample_rate=16000, lr=0.00003):
+                        max_epochs=320, noise_perturb=None, sample_rate=16000,
+                        lr=0.00003):
     """CTC finetune RunConfig skeleton (``_common.py:61``)."""
     model = SpiralModelConfig(
         encoder=encoder,
         labels=labels,
+        tokenizer_file=tokenizer_file,
         decoder=decoder,
+        noise_perturb=noise_perturb,
         freeze_finetune_updates=freeze_finetune_updates,
         optim=AdamWParams(
             lr=lr, eps=1e-6, betas=(0.9, 0.98), weight_decay=0.01,
@@ -258,10 +297,178 @@ def spiral_tiny_ctc_char() -> RunConfig:
     return cfg
 
 
+SPM_MODEL = "vocab_spm/spm_1k_libri_unigram_bos_mask.model"
+LS960_TRAIN = ("manifest_json/librivox-train-clean-100.json,"
+               "manifest_json/librivox-train-clean-360.json,"
+               "manifest_json/librivox-train-other-500.json")
+
+
+def _base_finetune_encoder():
+    enc = spiral_base_config()
+    return dataclasses.replace(
+        enc, blocks=finetune_transformer_overrides(enc.blocks),
+        mask_prob=0.3, mask_length=4, mask_channel_prob=0.3, mask_channel_length=20)
+
+
+def spiral_base_finetune_ls100_subword() -> RunConfig:
+    """``cli/conf/spiral/spiral_base_finetune_ls100_subword.py``."""
+    return finetune_run_config(
+        "ctc_finetune", _base_finetune_encoder(), subword_decoder(),
+        tokenizer_file=SPM_MODEL, batch_size=14, max_duration=24.0, max_steps=80000,
+        expected_gpu_num=8, freeze_finetune_updates=2000, max_epochs=320,
+    )
+
+
+def spiral_base_finetune_ls100_subword_noise() -> RunConfig:
+    """``cli/conf/spiral/spiral_base_finetune_ls100_subword_noise.py``."""
+    cfg = spiral_base_finetune_ls100_subword()
+    cfg.model.noise_perturb = dns_noise(sample_rate=16000)
+    cfg.trainer.max_epochs = 380
+    return cfg
+
+
+def spiral_base_pretrain_ls960_noise() -> RunConfig:
+    """``cli/conf/spiral/spiral_base_pretrain_ls960_noise.py``."""
+    cfg = spiral_base_pretrain_ls960()
+    cfg.model.noise_perturb = dns_noise(sample_rate=16000)
+    return cfg
+
+
+def _large_finetune(decoder, mask_length, labels=None, tokenizer_file=None, ls960=False):
+    """The SPIRAL-large finetune recipes (``spiral_large_finetune_*.py``):
+    layerdrop 0.1 on both blocks, mask_prob 0.5; LS-100 at B = 18 x 42 s,
+    LS-960 at B = 10 x 26 s for 320k steps."""
+    enc = spiral_large_config()
+    encoder = dataclasses.replace(
+        enc, blocks=finetune_transformer_overrides(enc.blocks, layerdrop_first=0.1),
+        mask_prob=0.5, mask_length=mask_length, mask_channel_prob=0.3,
+        mask_channel_length=20)
+    size = (dict(train_manifest=LS960_TRAIN, batch_size=10, max_duration=26.0,
+                 max_steps=320000, expected_gpu_num=16, freeze_finetune_updates=4000,
+                 max_epochs=380) if ls960 else
+            dict(batch_size=18, max_duration=42.0, max_steps=80000, expected_gpu_num=8,
+                 freeze_finetune_updates=2000, max_epochs=393))
+    return finetune_run_config("ctc_finetune", encoder, decoder, labels=labels,
+                               tokenizer_file=tokenizer_file, **size)
+
+
+def spiral_large_finetune_ls100_char() -> RunConfig:
+    """``cli/conf/spiral/spiral_large_finetune_ls100_char.py``."""
+    return _large_finetune(char_decoder(norm_type="ln"), 4, labels=DEFAULT_CHAR_LABELS)
+
+
+def spiral_large_finetune_ls100_subword() -> RunConfig:
+    """``cli/conf/spiral/spiral_large_finetune_ls100_subword.py``."""
+    return _large_finetune(subword_decoder(), 4, tokenizer_file=SPM_MODEL)
+
+
+def spiral_large_finetune_ls960_char() -> RunConfig:
+    """``cli/conf/spiral/spiral_large_finetune_ls960_char.py``."""
+    return _large_finetune(char_decoder(norm_type="ln"), 12, labels=DEFAULT_CHAR_LABELS,
+                           ls960=True)
+
+
+def spiral_large_finetune_ls960_subword() -> RunConfig:
+    """``cli/conf/spiral/spiral_large_finetune_ls960_subword.py``."""
+    return _large_finetune(subword_decoder(), 8, tokenizer_file=SPM_MODEL, ls960=True)
+
+
+def spiral_large_pretrain_librilight() -> RunConfig:
+    """``cli/conf/spiral/spiral_large_pretrain_librilight.py``: Libri-Light
+    pretraining, batch 20 x 256 000-sample crops, 500k steps, EMA 0.99 ->
+    0.999."""
+    max_steps = 500000
+
+    def ds(manifest, shuffle, **kw):
+        return AudioDatasetConfig(manifest_filepath=manifest, sample_rate=16000,
+                                  batch_size=20, min_duration=2.0, crop_size=256000,
+                                  shuffle=shuffle, **kw)
+
+    model = SpiralModelConfig(
+        encoder=spiral_large_config(target_momentum_steps=max_steps),
+        optim=AdamWParams(
+            lr=0.003, eps=1e-6, betas=(0.9, 0.98), weight_decay=0.01,
+            sched=SchedParams(name="CosineAnnealing", warmup_steps=32000,
+                              max_steps=max_steps, min_lr=0.0),
+        ),
+        train_ds=ds("librilight_manifest_json/librilight_unlab600.json,"
+                    "librilight_manifest_json/librilight_unlab6k.json,"
+                    "librilight_manifest_json/librilight_unlab60k.json", True, num_workers=4),
+        validation_ds=ds("manifest_json/librivox-dev-clean.json", False),
+        test_ds=ds("manifest_json/librivox-test-clean.json", False),
+        expected_gpu_num=32,
+    )
+    return RunConfig(
+        name="st2vec", model=model,
+        trainer=TrainerConfig(max_epochs=700, max_steps=max_steps),
+        exp_manager=ExpManagerConfig(name="st2vec", save_top_k=5),
+    )
+
+
+def spiral_toy_quality() -> RunConfig:
+    """``cli/conf/spiral/spiral_toy_quality.py``: a small learnable SPIRAL
+    (two 48-wide two-layer transformers, d_head 12) on 0.8 s utterances."""
+    t = TransformerCfg(2, 48, 96, 4, 0.0, attention_dropout=0.0, conv_pos=8,
+                       conv_pos_groups=4)
+    blocks = (
+        ConvTransformerBlockCfg(
+            conv_layers=(ConvLayerCfg(32, (5,), (2,), "ln", "relu", 0.0),
+                         ConvLayerCfg(48, (5,), (2,), "ln", "relu", 0.0)),
+            transformer=t),
+        ConvTransformerBlockCfg(
+            conv_layers=(ConvLayerCfg(48, (5,), (2,), "ln", "relu", 0.0),),
+            transformer=t),
+    )
+    encoder = ST2VecConfig(
+        blocks=blocks, num_features=32, projector_dim=24,
+        predictor_convs=(ConvLayerCfg(24, (3,), (1,), "bn", "relu", 0.0, bias=None),),
+        n_negatives=8, max_shift=2,
+        mask_prob=0.15, mask_length=6, mask_channel_prob=0.1, mask_channel_length=4,
+        target_momentum=0.99, target_momentum_final=0.999, target_momentum_steps=300,
+    )
+
+    def ds(shuffle, **kw):
+        return AudioDatasetConfig(manifest_filepath="manifest.json", sample_rate=16000,
+                                  batch_size=8, shuffle=shuffle, max_duration=0.81,
+                                  num_workers=2, **kw)
+
+    model = SpiralModelConfig(
+        encoder=encoder,
+        labels=DEFAULT_CHAR_LABELS,
+        freeze_finetune_updates=0,
+        decoder=DecoderConfig(
+            conv_layers=tuple(ConvLayerCfg(48, (5,), (1,), None, "relu", 0.0)
+                              for _ in range(2)),
+            upsample_rate=4, upsample_filters=48, upsample_dropout=0.0,
+        ),
+        optim=AdamWParams(
+            lr=2e-3, sched=SchedParams(name="CosineAnnealing", warmup_steps=20,
+                                       max_steps=600)),
+        train_ds=ds(True, crop_size=12800),
+        validation_ds=ds(False),
+        test_ds=ds(False),
+    )
+    return RunConfig(
+        name="st2vec_toy", model=model,
+        trainer=TrainerConfig(devices=1, max_epochs=10, max_steps=None,
+                              val_check_interval_epochs=5),
+        exp_manager=ExpManagerConfig(name="st2vec_toy"),
+    )
+
+
 CONFIGS = {
     "spiral_base_finetune_ls100_char": spiral_base_ctc_char,
     "spiral_tiny_ctc_char": spiral_tiny_ctc_char,
     "spiral_base_pretrain_ls960": spiral_base_pretrain_ls960,
     "spiral_tiny_pretrain": spiral_tiny_pretrain,
     "spiral_tiny_test": spiral_tiny_pretrain,  # the JAX package's name for it
+    "spiral_base_finetune_ls100_subword": spiral_base_finetune_ls100_subword,
+    "spiral_base_finetune_ls100_subword_noise": spiral_base_finetune_ls100_subword_noise,
+    "spiral_base_pretrain_ls960_noise": spiral_base_pretrain_ls960_noise,
+    "spiral_large_finetune_ls100_char": spiral_large_finetune_ls100_char,
+    "spiral_large_finetune_ls100_subword": spiral_large_finetune_ls100_subword,
+    "spiral_large_finetune_ls960_char": spiral_large_finetune_ls960_char,
+    "spiral_large_finetune_ls960_subword": spiral_large_finetune_ls960_subword,
+    "spiral_large_pretrain_librilight": spiral_large_pretrain_librilight,
+    "spiral_toy_quality": spiral_toy_quality,
 }

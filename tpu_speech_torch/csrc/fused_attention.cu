@@ -82,6 +82,12 @@
 //   The first design recomputed S and dP for dQ: 14 instead of 10
 //   B H T^2 D FLOP.
 //
+// Head widths: 8, 16, 32 and 64, and 12 (the toy config's 48 / 4). The
+// products step d by the mma's k of 8, so a width that is not a multiple of
+// 8 runs padded to the next one (padded()): stage_rows zero-fills the tiles'
+// extra columns, which adds exact zeros to S and dP, and the stores skip
+// them. q carries the 12**-0.5 scale already.
+//
 // bf16 operands (entry points tsx_attention_*_bf16) run on the Hopper
 // kernels of fused_attention_sm90.cu (wgmma, TMA), with the same semantics.
 
@@ -203,17 +209,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// rows t0 .. t0 + 63 of a slab with row stride `stride` floats into a
-// shared [64][D + 4] tile; rows past T are zeros
-template <int D>
+// the head width the products run at: D rounded up to the mma's k of 8
+__host__ __device__ constexpr int padded(int d) { return (d + 7) / 8 * 8; }
+
+// rows t0 .. t0 + 63 of a slab with row stride `stride` floats, D of them
+// a row, into a shared [64][DP + 4] tile; rows past T and columns D .. DP - 1
+// are zeros (a head of 12 runs as 16 whose last 4 are zero: its products are
+// exact)
+template <int D, int DP = D>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long stride, int t0, int T, int tid) {
-  constexpr int C4 = D / 4;
+  constexpr int C4 = DP / 4;
   for (int i = tid; i < 64 * C4; i += NT) {
     const int r = i / C4, c = (i % C4) * 4, t = t0 + r;
-    const bool ok = t < T;
-    cp_async16(dst + r * (D + 4) + c, ok ? src + t * stride + c : src, ok);
+    const bool ok = t < T && c < D;
+    cp_async16(dst + r * (DP + 4) + c, ok ? src + t * stride + c : src, ok);
   }
+}
+
+// whether column 8n + 2t of a fragment row is one of the head's D
+template <int D>
+__device__ __forceinline__ bool in_head(int n, int t) {
+  return D % 8 == 0 || 8 * n + 2 * t < D;
 }
 
 // per key of a tile: valid, padded (the -1e9 fill) or past T
@@ -239,17 +256,17 @@ __device__ __forceinline__ void wait_tile(bool next_in_flight) {
 
 template <int D>
 constexpr size_t fwd_smem_bytes() {  // q tile; 2 x (k, v) tiles; 2 x key flags
-  return sizeof(float) * (size_t)(BQ + 4 * BK) * (D + 4) + 2 * BK;
+  return sizeof(float) * (size_t)(BQ + 4 * BK) * (padded(D) + 4) + 2 * BK;
 }
 
 template <int D>
 constexpr size_t dkdv_smem_bytes() {  // k, v tiles; 2 x (q, dO) tiles; 2 x (L, Delta)
-  return sizeof(float) * ((size_t)(2 * BK + 4 * BQ) * (D + 4) + 4 * BQ);
+  return sizeof(float) * ((size_t)(2 * BK + 4 * BQ) * (padded(D) + 4) + 4 * BQ);
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {  // 2 x (dS^T, k) tiles
-  return sizeof(float) * (size_t)2 * BK * ((BQ + 4) + (D + 4));
+  return sizeof(float) * (size_t)2 * BK * ((BQ + 4) + (padded(D) + 4));
 }
 
 // The -1e9 fill, then the online softmax and the dropout on one 16 x 64 tile
@@ -307,8 +324,9 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const unsigned char* __restrict__ key_pad,
                 float* __restrict__ out, float* __restrict__ lse, int T, int H,
                 unsigned seed, unsigned thresh, float drop_scale) {
-  constexpr int SS = D + 4;
-  constexpr int KD = D / 8;  // 8-wide slabs of d: the k-steps of S, the n-tiles of out
+  constexpr int DP = padded(D);
+  constexpr int SS = DP + 4;
+  constexpr int KD = DP / 8;  // 8-wide slabs of d: the k-steps of S, the n-tiles of out
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                  // BQ x SS
   float* kbuf = qs + BQ * SS;        // 2 x BK x SS
@@ -329,10 +347,10 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
   const int n_tiles = (T + BK - 1) / BK;
 
-  stage_rows<D>(qs, q + head, row, q0, T, tid);
+  stage_rows<D, DP>(qs, q + head, row, q0, T, tid);
   cp_async_commit();
-  stage_rows<D>(kbuf, kg, row, 0, T, tid);
-  stage_rows<D>(vbuf, vg, row, 0, T, tid);
+  stage_rows<D, DP>(kbuf, kg, row, 0, T, tid);
+  stage_rows<D, DP>(vbuf, vg, row, 0, T, tid);
   stage_key_flags(flags, pad, 0, T, tid);
   cp_async_commit();
   wait_tile(true);  // the q tile; the first key tile stays in flight
@@ -355,8 +373,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool more = it + 1 < n_tiles;
     if (more) {
       const int k1 = (it + 1) * BK;
-      stage_rows<D>(kbuf + (cur ^ 1) * BK * SS, kg, row, k1, T, tid);
-      stage_rows<D>(vbuf + (cur ^ 1) * BK * SS, vg, row, k1, T, tid);
+      stage_rows<D, DP>(kbuf + (cur ^ 1) * BK * SS, kg, row, k1, T, tid);
+      stage_rows<D, DP>(vbuf + (cur ^ 1) * BK * SS, vg, row, k1, T, tid);
       stage_key_flags(flags + (cur ^ 1) * BK, pad, k1, T, tid);
       cp_async_commit();
     }
@@ -403,8 +421,9 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* dst = out + ((long long)b * T + tq) * E + h * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < KD; ++n)
-        *reinterpret_cast<float2*>(dst + 8 * n) =
-            make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+        if (in_head<D>(n, t))
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
       if (lse != nullptr && t == 0) lse[(long long)bh * T + tq] = m[i] + logf(l[i]);
     }
   }
@@ -478,8 +497,9 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dv, float* __restrict__ dst, int ld_grad,
                      int T, int H, unsigned seed, unsigned thresh, float drop_scale,
                      float inv_t) {
-  constexpr int SS = D + 4;
-  constexpr int KD = D / 8;
+  constexpr int DP = padded(D);
+  constexpr int SS = DP + 4;
+  constexpr int KD = DP / 8;
   constexpr int NJ = CH / 8;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                    // BK x SS
@@ -507,10 +527,10 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
   const int n_tiles = (T + BQ - 1) / BQ;
 
-  stage_rows<D>(ks, k + head, row, k0, T, tid);
-  stage_rows<D>(vs, v + head, row, k0, T, tid);
-  stage_rows<D>(qbuf, qg, row, 0, T, tid);
-  stage_rows<D>(dobuf, dog, E, 0, T, tid);
+  stage_rows<D, DP>(ks, k + head, row, k0, T, tid);
+  stage_rows<D, DP>(vs, v + head, row, k0, T, tid);
+  stage_rows<D, DP>(qbuf, qg, row, 0, T, tid);
+  stage_rows<D, DP>(dobuf, dog, E, 0, T, tid);
   stage_row_stats(rowl, rowd, lg, dg, 0, T, tid);
   cp_async_commit();
 
@@ -537,8 +557,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool more = it + 1 < n_tiles;
     if (more) {
       const int q1 = (it + 1) * BQ, nxt = cur ^ 1;
-      stage_rows<D>(qbuf + nxt * BQ * SS, qg, row, q1, T, tid);
-      stage_rows<D>(dobuf + nxt * BQ * SS, dog, E, q1, T, tid);
+      stage_rows<D, DP>(qbuf + nxt * BQ * SS, qg, row, q1, T, tid);
+      stage_rows<D, DP>(dobuf + nxt * BQ * SS, dog, E, q1, T, tid);
       stage_row_stats(rowl + nxt * BQ, rowd + nxt * BQ, lg, dg, q1, T, tid);
       cp_async_commit();
     }
@@ -615,6 +635,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const long long off = ((long long)b * T + key[i]) * ld_grad + h * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < KD; ++n) {
+        if (!in_head<D>(n, t)) continue;
         *reinterpret_cast<float2*>(dk + off + 8 * n) =
             make_float2(dkr[n][2 * i], dkr[n][2 * i + 1]);
         *reinterpret_cast<float2*>(dv + off + 8 * n) =
@@ -631,9 +652,10 @@ template <int D>
 __global__ void __launch_bounds__(NT, 2)
 attn_bwd_dq_kernel(const float* __restrict__ k, int ld, const float* __restrict__ dst,
                    float* __restrict__ dq, int ld_grad, int T, int H) {
-  constexpr int SS = D + 4;
+  constexpr int DP = padded(D);
+  constexpr int SS = DP + 4;
   constexpr int PS = BQ + 4;  // dS^T tile row stride
-  constexpr int KD = D / 8;
+  constexpr int KD = DP / 8;
   extern __shared__ __align__(16) float smem[];
   float* sbuf = smem;                 // 2 x BK x PS: dS^T rows of the key tile
   float* kbuf = sbuf + 2 * BK * PS;   // 2 x BK x SS
@@ -649,7 +671,7 @@ attn_bwd_dq_kernel(const float* __restrict__ k, int ld, const float* __restrict_
   const int n_tiles = (T + BK - 1) / BK;
 
   stage_rows<BQ>(sbuf, sg, TQ, 0, T, tid);
-  stage_rows<D>(kbuf, kg, ld, 0, T, tid);
+  stage_rows<D, DP>(kbuf, kg, ld, 0, T, tid);
   cp_async_commit();
 
   float dqr[KD][4];
@@ -664,7 +686,7 @@ attn_bwd_dq_kernel(const float* __restrict__ k, int ld, const float* __restrict_
     if (more) {
       const int k1 = (it + 1) * BK, nxt = cur ^ 1;
       stage_rows<BQ>(sbuf + nxt * BK * PS, sg, TQ, k1, T, tid);
-      stage_rows<D>(kbuf + nxt * BK * SS, kg, ld, k1, T, tid);
+      stage_rows<D, DP>(kbuf + nxt * BK * SS, kg, ld, k1, T, tid);
       cp_async_commit();
     }
     wait_tile(more);
@@ -688,7 +710,9 @@ attn_bwd_dq_kernel(const float* __restrict__ k, int ld, const float* __restrict_
       float* drow = dq + ((long long)b * T + tq) * ld_grad + h * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < KD; ++n)
-        *reinterpret_cast<float2*>(drow + 8 * n) = make_float2(dqr[n][2 * i], dqr[n][2 * i + 1]);
+        if (in_head<D>(n, t))
+          *reinterpret_cast<float2*>(drow + 8 * n) =
+              make_float2(dqr[n][2 * i], dqr[n][2 * i + 1]);
     }
   }
 }
@@ -783,6 +807,7 @@ int attention_fwd(const void* q, const void* k, const void* v, int ld, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 8: return launch_fwd<8>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
+    case 12: return launch_fwd<12>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 16: return launch_fwd<16>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 32: return launch_fwd<32>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 64: return launch_fwd<64>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
@@ -809,6 +834,7 @@ int attention_bwd(const void* q, const void* k, const void* v, int ld, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 8: return launch_bwd<8>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
+    case 12: return launch_bwd<12>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 16: return launch_bwd<16>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 32: return launch_bwd<32>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 64: return launch_bwd<64>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
@@ -819,7 +845,7 @@ int attention_bwd(const void* q, const void* k, const void* v, int ld, const voi
 }  // namespace
 
 // out (B, T, H*D); lse (B, H, T) or null (no gradient needed). q, k, v rows
-// of width >= H*D at stride ld, 16-byte aligned. fp32; D in 8, 16, 32, 64.
+// of width >= H*D at stride ld, 16-byte aligned. fp32; D in 8, 12, 16, 32, 64.
 extern "C" int tsx_attention_fwd(const void* q, const void* k, const void* v,
                                  int ld, const void* key_pad, void* out,
                                  void* lse, int B, int T, int H, int D,

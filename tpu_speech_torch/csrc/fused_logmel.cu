@@ -39,9 +39,9 @@
 //    and its power, so there is nothing to conflict and no barrier.
 //  - The real split pairs bins k and M - k in one lane: X[k] = E + W_N^k O,
 //    X[M - k] = conj(E - W_N^k O), E and O from Z[k] and conj Z[M - k].
-//  - Power (or sqrt(power + eps)) goes to a (16, n_freq) tile padded by one
-//    float every 32 bins, which keeps the lanes' bit-reversed stores apart
-//    in the banks.
+//  - Power (or sqrt(power + eps), or power^(p/2)) goes to a (16, n_freq)
+//    tile padded by one float every 32 bins, which keeps the lanes'
+//    bit-reversed stores apart in the banks.
 //  - The mel product runs over each filter's nonzero band [lo_m, hi_m) only
 //    (a skipped term is an exact zero, so the function is the same for any
 //    filterbank), 8 frames per weight read, then the log, stored coalesced.
@@ -103,9 +103,13 @@ __host__ __device__ constexpr int power_stride(int m) { return m + (m >> 5) + 2;
 __device__ __forceinline__ int padk(int k) { return k + (k >> 5); }
 
 // the magnitude that the mel product reads, from q = 4 |X|^2 (the split
-// computes 2X); the power mode scales in fp32, exactly
-__device__ __forceinline__ float magnitude(double q, int mag_mode, double mag_eps) {
-  return mag_mode == 1 ? (float)sqrt(fma(0.25, q, mag_eps)) : 0.25f * (float)q;
+// computes 2X): mode 0 the power, scaled in fp32, exactly; mode 1
+// sqrt(power + mag_arg); mode 2 |X|^p = power^mag_arg with mag_arg = p / 2,
+// in float64 (the JAX package's rfft path for a mag_power other than 1 or 2)
+__device__ __forceinline__ float magnitude(double q, int mag_mode, double mag_arg) {
+  if (mag_mode == 1) return (float)sqrt(fma(0.25, q, mag_arg));
+  if (mag_mode == 2) return (float)pow(0.25 * q, mag_arg);
+  return 0.25f * (float)q;
 }
 
 // f(integral_constant<int, I>) for I = B .. E-1: loop indices that are
@@ -464,6 +468,8 @@ extern "C" int tsx_fused_logmel_dft_frames(int n_fft, int n_mels) {
 
 // tables: the FFT's twiddle table (fft_tables) for a power-of-two n_fft in
 // 128..2048, else the direct DFT's table of n_fft entries (dft_table).
+// mag_mode 0: power; 1: sqrt(power + mag_eps); 2: power^mag_eps (mag_eps is
+// then half the magnitude's exponent).
 extern "C" int tsx_fused_logmel(const void* x, const void* window, const void* mel,
                                 const void* bands, const void* tables, void* out,
                                 int B, int N, int n_fft, int hop, int n_mels,

@@ -1,7 +1,8 @@
 """SPIRAL FeatureEncoder: conv subsampling + transformer blocks.
 
 Port of ``tpu_speech/models/spiral/encoder.py`` (config dataclasses
-``:20-66``, ``spiral_base_blocks:70``, ``FeatureEncoder:113``). The config
+``:20-66``, ``spiral_base_blocks:70``, ``spiral_large_blocks:93``,
+``FeatureEncoder:113``). The config
 dataclasses are field-for-field twins of the JAX ones, so a config built
 here compares equal (``dataclasses.asdict``) to the one the JAX experiment
 files build.
@@ -90,6 +91,30 @@ def spiral_base_blocks() -> Tuple[ConvTransformerBlockCfg, ...]:
                 ConvLayerCfg(768, (1,), (1,), "ln", None, 0.0),
             ),
             transformer=TransformerCfg(10, 768, 3072, 12, 0.1, encoder_layerdrop=0.05),
+        ),
+    )
+
+
+def spiral_large_blocks() -> Tuple[ConvTransformerBlockCfg, ...]:
+    """SPIRAL-large feature encoder (spiral_large_pretrain_librilight.py:49-113):
+    convs 384/512 stride 2, 2 and a 512 1x1 before a 4-layer 512-wide
+    transformer; a 2048 stride-2 conv and a 1024 1x1 before a 20-layer
+    1024-wide transformer with 16 heads."""
+    return (
+        ConvTransformerBlockCfg(
+            conv_layers=(
+                ConvLayerCfg(384, (5,), (2,), "ln", "relu", 0.1),
+                ConvLayerCfg(512, (5,), (2,), "ln", "relu", 0.1),
+                ConvLayerCfg(512, (1,), (1,), "ln", None, 0.0),
+            ),
+            transformer=TransformerCfg(4, 512, 2048, 8, 0.1, encoder_layerdrop=0.05),
+        ),
+        ConvTransformerBlockCfg(
+            conv_layers=(
+                ConvLayerCfg(2048, (5,), (2,), "ln", "relu", 0.1),
+                ConvLayerCfg(1024, (1,), (1,), "ln", None, 0.0),
+            ),
+            transformer=TransformerCfg(20, 1024, 4096, 16, 0.1, encoder_layerdrop=0.05),
         ),
     )
 

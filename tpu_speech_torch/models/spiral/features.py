@@ -1,17 +1,20 @@
 """SPIRAL mel featurizer (NeMo FilterbankFeatures convention).
 
-Port of ``tpu_speech/models/spiral/features.py:24-166`` (the per_feature
-branch): time-domain peak normalization over the whole padded row,
-train-only dither, preemphasis 0.97, center=True STFT with a SYMMETRIC Hann
-window of win_length zero-padded to n_fft, reflect centre pad, power
-spectrum, slaney mel, log(x + 2^-24), per-feature normalization over the
-valid frames (Bessel std + 1e-5), padded frames zeroed, output padded to a
-multiple of 16. Layout (B, T, F).
+Port of ``tpu_speech/models/spiral/features.py:24-166``: time-domain peak
+normalization over the whole padded row, train-only dither, preemphasis 0.97,
+center=True STFT with a SYMMETRIC Hann window of win_length zero-padded to
+n_fft, reflect centre pad, magnitude |X|^mag_power (the power spectrum by
+default), slaney mel, log(x + 2^-24), normalization over the valid frames
+(``per_feature``: each feature's mean and Bessel std + 1e-5;
+``per_feature_causal``: the same over frames 0..t only, from running sums;
+``all_features``: one mean and std over every feature of the row; anything
+else: none), padded frames zeroed, output padded to a multiple of 16. Layout
+(B, T, F).
 
 The STFT -> log-mel core is ``ops/fused_logmel.py::fused_logmel``: the K1
-kernel on CUDA, its plain unfold + rfft version on CPU.
-
-Not ported yet: the per_feature_causal and all_features normalizations.
+kernel on CUDA, its plain unfold + rfft version on CPU, for every mag_power
+(``mag_mode`` "power" at 2, "mag_eps" at 1, "pow" otherwise), where the JAX
+package leaves its kernel for the rfft path at a power other than 1 or 2.
 """
 
 from __future__ import annotations
@@ -105,10 +108,6 @@ def filterbank_features(
 
     ``generator`` draws the dither noise when ``training`` (on x's device).
     """
-    if mag_power not in (1.0, 2.0):
-        raise NotImplementedError(f"mag_power={mag_power} (the kernel takes 1 or 2)")
-    if normalize != "per_feature":
-        raise NotImplementedError(f"normalize={normalize!r} is not ported yet")
     win_length = int(window_size * sample_rate)
     hop_length = int(window_stride * sample_rate)
     if n_fft is None:
@@ -126,22 +125,44 @@ def filterbank_features(
     constants = _featurizer_constants if torch.compiler.is_exporting() else featurizer_constants
     window, fb = constants(sample_rate, win_length, n_fft, nfilt, lowfreq, highfreq, x.device)
     num_frames = 1 + (xp.shape[-1] - n_fft) // hop_length
+    mag_mode = {2.0: "power", 1.0: "mag_eps"}.get(float(mag_power), "pow")
     feats = fused_logmel(
         xp, window, fb,
         n_fft=n_fft, hop_length=hop_length, num_frames=num_frames,
-        mag_mode="power" if mag_power == 2.0 else "mag_eps", mag_eps=0.0,
+        mag_mode=mag_mode, mag_eps=0.0, mag_power=float(mag_power),
         log_mode="guard", log_guard=log_zero_guard_value,
     )
 
     t = feats.shape[1]
     valid = (torch.arange(t, device=x.device)[None, :] < feat_lens[:, None]).to(feats.dtype)
     vm = valid[:, :, None]
-    cnt = valid.sum(dim=1)[:, None]  # (B, 1)
-    mean = (feats * vm).sum(dim=1) / cnt
-    var = ((feats - mean[:, None, :]).square() * vm).sum(dim=1) / torch.clamp(
-        cnt - 1.0, min=1.0)  # Bessel (torch.std default)
-    std = torch.sqrt(var) + CONSTANT
-    feats = (feats - mean[:, None, :]) / std[:, None, :]
+    if normalize == "per_feature":
+        cnt = valid.sum(dim=1)[:, None]  # (B, 1)
+        mean = (feats * vm).sum(dim=1) / cnt
+        var = ((feats - mean[:, None, :]).square() * vm).sum(dim=1) / torch.clamp(
+            cnt - 1.0, min=1.0)  # Bessel (torch.std default)
+        std = torch.sqrt(var) + CONSTANT
+        feats = (feats - mean[:, None, :]) / std[:, None, :]
+    elif normalize == "per_feature_causal":
+        # frame t by the statistics of frames 0..t only (running count, sum
+        # and sum of squares), as the streaming featurizer carries them. The
+        # variance s2 - n mean^2 cancels, so the sums and the variance run in
+        # float64 (in float32 the first frames land up to ~5e-2 off the
+        # float64 value, by an amount that depends on the summation order)
+        f64, v64 = feats.double(), vm.double()
+        cnt = torch.cumsum(v64, dim=1)
+        s1 = torch.cumsum(f64 * v64, dim=1)
+        s2 = torch.cumsum(f64.square() * v64, dim=1)
+        mean = s1 / torch.clamp(cnt, min=1.0)
+        var = (s2 - cnt * mean.square()) / torch.clamp(cnt - 1.0, min=1.0)
+        std = torch.sqrt(torch.clamp(var, min=0.0)) + CONSTANT
+        feats = ((f64 - mean) / std).to(feats.dtype)
+    elif normalize == "all_features":
+        cnt = valid.sum(dim=1)[:, None, None] * feats.shape[-1]
+        mean = (feats * vm).sum(dim=(1, 2))[:, None, None] / cnt
+        var = ((feats - mean).square() * vm).sum(dim=(1, 2))[:, None, None] / torch.clamp(
+            cnt - 1.0, min=1.0)
+        feats = (feats - mean) / (torch.sqrt(var) + CONSTANT)
 
     feats = feats * vm + pad_value * (1 - vm)
     if pad_to > 0 and t % pad_to != 0:

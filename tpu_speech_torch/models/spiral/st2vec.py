@@ -2,8 +2,9 @@
 pretraining pieces.
 
 Port of ``tpu_speech/models/spiral/st2vec.py``: ``ST2VecConfig:44`` (a
-field-for-field twin), ``spiral_base_config:70``, ``wav_to_spec:157`` (the
-float32, int16 and mu-law wire formats), ``ST2VecEncoder:93`` and the
+field-for-field twin), ``spiral_base_config:70``, ``spiral_large_config:74``,
+``wav_to_spec:157`` (the float32, int16 and mu-law wire formats),
+``ST2VecEncoder:93`` and the
 pretraining functions ``ema_update:141``, ``momentum_schedule:150``,
 ``teacher_shift:192``, ``sample_negatives:224`` (split into an index draw and
 a gather that takes the index array), ``check_collapse:240`` (the validation
@@ -34,6 +35,7 @@ from tpu_speech_torch.models.spiral.encoder import (
     Projector,
     StreamingCfg,
     spiral_base_blocks,
+    spiral_large_blocks,
 )
 from tpu_speech_torch.models.spiral.wav2vec import ConvPositionalEmbedding
 from tpu_speech_torch.models.spiral.features import filterbank_features
@@ -66,6 +68,23 @@ class ST2VecConfig:
 
 def spiral_base_config(**overrides) -> ST2VecConfig:
     return ST2VecConfig(blocks=spiral_base_blocks(), **overrides)
+
+
+def spiral_large_config(**overrides) -> ST2VecConfig:
+    """SPIRAL-large (spiral_large_pretrain_librilight.py:36-158): 1024-d
+    encoder, 512-d projector and predictor, EMA momentum 0.99 -> 0.999."""
+    kw = dict(
+        blocks=spiral_large_blocks(),
+        projector_dim=512,
+        predictor_convs=(
+            ConvLayerCfg(512, (5,), (1,), "bn", "relu", 0.0, bias=None),
+            ConvLayerCfg(512, (5,), (1,), "bn", "relu", 0.0, bias=None),
+        ),
+        target_momentum=0.99,
+        target_momentum_final=0.999,
+    )
+    kw.update(overrides)
+    return ST2VecConfig(**kw)
 
 
 def wav_to_spec(cfg: ST2VecConfig, wavs: torch.Tensor, wav_lens: torch.Tensor,

@@ -15,7 +15,9 @@ frames (``unfold``) -> window -> ``torch.fft.rfft`` -> power -> mel -> log.
 Semantics (both versions): ``x`` (B, N) float32 is already padded per the
 caller's STFT convention; frame ``t`` reads ``x[:, t*hop : t*hop + n_fft]``
 (zeros past the end of ``x``).
-  mag_mode: 'power' -> re^2 + im^2; 'mag_eps' -> sqrt(re^2 + im^2 + mag_eps)
+  mag_mode: 'power' -> re^2 + im^2; 'mag_eps' -> sqrt(re^2 + im^2 + mag_eps);
+            'pow' -> |X|^mag_power (the JAX featurizer's rfft path, which it
+            takes for a mag_power other than 1 or 2)
   log_mode: 'guard' -> log(mel + log_guard); 'clip' -> log(max(mel, log_guard))
 Returns (B, num_frames, n_mels) float32.
 
@@ -40,7 +42,7 @@ from tpu_speech_torch.ops import _build
 __all__ = ["fused_logmel", "fused_logmel_op", "logmel_plain", "make_dft_mats", "fft_tables",
            "dft_table", "mel_bands", "kernel_launch_config", "kernel_transform"]
 
-_MAG_MODES = {"power": 0, "mag_eps": 1}
+_MAG_MODES = {"power": 0, "mag_eps": 1, "pow": 2}
 _LOG_MODES = {"guard": 0, "clip": 1}
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 KERNEL_N_FFT = (128, 256, 512, 1024, 2048)  # the FFT's transform sizes
@@ -82,16 +84,24 @@ def logmel_plain(
     log_mode: str = "guard",
     log_guard: float = 2.0 ** -24,
     mag_eps: float = 1e-9,
+    mag_power: float = 2.0,
 ) -> torch.Tensor:
     """Plain PyTorch log-mel (fp32, rfft path); ``window`` (n_fft,),
-    ``mel_fb`` (n_mels, n_freq), both on ``x.device``."""
+    ``mel_fb`` (n_mels, n_freq), both on ``x.device``. ``mag_mode="pow"``
+    takes |X| = sqrt(re^2 + im^2) to ``mag_power``, as the JAX rfft path
+    does."""
     need = (num_frames - 1) * hop_length + n_fft
     if x.shape[1] < need:
         x = F.pad(x, (0, need - x.shape[1]))
     frames = x[:, :need].unfold(1, n_fft, hop_length) * window
     spec = torch.fft.rfft(frames, dim=-1)
     mag2 = spec.real.square() + spec.imag.square()
-    mel_in = torch.sqrt(mag2 + mag_eps) if mag_mode == "mag_eps" else mag2
+    if mag_mode == "mag_eps":
+        mel_in = torch.sqrt(mag2 + mag_eps)
+    elif mag_mode == "pow":
+        mel_in = torch.sqrt(mag2) ** mag_power
+    else:
+        mel_in = mag2
     mel = mel_in @ mel_fb.t()
     if log_mode == "clip":
         return torch.log(torch.clamp(mel, min=log_guard))
@@ -228,7 +238,7 @@ def kernel_launch_config(n_fft: int, hop_length: int, n_mels: int):
 
 
 def _launch(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode, log_mode,
-            log_guard, mag_eps):
+            log_guard, mag_eps, mag_power):
     """One launch of the kernel on CUDA tensors (the old wrapper's direct
     route, which the registered op's CUDA implementation takes)."""
     if any(t.dtype != torch.float32 or t.device != x.device for t in (x, window, mel_fb)):
@@ -240,12 +250,13 @@ def _launch(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode, log_mode
     bands = mel_bands(mel_fb)
     b, n = x.shape
     out = torch.empty((b, num_frames, n_mels), device=x.device, dtype=torch.float32)
+    mag_arg = mag_power / 2.0 if mag_mode == "pow" else mag_eps  # the C entry's one slot
     lib = _build.library()
     with torch.cuda.device(x.device):  # the runtime launches on its current device
         err = lib.tsx_fused_logmel(
             x.data_ptr(), window.data_ptr(), mel_fb.data_ptr(), bands.data_ptr(),
             tables.data_ptr(), out.data_ptr(), b, n, n_fft, hop_length, n_mels,
-            num_frames, _MAG_MODES[mag_mode], mag_eps, _LOG_MODES[log_mode], log_guard,
+            num_frames, _MAG_MODES[mag_mode], mag_arg, _LOG_MODES[log_mode], log_guard,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "fused_logmel")
@@ -256,12 +267,12 @@ def _launch(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode, log_mode
 @torch.library.custom_op("tpu_speech::fused_logmel", mutates_args=())
 def fused_logmel_op(x: torch.Tensor, window: torch.Tensor, mel_fb: torch.Tensor, n_fft: int,
                     hop_length: int, num_frames: int, mag_mode: str, log_mode: str,
-                    log_guard: float, mag_eps: float) -> torch.Tensor:
+                    log_guard: float, mag_eps: float, mag_power: float = 2.0) -> torch.Tensor:
     """K1 as a registered op, which ``torch.export`` keeps in its graph:
     the kernel on a CUDA tensor, ``logmel_plain`` on a CPU one. The twiddle
     tables and mel bands stay cached inside (not graph inputs)."""
     kw = dict(n_fft=n_fft, hop_length=hop_length, num_frames=num_frames, mag_mode=mag_mode,
-              log_mode=log_mode, log_guard=log_guard, mag_eps=mag_eps)
+              log_mode=log_mode, log_guard=log_guard, mag_eps=mag_eps, mag_power=mag_power)
     if x.device.type == "cpu":
         return logmel_plain(x, window, mel_fb, **kw)
     return _launch(x, window, mel_fb, **kw)
@@ -269,7 +280,7 @@ def fused_logmel_op(x: torch.Tensor, window: torch.Tensor, mel_fb: torch.Tensor,
 
 @fused_logmel_op.register_fake
 def _(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode, log_mode, log_guard,
-      mag_eps):
+      mag_eps, mag_power=2.0):
     return x.new_empty((x.shape[0], num_frames, mel_fb.shape[0]), dtype=torch.float32)
 
 
@@ -285,9 +296,11 @@ def fused_logmel(
     log_mode: str = "guard",
     log_guard: float = 2.0 ** -24,
     mag_eps: float = 1e-9,
+    mag_power: float = 2.0,
 ) -> torch.Tensor:
     """Fused wav -> log-mel through ``tpu_speech::fused_logmel``: the kernel
-    on CUDA, ``logmel_plain`` on CPU."""
+    on CUDA, ``logmel_plain`` on CPU. ``mag_power`` is read by
+    ``mag_mode="pow"`` only."""
     if mag_mode not in _MAG_MODES or log_mode not in _LOG_MODES:
         raise ValueError(f"unknown mode: mag_mode={mag_mode!r}, log_mode={log_mode!r}")
     if x.ndim != 2 or num_frames < 1:
@@ -301,4 +314,4 @@ def fused_logmel(
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_logmel: unsupported device {x.device}")
     return fused_logmel_op(x, window, mel_fb, n_fft, hop_length, num_frames, mag_mode,
-                           log_mode, float(log_guard), float(mag_eps))
+                           log_mode, float(log_guard), float(mag_eps), float(mag_power))

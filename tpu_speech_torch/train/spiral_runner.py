@@ -18,11 +18,13 @@ counting updates), a log line per epoch with loss, accuracy and ms/step,
 model built from the run config (``:692-705``), weight loading,
 ``_infer_fn:1098`` (wav -> ``wav_to_spec`` -> ``CTCFinetuneModel`` ->
 log-probs), ``transcribe:961`` (with the overlapping-window path for audio
-longer than ``max_duration``) and ``evaluate:1134`` (greedy CTC decode,
-WER/CER and the per-utterance HTML diagnosis). Training (``:569-959``): the
-pretrained encoder from ``model.pretrain_chkpt_path`` (``_load_pretrain:773``),
-``AudioToTextDataset`` with ``dup_factor``, ``AudioTextBatchCollate(max
-samples, 512)`` and ``DataLoader``, the host generator ``default_rng(1)``
+longer than ``max_duration``) and ``evaluate:1134`` (greedy CTC decode, or
+prefix beam search with an optional n-gram LM on the host,
+``eval/ctc_beam.py``; WER/CER and the per-utterance HTML diagnosis).
+Training (``:569-959``): the pretrained encoder from
+``model.pretrain_chkpt_path`` (``_load_pretrain:773``), ``AudioToTextDataset``
+with ``dup_factor``, ``AudioTextBatchCollate(max samples, 512)`` and
+``DataLoader``, the host generator ``default_rng(1)``
 (``:709-711``) and its spec masks (``_train_masks:871``), the int16 wire
 (``_device_batches:890``), AdamW with the lr rescale (``:724-733``),
 ``finetune_step`` with the freeze gate decided from the iteration counter,
@@ -30,7 +32,7 @@ samples, 512)`` and ``DataLoader``, the host generator ``default_rng(1)``
 a reference-named ``state_dict`` and an archive at the end; bf16 and
 accumulation as the pretrain runner (``:890-929``). Host-side data,
 tokenizers and scoring are the port's own copies of the JAX package's
-modules (``data/``, ``text/``, ``eval/wer.py``).
+modules (``data/``, ``text/``, ``eval/wer.py``, ``eval/ctc_beam.py``).
 
 Both runners share (``_Runner``) the checkpoints and the weight files:
 - ``save_checkpoint`` writes one ``utils/checkpoint.py`` step file a call
@@ -63,8 +65,8 @@ to the CUDA device and raise when there is none; the CPU runs only when it is
 asked for (``device="cpu"``).
 
 Not ported yet: orbax checkpoints, the native C++ batcher, tarred data, the
-mu-law wire format, the bucketed loader (``num_buckets``), beam search and
-streaming decode, mesh / FSDP / sequence parallelism and multi-process runs.
+mu-law wire format, the bucketed loader (``num_buckets``), streaming decode,
+mesh / FSDP / sequence parallelism and multi-process runs.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ from tpu_speech_torch.data.spiral import (
     RandomNoisePerturbation,
 )
 from tpu_speech_torch.data.wav import read_wav
+from tpu_speech_torch.eval.ctc_beam import ctc_beam_search_batch
 from tpu_speech_torch.eval.wer import ctc_greedy_decode, error_counts, render_wer_html
 from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel, load_pretrained_encoder
 from tpu_speech_torch.models.spiral.masking import make_student_masks
@@ -465,15 +468,28 @@ class SpiralFinetuneRunner(_Runner):
                   dynamic_shapes=({0: batch}, {0: batch}))
         return path
 
-    def _decode(self, log_probs, lens):
-        return ctc_greedy_decode(log_probs.cpu().numpy(), lens.cpu().numpy(),
-                                 self.model.blank_idx)
+    def _decode(self, log_probs, lens, beam_width: int = 1, lm=None,
+                lm_alpha: float = 0.5):
+        """(B, T, V) log-probs and lengths, numpy or tensors -> label
+        sequences: greedy, or CTC prefix beam search (``eval/ctc_beam.py``)
+        with ``beam_width`` > 1, shallow-fused with ``lm`` at ``lm_alpha``.
+        On the host, as in the JAX runner."""
+        log_probs, lens = (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+                           for x in (log_probs, lens))
+        if beam_width > 1:
+            return ctc_beam_search_batch(log_probs, lens, blank=self.model.blank_idx,
+                                         beam_width=beam_width, lm=lm, alpha=lm_alpha)
+        return ctc_greedy_decode(log_probs, lens, self.model.blank_idx)
 
     def transcribe(self, audio_paths, batch_size: int = 4,
-                   overlap_s: float = 3.2):
-        """Decode wav files -> texts (greedy). Audio longer than
-        ``max_duration`` runs as overlapping windows stitched at the overlap
-        midpoints (``_chunked_log_probs``)."""
+                   overlap_s: float = 3.2, beam_width: int = 1,
+                   lm=None, lm_alpha: float = 0.5):
+        """Decode wav files -> texts (``transcribe:961``): greedy, or prefix
+        beam search with ``beam_width`` > 1 and an optional ``lm`` (see
+        ``_decode``). Audio longer than ``max_duration`` runs as overlapping
+        windows stitched at the overlap midpoints (``_chunked_log_probs``)."""
+        decode = functools.partial(self._decode, beam_width=beam_width, lm=lm,
+                                   lm_alpha=lm_alpha)
         texts = [None] * len(audio_paths)
         short = []
         for pos, path in enumerate(audio_paths):
@@ -482,8 +498,7 @@ class SpiralFinetuneRunner(_Runner):
                 raise ValueError(f"{path}: sample rate {sr} != {self.sample_rate}")
             if len(wav) > self.max_samples:
                 lp = self._chunked_log_probs(wav, overlap_s)
-                ids = ctc_greedy_decode(lp[None], np.array([lp.shape[0]]),
-                                        self.model.blank_idx)[0]
+                ids = decode(lp[None], np.array([lp.shape[0]]))[0]
                 texts[pos] = self.tokenizer.ids_to_text(ids)
             else:
                 short.append((pos, wav))
@@ -494,7 +509,7 @@ class SpiralFinetuneRunner(_Runner):
             for j, (_, w) in enumerate(group):
                 padded[j, :len(w)] = w
                 lens[j] = len(w)
-            ids = self._decode(*self.infer(padded, lens))
+            ids = decode(*self.infer(padded, lens))
             for (pos, _), seq in zip(group, ids):
                 texts[pos] = self.tokenizer.ids_to_text(seq)
         return texts
@@ -524,8 +539,12 @@ class SpiralFinetuneRunner(_Runner):
         return np.concatenate(pieces, axis=0)
 
     def evaluate(self, manifest: Optional[str] = None,
-                 save_logits_dir: Optional[str] = None, ds_cfg=None) -> dict:
-        """Test-mode WER/CER with greedy decoding (spiral_runner.py:1134)."""
+                 save_logits_dir: Optional[str] = None, ds_cfg=None,
+                 beam_width: int = 1, lm=None, lm_alpha: float = 0.5) -> dict:
+        """Test-mode WER/CER (spiral_runner.py:1134): greedy decoding, or
+        prefix beam search with ``beam_width`` > 1 shallow-fused with ``lm``
+        (e.g. an ``NGramLM`` fit in the model's id space) at ``lm_alpha``.
+        ``decode_s`` in the result is the host's decode time over the run."""
         m = self.cfg.model
         ds_cfg = ds_cfg or m.test_ds or m.validation_ds
         manifest = manifest or ds_cfg.manifest_filepath
@@ -538,15 +557,19 @@ class SpiralFinetuneRunner(_Runner):
             shuffle=False, drop_last=False, num_workers=ds_cfg.num_workers,
         )
         hyps, refs = [], []
+        decode_s = 0.0
         for raw in loader:
             log_probs, lens = self.infer(raw["wavs"], raw["wav_lens"])
-            for seq, text in zip(self._decode(log_probs, lens), raw["texts"]):
+            log_probs, lens = log_probs.cpu().numpy(), lens.cpu().numpy()  # one copy a batch
+            t0 = time.perf_counter()
+            ids = self._decode(log_probs, lens, beam_width, lm, lm_alpha)
+            decode_s += time.perf_counter() - t0
+            for seq, text in zip(ids, raw["texts"]):
                 hyps.append(self.tokenizer.ids_to_text(seq))
                 refs.append(text)
             if save_logits_dir:
                 os.makedirs(save_logits_dir, exist_ok=True)
-                np.save(os.path.join(save_logits_dir, f"logits_{len(hyps)}.npy"),
-                        log_probs.cpu().numpy())
+                np.save(os.path.join(save_logits_dir, f"logits_{len(hyps)}.npy"), log_probs)
         w_err, w_tot = error_counts(hyps, refs)
         c_err, c_tot = error_counts(hyps, refs, use_cer=True)
         err_utts = sum(1 for h, r in zip(hyps, refs) if h.split() != r.split())
@@ -559,6 +582,7 @@ class SpiralFinetuneRunner(_Runner):
             "ser": err_utts / max(len(hyps), 1),
             "diagnosis_html": html_path,
             "hyps": hyps,
+            "decode_s": decode_s,
         }
 
 

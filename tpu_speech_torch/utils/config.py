@@ -2,9 +2,11 @@
 
 The port's own copy of what it uses of ``tpu_speech/utils/config.py``
 (``:16-336``): the dataclasses of a SPIRAL ``RunConfig`` tree, field for field
-with the same defaults, and ``apply_override`` / ``parse_cli_override`` with
-the helpers they need. Left out until a slice needs them: the Adam, Novograd
-and SGD parameter classes and the YAML experiment files.
+with the same defaults, ``apply_override`` / ``apply_overrides`` /
+``parse_cli_override`` with the helpers they need, and
+``load_yaml_experiment`` (a YAML experiment file: a ``base:`` config name and
+a nested mapping of overrides). Left out until a slice needs them: the Adam,
+Novograd and SGD parameter classes.
 """
 
 from __future__ import annotations
@@ -265,3 +267,29 @@ def parse_cli_override(spec: str):
         except ValueError:
             pass
     return key.strip(), value
+
+
+def load_yaml_experiment(path: str):
+    """Parse a YAML experiment file -> (base config name, overrides dict)
+    (``load_yaml_experiment:294``)::
+
+        base: spiral_base_pretrain_ls960   # the config to compose
+        model:
+          optim:
+            lr: 0.003
+        trainer:
+          max_steps: 200000
+    """
+    import yaml
+
+    with open(path) as f:
+        doc = yaml.safe_load(f) or {}
+    if not isinstance(doc, dict):
+        raise ValueError(f"{path}: YAML experiment file must be a mapping")
+    base = doc.pop("base", None)
+    if base is None:
+        raise ValueError(
+            f"{path}: YAML experiment file needs a 'base:' python config "
+            "module to compose from"
+        )
+    return base, doc
