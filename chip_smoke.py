@@ -343,10 +343,34 @@ result):
     peak memory (``finetune_step_large``, ``finetune_step_large_bf16``);
 55. ``spiral_toy_quality`` through the CLI: pretraining, finetuning from a
     YAML experiment file, and a beam + LM test (d_head 12 on the fp32 K2,
-    ``toy_quality``).
+    ``toy_quality``);
+56. streaming SPIRAL: ``run_spiral.main --config_name
+    spiral_base_finetune_ls100_char_streaming --run_mode test
+    --streaming_eval true`` at full width on seeded random weights, four
+    synthetic utterances of 6-24 s: each chunk launches K1 once and K4 twice
+    and nothing else (``spiral_streaming_chunk``), and each utterance's
+    streaming transcript equals the offline streaming-mode greedy one on the
+    card;
+57. the chunk step card against CPU at full width on one 6 s utterance
+    (log-probs within 1e-4, argmax agreement);
+58. bench.py's ``spiral_streaming_chunk_ms`` point (B = 1, 16 chained chunks:
+    ms, kernels and busy share a chunk), and two fp32 streaming-mode
+    finetune steps at B = 14 x 24 s through ``run_spiral.main --run_mode
+    train`` beside phase 16's step (``finetune_step_streaming``: K1, K4 and
+    K4-dx, no K2: every layer carries the chunk mask);
+59. K2-fwd and K2-bwd at d_head 96 (fp32 and bf16, (8, 781, 3 x 768) H 8),
+    K4 at the chunk step's shapes with left_pad 0, and K1 on a chunk's
+    window, against their plain versions, each beside its bound and library
+    call;
+60. wav2vec 2.0 BASE pretraining at B = 8 x 250 000 samples, fp32 and bf16:
+    two steps each (finite losses, per-step launches of K2 and K2-bwd at
+    d_head 96, K4 and K4-dx; step time, peak memory;
+    ``wav2vec2_pretrain_step``, ``wav2vec2_pretrain_step_bf16``), one fp32
+    step card against CPU at B = 2 x 32 000 (phase 10's limits), and the
+    bf16 step held to the fp32 step (phase 42's rule).
 
 Phase 47 runs after phase 16 (it needs phase 14's weights), 45-46 after 25,
-48 after 32, 49 after 36 and 50-55 after 44.
+48 after 32, 49 after 36, 50-55 after 44 and 56-60 after 55.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -618,7 +642,11 @@ def kernel_name(text):
 # the bf16 attention kernels of csrc/fused_attention_sm90.cu: three kernels,
 # each at d_head 16, 32, 64, with and without dropout
 SM90_KERNELS = {f"attn_{k}_sm90_kernel<{d},{p}>" for k in ("fwd", "bwd_dq", "bwd_dkdv")
-                for d in (16, 32, 64) for p in (0, 1)}
+                for d in (16, 32, 64, 96) for p in (0, 1)}
+# the fp32 attention kernels at d_head 96 (wav2vec 2.0 BASE): the widest
+# register tiles of csrc/fused_attention.cu, which must not spill
+FP32_D96_KERNELS = {"attn_fwd_kernel<96>", "attn_bwd_dkdv_kernel<96,16>",
+                    "attn_bwd_dq_kernel<96>"}
 # the bf16 K4 kernel of csrc/fused_posconv_sm90.cu at <Cg, 64-frame tiles a
 # warpgroup>
 K4_SM90_KERNELS = {f"grouped_conv1d_sm90_kernel<{cg},{mw}>"
@@ -651,9 +679,15 @@ def phase_build(_build):
                 regs[name] = int(m.group(1))
     # MAS and K1's direct DFT: every instance built; the MAS DP warp keeps
     # its cells in registers, so the warp path may not spill
-    new = MAS_WARP_KERNELS | MAS_BLOCK_KERNELS | K1_DFT_KERNELS
+    new = MAS_WARP_KERNELS | MAS_BLOCK_KERNELS | K1_DFT_KERNELS | FP32_D96_KERNELS
     check(new <= set(spills) and new <= set(regs),
-          f"MAS / K1 DFT kernels not in the ptxas log: {sorted(new - set(spills))}")
+          f"MAS / K1 DFT / d_head 96 kernels not in the ptxas log: "
+          f"{sorted(new - set(spills))}")
+    check(all(spills[k] == 0 for k in FP32_D96_KERNELS),
+          f"the fp32 d_head 96 attention kernels spill: "
+          f"{ {k: spills[k] for k in FP32_D96_KERNELS if spills[k]} }")
+    log("    " + ", ".join(f"{k}: {regs[k]} registers, {spills[k]} bytes spilled"
+                           for k in sorted(FP32_D96_KERNELS)))
     check(all(spills[k] == 0 for k in MAS_WARP_KERNELS),
           f"the MAS warp path spills: { {k: spills[k] for k in MAS_WARP_KERNELS if spills[k]} }")
     for group in (MAS_WARP_KERNELS, MAS_BLOCK_KERNELS, K1_DFT_KERNELS):
@@ -5474,6 +5508,53 @@ def phase_large_cpu_vs_card(torch, root, vocab, card):
     return worst
 
 
+def _k2_timed(torch, qkv, mask, dout, h, label):
+    """K2-fwd and K2-bwd (dropout 0.1) on qkv (B, T, 3E) against the plain
+    version's forward and autograd (fp32 within K2_BWD_RTOL, bf16 within
+    phase 17's limits, relative to max(1, max|plain|)), then each timed
+    beside the plain version, SDPA and the bound; logged under ``label``."""
+    from tpu_speech_torch.ops import fused_attention as fa
+
+    b, t, e3 = qkv.shape
+    d = e3 // 3 // h
+    bf16 = qkv.dtype == torch.bfloat16
+    tag = "bf16" if bf16 else "fp32"
+    fwd_tol, bwd_tol = (BF16_FWD_RTOL, BF16_GRAD_RTOL) if bf16 else (K2_BWD_RTOL, K2_BWD_RTOL)
+    res = []
+    for fn in (fa.fused_qkv_self_attention, fa.qkv_attention_plain):
+        x = qkv.clone().requires_grad_(True)
+        y = fn(x, h, mask, DROP_P, 77)
+        y.backward(dout)
+        res.append((y.detach().float(), x.grad.float()))
+    torch.cuda.synchronize()
+    (y, g), (ry, rg) = res
+    e_f = (y - ry).abs().max().item() / max(1.0, ry.abs().max().item())
+    e_b = (g - rg).abs().max().item() / max(1.0, rg.abs().max().item())
+    check(bool(torch.isfinite(y).all() and torch.isfinite(g).all()), f"{label}: non-finite")
+    check(e_f <= fwd_tol and e_b <= bwd_tol, f"{label}: {e_f}, {e_b}")
+    seed, thresh, scale = 77, fa.dropout_threshold(DROP_P), 1.0 / (1.0 - DROP_P)
+    y0, lse = fa._launch_fwd(qkv, mask, h, seed, thresh, scale, True)
+    xp = qkv.clone().requires_grad_(True)
+    yp = fa.qkv_attention_plain(xp, h, mask, DROP_P, seed)
+    lib_f, lib_b = sdpa_times(torch, *qkv_views(qkv, h), mask, dout.view(b, t, h, d), DROP_P)
+    size = 2 if bf16 else 4
+    r = dict(
+        shape=[b, t, e3], heads=h, dtype=tag, fwd_err=e_f, bwd_err=e_b,
+        ms=cuda_ms(lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed), n=10),
+        plain_ms=cuda_ms(lambda: fa.qkv_attention_plain(qkv, h, mask, DROP_P, seed), n=5),
+        library_ms=lib_f, bound=attention_bound(b, t, h, d, False, itemsize=size),
+        bwd_ms=cuda_ms(lambda: fa._launch_bwd(qkv, mask, y0, dout, lse, h, seed, thresh, scale),
+                       n=10),
+        bwd_plain_ms=cuda_ms(lambda: torch.autograd.grad(yp, xp, dout, retain_graph=True), n=5),
+        bwd_library_ms=lib_b, bwd_bound=attention_bound(b, t, h, d, True, itemsize=size))
+    log(f"[{label}] forward error {e_f:.2e} (limit {fwd_tol}), backward {e_b:.2e} (limit "
+        f"{bwd_tol}); forward {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f}, SDPA {lib_f:.3f}, "
+        f"bound {r['bound'][0]:.4f} ({r['bound'][1]}); backward alone {r['bwd_ms']:.3f} vs "
+        f"{r['bwd_plain_ms']:.3f}, SDPA {lib_b:.3f}, bound {r['bwd_bound'][0]:.4f} "
+        f"({r['bwd_bound'][1]})")
+    return r
+
+
 def _large_attention_case(torch, gen, b, t, h, dtype):
     e = h * 64
     qkv = torch.randn(b, t, 3 * e, generator=gen)
@@ -5491,55 +5572,18 @@ def phase_large_kernels(torch, gen):
     bf16, against their plain versions (phases 8, 12 and 17's limits), each
     timed beside the plain version, the bound and the library call (SDPA,
     cuDNN's conv and dgrad)."""
-    from tpu_speech_torch.ops import fused_attention as fa
     from tpu_speech_torch.ops import fused_posconv as fp
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         tag = "bf16" if bf16 else "fp32"
-        fwd_tol, bwd_tol = (BF16_FWD_RTOL, BF16_GRAD_RTOL) if bf16 else (K2_BWD_RTOL, K2_BWD_RTOL)
         for t, h in zip(LARGE_T, (8, 16)):
             b, e = LARGE_B, h * 64
             qkv, mask, dout = _large_attention_case(torch, gen, b, t, h, dtype)
-            res = []
-            for fn in (fa.fused_qkv_self_attention, fa.qkv_attention_plain):
-                x = qkv.clone().requires_grad_(True)
-                y = fn(x, h, mask, DROP_P, 77)
-                y.backward(dout)
-                res.append((y.detach().float(), x.grad.float()))
-            torch.cuda.synchronize()
-            (y, g), (ry, rg) = res
-            e_f = (y - ry).abs().max().item() / max(1.0, ry.abs().max().item())
-            e_b = (g - rg).abs().max().item() / max(1.0, rg.abs().max().item())
-            check(bool(torch.isfinite(y).all() and torch.isfinite(g).all()),
-                  f"K2 {tag} {(b, t, h)}: non-finite")
-            check(e_f <= fwd_tol and e_b <= bwd_tol, f"K2 {tag} {(b, t, h)}: {e_f}, {e_b}")
-            seed, thresh, scale = 77, fa.dropout_threshold(DROP_P), 1.0 / (1.0 - DROP_P)
-            y0, lse = fa._launch_fwd(qkv, mask, h, seed, thresh, scale, True)
-            xp = qkv.clone().requires_grad_(True)
-            yp = fa.qkv_attention_plain(xp, h, mask, DROP_P, seed)
-            lib_f, lib_b = sdpa_times(torch, *qkv_views(qkv, h), mask,
-                                      dout.view(b, t, h, 64), DROP_P)
-            r = dict(
-                shape=[b, t, 3 * e], heads=h, dtype=tag, fwd_err=e_f, bwd_err=e_b,
-                ms=cuda_ms(lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed), n=10),
-                plain_ms=cuda_ms(lambda: fa.qkv_attention_plain(qkv, h, mask, DROP_P, seed), n=5),
-                library_ms=lib_f,
-                bound=attention_bound(b, t, h, 64, False, itemsize=2 if bf16 else 4),
-                bwd_ms=cuda_ms(lambda: fa._launch_bwd(qkv, mask, y0, dout, lse, h, seed, thresh,
-                                                      scale), n=10),
-                bwd_plain_ms=cuda_ms(lambda: torch.autograd.grad(yp, xp, dout,
-                                                                 retain_graph=True), n=5),
-                bwd_library_ms=lib_b,
-                bwd_bound=attention_bound(b, t, h, 64, True, itemsize=2 if bf16 else 4))
-            out[("k2", tag, t)] = r
-            log(f"[52 K2 {tag} at {(b, t, 3 * e)} H={h} p=0.1] forward error {e_f:.2e} "
-                f"(limit {fwd_tol}), backward {e_b:.2e} (limit {bwd_tol}); forward "
-                f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f}, SDPA {lib_f:.3f}, bound "
-                f"{r['bound'][0]:.4f} ({r['bound'][1]}); backward alone {r['bwd_ms']:.3f} vs "
-                f"{r['bwd_plain_ms']:.3f}, SDPA {lib_b:.3f}, bound {r['bwd_bound'][0]:.4f}")
-            del qkv, dout, y0, lse, xp, yp, res, y, g, ry, rg
+            out[("k2", tag, t)] = _k2_timed(torch, qkv, mask, dout, h,
+                                            f"52 K2 {tag} at {(b, t, 3 * e)} H={h} p=0.1")
+            del qkv, dout
             torch.cuda.empty_cache()
         for t, c in ((LARGE_T[1], 1024), (LARGE_T[0], 512)):
             b, cg, k = LARGE_B, c // 16, 128
@@ -5907,6 +5951,502 @@ def new_kernel_entries(large, by_path):
     return out
 
 
+# ---- 56-60: streaming SPIRAL and wav2vec 2.0 pretraining ---------------------
+
+STREAM_CFG = "spiral_base_finetune_ls100_char_streaming"
+STREAM_SECONDS = (6.0, 11.3, 17.9, 24.0)  # phase 56's test manifest
+STREAM_SEED = 56
+STREAM_CHAIN = 16  # bench.py's spiral_streaming_chunk_ms: chunks chained a run
+STREAM_CPU_ATOL = 1e-4  # phase 57: the chunk step's log-probs, card against CPU
+STREAM_FT_STEPS = 2
+STREAM_K4 = ((1, 159, 512), (1, 143, 768))  # [tail 127, chunk 32 or 16] at the two blocks
+W2V_B, W2V_SAMPLES = 8, 250000  # fairseq's crop: 781 frames after the 320x conv stack
+W2V_CPU_B, W2V_CPU_SAMPLES = 2, 32000
+W2V_STEPS = 2
+W2V_SEED = 60
+
+
+def stream_chunks(n_samples, chunk=128, hop=160):
+    """Chunks the streaming transcriber runs for an utterance: its
+    ceil(n / hop) spec frames in chunks of ``chunk``, the last one partial."""
+    return -(-(-(-n_samples // hop)) // chunk)
+
+
+def write_stream_corpus(root, rng):
+    """Phase 56's test manifest: speech-like int16 wavs of STREAM_SECONDS."""
+    import scipy.io.wavfile
+
+    path = os.path.join(root, "stream_test.json")
+    with open(path, "w") as f:
+        for i, d in enumerate(STREAM_SECONDS):
+            wav_path = os.path.join(root, f"stream{i}.wav")
+            pcm = np.clip(speech_like(rng, int(d * SR)) * 32767, -32768, 32767)
+            scipy.io.wavfile.write(wav_path, SR, pcm.astype(np.int16))
+            f.write(json.dumps({"audio_filepath": wav_path, "duration": d,
+                                "text": random_transcript(rng, d)}) + "\n")
+    return path
+
+
+def phase_stream_transcription(torch, root):
+    """56: ``run_spiral.main --config_name spiral_base_finetune_ls100_char_streaming
+    --run_mode test --streaming_eval true`` at full width (seeded random
+    weights) on utterances of 6-24 s: each chunk launches K1 once and K4 once
+    a transformer block, and nothing else; each utterance's streaming
+    transcript equals the offline streaming-mode greedy transcript on the
+    card (the utterance alone at its own length). Returns (launches, chunks,
+    the serving runner)."""
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.configs.spiral import CONFIGS
+    from tpu_speech_torch.data.wav import read_wav
+    from tpu_speech_torch.eval.wer import ctc_greedy_decode
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.text.tokenizers import CharTokenizer
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    manifest = write_stream_corpus(root, np.random.default_rng(STREAM_SEED))
+    with open(manifest) as f:
+        wavs = [read_wav(json.loads(line)["audio_filepath"])[0] for line in f]
+    chunks = sum(stream_chunks(len(w)) for w in wavs)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_spiral.main(["--config_name", STREAM_CFG, "--model_type", "ctc_finetune",
+                           "--run_mode", "test", "--streaming_eval", "true",
+                           "--test_manifest", manifest, "--resume_if_exists", "false",
+                           "--model_save_dir", os.path.join(root, "stream_run")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = dict(dict.fromkeys(launches, 0), fused_logmel=chunks, grouped_conv1d=2 * chunks)
+    log(f"[56 streaming transcription] {len(wavs)} utts of {STREAM_SECONDS} s, {chunks} "
+        f"chunks of 1.28 s through run_spiral.main --streaming_eval in {wall:.1f} s (model "
+        f"build and decoding); WER {res['wer']:.3f}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check(launches == want, f"streaming launches {launches}, want K1 {chunks}, K4 {2 * chunks}")
+    cfg = CONFIGS[STREAM_CFG]()
+    runner = SpiralFinetuneRunner(cfg, os.path.join(root, "stream_offline"),
+                                  CharTokenizer(cfg.model.labels), device="cuda")
+    offline = []
+    for w in wavs:
+        lp, lens = runner.infer(w[None], np.array([len(w)], np.int32))
+        ids = ctc_greedy_decode(lp.cpu().numpy(), lens.cpu().numpy(), runner.model.blank_idx)
+        offline.append(runner.tokenizer.ids_to_text(ids[0]))
+    same = [a == b for a, b in zip(res["hyps"], offline)]
+    for h, o, w in zip(res["hyps"], offline, wavs):
+        log(f"    {len(w) / SR:5.1f} s: streaming {len(h)} chars, offline {len(o)} chars, "
+            f"equal {h == o}: {h[:60]!r}")
+    check(all(same) and len(same) == len(wavs), "streaming transcripts differ from offline")
+    return launches, chunks, runner
+
+
+def phase_stream_cpu_vs_card(torch, model):
+    """57: the chunk step at full width, card against CPU, on one 6 s
+    utterance through ``StreamingTranscriber`` (5 chunks, the last partial):
+    each chunk's valid log-probs within STREAM_CPU_ATOL, argmax agreement
+    and the ids reported."""
+    import copy
+
+    from tpu_speech_torch.models.spiral.streaming import StreamingTranscriber
+
+    wav = speech_like(np.random.default_rng(STREAM_SEED + 1), int(6.0 * SR))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        tr = StreamingTranscriber(copy.deepcopy(model).to(dev).eval())
+        rec, step = [], tr.step
+
+        def recording(state, window, n_valid, step=step, rec=rec):
+            out = step(state, window, n_valid)
+            rec.append((out[1].cpu(), int(out[3][0])))
+            return out
+
+        tr.step = recording
+        tr.feed(wav[None])
+        outs.append((rec, tr.flush()[0]))
+    (cpu, cpu_ids), (card, card_ids) = outs
+    err, agree, n = 0.0, 0, 0
+    for (lc, nc), (lg, ng) in zip(cpu, card):
+        check(nc == ng, f"valid frames {nc} vs {ng}")
+        err = max(err, (lc[0, :nc] - lg[0, :ng]).abs().max().item())
+        agree += int((lc[0, :nc].argmax(-1) == lg[0, :ng].argmax(-1)).sum())
+        n += nc
+    log(f"[57 streaming chunk card vs cpu] 6 s, {len(card)} chunks, {n} output frames: "
+        f"log-probs max abs diff {err:.2e} (limit {STREAM_CPU_ATOL}), argmax agreement "
+        f"{agree}/{n}, ids equal {cpu_ids == card_ids} ({len(card_ids)} tokens)")
+    check(len(cpu) == len(card) == stream_chunks(len(wav)), f"{len(card)} chunks")
+    check(err <= STREAM_CPU_ATOL, f"chunk step card vs cpu {err}")
+    return err, agree / max(n, 1)
+
+
+def phase_stream_time(torch, model, root, ft_ms):
+    """58: bench.py's ``spiral_streaming_chunk_ms`` point: SPIRAL-base
+    streaming (chunk 128, left 2, char decoder) at B = 1, STREAM_CHAIN
+    chunks chained with carried state, CUDA events over a chain: ms a chunk,
+    kernels a chunk and the busy share (profile of one chain). Then two fp32
+    streaming-mode finetune steps at the config's B = 14 x 24 s through
+    ``run_spiral.main --run_mode train`` (from scratch, unfrozen): per step
+    K1 1, K4 2, K4-dx 2 and no K2, the step time beside phase 16's."""
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.models.spiral.streaming import make_stream_step
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    init_state, step = make_stream_step(model)
+    r = np.random.default_rng(0)
+    windows = [torch.tensor((r.standard_normal((1, 128 * 160 + 352)) * 0.1).astype(np.float32),
+                            device="cuda") for _ in range(STREAM_CHAIN)]
+    n_valid = torch.full((1,), 128)
+
+    def chain():
+        st = init_state(1)
+        for w in windows:
+            st, lp, _, _ = step(st, w, n_valid)
+        return lp
+
+    chain_ms = cuda_ms(chain, n=5, warmup=2)
+    _build.reset_launches()
+    chain()
+    torch.cuda.synchronize()
+    per_chunk = {k: v / STREAM_CHAIN for k, v in _build.LAUNCHES.items() if v}
+    prof = profile_slice(torch, chain, batches=1, top=8, tag="58 streaming chain profile")
+    kernels = None if prof is None else prof["kernels"] / STREAM_CHAIN
+    share = None if prof is None else prof["share"]
+    log(f"[58 streaming chunk] SPIRAL-base streaming, chunk 128 (1.28 s), left 2, B = 1: "
+        f"{chain_ms / STREAM_CHAIN:.3f} ms a chunk over {STREAM_CHAIN} chained chunks (CUDA "
+        f"events, median of 5 chains); {kernels} device kernels a chunk, busy share "
+        f"{share}; hand-kernel launches a chunk {per_chunk}")
+    ft_root = os.path.join(root, "stream_ft")
+    os.makedirs(ft_root)
+    write_finetune_corpus(ft_root, np.random.default_rng(STREAM_SEED + 2),
+                          STREAM_FT_STEPS * BATCH, 2)
+    times, seen, orig = [], [], SpiralFinetuneRunner.step
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        before, t0 = dict(_build.LAUNCHES), time.perf_counter()
+        m = orig(self, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        seen.append({k: v - before[k] for k, v in _build.LAUNCHES.items() if v - before[k]})
+        return m
+
+    SpiralFinetuneRunner.step = timed
+    try:
+        res = run_spiral.main([
+            "--model_type", "ctc_finetune", "--run_mode", "train", "--config_name", STREAM_CFG,
+            "--manifest_dir", ft_root, "--finetune_from_scratch", "true",
+            "--model_save_dir", os.path.join(ft_root, "run"),
+            "--set", f"trainer.max_steps={STREAM_FT_STEPS}",
+            "--set", "model.freeze_finetune_updates=0"])
+    finally:
+        SpiralFinetuneRunner.step = orig
+    steps = res["steps"]
+    want = {"fused_logmel": 1, "grouped_conv1d": 2, "grouped_conv1d_dx": 2}
+    log(f"[58 streaming finetune steps] B = {BATCH} x 24 s, fp32, through run_spiral.main: "
+        f"losses {[round(float(m['loss']), 4) for m in steps]}, step times "
+        f"{[round(t, 1) for t in times]} ms (host clock, synchronized), launches {seen}; "
+        f"phase 16's finetune step (no streaming, K2 in every layer): {ft_ms:.2f} ms")
+    check(len(steps) == STREAM_FT_STEPS and all(np.isfinite(float(m["loss"])) for m in steps),
+          f"streaming finetune steps {steps}")
+    check(all(s == want for s in seen), f"streaming finetune launches {seen}")
+    totals = dict.fromkeys(_build.LAUNCHES, 0)
+    for s in seen:
+        for k, v in s.items():
+            totals[k] += v
+    return dict(chain_ms=chain_ms, chunk_ms=chain_ms / STREAM_CHAIN, kernels=kernels,
+                share=share, ft_ms=times[-1], ft_launches=totals)
+
+
+def _k2_d96_case(torch, gen, dtype):
+    """K2 at wav2vec 2.0 BASE's attention, (8, 781, 3 x 768) H 8, d_head 96,
+    padded keys (``_k2_timed``)."""
+    b, t, h, d = W2V_B, 781, 8, 96
+    e = h * d
+    qkv = torch.randn(b, t, 3 * e, generator=gen)
+    qkv[..., :e] *= d ** -0.5
+    lens = torch.linspace(0.6 * t, t, b).round().long()
+    mask = (torch.arange(t)[None, :] >= lens[:, None]).to("cuda")
+    dout = torch.randn(b, t, e, generator=gen)
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    return _k2_timed(torch, qkv.to("cuda", dtype), mask, dout.to("cuda", dtype), h,
+                     f"59 K2 d_head 96 {tag} at {(b, t, 3 * e)} H={h} p=0.1")
+
+
+def phase_stream_w2v_kernels(torch, gen):
+    """59: the new kernel calls against their plain versions, each beside its
+    bound and its library call: K2-fwd and K2-bwd at d_head 96 in fp32 and
+    bf16 at wav2vec 2.0 BASE's (8, 781, 3 x 768) H 8 (padded keys, dropout
+    0.1; SDPA); K4 at the chunk step's shapes with left_pad 0, which computes
+    every row of [tail, chunk] where the step keeps the first C (bound and
+    cuDNN's conv1d both of the valid conv's C rows); K1 on one chunk's
+    window (no one library call; its plain cuFFT version)."""
+    from tpu_speech_torch.ops import fused_posconv as fp
+    from tpu_speech_torch.ops.fused_logmel import fused_logmel, logmel_plain
+
+    out = {"k2_fp32": _k2_d96_case(torch, gen, torch.float32),
+           "k2_bf16": _k2_d96_case(torch, gen, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    rows = []
+    for b, t, c in STREAM_K4:
+        cg, k = c // 16, 128
+        x = torch.randn(b, t, c, generator=gen).cuda()
+        w = (torch.randn(c, cg, k, generator=gen) * (cg * k) ** -0.5).cuda()
+        y = fp.grouped_conv1d(x, w, 16, 0)
+        err = (y - fp.grouped_conv1d_plain(x, w, 16, 0)).abs().max().item()
+        check(err <= K4_RTOL, f"K4 chunk {(b, t, c)}: {err}")
+        # the step keeps the first C = t - (k - 1) rows: the valid conv, which
+        # is the function the bound counts and the one cuDNN call computes
+        n_valid = t - (k - 1)
+        xt = x.transpose(1, 2).contiguous()
+        lib = torch.nn.functional.conv1d(xt, w, groups=16).transpose(1, 2)
+        lib_err = (y[:, :n_valid] - lib).abs().max().item()
+        check(lib_err <= K4_RTOL, f"K4 chunk {(b, t, c)} against cuDNN's valid conv: {lib_err}")
+        rows.append(dict(
+            shape=[b, t, c], cg=cg, rows_kept=n_valid, max_abs_err=err,
+            ms=back_to_back_ms(lambda: fp.grouped_conv1d(x, w, 16, 0)),
+            plain_ms=back_to_back_ms(lambda: fp.grouped_conv1d_plain(x, w, 16, 0)),
+            library_ms=back_to_back_ms(lambda: torch.nn.functional.conv1d(xt, w, groups=16)),
+            bound=roofline(2 * b * n_valid * c * cg * k,
+                           4 * (b * t * c + b * n_valid * c + c * cg * k))))
+        r = rows[-1]
+        log(f"[59 K4 chunk (1, {t}, {c}) Cg {cg} left_pad 0, {t} rows computed, the first "
+            f"{n_valid} kept] error {err:.2e} (limit {K4_RTOL}), kept rows against cuDNN "
+            f"{lib_err:.2e}; {r['ms']:.4f} ms a call back to back vs plain {r['plain_ms']:.4f}, "
+            f"cuDNN conv1d (valid, {n_valid} rows) {r['library_ms']:.4f}; bound of the {n_valid} "
+            f"rows {r['bound'][0]:.5f} ({r['bound'][1]})")
+    out["k4"] = rows
+    from tpu_speech_torch.audio.mel import mel_filterbank
+    from tpu_speech_torch.models.spiral.features import hann_window_symmetric
+
+    win = np.zeros(512, np.float32)
+    win[96:416] = hann_window_symmetric(320)
+    window = torch.tensor(win, device="cuda")
+    fb = torch.tensor(mel_filterbank(SR, 512, 128, 0.0, SR / 2), device="cuda")
+    x = torch.tensor(speech_like(np.random.default_rng(59), 128 * 160 + 352)[None], device="cuda")
+    kw = dict(n_fft=512, hop_length=160, num_frames=128)
+    err = (fused_logmel(x, window, fb, **kw) - logmel_plain(x, window, fb, **kw)).abs().max()
+    err = err.item()
+    check(err <= 2e-4, f"K1 chunk window: {err}")
+    nnz, n_freq = int((fb != 0).sum()), 257
+    out["k1"] = dict(
+        max_abs_err=err, ms=back_to_back_ms(lambda: fused_logmel(x, window, fb, **kw)),
+        plain_ms=back_to_back_ms(lambda: logmel_plain(x, window, fb, **kw)),
+        bound=roofline(128 * (2.5 * 512 * 9 + 3 * n_freq + 2 * nnz + 128),
+                       4 * (x.numel() + 512 + fb.numel() + 128 * 128)))
+    r = out["k1"]
+    log(f"[59 K1 chunk window (1, {x.shape[1]}) -> (1, 128, 128)] error {err:.2e} (limit 2e-4); "
+        f"{r['ms']:.4f} ms a call back to back vs plain (cuFFT) {r['plain_ms']:.4f}; bound "
+        f"{r['bound'][0]:.5f} ({r['bound'][1]})")
+    return out
+
+
+def _w2v_cfg(regularised=True):
+    import dataclasses
+
+    from tpu_speech_torch.models.spiral.wav2vec_model import wav2vec2_base_config
+
+    cfg = wav2vec2_base_config()
+    if regularised:
+        return cfg
+    enc = dataclasses.replace(cfg.encoder, dropout=0.0, attention_dropout=0.0,
+                              activation_dropout=0.0, encoder_layerdrop=0.0)
+    return dataclasses.replace(cfg, encoder=enc, dropout_input=0.0, dropout_features=0.0)
+
+
+def _w2v_batch(torch, cfg, b, n, seed, decided=False):
+    """(wavs, lens, span mask, gumbel, negative indices) on the CPU: speech-like
+    wavs of 0.8-1 x n samples, the host span mask, a Gumbel draw (``decided``:
+    30 added to one code a frame and group, so that no rounding changes the
+    code) and negatives from the utterances' valid frames."""
+    from tpu_speech_torch.models.spiral.st2vec import draw_negative_indices
+    from tpu_speech_torch.models.spiral.wav2vec_model import conv_subsampled_lens
+    from tpu_speech_torch.train.wav2vec import host_time_mask
+
+    r = np.random.default_rng(seed)
+    lens = np.linspace(0.8 * n, n, b).astype(np.int32)
+    wavs = np.zeros((b, n), np.float32)
+    for i, m in enumerate(lens):
+        wavs[i, :m] = speech_like(r, int(m))
+    t = int(conv_subsampled_lens(cfg, np.array([n]))[0])
+    mask = host_time_mask(cfg, lens, t, rng=r)
+    shape = (b * t, cfg.latent_groups, cfg.latent_vars)
+    gumbel = r.gumbel(size=shape).astype(np.float32)
+    if decided:
+        gumbel += 30.0 * np.eye(shape[2], dtype=np.float32)[r.integers(0, shape[2], shape[:2])]
+    feat_lens = torch.tensor(conv_subsampled_lens(cfg, lens).astype(np.int64))
+    neg = draw_negative_indices(feat_lens, t, cfg.n_negatives, torch.Generator().manual_seed(seed))
+    return (torch.tensor(wavs), torch.tensor(lens), torch.tensor(mask), torch.tensor(gumbel),
+            neg)
+
+
+def phase_w2v_pretrain(torch):
+    """60: the wav2vec 2.0 BASE pretraining step at B = 8 x 250 000 samples
+    (781 frames), fp32 and bf16, AdamW, the global-norm clip at 10:
+    W2V_STEPS steps each with finite losses, per-step launches (K2-fwd and
+    K2-bwd at d_head 96 once a kept layer, K4 and K4-dx once), step time and
+    peak memory; one fp32 step card against CPU at B = 2 x 32 000 with
+    dropout off and given draws (phase 10's limits); the bf16 step held to
+    the fp32 step by phase 42's rule (``_hold_bf16_step``) at full width,
+    with the codes decided by the draw."""
+    import copy
+
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.models.spiral.wav2vec_model import Wav2Vec2Model
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train import wav2vec as tw
+
+    cfg = _w2v_cfg()
+    wavs, lens, mask, _, _ = (a.cuda() for a in _w2v_batch(torch, cfg, W2V_B, W2V_SAMPLES,
+                                                           W2V_SEED))
+    out = {}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "fp32"
+        sfx = "_bf16" if bf16 else ""
+        model = Wav2Vec2Model(cfg).init_weights(torch.Generator().manual_seed(W2V_SEED)).cuda()
+        state = tw.make_wav2vec_state(model, lambda ps: torch.optim.AdamW(ps, lr=5e-4))
+        rng = DropoutRng.seeded(W2V_SEED, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        totals, times, losses = dict.fromkeys(_build.LAUNCHES, 0), [], []
+        for i in range(W2V_STEPS):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            m = tw.pretrain_step(state, wavs, lens, mask, rng, grad_clip=10.0, bf16=bf16)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            n = dict(_build.LAUNCHES)
+            losses.append(float(m["loss"]))
+            want = dict(dict.fromkeys(n, 0), **{
+                "fused_qkv_attention" + sfx: m["layers"], "fused_qkv_attention_bwd" + sfx:
+                m["layers"], "grouped_conv1d" + sfx: 1, "grouped_conv1d_dx" + sfx: 1})
+            log(f"    wav2vec 2.0 {tag} step {i}: loss {losses[-1]:.4f} (contrastive "
+                f"{float(m['contrastive_loss']):.4f}, accuracy {float(m['accuracy']):.3f}, "
+                f"perplexity {float(m['prob_ppl']):.1f}), {m['layers']} of 12 layers kept, "
+                f"launches { {k: v for k, v in n.items() if v} }, {times[-1]:.1f} ms")
+            check(np.isfinite(losses[-1]), f"wav2vec 2.0 {tag} step {i}: loss {losses[-1]}")
+            check(n == want, f"wav2vec 2.0 {tag} step {i}: launches {n}")
+            for k in totals:
+                totals[k] += n[k]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[tag] = dict(launches=totals, ms=times[-1], peak=peak, losses=losses)
+        log(f"[60 wav2vec 2.0 BASE pretrain {tag}] B = {W2V_B} x {W2V_SAMPLES} samples (781 "
+            f"frames), {W2V_STEPS} steps: losses {[round(x, 4) for x in losses]}, step times "
+            f"{[round(x, 1) for x in times]} ms (host clock, synchronized), peak device memory "
+            f"{peak:.2f} GiB")
+        del model, state
+        torch.cuda.empty_cache()
+    # one fp32 step, card against CPU, dropout off, the draws given
+    cfg0 = _w2v_cfg(regularised=False)
+    batch = _w2v_batch(torch, cfg0, W2V_CPU_B, W2V_CPU_SAMPLES, W2V_SEED + 1)
+    model = Wav2Vec2Model(cfg0).init_weights(torch.Generator().manual_seed(W2V_SEED))
+    results = []
+    for dev in ("cpu", "cuda"):
+        m_dev = copy.deepcopy(model).to(dev)
+        state = tw.make_wav2vec_state(m_dev, lambda ps: torch.optim.SGD(ps, lr=1.0))
+        w, l_, k, g, neg = (a.to(dev) for a in batch)
+        m = tw.pretrain_step(state, w, l_, k, DropoutRng.seeded(0, dev), neg_idx=neg, gumbel=g)
+        results.append((float(m["loss"]), {n: p.grad.cpu() for n, p in m_dev.named_parameters()}))
+    (l_cpu, g_cpu), (l_card, g_card) = results
+    g_max = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for k, g in g_cpu.items():
+        rel = (g_card[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-2 * g_max)
+        if rel > worst:
+            worst, worst_name = rel, k
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"[60 wav2vec 2.0 card vs cpu] B = {W2V_CPU_B} x {W2V_CPU_SAMPLES}, dropout off, given "
+        f"draws, one SGD(lr=1) step: loss card {l_card:.6f} cpu {l_cpu:.6f} (rel "
+        f"{rel_loss:.2e}, limit {STEP_LOSS_RTOL}); worst gradient {worst:.2e} x its max|g| "
+        f"({worst_name}; limit {GRAD_RTOL}) over {len(g_cpu)} tensors")
+    check(rel_loss <= STEP_LOSS_RTOL, f"wav2vec 2.0 loss card {l_card} vs cpu {l_cpu}")
+    check(worst <= GRAD_RTOL, f"wav2vec 2.0 gradient {worst_name}: {worst}")
+    # bf16 against fp32 at full width (phase 42's rule)
+    w, l_, k, g, neg = (a.cuda() for a in _w2v_batch(torch, cfg0, W2V_B, W2V_SAMPLES,
+                                                     W2V_SEED + 2, decided=True))
+
+    def run(bf16):
+        m_dev = Wav2Vec2Model(cfg0).init_weights(torch.Generator().manual_seed(W2V_SEED)).cuda()
+        state = tw.make_wav2vec_state(m_dev, lambda ps: torch.optim.SGD(ps, lr=1.0))
+        m = tw.pretrain_step(state, w, l_, k, DropoutRng.seeded(0, "cuda"), bf16=bf16,
+                             neg_idx=neg, gumbel=g)
+        return float(m["loss"]), {n: p.grad for n, p in m_dev.named_parameters()}
+
+    out["bf16_vs_fp32"] = _hold_bf16_step(
+        f"60 wav2vec 2.0 bf16 vs fp32, B = {W2V_B} x {W2V_SAMPLES}, one SGD(lr=1) step", run)
+    out["cpu_vs_card"] = dict(loss_rel=rel_loss, worst_grad=worst)
+    return out
+
+
+def run_stream_w2v_phases(torch, gen, ft_ms):
+    """Phases 56-60 in one temporary directory; returns their launches and
+    measurements."""
+    with tempfile.TemporaryDirectory() as root:
+        launches, chunks, runner = phase_stream_transcription(torch, root)
+        model = runner.model
+        phase_stream_cpu_vs_card(torch, model)
+        timing = phase_stream_time(torch, model, root, ft_ms)
+        del runner, model
+        torch.cuda.empty_cache()
+    elapsed("phases 56-58")
+    kern = phase_stream_w2v_kernels(torch, gen)
+    w2v = phase_w2v_pretrain(torch)
+    torch.cuda.empty_cache()
+    elapsed("phases 59-60")
+    return dict(stream=launches, chunks=chunks, timing=timing, kernels=kern, w2v=w2v)
+
+
+def stream_w2v_kernel_entries(sw, by_path):
+    """The kernels line's entries of phases 56-60: K2-fwd and K2-bwd at
+    d_head 96 (fp32 and bf16; launches: the wav2vec 2.0 steps of phase 60,
+    which the d_head 64 entries count too), K4 at the chunk step's shapes and
+    K1 on the chunk window (launches: the streaming path of phase 56, which
+    the K4 and K1 entries count too)."""
+    paths = dict.fromkeys(by_path("fused_logmel"), 0)
+    cuda = "tpu_speech_torch/csrc/"
+    out = []
+    for tag, sfx, src in (("fp32", "", "fused_attention.cu"),
+                          ("bf16", "_bf16", "fused_attention_sm90.cu")):
+        r = sw["kernels"]["k2_" + tag]
+        path = "wav2vec2_pretrain_step" + sfx
+        for key, prefix, replaces in (("fused_qkv_attention", "", "384"),
+                                      ("fused_qkv_attention_bwd", "bwd_", "401")):
+            n = sw["w2v"][tag]["launches"][key + sfx]
+            name = "fused_qkv_self_attention" + ("_bwd" if prefix else "") + "_d96" + sfx
+            out.append(dict(
+                name=name, route="cuda", source=cuda + src,
+                replaces=f"tpu_speech/ops/fused_attention.py:{replaces}", launches=n,
+                launches_by_path=dict(paths, **{path: n}),
+                max_abs_err=r["bwd_err" if prefix else "fwd_err"], **_timed_row(r, prefix),
+                shape=f"{tag} qkv (8, 781, 2304) H 8, d_head 96 (wav2vec 2.0 BASE), p 0.1"
+                      f"{', backward alone' if prefix else ''}; error relative to max(1, "
+                      f"max|plain|); library: SDPA"))
+    n = sw["stream"]["grouped_conv1d"]
+    rows = sw["kernels"]["k4"]
+    first = rows[0]
+    out.append(dict(
+        name="grouped_conv1d_stream_chunk", route="cuda", source=cuda + "fused_posconv.cu",
+        replaces="tpu_speech/ops/fused_posconv.py:132", launches=n,
+        launches_by_path=dict(paths, spiral_streaming_chunk=n),
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=first["ms"],
+        plain_ms=first["plain_ms"], bound_ms=first["bound"][0], bound_by=first["bound"][1],
+        library_ms=first["library_ms"],
+        by_shape=[dict(shape=r["shape"], cg=r["cg"], rows_kept=r["rows_kept"], ms=r["ms"],
+                       plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                       bound_ms=r["bound"][0]) for r in rows],
+        shape="fp32 [tail 127, chunk] with left_pad 0: (1, 159, 512) Cg 32 and (1, 143, 768) "
+              "Cg 48 (by_shape); the kernel computes every row, the step keeps the first 32 or "
+              "16; bound and library (cuDNN conv1d, no padding) of those rows only; times back "
+              "to back"))
+    k1, n = sw["kernels"]["k1"], sw["stream"]["fused_logmel"]
+    out.append(dict(
+        name="fused_logmel_stream_chunk", route="cuda", source=cuda + "fused_logmel.cu",
+        replaces="tpu_speech/ops/fused_logmel.py:203", launches=n,
+        launches_by_path=dict(paths, spiral_streaming_chunk=n), max_abs_err=k1["max_abs_err"],
+        ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound"][0], bound_by=k1["bound"][1],
+        library_ms=None,
+        shape="one chunk's window (1, 20 832) -> (1, 128, 128), n_fft 512 hop 160; times back "
+              "to back; plain: unfold + cuFFT rfft"))
+    return out
+
+
 def main():
     import torch
 
@@ -5942,7 +6482,7 @@ def main():
     os.makedirs(ft_root)
     ft_launches = phase_finetune_slice(torch, rng, ft_root, st2vec_pt)
     phase_finetune_cpu_vs_card(torch)
-    phase_finetune_time(torch, ft_root)
+    ft_ms, _ = phase_finetune_time(torch, ft_root)
     elapsed("phases 14-16")
     ctc_export_launches, op_times = phase_spiral_export(torch, ft_root)
     elapsed("phase 47")
@@ -6005,6 +6545,7 @@ def main():
     elapsed("phases 40-44")
     large = run_large_phases(torch, gen)
     elapsed("phases 50-55")
+    sw = run_stream_w2v_phases(torch, gen, ft_ms)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6028,7 +6569,11 @@ def main():
                 "ctc_large_subword": large["ctc"]["launches"][key],
                 "finetune_step_large": large["ft"]["fp32"]["launches"][key],
                 "finetune_step_large_bf16": large["ft"]["bf16"]["launches"][key],
-                "toy_quality": large["toy"][key]}
+                "toy_quality": large["toy"][key],
+                "spiral_streaming_chunk": sw["stream"][key],
+                "finetune_step_streaming": sw["timing"]["ft_launches"][key],
+                "wav2vec2_pretrain_step": sw["w2v"]["fp32"]["launches"][key],
+                "wav2vec2_pretrain_step_bf16": sw["w2v"]["bf16"]["launches"][key]}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -6159,8 +6704,10 @@ def main():
                                src="monotonic_align.cu", **k_mas))
     attach_large_shapes(kernels, large["kernels"])
     kernels += new_kernel_entries(large, by_path)
-    # K1, 6 fp32, 6 bf16, MAS; K1 pow, K2-fwd and K2-bwd at d_head 12
-    check(len(kernels) == 17, f"{len(kernels)} kernel entries")
+    kernels += stream_w2v_kernel_entries(sw, by_path)
+    # K1, 6 fp32, 6 bf16, MAS; K1 pow, K2-fwd and K2-bwd at d_head 12; K2-fwd
+    # and K2-bwd at d_head 96 fp32 and bf16, K4 and K1 at the chunk step
+    check(len(kernels) == 23, f"{len(kernels)} kernel entries")
     for k in kernels:
         check(all(k["launches_by_path"][path] == 0 for path in tr_launches),
               f"{k['name']} launched on a training path of phases 33-34 or 49")

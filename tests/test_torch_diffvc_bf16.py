@@ -38,7 +38,7 @@ from tpu_speech_torch.train.optim import AdamW
 from tpu_speech_torch.utils.precision import cast_params_bf16
 from tests import test_torch_diffvc as vc_t
 from tests import test_torch_diffvc_train as tr_t
-from tests.test_torch_diffvc_train import tiny_cli  # noqa: F401
+from tests.test_torch_diffvc_train import _no_stand_in_soundfile, tiny_cli  # noqa: F401
 
 BF = jnp.bfloat16
 

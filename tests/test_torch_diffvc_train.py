@@ -19,6 +19,7 @@ level of a gradient that is zero), full steps 2e-5.
 import functools
 import importlib.util
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +70,16 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _no_stand_in_soundfile(monkeypatch):
+    """Hide a stand-in ``soundfile`` (a module with no file, as the JAX
+    tests' reference oracle plants in ``sys.modules``) for the test, so the
+    trainers see what is installed, not a stub without ``write``."""
+    mod = sys.modules.get("soundfile")
+    if mod is not None and getattr(mod, "__file__", None) is None:
+        monkeypatch.delitem(sys.modules, "soundfile")
 
 
 def _t(a, dtype=None):

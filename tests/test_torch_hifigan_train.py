@@ -39,6 +39,7 @@ from tpu_speech_torch.compat.jax_hifigan import (
 from tpu_speech_torch.models import hifigan as t_hifi
 from tpu_speech_torch.train import hifigan as t_train
 from tpu_speech_torch.train.trainer import batch_to_device
+from tests.test_torch_diffvc_train import _no_stand_in_soundfile  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEL_CFG = dict(n_fft=64, num_mels=8, sampling_rate=1600, hop_size=16, win_size=64, fmin=0.0,

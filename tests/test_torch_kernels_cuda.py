@@ -1121,3 +1121,68 @@ def test_load_exported_runs_a_card_program_in_full_fp32(cuda, tmp_path):
         assert (got - want).abs().max().item() <= 1e-5
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# ---- the streaming chunk step's shapes and wav2vec 2.0's head width ----------
+
+
+@pytest.mark.parametrize("b,t,c,g", [(1, 159, 512, 16), (1, 143, 768, 16)])
+def test_grouped_conv1d_at_the_chunk_shapes_with_no_left_pad(cuda, b, t, c, g):
+    """The streaming positional conv: [tail 127, new C] with left_pad 0, whose
+    first C rows are the valid outputs (SPIRAL-base streaming at chunk 128:
+    C = 32 at 512 wide, 16 at 768)."""
+    gen = torch.Generator().manual_seed(t)
+    x = torch.randn(b, t, c, generator=gen).to(cuda)
+    w = (torch.randn(c, c // g, 128, generator=gen) * 0.05).to(cuda)
+    before = _build.LAUNCHES["grouped_conv1d"]
+    out = grouped_conv1d(x, w, g, 0)
+    assert _build.LAUNCHES["grouped_conv1d"] == before + 1
+    torch.testing.assert_close(out, grouped_conv1d_plain(x, w, g, 0), rtol=0, atol=1e-4)
+
+
+def test_fused_logmel_on_the_streaming_chunk_window(cuda):
+    """K1 on one chunk's window (1, 128 x 160 + 352) -> 128 frames."""
+    win, fb = _spiral_consts(cuda)
+    x = (torch.randn(1, 128 * 160 + 352, generator=torch.Generator().manual_seed(0)) * 0.1)
+    x = x.to(cuda)
+    kw = dict(n_fft=512, hop_length=160, num_frames=128)
+    out = fused_logmel(x, win, fb, **kw)
+    assert out.shape == (1, 128, 128)
+    torch.testing.assert_close(out, logmel_plain(x, win, fb, **kw), rtol=0, atol=2e-4)
+
+
+def test_stream_step_on_the_card_matches_the_cpu(cuda):
+    """The tiny streaming model's chunk step, card against CPU on the same
+    windows: log-probs within 1e-4; K1 once and K4 once a transformer block
+    each chunk, and nothing else."""
+    from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel
+    from tpu_speech_torch.models.spiral.encoder import (
+        ConvLayerCfg, ConvTransformerBlockCfg, StreamingCfg, TransformerCfg)
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecConfig
+    from tpu_speech_torch.models.spiral.streaming import make_stream_step
+
+    blocks = tuple(ConvTransformerBlockCfg(
+        conv_layers=(ConvLayerCfg(w, (5,), (2,), "ln", "relu", 0.0),),
+        transformer=TransformerCfg(1, w, 2 * w, 2, 0.0, attention_dropout=0.0, conv_pos=8,
+                                   conv_pos_groups=2)) for w in (32, 64))
+    cfg = ST2VecConfig(blocks=blocks, num_features=16,
+                       streaming=StreamingCfg(chunk_frames=16, left_chunks=2))
+    model = CTCFinetuneModel(cfg, 6, decoder_convs=(ConvLayerCfg(16, (5,), (1,), None, "relu",
+                                                                 0.0),),
+                             upsample_rate=2, upsample_filters=16)
+    model.init_weights(torch.Generator().manual_seed(0)).eval()
+    wav = torch.randn(1, 3 * 16 * 160 + 512, generator=torch.Generator().manual_seed(1)) * 0.1
+    outs = []
+    for dev in ("cpu", cuda):
+        init_state, step = make_stream_step(model.to(dev))
+        st, lps = init_state(1), []
+        _build.reset_launches()
+        for j in range(3):
+            window = wav[:, j * 2560:j * 2560 + 2560 + 352].to(dev)
+            st, lp, _, _ = step(st, window, torch.tensor([16]))
+            lps.append(lp.cpu())
+        outs.append((torch.cat(lps, 1), dict(_build.LAUNCHES)))
+    (cpu, cpu_n), (card, card_n) = outs
+    assert cpu_n == _counts()
+    assert card_n == _counts(fused_logmel=3, grouped_conv1d=6)
+    torch.testing.assert_close(card, cpu, rtol=0, atol=1e-4)

@@ -456,11 +456,9 @@ def test_every_jax_flag_parses_with_the_jax_default():
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--streaming_eval", "true", 9),
     ("--seq_parallel", "2", 10), ("--fsdp", "true", 10), ("--num_nodes", "2", 10),
     ("--node_rank", "0", 10), ("--master_addr", "h:1", 10), ("--num_gpus", "2", 10),
-    ("--num_devices", "4", 10), ("--config_name", "spiral_tiny_stream_test", 9),
-    ("--config_name", "spiral_base_finetune_ls100_char_streaming", 9),
+    ("--num_devices", "4", 10),
 ])
 def test_unported_flags_stop_the_run_and_name_their_item(tmp_path, flag, value, item):
     argv = ["--config_name", "spiral_tiny_test", "--device", "cpu",

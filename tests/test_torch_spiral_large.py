@@ -52,7 +52,8 @@ NEW = ("spiral_base_finetune_ls100_subword", "spiral_base_finetune_ls100_subword
        "spiral_base_pretrain_ls960_noise", "spiral_large_finetune_ls100_char",
        "spiral_large_finetune_ls100_subword", "spiral_large_finetune_ls960_char",
        "spiral_large_finetune_ls960_subword", "spiral_large_pretrain_librilight",
-       "spiral_toy_quality")
+       "spiral_toy_quality", "spiral_base_finetune_ls100_char_streaming",
+       "spiral_tiny_stream_test")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -276,9 +277,9 @@ def test_yaml_errors(tmp_path):
     with pytest.raises(Exception, match="nope"):
         run_spiral.load_config(parser.parse_args(["--config_name", str(tmp_path / "bad.yaml")]))
     (tmp_path / "stream.yaml").write_text("base: spiral_tiny_stream_test\n")
-    with pytest.raises(SystemExit, match="Queue 1 item 9 "):
-        run_spiral.load_config(parser.parse_args(["--config_name",
-                                                  str(tmp_path / "stream.yaml")]))
+    stream = run_spiral.load_config(parser.parse_args(["--config_name",
+                                                       str(tmp_path / "stream.yaml")]))
+    assert stream.model.encoder.streaming.chunk_frames == 32  # a ported base composes
     with pytest.raises(SystemExit, match="no YAML config"):
         run_spiral.load_config(parser.parse_args(
             ["--config_name", "missing", "--config_path", str(tmp_path),

@@ -82,10 +82,15 @@ first epoch with ``torch.profiler`` into ``<run dir>/plugins``.
 ``--device`` (the port's own flag) defaults to ``cuda`` and fails without a
 card.
 
+``--streaming_eval true`` (test mode, ``:393-396``) decodes the test manifest
+through the chunk-incremental transcriber of a streaming-mode config
+(``spiral_base_finetune_ls100_char_streaming``, ``spiral_tiny_stream_test``;
+``SpiralFinetuneRunner.evaluate_streaming``) and prints ``TEST (streaming):
+WER = ... | CER = ... | N utts``.
+
 Flags that parse but are not ported yet stop the run when set to anything but
 their default, naming the ROADMAP Queue 1 item that will port them (``NOT_PORTED``):
-streaming evaluation and the streaming configs (item 9), and the multi-device
-and multi-node modes (item 10). ``--export_model PATH`` (test mode) saves the
+the multi-device and multi-node modes (item 10). ``--export_model PATH`` (test mode) saves the
 wav -> log-probs graph after the evaluation as a ``torch.export`` program
 (``SpiralFinetuneRunner.export_model``), which
 ``utils/export.py::load_exported`` runs. ``--use_horovod`` warns and ``--test_mode`` is
@@ -122,12 +127,9 @@ from tpu_speech_torch.utils.surgery import parse_skip_vars
 # flag -> the ROADMAP Queue 1 item that ports it; any value but the default
 # stops the run
 NOT_PORTED = {
-    "streaming_eval": 9,
     "seq_parallel": 10, "fsdp": 10, "num_nodes": 10, "node_rank": 10, "master_addr": 10,
 }
-_ITEMS = {9: "remaining families and tools", 10: "distributed modes"}
-# the JAX experiment files that need the streaming encoder (item 9)
-STREAMING_CONFIGS = ("spiral_base_finetune_ls100_char_streaming", "spiral_tiny_stream_test")
+_ITEMS = {10: "distributed modes"}
 
 
 def str2bool(v):
@@ -214,7 +216,7 @@ def build_parser():
     p.add_argument("--save_logits", type=str2bool, default=False,
                    help="save each batch's log-probs under <run dir>/logits")
     p.add_argument("--streaming_eval", type=str2bool, default=False,
-                   help="not ported (item 9)")
+                   help="test mode: decode chunk by chunk (a streaming-mode config)")
     p.add_argument("--beam_size", type=int, default=1,
                    help="test mode: 1 = greedy decoding, more = CTC prefix beam search")
     p.add_argument("--lm_manifest", type=str, default="",
@@ -258,9 +260,6 @@ def _refuse_unported(args, parser) -> None:
 def _config(name: str):
     """A fresh RunConfig of ``CONFIGS[name]``; SystemExit for a name the
     port does not have."""
-    if name in STREAMING_CONFIGS:
-        raise SystemExit(f"config {name} needs the streaming encoder, which is not ported "
-                         f"yet: ROADMAP.md Queue 1 item 9 ({_ITEMS[9]})")
     if name not in CONFIGS:
         raise SystemExit(f"config {name!r}: the port's configs are "
                          f"{', '.join(sorted(CONFIGS))}")
@@ -430,6 +429,11 @@ def main(argv=None) -> dict:
         print(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
     if args.run_mode == "train":
         return train_ctc(cfg, runner, profile=args.profile)
+    if args.streaming_eval:
+        results = runner.evaluate_streaming()
+        print(f"TEST (streaming): WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
+              f"| {results['n']} utts")
+        return results
 
     lm = None
     if args.beam_size > 1 and args.lm_manifest:

@@ -158,26 +158,30 @@ def ctc_finetune_from_jax(params: Mapping, batch_stats: Mapping = None
     sd: Dict[str, torch.Tensor] = {}
     _feature_encoder(tr, bs, ("encoder", "feature_encoder"), sd,
                      "encoder.feature_encoder")
-    dec = ("decoder",)
-    if tr.has(*dec, "proj_upsampling"):
-        pu = dec + ("proj_upsampling",)
-        _conv(tr, pu + ("proj",), sd, "decoder.proj_upsampling.proj.conv.conv")
-        if tr.has(*pu, "norm"):
-            _norm(tr, bs, pu + ("norm",), sd, "decoder.proj_upsampling.norm")
-    i = 0
-    while tr.has(*dec, f"conv_{i}"):
-        cp = dec + (f"conv_{i}",)
-        _conv(tr, cp + ("conv",), sd, f"decoder.conv_layers.{i}.conv.conv")
-        if tr.has(*cp, "norm"):
-            _norm(tr, bs, cp + ("norm",), sd, f"decoder.conv_layers.{i}.norm")
-        i += 1
-    w = tr.get(*dec, "decoder_proj", "kernel")  # (C, V)
-    sd["decoder.decoder_layers.0.weight"] = _t(np.transpose(w, (1, 0))[:, :, None])
-    sd["decoder.decoder_layers.0.bias"] = _t(tr.get(*dec, "decoder_proj", "bias"))
+    _decoder(tr, bs, ("decoder",), sd, "decoder")
     leftover = tr.leftover() + bs.leftover()
     if leftover:
         raise ValueError(f"unconsumed JAX leaves: {leftover[:8]}")
     return sd
+
+
+def _decoder(tr, bs, dec, sd, key):
+    """A ``ConvASRDecoder`` subtree at path ``dec`` -> ``key``.* ."""
+    if tr.has(*dec, "proj_upsampling"):
+        pu = dec + ("proj_upsampling",)
+        _conv(tr, pu + ("proj",), sd, f"{key}.proj_upsampling.proj.conv.conv")
+        if tr.has(*pu, "norm"):
+            _norm(tr, bs, pu + ("norm",), sd, f"{key}.proj_upsampling.norm")
+    i = 0
+    while tr.has(*dec, f"conv_{i}"):
+        cp = dec + (f"conv_{i}",)
+        _conv(tr, cp + ("conv",), sd, f"{key}.conv_layers.{i}.conv.conv")
+        if tr.has(*cp, "norm"):
+            _norm(tr, bs, cp + ("norm",), sd, f"{key}.conv_layers.{i}.norm")
+        i += 1
+    w = tr.get(*dec, "decoder_proj", "kernel")  # (C, V)
+    sd[f"{key}.decoder_layers.0.weight"] = _t(np.transpose(w, (1, 0))[:, :, None])
+    sd[f"{key}.decoder_layers.0.bias"] = _t(tr.get(*dec, "decoder_proj", "bias"))
 
 
 def _projector(tr, bs, path, sd, key):

@@ -27,9 +27,10 @@ subword at LS-100 and LS-960) and Libri-Light pretraining, and
 ``CONFIGS`` maps the ``--config_name`` values of the port's run_spiral CLI to
 these functions (``spiral_tiny_test``, the JAX package's name, is
 ``spiral_tiny_pretrain``); a YAML experiment file's ``base:`` resolves
-against it too. The two streaming configs (``*_streaming``,
-``spiral_tiny_stream_test``) wait for the streaming encoder (ROADMAP Queue 1
-item 9).
+against it too. The two streaming configs are
+``spiral_base_finetune_ls100_char_streaming`` (SPIRAL-base char finetuning
+with ``StreamingCfg(128, 2)``: 1.28 s chunks, two chunks of left context) and
+``spiral_tiny_stream_test`` (the tiny config with ``StreamingCfg(32, 2)``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import dataclasses
 from tpu_speech_torch.models.spiral.encoder import (
     ConvLayerCfg,
     ConvTransformerBlockCfg,
+    StreamingCfg,
     TransformerCfg,
 )
 from tpu_speech_torch.models.spiral.st2vec import (
@@ -281,6 +283,38 @@ def spiral_base_ctc_char() -> RunConfig:
     )
 
 
+def spiral_base_finetune_ls100_char_streaming() -> RunConfig:
+    """``cli/conf/spiral/spiral_base_finetune_ls100_char_streaming.py``: the
+    char recipe with a streaming-trainable encoder, 128 spec frames (1.28 s)
+    a chunk and two chunks of left context."""
+    enc = spiral_base_config(streaming=StreamingCfg(chunk_frames=128, left_chunks=2))
+    encoder = dataclasses.replace(
+        enc,
+        blocks=finetune_transformer_overrides(enc.blocks),
+        mask_prob=0.3,
+        mask_length=4,
+        mask_channel_prob=0.3,
+        mask_channel_length=20,
+    )
+    return finetune_run_config(
+        "ctc_finetune_streaming", encoder, char_decoder(norm_type=None),
+        labels=DEFAULT_CHAR_LABELS,
+        batch_size=14, max_duration=24.0, max_steps=80000,
+        expected_gpu_num=8, freeze_finetune_updates=2000, max_epochs=320,
+    )
+
+
+def spiral_tiny_stream_test() -> RunConfig:
+    """``cli/conf/spiral/spiral_tiny_stream_test.py``: the tiny config with a
+    streaming encoder, 32 spec frames a chunk (4 encoder frames) and two
+    chunks of left context."""
+    cfg = spiral_tiny_pretrain()
+    cfg.model.encoder = dataclasses.replace(
+        cfg.model.encoder, streaming=StreamingCfg(chunk_frames=32, left_chunks=2))
+    cfg.name = cfg.exp_manager.name = "st2vec_tiny_stream"
+    return cfg
+
+
 def spiral_tiny_ctc_char() -> RunConfig:
     """The blocks of ``cli/conf/spiral/spiral_tiny_test.py`` (16 mels, two
     one-layer 32-wide transformers) with a 32-wide char head (4x
@@ -471,4 +505,6 @@ CONFIGS = {
     "spiral_large_finetune_ls960_subword": spiral_large_finetune_ls960_subword,
     "spiral_large_pretrain_librilight": spiral_large_pretrain_librilight,
     "spiral_toy_quality": spiral_toy_quality,
+    "spiral_base_finetune_ls100_char_streaming": spiral_base_finetune_ls100_char_streaming,
+    "spiral_tiny_stream_test": spiral_tiny_stream_test,
 }

@@ -82,7 +82,8 @@
 //   The first design recomputed S and dP for dQ: 14 instead of 10
 //   B H T^2 D FLOP.
 //
-// Head widths: 8, 16, 32 and 64, and 12 (the toy config's 48 / 4). The
+// Head widths: 8, 16, 32 and 64, 12 (the toy config's 48 / 4) and 96
+// (wav2vec 2.0 BASE, 768 / 8). The
 // products step d by the mma's k of 8, so a width that is not a multiple of
 // 8 runs padded to the next one (padded()): stage_rows zero-fills the tiles'
 // extra columns, which adds exact zeros to S and dP, and the stores skip
@@ -355,9 +356,15 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_commit();
   wait_tile(true);  // the q tile; the first key tile stays in flight
 
-  FragA qf[KD];  // the warp's 16 query rows, split once
+  // the warp's 16 query rows, split once and kept in registers up to d 64;
+  // at d 96 they would take 96 of the 255 registers beside the 48 of the
+  // output, so they are split again from shared memory for each key tile
+  constexpr bool QREG = KD <= 8;
+  FragA qf[QREG ? KD : 1];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) qf[kd] = load_a(qs, SS, r0, 8 * kd, g, t);
+    for (int kd = 0; kd < KD; ++kd) qf[kd] = load_a(qs, SS, r0, 8 * kd, g, t);
+  }
   float o[KD][4];
 #pragma unroll
   for (int n = 0; n < KD; ++n)
@@ -390,9 +397,15 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
+    for (int kd = 0; kd < KD; ++kd) {
+      FragA qa;
+      if constexpr (QREG)
+        qa = qf[kd];
+      else
+        qa = load_a(qs, SS, r0, 8 * kd, g, t);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) mma3(s[j], qf[kd], load_bt(ks, SS, 8 * j, 8 * kd, g, t));
+      for (int j = 0; j < 8; ++j) mma3(s[j], qa, load_bt(ks, SS, 8 * j, 8 * kd, g, t));
+    }
 
     float alpha[2];
     softmax_tile(s, fl, t, k0, qrow, stream, thresh, drop_scale, m, l, alpha);
@@ -766,7 +779,9 @@ int launch_bwd(const Operands<float>& a, const unsigned char* key_pad, const flo
                const float* dout, const float* lse, float* delta, int B, int T,
                int H, unsigned seed, unsigned thresh, float drop_scale,
                cudaStream_t stream) {
-  constexpr int CH = 32;  // queries per pass of the dK/dV kernel
+  // queries per pass of the dK/dV kernel: 16 at d 96, whose dK and dV
+  // accumulators take 96 registers
+  constexpr int CH = D > 64 ? 16 : 32;
   const float inv_t = 1.f / (float)T;
   // the scratch: Delta (B, H, T), then dS^T (B*H, TQ, TQ) on a 16-byte boundary
   float* dst = delta + ((long long)B * H * T + 3) / 4 * 4;
@@ -811,6 +826,7 @@ int attention_fwd(const void* q, const void* k, const void* v, int ld, const voi
     case 16: return launch_fwd<16>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 32: return launch_fwd<32>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     case 64: return launch_fwd<64>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
+    case 96: return launch_fwd<96>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -838,6 +854,7 @@ int attention_bwd(const void* q, const void* k, const void* v, int ld, const voi
     case 16: return launch_bwd<16>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 32: return launch_bwd<32>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     case 64: return launch_bwd<64>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
+    case 96: return launch_bwd<96>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -845,7 +862,7 @@ int attention_bwd(const void* q, const void* k, const void* v, int ld, const voi
 }  // namespace
 
 // out (B, T, H*D); lse (B, H, T) or null (no gradient needed). q, k, v rows
-// of width >= H*D at stride ld, 16-byte aligned. fp32; D in 8, 12, 16, 32, 64.
+// of width >= H*D at stride ld, 16-byte aligned. fp32; D in 8, 12, 16, 32, 64, 96.
 extern "C" int tsx_attention_fwd(const void* q, const void* k, const void* v,
                                  int ld, const void* key_pad, void* out,
                                  void* lse, int B, int T, int H, int D,

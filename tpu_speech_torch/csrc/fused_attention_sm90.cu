@@ -63,7 +63,11 @@
 //   the merged plane would). The q, k, v maps start at the three pointers,
 //   so head h is column h*D of each. Rows of 2D bytes use the matching
 //   swizzle (D 64: 128-byte, 32: 64-byte, 16: 32-byte), which the wgmma
-//   descriptors name; tiles sit on 1024 bytes. The dK/dV kernel takes L
+//   descriptors name; tiles sit on 1024 bytes. D 96 (wav2vec 2.0 BASE) has
+//   192-byte rows, past the widest swizzle: its tiles are three 32-column
+//   parts, three boxes a tile, and each product over d (S = q k^T: 3 x 2
+//   k16 steps) or into d (P~ v: three n32 wgmma a k step) runs part by
+//   part (Tile, issue_scores, issue_rows). The dK/dV kernel takes L
 //   and Delta as 64-float boxes of a 1-D map over row statistics that the dQ
 //   kernel lays out in rows of T rounded up to 64 (boxes of the (B, H, T)
 //   arrays themselves start on any 4 bytes, and such loads fault). The maps
@@ -118,16 +122,35 @@ constexpr int STAGES = 2;    // ring of K/V (forward, dQ) or q/dO/L/Delta (dK/dV
 constexpr float FILL = -1e9f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A bf16 tile of 64 rows x D: rows of 2D bytes, swizzled over 2D bytes.
+// A bf16 tile of 64 rows x D, stored as NP parts of PW columns each: rows
+// of 2 PW bytes, swizzled over 2 PW bytes, one part after the other. D 16,
+// 32 and 64 are one part. A 96-wide row is 192 bytes, more than the widest
+// swizzle span (128 bytes), so D 96 is three 32-column parts: each a tile
+// as D 32's, loaded by its own TMA box, and every product over d or into d
+// runs part by part (see issue_scores and issue_rows).
 template <int D>
 struct Tile {
-  static constexpr int SW = 2 * D;          // bytes a row = the swizzle span
-  static constexpr int BYTES = TILE * SW;   // a multiple of 1024
-  static constexpr int KSTEPS = D / 16;     // k steps of a product over d
-  static constexpr int ACC = D / 2;         // accumulators of a 64 x D product
+  static constexpr int PW = D == 96 ? 32 : D;  // columns a part
+  static constexpr int NP = D / PW;            // parts
+  static constexpr int SW = 2 * PW;            // bytes a part's row = the swizzle span
+  static constexpr int PART = TILE * SW;       // bytes a part, a multiple of 1024
+  static constexpr int BYTES = NP * PART;
+  static constexpr int KSTEPS = PW / 16;       // k steps of a product over a part's d
+  static constexpr int ACC = D / 2;            // accumulators of a 64 x D product
 };
 
 // ---- TMA (the mbarrier and load helpers are in sm90.cuh) --------------------
+// one 64-row tile of a map at (col, row, b) into dst, a box a part
+template <int D>
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int col, int row, int b) {
+  using TL = Tile<D>;
+#pragma unroll
+  for (int p = 0; p < TL::NP; ++p)
+    tma_load_3d(static_cast<unsigned char*>(dst) + p * TL::PART, map, bar, col + p * TL::PW,
+                row, b);
+}
+
 // two 64-row tiles of two maps at (col, row, b) into dst_a, dst_b
 template <int D>
 __device__ __forceinline__ void load_tile_pair(void* dst_a, const CUtensorMap* map_a,
@@ -135,8 +158,8 @@ __device__ __forceinline__ void load_tile_pair(void* dst_a, const CUtensorMap* m
                                                uint64_t* bar, int col, int row, int b,
                                                unsigned extra_bytes = 0) {
   mbar_expect_tx(bar, 2 * Tile<D>::BYTES + extra_bytes);
-  tma_load_3d(dst_a, map_a, bar, col, row, b);
-  tma_load_3d(dst_b, map_b, bar, col, row, b);
+  load_tile<D>(dst_a, map_a, bar, col, row, b);
+  load_tile<D>(dst_b, map_b, bar, col, row, b);
 }
 // --------------------------------------------------------------------------
 
@@ -218,20 +241,36 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// s = a b^T over d: the 64 x 64 product of two 64 x D tiles (descriptors)
+// s = a b^T over d: the 64 x 64 product of two 64 x D tiles (descriptors of
+// their first parts; a part starts PART bytes, PART / 16 descriptor units,
+// after the one before)
 template <int D>
 __device__ __forceinline__ void issue_scores(float (&s)[32], uint64_t a, uint64_t b) {
+  using TL = Tile<D>;
 #pragma unroll
-  for (int kk = 0; kk < Tile<D>::KSTEPS; ++kk) wgmma_ss64(s, a + 2 * kk, b + 2 * kk, kk > 0);
+  for (int p = 0; p < TL::NP; ++p)
+#pragma unroll
+    for (int kk = 0; kk < TL::KSTEPS; ++kk) {
+      const uint64_t off = p * (TL::PART / 16) + 2 * kk;
+      wgmma_ss64(s, a + off, b + off, p > 0 || kk > 0);
+    }
 }
 
 // acc += p x: p the 64 x 64 register operand (4 k steps of 16 columns), x a
-// 64 x D tile read row by row (16 of its rows a k step)
+// 64 x D tile read row by row (16 of its rows a k step); part p of x gives
+// the accumulators of its PW columns, acc[p * PW / 2 ..], whose layout is
+// that of a 64 x PW product
 template <int D>
 __device__ __forceinline__ void issue_rows(float (&acc)[D / 2], const uint32_t (&p)[4][4],
                                            uint64_t x) {
+  using TL = Tile<D>;
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) wgmma_rs<D>(acc, p[jj], x + jj * (16 * Tile<D>::SW / 16));
+  for (int part = 0; part < TL::NP; ++part) {
+    float(&a)[TL::PW / 2] = *reinterpret_cast<float(*)[TL::PW / 2]>(acc + part * (TL::PW / 2));
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      wgmma_rs<TL::PW>(a, p[jj], x + part * (TL::PART / 16) + jj * (16 * TL::SW / 16));
+  }
 }
 
 // Accumulator layout of a 64 x N product (warp w, lane = 4g + t): element i
@@ -354,7 +393,7 @@ attn_fwd_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
     for (int i = 0; i <= STAGES; ++i) mbar_init(bar + i, 1);
     fence_mbar_init();
     mbar_expect_tx(bar, TL::BYTES);
-    tma_load_3d(qs, &map_q, bar, col, q0, b);
+    load_tile<D>(qs, &map_q, bar, col, q0, b);
     for (int st = 0; st < STAGES && st < n_tiles; ++st)
       load_tile_pair<D>(ks + st * TL::BYTES, &map_k, vs + st * TL::BYTES, &map_v, bar + 1 + st,
                         col, st * TILE, b);
@@ -814,18 +853,19 @@ attn_bwd_dkdv_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
 // ---- host side ------------------------------------------------------------
 
 // A (B, T, cols) bf16 array whose rows lie ld elements apart, read in boxes
-// of D columns x TILE rows of one batch item (rows past T read as zeros),
-// swizzled over a row's 2D bytes.
+// of one tile part's columns (D, or 32 at D 96) x TILE rows of one batch item
+// (rows past T read as zeros), swizzled over the part's row bytes.
 bool encode_rows(CUtensorMap* map, const void* base, int cols, int ld, int T, int B, int D) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const int pw = D == 96 ? 32 : D;  // Tile<D>::PW
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * T};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)TILE, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)pw, (cuuint32_t)TILE, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = pw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : pw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -904,13 +944,13 @@ int launch_bwd(const CUtensorMap (&maps)[3], const CUtensorMap& map_do,
 
 // out (B, T, H*D) bf16; lse (B, H, T) fp32 or null (no gradient needed). q,
 // k, v rows of width >= H*D at stride ld (a multiple of 8), 16-byte aligned,
-// as out and lse. D in 16, 32, 64.
+// as out and lse. D in 16, 32, 64, 96.
 extern "C" int tsx_attention_fwd_bf16(const void* q, const void* k, const void* v, int ld,
                                       const void* key_pad, void* out, void* lse, int B, int T,
                                       int H, int D, unsigned seed, unsigned thresh,
                                       float drop_scale, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
-  if (D != 16 && D != 32 && D != 64) return cudaErrorInvalidValue;
+  if (D != 16 && D != 32 && D != 64 && D != 96) return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) || !aligned16(lse) ||
       ld % 8 != 0)
     return cudaErrorMisalignedAddress;
@@ -926,7 +966,8 @@ extern "C" int tsx_attention_fwd_bf16(const void* q, const void* k, const void* 
   switch (D) {
     case 16: return launch_fwd<16>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
     case 32: return launch_fwd<32>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
-    default: return launch_fwd<64>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
+    case 64: return launch_fwd<64>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
+    default: return launch_fwd<96>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
   }
 }
 
@@ -941,7 +982,7 @@ extern "C" int tsx_attention_bwd_bf16(const void* q, const void* k, const void* 
                                       int ld_grad, int B, int T, int H, int D, unsigned seed,
                                       unsigned thresh, float drop_scale, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
-  if (D != 16 && D != 32 && D != 64) return cudaErrorInvalidValue;
+  if (D != 16 && D != 32 && D != 64 && D != 96) return cudaErrorInvalidValue;
   const uintptr_t grads = reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
                           reinterpret_cast<uintptr_t>(dv);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) || !aligned16(dout) ||
@@ -971,8 +1012,11 @@ extern "C" int tsx_attention_bwd_bf16(const void* q, const void* k, const void* 
     case 32:
       return launch_bwd<32>(maps, map_do, map_stats, kp, o, g, l, dl, gq, gk, gv, ld_grad,
                             B, T, H, seed, thresh, drop_scale, s, dev);
-    default:
+    case 64:
       return launch_bwd<64>(maps, map_do, map_stats, kp, o, g, l, dl, gq, gk, gv, ld_grad,
+                            B, T, H, seed, thresh, drop_scale, s, dev);
+    default:
+      return launch_bwd<96>(maps, map_do, map_stats, kp, o, g, l, dl, gq, gk, gv, ld_grad,
                             B, T, H, seed, thresh, drop_scale, s, dev);
   }
 }

@@ -12,7 +12,13 @@ BatchNorm follows flax's ``nn.BatchNorm`` in training: batch statistics over
 BIASED batch variance (``FlaxBatchNorm1d``); PyTorch's ``nn.BatchNorm1d``
 stores the unbiased one. Dropout draws from an explicit ``DropoutRng``.
 
-Not ported yet: the causal/incremental (streaming) modes and ``Conv2dTF``.
+``causal=True`` is the streaming-trainable mode (``Conv1dTF:51``): the
+time pad is (k - 1, 0), so output frame t reads inputs up to t * stride only.
+The chunk-incremental step (``models/spiral/streaming.py``) prepends each
+layer's (k - 1)-frame input tail itself and runs the same weights unpadded.
+The activations are ``relu`` and ``hardtanh`` (a clip to [-1, 1]).
+
+Not ported yet: ``Conv2dTF`` (no SPIRAL config builds one).
 """
 
 from __future__ import annotations
@@ -46,17 +52,20 @@ def tf_pad_1d(kernel: int, stride: int, in_channels: int) -> Tuple[int, int]:
 
 
 class Conv1dTF(nn.Module):
-    """1d conv on (B, T, C), TF 'same' padding, mask-aware.
+    """1d conv on (B, T, C), TF 'same' padding (or (k - 1, 0) when
+    ``causal``), mask-aware.
 
     Padded frames are zeroed before every conv with kernel > 1; with stride
     s the lengths become ceil(len / s) and the pad mask is rebuilt.
     """
 
     def __init__(self, in_channels: int, filters: int, kernel_size: int,
-                 stride: int = 1, use_bias: bool = True, device=None):
+                 stride: int = 1, use_bias: bool = True, causal: bool = False,
+                 device=None):
         super().__init__()
         self.kernel_size, self.stride = kernel_size, stride
-        self.pads = tf_pad_1d(kernel_size, stride, in_channels)
+        self.pads = ((kernel_size - 1, 0) if causal
+                     else tf_pad_1d(kernel_size, stride, in_channels))
         self.conv = nn.Conv1d(in_channels, filters, kernel_size, stride,
                               bias=use_bias, device=device)
 
@@ -100,10 +109,23 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         return y.to(x.dtype)
 
 
+def activation(y: torch.Tensor, act_func: Optional[str]) -> torch.Tensor:
+    """``relu``, ``hardtanh`` (clip to [-1, 1]) or none
+    (``conv_layers.py:169-172``)."""
+    if act_func == "relu":
+        return F.relu(y)
+    if act_func == "hardtanh":
+        return torch.clamp(y, -1.0, 1.0)
+    return y
+
+
+_ACTS = (None, "relu", "hardtanh")
+
+
 class ConvNormAct(nn.Module):
-    """conv -> {ln | bn | none} -> {relu | none} -> dropout, with length and
-    mask tracking (convolution_layers.py:62-102). LayerNorm epsilon is
-    ``ln_eps`` (1e-5, as the JAX module); BatchNorm is ``FlaxBatchNorm1d``
+    """conv -> {ln | bn | none} -> {relu | hardtanh | none} -> dropout, with
+    length and mask tracking (convolution_layers.py:62-102). LayerNorm epsilon
+    is ``ln_eps`` (1e-5, as the JAX module); BatchNorm is ``FlaxBatchNorm1d``
     with flax's momentum 0.99 (torch's 0.01) and epsilon 1e-3."""
 
     def __init__(self, in_channels: int, filters: int,
@@ -111,13 +133,13 @@ class ConvNormAct(nn.Module):
                  norm_type: Optional[str] = None,
                  act_func: Optional[str] = None, dropout: float = 0.0,
                  ln_eps: float = 1e-5, bias: Optional[bool] = None,
-                 device=None):
+                 causal: bool = False, device=None):
         super().__init__()
-        if act_func not in (None, "relu"):
+        if act_func not in _ACTS:
             raise NotImplementedError(f"act_func={act_func!r} is not ported")
         use_bias = bias if bias is not None else norm_type is None
         self.conv = Conv1dTF(in_channels, filters, kernel_size[0], stride[0],
-                             use_bias=use_bias, device=device)
+                             use_bias=use_bias, causal=causal, device=device)
         if norm_type == "ln":
             self.norm = nn.LayerNorm(filters, eps=ln_eps, device=device)
         elif norm_type == "bn":
@@ -137,29 +159,32 @@ class ConvNormAct(nn.Module):
             y = self.norm(y)
         elif self.norm_type == "bn":
             y = self.norm(y.transpose(1, 2)).transpose(1, 2)
-        if self.act_func == "relu":
-            y = F.relu(y)
+        y = activation(y, self.act_func)
         return dropout(y, self.dropout, self.training, rng), lens, pad_mask
 
 
 class ProjUpsampling(nn.Module):
     """Conv projection to ``rate * filters`` channels, then time upsampling by
     a CHANNELS-LAST reshape (B, T, rate*F) -> (B, T*rate, F)
-    (convolution_layers.py:26-59); lengths scale by ``rate``."""
+    (convolution_layers.py:26-59); lengths scale by ``rate``. ``causal``
+    pads the projection (k - 1, 0). ``act_func`` takes what ``ConvNormAct``
+    takes, but as in the JAX module only ``relu`` acts here: ``hardtanh``
+    leaves the upsampled features as they are."""
 
     def __init__(self, in_channels: int, filters: int,
                  kernel_size: Sequence[int], rate: int,
                  norm_type: Optional[str] = None,
                  act_func: Optional[str] = None, dropout: float = 0.0,
-                 ln_eps: float = 1e-5, use_bias: bool = True, device=None):
+                 ln_eps: float = 1e-5, use_bias: bool = True,
+                 causal: bool = False, device=None):
         super().__init__()
-        if act_func not in (None, "relu"):
+        if act_func not in _ACTS:
             raise NotImplementedError(f"act_func={act_func!r} is not ported")
         self.filters, self.rate = filters, rate
         # a norm-free ConvNormAct keeps the reference name proj.conv.conv.*
         self.proj = ConvNormAct(in_channels, filters * rate, kernel_size,
                                 (1,), None, None, 0.0, bias=use_bias,
-                                device=device)
+                                causal=causal, device=device)
         if norm_type == "ln":
             self.norm = nn.LayerNorm(filters, eps=ln_eps, device=device)
         elif norm_type is None:
@@ -177,6 +202,6 @@ class ProjUpsampling(nn.Module):
         lens = lens * self.rate
         if self.norm is not None:
             y = self.norm(y)
-        if self.act_func == "relu":
+        if self.act_func == "relu":  # the JAX module applies relu only (conv_layers.py:207)
             y = F.relu(y)
         return dropout(y, self.dropout, self.training, rng), lens

@@ -12,6 +12,10 @@ In training mode the forward takes a ``DropoutRng`` for the encoder's and
 decoder's dropouts. ``freeze_encoder`` runs the encoder under
 ``torch.no_grad()`` (still in training mode: dropout, layerdrop and BatchNorm
 statistics as usual), the twin of the JAX ``stop_gradient`` gate.
+
+A streaming-mode encoder (``ST2VecConfig.streaming``) implies a causal
+decoder (``ctc.py:117-119``): the upsampling projection and the decoder convs
+pad (k - 1, 0), so the whole specs -> log-probs path is chunk-incremental.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ class ConvASRDecoder(nn.Module):
                  upsample_filters: int = 512,
                  upsample_norm: Optional[str] = "ln",
                  upsample_act: Optional[str] = "relu",
-                 upsample_dropout: float = 0.1, device=None):
+                 upsample_dropout: float = 0.1, causal: bool = False, device=None):
         super().__init__()
         self.num_classes, self.blank_pos = num_classes, blank_pos
         ch = in_features
@@ -60,13 +64,13 @@ class ConvASRDecoder(nn.Module):
             self.proj_upsampling = ProjUpsampling(
                 ch, upsample_filters, (5,), upsample_rate,
                 norm_type=upsample_norm, act_func=upsample_act,
-                dropout=upsample_dropout, device=device)
+                dropout=upsample_dropout, causal=causal, device=device)
             ch = upsample_filters
         convs = []
         for c in conv_layers:
             convs.append(ConvNormAct(ch, c.filters, c.kernel_size, c.stride,
                                      c.norm_type, c.act_func, c.dropout,
-                                     bias=c.bias, device=device))
+                                     bias=c.bias, causal=causal, device=device))
             ch = c.filters
         self.conv_layers = nn.ModuleList(convs)
         self.decoder_layers = nn.ModuleList(
@@ -106,7 +110,7 @@ class CTCFinetuneModel(nn.Module):
         self.decoder = ConvASRDecoder(
             self.encoder.output_dim, num_classes, decoder_convs, blank_pos,
             upsample_rate, upsample_filters, upsample_norm, upsample_act,
-            upsample_dropout, device=device)
+            upsample_dropout, causal=encoder_cfg.streaming is not None, device=device)
 
     @property
     def blank_idx(self) -> int:

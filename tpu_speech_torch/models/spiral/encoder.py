@@ -16,9 +16,14 @@ the reference state_dict (``feature_encoder.block_modules.{i}.conv.conv.weight``
 (the predictor's BatchNorm convs) and ``output_proj``, under the reference
 names ``conv_layers.{i}.*`` and ``output_proj.*``.
 
-Not ported yet: the streaming-trainable mode (``StreamingCfg`` is kept as a
-config field; a FeatureEncoder given one raises) and a Projector with a
-transformer (no SPIRAL config has one).
+``FeatureEncoder(..., streaming=StreamingCfg(C, L))`` is the
+streaming-trainable mode (``encoder.py:144-180``): causal convs, the causal
+positional conv, and in each transformer block the chunked mask of
+C / (the block's cumulative stride) frames with L chunks of left context. C
+must divide by the total stride. An offline forward in this mode equals the
+chunk-incremental step of ``models/spiral/streaming.py``.
+
+Not ported yet: a Projector with a transformer (no SPIRAL config has one).
 """
 
 from __future__ import annotations
@@ -67,8 +72,9 @@ class ConvTransformerBlockCfg:
 
 @dataclasses.dataclass(frozen=True)
 class StreamingCfg:
-    """Streaming-trainable encoder mode (see the JAX StreamingCfg); not
-    ported yet."""
+    """Streaming-trainable encoder mode: ``chunk_frames`` input spec frames
+    a chunk (a multiple of the encoder's total stride) and ``left_chunks``
+    chunks of left attention context."""
 
     chunk_frames: int
     left_chunks: int = 2
@@ -126,16 +132,25 @@ class FeatureEncoder(nn.Module):
                  in_features: int, streaming: Optional[StreamingCfg] = None,
                  device=None):
         super().__init__()
-        if streaming is not None:
-            raise NotImplementedError("the streaming encoder mode is not ported yet")
+        self.streaming = streaming
+        total = 1
+        for blk in blocks:
+            for c in blk.conv_layers:
+                total *= c.stride[0]
+        if streaming is not None and streaming.chunk_frames % total:
+            raise ValueError(
+                f"streaming chunk_frames {streaming.chunk_frames} must divide by the "
+                f"encoder's total subsample factor ({total})")
         mods = []
-        ch = in_features
+        ch, cum = in_features, 1
         for blk in blocks:
             for c in blk.conv_layers:
                 mods.append(ConvNormAct(
                     ch, c.filters, c.kernel_size, c.stride, c.norm_type,
-                    c.act_func, c.dropout, bias=c.bias, device=device))
+                    c.act_func, c.dropout, bias=c.bias,
+                    causal=streaming is not None, device=device))
                 ch = c.filters
+                cum *= c.stride[0]
             if blk.transformer is not None:
                 t = blk.transformer
                 if t.embedding_dim != ch:
@@ -146,6 +161,9 @@ class FeatureEncoder(nn.Module):
                     t.num_attention_heads, t.dropout, t.attention_dropout,
                     t.activation_dropout, t.activation_fn, t.layer_norm_first,
                     t.encoder_layerdrop, t.conv_pos, t.conv_pos_groups,
+                    causal_pos=streaming is not None,
+                    attn_chunk=None if streaming is None else streaming.chunk_frames // cum,
+                    attn_left_chunks=1 if streaming is None else streaming.left_chunks,
                     device=device))
         self.block_modules = nn.ModuleList(mods)
         self.output_dim = ch

@@ -93,10 +93,12 @@ def wav_to_spec(cfg: ST2VecConfig, wavs: torch.Tensor, wav_lens: torch.Tensor,
     """Waveforms (B, N) -> (specs (B, T, F), spec_lens (B,)).
 
     uint8 is the mu-law wire format (inverse companding); any other integer
-    dtype is int16 PCM, scaled by 1/32768 (exact: a power of two).
+    dtype is int16 PCM, scaled by 1/32768 (exact: a power of two). A
+    streaming-mode config (``st2vec.py:175-183``) normalizes each frame by
+    the statistics of frames 0..t (``per_feature_causal``) and skips the
+    utterance-wide time-domain peak normalization: it trains as the chunk
+    step serves.
     """
-    if cfg.streaming is not None:
-        raise NotImplementedError("the streaming front end is not ported yet")
     if wavs.dtype == torch.uint8:
         mu = 255.0
         y = wavs.to(torch.float32) * (1.0 / 127.5) - 1.0
@@ -105,9 +107,11 @@ def wav_to_spec(cfg: ST2VecConfig, wavs: torch.Tensor, wav_lens: torch.Tensor,
         )
     elif not wavs.is_floating_point():
         wavs = wavs.to(torch.float32) * (1.0 / 32768.0)
+    stream = {} if cfg.streaming is None else dict(
+        normalize="per_feature_causal", do_normalize_time_domain=False)
     return filterbank_features(
         wavs, wav_lens, sample_rate=cfg.sample_rate, nfilt=cfg.num_features,
-        dither=cfg.dither, training=training, generator=generator,
+        dither=cfg.dither, training=training, generator=generator, **stream,
     )
 
 

@@ -31,9 +31,9 @@ The gradient at a padded key is zero (the gradient of the -1e9 fill), as the
 JAX package's XLA path gives it; its Pallas backwards differ at a fully
 padded row (ROADMAP Queue 3).
 
-dtypes: float32 (the kernels' 3xTF32 path, d_head 8, 12, 16, 32 or 64; 12 runs
-padded to 16 with zeros) and
-bfloat16 (one bf16 wgmma pass, d_head 16, 32 or 64), as the TPU kernels
+dtypes: float32 (the kernels' 3xTF32 path, d_head 8, 12, 16, 32, 64 or 96; 12
+runs padded to 16 with zeros) and
+bfloat16 (one bf16 wgmma pass, d_head 16, 32, 64 or 96), as the TPU kernels
 take the activation's dtype. In bf16 every version rounds where the Pallas
 kernels cast (``_qkv_fwd_kernel:282``, ``_qkv_bwd_kernel:312,322``): the
 products accumulate in float32 from the bf16 values, the fill and the softmax
@@ -59,8 +59,8 @@ __all__ = [
     "KERNEL_D_HEADS", "KERNEL_D_HEADS_BF16", "bwd_scratch_floats",
 ]
 
-KERNEL_D_HEADS = (8, 12, 16, 32, 64)  # head widths the float32 CUDA kernels are built for
-KERNEL_D_HEADS_BF16 = (16, 32, 64)  # ... and the bf16 ones (rows of 32-128 bytes)
+KERNEL_D_HEADS = (8, 12, 16, 32, 64, 96)  # head widths the float32 CUDA kernels are built for
+KERNEL_D_HEADS_BF16 = (16, 32, 64, 96)  # ... and the bf16 ones (rows of 32-192 bytes)
 _M32 = 0xFFFFFFFF
 
 

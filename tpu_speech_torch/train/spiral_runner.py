@@ -64,9 +64,12 @@ copies of the parameters (serving and validation stay float32). Both default
 to the CUDA device and raise when there is none; the CPU runs only when it is
 asked for (``device="cpu"``).
 
+``transcribe_streaming:1017`` and ``evaluate_streaming:1043`` decode a
+streaming-mode model chunk by chunk (``models/spiral/streaming.py``).
+
 Not ported yet: orbax checkpoints, the native C++ batcher, tarred data, the
-mu-law wire format, the bucketed loader (``num_buckets``), streaming decode,
-mesh / FSDP / sequence parallelism and multi-process runs.
+mu-law wire format, the bucketed loader (``num_buckets``), mesh / FSDP /
+sequence parallelism and multi-process runs.
 """
 
 from __future__ import annotations
@@ -95,6 +98,7 @@ from tpu_speech_torch.data.spiral import (
     AudioTextBatchCollate,
     AudioToTextDataset,
     RandomNoisePerturbation,
+    read_manifest,
 )
 from tpu_speech_torch.data.wav import read_wav
 from tpu_speech_torch.eval.ctc_beam import ctc_beam_search_batch
@@ -103,6 +107,7 @@ from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel, load_pretrained
 from tpu_speech_torch.models.spiral.masking import make_student_masks
 from tpu_speech_torch.models.spiral.dropout import DropoutRng
 from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, wav_to_spec
+from tpu_speech_torch.models.spiral.streaming import StreamingTranscriber
 from tpu_speech_torch.text.tokenizers import BlankOffsetTokenizer
 from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
 from tpu_speech_torch.train.optim import lr_scale, make_optimizer
@@ -585,6 +590,48 @@ class SpiralFinetuneRunner(_Runner):
             "decode_s": decode_s,
         }
 
+
+    def _require_streaming(self) -> None:
+        if self.enc_cfg.streaming is None:
+            raise ValueError("streaming transcription needs a streaming-mode model "
+                             "(set encoder.streaming=StreamingCfg(...) in the config)")
+
+    def transcribe_streaming(self, audio_paths, feed_seconds: float = 0.5):
+        """Chunk-incremental decode (``transcribe_streaming:1017``) through
+        ``models/spiral/streaming.py::StreamingTranscriber``, fed
+        ``feed_seconds`` of samples at a time: constant memory and bounded
+        latency whatever the utterance's length. Needs a streaming-mode model
+        (``encoder.streaming``), which serves exactly as it trains."""
+        self._require_streaming()
+        self.model.eval()
+        tr = StreamingTranscriber(self.model, batch=1)
+        feed = max(1, int(feed_seconds * self.sample_rate))
+        texts = []
+        for path in audio_paths:
+            wav, sr = read_wav(path)
+            if sr != self.sample_rate:
+                raise ValueError(f"{path}: sample rate {sr} != {self.sample_rate}")
+            tr.reset()
+            for i in range(0, len(wav), feed):
+                tr.feed(wav[None, i:i + feed])
+            texts.append(self.tokenizer.ids_to_text(tr.flush()[0]))
+        return texts
+
+    def evaluate_streaming(self, manifest: Optional[str] = None,
+                           feed_seconds: float = 0.5) -> dict:
+        """Test-mode WER/CER decoded through the streaming transcriber
+        (``evaluate_streaming:1043``): every utterance chunk by chunk with
+        carried state, the deployment metric of a streaming model."""
+        self._require_streaming()
+        manifest = manifest or self.cfg.model.test_ds.manifest_filepath
+        entries = read_manifest(manifest, 0.0, None)
+        refs = [e["text"] for e in entries]
+        hyps = self.transcribe_streaming([e["audio_filepath"] for e in entries],
+                                         feed_seconds=feed_seconds)
+        w_err, w_tot = error_counts(hyps, refs)
+        c_err, c_tot = error_counts(hyps, refs, use_cer=True)
+        return {"wer": w_err / max(w_tot, 1), "cer": c_err / max(c_tot, 1), "n": len(refs),
+                "hyps": hyps}
 
     # ---- training ---------------------------------------------------------
 
