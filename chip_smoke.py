@@ -21,8 +21,12 @@ epoch and resume, validation, ``.tpu_speech`` archives); HiFi-GAN V1's GAN
 training through ``tpu_speech_torch.cli.train_hifigan.main`` (fp32, bf16,
 resume, fine-tuning; no hand kernel) and Grad-TTS training in bf16; and
 SPIRAL-large with subword targets: transcription by beam search with an
-n-gram LM, and its finetune step. It checks each hand kernel, fp32 and bf16,
-against its plain PyTorch version. Phases
+n-gram LM, and its finetune step; streaming SPIRAL and wav2vec 2.0
+pretraining; and the NeMo conv-CTC and Conformer-CTC families (QuartzNet 5x3
+and Conformer-CTC small: transcription from a manifest that
+``tpu_speech_torch.cli.get_librispeech_data`` builds, and their train
+steps). It checks each hand kernel, fp32 and bf16, against its plain PyTorch
+version. Phases
 (any failure raises and the script exits non-zero without printing a
 result):
 
@@ -234,8 +238,8 @@ result):
     (640 ``.npy`` loads) beside its device time;
 37. pretraining through ``run_spiral.main`` with no --model_type and no
     --run_mode (the JAX CLI's defaults: spiral, train) at
-    spiral_base_pretrain_ls960's width on phase 9's corpus (48 utterances, a
-    validation manifest of 24 more), one loader thread: 2 epochs of 2 steps
+    spiral_base_pretrain_ls960's width on phase 9's corpus (24 utterances, a
+    validation manifest of 24 more), one loader thread: 2 epochs of 1 step
     with validation and a checkpoint after each; then 1 epoch, and a second
     ``main`` call in the same directory that resumes for the second. The
     straight and the resumed run end with the same student, teacher and
@@ -367,10 +371,35 @@ result):
     d_head 96, K4 and K4-dx; step time, peak memory;
     ``wav2vec2_pretrain_step``, ``wav2vec2_pretrain_step_bf16``), one fp32
     step card against CPU at B = 2 x 32 000 (phase 10's limits), and the
-    bf16 step held to the fp32 step (phase 42's rule).
+    bf16 step held to the fp32 step (phase 42's rule);
+61. a LibriSpeech-layout tree of 14 speech-like utterances (24 s down to 7.2
+    s) -> ``cli.get_librispeech_data.main`` (offline: the wavs made
+    beforehand) -> the manifest phases 62 and 64 read; K1 at the conv-CTC
+    featurizers' shapes on that batch, (14, 384 000) wavs with a 320- and a
+    400-sample window in n_fft 512, hop 160, 64 and 80 mels: one launch each,
+    against the plain version in fp32 and float64 (phase 2's 2e-4), a call and
+    back to back beside the plain version and the bound; ``mfcc_features``
+    card against CPU;
+62. QuartzNet 5x3 (filters 256, decoder 1024, 64 mels, 29 classes) at full
+    width on seeded random weights, B = 14 x 24 s: wav -> ``featurize`` (K1)
+    -> model -> greedy decode, and the BPE model of a 256-piece vocab file
+    through ``decode_ctc_bpe``: K1 once a model and nothing else
+    (``quartznet_transcription``); two utterances card against CPU (phase 5's
+    limits); device time a batch (median of 10), peak memory, kernels and
+    busy share;
+63. the QuartzNet train step (``ctc_models.make_ctc_train_step``) at B = 32 x
+    16 s specs, ``spec_augment`` drawn on the card, dropout 0.1, AdamW, clip
+    1.0: 3 steps, finite losses, every weight and statistic moved, no hand
+    kernel (``quartznet_train_step``; K1 0, the specs are given); the second
+    step's time, peak, kernels and busy share; one step card against CPU at B
+    = 2 x 4 s, dropout 0 (phase 10's limits);
+64. Conformer-CTC small (d_model 176, 4 heads, 16 layers, kernel 31, 80
+    mels) as phase 62 (``conformer_transcription``);
+65. its train step as phase 63 (``conformer_train_step``), and garbage in a
+    padded tail leaving the valid frames' log-probs on the card as they were.
 
 Phase 47 runs after phase 16 (it needs phase 14's weights), 45-46 after 25,
-48 after 32, 49 after 36, 50-55 after 44 and 56-60 after 55.
+48 after 32, 49 after 36, 50-55 after 44, 56-60 after 55 and 61-65 after 60.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -1906,8 +1935,13 @@ def _time_k4_bf16(torch, fp, x, w, dy, references=True):
         r["tflops"] = flop / (r["back_to_back_ms"] * 1e-3) / 1e12
         beside = ""
         if references:
-            r.update(plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
-                     library_back_to_back_ms=back_to_back_ms(lib))
+            lib_ms = cuda_ms(lib)
+            # samples of at least ~20 ms of calls: 20 of a sub-ms call, one of
+            # cuDNN's 80-100 ms bf16 dgrad at Cg 48, whose host launch is
+            # negligible beside it (so back to back is its time a call)
+            r.update(plain_ms=cuda_ms(plain), library_ms=lib_ms,
+                     library_back_to_back_ms=back_to_back_ms(
+                         lib, reps=max(1, min(20, round(20 / lib_ms)))))
             beside = (f", plain {r['plain_ms']:.3f} ms, cuDNN bf16 "
                       f"{'conv' if name == 'fwd' else 'dgrad'} {r['library_ms']:.4f} ms a call "
                       f"({r['library_back_to_back_ms']:.4f} back to back)")
@@ -3885,7 +3919,7 @@ def profile_slice(torch, run, batches=3, top=8, tag="6 profile"):
 
 # ---- 37-39: SPIRAL runs as the JAX CLI runs them ----------------------------
 
-RESUME_STEPS = 2  # pretrain updates an epoch in phase 37 (B = 24)
+RESUME_STEPS = 1  # pretrain updates an epoch in phase 37 (B = 24)
 ARCHIVE_FT_STEPS = 2  # finetune updates in phase 39 (B = 14)
 
 
@@ -6447,6 +6481,439 @@ def stream_w2v_kernel_entries(sw, by_path):
     return out
 
 
+# ---- 61-65: the NeMo conv-CTC (QuartzNet 5x3) and Conformer-CTC families ---
+
+CC_SEED = 61
+CC_SPLIT = "test-clean"
+CC_FAMILIES = ("quartznet", "conformer")
+# K1 at the two featurizers: window samples in n_fft 512, hop 160, mels
+CC_K1 = {"quartznet": (320, 64), "conformer": (400, 80)}
+CC_TRAIN = (32, 16 * SR)  # the train steps' batch: B x samples
+CC_CPU = (2, 4 * SR)  # one step card against CPU
+CC_STEPS = 3  # the second is timed
+CC_LR = 1e-3
+CC_VOCAB = 256  # the BPE decode's pieces
+CC_PAD_ATOL = 2e-4  # tests/test_conformer.py::test_padding_invariance
+
+
+def write_librispeech_tree(root, rng, n, seconds):
+    """A LibriSpeech-layout tree of ``n`` speech-like utterances (two speakers,
+    one chapter each; upper-case random transcripts in ``*.trans.txt``) from
+    ``seconds`` down to 0.3 x ``seconds``, their 16-bit wavs where
+    ``get_librispeech_data`` leaves decoded flacs (``wavs/<split>/``), so the
+    port's CLI builds the manifest with no decoder. Returns the transcripts."""
+    import scipy.io.wavfile
+
+    wav_dir = os.path.join(root, "wavs", CC_SPLIT)
+    os.makedirs(wav_dir)
+    chapters, texts = {}, []
+    for i, d in enumerate(np.linspace(seconds, 0.3 * seconds, n)):
+        spk = 1089 + i % 2
+        utt = f"{spk}-134686-{i:04d}"
+        pcm = np.clip(speech_like(rng, int(d * SR)) * 32767, -32768, 32767)
+        scipy.io.wavfile.write(os.path.join(wav_dir, utt + ".wav"), SR, pcm.astype(np.int16))
+        texts.append(random_transcript(rng, d))
+        chapters.setdefault(spk, []).append(f"{utt} {texts[-1].upper()}")
+    for spk, lines in chapters.items():
+        d = os.path.join(root, "LibriSpeech", CC_SPLIT, str(spk), "134686")
+        os.makedirs(d)
+        with open(os.path.join(d, f"{spk}-134686.trans.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return texts
+
+
+def _cc_model(torch, family, num_classes, device, dropout=True):
+    """QuartzNet 5x3 (filters 256, decoder 1024, 64 mels) or Conformer-CTC
+    small (d_model 176, 4 heads, 16 layers, kernel 31, 80 mels) at full
+    width, seeded random weights; ``dropout`` False sets every rate to 0."""
+    import dataclasses
+
+    from tpu_speech_torch.models.spiral.conformer import ConformerConfig, ConformerCTCModel
+    from tpu_speech_torch.models.spiral.ctc_models import (
+        EncDecCTCConfig,
+        EncDecCTCModel,
+        quartznet5x3_blocks,
+    )
+
+    if family == "quartznet":
+        blocks = quartznet5x3_blocks()
+        if not dropout:
+            blocks = tuple(dataclasses.replace(b, dropout=0.0) for b in blocks)
+        model = EncDecCTCModel(EncDecCTCConfig(num_classes, blocks=blocks), device=device)
+    else:
+        model = ConformerCTCModel(ConformerConfig(num_classes, dropout=0.1 if dropout else 0.0),
+                                  device=device)
+    return model.init_weights(torch.Generator().manual_seed(CC_SEED))
+
+
+def phase_cc_k1(torch, wavs, lens):
+    """61: K1 at the two featurizers' shapes on phase 62's batch, (14, 384 000)
+    wavs -> (14, 2401, 64) with a 320-sample window and (14, 2401, 80) with a
+    400-sample one, both centred in n_fft 512, hop 160: one launch each, held
+    to the plain version in fp32 and float64 at phase 2's 2e-4, a call and
+    back to back beside the plain version and ``roofline``'s bound; then
+    ``augment.py::mfcc_features`` (64 mels, 64 coefficients: K1, then the
+    DCT) on the card against the same function on the CPU, within 2 x 2e-4 x
+    the DCT's largest row sum (each side's log-mel within 2e-4 of float64)."""
+    from tpu_speech_torch.models.spiral.augment import dct_matrix, mfcc_features
+    from tpu_speech_torch.models.spiral.features import featurizer_constants, stft_input
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.ops.fused_logmel import fused_logmel, logmel_plain
+
+    dev = torch.device("cuda")
+    x = stft_input(torch.tensor(wavs, device=dev), 512)
+    kw = dict(n_fft=512, hop_length=160, num_frames=1 + (x.shape[1] - 512) // 160)
+    out = {}
+    for family in CC_FAMILIES:
+        win, n_mels = CC_K1[family]
+        w, fb = featurizer_constants(SR, win, 512, n_mels, 0.0, SR / 2, dev)
+        before = _build.LAUNCHES["fused_logmel"]
+        y = fused_logmel(x, w, fb, **kw)
+        check(_build.LAUNCHES["fused_logmel"] == before + 1, f"K1 {family}: not one launch")
+        p32 = logmel_plain(x, w, fb, **kw)
+        p64 = logmel_plain(x.double(), w.double(), fb.double(), **kw)
+        torch.cuda.synchronize()
+        check(y.shape == (BATCH, kw["num_frames"], n_mels) and bool(torch.isfinite(y).all()),
+              f"K1 {family}: output {tuple(y.shape)}")
+        e32 = (y - p32).abs().max().item()
+        e64 = (y.double() - p64).abs().max().item()
+        p_e64 = (p32.double() - p64).abs().max().item()
+        check(e32 <= K1_ATOL_PLAIN32 and e64 <= K1_ATOL_PLAIN64,
+              f"K1 {family}: {e32} against plain fp32, {e64} against float64")
+        frames, nnz = BATCH * kw["num_frames"], int((fb != 0).sum().item())
+        r = dict(max_abs_err=e32, err_f64=e64, plain_err_f64=p_e64,
+                 ms=cuda_ms(lambda: fused_logmel(x, w, fb, **kw)),
+                 back_to_back_ms=back_to_back_ms(lambda: fused_logmel(x, w, fb, **kw)),
+                 plain_ms=cuda_ms(lambda: logmel_plain(x, w, fb, **kw)),
+                 plain_back_to_back_ms=back_to_back_ms(lambda: logmel_plain(x, w, fb, **kw)),
+                 bound=roofline(frames * (2.5 * 512 * 9 + 3 * 257 + 2 * nnz + n_mels),
+                                4 * (x.numel() + 512 + fb.numel() + frames * n_mels)),
+                 shape=f"wav {tuple(x.shape)} -> {tuple(y.shape)}, window {win} in n_fft 512, "
+                       f"hop 160, {nnz} filterbank nonzeros")
+        out[family] = r
+        log(f"[61 K1 {family}: window {win} in 512, {n_mels} mels] {tuple(x.shape)} -> "
+            f"{tuple(y.shape)}: max|K1-plain32| {e32:.3e}, max|K1-plain64| {e64:.3e} (limits "
+            f"2e-4; plain32 itself {p_e64:.3e} off plain64); {r['ms']:.4f} ms a call, "
+            f"{r['back_to_back_ms']:.4f} back to back; plain {r['plain_ms']:.4f} / "
+            f"{r['plain_back_to_back_ms']:.4f}; bound {r['bound'][0]:.4f} ({r['bound'][1]})")
+    lens_t = torch.tensor(lens)
+    before = _build.LAUNCHES["fused_logmel"]
+    card, card_lens = mfcc_features(torch.tensor(wavs, device=dev), lens_t.to(dev), nfilt=64)
+    check(_build.LAUNCHES["fused_logmel"] == before + 1, "MFCC: not one K1 launch")
+    cpu, cpu_lens = mfcc_features(torch.tensor(wavs), lens_t, nfilt=64)
+    err = (card.cpu() - cpu).abs().max().item()
+    limit = 2 * K1_ATOL_PLAIN64 * float(np.abs(dct_matrix(64, 64)).sum(axis=1).max())
+    log(f"[61 MFCC] {wavs.shape} -> {tuple(card.shape)}, 64 mels, 64 coefficients: max|card-"
+        f"cpu| {err:.3e} (limit {limit:.2e}), max|cpu| {cpu.abs().max().item():.1f}")
+    check(torch.equal(card_lens.cpu(), cpu_lens) and err <= limit, f"MFCC: {err} > {limit}")
+    out["mfcc"] = dict(max_abs_err=err, limit=limit)
+    return out
+
+
+def phase_cc_transcription(torch, family, manifest, vocab):
+    """62 / 64: transcription at full width, B = 14 x 24 s as phase 6, read
+    from the manifest that ``get_librispeech_data`` built: wav on the card ->
+    ``featurize`` (K1) -> the model -> greedy decode over the port's 28
+    characters, then the same with the BPE model of ``vocab`` through
+    ``decode_ctc_bpe``; K1 once a model and nothing else; finite log-probs.
+    Then two utterances card against CPU (phase 5's limits), and the batch's
+    device time (CUDA events, median of 10), peak memory and profile."""
+    from tpu_speech_torch.eval.wer import ctc_greedy_decode
+    from tpu_speech_torch.models.spiral.ctc_models import decode_ctc_bpe
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.text.tokenizers import CharTokenizer, SubwordTokenizer
+
+    ph = 62 if family == "quartznet" else 64
+    chars, pieces = CharTokenizer(), SubwordTokenizer(vocab)
+    model = _cc_model(torch, family, chars.vocab_size, "cuda").eval()
+    bpe = _cc_model(torch, family, pieces.vocab_size, "cuda").eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    wavs, lens = load_batch(manifest, BATCH)
+    w, l_ = torch.tensor(wavs, device="cuda"), torch.tensor(lens, device="cuda")
+
+    def run(m=model):
+        with torch.inference_mode():
+            return m(*m.featurize(w, l_))
+
+    _build.reset_launches()
+    lp, out_lens = run()
+    blp, b_lens = run(bpe)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    texts = [chars.ids_to_text(s) for s in ctc_greedy_decode(
+        lp.float().cpu().numpy(), out_lens.cpu().numpy(), model.blank_idx)]
+    bpe_texts = decode_ctc_bpe(blp, b_lens, pieces, bpe.blank_idx)
+    t_spec = -(-(1 + MAX_SAMPLES // 160) // 16) * 16  # the featurizer pads to 16 frames
+    t_out = (t_spec + 1) // 2 if family == "quartznet" else ((t_spec + 1) // 2 + 1) // 2
+    log(f"[{ph} {family} transcription] {n_params / 1e6:.2f} M params, wav {tuple(w.shape)} from "
+        f"the CLI's manifest: log-probs {tuple(lp.shape)} and {tuple(blp.shape)} (BPE, "
+        f"{pieces.vocab_size} pieces), max|log-prob| {lp.abs().max().item():.1f}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; transcript 0: {texts[0][:40]!r}, BPE "
+        f"{bpe_texts[0][:40]!r}")
+    check(launches == dict(dict.fromkeys(launches, 0), fused_logmel=2), f"launches {launches}")
+    check(lp.shape == (BATCH, t_out, chars.vocab_size + 1) and blp.shape[-1]
+          == pieces.vocab_size + 1, f"log-probs {tuple(lp.shape)}, {tuple(blp.shape)}")
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(blp).all()), "non-finite log-probs")
+    check(len(texts) == len(bpe_texts) == BATCH, "a transcript per utterance")
+    cpu = _cc_model(torch, family, chars.vocab_size, "cpu").eval()
+    with torch.inference_mode():
+        c_lp, c_lens = cpu(*cpu.featurize(torch.tensor(wavs[:2]), torch.tensor(lens[:2])))
+    worst, agree, total = 0.0, 0, 0
+    for i in range(2):
+        n = int(c_lens[i])
+        c, g = c_lp[i, :n].numpy(), lp[i, :n].float().cpu().numpy()
+        worst = max(worst, float(np.abs(c - g).max()))
+        agree += int((c.argmax(-1) == g.argmax(-1)).sum())
+        total += n
+    log(f"[{ph} {family} cpu vs card] 2 utts, {total} valid frames: max|card-cpu| {worst:.3e} "
+        f"(limit {SLICE_ATOL}), argmax agreement {agree / total:.4f}")
+    check(worst <= SLICE_ATOL and agree / total >= SLICE_ARGMAX_AGREE,
+          f"{family} card vs CPU: {worst}, agreement {agree / total}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(run, n=10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{ph} {family} time] wav {tuple(w.shape)} on the card -> log-probs: {ms:.2f} ms per "
+        f"batch (median of 10), peak device memory {peak:.2f} GiB")
+    prof = profile_slice(torch, run, tag=f"{ph} {family} profile") or {}
+    where = _where_the_time_goes(torch, ph, family, model, prof, BATCH, t_out, backward=False)
+    return dict(launches=launches, ms=ms, peak=peak, cpu_err=worst, agree=agree / total,
+                kernels=prof.get("kernels"), busy=prof.get("share"), **where)
+
+
+def _where_the_time_goes(torch, ph, family, model, prof, b, t, backward):
+    """QuartzNet: the depthwise convs' (k 33-87; PyTorch's native
+    ``conv_depthwise2d`` kernels) part of the profiled busy time. Conformer:
+    one layer's rel-pos attention at (b, t, d_model), forward (or forward +
+    backward), against the whole layer's, CUDA events on random inputs with
+    a padded tail, dropout off; and the bytes of one (b, H, t, 2t - 1) fp32
+    score tensor, which every layer writes and reads several times."""
+    if family == "quartznet":
+        dw = [(ms, n) for name, ms, n in prof.get("ranked", []) if "depthwise" in name]
+        out = dict(depthwise_ms=sum(ms for ms, _ in dw), depthwise_launches=sum(n for _, n in dw))
+        log(f"    depthwise convs: {out['depthwise_ms']:.3f} ms in {out['depthwise_launches']} "
+            f"launches of {prof.get('busy_ms', float('nan')):.3f} ms busy")
+        return out
+    from tpu_speech_torch.nn.conformer_attention import rel_positional_table
+
+    layer, cfg = model.encoder.layers[0], model.cfg
+    was_training = layer.training
+    layer.eval()
+    x = torch.randn(b, t, cfg.d_model, device="cuda", requires_grad=backward,
+                    generator=torch.Generator(device="cuda").manual_seed(CC_SEED))
+    lens = torch.linspace(0.3 * t, t, b, device="cuda").round().long()
+    pad = (torch.arange(t, device="cuda")[None, :] < lens[:, None]).float()
+    mask = (pad[:, None, :] == 0).expand(b, t, t)
+    pos = rel_positional_table(t, cfg.d_model, x.device)
+
+    def timed(fn):
+        def call():
+            with torch.set_grad_enabled(backward):
+                y = fn()
+                if backward:
+                    y.sum().backward()
+        return cuda_ms(call, n=10)
+
+    attn_ms = timed(lambda: layer.self_attn(x, x, x, mask=mask, pos_emb=pos))
+    layer_ms = timed(lambda: layer(x, pad, mask, pos))
+    layer.train(was_training)
+    score_mb = b * cfg.n_heads * t * (2 * t - 1) * 4 / 2**20
+    what = "forward + backward" if backward else "forward"
+    log(f"    one layer at ({b}, {t}, {cfg.d_model}), {what}: rel-pos attention {attn_ms:.3f} ms "
+        f"of the layer's {layer_ms:.3f} ms ({attn_ms / layer_ms:.2f}); x {cfg.n_layers} layers "
+        f"{cfg.n_layers * attn_ms:.2f} ms; a ({b}, {cfg.n_heads}, {t}, {2 * t - 1}) fp32 score "
+        f"tensor {score_mb:.0f} MiB")
+    return dict(attention_ms=attn_ms, layer_ms=layer_ms, score_mib=score_mb)
+
+
+def _speech_batch(rng, b, samples):
+    """(wavs (b, samples), lengths): speech-like waves of 0.6-1 x samples."""
+    lens = np.linspace(0.6 * samples, samples, b).astype(np.int64)
+    wavs = np.zeros((b, samples), np.float32)
+    for i, n in enumerate(lens):
+        wavs[i, :n] = speech_like(rng, int(n))
+    return wavs, lens
+
+
+def phase_cc_train(torch, family, rng):
+    """63 / 65: the train step (``ctc_models.make_ctc_train_step``: the
+    forward in training mode with dropout 0.1, CTC, the clip at 1.0, AdamW
+    1e-3 with optax's weight decay 1e-4) at B = 32 x 16 s, specs featurized
+    once beforehand and ``spec_augment`` drawn on the card each step:
+    ``CC_STEPS`` steps with finite losses and no hand kernel launched (K1 0:
+    the specs are given), the weights and BatchNorm statistics moved; the
+    second step's time (CUDA events), peak memory, kernels and busy share;
+    one step card against CPU at B = 2 x 4 s with dropout 0 (the loss within
+    1e-4, each gradient within 1e-3 x max|g|, phase 10's limits); for the
+    Conformer, garbage in the padded tail leaves the valid frames'
+    log-probs on the card as they were."""
+    from tpu_speech_torch.models.spiral.augment import spec_augment
+    from tpu_speech_torch.models.spiral.ctc_models import init_ctc_state, make_ctc_train_step
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.optim import AdamW
+
+    ph = 63 if family == "quartznet" else 65
+    b, samples = CC_TRAIN
+    model = _cc_model(torch, family, 28, "cuda")
+    wavs, lens = _speech_batch(rng, b, samples)
+    with torch.no_grad():
+        specs, spec_lens = model.featurize(torch.tensor(wavs, device="cuda"),
+                                           torch.tensor(lens, device="cuda"))
+    label_lens = (spec_lens // 10).to(torch.int32)
+    labels = torch.randint(0, 28, (b, int(label_lens.max())), generator=torch.Generator(
+        device="cuda").manual_seed(CC_SEED), device="cuda", dtype=torch.int32)
+    state = init_ctc_state(model, lambda ps: AdamW(ps, CC_LR, weight_decay=1e-4))
+    step = make_ctc_train_step(model, grad_clip=1.0)
+    aug = torch.Generator(device="cuda").manual_seed(CC_SEED)
+    drop = DropoutRng.seeded(CC_SEED, "cuda")
+
+    def one():
+        batch = dict(specs=spec_augment(aug, specs), spec_lens=spec_lens, labels=labels,
+                     label_lens=label_lens)
+        return step(state, batch, drop)
+
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, totals = [], [], dict.fromkeys(_build.LAUNCHES, 0)
+    for i in range(CC_STEPS):
+        _build.reset_launches()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = one()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        for k, v in _build.LAUNCHES.items():
+            totals[k] += v
+        check(np.isfinite(losses[-1]), f"{family} step {i}: loss {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(totals.values()), f"{family} steps launched hand kernels: {totals}")
+    moved = [k for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked") and not torch.equal(v, before[k])]
+    check(len(moved) == len(before) - sum(k.endswith("num_batches_tracked") for k in before),
+          f"{family}: {len(before) - len(moved)} tensors did not move")
+    prof = profile_slice(torch, one, batches=2, tag=f"{ph} {family} train profile") or {}
+    t_out = ((specs.shape[1] + 1) // 2 + 1) // 2  # the Conformer's frames after subsampling
+    where = _where_the_time_goes(torch, ph, family, model, prof, b, t_out, backward=True)
+    log(f"[{ph} {family} train step] B = {b} x {samples} samples ({specs.shape[1]} frames), "
+        f"dropout 0.1, spec_augment on the card, AdamW, clip 1.0: losses "
+        f"{[round(x, 3) for x in losses]}, step times {[round(x, 1) for x in times]} ms (CUDA "
+        f"events; the second: {times[1]:.2f}), peak {peak:.2f} GiB, launches {totals} (K1 0: "
+        f"the specs are given); every weight and statistic moved")
+    del state, model, specs
+    torch.cuda.empty_cache()
+    # one step card against CPU, dropout 0, the same weights and batch
+    cb, cs = CC_CPU
+    cwavs, clens = _speech_batch(np.random.default_rng(CC_SEED + 1), cb, cs)
+    cpu_model = _cc_model(torch, family, 28, "cpu", dropout=False)
+    with torch.no_grad():
+        c_specs, c_lens = cpu_model.featurize(torch.tensor(cwavs), torch.tensor(clens))
+    c_label_lens = (c_lens // 10).to(torch.int32)
+    c_batch = dict(specs=c_specs, spec_lens=c_lens, label_lens=c_label_lens, labels=torch.randint(
+        0, 28, (cb, int(c_label_lens.max())), generator=torch.Generator().manual_seed(CC_SEED),
+        dtype=torch.int32))
+    results = []
+    for m_dev in (cpu_model, _cc_model(torch, family, 28, "cuda", dropout=False)):
+        dev = next(m_dev.parameters()).device
+        st = init_ctc_state(m_dev, lambda ps: torch.optim.SGD(ps, lr=0.0))  # the gradients only
+        res = make_ctc_train_step(m_dev)(st, {k: v.to(dev) for k, v in c_batch.items()})
+        results.append((float(res["loss"]), {n: p.grad.cpu() for n, p in
+                                             m_dev.named_parameters()}, m_dev))
+    (l_cpu, g_cpu, _), (l_card, g_card, m_card) = results
+    g_max = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for k, g in g_cpu.items():
+        rel = (g_card[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-2 * g_max)
+        if rel > worst:
+            worst, worst_name = rel, k
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"[{ph} {family} card vs cpu] B = {cb} x {cs}, dropout 0: loss card {l_card:.6f} cpu "
+        f"{l_cpu:.6f} (rel {rel_loss:.2e}, limit {STEP_LOSS_RTOL}); worst gradient {worst:.2e} "
+        f"x its max|g| ({worst_name}; limit {GRAD_RTOL}) over {len(g_cpu)} tensors")
+    check(rel_loss <= STEP_LOSS_RTOL, f"{family} loss card {l_card} vs cpu {l_cpu}")
+    check(worst <= GRAD_RTOL, f"{family} gradient {worst_name}: {worst}")
+    out = dict(launches=totals, losses=losses, ms=times[1], peak=peak, loss_rel=rel_loss,
+               worst_grad=worst, kernels=prof.get("kernels"), busy=prof.get("share"), **where)
+    if family == "conformer":
+        m_card.eval()
+        sp, valid = c_specs.to("cuda"), c_lens.to("cuda")
+        valid[0] -= 40
+        garbage = sp.clone()
+        garbage[0, int(valid[0]):] = 77.0
+        with torch.no_grad():
+            a, out_lens = m_card(sp, valid)
+            g2, _ = m_card(garbage, valid)
+        v = int(out_lens[0])
+        err = (a[0, :v] - g2[0, :v]).abs().max().item()
+        log(f"[65 conformer padding invariance] 77.0 in row 0's padded tail past frame "
+            f"{int(valid[0])}: the {v} valid frames' log-probs move by {err:.3e} (limit "
+            f"{CC_PAD_ATOL})")
+        check(err <= CC_PAD_ATOL, f"Conformer padding invariance: {err}")
+        out["pad_err"] = err
+    return out
+
+
+def run_conv_ctc_phases(torch):
+    """Phases 61-65 in one temporary directory: a LibriSpeech-layout tree ->
+    ``cli.get_librispeech_data.main`` (offline) -> the manifest that phases
+    62 and 64 read; a 256-piece vocab file from its transcripts."""
+    from tpu_speech_torch.cli import get_librispeech_data
+
+    rng = np.random.default_rng(CC_SEED)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        texts = write_librispeech_tree(root, rng, BATCH, MAX_SAMPLES / SR)
+        counts = get_librispeech_data.main(["--data_root", root, "--data_sets", CC_SPLIT])
+        manifest = os.path.join(root, "manifest_json", f"librivox-{CC_SPLIT}.json")
+        check(counts == {CC_SPLIT: BATCH}, f"get_librispeech_data wrote {counts}")
+        with open(manifest) as f:
+            first = json.loads(f.readline())
+        check(first["text"] == texts[0] and first["duration"] == MAX_SAMPLES / SR,
+              f"manifest line 0: {first}")
+        vocab = os.path.join(root, "vocab.tsv")
+        n_pieces = write_subword_vocab(vocab, texts, size=CC_VOCAB)
+        log(f"[61 data] get_librispeech_data (offline): {counts[CC_SPLIT]} utterances of "
+            f"{BATCH} written, {n_pieces}-piece vocab")
+        wavs, lens = load_batch(manifest, BATCH)
+        out["k1"] = phase_cc_k1(torch, wavs, lens)
+        elapsed("phase 61")
+        for family in CC_FAMILIES:
+            out[family] = dict(transcription=phase_cc_transcription(torch, family, manifest,
+                                                                     vocab))
+            torch.cuda.empty_cache()
+            out[family]["train"] = phase_cc_train(torch, family, rng)
+            torch.cuda.empty_cache()
+            elapsed(f"phases {62 if family == 'quartznet' else 64}-"
+                    f"{63 if family == 'quartznet' else 65}")
+    return out
+
+
+def conv_ctc_kernel_entries(cc, by_path):
+    """The kernels line's entries of phase 61: K1 at the QuartzNet and
+    Conformer featurizers' shapes (launches: their transcription paths,
+    which the main K1 entry counts too)."""
+    paths = dict.fromkeys(by_path("fused_logmel"), 0)
+    out = []
+    for family in CC_FAMILIES:
+        r = cc["k1"][family]
+        path = f"{family}_transcription"
+        n = cc[family]["transcription"]["launches"]["fused_logmel"]
+        out.append(dict(
+            name=f"fused_logmel_{family}", route="cuda",
+            source="tpu_speech_torch/csrc/fused_logmel.cu",
+            replaces="tpu_speech/ops/fused_logmel.py:203", launches=n,
+            launches_by_path=dict(paths, **{path: n}), max_abs_err=r["max_abs_err"],
+            ms=r["ms"], back_to_back_ms=r["back_to_back_ms"], plain_ms=r["plain_ms"],
+            plain_back_to_back_ms=r["plain_back_to_back_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=None,
+            shape=r["shape"] + f"; error against float64 {r['err_f64']:.3e}; ms a call, "
+                  f"back_to_back_ms 20 calls; plain: unfold + cuFFT rfft"))
+    return out
+
+
 def main():
     import torch
 
@@ -6546,6 +7013,7 @@ def main():
     large = run_large_phases(torch, gen)
     elapsed("phases 50-55")
     sw = run_stream_w2v_phases(torch, gen, ft_ms)
+    cc = run_conv_ctc_phases(torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6573,7 +7041,10 @@ def main():
                 "spiral_streaming_chunk": sw["stream"][key],
                 "finetune_step_streaming": sw["timing"]["ft_launches"][key],
                 "wav2vec2_pretrain_step": sw["w2v"]["fp32"]["launches"][key],
-                "wav2vec2_pretrain_step_bf16": sw["w2v"]["bf16"]["launches"][key]}
+                "wav2vec2_pretrain_step_bf16": sw["w2v"]["bf16"]["launches"][key],
+                **{f"{fam}_{path}": cc[fam][part]["launches"][key] for fam in CC_FAMILIES
+                   for path, part in (("transcription", "transcription"),
+                                      ("train_step", "train"))}}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -6705,9 +7176,11 @@ def main():
     attach_large_shapes(kernels, large["kernels"])
     kernels += new_kernel_entries(large, by_path)
     kernels += stream_w2v_kernel_entries(sw, by_path)
+    kernels += conv_ctc_kernel_entries(cc, by_path)
     # K1, 6 fp32, 6 bf16, MAS; K1 pow, K2-fwd and K2-bwd at d_head 12; K2-fwd
-    # and K2-bwd at d_head 96 fp32 and bf16, K4 and K1 at the chunk step
-    check(len(kernels) == 23, f"{len(kernels)} kernel entries")
+    # and K2-bwd at d_head 96 fp32 and bf16, K4 and K1 at the chunk step; K1
+    # at the QuartzNet and Conformer featurizers
+    check(len(kernels) == 25, f"{len(kernels)} kernel entries")
     for k in kernels:
         check(all(k["launches_by_path"][path] == 0 for path in tr_launches),
               f"{k['name']} launched on a training path of phases 33-34 or 49")
@@ -6720,6 +7193,14 @@ def main():
               == (k["name"] == "maximum_path"),
               f"{k['name']}: {k['launches_by_path']['gradtts_train_step_bf16']} launches on "
               f"bf16 Grad-TTS training (phase 42)")
+        for fam in CC_FAMILIES:
+            # the conv-CTC paths run K1 in the featurizer and no other hand kernel
+            check(k["launches_by_path"][f"{fam}_train_step"] == 0,
+                  f"{k['name']} launched in the {fam} train step (phases 63, 65)")
+            check((k["launches_by_path"][f"{fam}_transcription"] > 0)
+                  == (k["name"] in ("fused_logmel", f"fused_logmel_{fam}")),
+                  f"{k['name']}: {k['launches_by_path'][f'{fam}_transcription']} launches on "
+                  f"{fam} transcription (phases 62, 64)")
         path_launches = {p: n for p, n in k["launches_by_path"].items()
                          if not p.startswith(("k3_", "k1_pow_"))}
         # K3 and K1's pow epilogue: no path reaches them

@@ -629,3 +629,54 @@ def test_logmmse_same(eta, window_size):
     for m in (t_lm, j_lm):
         with pytest.raises(ValueError, match="shorter than one analysis window"):
             m.profile_noise(noise[:100], sr)
+
+
+@pytest.mark.parametrize("length,d_model", [(1, 4), (7, 16), (604, 176)])
+def test_rel_positional_encoding_same(length, d_model):
+    """``nn/conformer_attention.py::rel_positional_encoding``'s numpy copy:
+    bit for bit, at the Conformer-CTC small width and frames too."""
+    from tpu_speech.nn.conformer_attention import rel_positional_encoding as j_pe
+    from tpu_speech_torch.nn.conformer_attention import rel_positional_encoding as t_pe
+
+    np.testing.assert_array_equal(t_pe(length, d_model), j_pe(length, d_model))
+
+
+@pytest.mark.parametrize("n_mfcc,nfilt", [(13, 40), (64, 64)])
+def test_mfcc_dct_same(n_mfcc, nfilt, monkeypatch):
+    """``augment.py::dct_matrix``, the copy of ``mfcc_features``'s DCT-II:
+    JAX's ``mfcc_features`` on identity "log-mel" rows gives its DCT (the
+    featurizer stubbed), which must equal the port's in float32."""
+    import jax.numpy as jnp
+
+    from tpu_speech.models.spiral import augment as j_aug
+    from tpu_speech.models.spiral import features as j_feat
+    from tpu_speech_torch.models.spiral.augment import dct_matrix
+
+    monkeypatch.setattr(j_feat, "filterbank_features",
+                        lambda x, lens, **kw: (jnp.eye(nfilt)[None], lens))
+    dct_t, _ = j_aug.mfcc_features(jnp.zeros((1, 10)), jnp.array([10]), n_mfcc=n_mfcc)
+    np.testing.assert_array_equal(dct_matrix(n_mfcc, nfilt).T.astype(np.float32),
+                                  np.asarray(dct_t[0]))
+
+
+def test_librispeech_build_manifest_same(tmp_path):
+    """``cli/get_librispeech_data.py::build_manifest``'s copy, in process on
+    one split of a synthetic tree (wavs made beforehand, an undecodable
+    flac): the same manifest bytes."""
+    import importlib.util
+
+    from tests.test_torch_librispeech_data import write_tree
+    from tpu_speech_torch.cli import get_librispeech_data as t_ls
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_get_librispeech_data", os.path.join(REPO, "cli", "get_librispeech_data.py"))
+    j_ls = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(j_ls)
+    root = str(tmp_path)
+    write_tree(root)
+    split_dir = os.path.join(root, "LibriSpeech", "dev-clean")
+    wav_dir = os.path.join(root, "wavs", "dev-clean")
+    j_ls.build_manifest(split_dir, wav_dir, os.path.join(root, "j.json"))
+    assert t_ls.build_manifest(split_dir, wav_dir, os.path.join(root, "t.json")) == 11
+    with open(os.path.join(root, "j.json")) as a, open(os.path.join(root, "t.json")) as b:
+        assert a.read() == b.read()

@@ -7,8 +7,9 @@ every module of ``tpu_speech_torch`` (walked with ``pkgutil``) and
 from its JAX-namespace tags, and ``run_spiral --help``, the TTS CLI's
 ``inference --help``, the Grad-TTS training CLI's ``train --help``, the
 voice-conversion CLI's ``inference_vc --help``, the five DiffVC and
-speaker-encoder training CLIs' ``--help`` and the HiFi-GAN training CLI's
-``train_hifigan --help`` run.
+speaker-encoder training CLIs' ``--help``, the HiFi-GAN training CLI's
+``train_hifigan --help`` and the LibriSpeech data CLI's
+``get_librispeech_data --help`` run.
 """
 
 import os
@@ -40,12 +41,12 @@ names = ["chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(tpu_speech_torch.__path__, "tpu_speech_torch.")]
 for name in names:
     importlib.import_module(name)
-from tpu_speech_torch.cli import (get_avg_mels, inference, inference_vc, preprocess_spk,
-                                  run_spiral, train, train_dec, train_enc, train_hifigan,
-                                  train_spk_encoder)
+from tpu_speech_torch.cli import (get_avg_mels, get_librispeech_data, inference, inference_vc,
+                                  preprocess_spk, run_spiral, train, train_dec, train_enc,
+                                  train_hifigan, train_spk_encoder)
 
 for cli in (run_spiral, inference, train, inference_vc, get_avg_mels, train_enc, train_dec,
-            preprocess_spk, train_spk_encoder, train_hifigan):
+            preprocess_spk, train_spk_encoder, train_hifigan, get_librispeech_data):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -78,9 +79,12 @@ def test_port_imports_no_jax_package():
     assert "Grad-TTS training CLI" in proc.stdout
     assert "--spk-encoder" in proc.stdout
     for flag in ("--avg-type", "--exc-file", "--enc-ckpt", "--val-file", "--skip_existing",
-                 "--speakers_per_batch", "--backup_every"):
+                 "--speakers_per_batch", "--backup_every", "--data_root"):
         assert flag in proc.stdout, flag
     for name in ("train.diffvc", "train.speaker_encoder", "data.diffvc", "data.textgrid",
                  "data.speaker_verification", "cli.train_spk_encoder", "utils.surgery",
-                 "utils.msgpack", "utils.archive"):
+                 "utils.msgpack", "utils.archive", "models.spiral.jasper",
+                 "models.spiral.ctc_models", "models.spiral.conformer", "models.spiral.augment",
+                 "nn.conformer_attention", "cli.get_librispeech_data",
+                 "compat.jax_ctc_models"):
         assert f"tpu_speech_torch.{name}" in proc.stdout, name

@@ -175,6 +175,31 @@ def test_fused_logmel_other_sizes_match_plain(cuda, n_fft, hop):
     assert (out - p64).abs().max().item() <= plain_err + 1e-4
 
 
+@pytest.mark.parametrize("win,n_mels", [(320, 64), (400, 80)], ids=["quartznet", "conformer"])
+def test_fused_logmel_conv_ctc_featurizer_shapes_match_plain(cuda, win, n_mels):
+    """The conv-CTC featurizers' K1 (``ctc_models.py``: a 320-sample window
+    in n_fft 512, 64 mels; ``conformer.py``: 400 in 512, 80 mels; hop 160):
+    one launch, against float64 at 2e-4 and the plain version within its own
+    distance from float64 plus 2e-4, on tones over a weak noise floor, at 1,
+    16 and 2401 frames."""
+    from tpu_speech_torch.models.spiral.features import featurizer_constants, stft_input
+
+    w, fb = featurizer_constants(16000, win, 512, n_mels, 0.0, 8000.0, cuda)
+    for seconds in (0.02, 0.17, 24.0):
+        wav = np.stack([tones_over_noise(int(seconds * 16000), seed=s) for s in (1, 2)])
+        x = stft_input(torch.tensor(wav, device=cuda), 512)
+        kw = dict(n_fft=512, hop_length=160, num_frames=1 + (x.shape[1] - 512) // 160)
+        _build.reset_launches()
+        out = fused_logmel(x, w, fb, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == _counts(fused_logmel=1) and out.shape[-1] == n_mels
+        p64 = logmel_plain(x.double(), w.double(), fb.double(), **kw)
+        plain_err = (logmel_plain(x, w, fb, **kw).double() - p64).abs().max().item()
+        assert (out.double() - p64).abs().max().item() <= min(2e-4, plain_err + 1e-4)
+        torch.testing.assert_close(out, logmel_plain(x, w, fb, **kw), rtol=0,
+                                   atol=plain_err + 2e-4)
+
+
 @pytest.mark.parametrize("n_fft,hop", [(512, 160), (400, 160), (1024, 256)])
 @pytest.mark.parametrize("power", [0.5, 1.5, 3.0])
 def test_fused_logmel_pow_matches_plain(cuda, n_fft, hop, power):
