@@ -396,10 +396,36 @@ result):
 64. Conformer-CTC small (d_model 176, 4 heads, 16 layers, kernel 31, 80
     mels) as phase 62 (``conformer_transcription``);
 65. its train step as phase 63 (``conformer_train_step``), and garbage in a
-    padded tail leaving the valid frames' log-probs on the card as they were.
+    padded tail leaving the valid frames' log-probs on the card as they were;
+66. NCCL at world 1 through the CLI's environment surface: a subprocess with
+    MASTER_ADDR 127.0.0.1, a free MASTER_PORT, WORLD_SIZE 1 and NODE_RANK 0
+    calls ``run_spiral.main`` for a test-mode evaluation and one ``--fsdp
+    true`` pretrain step (a one-rank mesh), each equal to the same command
+    run here without the environment (``fsdp_step``);
+67. two gloo ranks on the one card with CUDA tensors, at full width
+    (``ctc_eval_ddp``, ``pretrain_step_ddp``, ``finetune_step_ddp``): test-mode
+    evaluation at B = 14 x 24 s a rank (the counts equal one process's), one
+    pretrain step at B = 24 x 250 000 a rank and two finetune steps across
+    the freeze gate with ``accumulate_grad_batches=2``, fp32 and bf16, each
+    held to the one-process step on the global batch (loss 1e-5 relative,
+    weights after AdamW 1e-5 x max(1, max|p|), the fp32 finetune steps'
+    summed gradients before AdamW 3e-3 x max|g|, bf16 by the 2x bf16 rule);
+    then three runner steps with dropout on, the ranks' weights equal bit
+    for bit after each, and the launches per step and rank (gloo stages
+    every tensor through the host, so nothing is timed here);
+68. K2 at a batch offset (the dropout key's global row): the halves of the
+    pretrain shape at b0 = 0 and B/2 reproduce the whole batch's outputs and
+    gradients bit for bit, fp32 and bf16, and match the plain version.
 
 Phase 47 runs after phase 16 (it needs phase 14's weights), 45-46 after 25,
-48 after 32, 49 after 36, 50-55 after 44, 56-60 after 55 and 61-65 after 60.
+48 after 32, 49 after 36, 50-55 after 44, 56-60 after 55, 61-65 after 60 and
+66-68 after 65.
+
+``python3 chip_smoke.py --distributed`` runs phases 67 and 68 alone at
+``torch.cuda.device_count()`` ranks over NCCL, one card each, with FSDP
+beside DDP (the pretrain and finetune steps held to one process's, the
+SPIRAL-large finetune step's peak memory under each) and prints per rank
+the step and all-reduce times beside one rank alone.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -1178,19 +1204,12 @@ def phase_pretrain_slice(torch, rng, root):
 
 
 def phase_pretrain_cpu_vs_card(torch):
-    import dataclasses
-
     from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
     from tpu_speech_torch.models.spiral.dropout import DropoutRng
     from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, draw_negative_indices
     from tpu_speech_torch.train import spiral as tspiral
 
-    enc = spiral_base_pretrain_ls960().model.encoder
-    blocks = tuple(dataclasses.replace(b, transformer=dataclasses.replace(
-        b.transformer, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
-        encoder_layerdrop=0.0), conv_layers=tuple(
-            dataclasses.replace(c, dropout=0.0) for c in b.conv_layers)) for b in enc.blocks)
-    enc = dataclasses.replace(enc, blocks=blocks, dither=0.0)
+    enc = _no_regularisers(spiral_base_pretrain_ls960().model.encoder)
     n = 4 * SR
     spec_len = ((1 + n // 160 + 15) // 16) * 16
     r = np.random.default_rng(5)
@@ -1526,13 +1545,7 @@ def _no_dropout_finetune_cfg():
     from tpu_speech_torch.configs.spiral import spiral_base_ctc_char
 
     cfg = spiral_base_ctc_char()
-    enc = cfg.model.encoder
-    cfg.model.encoder = dataclasses.replace(enc, dither=0.0, blocks=tuple(
-        dataclasses.replace(b, transformer=dataclasses.replace(
-            b.transformer, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
-            encoder_layerdrop=0.0), conv_layers=tuple(
-                dataclasses.replace(c, dropout=0.0) for c in b.conv_layers))
-        for b in enc.blocks))
+    cfg.model.encoder = _no_regularisers(cfg.model.encoder)
     dec = cfg.model.decoder
     cfg.model.decoder = dataclasses.replace(dec, upsample_dropout=0.0, conv_layers=tuple(
         dataclasses.replace(c, dropout=0.0) for c in dec.conv_layers))
@@ -1699,7 +1712,7 @@ def _k2_host_split(torch, res, fa, qkv, mask, out, dout, lse, h, seed, thresh, s
     o, ls = torch.empty_like(out), torch.empty_like(lse)
     stats = torch.empty(fa.bwd_scratch_floats(b, t, h, qkv.dtype), device="cuda")
     dqkv = torch.empty_like(qkv)
-    tail = (b, t, h, d, seed, thresh, scale, stream)
+    tail = (b, t, h, d, seed, 0, thresh, scale, stream)  # dropout key offset 0
     pairs = {
         "fwd": (lambda: fa.fused_qkv_self_attention(qkv, h, mask, DROP_P, seed),
                 lambda: lib.tsx_attention_fwd_bf16(*ptrs, e3, mask.data_ptr(), o.data_ptr(),
@@ -2028,8 +2041,6 @@ def phase_bf16_pretrain_slice(torch, root):
 def _pretrain_runner(root, precision="fp32", accum=1, regularised=True):
     """A SpiralPretrainRunner at spiral_base_pretrain_ls960 on phase 9's
     corpus; without regularisers: dither, dropout and layerdrop off."""
-    import dataclasses
-
     from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
     from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
 
@@ -2038,13 +2049,7 @@ def _pretrain_runner(root, precision="fp32", accum=1, regularised=True):
     cfg.model.precision = precision
     cfg.trainer.accumulate_grad_batches = accum
     if not regularised:
-        enc = cfg.model.encoder
-        cfg.model.encoder = dataclasses.replace(enc, dither=0.0, blocks=tuple(
-            dataclasses.replace(b, transformer=dataclasses.replace(
-                b.transformer, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
-                encoder_layerdrop=0.0), conv_layers=tuple(
-                    dataclasses.replace(c, dropout=0.0) for c in b.conv_layers))
-            for b in enc.blocks))
+        cfg.model.encoder = _no_regularisers(cfg.model.encoder)
     return SpiralPretrainRunner(cfg, os.path.join(root, f"timed_{precision}_{accum}"),
                                 device="cuda")
 
@@ -2572,7 +2577,7 @@ def phase_tts_time(torch):
     res["hifigan_throughput_b16"] = 16 * TTS_BUCKET * 256 / 22050 / (ms / 1e3)
     log(f"[25 tts time] hifigan_throughput_b16: {ms:.2f} ms for (16, {TTS_BUCKET}, 80), "
         f"{res['hifigan_throughput_b16']:.1f} x realtime, peak {peak:.3f} GiB")
-    profile_slice(torch, lambda: e2e(x1, xl1, 10, "euler"), batches=3, top=12,
+    profile_slice(torch, lambda: e2e(x1, xl1, 10, "euler"), batches=1, top=12,
                   tag="25 profile, e2e 10 Euler steps, B = 1")
     return res
 
@@ -3042,7 +3047,7 @@ def phase_gradtts_train_time(torch, bf16=False):
     check(all(torch.isfinite(v) for v in m.values()), f"bench step metrics {m}")
     log(f"[{phase} gradtts train step time] bench.py's point B = 16, Tx 72, Ty 512, out_size "
         f"172, {tag}: {ms:.2f} ms per step (median of 10), peak device memory {peak:.3f} GiB")
-    prof = profile_slice(torch, step, batches=3, top=12, tag=f"{phase} profile, {tag} train step")
+    prof = profile_slice(torch, step, batches=1, top=12, tag=f"{phase} profile, {tag} train step")
     if prof is not None:
         ranks = [i for i, (name, _, _) in enumerate(prof["ranked"]) if "maximum_path" in name]
         if ranks:
@@ -3329,7 +3334,7 @@ def phase_vc_time(torch, cli_res):
     log(f"[32 vc time] CLI wav -> wav, ml 30, {cli_res['frames']} frames ({cli_res['seconds']:.3f}"
         f" s out), host clock by stage (phase 30's warm run): {stages}; {total * 1e3:.1f} ms "
         f"in all, RTF {total / cli_res['seconds']:.4f}")
-    prof = profile_slice(torch, lambda: convert(30, "ml"), batches=2, top=12,
+    prof = profile_slice(torch, lambda: convert(30, "ml"), batches=1, top=12,
                          tag="32 profile, ml 30 conversion, B = 1 x 256 frames")
     res["profile"] = None if prof is None else {k: prof[k] for k in ("kernels", "busy_ms",
                                                                       "span_ms", "share")}
@@ -3675,7 +3680,7 @@ def _train_point(torch, tag, step, extra_flop=0, host_ms=None):
         f"bound {bound_ms:.2f} ms ({flop / 1e12:.3f} TFLOP at {PEAK_FP32 / 1e12:.0f} TFLOP/s "
         f"fp32, {counted / 1e12:.3f} counted + {extra_flop / 1e12:.3f} by hand; "
         f"{ms / bound_ms:.2f}x){host}")
-    prof = profile_slice(torch, step, batches=2, top=8, tag=f"36 profile, {tag}")
+    prof = profile_slice(torch, step, batches=1, top=8, tag=f"36 profile, {tag}")
     return {"ms": ms, "peak_gib": peak, "tflop": flop / 1e12, "bound_ms": bound_ms,
             "host_ms": host_ms, "profile": None if prof is None else {
                 k: prof[k] for k in ("kernels", "busy_ms", "span_ms", "share")}}
@@ -3748,11 +3753,11 @@ def phase_train_time(torch, clean):
     return res
 
 
-def write_corpus(root, rng):
+def write_corpus(root, rng, n=N_UTTS):
     import scipy.io.wavfile
 
     words = ["speech", "model", "port", "kernel", "test", "audio", "hello", "world"]
-    durations = np.linspace(3.0, 24.0, N_UTTS)
+    durations = np.linspace(3.0, 24.0, n)
     rng.shuffle(durations)
     manifest = os.path.join(root, "test.json")
     with open(manifest, "w") as f:
@@ -3873,7 +3878,9 @@ def phase_slice_time(torch, manifest, ckpt):
 
 def profile_slice(torch, run, batches=3, top=8, tag="6 profile"):
     """Where the slice's device time goes: torch.profiler kernel events over a
-    few batches, summed by kernel name, and the device's busy share of the
+    few batches (one for the paths of 5 000-16 000 kernels, phases 25, 29,
+    32, 36, 43, 44 and 65, whose event handling dominates), summed by kernel
+    name, and the device's busy share of the
     span from the first kernel's start to the last kernel's end. Kernels
     that run at the same time (cuDNN's per-group launches) count once in the
     share and fully in the per-kernel sums. Annotations that the profiler
@@ -4131,9 +4138,9 @@ def phase_validation(torch, root, run_dir):
                      if b.transformer is not None)
     seen, vstep = [], SpiralPretrainRunner.validation_step
 
-    def watched(self, batch, neg_idx=None):
+    def watched(self, batch, neg_idx=None, model=None):
         before = dict(_build.LAUNCHES)
-        out = vstep(self, batch, neg_idx)
+        out = vstep(self, batch, neg_idx, model)
         torch.cuda.synchronize()
         seen.append({k: v - before[k] for k, v in _build.LAUNCHES.items()})
         return out
@@ -4736,7 +4743,7 @@ def phase_hifigan_time(torch):
             f"{f_g / 1e12:.4f}, F_D {f_d / 1e12:.4f}; the counter over the step: "
             f"{fc.get_total_flops() / 1e12:.3f}), bound {bound:.2f} ms at "
             f"{(PEAK_BF16 if bf16 else PEAK_FP32) / 1e12:.0f} TFLOP/s ({ms / bound:.1f}x)")
-        prof = profile_slice(torch, step, batches=3, top=10, tag=f"43 profile, {tag} GAN step")
+        prof = profile_slice(torch, step, batches=1, top=10, tag=f"43 profile, {tag} GAN step")
         out[tag] = {"ms": ms, "peak_gib": peak, "tflop": flop / 1e12, "bound_ms": bound,
                     "profile": None if prof is None else {
                         k: prof[k] for k in ("kernels", "busy_ms", "span_ms", "share")}}
@@ -6795,7 +6802,7 @@ def phase_cc_train(torch, family, rng):
              if not k.endswith("num_batches_tracked") and not torch.equal(v, before[k])]
     check(len(moved) == len(before) - sum(k.endswith("num_batches_tracked") for k in before),
           f"{family}: {len(before) - len(moved)} tensors did not move")
-    prof = profile_slice(torch, one, batches=2, tag=f"{ph} {family} train profile") or {}
+    prof = profile_slice(torch, one, batches=1, tag=f"{ph} {family} train profile") or {}
     t_out = ((specs.shape[1] + 1) // 2 + 1) // 2  # the Conformer's frames after subsampling
     where = _where_the_time_goes(torch, ph, family, model, prof, b, t_out, backward=True)
     log(f"[{ph} {family} train step] B = {b} x {samples} samples ({specs.shape[1]} frames), "
@@ -6914,6 +6921,822 @@ def conv_ctc_kernel_entries(cc, by_path):
     return out
 
 
+# ---- 66-68: data parallelism (parallel/) ------------------------------------
+
+DIST_PRE_B = PRETRAIN_BATCH  # a rank's pretrain batch: 24 x 250 000 samples
+DIST_PRE_SAMPLES = 250_000
+DIST_FT_B = BATCH  # a rank's finetune micro-batch: 14 x 24 s, two a step
+DIST_LOSS_RTOL = 1e-5
+DIST_PARAM_RTOL = 1e-5  # x max(1, max|p|) of each tensor
+DIST_RUNNER_STEPS = 3
+DIST_TIMED = 5  # step and all-reduce samples a rank (median)
+DIST_TIMEOUT = 900  # s, one spawn of ranks
+DIST_ENV_RTOL = 1e-6  # phase 66: x max|param|
+# a constant lr, so that one step moves every leaf; eps 1e-3 as in the CPU
+# parity tests: a leaf whose true gradient is 0 keeps its rounding noise
+# small instead of stepping +-lr on either side
+DIST_OPTIM = dict(lr=1e-3, eps=1e-3, betas=(0.9, 0.98), weight_decay=0.1)
+# the finetune steps' AdamW: eps 1 and lr 1e-4. The CTC loss of random
+# weights and labels is large (1500-4500 a batch), and so are its
+# gradients and their rounding noise from the order of sums (cuDNN's, the
+# ranks'): where |g| is near a small eps, Adam turns that noise into a large
+# part of lr; and the second step's loss, taken on the first step's
+# weights, moves with their rounding, which grows with lr
+DIST_FT_OPTIM = dict(DIST_OPTIM, lr=1e-4, eps=1.0)
+DIST_SGD_LR = 1e-3  # the bf16 finetune steps: the update is lr x the gradient
+# the fp32 finetune steps' summed gradients, before AdamW, against the
+# one-process step's on the global batch: each tensor within this x its own
+# max|g| (floored at 1e-3 x the step's largest |g|, so that a gradient that
+# is 0 but for rounding is not held to its own noise). The order of the sums
+# alone moves them by up to 7.8e-5 (step 0, equal weights on both sides) and
+# 2.2e-4 (step 1, from weights one rounding apart) at two gloo ranks: the
+# CTC loss of random weights amplifies rounding. A wrong reduction (a rank
+# missing, a scale, BatchNorm's local sum) is off by 10-100 % of |g|
+DIST_GRAD_RTOL = 3e-3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _no_regularisers(enc):
+    """An encoder config with dither, dropout and layerdrop off."""
+    import dataclasses
+
+    return dataclasses.replace(enc, dither=0.0, blocks=tuple(
+        dataclasses.replace(b, transformer=dataclasses.replace(
+            b.transformer, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+            encoder_layerdrop=0.0), conv_layers=tuple(
+                dataclasses.replace(c, dropout=0.0) for c in b.conv_layers))
+        for b in enc.blocks))
+
+
+def _dist_optimizer(params, optim=DIST_OPTIM):
+    from tpu_speech_torch.train.optim import make_optimizer
+    from tpu_speech_torch.utils.config import AdamWParams
+
+    return make_optimizer(AdamWParams(sched=None, **optim), params, 100)
+
+
+def _wave_pool(rng, k, n):
+    """k speech-like waves of n samples; the batches draw on them with a
+    random gain and shift (the data's content does not matter here)."""
+    return [speech_like(rng, n) for _ in range(k)]
+
+
+def write_dist_batches(root, world, seed=66):
+    """The global batches of phase 67 on the host, as .npz files under
+    ``root`` that every rank slices: the pretrain batch (world x 24 crops,
+    masks and shifts from ``host_augment_batch``) with its negative indices,
+    and two finetune steps of two micro-batches of world x 14 utterances of
+    4-24 s with random labels."""
+    import torch
+
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.models.spiral.st2vec import draw_negative_indices
+    from tpu_speech_torch.train.spiral import host_augment_batch
+
+    rng = np.random.default_rng(seed)
+    enc = _no_regularisers(spiral_base_pretrain_ls960().model.encoder)
+    n, b = DIST_PRE_SAMPLES, world * DIST_PRE_B
+    pool = _wave_pool(rng, 8, n)
+    lens = rng.integers(n // 2, n + 1, size=b).astype(np.int32)
+    lens[0] = n
+    wavs = np.zeros((b, n), np.float32)
+    for i in range(b):
+        w = np.roll(pool[i % len(pool)], int(rng.integers(n))) * rng.uniform(0.5, 1.5)
+        wavs[i, :lens[i]] = w[:lens[i]]
+    spec_len = ((1 + n // 160 + 15) // 16) * 16
+    batch = host_augment_batch(enc, wavs, lens, wavs * 0.8, lens, spec_len,
+                               np.random.default_rng(seed + 1), np.random.default_rng(seed + 2))
+    feat_lens = torch.tensor(np.ceil(lens / 160).astype(np.int64))
+    for _ in range(3):
+        feat_lens = (feat_lens + 1) // 2
+    neg = draw_negative_indices(feat_lens, spec_len // 8, enc.n_negatives,
+                                torch.Generator().manual_seed(seed))
+    np.savez(os.path.join(root, "dist_pretrain.npz"), neg=neg.numpy(), **batch)
+    pool = _wave_pool(rng, 8, MAX_SAMPLES)
+    for step in range(2):
+        for micro in range(2):
+            m = world * DIST_FT_B
+            lens = rng.integers(MAX_SAMPLES // 6, MAX_SAMPLES + 1, size=m).astype(np.int32)
+            wavs = np.zeros((m, MAX_SAMPLES), np.float32)
+            labels = np.zeros((m, 512), np.int32)
+            label_lens = (lens * 12 // SR).astype(np.int32)
+            for i in range(m):
+                w = np.roll(pool[i % len(pool)], int(rng.integers(MAX_SAMPLES)))
+                wavs[i, :lens[i]] = w[:lens[i]] * rng.uniform(0.5, 1.5)
+                labels[i, :label_lens[i]] = rng.integers(0, 28, size=label_lens[i])
+            np.savez(os.path.join(root, f"dist_ft_{step}_{micro}.npz"), wavs=wavs,
+                     wav_lens=lens, labels=labels, label_lens=label_lens)
+
+
+def write_runner_corpus(root, rng, n):
+    """n int16 wavs of 4-20 s (gain and shift of a pool of 8 speech-like
+    waves) under the pretrain config's manifest names."""
+    import scipy.io.wavfile
+
+    pool = _wave_pool(rng, 8, 20 * SR)
+    with open(os.path.join(root, "librivox-train-clean-100.json"), "w") as f:
+        for i, d in enumerate(rng.uniform(4.0, 20.0, size=n)):
+            path = os.path.join(root, f"pre{i:03d}.wav")
+            w = np.roll(pool[i % len(pool)], int(rng.integers(20 * SR)))[:int(d * SR)]
+            pcm = np.clip(w * rng.uniform(0.5, 1.5) * 32767, -32768, 32767)
+            scipy.io.wavfile.write(path, SR, pcm.astype(np.int16))
+            f.write(json.dumps({"audio_filepath": path, "duration": float(d),
+                                "text": ""}) + "\n")
+    for other in ("librivox-train-clean-360.json", "librivox-train-other-500.json"):
+        open(os.path.join(root, other), "w").close()
+
+
+def _rank_rows(path, rank, world):
+    """Rank ``rank``'s contiguous rows of a global batch file (``shard_batch``)."""
+    from tpu_speech_torch.parallel.mesh import shard_batch
+
+    with np.load(path) as f:
+        return shard_batch({k: f[k] for k in f.files}, rank, world)
+
+
+def _host_params(torch, model):
+    from tpu_speech_torch.parallel.mesh import full_state_dict
+
+    return {k: v.detach().to("cpu", torch.float32, copy=True)
+            for k, v in full_state_dict(model).items() if v.is_floating_point()}
+
+
+def _param_checksum(torch, model):
+    """Each parameter's bits summed as int64 (a sharded one gathered whole:
+    every rank calls it): equal lists, equal weights (but for a collision no
+    step makes)."""
+    from tpu_speech_torch.parallel.mesh import full_tensor
+
+    return [int(full_tensor(p).detach().contiguous().view(torch.int32).long().sum())
+            for p in model.parameters()]
+
+
+def _place_model(torch, model, world, fsdp, bf16=False):
+    from tpu_speech_torch.parallel.mesh import make_mesh, replicate, shard_state_fsdp
+
+    if fsdp:
+        shard_state_fsdp(make_mesh(), model, bf16=bf16)
+    elif world > 1:
+        replicate(model)
+    return model
+
+
+def _timed_steps(torch, step, allreduce=None, n=DIST_TIMED):
+    """(median ms of ``step()``, median ms of ``allreduce()`` alone, peak
+    GiB over the steps), CUDA events around each call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, n=n, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ar = cuda_ms(allreduce, n=n, warmup=1) if allreduce is not None else 0.0
+    return ms, ar, peak
+
+
+def dist_pretrain_step(torch, root, rank, world, fsdp=False, timed=0):
+    """One fp32 pretrain step of SPIRAL-base at full width on this rank's 24
+    crops of the global batch (dither, dropout and layerdrop off, the
+    negatives given), AdamW at a constant lr; rank 0 of world 1 is the
+    one-process step on the whole batch. Returns the loss, accuracy,
+    launches, all-reduced bytes, the weights after the step (on the host)
+    and, with ``timed`` samples, the step's and the all-reduce's ms and the
+    peak."""
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.parallel.mesh import allreduce_grads
+    from tpu_speech_torch.train.spiral import batch_to_device, make_pretrain_state, pretrain_step
+
+    enc = _no_regularisers(spiral_base_pretrain_ls960().model.encoder)
+    model = ST2VecEncoder(enc, pretraining=True)
+    model.init_weights(torch.Generator().manual_seed(3))
+    model = _place_model(torch, model.cuda(), world, fsdp)
+    state = make_pretrain_state(model, _dist_optimizer)
+    rows = _rank_rows(os.path.join(root, "dist_pretrain.npz"), rank, world)
+    neg = torch.from_numpy(rows.pop("neg")).cuda()
+    batch = batch_to_device(rows, "cuda")
+    rng = DropoutRng.seeded(0, "cuda", rank=rank, row0=rank * len(neg))
+    _build.reset_launches()
+    m = pretrain_step(state, batch, rng, neg_idx=neg)
+    torch.cuda.synchronize()
+    out = dict(loss=float(m["loss"]), acc=float(m["accuracy"]), launches=dict(_build.LAUNCHES),
+               bytes=m["allreduce_bytes"], params=_host_params(torch, model),
+               checksum=_param_checksum(torch, model))
+    if timed:
+        from tpu_speech_torch.parallel import distributed
+
+        params = model.student_parameters()
+        out["ms"], out["allreduce_ms"], out["peak_gib"] = _timed_steps(
+            torch, lambda: pretrain_step(state, batch, rng, neg_idx=neg),
+            (lambda: allreduce_grads(params)) if distributed.process_count() > 1 else None,
+            n=timed)
+    return out
+
+
+def dist_finetune_steps(torch, root, rank, world, bf16=False, fsdp=False, sgd=False,
+                        timed=0):
+    """Two finetune steps of SPIRAL-base at full width across the freeze gate
+    (step 0 frozen), each of two micro-batches of this rank's 14 utterances
+    (``accumulate_grad_batches=2``), regularisers off, AdamW at a constant
+    lr (DIST_FT_OPTIM; or, with ``sgd``, SGD at DIST_SGD_LR, whose update
+    is the gradient: the bf16 rule's yardstick); the losses and the weights
+    after them, the fp32 AdamW runs' summed gradients as the optimizer
+    receives them (``grads``, one dict a step, on rank 0; a sharded one
+    gathered on every rank), and with ``timed`` samples an unfrozen step's
+    and its all-reduce's ms and the peak."""
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.parallel.mesh import full_tensor
+    from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
+    from tpu_speech_torch.train.spiral import batch_to_device
+    from tpu_speech_torch.train.spiral_runner import build_model
+
+    cfg = _no_dropout_finetune_cfg()
+    model = build_model(cfg, 28).init_weights(torch.Generator().manual_seed(3)).cuda()
+    make_opt = ((lambda ps: torch.optim.SGD(ps, lr=DIST_SGD_LR, foreach=False)) if sgd
+                else (lambda ps: _dist_optimizer(ps, DIST_FT_OPTIM)))
+    state = make_finetune_state(_place_model(torch, model, world, fsdp, bf16), make_opt)
+    grads = []
+    if not (bf16 or sgd):
+        opt_step = state.optimizer.step
+
+        def keep_and_step(*args, **kw):
+            whole = {n: full_tensor(p.grad) for n, p in model.named_parameters()}
+            if rank == 0:
+                grads.append({n: g.detach().to("cpu", torch.float32, copy=True)
+                              for n, g in whole.items()})
+            return opt_step(*args, **kw)
+
+        state.optimizer.step = keep_and_step
+    losses, launches = [], dict.fromkeys(_build.LAUNCHES, 0)
+    for step in range(2):
+        micro = [batch_to_device(_rank_rows(os.path.join(root, f"dist_ft_{step}_{i}.npz"),
+                                            rank, world), "cuda") for i in range(2)]
+        _build.reset_launches()
+        m = finetune_step(state, micro, DropoutRng.seeded(step, "cuda", rank=rank,
+                                                          row0=rank * DIST_FT_B),
+                          freeze_encoder=step == 0, bf16=bf16, accum_steps=2)
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        launches = {k: v + _build.LAUNCHES[k] for k, v in launches.items()}
+    state.optimizer.__dict__.pop("step", None)  # the timed steps keep nothing
+    out = dict(loss=losses, launches=launches, params=_host_params(torch, model),
+               checksum=_param_checksum(torch, model), grads=grads)
+    if timed:
+        from tpu_speech_torch.parallel import distributed
+        from tpu_speech_torch.parallel.mesh import allreduce_grads
+
+        rng = DropoutRng.seeded(2, "cuda", rank=rank, row0=rank * DIST_FT_B)
+        params = list(model.parameters())
+        out["ms"], out["allreduce_ms"], out["peak_gib"] = _timed_steps(
+            torch, lambda: finetune_step(state, micro, rng, bf16=bf16, accum_steps=2),
+            (lambda: allreduce_grads(params)) if distributed.process_count() > 1 else None,
+            n=timed)
+        out["bytes"] = m["allreduce_bytes"]
+    return out
+
+
+def dist_large_finetune_peak(torch, rank, world, fsdp):
+    """The SPIRAL-large finetune step's peak memory on this rank (B = 18 x
+    42 s a rank, fp32, unfrozen): DDP against FSDP."""
+    from tpu_speech_torch.configs.spiral import CONFIGS
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
+    from tpu_speech_torch.train.spiral import batch_to_device
+    from tpu_speech_torch.train.spiral_runner import build_model
+
+    cfg = CONFIGS[LARGE_CFG]()
+    cfg.model.encoder = _no_regularisers(cfg.model.encoder)
+    model = build_model(cfg, LARGE_VOCAB).init_weights(torch.Generator().manual_seed(3))
+    state = make_finetune_state(_place_model(torch, model.cuda(), world, fsdp), _dist_optimizer)
+    rng = np.random.default_rng(68 + rank)
+    wavs = (rng.standard_normal((LARGE_B, LARGE_SAMPLES)) * 0.1).astype(np.float32)
+    batch = batch_to_device({"wavs": wavs, "wav_lens": np.full(LARGE_B, LARGE_SAMPLES, np.int32),
+                             "labels": rng.integers(1, LARGE_VOCAB, (LARGE_B, 512)).astype(
+                                 np.int32),
+                             "label_lens": np.full(LARGE_B, 200, np.int32)}, "cuda")
+    ms, _, peak = _timed_steps(torch, lambda: finetune_step(state, batch, DropoutRng.seeded(
+        0, "cuda", rank=rank, row0=rank * LARGE_B)), n=2)
+    return dict(ms=ms, peak_gib=peak)
+
+
+def dist_runner_steps(torch, root, rank, world):
+    """Three pretrain updates through ``SpiralPretrainRunner`` at full width
+    with dither, dropout and layerdrop on, from this rank's shard of phase
+    67's corpus: after each, the ranks' weights must be equal bit for bit
+    (each rank's checksums gathered); the launches a step on this rank."""
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+
+    cfg = spiral_base_pretrain_ls960()
+    cfg.model.train_ds.manifest_filepath = os.path.join(root, "librivox-train-clean-100.json")
+    cfg.model.validation_ds = None
+    cfg.model.optim.sched.warmup_steps = 2
+    runner = SpiralPretrainRunner(cfg, os.path.join(root, f"runner_{world}"), device="cuda")
+    seen, step = [], runner.step
+
+    def checked(batch):
+        before = dict(_build.LAUNCHES)
+        m = step(batch)
+        torch.cuda.synchronize()
+        sums = [None] * world
+        mine = _param_checksum(torch, runner.state.model)
+        if world > 1:
+            torch.distributed.all_gather_object(sums, mine)
+        else:
+            sums = [mine]
+        check(all(s == sums[0] for s in sums),
+              f"rank {rank}: the ranks' weights differ after runner step {len(seen)}")
+        seen.append({k: v - before[k] for k, v in _build.LAUNCHES.items() if v - before[k]})
+        return m
+
+    runner.step = checked
+    runner.train_epoch(1, max_steps=DIST_RUNNER_STEPS)
+    check(runner.iteration == DIST_RUNNER_STEPS, f"rank {rank}: {runner.iteration} runner steps")
+    return dict(launches=seen, loss=[h["loss"] for h in runner.history])
+
+
+def dist_evaluate(torch, manifest, root, rank):
+    """Test-mode CTC evaluation of SPIRAL-base on seeded random weights,
+    B = 14 x 24 s: this rank decodes entries[rank::world]; the counts are
+    summed over the ranks."""
+    from tpu_speech_torch.configs.spiral import spiral_base_ctc_char
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.text.tokenizers import CharTokenizer
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    cfg = spiral_base_ctc_char()
+    runner = SpiralFinetuneRunner(cfg, os.path.join(root, f"eval_{rank}"),
+                                  CharTokenizer(cfg.model.labels), device="cuda")
+    _build.reset_launches()
+    res = runner.evaluate(manifest)
+    torch.cuda.synchronize()
+    return dict({k: float(res[k]) for k in ("wer", "cer", "ser")}, n=int(res["n"]),
+                utts=len(res["hyps"]), launches=dict(_build.LAUNCHES),
+                decode_s=res["decode_s"])
+
+
+def dist_worker(rank, job):
+    """One rank of phase 67 (two gloo ranks on card 0) or of ``--distributed``
+    (one NCCL rank a card): join at the ``file://`` store, run the checks,
+    and write this rank's results (rank 0's weights as a torch file)."""
+    import torch
+
+    from tpu_speech_torch.parallel import distributed
+
+    os.environ["LOCAL_RANK"] = str(rank if job["backend"] == "nccl" else 0)
+    world, root = job["world"], job["root"]
+    distributed.initialize(num_processes=world, process_id=rank, backend=job["backend"],
+                           device="cuda", init_method="file://" + os.path.join(root, "store"))
+    from tpu_speech_torch.utils.device import use_full_fp32
+
+    use_full_fp32()
+    try:
+        out = {"rank": rank, "device": str(distributed.device())}
+        out["evaluate"] = dist_evaluate(torch, job["manifest"], root, rank)
+        cases = {"pretrain": lambda: dist_pretrain_step(torch, root, rank, world,
+                                                        timed=job["timed"]),
+                 "finetune": lambda: dist_finetune_steps(torch, root, rank, world,
+                                                         timed=job["timed"]),
+                 "finetune_bf16": lambda: dist_finetune_steps(torch, root, rank, world,
+                                                              bf16=True, sgd=True)}
+        if job["fsdp"]:
+            cases["pretrain_fsdp"] = lambda: dist_pretrain_step(torch, root, rank, world,
+                                                                fsdp=True, timed=job["timed"])
+            cases["finetune_fsdp"] = lambda: dist_finetune_steps(torch, root, rank, world,
+                                                                 fsdp=True, timed=job["timed"])
+        weights = {}
+        for name, run in cases.items():
+            r = run()
+            weights[name] = r.pop("params")
+            grads = r.pop("grads", None)
+            if grads:  # rank 0's fp32 finetune runs
+                weights[name + ":grads"] = grads
+            sums = [None] * world
+            torch.distributed.all_gather_object(sums, r.pop("checksum"))
+            check(all(s == sums[0] for s in sums), f"{name}: the ranks' weights differ")
+            out[name] = r
+            torch.cuda.empty_cache()
+        if job["fsdp"]:
+            for fsdp in (False, True):
+                out[f"large_peak_{'fsdp' if fsdp else 'ddp'}"] = dist_large_finetune_peak(
+                    torch, rank, world, fsdp)
+                torch.cuda.empty_cache()
+        out["runner"] = dist_runner_steps(torch, root, rank, world)
+    finally:
+        distributed.shutdown()
+    if rank == 0:
+        torch.save(weights, os.path.join(root, "rank0_weights.pt"))
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def start_ranks(job):
+    """Start the ranks of ``dist_worker`` (``join_ranks`` waits for them)."""
+    import torch.multiprocessing as mp
+
+    return mp.start_processes(dist_worker, args=(job,), nprocs=job["world"], join=False,
+                              start_method="spawn"), time.perf_counter()
+
+
+def join_ranks(job, started):
+    """Wait for the ranks; fails if one fails or they outlast DIST_TIMEOUT.
+    Returns each rank's results and rank 0's weights."""
+    import torch
+
+    ctx, t0 = started
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > DIST_TIMEOUT:
+            for p in ctx.processes:
+                p.kill()
+            check(False, f"the ranks did not finish within {DIST_TIMEOUT} s")
+    ranks = []
+    for r in range(job["world"]):
+        with open(os.path.join(job["root"], f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    weights = torch.load(os.path.join(job["root"], "rank0_weights.pt"), weights_only=True)
+    return ranks, weights, time.perf_counter() - t0
+
+
+def _hold_weights(tag, got, ref, rtol=DIST_PARAM_RTOL):
+    """Every tensor within rtol x max(1, max|ref|); returns the worst."""
+    check(got.keys() == ref.keys(), f"{tag}: the weights' names differ")
+    worst, name = 0.0, ""
+    for k, r in ref.items():
+        err = (got[k] - r).abs().max().item() / max(1.0, r.abs().max().item())
+        if err > worst:
+            worst, name = err, k
+    check(worst <= rtol, f"{tag}: {name} off by {worst:.3e} x max(1, max|p|) (limit {rtol})")
+    return worst, name
+
+
+def _hold_grads(tag, got, ref, rtol=DIST_GRAD_RTOL):
+    """Each step's gradients, tensor by tensor, within rtol x max(max|ref|,
+    1e-3 x the step's largest |ref|); returns each step's worst (ratio,
+    name)."""
+    check(len(got) == len(ref) == 2, f"{tag}: {len(got)} and {len(ref)} gradient snapshots")
+    worst = []
+    for step, (g, r) in enumerate(zip(got, ref)):
+        check(g.keys() == r.keys(), f"{tag}: the gradients' names differ")
+        top = max(v.abs().max().item() for v in r.values())
+        w = max(((g[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-3 * top), k)
+                for k, v in r.items())
+        check(w[0] <= rtol, f"{tag}: step {step} {w[1]} gradient off by {w[0]:.3e} x max|g| "
+              f"(limit {rtol})")
+        worst.append(w)
+    return worst
+
+
+def _hold_bf16_2x(tag, got, one, fp32, init):
+    """bf16 over N ranks against the fp32 one-process run (SGD: each leaf's
+    update is its gradient times lr): the losses within twice the
+    one-process bf16 run's distance + 5e-3 of the fp32 loss, and each leaf's
+    update whose max is at least 1 % of the largest within twice the
+    one-process bf16 update's L2 distance + 1e-2 of its norm (the 2x bf16 rule)."""
+    for l2, l1, l32 in zip(got["loss"], one["loss"], fp32["loss"]):
+        check(abs(l2 - l32) <= 2 * abs(l1 - l32) + 5e-3 * abs(l32),
+              f"{tag}: loss {l2} (one process {l1}, fp32 {l32})")
+    d32 = {k: fp32["params"][k] - init[k] for k in init}
+    big = max(d.abs().max().item() for d in d32.values())
+    worst = 0.0
+    for k, d in d32.items():
+        if d.abs().max().item() < 1e-2 * big:
+            continue
+        e2 = (got["params"][k] - init[k] - d).norm().item()
+        e1 = (one["params"][k] - init[k] - d).norm().item()
+        check(e2 <= 2 * e1 + 1e-2 * d.norm().item(), f"{tag}: {k} {e2:.3e} vs {e1:.3e}")
+        worst = max(worst, e2 / max(d.norm().item(), 1e-30))
+    return worst
+
+
+def _finetune_init(torch):
+    from tpu_speech_torch.train.spiral_runner import build_model
+
+    model = build_model(_no_dropout_finetune_cfg(), 28).init_weights(
+        torch.Generator().manual_seed(3))
+    return {k: v.float() for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def phase_dist_ranks(torch, root, world, backend):
+    """67 (and ``--distributed``): the one-process references and the
+    ranks; their steps held to the one-process global-batch step."""
+    return finish_dist_ranks(torch, start_dist_ranks(torch, root, world, backend))
+
+
+def start_dist_ranks(torch, root, world, backend):
+    """Phase 67's data; gloo's ranks start at once (their times mean
+    nothing, so other work may share the card with them), NCCL's after the
+    references (``finish_dist_ranks``)."""
+    t0 = time.perf_counter()
+    manifest = write_corpus(root, np.random.default_rng(67), n=world * BATCH)
+    write_dist_batches(root, world)
+    write_runner_corpus(root, np.random.default_rng(68), DIST_RUNNER_STEPS * DIST_PRE_B * world)
+    log(f"[67 data] {world * BATCH} test wavs, the global batches of {world} ranks and "
+        f"{DIST_RUNNER_STEPS * DIST_PRE_B * world} pretrain wavs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # gloo stages every tensor through the host: its times would say nothing
+    # of NCCL's, so the one-card run times nothing here
+    job = dict(world=world, backend=backend, root=root, manifest=manifest,
+               fsdp=backend == "nccl", timed=DIST_TIMED if backend == "nccl" else 0)
+    return job, (start_ranks(job) if backend == "gloo" else None)
+
+
+def finish_dist_ranks(torch, state):
+    """The one-process references, then the ranks' results held to them."""
+    from tpu_speech_torch.ops import _build
+
+    job, started = state
+    root, world, backend, manifest = job["root"], job["world"], job["backend"], job["manifest"]
+    ref = {"evaluate": dist_evaluate(torch, manifest, root, 0),
+           "pretrain": dist_pretrain_step(torch, root, 0, 1),
+           "finetune": dist_finetune_steps(torch, root, 0, 1),
+           "finetune_sgd": dist_finetune_steps(torch, root, 0, 1, sgd=True),
+           "finetune_bf16": dist_finetune_steps(torch, root, 0, 1, bf16=True, sgd=True)}
+    # a rank's rows alone, for the times
+    one_rank = {"pretrain": dist_pretrain_step(torch, root, 0, world, timed=job["timed"]),
+                "finetune": dist_finetune_steps(torch, root, 0, world, timed=job["timed"])
+                } if job["timed"] else {}
+    torch.cuda.empty_cache()
+    ranks, weights, wall = join_ranks(job, started or start_ranks(job))
+    r0 = ranks[0]
+    log(f"[67 ranks] {world} {backend} ranks ({', '.join(r['device'] for r in ranks)}) ran "
+        f"their checks in {wall:.1f} s (spawn, imports and the build's load included)")
+    ev, one = r0["evaluate"], ref["evaluate"]
+    log(f"[67 evaluate] B = 14 x 24 s a rank, {ev['n']} utts: WER {ev['wer']:.6f} CER "
+        f"{ev['cer']:.6f} SER {ev['ser']:.6f}; one process WER {one['wer']:.6f} CER "
+        f"{one['cer']:.6f} SER {one['ser']:.6f}; decode s by rank "
+        f"{[round(r['evaluate']['decode_s'], 4) for r in ranks]}")
+    for r in ranks:
+        check(all(r["evaluate"][k] == one[k] for k in ("wer", "cer", "ser", "n")),
+              f"rank {r['rank']}: evaluate {r['evaluate']} vs one process {one}")
+        check(r["evaluate"]["utts"] == BATCH, f"rank {r['rank']}: {r['evaluate']['utts']} utts")
+    for name in ("pretrain", "finetune") + (("pretrain_fsdp", "finetune_fsdp")
+                                            if job["fsdp"] else ()):
+        base = name.split("_")[0]
+        got, want = r0[name], ref[base]
+        losses = got["loss"] if isinstance(got["loss"], list) else [got["loss"]]
+        wants = want["loss"] if isinstance(want["loss"], list) else [want["loss"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, wants))
+        worst, wname = _hold_weights(f"67 {name}", weights[name], want["params"])
+        log(f"[67 {name}] {world} ranks against one process on the global batch: loss "
+            f"{losses} vs {wants} (rel {rel:.2e}, limit {DIST_LOSS_RTOL}); weights within "
+            f"{worst:.2e} x max(1, max|p|) ({wname}; limit {DIST_PARAM_RTOL}); launches on "
+            f"rank 0 { {k: v for k, v in got['launches'].items() if v} }")
+        check(rel <= DIST_LOSS_RTOL, f"67 {name}: loss {losses} vs {wants}")
+        if base == "finetune":
+            g = _hold_grads(f"67 {name}", weights[name + ":grads"], want["grads"])
+            log(f"[67 {name} gradients] the summed gradients AdamW received against one "
+                f"process's, worst x max|g|: step 0 {g[0][0]:.2e} ({g[0][1]}), step 1 "
+                f"{g[1][0]:.2e} ({g[1][1]}); limit {DIST_GRAD_RTOL}")
+    got = dict(r0["finetune_bf16"], params=weights["finetune_bf16"])
+    worst = _hold_bf16_2x("67 finetune_bf16", got, ref["finetune_bf16"], ref["finetune_sgd"],
+                          _finetune_init(torch))
+    log(f"[67 finetune_bf16] {world} ranks, SGD lr {DIST_SGD_LR}: losses {got['loss']} (one "
+        f"process bf16 {ref['finetune_bf16']['loss']}, fp32 {ref['finetune_sgd']['loss']}); "
+        f"within the 2x rule, worst leaf update {worst:.3e} relative L2 from fp32")
+    for r in ranks:
+        for name in ("pretrain", "finetune") + (("pretrain_fsdp", "finetune_fsdp")
+                                                if job["fsdp"] else ()) if job["timed"] else ():
+            p, alone = r[name], one_rank[name.split("_")[0]]
+            b = DIST_PRE_B if name.startswith("pretrain") else f"2 x {DIST_FT_B}"
+            what = (" (the replicated leaves; the shards' reduce-scatter runs in the "
+                    "backward)" if name.endswith("fsdp") else "")
+            log(f"[67 {name} time] rank {r['rank']} of {world}: {p['ms']:.2f} ms a step "
+                f"(B = {b} a rank), all-reduce {p['allreduce_ms']:.2f} ms for "
+                f"{p['bytes'] / 2**20:.1f} MiB{what}, peak {p['peak_gib']:.2f} GiB; one rank "
+                f"alone {alone['ms']:.2f} ms, peak {alone['peak_gib']:.2f} GiB ({backend})")
+        if job["fsdp"]:
+            log(f"[67 large peak] rank {r['rank']}: SPIRAL-large finetune step, B = "
+                f"{LARGE_B} x 42 s a rank: DDP {r['large_peak_ddp']['peak_gib']:.2f} GiB "
+                f"({r['large_peak_ddp']['ms']:.1f} ms), FSDP "
+                f"{r['large_peak_fsdp']['peak_gib']:.2f} GiB ({r['large_peak_fsdp']['ms']:.1f} ms)")
+        for i, n in enumerate(r["runner"]["launches"]):
+            log(f"[67 runner] rank {r['rank']} step {i}: loss {r['runner']['loss'][i]:.4f}, "
+                f"launches {n}")
+    check(all(r["runner"]["loss"] == r0["runner"]["loss"] for r in ranks),
+          "the runner's logged losses differ across ranks")
+
+    def summed(key):
+        return {k: sum(r[key]["launches"].get(k, 0) for r in ranks) for k in _build.LAUNCHES}
+
+    runner = {k: sum(n.get(k, 0) for r in ranks for n in r["runner"]["launches"])
+              for k in _build.LAUNCHES}
+    pre, ft, ft16 = summed("pretrain"), summed("finetune"), summed("finetune_bf16")
+    return dict(ctc_eval_ddp=summed("evaluate"),
+                pretrain_step_ddp={k: pre[k] + runner[k] for k in pre},
+                finetune_step_ddp={k: ft[k] + ft16[k] for k in ft}, ranks=ranks,
+                one_rank=one_rank)
+
+
+def phase_dist_env(torch, root):
+    """66: NCCL at world 1 through the CLI's environment surface. A
+    subprocess with MASTER_ADDR 127.0.0.1, a free MASTER_PORT, WORLD_SIZE 1
+    and NODE_RANK 0 calls ``run_spiral.main`` twice: a test-mode evaluation
+    and one ``--fsdp true`` pretrain step (train mode on a one-rank mesh);
+    each equals the same command run here without the environment (cuDNN's
+    deterministic algorithms on both sides, a constant lr from the first
+    step): equal WER, the saved weights within 1e-6 x max|param|."""
+    from tpu_speech_torch.cli import run_spiral
+    from tpu_speech_torch.ops import _build
+
+    rng = np.random.default_rng(66)
+    ft_root, pre_root = os.path.join(root, "ft_data"), os.path.join(root, "pre_data")
+    os.makedirs(ft_root)
+    os.makedirs(pre_root)
+    write_finetune_corpus(ft_root, rng, BATCH, 0)
+    write_pretrain_corpus(pre_root, rng, DIST_PRE_B)
+    open(os.path.join(pre_root, "librivox-dev-clean.json"), "w").close()
+    test = os.path.join(ft_root, "librivox-train-clean-100.json")  # 14 utts: one batch
+
+    def argvs(tag):
+        out = os.path.join(root, tag)
+        return [
+            ["--model_type", "ctc_finetune", "--run_mode", "test", "--config_name",
+             "spiral_base_finetune_ls100_char", "--test_manifest", test,
+             "--model_save_dir", os.path.join(out, "test")],
+            ["--config_name", "spiral_base_pretrain_ls960", "--fsdp", "true", "--manifest_dir",
+             pre_root, "--model_save_dir", os.path.join(out, "pre"), "--set", "trainer.max_steps=1",
+             "--set", "model.optim.sched.warmup_steps=0"],
+        ]
+
+    script = (
+        "import json, sys, torch\n"
+        "torch.backends.cudnn.deterministic = True\n"
+        "from tpu_speech_torch.cli import run_spiral\n"
+        "from tpu_speech_torch.ops import _build\n"
+        "import torch.distributed as dist\n"
+        "rows = []\n"
+        "for argv in json.loads(sys.argv[1]):\n"
+        "    _build.reset_launches()\n"
+        "    r = run_spiral.main(argv)\n"
+        "    torch.cuda.synchronize() if torch.cuda.is_available() else None\n"
+        "    rows.append({'launches': dict(_build.LAUNCHES), 'wer': r.get('wer'),\n"
+        "                 'cer': r.get('cer'), 'n': r.get('n'), 'ser': r.get('ser'),\n"
+        "                 'state_dict': r.get('state_dict'),\n"
+        "                 'loss': [m['loss'] for m in r.get('steps', [])],\n"
+        "                 'world': dist.get_world_size(), 'backend': dist.get_backend()})\n"
+        "print('ENV_RESULT ' + json.dumps(rows))\n")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE="1", NODE_RANK="0", PYTHONPATH=os.path.dirname(
+                   os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    # the subprocess runs beside the runs here, on the same card
+    proc = subprocess.Popen([sys.executable, "-c", script, json.dumps(argvs("env"))], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        here = []
+        for argv in argvs("plain"):
+            _build.reset_launches()
+            r = run_spiral.main(argv)
+            torch.cuda.synchronize()
+            here.append(dict(r, launches=dict(_build.LAUNCHES)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"66: the subprocess failed:\n{out[-3000:]}\n{err[-3000:]}")
+    rows = json.loads(out.split("ENV_RESULT ")[-1])
+    check(all(r["world"] == 1 and r["backend"] == "nccl" for r in rows),
+          f"66: the subprocess did not join NCCL at world 1: {rows}")
+    log(f"[66 env] MASTER_ADDR/MASTER_PORT/WORLD_SIZE 1/NODE_RANK 0: the subprocess joined "
+        f"NCCL at world 1 and ran test mode and an --fsdp pretrain step in {wall:.1f} s, "
+        f"beside the same two runs here without the environment")
+    ev, pl = rows[0], here[0]
+    log(f"[66 test mode] WER {ev['wer']:.6f} CER {ev['cer']:.6f} n {ev['n']} through the "
+        f"environment; {pl['wer']:.6f} {pl['cer']:.6f} {pl['n']} without")
+    check(all(ev[k] == pl[k] for k in ("wer", "cer", "n", "ser")), "66: test mode differs")
+    for i, name in ((1, "fsdp pretrain"),):
+        a = torch.load(rows[i]["state_dict"], weights_only=True)
+        b = torch.load(here[i]["state_dict"], weights_only=True)
+        scale = max(v.abs().max().item() for v in b.values() if v.is_floating_point())
+        diff = max((a[k].float() - b[k].float()).abs().max().item() for k in b)
+        log(f"[66 {name}] loss {rows[i]['loss']} through the environment, "
+            f"{[m['loss'] for m in here[i]['steps']]} without; weights max diff {diff:.3e} "
+            f"(limit {DIST_ENV_RTOL} x max|param| {scale:.3f})")
+        check(diff <= DIST_ENV_RTOL * scale, f"66 {name}: weights off by {diff}")
+    for d in ("env", "plain"):
+        shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+    return dict(ctc_eval_env=rows[0]["launches"], fsdp_step=rows[1]["launches"])
+
+
+def phase_k2_offset(torch, gen):
+    """68: K2 with a batch offset at the pretrain shape (24, 392, 3·512) H 8
+    p 0.1, fp32 and bf16, forward and backward: the halves at b0 = 0 and 12
+    give the whole batch's outputs and dqkv bit for bit, and each half
+    matches the plain version at its offset within K2's limits (fp32 1e-4
+    forward, 1e-4 x max(1, max|plain|) backward; bf16 8e-3 and 1.6e-2)."""
+    from tpu_speech_torch.ops.fused_attention import (
+        fused_qkv_self_attention,
+        qkv_attention_plain,
+    )
+
+    b, t, e, h = STEP_SHAPES[0]
+    qkv32, mask = _k2_case(torch, gen, b, t, e, h)
+    dout32 = torch.randn(b, t, e, generator=gen).cuda()
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv, dout = qkv32.to(dtype), dout32.to(dtype)
+
+        def run(fn, rows, b0):
+            x = qkv[rows].clone().requires_grad_(True)
+            out = fn(x, h, mask[rows], DROP_P, 1234, b0)
+            out.backward(dout[rows])
+            return out.detach(), x.grad
+
+        whole = run(fused_qkv_self_attention, slice(0, b), 0)
+        halves = [run(fused_qkv_self_attention, s, s.start)
+                  for s in (slice(0, b // 2), slice(b // 2, b))]
+        torch.cuda.synchronize()
+        same = all(torch.equal(whole[i], torch.cat([x[i] for x in halves])) for i in range(2))
+        errs = []
+        for s, (out, grad) in zip((slice(0, b // 2), slice(b // 2, b)), halves):
+            ref, ref_grad = run(qkv_attention_plain, s, s.start)
+            errs.append(((out.float() - ref.float()).abs().max().item(),
+                         (grad.float() - ref_grad.float()).abs().max().item()
+                         / max(1.0, ref_grad.float().abs().max().item())))
+        fwd, bwd = max(x[0] for x in errs), max(x[1] for x in errs)
+        lim = (K2_ATOL, K2_BWD_RTOL) if dtype == torch.float32 else (BF16_FWD_RTOL,
+                                                                     BF16_GRAD_RTOL)
+        moved = not torch.equal(run(fused_qkv_self_attention, slice(b // 2, b), 0)[0],
+                                halves[1][0])
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        log(f"[68 k2 offset {name}] ({b}, {t}, {3 * e}) H {h} p {DROP_P}: halves at b0 0 and "
+            f"{b // 2} equal the whole batch bit for bit: {same}; against the plain version "
+            f"at the offsets: forward {fwd:.2e} (limit {lim[0]}), dqkv {bwd:.2e} x max(1, "
+            f"max|plain|) (limit {lim[1]}); another offset moves the masks: {moved}")
+        check(same and moved and fwd <= lim[0] and bwd <= lim[1], f"68 K2 offset {name}")
+        worst[name] = (fwd, bwd)
+    return worst
+
+
+def run_dist_phases(torch, gen):
+    """Phases 66-68 of the default run: NCCL at world 1 through the
+    environment, two gloo ranks on the one card at full width (started
+    first, so that they run beside phase 66), K2 at a batch offset. Returns
+    their paths' launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root_env, tempfile.TemporaryDirectory() as root:
+        started = start_dist_ranks(torch, root, 2, "gloo")  # they run through phase 66
+        env = phase_dist_env(torch, root_env)
+        elapsed("phase 66")
+        ranks = finish_dist_ranks(torch, started)
+    elapsed("phase 67")
+    k2 = phase_k2_offset(torch, gen)
+    log(f"[66-68] {time.perf_counter() - t0:.1f} s")
+    return dict(env=env, ranks=ranks, k2_offset=k2)
+
+
+def distributed_main():
+    """``python3 chip_smoke.py --distributed``: phases 67 and 68 at
+    ``torch.cuda.device_count()`` ranks over NCCL, one card each (FSDP too,
+    and the SPIRAL-large finetune step's peak memory under DDP and FSDP);
+    the cards' names and power limits, one JSON line of the per-rank
+    numbers, then the ``{"ok": true, ...}`` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on a GPU only", file=sys.stderr)
+        return 2
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.utils.device import use_full_fp32
+
+    use_full_fp32()
+    _build.library()  # built once here; the ranks load it
+    world = torch.cuda.device_count()
+    check(world > 1, f"--distributed needs more than one card: {world}")
+    log(f"[distributed] torch {torch.__version__}, CUDA {torch.version.cuda}, {world} cards")
+    with tempfile.TemporaryDirectory() as root:
+        res = phase_dist_ranks(torch, root, world, "nccl")
+    phase_k2_offset(torch, torch.Generator().manual_seed(0))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    keys = ("pretrain", "pretrain_fsdp", "finetune", "finetune_fsdp", "large_peak_ddp",
+            "large_peak_fsdp")
+    print(json.dumps({"distributed": {
+        "world": world, "one_rank": {k: {kk: v[kk] for kk in ("ms", "peak_gib")}
+                                     for k, v in res["one_rank"].items()},
+        "ranks": [{k: {kk: vv for kk, vv in r[k].items() if kk != "launches"}
+                   for k in keys} for r in res["ranks"]]}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     import torch
 
@@ -7014,6 +7837,12 @@ def main():
     elapsed("phases 50-55")
     sw = run_stream_w2v_phases(torch, gen, ft_ms)
     cc = run_conv_ctc_phases(torch)
+    dp = run_dist_phases(torch, gen)
+    dp_paths = {  # the ranks' launches summed, with phase 66's through the environment
+        "ctc_eval_ddp": (dp["ranks"]["ctc_eval_ddp"], dp["env"]["ctc_eval_env"]),
+        "pretrain_step_ddp": (dp["ranks"]["pretrain_step_ddp"],),
+        "finetune_step_ddp": (dp["ranks"]["finetune_step_ddp"],),
+        "fsdp_step": (dp["env"]["fsdp_step"],)}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7044,7 +7873,8 @@ def main():
                 "wav2vec2_pretrain_step_bf16": sw["w2v"]["bf16"]["launches"][key],
                 **{f"{fam}_{path}": cc[fam][part]["launches"][key] for fam in CC_FAMILIES
                    for path, part in (("transcription", "transcription"),
-                                      ("train_step", "train"))}}
+                                      ("train_step", "train"))},
+                **{path: sum(c[key] for c in counts) for path, counts in dp_paths.items()}}
 
     def path_kernel(name, key, replaces, **measured):
         return dict(name=name, route="cuda", source=f"tpu_speech_torch/csrc/{measured.pop('src')}",
@@ -7201,6 +8031,20 @@ def main():
                   == (k["name"] in ("fused_logmel", f"fused_logmel_{fam}")),
                   f"{k['name']}: {k['launches_by_path'][f'{fam}_transcription']} launches on "
                   f"{fam} transcription (phases 62, 64)")
+        # phases 66-67: every kernel of each data-parallel path ran on it
+        want = {"ctc_eval_ddp": ("fused_logmel", "fused_qkv_self_attention", "grouped_conv1d"),
+                "pretrain_step_ddp": ("fused_logmel", "fused_qkv_self_attention",
+                                      "fused_qkv_self_attention_bwd", "grouped_conv1d",
+                                      "grouped_conv1d_dx"),
+                "finetune_step_ddp": ("fused_logmel", "fused_qkv_self_attention",
+                                      "fused_qkv_self_attention_bwd", "grouped_conv1d",
+                                      "grouped_conv1d_dx", "fused_qkv_self_attention_bf16",
+                                      "fused_qkv_self_attention_bwd_bf16", "grouped_conv1d_bf16",
+                                      "grouped_conv1d_dx_bf16")}
+        want["fsdp_step"] = want["pretrain_step_ddp"]
+        for path, names in want.items():
+            if k["name"] in names:
+                check(k["launches_by_path"][path] > 0, f"{k['name']} never ran on {path}")
         path_launches = {p: n for p, n in k["launches_by_path"].items()
                          if not p.startswith(("k3_", "k1_pow_"))}
         # K3 and K1's pow epilogue: no path reaches them
@@ -7298,6 +8142,8 @@ def mas_k1_times_of(root):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--distributed"]:
+        sys.exit(distributed_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--k4-of":
         sys.exit(k4_times_of(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--mas-k1-of":

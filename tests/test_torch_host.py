@@ -680,3 +680,27 @@ def test_librispeech_build_manifest_same(tmp_path):
     assert t_ls.build_manifest(split_dir, wav_dir, os.path.join(root, "t.json")) == 11
     with open(os.path.join(root, "j.json")) as a, open(os.path.join(root, "t.json")) as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("size", [2, 4, 8])
+def test_fsdp_shardings_rule_same(size):
+    """``parallel/mesh.py::fsdp_shardings``' choice of dimension against its
+    original (``tpu_speech/parallel/mesh.py:146``) on leaves of every kind:
+    ties (the first largest dimension), dimensions the data size does not
+    divide, the 2**14 threshold, scalars and vectors."""
+    import jax
+
+    from tpu_speech.parallel import mesh as j_mesh
+    from tpu_speech_torch.parallel import mesh as t_mesh
+
+    shapes = [(), (7,), (2 ** 14,), (2 ** 14 + 2,), (128, 128), (96, 256), (256, 96), (3, 6001),
+              (5, 8, 1024), (1024, 8, 5), (64, 64, 4), (127, 129), (16384, 1), (40, 410)]
+    tree = {f"l{i}": np.zeros(s, np.float32) for i, s in enumerate(shapes)}
+    j_specs = j_mesh.fsdp_shardings(j_mesh.make_mesh(n_devices=size), tree)
+    got = t_mesh.fsdp_shardings(size, tree.items())
+    for k, spec in j_specs.items():
+        dims = [i for i, p in enumerate(spec.spec) if p is not None]
+        want = dims[0] if dims else t_mesh.REPLICATED
+        assert (got[k] if got[k] == t_mesh.REPLICATED else got[k].dim) == want, (k, tree[k].shape)
+    assert jax.device_count() >= size
+

@@ -9,7 +9,8 @@ from its JAX-namespace tags, and ``run_spiral --help``, the TTS CLI's
 voice-conversion CLI's ``inference_vc --help``, the five DiffVC and
 speaker-encoder training CLIs' ``--help``, the HiFi-GAN training CLI's
 ``train_hifigan --help`` and the LibriSpeech data CLI's
-``get_librispeech_data --help`` run.
+``get_librispeech_data --help`` run. The walk takes the data-parallel modules
+(``parallel/``) and ``chip_smoke``'s distributed phases with the rest.
 """
 
 import os
@@ -86,5 +87,5 @@ def test_port_imports_no_jax_package():
                  "utils.msgpack", "utils.archive", "models.spiral.jasper",
                  "models.spiral.ctc_models", "models.spiral.conformer", "models.spiral.augment",
                  "nn.conformer_attention", "cli.get_librispeech_data",
-                 "compat.jax_ctc_models"):
+                 "compat.jax_ctc_models", "parallel.distributed", "parallel.mesh"):
         assert f"tpu_speech_torch.{name}" in proc.stdout, name

@@ -310,6 +310,46 @@ def test_fused_qkv_attention_backward_matches_plain_autograd(cuda, d_head, t, p)
     assert got[0, :, :2 * e].abs().max().item() == 0.0  # dq, dk of the fully padded row
 
 
+@pytest.mark.parametrize("dtype,d_head", [(torch.float32, 64), (torch.float32, 12),
+                                           (torch.bfloat16, 64), (torch.bfloat16, 96)])
+def test_k2_dropout_keyed_by_the_global_row(cuda, dtype, d_head):
+    """A data-parallel rank's rows: the two halves of a batch at offsets
+    b0 = 0 and B/2 give the whole batch's outputs and dqkv bit for bit, and
+    each half matches the plain version at its offset within the K2 limits
+    (float32: forward 1e-4, gradients 1e-4 x max(1, max|plain|); bf16: the
+    bf16 limits); at another offset the masks differ."""
+    b, t, h = 4, 131, 4
+    qkv, mask = _qkv_case(cuda, 3, t, h, d_head, 41 * d_head)
+    qkv = torch.cat([qkv, qkv[1:2]]).to(dtype)  # row 3 repeats row 1: its mask must not
+    mask = torch.cat([mask, mask[1:2]])
+    dout = torch.randn(b, t, h * d_head, generator=torch.Generator().manual_seed(5))
+    dout = dout.to(cuda).to(dtype)
+
+    def run(fn, rows, b0):
+        x = qkv[rows].clone().requires_grad_(True)
+        out = fn(x, h, mask[rows], 0.1, 77, b0)
+        out.backward(dout[rows])
+        return out.detach(), x.grad
+
+    whole = run(fused_qkv_self_attention, slice(0, 4), 0)
+    halves = [run(fused_qkv_self_attention, s, s.start) for s in (slice(0, 2), slice(2, 4))]
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert torch.equal(whole[i], torch.cat([hv[i] for hv in halves]))
+    assert not torch.equal(whole[0][3], whole[0][1])
+    for s, (out, grad) in zip((slice(0, 2), slice(2, 4)), halves):
+        ref, ref_grad = run(qkv_attention_plain, s, s.start)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+            torch.testing.assert_close(grad, ref_grad, rtol=0,
+                                       atol=1e-4 * max(1.0, ref_grad.abs().max().item()))
+        else:
+            for got, want, rtol in ((out, ref, BF16_FWD_RTOL), (grad, ref_grad, BF16_GRAD_RTOL)):
+                torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                           atol=rtol * max(1.0, want.float().abs().max().item()))
+    assert not torch.equal(run(fused_qkv_self_attention, slice(2, 4), 0)[0], halves[1][0])
+
+
 # the kernels' tiles are 64 queries by 64 keys, 16 rows a warp, 8-wide
 # tensor-core fragments: lengths around the tile edges and both path lengths
 EDGE_T = [1, 63, 64, 65, 127, 129, 392, 604]

@@ -455,17 +455,74 @@ def test_every_jax_flag_parses_with_the_jax_default():
         k: v for k, v in vars(jp.parse_args(argv)).items()}.items()
 
 
+class _Reached(Exception):
+    """Raised by a stand-in to stop the run where it was observed."""
+
+
 @pytest.mark.parametrize("flag,value,item", [
-    ("--seq_parallel", "2", 10), ("--fsdp", "true", 10), ("--num_nodes", "2", 10),
-    ("--node_rank", "0", 10), ("--master_addr", "h:1", 10), ("--num_gpus", "2", 10),
-    ("--num_devices", "4", 10),
+    ("--seq_parallel", "2", 11), ("--fsdp", "true", None), ("--num_nodes", "2", None),
+    ("--node_rank", "0", None), ("--master_addr", "h:1", None), ("--num_gpus", "2", None),
+    ("--num_devices", "4", None),
 ])
-def test_unported_flags_stop_the_run_and_name_their_item(tmp_path, flag, value, item):
+def test_unported_flags_stop_the_run_and_name_their_item(tmp_path, monkeypatch, flag, value,
+                                                         item):
+    """Only ``--seq_parallel`` still refuses, naming its Queue 1 item, before
+    any work. The multi-device flags reach the process group or the spawn
+    with the JAX CLI's arguments (``initialize(coordinator_address=
+    --master_addr, num_processes=--num_nodes, process_id=--node_rank)``, seen
+    through stand-ins, so nothing is contacted); ``--num_nodes 2`` with no
+    rendezvous fails with ``require_multiprocess``'s message; ``--fsdp`` reaches
+    the runner's one-rank process group before the optimizer."""
+    from tpu_speech_torch.parallel import distributed
+
+    _toy_pretrain_manifest(str(tmp_path))
     argv = ["--config_name", "spiral_tiny_test", "--device", "cpu",
-            "--model_save_dir", str(tmp_path / "run")]
-    with pytest.raises(SystemExit, match=f"Queue 1 item {item} "):
-        run_spiral.main(argv + [flag, value])
-    assert not os.path.exists(tmp_path / "run")  # refused before any work
+            "--model_save_dir", str(tmp_path / "run"), "--manifest_dir", str(tmp_path)]
+    calls = []
+
+    def record(name):
+        def stand_in(*args, **kw):
+            calls.append((name, args, kw))
+            raise _Reached
+        return stand_in
+
+    monkeypatch.setattr(distributed, "initialize", record("initialize"))
+    monkeypatch.setattr(run_spiral, "_spawn", record("spawn"))
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
+    if flag == "--node_rank":  # the JAX CLI joins only with a coordinator
+        monkeypatch.setenv("MASTER_ADDR", "h")
+    if item is not None:
+        with pytest.raises(SystemExit, match=f"Queue 1 item {item} "):
+            run_spiral.main(argv + [flag, value])
+    elif flag == "--num_nodes":
+        with pytest.raises(RuntimeError, match=r"--num_nodes=2 but only 1 process\(es\) "
+                                               "federated"):
+            run_spiral.main(argv + [flag, value])
+    else:
+        with pytest.raises(_Reached):
+            run_spiral.main(argv + [flag, value])
+    if flag != "--fsdp":
+        assert not os.path.exists(tmp_path / "run")  # stopped before any work
+    if item is not None or flag == "--num_nodes":
+        assert not calls
+        return
+    (name, args, kw), = calls
+    if flag in ("--num_gpus", "--num_devices"):
+        assert name == "spawn" and args[2] == int(value) and args[1].device == "cpu"
+    elif flag == "--fsdp":
+        assert name == "initialize" and kw == {"device": torch.device("cpu")}
+    else:
+        want = {"coordinator_address": "h:1" if flag == "--master_addr" else None,
+                "num_processes": None, "process_id": 0 if flag == "--node_rank" else None,
+                "device": "cpu", "init_method": None}
+        assert name == "initialize" and kw == want
+
+
+def _toy_pretrain_manifest(root):
+    """The runner test's corpus under the tiny pretrain config's manifest name."""
+    manifest, _ = _corpus(root, n=2)
+    os.replace(manifest, os.path.join(root, "manifest.json"))
 
 
 def test_horovod_warns_and_the_test_mode_flag_is_ignored(tmp_path, capsys):

@@ -178,21 +178,35 @@ def test_the_lm_and_the_beam_move_the_transcripts(slice_run):
     assert any(out["beam1"][0]["hyps"])
 
 
-def test_items_9_and_10_still_refuse(tmp_path):
-    """Item 10's flags still refuse before any work. Item 9's streaming flag
-    and configs are ported: ``--streaming_eval`` on an offline config stops
-    at the model, which has no streaming mode."""
+def test_items_9_and_10_still_refuse(tmp_path, monkeypatch):
+    """Of item 10's flags only ``--seq_parallel`` still refuses before any
+    work, now naming item 11; ``--num_nodes 2`` with no rendezvous fails with
+    ``require_multiprocess``'s message; ``--fsdp true`` in test mode reaches
+    the evaluation with ``trainer.fsdp`` set (serving builds no optimizer, so
+    nothing is sharded). Item 9's streaming flag and configs are ported:
+    ``--streaming_eval`` on an offline config stops at the model, which has
+    no streaming mode."""
     argv = ["--model_type", "ctc_finetune", "--run_mode", "test", "--config_name",
             "spiral_tiny_ctc_char", "--device", "cpu", "--model_save_dir",
             str(tmp_path / "run")]
-    for extra, item in ((["--fsdp", "true"], 10), (["--num_nodes", "2"], 10),
-                        (["--seq_parallel", "2"], 10)):
-        with pytest.raises(SystemExit, match=f"Queue 1 item {item} "):
-            run_spiral.main(argv + extra)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(SystemExit, match="Queue 1 item 11 "):
+        run_spiral.main(argv + ["--seq_parallel", "2"])
+    with pytest.raises(RuntimeError, match=r"--num_nodes=2 but only 1 process\(es\) federated"):
+        run_spiral.main(argv + ["--num_nodes", "2"])
     assert not os.path.exists(tmp_path / "run")
+    seen = []
+
+    def evaluate(self, **kw):
+        seen.append(self.cfg.trainer.fsdp)
+        return {"wer": 0.0, "cer": 0.0, "n": 0, "diagnosis_html": "", "rank": 0, "hyps": []}
+
+    monkeypatch.setattr(run_spiral.SpiralFinetuneRunner, "evaluate", evaluate)
+    run_spiral.main(argv + ["--fsdp", "true"])
+    assert seen == [True]
     with pytest.raises(ValueError, match="streaming-mode model"):
         run_spiral.main(argv + ["--streaming_eval", "true"])
-    assert run_spiral.NOT_PORTED.keys().isdisjoint({"streaming_eval"})
+    assert run_spiral.NOT_PORTED.keys() == {"seq_parallel"}
 
 
 def test_subword_config_without_a_tokenizer_file_stops(tmp_path):

@@ -1,7 +1,7 @@
 """SPIRAL launcher for the port: ST2Vec pretraining, CTC finetuning and CTC
 transcription.
 
-Port of ``cli/run_spiral.py`` on one device, with its defaults
+Port of ``cli/run_spiral.py``, with its defaults
 (``--model_type spiral --run_mode train --resume_if_exists true``, the run
 directory ``--model_save_dir``, else ``--log_dir``, else ``logs/spiral``) and
 every one of its flags:
@@ -88,13 +88,35 @@ through the chunk-incremental transcriber of a streaming-mode config
 ``SpiralFinetuneRunner.evaluate_streaming``) and prints ``TEST (streaming):
 WER = ... | CER = ... | N utts``.
 
-Flags that parse but are not ported yet stop the run when set to anything but
-their default, naming the ROADMAP Queue 1 item that will port them (``NOT_PORTED``):
-the multi-device and multi-node modes (item 10). ``--export_model PATH`` (test mode) saves the
-wav -> log-probs graph after the evaluation as a ``torch.export`` program
+Several devices (``:169-190``, ``parallel/``), one process a card: every
+mode runs data-parallel, the training steps equal to one process's on the
+global batch of ``batch_size x ranks``.
+
+- ``--num_devices N`` (``--num_gpus``) starts N local ranks; 0, the default,
+  means every visible card (one process on a one-card machine; with
+  ``--device cpu``, one process, and N means N gloo ranks). On one node they
+  meet at a ``file://`` store in a temporary directory::
+
+    python -m tpu_speech_torch.cli.run_spiral --num_devices 4 \
+        --config_name spiral_base_pretrain_ls960 --manifest_dir D \
+        --model_save_dir OUT
+
+- Several nodes: ``--num_nodes M --node_rank K --master_addr HOST[:PORT]``
+  (or the reference's environment: MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
+  NODE_RANK), with ``--num_devices N`` ranks a node; ``torchrun
+  --nproc_per_node N -m tpu_speech_torch.cli.run_spiral ...`` works too
+  (RANK, LOCAL_RANK, WORLD_SIZE). The process group is joined before any
+  device is used, then ``--num_nodes`` is checked (``require_multiprocess``).
+- ``--fsdp true`` shards the parameters and AdamW's moments over the ranks
+  (FSDP2, ``parallel/mesh.py::shard_state_fsdp``), also in a one-process run.
+
+``--seq_parallel`` is not ported yet: set to anything but its default it
+stops the run, naming its ROADMAP Queue 1 item (``NOT_PORTED``).
+``--export_model PATH`` (test mode) saves the wav -> log-probs graph after
+the evaluation as a ``torch.export`` program
 (``SpiralFinetuneRunner.export_model``), which
-``utils/export.py::load_exported`` runs. ``--use_horovod`` warns and ``--test_mode`` is
-ignored, as in the JAX CLI.
+``utils/export.py::load_exported`` runs. ``--use_horovod`` warns and
+``--test_mode`` is ignored, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -103,11 +125,18 @@ import argparse
 import contextlib
 import glob
 import os
+import shutil
 import sys
+import tempfile
+
+import torch
 
 from tpu_speech_torch.configs.spiral import CONFIGS
 from tpu_speech_torch.data.spiral import read_manifest
 from tpu_speech_torch.eval.ctc_beam import NGramLM
+from tpu_speech_torch.ops import _build
+from tpu_speech_torch.parallel import distributed
+from tpu_speech_torch.parallel.mesh import NEXT_ITEM
 from tpu_speech_torch.text.tokenizers import CharTokenizer, SubwordTokenizer
 from tpu_speech_torch.train.spiral_runner import (
     SpiralFinetuneRunner,
@@ -126,10 +155,8 @@ from tpu_speech_torch.utils.surgery import parse_skip_vars
 
 # flag -> the ROADMAP Queue 1 item that ports it; any value but the default
 # stops the run
-NOT_PORTED = {
-    "seq_parallel": 10, "fsdp": 10, "num_nodes": 10, "node_rank": 10, "master_addr": 10,
-}
-_ITEMS = {10: "distributed modes"}
+NOT_PORTED = {"seq_parallel": NEXT_ITEM[0]}
+_ITEMS = {NEXT_ITEM[0]: NEXT_ITEM[1]}
 
 
 def str2bool(v):
@@ -177,17 +204,24 @@ def build_parser():
     p.add_argument("--structured_config", type=str2bool, default=True,
                    help="false: the config is the YAML file <config_path>/<name>.yaml")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="devices to use: 0 or 1 (one card; more is item 10)")
+                   help="local ranks, one card each (0 = every visible card; with "
+                   "--device cpu, 0 = one process and N = N gloo ranks)")
     p.add_argument("--num_gpus", type=int, default=0, help="alias of --num_devices")
     p.add_argument("--use_horovod", type=str2bool, default=False,
                    help="accepted for launch-script parity; warns")
     p.add_argument("--test_mode", type=str, default="multi_gpu",
                    help="accepted and ignored, as in the JAX CLI")
-    p.add_argument("--seq_parallel", type=int, default=0, help="not ported (item 10)")
-    p.add_argument("--fsdp", type=str2bool, default=False, help="not ported (item 10)")
-    p.add_argument("--num_nodes", type=int, default=1, help="more than 1: item 10")
-    p.add_argument("--node_rank", type=int, default=-1, help="not ported (item 10)")
-    p.add_argument("--master_addr", type=str, default="", help="not ported (item 10)")
+    p.add_argument("--seq_parallel", type=int, default=0,
+                   help=f"not ported (item {NEXT_ITEM[0]})")
+    p.add_argument("--fsdp", type=str2bool, default=False,
+                   help="shard the parameters and optimizer state over the ranks (FSDP2)")
+    p.add_argument("--num_nodes", type=int, default=1,
+                   help="hosts in the run; more than 1 needs MASTER_ADDR/MASTER_PORT/"
+                   "WORLD_SIZE/NODE_RANK or --master_addr/--node_rank")
+    p.add_argument("--node_rank", type=int, default=-1,
+                   help="this host's rank (overrides NODE_RANK)")
+    p.add_argument("--master_addr", type=str, default="",
+                   help="coordinator host[:port] (overrides MASTER_ADDR)")
     p.add_argument("--resume_if_exists", type=str2bool, default=True,
                    help="continue from the run's latest step checkpoint")
     p.add_argument("--run_mode", type=str, default="train", choices=["train", "test"])
@@ -252,9 +286,77 @@ def _refuse_unported(args, parser) -> None:
         if getattr(args, flag) != parser.get_default(flag):
             raise SystemExit(f"--{flag}={getattr(args, flag)} is not ported yet: ROADMAP.md "
                              f"Queue 1 item {item} ({_ITEMS[item]})")
-    if max(args.num_devices, args.num_gpus) > 1:
-        raise SystemExit("more than one device is not ported yet: ROADMAP.md Queue 1 "
-                         f"item 10 ({_ITEMS[10]})")
+
+
+def local_ranks(args) -> int:
+    """The ranks this launch starts on this node: ``--num_devices`` (or
+    ``--num_gpus``), 0 meaning every visible card (one process on the
+    CPU)."""
+    n = args.num_devices or args.num_gpus
+    if n:
+        return n
+    return torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+
+
+def _spawn(argv, args, n: int):
+    """Start ``n`` local ranks of this command (``torch.multiprocessing``)
+    and return rank 0's result; a failing rank fails the launch. One node
+    meets at a ``file://`` store in a temporary directory; several nodes at
+    the coordinator. On the card the kernels are built here first, so the
+    ranks only load them."""
+    import torch.multiprocessing as mp
+
+    if torch.device(args.device).type == "cuda":
+        _build.library()  # built once here; the ranks load it
+    tmp = tempfile.mkdtemp(prefix="run_spiral_")
+    try:
+        rv = distributed.rendezvous(args.master_addr or None,
+                                    args.num_nodes if args.num_nodes > 1 else None,
+                                    args.node_rank if args.node_rank >= 0 else None)
+        nodes = args.num_nodes if args.num_nodes > 1 else rv["world"]
+        launch = {"local_world": n, "world": nodes * n, "rank0": rv["rank"] * n,
+                  "init_method": (f"tcp://{rv['coordinator']}" if rv["coordinator"]
+                                  else f"file://{os.path.join(tmp, 'rendezvous')}"),
+                  "result": os.path.join(tmp, "result.pt"), "threads": torch.get_num_threads()}
+        mp.spawn(_rank_main, args=(list(argv), launch), nprocs=n, join=True)
+        return torch.load(launch["result"], weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_main(local_rank: int, argv, launch: dict) -> None:
+    """One spawned rank: torchrun's variables, then ``main``; rank 0 keeps
+    its result for the launcher."""
+    torch.set_num_threads(launch["threads"])
+    os.environ.update(LOCAL_RANK=str(local_rank), LOCAL_WORLD_SIZE=str(launch["local_world"]),
+                      RANK=str(launch["rank0"] + local_rank), WORLD_SIZE=str(launch["world"]))
+    out = main(argv, _init_method=launch["init_method"])
+    if distributed.is_primary():
+        torch.save(out, launch["result"])
+    distributed.shutdown()
+
+
+def join_process_group(args, init_method=None) -> None:
+    """Join the process group before any device is used (``:180-190``): a
+    spawned rank, or a launch that names a coordinator (``--master_addr``,
+    MASTER_ADDR, which ``torchrun`` sets), with the JAX CLI's arguments; then
+    fail if ``--num_nodes`` did not federate (with no coordinator, it
+    cannot)."""
+    if init_method is not None:
+        distributed.initialize(device=args.device, init_method=init_method)
+    elif args.master_addr or os.environ.get("MASTER_ADDR"):
+        distributed.initialize(
+            coordinator_address=args.master_addr or None,
+            num_processes=args.num_nodes if args.num_nodes > 1 else None,
+            process_id=args.node_rank if args.node_rank >= 0 else None,
+            device=args.device, init_method=None,
+        )
+    distributed.require_multiprocess(args.num_nodes)
+    if torch.device(args.device).type == "cuda" and distributed.process_count() > 1:
+        # one build a node, before any rank needs it (the others load it)
+        if distributed.rendezvous()["local_rank"] == 0:
+            _build.library()
+        distributed.barrier()
 
 
 def _config(name: str):
@@ -307,12 +409,18 @@ def _epochs(cfg, runner, profile: bool):
         yield epoch, loss, val
 
 
+def _say(*args, **kw) -> None:
+    """print on the primary rank only."""
+    if distributed.is_primary():
+        print(*args, **kw)
+
+
 def _finish(runner, out: dict) -> dict:
     runner.ckpt.wait()  # drain the last checkpoint write
     out["state_dict"] = runner.save_state_dict()
-    print(f"saved model state_dict: {out['state_dict']}")
+    _say(f"saved model state_dict: {out['state_dict']}")
     out["archive"] = runner.save_archive()
-    print(f"saved model archive: {out['archive']}")
+    _say(f"saved model archive: {out['archive']}")
     out.update(steps=runner.history, iteration=runner.iteration, epoch=runner.epoch,
                log_dir=runner.log_dir)
     return out
@@ -324,7 +432,7 @@ def train_st2vec(cfg, runner: SpiralPretrainRunner, profile: bool = False) -> di
     for _, loss, v in _epochs(cfg, runner, profile):
         if v is not None and v == v:  # validation_ds configured and not empty
             val = runner.last_validation
-            print(f"Validation: loss = {v:.4f}", flush=True)
+            _say(f"Validation: loss = {v:.4f}", flush=True)
     return _finish(runner, {"loss": loss, "validation": val})
 
 
@@ -334,17 +442,25 @@ def train_ctc(cfg, runner: SpiralFinetuneRunner, profile: bool = False) -> dict:
     for _, loss, v in _epochs(cfg, runner, profile):  # train_epoch prints the epoch's line
         if v:
             val = v
-            print(f"Validation: WER = {v['wer']:.4f} | CER = {v['cer']:.4f}", flush=True)
+            _say(f"Validation: WER = {v['wer']:.4f} | CER = {v['cer']:.4f}", flush=True)
     return _finish(runner, {"loss": loss, "validation": val})
 
 
-def main(argv=None) -> dict:
+def main(argv=None, _init_method=None) -> dict:
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else argv
     args = parser.parse_args(args=argv)
     _refuse_unported(args, parser)
+    if not (args.master_addr or os.environ.get("MASTER_ADDR")):
+        distributed.require_multiprocess(args.num_nodes)  # several nodes need a coordinator
+    n_local = local_ranks(args)
+    if n_local > 1 and _init_method is None and not os.environ.get("RANK"):
+        return _spawn(argv, args, n_local)
+    join_process_group(args, _init_method)
     if args.use_horovod:
-        print("WARNING: --use_horovod requested; the port runs on one card, so the flag "
-              "is accepted for launch-script parity and has no effect.", file=sys.stderr)
+        _say("WARNING: --use_horovod requested; NCCL collectives through torch.distributed "
+             "are the port's only backend, so the flag is accepted for launch-script "
+             "parity and has no effect (the lr rescale counts the ranks).", file=sys.stderr)
     run_dir = args.model_save_dir or args.log_dir or "logs/spiral"
     skip_vars = parse_skip_vars(args.load_model_skip_var)
 
@@ -361,7 +477,7 @@ def main(argv=None) -> dict:
             raise SystemExit("--use_chkpt_hparams: the archive's config has no model "
                              "section to rebuild")
         cfg.model = model_cfg
-        print(f"model hparams taken from the archive config ({args.init_archive})")
+        _say(f"model hparams taken from the archive config ({args.init_archive})")
     manifest_dir = args.manifest_dir or args.data_dir
     if manifest_dir:
         for ds in (cfg.model.train_ds, cfg.model.validation_ds, cfg.model.test_ds):
@@ -373,6 +489,8 @@ def main(argv=None) -> dict:
         cfg.model.test_ds.manifest_filepath = args.test_manifest
     if args.max_epochs:
         cfg.trainer.max_epochs = args.max_epochs
+    if args.fsdp:
+        cfg.trainer.fsdp = True
     if args.dev_data_dup_factor > 0 and cfg.model.validation_ds is not None:
         cfg.model.validation_ds.dup_factor = args.dev_data_dup_factor
 
@@ -380,7 +498,14 @@ def main(argv=None) -> dict:
                      resume_if_exists=args.resume_if_exists,
                      tensorboard_dir=args.tensorboard_dir or None)
     exp.save_config(cfg)
+    try:
+        return _run(args, cfg, exp, run_dir, skip_vars)
+    finally:
+        exp.close()  # flush TensorBoard before a spawned rank exits
 
+
+def _run(args, cfg, exp, run_dir, skip_vars) -> dict:
+    """The mode the flags ask for, from a loaded config."""
     if args.model_type in ("spiral", "st2vec"):
         if args.run_mode != "train":
             raise SystemExit(f"--model_type {args.model_type} runs --run_mode train")
@@ -389,9 +514,9 @@ def main(argv=None) -> dict:
         if args.init_archive:
             runner.restore_from_archive(args.init_archive, partial=args.init_model_partial,
                                         skip=skip_vars)
-            print(f"Restored weights from archive: {args.init_archive}")
+            _say(f"Restored weights from archive: {args.init_archive}")
         if args.resume_if_exists and runner.resume_if_exists():
-            print(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
+            _say(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
         return train_st2vec(cfg, runner, profile=args.profile)
 
     if args.run_mode == "train":
@@ -414,24 +539,24 @@ def main(argv=None) -> dict:
     runner = SpiralFinetuneRunner(cfg, run_dir, tokenizer, device=args.device, exp=exp,
                                   ckpt_dir=args.chkpt_dir)
     if cfg.model.pretrain_chkpt_path:
-        print(f"Loaded the pretrained encoder from: {cfg.model.pretrain_chkpt_path}")
+        _say(f"Loaded the pretrained encoder from: {cfg.model.pretrain_chkpt_path}")
     if args.init_archive:
         runner.restore_from_archive(args.init_archive, partial=args.init_model_partial,
                                     skip=skip_vars)
-        print(f"Restored weights from archive: {args.init_archive}")
+        _say(f"Restored weights from archive: {args.init_archive}")
     resume = args.resume_if_exists
     if args.run_mode == "test" and args.init_chkpt_dir and args.init_chkpt_file:
         path = get_ckpt_path(args.init_chkpt_dir, args.init_chkpt_file)
         runner.restore_from_checkpoint(path, partial=args.init_model_partial, skip=skip_vars)
-        print(f"Loaded test-mode weights from: {path}")
+        _say(f"Loaded test-mode weights from: {path}")
         resume = False  # explicit test weights take priority over a run's checkpoints
     if resume and runner.resume_if_exists():
-        print(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
+        _say(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
     if args.run_mode == "train":
         return train_ctc(cfg, runner, profile=args.profile)
     if args.streaming_eval:
         results = runner.evaluate_streaming()
-        print(f"TEST (streaming): WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
+        _say(f"TEST (streaming): WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
               f"| {results['n']} utts")
         return results
 
@@ -441,17 +566,20 @@ def main(argv=None) -> dict:
         # included (cli/run_spiral.py:402-416)
         texts = [e["text"] for e in read_manifest(args.lm_manifest, 0.0, None)]
         lm = NGramLM.from_texts(texts, runner.tokenizer, order=args.lm_order)
-        print(f"n-gram LM (order {args.lm_order}) fit on {len(texts)} transcripts")
+        _say(f"n-gram LM (order {args.lm_order}) fit on {len(texts)} transcripts")
     results = runner.evaluate(
         save_logits_dir=os.path.join(runner.log_dir, "logits") if args.save_logits else None,
         beam_width=args.beam_size, lm=lm, lm_alpha=args.lm_alpha,
     )
-    print(f"TEST: WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
+    _say(f"TEST: WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
           f"| {results['n']} utts")
-    print(f"per-utterance diagnosis: {results['diagnosis_html']}")
-    if args.export_model:
+    _say(f"per-utterance diagnosis: {results['diagnosis_html']}")
+    if distributed.process_count() > 1:
+        print(f"rank {results['rank']}: decoded {len(results['hyps'])} utts in "
+              f"{results['decode_s']:.3f} s", flush=True)
+    if args.export_model and distributed.is_primary():
         results["exported"] = runner.export_model(args.export_model)
-        print(f"exported: {results['exported']}")
+        _say(f"exported: {results['exported']}")
     return results
 
 

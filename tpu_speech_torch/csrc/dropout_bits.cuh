@@ -2,9 +2,11 @@
 // fused_attention.cu (fp32 kernels) and fused_attention_sm90.cu (bf16
 // kernels), mirrored bit for bit by the plain PyTorch version
 // (ops/fused_attention.py::dropout_bits). The bits of element idx = i*T + j
-// (query i, key j) of head bh = b*H + h are
+// (query i, key j) of head bh = (b0 + b)*H + h are
 //     dropout_bits(dropout_stream(seed, bh), idx)
-// and the element is kept when they are >= threshold.
+// and the element is kept when they are >= threshold. b0 is the global batch
+// row of the call's first row (0 on one device; rank * local_B for a
+// data-parallel rank), which the entry points take as bh0 = b0*H.
 #pragma once
 
 __device__ __forceinline__ unsigned fmix32(unsigned h) {

@@ -22,7 +22,7 @@
 //
 // Dropout. The TPU kernel draws its keep bits from the core's PRNG, which
 // nothing else can reproduce. Here the bits are a counter-based function
-// of (seed, b*H + h, i*T + j), defined once in dropout_bits.cuh
+// of (seed, bh0 + b*H + h, i*T + j), defined once in dropout_bits.cuh
 // (dropout_stream / dropout_bits) and mirrored bit for bit by the plain
 // PyTorch version (ops/fused_attention.py::dropout_keep_mask). Every kernel
 // and every tiling therefore regenerates the same mask; nothing (B, H, T, T)
@@ -324,7 +324,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, int ld,
                 const unsigned char* __restrict__ key_pad,
                 float* __restrict__ out, float* __restrict__ lse, int T, int H,
-                unsigned seed, unsigned thresh, float drop_scale) {
+                unsigned seed, unsigned bh0, unsigned thresh, float drop_scale) {
   constexpr int DP = padded(D);
   constexpr int SS = DP + 4;
   constexpr int KD = DP / 8;  // 8-wide slabs of d: the k-steps of S, the n-tiles of out
@@ -345,7 +345,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kg = k + head;
   const float* vg = v + head;
   const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
-  const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
+  const unsigned stream = thresh ? dropout_stream(seed, bh0 + (unsigned)bh) : 0u;
   const int n_tiles = (T + BK - 1) / BK;
 
   stage_rows<D, DP>(qs, q + head, row, q0, T, tid);
@@ -508,7 +508,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, float* __restrict__ dst, int ld_grad,
-                     int T, int H, unsigned seed, unsigned thresh, float drop_scale,
+                     int T, int H, unsigned seed, unsigned bh0, unsigned thresh, float drop_scale,
                      float inv_t) {
   constexpr int DP = padded(D);
   constexpr int SS = DP + 4;
@@ -537,7 +537,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int TQ = (T + BQ - 1) / BQ * BQ;  // the scratch's row length
   float* dsT = dst + (long long)bh * TQ * TQ;
   const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
-  const unsigned stream = thresh ? dropout_stream(seed, (unsigned)bh) : 0u;
+  const unsigned stream = thresh ? dropout_stream(seed, bh0 + (unsigned)bh) : 0u;
   const int n_tiles = (T + BQ - 1) / BQ;
 
   stage_rows<D, DP>(ks, k + head, row, k0, T, tid);
@@ -764,20 +764,20 @@ bool operands_ok(const Operands<X>& a, bool backward) {
 
 template <int D>
 int launch_fwd(const Operands<float>& a, const unsigned char* key_pad, float* out,
-               float* lse, int B, int T, int H, unsigned seed, unsigned thresh,
+               float* lse, int B, int T, int H, unsigned seed, unsigned bh0, unsigned thresh,
                float drop_scale, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<D>();
   cudaError_t err = allow_smem(attn_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, B * H);
   attn_fwd_kernel<D><<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.ld, key_pad, out,
-                                                 lse, T, H, seed, thresh, drop_scale);
+                                                 lse, T, H, seed, bh0, thresh, drop_scale);
   return cudaGetLastError();
 }
 template <int D>
 int launch_bwd(const Operands<float>& a, const unsigned char* key_pad, const float* out,
                const float* dout, const float* lse, float* delta, int B, int T,
-               int H, unsigned seed, unsigned thresh, float drop_scale,
+               int H, unsigned seed, unsigned bh0, unsigned thresh, float drop_scale,
                cudaStream_t stream) {
   // queries per pass of the dK/dV kernel: 16 at d 96, whose dK and dV
   // accumulators take 96 registers
@@ -795,7 +795,7 @@ int launch_bwd(const Operands<float>& a, const unsigned char* key_pad, const flo
   const dim3 grid_kv((T + BK - 1) / BK, B * H);
   attn_bwd_dkdv_kernel<D, CH><<<grid_kv, NT, smem_kv, stream>>>(
       a.q, a.k, a.v, a.ld, key_pad, dout, lse, delta, a.dk, a.dv, dst, a.ld_grad, T,
-      H, seed, thresh, drop_scale, inv_t);
+      H, seed, bh0, thresh, drop_scale, inv_t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -810,7 +810,7 @@ int launch_bwd(const Operands<float>& a, const unsigned char* key_pad, const flo
 // One forward call in element type X over the head widths X is built for.
 template <typename X>
 int attention_fwd(const void* q, const void* k, const void* v, int ld, const void* key_pad,
-                  void* out, void* lse, int B, int T, int H, int D, unsigned seed,
+                  void* out, void* lse, int B, int T, int H, int D, unsigned seed, unsigned bh0,
                   unsigned thresh, float drop_scale, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   const Operands<X> a{static_cast<const X*>(q), static_cast<const X*>(k),
@@ -821,12 +821,12 @@ int attention_fwd(const void* q, const void* k, const void* v, int ld, const voi
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8: return launch_fwd<8>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 12: return launch_fwd<12>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 16: return launch_fwd<16>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 32: return launch_fwd<32>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 64: return launch_fwd<64>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
-    case 96: return launch_fwd<96>(a, kp, o, l, B, T, H, seed, thresh, drop_scale, s);
+    case 8: return launch_fwd<8>(a, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 12: return launch_fwd<12>(a, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 16: return launch_fwd<16>(a, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 32: return launch_fwd<32>(a, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 64: return launch_fwd<64>(a, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 96: return launch_fwd<96>(a, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -835,7 +835,7 @@ template <typename X>
 int attention_bwd(const void* q, const void* k, const void* v, int ld, const void* key_pad,
                   const void* out, const void* dout, const void* lse, void* delta,
                   void* dq, void* dk, void* dv, int ld_grad, int B, int T, int H, int D,
-                  unsigned seed, unsigned thresh, float drop_scale, void* stream) {
+                  unsigned seed, unsigned bh0, unsigned thresh, float drop_scale, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   const Operands<X> a{static_cast<const X*>(q), static_cast<const X*>(k),
                       static_cast<const X*>(v), ld, static_cast<X*>(dq),
@@ -849,12 +849,12 @@ int attention_bwd(const void* q, const void* k, const void* v, int ld, const voi
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 8: return launch_bwd<8>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
-    case 12: return launch_bwd<12>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
-    case 16: return launch_bwd<16>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
-    case 32: return launch_bwd<32>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
-    case 64: return launch_bwd<64>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
-    case 96: return launch_bwd<96>(a, kp, o, g, l, dl, B, T, H, seed, thresh, drop_scale, s);
+    case 8: return launch_bwd<8>(a, kp, o, g, l, dl, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 12: return launch_bwd<12>(a, kp, o, g, l, dl, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 16: return launch_bwd<16>(a, kp, o, g, l, dl, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 32: return launch_bwd<32>(a, kp, o, g, l, dl, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 64: return launch_bwd<64>(a, kp, o, g, l, dl, B, T, H, seed, bh0, thresh, drop_scale, s);
+    case 96: return launch_bwd<96>(a, kp, o, g, l, dl, B, T, H, seed, bh0, thresh, drop_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -863,12 +863,13 @@ int attention_bwd(const void* q, const void* k, const void* v, int ld, const voi
 
 // out (B, T, H*D); lse (B, H, T) or null (no gradient needed). q, k, v rows
 // of width >= H*D at stride ld, 16-byte aligned. fp32; D in 8, 12, 16, 32, 64, 96.
+// The dropout key of head h of row b is bh0 + b*H + h (dropout_bits.cuh).
 extern "C" int tsx_attention_fwd(const void* q, const void* k, const void* v,
                                  int ld, const void* key_pad, void* out,
                                  void* lse, int B, int T, int H, int D,
-                                 unsigned seed, unsigned thresh, float drop_scale,
+                                 unsigned seed, unsigned bh0, unsigned thresh, float drop_scale,
                                  void* stream) {
-  return attention_fwd<float>(q, k, v, ld, key_pad, out, lse, B, T, H, D, seed, thresh,
+  return attention_fwd<float>(q, k, v, ld, key_pad, out, lse, B, T, H, D, seed, bh0, thresh,
                               drop_scale, stream);
 }
 
@@ -879,8 +880,8 @@ extern "C" int tsx_attention_bwd(const void* q, const void* k, const void* v,
                                  int ld, const void* key_pad, const void* out,
                                  const void* dout, const void* lse, void* delta,
                                  void* dq, void* dk, void* dv, int ld_grad, int B,
-                                 int T, int H, int D, unsigned seed,
+                                 int T, int H, int D, unsigned seed, unsigned bh0,
                                  unsigned thresh, float drop_scale, void* stream) {
   return attention_bwd<float>(q, k, v, ld, key_pad, out, dout, lse, delta, dq, dk, dv,
-                              ld_grad, B, T, H, D, seed, thresh, drop_scale, stream);
+                              ld_grad, B, T, H, D, seed, bh0, thresh, drop_scale, stream);
 }

@@ -372,8 +372,8 @@ attn_fwd_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
                      __grid_constant__ const CUtensorMap map_k,
                      __grid_constant__ const CUtensorMap map_v,
                      const unsigned char* __restrict__ key_pad, bf16* __restrict__ out,
-                     float* __restrict__ lse, int T, int H, unsigned seed, unsigned thresh,
-                     float drop_scale) {
+                     float* __restrict__ lse, int T, int H, unsigned seed, unsigned bh0,
+                     unsigned thresh, float drop_scale) {
   using TL = Tile<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);
@@ -387,7 +387,7 @@ attn_fwd_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
   const int q0 = blockIdx.x * TILE, col = h * D;
   const int n_tiles = (T + TILE - 1) / TILE;
   const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
-  const unsigned stream = DROP ? dropout_stream(seed, (unsigned)bh) : 0u;
+  const unsigned stream = DROP ? dropout_stream(seed, bh0 + (unsigned)bh) : 0u;
 
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) mbar_init(bar + i, 1);
@@ -574,7 +574,7 @@ attn_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
                         const bf16* __restrict__ out, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, float* __restrict__ stats,
                         bf16* __restrict__ dq, int ld_grad, int T, int H, unsigned seed,
-                        unsigned thresh, float drop_scale, float inv_t) {
+                        unsigned bh0, unsigned thresh, float drop_scale, float inv_t) {
   using TL = Tile<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);
@@ -590,7 +590,7 @@ attn_bwd_dq_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
   const int q0 = blockIdx.x * TILE, col = h * D, E = H * D;
   const int n_tiles = (T + TILE - 1) / TILE;
   const unsigned char* pad = key_pad ? key_pad + (long long)b * T : nullptr;
-  const unsigned stream = DROP ? dropout_stream(seed, (unsigned)bh) : 0u;
+  const unsigned stream = DROP ? dropout_stream(seed, bh0 + (unsigned)bh) : 0u;
 
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) mbar_init(bar + i, 1);
@@ -721,7 +721,7 @@ attn_bwd_dkdv_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
                           __grid_constant__ const CUtensorMap map_stats,
                           const unsigned char* __restrict__ key_pad, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int ld_grad, int T, int H, unsigned seed,
-                          unsigned thresh, float drop_scale, float inv_t) {
+                          unsigned bh0, unsigned thresh, float drop_scale, float inv_t) {
   using TL = Tile<D>;
   constexpr unsigned ROW_STATS = 2 * 4 * TILE;  // L and Delta of a query tile, bytes
   extern __shared__ unsigned char smem_raw[];
@@ -739,7 +739,7 @@ attn_bwd_dkdv_sm90_kernel(__grid_constant__ const CUtensorMap map_q,
   const int n_tiles = (T + TILE - 1) / TILE;
   const int tp = n_tiles * TILE;
   const int stat0 = bh * 2 * tp;  // L (tp floats) and Delta (tp) of (b, h) start here
-  const unsigned stream = DROP ? dropout_stream(seed, (unsigned)bh) : 0u;
+  const unsigned stream = DROP ? dropout_stream(seed, bh0 + (unsigned)bh) : 0u;
 
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) mbar_init(bar + i, 1);
@@ -896,7 +896,7 @@ bool encode_qkv(CUtensorMap (&maps)[3], const void* q, const void* k, const void
 
 template <int D>
 int launch_fwd(const CUtensorMap (&maps)[3], const unsigned char* key_pad, bf16* out, float* lse,
-               int B, int T, int H, unsigned seed, unsigned thresh, float drop_scale,
+               int B, int T, int H, unsigned seed, unsigned bh0, unsigned thresh, float drop_scale,
                cudaStream_t stream, int dev) {
   static std::atomic<unsigned long long> smem_set[2];  // without, with dropout
   constexpr size_t smem = fwd_smem_bytes<D>();
@@ -904,7 +904,7 @@ int launch_fwd(const CUtensorMap (&maps)[3], const unsigned char* key_pad, bf16*
   const cudaError_t err = allow_smem(kernel, smem, smem_set[thresh != 0], dev);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + TILE - 1) / TILE, B * H);
-  kernel<<<grid, NT, smem, stream>>>(maps[0], maps[1], maps[2], key_pad, out, lse, T, H, seed,
+  kernel<<<grid, NT, smem, stream>>>(maps[0], maps[1], maps[2], key_pad, out, lse, T, H, seed, bh0,
                                      thresh, drop_scale);
   return cudaGetLastError();
 }
@@ -913,7 +913,7 @@ template <int D>
 int launch_bwd(const CUtensorMap (&maps)[3], const CUtensorMap& map_do,
                const CUtensorMap& map_stats, const unsigned char* key_pad, const bf16* out,
                const bf16* dout, const float* lse, float* stats, bf16* dq, bf16* dk, bf16* dv,
-               int ld_grad, int B, int T, int H, unsigned seed, unsigned thresh,
+               int ld_grad, int B, int T, int H, unsigned seed, unsigned bh0, unsigned thresh,
                float drop_scale, cudaStream_t stream, int dev) {
   static std::atomic<unsigned long long> smem_set[2][2];  // [dQ, dK/dV][without, with dropout]
   const float inv_t = 1.f / (float)T;
@@ -924,7 +924,7 @@ int launch_bwd(const CUtensorMap (&maps)[3], const CUtensorMap& map_do,
   cudaError_t err = allow_smem(dq_kernel, smem_q, smem_set[0][thresh != 0], dev);
   if (err != cudaSuccess) return err;
   dq_kernel<<<grid, NT, smem_q, stream>>>(maps[0], maps[1], maps[2], map_do, key_pad, out, dout,
-                                          lse, stats, dq, ld_grad, T, H, seed, thresh,
+                                          lse, stats, dq, ld_grad, T, H, seed, bh0, thresh,
                                           drop_scale, inv_t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -935,7 +935,7 @@ int launch_bwd(const CUtensorMap (&maps)[3], const CUtensorMap& map_do,
   err = allow_smem(kv_kernel, smem_kv, smem_set[1][thresh != 0], dev);
   if (err != cudaSuccess) return err;
   kv_kernel<<<grid, NT, smem_kv, stream>>>(maps[0], maps[1], maps[2], map_do, map_stats, key_pad,
-                                           dk, dv, ld_grad, T, H, seed, thresh, drop_scale,
+                                           dk, dv, ld_grad, T, H, seed, bh0, thresh, drop_scale,
                                            inv_t);
   return cudaGetLastError();
 }
@@ -947,7 +947,7 @@ int launch_bwd(const CUtensorMap (&maps)[3], const CUtensorMap& map_do,
 // as out and lse. D in 16, 32, 64, 96.
 extern "C" int tsx_attention_fwd_bf16(const void* q, const void* k, const void* v, int ld,
                                       const void* key_pad, void* out, void* lse, int B, int T,
-                                      int H, int D, unsigned seed, unsigned thresh,
+                                      int H, int D, unsigned seed, unsigned bh0, unsigned thresh,
                                       float drop_scale, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (D != 16 && D != 32 && D != 64 && D != 96) return cudaErrorInvalidValue;
@@ -964,10 +964,10 @@ extern "C" int tsx_attention_fwd_bf16(const void* q, const void* k, const void* 
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_fwd<16>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
-    case 32: return launch_fwd<32>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
-    case 64: return launch_fwd<64>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
-    default: return launch_fwd<96>(maps, kp, o, l, B, T, H, seed, thresh, drop_scale, s, dev);
+    case 16: return launch_fwd<16>(maps, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s, dev);
+    case 32: return launch_fwd<32>(maps, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s, dev);
+    case 64: return launch_fwd<64>(maps, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s, dev);
+    default: return launch_fwd<96>(maps, kp, o, l, B, T, H, seed, bh0, thresh, drop_scale, s, dev);
   }
 }
 
@@ -980,7 +980,8 @@ extern "C" int tsx_attention_bwd_bf16(const void* q, const void* k, const void* 
                                       const void* key_pad, const void* out, const void* dout,
                                       const void* lse, void* delta, void* dq, void* dk, void* dv,
                                       int ld_grad, int B, int T, int H, int D, unsigned seed,
-                                      unsigned thresh, float drop_scale, void* stream) {
+                                      unsigned bh0, unsigned thresh, float drop_scale,
+                                      void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (D != 16 && D != 32 && D != 64 && D != 96) return cudaErrorInvalidValue;
   const uintptr_t grads = reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
@@ -1008,15 +1009,15 @@ extern "C" int tsx_attention_bwd_bf16(const void* q, const void* k, const void* 
   switch (D) {
     case 16:
       return launch_bwd<16>(maps, map_do, map_stats, kp, o, g, l, dl, gq, gk, gv, ld_grad,
-                            B, T, H, seed, thresh, drop_scale, s, dev);
+                            B, T, H, seed, bh0, thresh, drop_scale, s, dev);
     case 32:
       return launch_bwd<32>(maps, map_do, map_stats, kp, o, g, l, dl, gq, gk, gv, ld_grad,
-                            B, T, H, seed, thresh, drop_scale, s, dev);
+                            B, T, H, seed, bh0, thresh, drop_scale, s, dev);
     case 64:
       return launch_bwd<64>(maps, map_do, map_stats, kp, o, g, l, dl, gq, gk, gv, ld_grad,
-                            B, T, H, seed, thresh, drop_scale, s, dev);
+                            B, T, H, seed, bh0, thresh, drop_scale, s, dev);
     default:
       return launch_bwd<96>(maps, map_do, map_stats, kp, o, g, l, dl, gq, gk, gv, ld_grad,
-                            B, T, H, seed, thresh, drop_scale, s, dev);
+                            B, T, H, seed, bh0, thresh, drop_scale, s, dev);
   }
 }

@@ -10,7 +10,12 @@ JAX package; each conv transposes to PyTorch's (B, C, T) around
 BatchNorm follows flax's ``nn.BatchNorm`` in training: batch statistics over
 (B, T), padded frames included, and the running variance updated with the
 BIASED batch variance (``FlaxBatchNorm1d``); PyTorch's ``nn.BatchNorm1d``
-stores the unbiased one. Dropout draws from an explicit ``DropoutRng``.
+stores the unbiased one. Over N data-parallel ranks the statistics are
+those of the global batch, as flax computes them over the whole sharded
+array: the moments' sums are all-reduced in the forward and their gradients
+in the backward (``_GlobalMoments``), so every rank normalizes alike and
+keeps equal running statistics. Dropout draws from an explicit
+``DropoutRng``.
 
 ``causal=True`` is the streaming-trainable mode (``Conv1dTF:51``): the
 time pad is (k - 1, 0), so output frame t reads inputs up to t * stride only.
@@ -28,6 +33,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpu_speech_torch.parallel import distributed
 
 from tpu_speech_torch.models.spiral.dropout import dropout
 
@@ -79,6 +86,32 @@ class Conv1dTF(nn.Module):
         return y, lens, pad_mask
 
 
+class _GlobalMoments(torch.autograd.Function):
+    """(E[x], E[x^2]) per channel of x (B, C, T) over the global batch:
+    the local sums and count all-reduced in one call. The backward sums the
+    moments' gradients over the ranks (each rank's loss is its piece of the
+    global loss) before the local chain rule."""
+
+    @staticmethod
+    def forward(ctx, x):
+        c = x.shape[1]
+        sums = torch.cat([x.sum(dim=(0, 2)), x.square().sum(dim=(0, 2)),
+                          x.new_tensor([x.shape[0] * x.shape[2]])])
+        distributed.all_reduce_(sums)
+        n = sums[2 * c]
+        ctx.save_for_backward(x, n)
+        return sums[:c] / n, sums[c:2 * c] / n
+
+    @staticmethod
+    def backward(ctx, g_mean, g_mean2):
+        x, n = ctx.saved_tensors
+        c = x.shape[1]
+        g = torch.cat([torch.zeros(c, device=x.device) if g is None else g
+                       for g in (g_mean, g_mean2)])
+        distributed.all_reduce_(g)
+        return (g[:c, None] + 2.0 * x * g[c:, None]) / n
+
+
 class FlaxBatchNorm1d(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` (same parameters, buffers and names) with flax's
     training semantics (``flax.linen.BatchNorm``, use_fast_variance):
@@ -96,8 +129,11 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2))
-        mean2 = xf.square().mean(dim=(0, 2))
+        if distributed.process_count() > 1:
+            mean, mean2 = _GlobalMoments.apply(xf)
+        else:
+            mean = xf.mean(dim=(0, 2))
+            mean2 = xf.square().mean(dim=(0, 2))
         var = torch.clamp(mean2 - mean.square(), min=0.0)
         with torch.no_grad():
             m = self.momentum  # the torch convention: weight of the new value

@@ -136,7 +136,7 @@ class CTCFinetuneModel(nn.Module):
         return self
 
 
-def ctc_loss(log_probs, logit_lens, labels, label_lens, blank_idx: int):
+def ctc_loss(log_probs, logit_lens, labels, label_lens, blank_idx: int, count=None):
     """Mean over the batch of the per-sequence CTC negative log-likelihood
     (``ctc_loss:135``: ``optax.ctc_loss`` then ``jnp.mean``; not torch's
     ``reduction="mean"``, which divides by the label lengths).
@@ -144,11 +144,13 @@ def ctc_loss(log_probs, logit_lens, labels, label_lens, blank_idx: int):
     log_probs (B, T, V); labels (B, L) padded past ``label_lens``. A sequence
     whose labels cannot fit its frames gets loss 0 and a zero gradient
     (``zero_infinity``): optax gives it a large finite value instead, torch's
-    default an infinite loss and NaN gradients (ROADMAP Queue 3)."""
+    default an infinite loss and NaN gradients (ROADMAP Queue 3). ``count``
+    replaces the batch size as the divisor (a data-parallel rank passes the
+    global batch's)."""
     per_seq = F.ctc_loss(
         log_probs.float().transpose(0, 1), labels.long(), logit_lens.long(),
         label_lens.long(), blank=blank_idx, reduction="none", zero_infinity=True)
-    return per_seq.mean()
+    return per_seq.mean() if count is None else per_seq.sum() / count
 
 
 @torch.no_grad()

@@ -12,6 +12,15 @@ PRNG stream it threads through ``Module.apply``. The port threads one
 - ``device`` (a generator on the activations' device) draws every other
   dropout mask.
 
+Over N data-parallel ranks (``seeded(..., rank=, row0=)``) the host
+generator is seeded alike on every rank, so every rank skips the same
+layers and draws the same attention seeds, as JAX's one global program does;
+the device generator is seeded by (seed, rank), so no two ranks draw the same
+dither, dropout or negatives. ``row0`` is the global row of the rank's first
+batch item: the attention kernels key their dropout masks by the global row
+(``ops/fused_attention.py::dropout_keep_mask``), so rank r's rows do not
+repeat rank 0's masks.
+
 The bits cannot equal JAX's: parity tests run with dropout off.
 """
 
@@ -27,12 +36,16 @@ import torch
 class DropoutRng:
     host: torch.Generator
     device: torch.Generator
+    row0: int = 0  # the global batch row of this rank's first item
 
     @classmethod
-    def seeded(cls, seed: int, device) -> "DropoutRng":
+    def seeded(cls, seed: int, device, rank: int = 0, row0: int = 0) -> "DropoutRng":
+        """Rank 0's generators are those of a one-process run."""
         device = torch.device(device)
+        # 32 bits: the CPU generator keeps no more of its seed
+        dev_seed = seed + 1 if rank == 0 else (seed + 1 + rank * 0x9E3779B9) % 2**32
         return cls(torch.Generator().manual_seed(seed),
-                   torch.Generator(device=device).manual_seed(seed + 1))
+                   torch.Generator(device=device).manual_seed(dev_seed), row0)
 
     def attention_seed(self) -> int:
         """One non-negative int32 for a layer's attention-dropout mask."""

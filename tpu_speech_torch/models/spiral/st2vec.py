@@ -39,6 +39,7 @@ from tpu_speech_torch.models.spiral.encoder import (
 )
 from tpu_speech_torch.models.spiral.wav2vec import ConvPositionalEmbedding
 from tpu_speech_torch.models.spiral.features import filterbank_features
+from tpu_speech_torch.parallel.mesh import locals_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,9 +224,10 @@ class ST2VecEncoder(nn.Module):
 
 @torch.no_grad()
 def ema_update(model: ST2VecEncoder, momentum: float) -> None:
-    """teacher <- m * teacher + (1 - m) * student, in place (``ema_update:141``)."""
-    teacher = model.teacher_parameters()
-    student = [p for _, s in model._pairs() for p in s.parameters()]
+    """teacher <- m * teacher + (1 - m) * student, in place (``ema_update:141``);
+    shard by shard under FSDP (the two towers' leaves share their placement)."""
+    teacher = locals_(model.teacher_parameters())
+    student = locals_(p for _, s in model._pairs() for p in s.parameters())
     torch._foreach_mul_(teacher, momentum)
     torch._foreach_add_(teacher, student, alpha=1.0 - momentum)
 
@@ -314,11 +316,15 @@ def check_collapse(pred, targets, feat_lens, trunc: int = 80) -> dict:
     return out
 
 
-def contrastive_loss(logits, targets, negatives, valid_mask, logit_temp: float):
+def contrastive_loss(logits, targets, negatives, valid_mask, logit_temp: float,
+                     count=None):
     """InfoNCE over cosine similarities (losses/wav2vecloss.py:55-128).
 
     logits/targets: (B, T, D); negatives: (N, B, T, D); valid_mask: (B, T)
-    1.0 at valid frames. Returns (loss, accuracy) as 0-d tensors."""
+    1.0 at valid frames. Returns (loss, accuracy) as 0-d tensors: sums over
+    the valid frames divided by their count, or by ``count`` (a data-parallel
+    rank passes the global batch's, so its loss is its piece of the global
+    loss)."""
     neg_is_pos = (targets[None] == negatives).all(dim=-1)  # (N, B, T)
     cand = torch.cat([targets[None], negatives], dim=0)  # (1+N, B, T, D)
     a, c = logits[None].float(), cand.float()
@@ -327,7 +333,7 @@ def contrastive_loss(logits, targets, negatives, valid_mask, logit_temp: float):
     sims = num / torch.clamp(den, min=1e-8) / logit_temp  # (1+N, B, T)
     sims = torch.cat([sims[:1], sims[1:].masked_fill(neg_is_pos, -1e9)], dim=0)
     ce = -torch.log_softmax(sims, dim=0)[0]  # (B, T)
-    denom = torch.clamp(valid_mask.sum(), min=1.0)
+    denom = torch.clamp(valid_mask.sum(), min=1.0) if count is None else count
     loss = (ce * valid_mask).sum() / denom
     arg, arg_min = sims.argmax(dim=0), sims.argmin(dim=0)
     correct = (arg == 0) & ~((arg == 0) & (arg_min == 0))

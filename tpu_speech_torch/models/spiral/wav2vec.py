@@ -166,13 +166,13 @@ class MultiheadSelfAttention(nn.Module):
             return self.out_proj(masked_attention(
                 qkv, self.num_heads, attn_mask, key_padding_mask, self.dropout,
                 self.training, rng))
-        drop_p, seed = 0.0, None
+        drop_p, seed, b0 = 0.0, None, 0
         if self.training and self.dropout > 0.0:
             if rng is None:
                 raise ValueError("training-mode attention dropout needs a DropoutRng")
-            drop_p, seed = self.dropout, rng.attention_seed()
+            drop_p, seed, b0 = self.dropout, rng.attention_seed(), rng.row0
         out = fused_qkv_self_attention(qkv, self.num_heads, key_padding_mask,
-                                       drop_p, seed)
+                                       drop_p, seed, b0)
         return self.out_proj(out)
 
 

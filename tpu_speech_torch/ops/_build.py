@@ -43,14 +43,15 @@ SIGNATURES = {
     "tsx_fused_logmel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _F, _P],
     # q, k, v, row stride, key_pad (nullable), out, lse (nullable), B, T, H, D,
-    # seed, dropout threshold, dropout scale, stream
-    "tsx_attention_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _P],
+    # seed, dropout key offset (global first row x H), dropout threshold,
+    # dropout scale, stream
+    "tsx_attention_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _U, _U, _U, _F, _P],
     # q, k, v, row stride, key_pad (nullable), out, dout, lse, scratch (fp32:
     # Delta, then dS^T; bf16: L and Delta in rows of T rounded up to 64), dq,
-    # dk, dv, gradient row stride, B, T, H, D, seed, dropout threshold,
-    # dropout scale, stream
+    # dk, dv, gradient row stride, B, T, H, D, seed, dropout key offset,
+    # dropout threshold, dropout scale, stream
     "tsx_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _U, _U, _F, _P],
+                          _I, _I, _I, _I, _U, _U, _U, _F, _P],
     # x, w, out, B, T, C, G, K, left_pad, stream
     "tsx_grouped_conv1d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # value, mask, decision-bit scratch (nullable), path, B, Tx, Ty, clock

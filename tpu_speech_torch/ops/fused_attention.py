@@ -23,9 +23,13 @@ keys (``key_padding_mask`` True) get the finite score -1e9, so a fully
 padded row stays finite; the softmax runs in float32. With ``dropout_p > 0``
 the probabilities are multiplied by ``keep / (1 - p)``, where ``keep`` is the
 counter-based mask of ``dropout_keep_mask``: a function of
-(seed, b*H + h, i*T + j) that the CUDA kernels compute bit for bit, so
-forward, backward and plain version agree under any tiling. It is not the
-TPU's mask: the TPU draws from its core PRNG, which nothing else reproduces.
+(seed, (b0 + b)*H + h, i*T + j) that the CUDA kernels compute bit for bit, so
+forward, backward and plain version agree under any tiling. ``b0`` (default
+0) is the global batch row of the call's first row: a data-parallel rank
+passes ``rank * local_B``, so its masks are the rows of the global batch's
+that it holds, as the TPU kernel sees the global batch under a mesh (its
+``pl.program_id(0)`` is the global row). It is not the TPU's mask: the TPU
+draws from its core PRNG, which nothing else reproduces.
 
 The gradient at a padded key is zero (the gradient of the -1e9 fill), as the
 JAX package's XLA path gives it; its Pallas backwards differ at a fully
@@ -93,16 +97,16 @@ def dropout_bits(seed: int, bh: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
 
 
 def dropout_keep_mask(seed: int, b: int, h: int, t: int, dropout_p: float,
-                      device=None) -> torch.Tensor:
+                      device=None, b0: int = 0) -> torch.Tensor:
     """(B, H, T, T) bool keep mask of head h of batch item b at (query i,
-    key j): bits >= threshold."""
-    bh = torch.arange(b * h, dtype=torch.int64, device=device).view(b, h, 1, 1)
+    key j), the rows b0 .. b0 + B - 1 of a global batch: bits >= threshold."""
+    bh = torch.arange(b0 * h, (b0 + b) * h, dtype=torch.int64, device=device).view(b, h, 1, 1)
     ar = torch.arange(t, dtype=torch.int64, device=device)
     idx = (ar[:, None] * t + ar[None, :]).view(1, 1, t, t)
     return dropout_bits(seed, bh, idx) >= dropout_threshold(dropout_p)
 
 
-def _bf16_probs(q, k, key_padding_mask, dropout_p, dropout_seed):
+def _bf16_probs(q, k, key_padding_mask, dropout_p, dropout_seed, b0):
     """The float32 softmax P of bf16 q, k and the dropout factor keep / (1 -
     p) (1.0 without dropout)."""
     b, t, h, _ = q.shape
@@ -112,7 +116,7 @@ def _bf16_probs(q, k, key_padding_mask, dropout_p, dropout_seed):
     p = torch.softmax(s, dim=-1)
     if dropout_p <= 0.0:
         return p, 1.0
-    keep = dropout_keep_mask(dropout_seed, b, h, t, dropout_p, q.device)
+    keep = dropout_keep_mask(dropout_seed, b, h, t, dropout_p, q.device, b0)
     return p, keep * (1.0 / (1.0 - dropout_p))
 
 
@@ -125,12 +129,12 @@ class _Bf16Attention(torch.autograd.Function):
     padded keys, rounded to bf16 before dQ = dS k and dK = dS^T q."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask, dropout_p, dropout_seed):
-        p, keep = _bf16_probs(q, k, key_padding_mask, dropout_p, dropout_seed)
+    def forward(ctx, q, k, v, key_padding_mask, dropout_p, dropout_seed, b0):
+        p, keep = _bf16_probs(q, k, key_padding_mask, dropout_p, dropout_seed, b0)
         pd = (p * keep).to(v.dtype).float()
         out = torch.einsum("bhts,bshd->bthd", pd, v.float()).to(v.dtype)
         ctx.save_for_backward(q, k, v, key_padding_mask, out)
-        ctx.drop = (dropout_p, dropout_seed)
+        ctx.drop = (dropout_p, dropout_seed, b0)
         return out
 
     @staticmethod
@@ -148,27 +152,28 @@ class _Bf16Attention(torch.autograd.Function):
         ds = ds.to(dtype).float()
         dq = torch.einsum("bhts,bshd->bthd", ds, k.float())
         dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
-        return dq.to(dtype), dk.to(dtype), dv.to(dtype), None, None, None
+        return dq.to(dtype), dk.to(dtype), dv.to(dtype), None, None, None, None
 
 
 def attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
-    dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
+    dropout_p: float = 0.0, dropout_seed: Optional[int] = None, b0: int = 0,
 ) -> torch.Tensor:
     """q, k, v (B, T, H, D) -> (B, T, H, D): einsum scores, -1e9 fill at
-    padded keys, f32 softmax, the replayed dropout mask, einsum values.
-    Differentiable by autograd. bf16 inputs round where the kernels do
-    (``_Bf16Attention``); the products run in float32 on their values."""
+    padded keys, f32 softmax, the replayed dropout mask of global rows b0
+    on, einsum values. Differentiable by autograd. bf16 inputs round where
+    the kernels do (``_Bf16Attention``); the products run in float32 on
+    their values."""
     if v.dtype == torch.bfloat16:
-        return _Bf16Attention.apply(q, k, v, key_padding_mask, dropout_p, dropout_seed)
+        return _Bf16Attention.apply(q, k, v, key_padding_mask, dropout_p, dropout_seed, b0)
     b, t, h, _ = q.shape
     scores = torch.einsum("bthd,bshd->bhts", q, k)
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], -1e9)
     p = torch.softmax(scores.float(), dim=-1)
     if dropout_p > 0.0:
-        keep = dropout_keep_mask(dropout_seed, b, h, t, dropout_p, q.device)
+        keep = dropout_keep_mask(dropout_seed, b, h, t, dropout_p, q.device, b0)
         p = p * keep * (1.0 / (1.0 - dropout_p))
     return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
 
@@ -176,7 +181,7 @@ def attention_plain(
 def qkv_attention_plain(
     qkv: torch.Tensor, n_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,
-    dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
+    dropout_p: float = 0.0, dropout_seed: Optional[int] = None, b0: int = 0,
 ) -> torch.Tensor:
     """``attention_plain`` on the (B, T, H, D) views of the merged plane's
     thirds; returns (B, T, E)."""
@@ -184,7 +189,7 @@ def qkv_attention_plain(
     e = e3 // 3
     q, k, v = qkv.view(b, t, 3, n_heads, e // n_heads).unbind(2)
     return attention_plain(q, k, v, key_padding_mask, dropout_p,
-                           dropout_seed).reshape(b, t, e)
+                           dropout_seed, b0).reshape(b, t, e)
 
 
 def _suffix(x: torch.Tensor) -> str:
@@ -192,10 +197,10 @@ def _suffix(x: torch.Tensor) -> str:
     return "_bf16" if x.dtype == torch.bfloat16 else ""
 
 
-def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device, dtype):
+def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device, dtype, b0):
     """One forward launch over q, k, v rows at ``ptrs`` with row stride
-    ``ld``: returns (out (B, T, H*D) in ``dtype``, lse (B, H, T) float32 or
-    None)."""
+    ``ld``, the dropout masks of global rows b0 on: returns (out (B, T, H*D)
+    in ``dtype``, lse (B, H, T) float32 or None)."""
     out = torch.empty((b, t, h * d), device=device, dtype=dtype)
     lse = (torch.empty((b, h, t), device=device, dtype=torch.float32)
            if with_lse else None)
@@ -204,7 +209,7 @@ def _fwd(ptrs, ld, mask, b, t, h, d, seed, thresh, scale, with_lse, device, dtyp
         err = getattr(lib, "tsx_attention_fwd" + _suffix(out))(
             *ptrs, ld, None if mask is None else mask.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, t, h, d, seed, thresh, scale,
+            b, t, h, d, seed, b0 * h, thresh, scale,
             torch.cuda.current_stream(device).cuda_stream,
         )
     return err, out, lse
@@ -223,7 +228,7 @@ def bwd_scratch_floats(b: int, t: int, h: int, dtype: torch.dtype) -> int:
 
 
 def _bwd(ptrs, ld, grad_ptrs, ld_grad, mask, out, dout, lse, h, seed, thresh,
-         scale):
+         scale, b0):
     """One backward call writing dq, dk, dv at ``grad_ptrs`` with row stride
     ``ld_grad``: three launches in float32 (Delta, dK/dV, dQ), two in bf16
     (Delta with dQ, then dK/dV). Scratch: ``bwd_scratch_floats``."""
@@ -235,7 +240,7 @@ def _bwd(ptrs, ld, grad_ptrs, ld_grad, mask, out, dout, lse, h, seed, thresh,
         return getattr(lib, "tsx_attention_bwd" + _suffix(out))(
             *ptrs, ld, None if mask is None else mask.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-            *grad_ptrs, ld_grad, b, t, h, e // h, seed, thresh, scale,
+            *grad_ptrs, ld_grad, b, t, h, e // h, seed, b0 * h, thresh, scale,
             torch.cuda.current_stream(out.device).cuda_stream,
         )
 
@@ -246,45 +251,45 @@ def _thirds(plane: torch.Tensor):
     return p, p + step, p + 2 * step
 
 
-def _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, with_lse):
+def _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, with_lse, b0=0):
     """K2-fwd on the merged plane: (out (B, T, E), lse or None)."""
     b, t, e3 = qkv.shape
     err, out, lse = _fwd(_thirds(qkv), e3, mask, b, t, n_heads, e3 // 3 // n_heads,
-                         seed, thresh, scale, with_lse, qkv.device, qkv.dtype)
+                         seed, thresh, scale, with_lse, qkv.device, qkv.dtype, b0)
     _build.check(err, "fused_qkv_self_attention")
     _build.LAUNCHES["fused_qkv_attention" + _suffix(qkv)] += 1
     return out, lse
 
 
-def _launch_bwd(qkv, mask, out, dout, lse, n_heads, seed, thresh, scale):
+def _launch_bwd(qkv, mask, out, dout, lse, n_heads, seed, thresh, scale, b0=0):
     """K2-bwd: dqkv (B, T, 3E), written into the plane's thirds."""
     dqkv = torch.empty_like(qkv)
     err = _bwd(_thirds(qkv), qkv.shape[2], _thirds(dqkv), qkv.shape[2], mask,
-               out, dout, lse, n_heads, seed, thresh, scale)
+               out, dout, lse, n_heads, seed, thresh, scale, b0)
     _build.check(err, "fused_qkv_self_attention backward")
     _build.LAUNCHES["fused_qkv_attention_bwd" + _suffix(qkv)] += 1
     return dqkv
 
 
-def _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, with_lse):
+def _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, with_lse, b0=0):
     """K3-fwd on contiguous (B, T, H, D) q, k, v: (out (B, T, H, D), lse)."""
     b, t, h, d = q.shape
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     err, out, lse = _fwd(ptrs, h * d, mask, b, t, h, d, seed, thresh, scale,
-                         with_lse, q.device, q.dtype)
+                         with_lse, q.device, q.dtype, b0)
     _build.check(err, "fused_self_attention")
     _build.LAUNCHES["fused_attention" + _suffix(q)] += 1
     return out.view(b, t, h, d), lse
 
 
-def _launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh, scale):
+def _launch_attn_bwd(q, k, v, mask, out, dout, lse, seed, thresh, scale, b0=0):
     """K3-bwd: (dq, dk, dv), each (B, T, H, D)."""
     b, t, h, d = q.shape
     grads = tuple(torch.empty_like(x) for x in (q, k, v))
     err = _bwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), h * d,
                tuple(g.data_ptr() for g in grads), h * d, mask,
                out.view(b, t, h * d), dout.view(b, t, h * d), lse, h, seed,
-               thresh, scale)
+               thresh, scale, b0)
     _build.check(err, "fused_self_attention backward")
     _build.LAUNCHES["fused_attention_bwd" + _suffix(q)] += 1
     return grads
@@ -294,27 +299,27 @@ class _FusedQKVAttention(torch.autograd.Function):
     """K2-fwd saving the row logsumexp, and K2-bwd as its backward."""
 
     @staticmethod
-    def forward(ctx, qkv, mask, n_heads, seed, thresh, scale):
-        out, lse = _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, True)
+    def forward(ctx, qkv, mask, n_heads, seed, thresh, scale, b0):
+        out, lse = _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, True, b0)
         ctx.save_for_backward(qkv, out, lse)
-        ctx.mask, ctx.args = mask, (n_heads, seed, thresh, scale)
+        ctx.mask, ctx.args = mask, (n_heads, seed, thresh, scale, b0)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
         dqkv = _launch_bwd(qkv, ctx.mask, out, dout.contiguous(), lse, *ctx.args)
-        return dqkv, None, None, None, None, None
+        return dqkv, None, None, None, None, None, None
 
 
 class _FusedAttention(torch.autograd.Function):
     """K3-fwd saving the row logsumexp, and K3-bwd as its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, thresh, scale):
-        out, lse = _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, True)
+    def forward(ctx, q, k, v, mask, seed, thresh, scale, b0):
+        out, lse = _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, True, b0)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask, ctx.args = mask, (seed, thresh, scale)
+        ctx.mask, ctx.args = mask, (seed, thresh, scale, b0)
         return out
 
     @staticmethod
@@ -322,7 +327,7 @@ class _FusedAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _launch_attn_bwd(q, k, v, ctx.mask, out, dout.contiguous(),
                                       lse, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _check_common(x, b, t, key_padding_mask, dropout_p, dropout_seed, name):
@@ -381,7 +386,7 @@ def _(qkv, n_heads, key_padding_mask=None):
 def fused_qkv_self_attention(
     qkv: torch.Tensor, n_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,
-    dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
+    dropout_p: float = 0.0, dropout_seed: Optional[int] = None, b0: int = 0,
 ) -> torch.Tensor:
     """softmax(q k^T, -1e9 at padded keys) [dropout] v over the merged
     (B, T, 3E) plane; the kernels on CUDA, ``qkv_attention_plain`` on CPU.
@@ -389,7 +394,8 @@ def fused_qkv_self_attention(
     ``tpu_speech::fused_qkv_attention_fwd``.
 
     ``dropout_seed``: a non-negative int (< 2**31) per (layer, step);
-    required when ``dropout_p > 0``.
+    required when ``dropout_p > 0``. ``b0``: the global batch row of
+    ``qkv``'s first row, which keys the dropout masks.
     """
     if qkv.ndim != 3 or qkv.shape[2] % (3 * n_heads):
         raise ValueError(f"qkv must be (B, T, 3E) with E % n_heads == 0: {tuple(qkv.shape)}")
@@ -401,27 +407,27 @@ def fused_qkv_self_attention(
         return fused_qkv_attention_fwd(qkv, n_heads, key_padding_mask)
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, n_heads, key_padding_mask, dropout_p,
-                                   dropout_seed)
+                                   dropout_seed, b0)
     mask, seed, thresh, scale = _kernel_args(qkv, e3 // 3 // n_heads, key_padding_mask,
                                              dropout_p, dropout_seed,
                                              "fused_qkv_self_attention")
     qkv = qkv.contiguous()
     if grad:
-        return _FusedQKVAttention.apply(qkv, mask, n_heads, seed, thresh, scale)
-    return _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, False)[0]
+        return _FusedQKVAttention.apply(qkv, mask, n_heads, seed, thresh, scale, b0)
+    return _launch_fwd(qkv, mask, n_heads, seed, thresh, scale, False, b0)[0]
 
 
 def fused_self_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
-    dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
+    dropout_p: float = 0.0, dropout_seed: Optional[int] = None, b0: int = 0,
 ) -> torch.Tensor:
     """softmax(q k^T, -1e9 at padded keys) [dropout] v with q, k, v
     (B, T, H, D) and q pre-scaled; returns (B, T, H, D). The K3 kernels on
     CUDA (dq, dk, dv through autograd), ``attention_plain`` on CPU.
 
     ``dropout_seed``: a non-negative int (< 2**31); required when
-    ``dropout_p > 0``.
+    ``dropout_p > 0``. ``b0`` as for ``fused_qkv_self_attention``.
     """
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be equal (B, T, H, D): "
@@ -430,12 +436,12 @@ def fused_self_attention(
     _check_common(q, b, t, key_padding_mask, dropout_p, dropout_seed,
                   "fused_self_attention")
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, key_padding_mask, dropout_p, dropout_seed)
+        return attention_plain(q, k, v, key_padding_mask, dropout_p, dropout_seed, b0)
     if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must share a dtype and a device")
     mask, seed, thresh, scale = _kernel_args(q, d, key_padding_mask, dropout_p,
                                              dropout_seed, "fused_self_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FusedAttention.apply(q, k, v, mask, seed, thresh, scale)
-    return _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, False)[0]
+        return _FusedAttention.apply(q, k, v, mask, seed, thresh, scale, b0)
+    return _launch_attn_fwd(q, k, v, mask, seed, thresh, scale, False, b0)[0]

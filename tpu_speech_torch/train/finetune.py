@@ -22,6 +22,11 @@ batch has time masks; ROADMAP Queue 3.)
 The freeze gate is the caller's host-side decision (``step_auto:252-267``
 reads the runner's iteration counter), decided once per call, so the step
 never reads the device.
+
+Over N data-parallel ranks each runs its slice of the global batch: the CTC
+mean divides each rank's sum by the global batch size, the replicated
+gradients are summed after the last micro-batch's backward, and the logged
+loss is the global one, as in ``train/spiral.py::pretrain_step``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,13 @@ from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel, ctc_loss
 from tpu_speech_torch.models.spiral.dropout import DropoutRng
 from tpu_speech_torch.models.spiral.masking import apply_mask, gaussian_mask_emb
 from tpu_speech_torch.models.spiral.st2vec import wav_to_spec
-from tpu_speech_torch.train.spiral import micro_batches, mixed_precision_params
+from tpu_speech_torch.parallel.mesh import allreduce_grads
+from tpu_speech_torch.train.spiral import (
+    global_count,
+    global_metrics,
+    micro_batches,
+    mixed_precision_params,
+)
 
 
 @dataclasses.dataclass
@@ -70,8 +81,9 @@ def _finetune_loss(model: CTCFinetuneModel, batch: dict, rng: DropoutRng,
             {"freeze_encoder": freeze_encoder})
     else:
         log_probs, logit_lens = model(specs, spec_lens, rng, freeze_encoder=freeze_encoder)
+    count = global_count(log_probs.new_full((), len(log_probs), dtype=torch.float32))
     return ctc_loss(log_probs, logit_lens, batch["labels"], batch["label_lens"],
-                    model.blank_idx)
+                    model.blank_idx, count)
 
 
 def finetune_step(state: FinetuneState, batch, rng: DropoutRng,
@@ -98,6 +110,9 @@ def finetune_step(state: FinetuneState, batch, rng: DropoutRng,
     for p in params:
         if p.grad is None:  # not reached: a skipped layer, a frozen encoder
             p.grad = torch.zeros_like(p)
+    comm = allreduce_grads(params)
+    (loss_sum,) = global_metrics(loss_sum)
     lr = state.optimizer.step()
     state.step += 1
-    return {"loss": loss_sum / accum_steps, "lr": lr, "layers": layers}
+    return {"loss": loss_sum / accum_steps, "lr": lr, "layers": layers,
+            "allreduce_bytes": comm}

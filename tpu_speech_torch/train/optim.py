@@ -19,6 +19,12 @@ The update runs as ``torch._foreach_*`` calls over all parameters (a handful
 of launches per step on the card). Every parameter needs a gradient: the
 pretrain step fills the ones a forward did not reach with zeros, as JAX
 differentiates every leaf.
+
+Under FSDP (``parallel/mesh.py::shard_state_fsdp``) the parameters, their
+gradients and the moments of the sharded ones are ``DTensor`` shards: the
+update runs on each rank's local shards, as JAX's AdamW runs shard-wise, and
+the global-norm clip all-reduces the shards' squared sums, so it clips by
+the norm of the whole gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import Callable, Iterable, Optional, Union
 
 import torch
 
+from tpu_speech_torch.parallel import distributed
+from tpu_speech_torch.parallel.mesh import is_sharded, locals_
 from tpu_speech_torch.train.schedules import polynomial_hold, warmup_cosine
 
 Schedule = Union[float, Callable[[int], float]]
@@ -57,12 +65,13 @@ class AdamW(torch.optim.Optimizer):
                                  "the forward did not reach it)")
             b1, b2 = group["betas"]
             eps, wd = group["eps"], group["weight_decay"]
-            grads = [p.grad for p in params]
             for p in params:
                 if not self.state[p]:
                     self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
-            mu = [self.state[p]["mu"] for p in params]
-            nu = [self.state[p]["nu"] for p in params]
+            mu = locals_(self.state[p]["mu"] for p in params)
+            nu = locals_(self.state[p]["nu"] for p in params)
+            grads = locals_(p.grad for p in params)
+            params = locals_(params)
             t = self.count + 1
             # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
             torch._foreach_mul_(mu, b1)
@@ -115,13 +124,19 @@ def make_optimizer(optim_cfg, params, total_steps: int, lr_scale: float = 1.0):
 def clip_by_global_norm(grads, max_norm: Optional[float]) -> Optional[torch.Tensor]:
     """g *= min(1, max_norm / (||g|| + 1e-6)) over all of grads, in place
     (``train/spiral.py:210-215``); returns the norm before clipping. No host
-    sync: the scale stays on the device."""
+    sync: the scale stays on the device. Sharded gradients (FSDP) add their
+    squared sums over the ranks; the others are whole on every rank."""
     if max_norm is None:
         return None
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)))
+    grads = list(grads)
+    whole = [g for g in grads if not is_sharded(g)]
+    shards = locals_(g for g in grads if is_sharded(g))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(whole))) if whole else 0.0
+    if shards:
+        sq = torch.stack(torch._foreach_norm(shards)).square().sum()
+        norm = torch.sqrt(norm ** 2 + distributed.all_reduce_(sq))
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_(whole + shards, scale)
     return norm
 
 

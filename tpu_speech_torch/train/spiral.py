@@ -37,6 +37,19 @@ optimizer step and one EMA; loss and accuracy are the micro-batches' mean.
 
 The random sources are explicit: ``DropoutRng`` (host generator: attention
 seeds and layerdrop; device generator: dither, dropout, negatives).
+
+Data parallelism (``parallel/``): each of N ranks runs the step on its slice
+of the global batch and the update is the one-process step's on the global
+batch, as JAX's mesh step is. The InfoNCE divides each rank's sum by the
+global count of valid frames (one all-reduce before the backward), so the
+ranks' losses add up to the global loss; BatchNorm takes the global moments
+(``FlaxBatchNorm1d``); after the last micro-batch's backward the replicated
+gradients are summed in a few flat buckets (``parallel/mesh.py::
+allreduce_grads``; FSDP reduce-scatters the sharded ones itself), then the
+clip takes the global norm, AdamW and the EMA run on every rank alike (shard
+by shard under FSDP), and the logged loss and accuracy are the global ones.
+At world 1 none of this makes a call. The metrics' ``allreduce_bytes`` is
+what the gradient all-reduce moved.
 """
 
 from __future__ import annotations
@@ -53,6 +66,8 @@ from tpu_speech_torch.models.spiral.masking import (
     gaussian_mask_emb,
     make_student_masks,
 )
+from tpu_speech_torch.parallel import distributed
+from tpu_speech_torch.parallel.mesh import allreduce_grads, is_sharded
 from tpu_speech_torch.models.spiral.st2vec import (
     ST2VecEncoder,
     check_collapse,
@@ -87,8 +102,24 @@ def mixed_precision_params(named_parameters) -> dict:
     """``{name: parameter.to(torch.bfloat16)}`` of (name, parameter) pairs,
     for ``torch.func.functional_call``: the cast is differentiable, so a
     backward through the copies leaves float32 gradients on the float32
-    masters (the JAX step's ``_cast``)."""
-    return {n: p.to(torch.bfloat16) for n, p in named_parameters}
+    masters (the JAX step's ``_cast``). FSDP's sharded parameters are left
+    out: its ``MixedPrecisionPolicy`` gathers them as bf16 itself."""
+    return {n: p.to(torch.bfloat16) for n, p in named_parameters if not is_sharded(p)}
+
+
+def global_count(local: torch.Tensor) -> torch.Tensor:
+    """The sum of ``local`` (a 0-d count) over the ranks, at least 1, in its
+    dtype: the global denominator of a loss."""
+    total = distributed.all_reduce_(local.detach().float())
+    return torch.clamp(total, min=1.0).to(local.dtype)
+
+
+def global_metrics(*values: torch.Tensor) -> list:
+    """0-d tensors summed over the ranks in one call (each rank's piece of a
+    global mean); as they are at world 1."""
+    if distributed.process_count() == 1:
+        return list(values)
+    return list(distributed.all_reduce_(torch.stack([v.detach().float() for v in values])))
 
 
 def micro_batches(batch, accum_steps: int) -> list:
@@ -146,7 +177,8 @@ def _pretrain_loss(model: ST2VecEncoder, batch: dict, rng: DropoutRng, bf16: boo
     if neg_idx is None:
         neg_idx = draw_negative_indices(feat_lens, t_out, cfg.n_negatives, rng.device)
     negs = gather_negatives(targets, neg_idx)
-    loss, acc = contrastive_loss(pred, targets, negs, valid, cfg.logit_temp)
+    loss, acc = contrastive_loss(pred, targets, negs, valid, cfg.logit_temp,
+                                 global_count(valid.sum()))
     return loss, acc, teacher_layers, student_layers
 
 
@@ -161,8 +193,10 @@ def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
     JAX's). ``bf16`` runs the network in bf16 on copies of the float32
     parameters. Returns the step's metrics: ``loss`` and ``accuracy`` (0-d
     device tensors, the micro-batches' mean), ``momentum`` and ``lr``
-    (floats), and the transformer layers each tower ran (summed over the
-    micro-batches)."""
+    (floats), the transformer layers each tower ran (summed over the
+    micro-batches) and ``allreduce_bytes``. Over N ranks ``batch`` is the
+    rank's slice of the global batch (and ``neg_idx`` its rows); the loss
+    and accuracy are the global ones."""
     micro = micro_batches(batch, accum_steps)
     negs = list(neg_idx) if accum_steps > 1 and neg_idx is not None else [neg_idx] * accum_steps
     model = state.model
@@ -180,6 +214,8 @@ def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
     for p in params:
         if p.grad is None:  # not reached by this forward (layerdrop)
             p.grad = torch.zeros_like(p)
+    comm = allreduce_grads(params)
+    loss_sum, acc_sum = global_metrics(loss_sum, acc_sum)
     clip_by_global_norm([p.grad for p in params], grad_clip)
     lr = state.optimizer.step()
     m = momentum_schedule(state.step, cfg.target_momentum,
@@ -188,7 +224,7 @@ def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
     state.step += 1
     return {"loss": loss_sum / accum_steps, "accuracy": acc_sum / accum_steps,
             "momentum": m, "lr": lr, "teacher_layers": teacher_layers,
-            "student_layers": student_layers}
+            "student_layers": student_layers, "allreduce_bytes": comm}
 
 
 @torch.no_grad()
@@ -200,7 +236,10 @@ def validation_loss(model: ST2VecEncoder, batch: dict, neg_idx=None,
     specs, the student on the masked perturbed specs, InfoNCE, and
     ``check_collapse`` on the same tensors. The negatives' indices are
     ``neg_idx`` (B, T', N), or are drawn from ``generator``. Returns (loss,
-    accuracy, diagnostics) as 0-d tensors; the model's mode is restored."""
+    accuracy, diagnostics) as 0-d tensors; the model's mode is restored.
+    Over N ranks ``batch`` is the rank's slice of the global batch: the loss
+    and accuracy are the global batch's, and the diagnostics read its
+    utterances 0 and 1 (rank 0's, broadcast) over its shortest length."""
     cfg = model.cfg
     was_training = model.training
     model.eval()
@@ -221,8 +260,14 @@ def validation_loss(model: ST2VecEncoder, batch: dict, neg_idx=None,
         if neg_idx is None:
             neg_idx = draw_negative_indices(feat_lens, t_out, cfg.n_negatives, generator)
         loss, acc = contrastive_loss(pred, targets, gather_negatives(targets, neg_idx), valid,
-                                     cfg.logit_temp)
-        return loss, acc, check_collapse(pred, targets, feat_lens)
+                                     cfg.logit_temp, global_count(valid.sum()))
+        loss, acc = global_metrics(loss, acc)
+        # over the global batch's shortest length: check_collapse reads the
+        # min of the lengths, so each rank clamps its own to it
+        shortest = distributed.all_reduce_(feat_lens.min().clone(), "min")
+        diag = check_collapse(pred, targets, torch.minimum(feat_lens, shortest))
+        values = distributed.broadcast_(torch.stack(list(diag.values())))
+        return loss, acc, dict(zip(diag, values))
     finally:
         model.train(was_training)
 

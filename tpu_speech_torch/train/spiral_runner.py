@@ -67,9 +67,31 @@ asked for (``device="cpu"``).
 ``transcribe_streaming:1017`` and ``evaluate_streaming:1043`` decode a
 streaming-mode model chunk by chunk (``models/spiral/streaming.py``).
 
+Data parallelism (``parallel/``; the JAX runners' mesh, ``:109-238``,
+``:580-744``, ``:1160-1218``): one process a card, rank r of N. The loaders
+take ``shard_id=r, num_shards=N`` (``batch_size`` is per device, so the
+global batch is ``batch_size x N``), the lr rescale counts N
+(``lr_scale(m, N, accum)``), the host mask generators are
+``default_rng(r)`` (pretraining) and ``default_rng(1 + r)`` (finetuning), as
+JAX seeds them by process index, and the dropout generators are
+``DropoutRng.seeded(seed, device, rank=r, row0=r x batch_size)``. Before the
+optimizer is built, ``trainer.fsdp`` shards the model with FSDP2
+(``parallel/mesh.py::shard_state_fsdp``); otherwise every rank takes rank 0's
+weights. Only rank 0 writes TensorBoard, ``train.log``, the step
+checkpoints, the state_dict and the archive, each write followed by a
+barrier; under FSDP the whole state is gathered first, so the files are those
+of a one-device run. A step checkpoint of N ranks also holds each rank's
+generators, loader state and buffered micro-batches (``ranks``), so N ranks
+resume where they stopped; one process resumes from it as rank 0, and N
+ranks resume from a one-device file with fresh generators on ranks 1..N-1.
+``evaluate`` decodes ``entries[r::N]`` and sums the six error counts over
+the ranks (``allreduce_sum``): every rank returns the WER of one process.
+Under FSDP, validation, evaluation and serving run on a float32 copy with
+the whole weights (``_plain_model``), gathered once a call.
+
 Not ported yet: orbax checkpoints, the native C++ batcher, tarred data, the
-mu-law wire format, the bucketed loader (``num_buckets``), mesh / FSDP /
-sequence parallelism and multi-process runs.
+mu-law wire format, the bucketed loader (``num_buckets``), and sequence
+parallelism.
 """
 
 from __future__ import annotations
@@ -108,6 +130,17 @@ from tpu_speech_torch.models.spiral.masking import make_student_masks
 from tpu_speech_torch.models.spiral.dropout import DropoutRng
 from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, wav_to_spec
 from tpu_speech_torch.models.spiral.streaming import StreamingTranscriber
+from tpu_speech_torch.parallel import distributed
+from tpu_speech_torch.parallel.mesh import (
+    full_state_dict,
+    full_tensor,
+    is_sharded,
+    load_full_,
+    load_state_dict_,
+    make_mesh,
+    replicate,
+    shard_state_fsdp,
+)
 from tpu_speech_torch.text.tokenizers import BlankOffsetTokenizer
 from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
 from tpu_speech_torch.train.optim import lr_scale, make_optimizer
@@ -120,7 +153,7 @@ from tpu_speech_torch.train.spiral import (
     validation_loss,
 )
 from tpu_speech_torch.utils.archive import load_archive, save_archive
-from tpu_speech_torch.utils.checkpoint import Checkpointer
+from tpu_speech_torch.utils.checkpoint import Checkpointer, _to_host
 from tpu_speech_torch.utils.device import resolve_device
 from tpu_speech_torch.utils.surgery import merge_params
 
@@ -204,8 +237,9 @@ def _to_device(obj, device):
 class _Runner:
     """Checkpoints, resume, archives and weight surgery, shared by the two
     runners. A runner provides ``_weights`` (the module that holds every
-    weight), ``state`` (its optimizer and step count), ``rng``, ``host_rng``,
-    ``_micro``, ``_to_jax``/``_from_jax`` (its state_dict <-> flax trees,
+    weight), ``_new_model`` (a fresh module of its class), ``state`` (its
+    optimizer and step count), ``rng``, ``host_rng``, ``_micro``,
+    ``_to_jax``/``_from_jax`` (its state_dict <-> flax trees,
     ``compat/jax_spiral.py``), ``_npz_roots``, ``archive_default`` and
     ``_extra_state``/``_load_extra_state`` for what else resumes."""
 
@@ -215,8 +249,11 @@ class _Runner:
         if exp is not None:
             log_dir = exp.log_dir
         self.log_dir = log_dir
+        self.rank, self.world = distributed.process_index(), distributed.process_count()
+        self.primary = self.rank == 0
+        self.fsdp = bool(getattr(cfg.trainer, "fsdp", False))
         os.makedirs(log_dir, exist_ok=True)
-        self.tb = exp.tb if exp is not None else None
+        self.tb = exp.tb if exp is not None and self.primary else None
         # --chkpt_dir relocates the step checkpoints (JAX runner :237-239)
         self.ckpt = Checkpointer(ckpt_dir or os.path.join(log_dir, "ckpt"))
         self.epoch = 0  # epochs completed (the one the latest checkpoint ended)
@@ -224,55 +261,133 @@ class _Runner:
         self.history = []  # per-step metrics, floats
         return log_dir
 
-    def _log(self, msg: str) -> None:
+    def _log(self, msg: str, echo: bool = False) -> None:
+        """A line of ``train.log`` (and of stdout with ``echo``), on the
+        primary only."""
+        if not self.primary:
+            return
+        if echo:
+            print(msg, flush=True)
         with open(os.path.join(self.log_dir, "train.log"), "a") as f:
             f.write(msg + "\n")
 
+    def _data_parallel(self, model: torch.nn.Module) -> torch.nn.Module:
+        """Place ``model`` for the ranks, before its optimizer is built:
+        ``trainer.fsdp`` shards it over the data mesh (a one-rank mesh in a
+        one-process run), otherwise every rank takes rank 0's weights."""
+        if self.fsdp:
+            distributed.initialize(device=self.device)  # a no-op when already joined
+            shard_state_fsdp(make_mesh(), model, bf16=self.bf16)
+        else:
+            replicate(model)
+        return model
+
+    def _plain_model(self) -> torch.nn.Module:
+        """The model that forwards outside the training step run (validation,
+        evaluation, serving, export): ``_weights``, or under FSDP a plain
+        copy of it with the whole float32 weights (a gather: every rank
+        calls it). So those forwards run in float32 under ``--fsdp`` with
+        bf16 too, as they do in a DDP or one-process run (FSDP's bf16
+        policy casts every forward of the sharded model), and make no
+        collective: ranks whose shards of an evaluation set differ in
+        batch count never pair mismatched all-gathers."""
+        model = self._weights
+        if not any(is_sharded(p) for p in model.parameters()):
+            return model
+        with torch.random.fork_rng(devices=[]):  # the copy's init draws nothing seen
+            plain = self._new_model()
+        plain.load_state_dict(full_state_dict(model), strict=True)
+        return plain.to(self.device).train(model.training)
+
+    def _write(self, fn, *args):
+        """``fn(*args)`` on the primary (a file write), then a barrier."""
+        out = fn(*args) if self.primary else None
+        distributed.barrier()
+        return out
+
     # ---- step checkpoints and resume --------------------------------------
 
-    def checkpoint_state(self) -> dict:
-        """What a step checkpoint holds: the model's state_dict (float32
-        masters, the EMA teacher, BatchNorm statistics), AdamW's moments by
-        parameter name and its count, the step counts and the epoch, the
-        dropout generators, the host mask generator, the micro-batches
-        buffered for the next update, and the runner's own extras."""
-        model, opt = self._weights, self.state.optimizer
-        names = {p: n for n, p in model.named_parameters()}
-        out = {"model": model.state_dict(),
-               "mu": {names[p]: st["mu"] for p, st in opt.state.items()},
-               "nu": {names[p]: st["nu"] for p, st in opt.state.items()},
-               "count": opt.count, "step": self.state.step,
-               "iteration": self.iteration, "epoch": self.epoch,
-               "rng_host": self.rng.host.get_state(),
+    def _rank_state(self) -> dict:
+        """What differs between ranks: the dropout generators, the host
+        mask generator, the micro-batches buffered for the next update, and
+        the runner's own extras (the loader, the crops)."""
+        out = {"rng_host": self.rng.host.get_state(),
                "rng_device": self.rng.device.get_state(),
                "host_rng": self.host_rng.bit_generator.state,
                "micro": list(self._micro)}
         out.update(self._extra_state())
         return out
 
-    def load_checkpoint_state(self, st: dict) -> None:
-        model, opt = self._weights, self.state.optimizer
-        model.load_state_dict(st["model"])
-        params = dict(model.named_parameters())
-        opt.state.clear()
-        for name, mu in st["mu"].items():
-            p = params[name]
-            opt.state[p] = {"mu": mu.to(p.device), "nu": st["nu"][name].to(p.device)}
-        opt.count = int(st["count"])
-        self.state.step = int(st["step"])
-        self.iteration, self.epoch = int(st["iteration"]), int(st["epoch"])
+    def _load_rank_state(self, st: dict) -> None:
         self.rng.host.set_state(st["rng_host"])
         self.rng.device.set_state(st["rng_device"])
         self.host_rng.bit_generator.state = st["host_rng"]
         self._micro = _to_device(st["micro"], self.device)
         self._load_extra_state(st)
 
+    def checkpoint_state(self) -> dict:
+        """What a step checkpoint holds: the model's state_dict (float32
+        masters, the EMA teacher, BatchNorm statistics), AdamW's moments by
+        parameter name and its count, the step counts and the epoch, and
+        ``_rank_state`` (rank 0's; over N ranks also every rank's, under
+        ``ranks``). Sharded tensors are gathered whole: every rank calls
+        it."""
+        model, opt = self._weights, self.state.optimizer
+        names = {p: n for n, p in model.named_parameters()}
+        out = {"model": full_state_dict(model),
+               "mu": {names[p]: full_tensor(st["mu"]) for p, st in opt.state.items()},
+               "nu": {names[p]: full_tensor(st["nu"]) for p, st in opt.state.items()},
+               "count": opt.count, "step": self.state.step,
+               "iteration": self.iteration, "epoch": self.epoch}
+        mine = self._rank_state()
+        out.update(mine)
+        if self.world > 1:
+            out["ranks"] = [None] * self.world
+            torch.distributed.all_gather_object(out["ranks"], _to_host(mine))
+        return out
+
+    def load_checkpoint_state(self, st: dict) -> None:
+        """Resume from ``checkpoint_state``'s dict: the same number of
+        ranks takes each rank's part; one process takes rank 0's; N ranks
+        from a one-process file keep fresh generators on ranks 1..N-1 and
+        drop the buffered micro-batches (only rank 0 would have them)."""
+        model, opt = self._weights, self.state.optimizer
+        load_state_dict_(model, st["model"])
+        params = dict(model.named_parameters())
+        opt.state.clear()
+        for name, mu in st["mu"].items():
+            p = params[name]
+            opt.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+            load_full_(opt.state[p]["mu"], mu)
+            load_full_(opt.state[p]["nu"], st["nu"][name])
+        opt.count = int(st["count"])
+        self.state.step = int(st["step"])
+        self.iteration, self.epoch = int(st["iteration"]), int(st["epoch"])
+        ranks = st.get("ranks") or [st]
+        if len(ranks) == self.world:
+            self._load_rank_state(ranks[self.rank])
+        elif self.world == 1:
+            self._load_rank_state(st)
+        else:
+            if self.rank == 0:
+                self._load_rank_state(st)
+            self._micro = []
+            self._load_extra_state({k: st[k] for k in ("loader_epoch",)}, partial=True)
+
     def save_checkpoint(self, epoch: int) -> None:
         """Checkpoint the run as it stands at the end of ``epoch``: the state
         is copied to host memory here and written on the Checkpointer's
-        thread (the next save, or ``ckpt.wait``, drains it)."""
+        thread (the next save, or ``ckpt.wait``, drains it); over N ranks
+        rank 0 writes it before the barrier."""
         self.epoch = epoch
-        self.ckpt.save(self.iteration, self.checkpoint_state())
+        state = self.checkpoint_state()
+        if self.world == 1:
+            self.ckpt.save(self.iteration, state)
+            return
+        if self.primary:
+            self.ckpt.save(self.iteration, state)
+            self.ckpt.wait()
+        distributed.barrier()
 
     def resume_if_exists(self) -> bool:
         """Load the latest step checkpoint, if the checkpoint directory has
@@ -294,15 +409,24 @@ class _Runner:
 
     def weight_trees(self) -> dict:
         """The model's weights as the JAX package's flax trees."""
-        return self._to_jax(self._weights.state_dict())
+        return self._to_jax(full_state_dict(self._weights))
 
     def save_archive(self) -> str:
         """``<log_dir>/<cfg.name>.tpu_speech``: the config, the params tree and
-        the other trees (``batch_stats``, and ``teacher`` when pretraining)."""
+        the other trees (``batch_stats``, and ``teacher`` when pretraining);
+        written by the primary."""
         trees = self.weight_trees()
         params = trees.pop("params")
         path = os.path.join(self.log_dir, f"{self.cfg.name or self.archive_default}.tpu_speech")
-        save_archive(path, self.cfg, params, extra=trees)
+        self._write(save_archive, path, self.cfg, params, trees)
+        return path
+
+    def _save_weights(self, name: str) -> str:
+        """The model's whole state_dict at ``<log_dir>/name``, written by the
+        primary."""
+        path = os.path.join(self.log_dir, name)
+        sd = {k: v.detach().cpu() for k, v in full_state_dict(self._weights).items()}
+        self._write(torch.save, sd, path)
         return path
 
     def _restore_trees(self, params, extra: dict, partial: bool, skip, what: str):
@@ -312,11 +436,11 @@ class _Runner:
         and the optimizer stay as they are."""
         trees = self.weight_trees()
         merged, report = merge_params(trees["params"], params, partial=partial, skip=skip)
-        print(f"{what} restore: {report.summary()}")
+        if self.primary:
+            print(f"{what} restore: {report.summary()}")
         trees = {k: (extra[k] if extra.get(k) else v) for k, v in trees.items()}
         trees["params"] = merged
-        with torch.no_grad():
-            self._weights.load_state_dict(self._from_jax(trees), strict=True)
+        load_state_dict_(self._weights, self._from_jax(trees))
         return report
 
     def restore_from_archive(self, path: str, partial: bool = False, skip=()):
@@ -366,7 +490,7 @@ class SpiralFinetuneRunner(_Runner):
         log_dir = self._init_run(cfg, log_dir, exp, ckpt_dir)
         m = cfg.model
         self.enc_cfg = m.encoder
-        self.device = resolve_device(device)
+        self.device = distributed.rank_device(resolve_device(device))
         dec = m.decoder
         if dec is None or dec.blank_pos == "vocab_first":
             # reserve id 0 for the CTC blank (blank_pos='vocab_first')
@@ -391,6 +515,9 @@ class SpiralFinetuneRunner(_Runner):
     def _weights(self):
         return self.model
 
+    def _new_model(self) -> CTCFinetuneModel:
+        return build_model(self.cfg, self.tokenizer.vocab_size)
+
     @staticmethod
     def _to_jax(state_dict) -> dict:
         return dict(zip(("params", "batch_stats"), ctc_finetune_to_jax(state_dict)))
@@ -403,8 +530,8 @@ class SpiralFinetuneRunner(_Runner):
         return {"loader_epoch": self.loader._epoch,
                 "dataset_rng": self.loader.dataset.rng.getstate()}
 
-    def _load_extra_state(self, st: dict) -> None:
-        self._loader_resume = (st["loader_epoch"], st["dataset_rng"])
+    def _load_extra_state(self, st: dict, partial: bool = False) -> None:
+        self._loader_resume = (st["loader_epoch"], None if partial else st["dataset_rng"])
         if "loader" in self.__dict__:
             self._apply_loader_resume()
 
@@ -412,7 +539,8 @@ class SpiralFinetuneRunner(_Runner):
         if self._loader_resume is not None:
             epoch, crop_rng = self._loader_resume
             self.loader.set_epoch(epoch)
-            self.loader.dataset.rng.setstate(crop_rng)
+            if crop_rng is not None:
+                self.loader.dataset.rng.setstate(crop_rng)
             self._loader_resume = None
 
     # the training half is built at first use: serving needs no optimizer,
@@ -422,35 +550,39 @@ class SpiralFinetuneRunner(_Runner):
     def state(self):
         m = self.cfg.model
         total_steps = m.optim.sched.max_steps if m.optim.sched else 80000
-        scale = lr_scale(m, data_parallel=1, accum=self.accum)
+        scale = lr_scale(m, data_parallel=self.world, accum=self.accum)
         return make_finetune_state(
-            self.model, lambda params: make_optimizer(m.optim, params, total_steps, scale))
+            self._data_parallel(self.model),
+            lambda params: make_optimizer(m.optim, params, total_steps, scale))
 
     @functools.cached_property
     def rng(self):
-        return DropoutRng.seeded(0, self.device)
+        return DropoutRng.seeded(0, self.device, rank=self.rank,
+                                 row0=self.rank * self.cfg.model.train_ds.batch_size)
 
     @functools.cached_property
     def host_rng(self):
-        return np.random.default_rng(1)  # process index 0
+        return np.random.default_rng(1 + self.rank)  # 1 + process index
 
     def load_state_dict(self, state_dict) -> None:
-        self.model.load_state_dict(state_dict, strict=True)
+        load_state_dict_(self.model, state_dict)
 
-    @property
-    def _graph(self) -> InferenceGraph:
+    def _graph(self, model: Optional[CTCFinetuneModel] = None) -> InferenceGraph:
         """The wav -> log-probs composition that ``infer`` runs and
-        ``export_model`` traces."""
-        return InferenceGraph(self.model, self.enc_cfg)
+        ``export_model`` traces, on ``model`` (by default ``_plain_model()``)
+        in eval mode."""
+        model = self._plain_model() if model is None else model
+        return InferenceGraph(model.eval(), self.enc_cfg)
 
     @torch.inference_mode()
-    def infer(self, wavs, wav_lens):
+    def infer(self, wavs, wav_lens, model: Optional[CTCFinetuneModel] = None):
         """wavs (B, N) float32 / int16 / uint8, lengths (B,) -> (log_probs
-        (B, T, V), lens (B,)) on the runner's device, in eval mode."""
-        self.model.eval()
+        (B, T, V), lens (B,)) on the runner's device, in eval mode, on
+        ``model`` (``evaluate`` passes the ``_plain_model()`` it gathered
+        once)."""
         wavs = torch.as_tensor(wavs).to(self.device)
         wav_lens = torch.as_tensor(wav_lens).to(self.device)
-        return self._graph(wavs, wav_lens)
+        return self._graph(model)(wavs, wav_lens)
 
     def export_model(self, path: str, n_samples: Optional[int] = None) -> str:
         """Save the wav -> log-probs inference graph as a ``torch.export``
@@ -464,12 +596,11 @@ class SpiralFinetuneRunner(_Runner):
         from tpu_speech_torch.utils.export import export_fn
 
         n = n_samples or self.max_samples
-        self.model.eval()
         # two rows: a batch of one would fix the batch dimension at 1
         example = (torch.zeros((2, n), device=self.device),
                    torch.full((2,), n, dtype=torch.int32, device=self.device))
         batch = Dim("batch", min=1)
-        export_fn(self._graph, example, path,
+        export_fn(self._graph(), example, path,
                   dynamic_shapes=({0: batch}, {0: batch}))
         return path
 
@@ -549,7 +680,16 @@ class SpiralFinetuneRunner(_Runner):
         """Test-mode WER/CER (spiral_runner.py:1134): greedy decoding, or
         prefix beam search with ``beam_width`` > 1 shallow-fused with ``lm``
         (e.g. an ``NGramLM`` fit in the model's id space) at ``lm_alpha``.
-        ``decode_s`` in the result is the host's decode time over the run."""
+        ``decode_s`` in the result is the host's decode time over the run.
+
+        Over N ranks each decodes the round-robin shard ``entries[r::N]``
+        (``:1160-1164``) and the six error counts are summed over the ranks
+        (``:1215-1218``), so every rank returns the one-process WER, CER,
+        ``n`` and SER; ``hyps``, ``decode_s`` (beside ``rank``) and the HTML
+        diagnosis (written by the primary) cover the rank's own shard. With
+        ``save_logits_dir`` a rank's files are ``logits_r<rank>_<n>.npy``
+        (one process keeps ``logits_<n>.npy``): in JAX every process writes
+        ``logits_<n>.npy`` into the same directory."""
         m = self.cfg.model
         ds_cfg = ds_cfg or m.test_ds or m.validation_ds
         manifest = manifest or ds_cfg.manifest_filepath
@@ -557,14 +697,18 @@ class SpiralFinetuneRunner(_Runner):
             manifest, self.tokenizer, sample_rate=ds_cfg.sample_rate,
             crop_size=self.max_samples,
         )
+        if self.world > 1:
+            dataset.entries = dataset.entries[self.rank::self.world]
+        tag = f"r{self.rank}_" if self.world > 1 else ""
         loader = DataLoader(
             dataset, ds_cfg.batch_size, AudioTextBatchCollate(self.max_samples, 512),
             shuffle=False, drop_last=False, num_workers=ds_cfg.num_workers,
         )
         hyps, refs = [], []
         decode_s = 0.0
+        model = self._plain_model()
         for raw in loader:
-            log_probs, lens = self.infer(raw["wavs"], raw["wav_lens"])
+            log_probs, lens = self.infer(raw["wavs"], raw["wav_lens"], model)
             log_probs, lens = log_probs.cpu().numpy(), lens.cpu().numpy()  # one copy a batch
             t0 = time.perf_counter()
             ids = self._decode(log_probs, lens, beam_width, lm, lm_alpha)
@@ -574,20 +718,24 @@ class SpiralFinetuneRunner(_Runner):
                 refs.append(text)
             if save_logits_dir:
                 os.makedirs(save_logits_dir, exist_ok=True)
-                np.save(os.path.join(save_logits_dir, f"logits_{len(hyps)}.npy"), log_probs)
+                np.save(os.path.join(save_logits_dir, f"logits_{tag}{len(hyps)}.npy"),
+                        log_probs)
         w_err, w_tot = error_counts(hyps, refs)
         c_err, c_tot = error_counts(hyps, refs, use_cer=True)
         err_utts = sum(1 for h, r in zip(hyps, refs) if h.split() != r.split())
+        counts = distributed.allreduce_sum(
+            np.array([w_err, w_tot, c_err, c_tot, len(hyps), err_utts], np.int64))
         html_path = os.path.join(self.log_dir, "wer_diagnosis.html")
-        render_wer_html(hyps, refs, html_path)
+        self._write(render_wer_html, hyps, refs, html_path)
         return {
-            "wer": w_err / max(w_tot, 1),
-            "cer": c_err / max(c_tot, 1),
-            "n": len(hyps),
-            "ser": err_utts / max(len(hyps), 1),
+            "wer": counts[0] / max(counts[1], 1),
+            "cer": counts[2] / max(counts[3], 1),
+            "n": int(counts[4]),
+            "ser": counts[5] / max(counts[4], 1),
             "diagnosis_html": html_path,
             "hyps": hyps,
             "decode_s": decode_s,
+            "rank": self.rank,
         }
 
 
@@ -603,8 +751,7 @@ class SpiralFinetuneRunner(_Runner):
         latency whatever the utterance's length. Needs a streaming-mode model
         (``encoder.streaming``), which serves exactly as it trains."""
         self._require_streaming()
-        self.model.eval()
-        tr = StreamingTranscriber(self.model, batch=1)
+        tr = StreamingTranscriber(self._plain_model().eval(), batch=1)
         feed = max(1, int(feed_seconds * self.sample_rate))
         texts = []
         for path in audio_paths:
@@ -650,6 +797,7 @@ class SpiralFinetuneRunner(_Runner):
         loader = DataLoader(
             dataset, ds.batch_size, AudioTextBatchCollate(self.max_samples, 512),
             shuffle=ds.shuffle, num_workers=ds.num_workers,
+            shard_id=self.rank, num_shards=self.world,
         )
         self.__dict__["loader"] = loader
         self._apply_loader_resume()
@@ -716,8 +864,7 @@ class SpiralFinetuneRunner(_Runner):
         loss = float(np.mean(losses)) if losses else float("nan")
         msg = (f"Epoch {epoch}: ctc loss = {loss:.4f} | "
                f"step {dt * 1e3 / max(len(pending), 1):.0f} ms")
-        print(msg, flush=True)
-        self._log(msg)
+        self._log(msg, echo=True)
         if self.tb is not None:
             self.tb.add_scalar("train/loss", loss, self.iteration)
         return loss
@@ -737,10 +884,7 @@ class SpiralFinetuneRunner(_Runner):
     def save_state_dict(self, name: str = "ctc_finetune.pt") -> str:
         """The model's reference-named state_dict, which ``--run_mode test
         --init_chkpt_file`` and ``convert_ctc_finetune`` load."""
-        path = os.path.join(self.log_dir, name)
-        torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-                   path)
-        return path
+        return self._save_weights(name)
 
 
 def _spec_len(crop_size: int, sample_rate: int) -> int:
@@ -762,7 +906,7 @@ class SpiralPretrainRunner(_Runner):
         log_dir = self._init_run(cfg, log_dir, exp, ckpt_dir)
         m = cfg.model
         self.enc_cfg = m.encoder
-        self.device = resolve_device(device)
+        self.device = distributed.rank_device(resolve_device(device))
         self.accum = max(1, getattr(cfg.trainer, "accumulate_grad_batches", 1))
         self.bf16 = getattr(m, "precision", "fp32") == "bf16"
         self.wire = getattr(m.train_ds, "wire_dtype", "int16")
@@ -784,7 +928,8 @@ class SpiralPretrainRunner(_Runner):
                                     ds.min_duration, ds.max_duration, augmentor=aug,
                                     return_both=True)
         self.loader = DataLoader(self.dataset, ds.batch_size, AudioBatchCollate(ds.crop_size),
-                                 shuffle=ds.shuffle, num_workers=ds.num_workers)
+                                 shuffle=ds.shuffle, num_workers=ds.num_workers,
+                                 shard_id=self.rank, num_shards=self.world)
         self.spec_len = _spec_len(ds.crop_size, ds.sample_rate)
 
         # the student from a seeded generator (the JAX runner's PRNGKey(0)
@@ -792,12 +937,13 @@ class SpiralPretrainRunner(_Runner):
         model = ST2VecEncoder(self.enc_cfg, pretraining=True)
         model.init_weights(torch.Generator().manual_seed(seed))
         total_steps = m.optim.sched.max_steps if m.optim.sched else 100000
-        self.lr_scale = lr_scale(m, data_parallel=1, accum=self.accum)
+        self.lr_scale = lr_scale(m, data_parallel=self.world, accum=self.accum)
         self.state = make_pretrain_state(
-            model.to(self.device),
+            self._data_parallel(model.to(self.device)),
             lambda params: make_optimizer(m.optim, params, total_steps, self.lr_scale))
-        self.rng = DropoutRng.seeded(seed, self.device)
-        self.host_rng = np.random.default_rng(0)  # process index 0
+        self.rng = DropoutRng.seeded(seed, self.device, rank=self.rank,
+                                     row0=self.rank * ds.batch_size)
+        self.host_rng = np.random.default_rng(self.rank)  # the process index
         # micro-batches of the next update and their audio seconds (kept
         # across epochs; the seconds count when the update consumes them)
         self._micro, self._micro_sec = [], 0.0
@@ -806,6 +952,9 @@ class SpiralPretrainRunner(_Runner):
     @property
     def _weights(self):
         return self.state.model
+
+    def _new_model(self) -> ST2VecEncoder:
+        return ST2VecEncoder(self.enc_cfg, pretraining=True)
 
     @staticmethod
     def _to_jax(state_dict) -> dict:
@@ -822,8 +971,10 @@ class SpiralPretrainRunner(_Runner):
             out["val_dataset_rng"] = self.val_loader.dataset.rng.getstate()
         return out
 
-    def _load_extra_state(self, st: dict) -> None:
+    def _load_extra_state(self, st: dict, partial: bool = False) -> None:
         self.loader.set_epoch(st["loader_epoch"])
+        if partial:
+            return
         self.dataset.rng.setstate(st["dataset_rng"])
         self._micro_sec = float(st["micro_sec"])
         if "val_dataset_rng" in st:
@@ -878,8 +1029,7 @@ class SpiralPretrainRunner(_Runner):
             if pending else float("nan")
         msg = (f"Epoch {epoch}: loss = {loss:.4f} | acc = {acc:.4f} | "
                f"step {dt * 1e3 / n:.0f} ms | {n_sec / max(dt, 1e-9):.1f}x realtime")
-        print(msg, flush=True)
-        self._log(msg)
+        self._log(msg, echo=True)
         if self.tb is not None:
             self.tb.add_scalar("train/loss", loss, self.iteration)
             self.tb.add_scalar("train/accuracy", acc, self.iteration)
@@ -895,17 +1045,20 @@ class SpiralPretrainRunner(_Runner):
                                ds.min_duration, ds.max_duration, return_both=True,
                                dup_factor=getattr(ds, "dup_factor", 1))
         return DataLoader(dataset, ds.batch_size, AudioBatchCollate(m.train_ds.crop_size),
-                          shuffle=False, num_workers=ds.num_workers)
+                          shuffle=False, num_workers=ds.num_workers,
+                          shard_id=self.rank, num_shards=self.world)
 
-    def validation_step(self, batch, neg_idx=None):
+    def validation_step(self, batch, neg_idx=None, model=None):
         """(loss, accuracy, collapse diagnostics) of one device batch
-        (``train/spiral.py::validation_loss``); the negatives are drawn from a
-        generator seeded 0 for every batch, as JAX draws them with
-        ``PRNGKey(0)``."""
+        (``train/spiral.py::validation_loss``) on ``model`` (by default
+        ``_plain_model()``; ``validate`` passes the one it gathered once);
+        the negatives are drawn from a generator seeded 0 for every batch, as
+        JAX draws them with ``PRNGKey(0)``."""
+        model = self._plain_model() if model is None else model
         if neg_idx is None:
             gen = torch.Generator(self.device).manual_seed(0)
-            return validation_loss(self.state.model, batch, generator=gen)
-        return validation_loss(self.state.model, batch, neg_idx=neg_idx)
+            return validation_loss(model, batch, generator=gen)
+        return validation_loss(model, batch, neg_idx=neg_idx)
 
     def validate(self) -> float:
         """The mean no-update contrastive loss over ``validation_ds``
@@ -917,10 +1070,10 @@ class SpiralPretrainRunner(_Runner):
         accuracy and the batch count."""
         if self.cfg.model.validation_ds is None:
             return float("nan")
-        results = []
+        results, model = [], self._plain_model()
         for raw in self.val_loader:
             batch = batch_to_device(self._augment(raw), self.device)
-            results.append(self.validation_step(batch))
+            results.append(self.validation_step(batch, model=model))
         if not results:
             self.last_validation = {}
             return float("nan")
@@ -943,7 +1096,4 @@ class SpiralPretrainRunner(_Runner):
         """The model's reference-named state_dict (student, predictor BN
         statistics, ``target_*`` teacher), loadable by
         ``tpu_speech.compat.torch_spiral.convert_st2vec``."""
-        path = os.path.join(self.log_dir, name)
-        torch.save({k: v.detach().cpu() for k, v in self.state.model.state_dict().items()},
-                   path)
-        return path
+        return self._save_weights(name)

@@ -8,6 +8,10 @@ The port's own copy of ``tpu_speech/utils/exp_manager.py::ExpManager:27``
 branch and diff (``env.json``, ``git-diff.patch``) and the config
 (``config.json``), and opens a TensorBoard writer in ``tensorboard_dir`` (or
 the run directory) when ``tensorboardX`` is installed.
+
+Over N data-parallel ranks the version is chosen on rank 0 and broadcast (so
+the ranks do not race to create ``run_0`` and ``run_1``), and only rank 0
+writes: the other ranks get the directory and no TensorBoard writer.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import os
 import subprocess
 import time
 from typing import Any, Optional
+
+from tpu_speech_torch.parallel import distributed
 
 
 def _git(cmd, cwd):
@@ -33,21 +39,27 @@ class ExpManager:
     def __init__(self, name: str = "exp", base_dir: str = "experiments",
                  explicit_log_dir: Optional[str] = None, resume_if_exists: bool = True,
                  tensorboard_dir: Optional[str] = None):
+        self.primary = distributed.is_primary()
         if explicit_log_dir:
             self.log_dir = explicit_log_dir
         else:
             version = 0
-            while os.path.exists(os.path.join(base_dir, name, f"run_{version}")):
+            while self.primary and os.path.exists(os.path.join(base_dir, name,
+                                                               f"run_{version}")):
                 version += 1
             if resume_if_exists and version > 0:
                 version -= 1
+            version = distributed.broadcast_object(version)
             self.log_dir = os.path.join(base_dir, name, f"run_{version}")
         os.makedirs(self.log_dir, exist_ok=True)
+        self.tb = None
+        if not self.primary:
+            return
         self._capture_environment()
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
-            self.tb = None
+            pass
         else:
             self.tb = SummaryWriter(tensorboard_dir or self.log_dir)
 
@@ -68,6 +80,9 @@ class ExpManager:
                 f.write(diff)
 
     def save_config(self, cfg: Any):
+        if not self.primary:
+            return
+
         def enc(o):
             if dataclasses.is_dataclass(o):
                 return dataclasses.asdict(o)
