@@ -39,7 +39,8 @@ result):
    of ``csrc/fused_posconv_sm90.cu`` has no HGMMA or spills (a missing
    ``cuobjdump`` fails too); the MAS kernels' (warp path V = 1-32, block
    path K = 2-32) and K1's direct DFT's (16-1 frames a tile) registers and
-   spills, failing if one is missing or the MAS warp path spills;
+   spills, failing if one is missing or the MAS warp path spills (the SASS
+   dump runs beside phases 2-13 and is read after 13);
 2. K1 (fused log-mel) against ``logmel_plain`` in fp32 and in float64 at
    the SPIRAL shape (14 x 384 512 featurizer-input samples), at frame-count
    edges, at the HiFi-GAN mel (n_fft 1024, hop 256, mag_eps and clip) and
@@ -217,8 +218,8 @@ result):
     host mels, embeddings by phase 33's encoder and TextGrids of random
     phone intervals -> ``cli.get_avg_mels.main`` -> ``cli.train_enc.main``
     at B = 128 x 128 frames, 2 epochs (4 steps), then a resumed epoch (2
-    steps) -> ``cli.train_dec.main`` from its ``enc.pt`` at B = 32, 2 epochs
-    (16 steps), then a resumed epoch (8 steps) -> ``cli.inference_vc.main``
+    steps) -> ``cli.train_dec.main`` from its ``enc.pt`` at B = 32, 1 epoch
+    (8 steps), then a resumed epoch (8 steps) -> ``cli.inference_vc.main``
     on the trained ``diffvc.pt`` and phase 33's encoder (ml 30). Every
     step's loss finite, no hand kernel (keys ``diffvc_enc_train``,
     ``diffvc_dec_train``), the encoder in ``diffvc.pt`` bit for bit
@@ -244,8 +245,9 @@ result):
     ``main`` call in the same directory that resumes for the second. The
     straight and the resumed run end with the same student, teacher and
     AdamW moments, bit for bit (with cuDNN's deterministic algorithms: its
-    default weight gradients sum in a run-dependent order); every kernel of
-    the step launched; both train.logs hold the validation loss and the
+    default weight gradients sum in a run-dependent order; two straight
+    runs of 1 epoch under its defaults show how far apart they end); every
+    kernel of the step launched; both train.logs hold the validation loss and the
     four collapse scalars, finite; the checkpoint's size and its write time
     on the Checkpointer's thread (``launches_by_path`` key
     ``pretrain_cli_resume``);
@@ -300,7 +302,7 @@ result):
     bf16 RTF points beside phase 25's, with peak memory
     (``tts_e2e_bf16``, no hand kernel);
 46. export: ``cli.export_tts.main`` at full width with HiFi-GAN V1, fp32
-    and ``--bf16``; each ``.pt2`` loaded in a fresh process that imports
+    and ``--bf16``, EXPORT_STEPS Euler steps; each ``.pt2`` loaded in a fresh process that imports
     only ``tpu_speech_torch``: the same seed the same wav, another seed
     another (the vocoder's weights uniform in +-1/sqrt(fan_in), so that the
     wav follows the mel); against the eager serving function within 1e-5
@@ -415,17 +417,43 @@ result):
     every tensor through the host, so nothing is timed here);
 68. K2 at a batch offset (the dropout key's global row): the halves of the
     pretrain shape at b0 = 0 and B/2 reproduce the whole batch's outputs and
-    gradients bit for bit, fp32 and bf16, and match the plain version.
+    gradients bit for bit, fp32 and bf16, and match the plain version;
+69. the seq axis (``pretrain_step_seq2``): two more gloo ranks on the card,
+    started beside phase 67's, run SPIRAL-base's pretrain step on the
+    (data 1, seq 2) mesh, B = 8 x 250 000, each rank the encoders on half
+    the frames (K1, K2 and K4 on whole tensors; the step's ``frames`` at
+    the anchors), held to one process's step on the same batch: the loss
+    within 1e-5 relative, and the SGD(1) update (the clipped gradient) of
+    each tensor off one process's by at most twice what one process on
+    native convs is off it (at least 3e-3, at most 5e-2) x max(its
+    max|update|, 1e-3 x the largest); per rank the frames, the launches of
+    K1, K2-fwd, K2-bwd, K4 and K4-dx (each > 0) and the peak beside one
+    process's;
+70. the trainers' data axis (``gradtts_train_ddp``, ``hifigan_train_ddp``,
+    ``diffvc_dec_train_ddp``): in the same ranks, one Grad-TTS step (MAS on
+    the card, the crop), one HiFi-GAN V1 GAN step and one DiffVC decoder
+    step at full width, 2 rows a rank, each held to one process's step on
+    the 4 rows: the losses within 1e-5 relative; the gradients summed over
+    the ranks before any clip, tensor by tensor, by the rule of phase 69 (at
+    most 5e-2 x max(max|g|, 1e-3 x the largest): a wrong reduction is off by
+    10-100 %); the weights after the step within 1e-5 x max(1, max|p|) of
+    the trainer's clip and AdamW replayed on the host on those summed
+    gradients (AdamW's first update divides each gradient by its own size,
+    so it turns gradients that are rounding noise into updates that are
+    noise: they are not compared with one process's).
 
-Phase 47 runs after phase 16 (it needs phase 14's weights), 45-46 after 25,
-48 after 32, 49 after 36, 50-55 after 44, 56-60 after 55, 61-65 after 60 and
-66-68 after 65.
+Phase 47 runs after phase 16 (it needs phase 14's weights), 45 after 25, 46
+after 26 (its exports and their fresh process on a thread beside 27-32 and
+48, finished after 48), 48 after 32, 49 after 36, 50-55 after 44, 56-60 after
+55, 61-65 after 60 and 66-70 after 65.
 
-``python3 chip_smoke.py --distributed`` runs phases 67 and 68 alone at
+``python3 chip_smoke.py --distributed`` runs phases 67-70 alone at
 ``torch.cuda.device_count()`` ranks over NCCL, one card each, with FSDP
 beside DDP (the pretrain and finetune steps held to one process's, the
-SPIRAL-large finetune step's peak memory under each) and prints per rank
-the step and all-reduce times beside one rank alone.
+SPIRAL-large finetune step's peak memory under each), the seq axis at seq 2
+and 4 with B = 24 a data group (held to one process, timed), the three
+trainers at N x 2 rows, and prints per rank the step and all-reduce times
+and peaks beside one rank alone.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -433,6 +461,7 @@ the kernels, then the last line ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; fails without one.
 """
 
+import atexit
 import json
 import math
 import os
@@ -529,6 +558,23 @@ TTS_SEED = 23
 HIFIGAN_V1 = dict(resblock="1", upsample_rates=[8, 8, 2, 2], upsample_kernel_sizes=[16, 16, 4, 4],
                   upsample_initial_channel=512, resblock_kernel_sizes=[3, 7, 11],
                   resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]])
+
+
+_BACKGROUND = []  # the processes started beside the phases, stopped at exit
+
+
+def background(cmd, **kw):
+    """``subprocess.Popen(cmd, **kw)``, killed at exit if still running."""
+    proc = subprocess.Popen(cmd, **kw)
+    _BACKGROUND.append(proc)
+    return proc
+
+
+@atexit.register
+def _stop_background():
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
 
 
 def log(msg):
@@ -660,15 +706,28 @@ def qkv_views(qkv, h):
     return qkv.view(b, t, 3, h, e3 // 3 // h).unbind(2)
 
 
-def sass_counts(so_path):
-    """({kernel: tensor-core instructions}, {kernel: bf16 ones}, {kernel:
-    HGMMA ones}, the HMMA TF32 lines) from ``cuobjdump -sass`` of the built
-    library (HMMA: mma.sync; HGMMA: wgmma), or None without the tool."""
+def sass_start(so_path):
+    """``cuobjdump -sass`` of the built library, started (it takes seconds
+    of one host core, so later phases run beside it), or None without the
+    tool."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
         return None
-    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
-                          check=True).stdout.splitlines()
+    out = tempfile.TemporaryFile("w+")  # a file, not a pipe: nobody reads it meanwhile
+    return background([tool, "-sass", so_path], stdout=out, stderr=subprocess.STDOUT,
+                      text=True), out
+
+
+def sass_counts(started):
+    """({kernel: tensor-core instructions}, {kernel: bf16 ones}, {kernel:
+    HGMMA ones}, the HMMA TF32 lines) from ``sass_start``'s dump (HMMA:
+    mma.sync; HGMMA: wgmma)."""
+    proc, out = started
+    rc = proc.wait(timeout=600)
+    with out:
+        out.seek(0)
+        sass = out.read().splitlines()
+    check(rc == 0, "cuobjdump failed: " + "\n".join(sass[-20:]))
     counts, bf16, hgmma, fn = {}, {}, {}, None
     for line in sass:
         if "Function :" in line:
@@ -756,9 +815,14 @@ def phase_build(_build):
           f"sm90 kernels spill: { {k: spills[k] for k in sm90 if spills[k]} }")
     c7514 = [ln.strip() for ln in _build.build_info["log"].splitlines() if "C7514" in ln]
     log(f"    ptxas C7514 (wgmma serialized) lines: {len(c7514)}")
-    sass = sass_counts(_build.build_info["path"])
-    check(sass is not None, "cuobjdump not found: the sm90 kernels' HGMMA cannot be checked")
-    counts, bf16, hgmma, tf32 = sass
+    proc = sass_start(_build.build_info["path"])
+    check(proc is not None, "cuobjdump not found: the sm90 kernels' HGMMA cannot be checked")
+    return sm90, proc
+
+
+def phase_build_sass(sm90, proc):
+    """Phase 1's SASS checks, on the dump ``phase_build`` started."""
+    counts, bf16, hgmma, tf32 = sass_counts(proc)
     for fn, n in sorted(counts.items()):
         log(f"    SASS: {n:5d} HMMA/HGMMA ({bf16[fn]} of them BF16, {hgmma[fn]} HGMMA) in "
             f"{kernel_name(fn)}")
@@ -3474,7 +3538,7 @@ def phase_vc_train_slice(torch, rng, root, wavs, spk_pt):
     encoder, TextGrids -> cli.get_avg_mels.main -> cli.train_enc.main at B =
     128 x 128 frames for 2 epochs (4 steps), then a second run that resumes
     at epoch 3 (2 steps) -> cli.train_dec.main from its enc.pt at B = 32 for
-    2 epochs (16 steps), then a resumed epoch (8 steps) -> the trained
+    1 epoch (8 steps), then a resumed epoch (8 steps) -> the trained
     diffvc.pt and phase 33's encoder through cli.inference_vc.main (ml 30).
     Every step's loss finite; no hand kernel on either stage; the encoder in
     diffvc.pt bit for bit enc.pt's; the estimator moved in the resumed
@@ -3493,7 +3557,7 @@ def phase_vc_train_slice(torch, rng, root, wavs, spk_pt):
     enc_dir, dec_dir = os.path.join(root, "enc"), os.path.join(root, "dec")
     launches, runs = {}, {}
     for stage, cli, extra, epochs in (("enc", train_enc, ["--log-dir", enc_dir], (2, 3)),
-                                      ("dec", train_dec, ["--log-dir", dec_dir], (2, 3))):
+                                      ("dec", train_dec, ["--log-dir", dec_dir], (1, 2))):
         if stage == "dec":
             extra = extra + ["--enc-ckpt", runs["enc"][-1]["state_dict"]]
         _build.reset_launches()
@@ -3503,6 +3567,7 @@ def phase_vc_train_slice(torch, rng, root, wavs, spk_pt):
             res = cli.main(["--data-dir", data, "--epochs", str(n)] + extra)
             torch.cuda.synchronize()
             res["wall"] = time.perf_counter() - t0
+            res["epoch"] = n
             res["sd"] = torch.load(res["state_dict"], weights_only=True)
             runs[stage].append(res)
         launches[stage] = dict(_build.LAUNCHES)
@@ -3522,10 +3587,10 @@ def phase_vc_train_slice(torch, rng, root, wavs, spk_pt):
         check(all(np.isfinite(list(h.values())).all() for h in hist), f"{tag}: {hist}")
         check(not any(launches[tag].values()), f"hand kernels on {tag}: {launches[tag]}")
         with open(os.path.join(r2["log_dir"], "train.log")) as f:
-            check(len(f.read().splitlines()) == 3, f"{tag}: train.log lines")
+            check(len(f.read().splitlines()) == r2["epoch"], f"{tag}: train.log lines")
     check((e1["iteration"], e2["first_epoch"], e2["iteration"]) == (4, 3, 6),
           f"enc steps {e1['iteration']} -> epoch {e2['first_epoch']}, {e2['iteration']}")
-    check((d1["iteration"], d2["first_epoch"], d2["iteration"]) == (16, 3, 24),
+    check((d1["iteration"], d2["first_epoch"], d2["iteration"]) == (8, 2, 16),
           f"dec steps {d1['iteration']} -> epoch {d2['first_epoch']}, {d2['iteration']}")
     enc_sd = e2["sd"]
     check(all(torch.equal(d2["sd"][f"encoder.{k}"], v) for k, v in enc_sd.items()),
@@ -3967,8 +4032,8 @@ def phase_pretrain_resume(torch, root):
     makes the step deterministic on the card (the hand kernels use no
     atomics), and then requires the resumed run to equal the straight one
     bit for bit. The CLI itself leaves cuDNN's defaults: two more straight
-    runs under them show how far apart two runs that never stopped end, and
-    the step's time under each setting is printed beside it."""
+    runs of one epoch under them show how far apart two runs that never
+    stopped end, and the deterministic step's time is printed beside it."""
     import shutil
 
     from tpu_speech_torch.cli import run_spiral
@@ -4016,14 +4081,14 @@ def phase_pretrain_resume(torch, root):
 
     step_events, spans = [], {}
 
-    def straight_pair(mode, *names):
-        """Runs of 2 epochs, each from its own directory; the step spans of
-        each run after its first step (CUDA events around ``step``)."""
+    def straight_pair(mode, epochs, *names):
+        """Runs of ``epochs`` epochs, each from its own directory; the step
+        spans of each run after its first step (CUDA events around ``step``)."""
         out = []
         for name in names:
             step_events.clear()
             out.append(run_spiral.main(base + ["--model_save_dir", os.path.join(d, name),
-                                               "--max_epochs", "2"]))
+                                               "--max_epochs", str(epochs)]))
             torch.cuda.synchronize()
             spans.setdefault(mode, []).extend(a.elapsed_time(b) for a, b in step_events[1:])
         return out
@@ -4035,13 +4100,13 @@ def phase_pretrain_resume(torch, root):
     _build.reset_launches()
     t0 = time.perf_counter()
     try:
-        straight, = straight_pair("deterministic", "a")
+        straight, = straight_pair("deterministic", 2, "a")
         first = run_spiral.main(base + ["--model_save_dir", os.path.join(d, "b"),
                                         "--max_epochs", "1"])
         resumed = run_spiral.main(base + ["--model_save_dir", os.path.join(d, "b"),
                                           "--max_epochs", "2"])
         torch.backends.cudnn.deterministic = deterministic
-        straight_pair("cuDNN's defaults", "c", "e")
+        straight_pair("cuDNN's defaults", 1, "c", "e")
     finally:
         Checkpointer._write, Checkpointer.save = write, save
         SpiralPretrainRunner.step = step
@@ -4051,8 +4116,8 @@ def phase_pretrain_resume(torch, root):
     launches = dict(_build.LAUNCHES)
     log(f"[37 pretrain resume] run_spiral.main with the JAX defaults (model_type spiral, "
         f"run_mode train): 2 epochs of {RESUME_STEPS} steps straight, then 1 epoch + a "
-        f"resumed epoch (cuDNN's deterministic algorithms), then two straight runs under "
-        f"cuDNN's defaults, B = {PRETRAIN_BATCH} x 250 000, in {wall:.1f} s; launches "
+        f"resumed epoch (cuDNN's deterministic algorithms), then two straight runs of 1 epoch "
+        f"under cuDNN's defaults, B = {PRETRAIN_BATCH} x 250 000, in {wall:.1f} s; launches "
         f"{launches}")
     for key in ("fused_logmel", "fused_qkv_attention", "fused_qkv_attention_bwd",
                 "grouped_conv1d", "grouped_conv1d_dx"):
@@ -4061,7 +4126,8 @@ def phase_pretrain_resume(torch, root):
     check(straight["iteration"] == resumed["iteration"] == 2 * RESUME_STEPS,
           f"iterations {straight['iteration']} / {resumed['iteration']}")
     cks = {k: Checkpointer(os.path.join(d, k, "ckpt")) for k in ("a", "b", "c", "e")}
-    check(all(c.all_steps() == [RESUME_STEPS, 2 * RESUME_STEPS] for c in cks.values()),
+    check(all(cks[k].all_steps() == [RESUME_STEPS, 2 * RESUME_STEPS] for k in ("a", "b"))
+          and all(cks[k].all_steps() == [RESUME_STEPS] for k in ("c", "e")),
           f"checkpoints {[c.all_steps() for c in cks.values()]}")
 
     def part_diffs(a, b):
@@ -4082,15 +4148,15 @@ def phase_pretrain_resume(torch, root):
 
     a, b = (cks[k].restore(2 * RESUME_STEPS) for k in ("a", "b"))
     diffs = {k: v[0] for k, v in part_diffs(a, b).items()}
-    default = part_diffs(*(cks[k].restore(2 * RESUME_STEPS) for k in ("c", "e")))
+    default = part_diffs(*(cks[k].restore(RESUME_STEPS) for k in ("c", "e")))
     log(f"    straight vs resumed at step {2 * RESUME_STEPS} (deterministic algorithms), max "
         f"|difference| of each part: {diffs}")
     log("    two straight runs under cuDNN's defaults at step "
-        f"{2 * RESUME_STEPS}, max |difference| and relative L2 difference of each part: "
+        f"{RESUME_STEPS}, max |difference| and relative L2 difference of each part: "
         + ", ".join(f"{k} {m:.3e} / {r:.3e}" for k, (m, r) in default.items()))
     log("    step span (CUDA events around the step, each run's first step left out): "
         + ", ".join(f"{k} {np.median(v):.2f} ms (median of {len(v)})"
-                    for k, v in spans.items()))
+                    for k, v in spans.items() if v))
     for k in ("c", "e"):  # 3 GiB of checkpoints each; later phases need only a and b
         shutil.rmtree(os.path.join(d, k))
     check(not any(diffs.values()), f"the resumed run is not the straight one: {diffs}")
@@ -4771,6 +4837,11 @@ VC_CONTROLS_CAUGHT = ("score x2", "step noise dropped", "draws x2")
 EXPORT_TEXT_LEN = 256  # the exported TTS graph's text bucket (TTS_TEXT's ids padded)
 EXPORT_SEED = 47
 EXPORT_ATOL = 1e-5  # reloaded against eager, fp32 (tests/test_export_tts.py:89)
+# the exported TTS graph's Euler steps: torch.export unrolls the loop, so the
+# graph, its export and its load grow with each step; two keep the loop
+# (and the U-Net fed back its own output) at a fifth of the serving default's
+# export and load time
+EXPORT_STEPS = 2
 # the ops of the exported CTC graph, and the kernels a call of it launches
 CTC_EXPORT_OPS = {"fused_logmel": 1, "fused_qkv_attention_fwd": 12, "grouped_posconv": 2}
 CTC_EXPORT_LAUNCHES = {"fused_logmel": 1, "fused_qkv_attention": 12, "grouped_conv1d": 2}
@@ -4908,28 +4979,28 @@ print(json.dumps(out))
 '''
 
 
-def phase_tts_export(torch, root):
-    """46: ``cli.export_tts.main`` at full width with HiFi-GAN V1, fp32 and
-    ``--bf16`` (text bucket EXPORT_TEXT_LEN, mel bucket 384, 10 Euler
-    steps, B = 1), from phase 23's kind of files (a reference-named .pt, a
-    weight-normed generator .pt, its weights uniform in +-1/sqrt(fan_in) so
-    that the wav follows the mel, and its config); each .pt2 loaded in one
-    fresh process that imports only the port and calls nothing but
-    ``load_exported(path).call`` (which must turn TF32 off: checked), run
-    on bench.py's text at seeds 0, 0 and 1: the same seed the same wav
-    (cuDNN's default algorithms are not bit for bit: within EXPORT_ATOL in
-    fp32, phase 42's rule in bf16), another seed another (by more than
-    1e-3 and 10x that spread);
-    the wav against the eager serving function (``build_serving_fn`` on
-    the same files' weights, seed 0): fp32 within EXPORT_ATOL, bf16 by
-    phase 42's rule (BF16_TENSOR_RL2); the lengths equal. No hand kernel
-    (``tts_export``). The exported call's time beside the eager call's."""
-    from tpu_speech_torch.cli import export_tts
-    from tpu_speech_torch.cli.inference import load_gradtts_state_dict, load_hifigan
-    from tpu_speech_torch.configs import gradtts as cfg
-    from tpu_speech_torch.models.grad_tts import GradTTS
-    from tpu_speech_torch.ops import _build
-    from tpu_speech_torch.text import symbols
+_EXPORT_CLI = r'''
+import json, sys, time
+t0 = time.perf_counter()
+from tpu_speech_torch.cli import export_tts
+res = export_tts.main(sys.argv[1:])
+print(json.dumps({"vocoder": res["vocoder"], "wall": time.perf_counter() - t0}))
+'''
+
+
+def start_tts_export(torch, root):
+    """46, its first half: ``cli.export_tts.main`` at full width with
+    HiFi-GAN V1, fp32 and ``--bf16`` (text bucket EXPORT_TEXT_LEN, mel
+    bucket 384, EXPORT_STEPS Euler steps, B = 1), from phase 23's kind of
+    files (a reference-named .pt, a weight-normed generator .pt, its
+    weights uniform in +-1/sqrt(fan_in) so that the wav follows the mel, and
+    its config). The two exports run as two processes at once, then each
+    .pt2 is loaded in one fresh process that imports only the port and
+    calls nothing but ``load_exported(path).call`` (which must turn TF32
+    off: checked), run on bench.py's text at seeds 0, 0 and 1. All three
+    run on a thread of their own beside the phases that follow (tracing is
+    host work); ``finish_tts_export`` waits for them."""
+    import threading
 
     model, voc = _tts_models(torch)
     with torch.no_grad():  # uniform in +-1/sqrt(fan_in): a wav of order one that follows
@@ -4948,34 +5019,86 @@ def phase_tts_export(torch, root):
     xp[:, :x.shape[1]] = x
     np.save(os.path.join(root, "x.npy"), xp.numpy())
     np.save(os.path.join(root, "xl.npy"), xl.int().numpy())
-    paths, walls = {}, {}
-    _build.reset_launches()
-    for bf16 in (False, True):
-        path = os.path.join(root, f"tts_{'bf16' if bf16 else 'fp32'}.pt2")
-        t0 = time.perf_counter()
-        res = export_tts.main(["-c", ckpt, "-o", path, "--hifigan", hpt, "--hifigan-config",
-                               hjson, "--max-text-len", str(EXPORT_TEXT_LEN), "--max-frames",
-                               str(TTS_BUCKET)] + (["--bf16"] if bf16 else []))
-        walls[bf16] = time.perf_counter() - t0
-        check(res["vocoder"], "exported without the vocoder")
-        paths[bf16] = path
     here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here}
+    paths = {bf16: os.path.join(root, f"tts_{'bf16' if bf16 else 'fp32'}.pt2")
+             for bf16 in (False, True)}
+    state = dict(ckpt=ckpt, hjson=hjson, hpt=hpt, xp=xp, xl=xl, paths=paths, exports={})
+
+    def job():
+        procs = {bf16: background(
+            [sys.executable, "-c", _EXPORT_CLI, "-c", ckpt, "-o", path, "--hifigan", hpt,
+             "--hifigan-config", hjson, "--max-text-len", str(EXPORT_TEXT_LEN),
+             "--max-frames", str(TTS_BUCKET), "-t", str(EXPORT_STEPS)]
+            + (["--bf16"] if bf16 else []), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=here, env=env) for bf16, path in paths.items()}
+        for bf16, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            state["exports"][bf16] = (proc.returncode, out, err)
+        if any(rc != 0 for rc, _, _ in state["exports"].values()):
+            return
+        t0 = time.perf_counter()
+        proc = background(
+            [sys.executable, "-c", _tts_export_script(), os.path.join(root, "x.npy"),
+             os.path.join(root, "xl.npy"), paths[False], paths[True]], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=here, env=env)
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        state["load"] = (proc.returncode, out, err)
+        state["sub_wall"] = time.perf_counter() - t0
+
+    state["thread"] = threading.Thread(target=job, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def finish_tts_export(torch, state):
+    """46, its second half: the exports' and the fresh process's results.
+    The same seed gives the same wav (cuDNN's default algorithms are not bit
+    for bit: within EXPORT_ATOL in fp32, phase 42's rule in bf16), another
+    seed another (by more than 1e-3 and 10x that spread); the wav against
+    the eager serving function (``build_serving_fn`` on the same files'
+    weights, seed 0): fp32 within EXPORT_ATOL, bf16 by phase 42's rule
+    (BF16_TENSOR_RL2); the lengths equal. No hand kernel (``tts_export``).
+    The exported call's time beside the eager call's (the fresh process
+    timed its calls beside the phases that ran meanwhile)."""
+    from tpu_speech_torch.cli import export_tts
+    from tpu_speech_torch.cli.inference import load_gradtts_state_dict, load_hifigan
+    from tpu_speech_torch.configs import gradtts as cfg
+    from tpu_speech_torch.models.grad_tts import GradTTS
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.text import symbols
+
     t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-c", _tts_export_script(),
-                          os.path.join(root, "x.npy"), os.path.join(root, "xl.npy"),
-                          paths[False], paths[True]], capture_output=True, text=True, cwd=here,
-                         env={**os.environ, "PYTHONPATH": here}, timeout=600)
-    sub_wall = time.perf_counter() - t0
-    check(run.returncode == 0, f"the fresh process failed:\n{run.stderr[-4000:]}")
-    sub = json.loads(run.stdout.strip().splitlines()[-1])
+    state["thread"].join(timeout=900)
+    waited = time.perf_counter() - t0
+    check(not state["thread"].is_alive(), "46: the export jobs did not finish")
+    paths, walls = state["paths"], {}
+    check(len(state["exports"]) == 2, "46: the export jobs stopped early")
+    for bf16, (rc, out, err) in state["exports"].items():
+        check(rc == 0, f"46: the {'bf16' if bf16 else 'fp32'} export failed:\n{err[-4000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        check(res["vocoder"], "exported without the vocoder")
+        walls[bf16] = res["wall"]
+    check("load" in state, "46: the exports failed, so nothing was loaded")
+    rc, out, err = state["load"]
+    check(rc == 0, f"the fresh process failed:\n{err[-4000:]}")
+    sub = json.loads(out.strip().splitlines()[-1])
     check(not sub["foreign_modules"], f"the fresh process imported {sub['foreign_modules']}")
     model = GradTTS(**cfg.model_kwargs(len(symbols) + 1))
-    model.load_state_dict(load_gradtts_state_dict(ckpt, cfg.n_enc_layers, cfg.n_spks))
-    voc = load_hifigan(hjson, hpt)
-    xc, xlc = xp.cuda(), xl.int().cuda()
+    model.load_state_dict(load_gradtts_state_dict(state["ckpt"], cfg.n_enc_layers, cfg.n_spks))
+    voc = load_hifigan(state["hjson"], state["hpt"])
+    xc, xlc = state["xp"].cuda(), state["xl"].int().cuda()
     seed = torch.zeros((), dtype=torch.int32, device="cuda")
+    _build.reset_launches()
     for bf16 in (False, True):
-        fn, _ = export_tts.build_serving_fn(model, voc, y_max_length=TTS_BUCKET,
+        fn, _ = export_tts.build_serving_fn(model, voc, n_timesteps=EXPORT_STEPS,
+                                            y_max_length=TTS_BUCKET,
                                             max_text_len=EXPORT_TEXT_LEN,
                                             hop_length=cfg.hop_length, bf16=bf16,
                                             device="cuda")
@@ -4993,15 +5116,15 @@ def phase_tts_export(torch, root):
         err = (got - wav).abs().max().item()
         rel = _rel_l2(got, wav)
         tag = "bf16" if bf16 else "fp32"
-        log(f"[46 export tts] {tag}: export {walls[bf16]:.1f} s, "
+        log(f"[46 export tts] {tag}: export {walls[bf16]:.1f} s (both at once), "
             f"{os.path.getsize(paths[bf16]) / 1e6:.1f} MB; fresh process: import "
             f"{sub['import_s']:.1f} s, load {s['load_s']:.1f} s, wav {s['dtype']} "
             f"{tuple(got.shape)}, lengths {n_got.tolist()} ({s['lengths_dtype']}); reloaded "
             f"against eager: max |diff| {err:.3e}, relative L2 {rel:.3e}; seed 0 twice: max "
             f"|diff| {same:.3e}, relative L2 {_rel_l2(again, got):.3e} (cuDNN's default "
             f"algorithms are not bit for bit), seed 1 differs by {apart:.3e}; "
-            f"a call: exported {s['ms']:.2f} ms, eager {eager_ms:.2f} ms; TF32 (cuDNN, "
-            f"matmul) after load_exported {s['tf32']}")
+            f"a call: exported {s['ms']:.2f} ms (beside other phases), eager {eager_ms:.2f} "
+            f"ms; TF32 (cuDNN, matmul) after load_exported {s['tf32']}")
         check(s["tf32"] == [False, False], f"{tag}: load_exported left TF32 on: {s['tf32']}")
         check(np.array_equal(n_got, n.cpu().numpy()), f"{tag}: lengths {n_got} vs {n}")
         check((same <= EXPORT_ATOL if not bf16 else _rel_l2(again, got) <= BF16_TENSOR_RL2)
@@ -5009,7 +5132,8 @@ def phase_tts_export(torch, root):
         check(bool(torch.isfinite(got).all()), f"{tag}: the reloaded wav is not finite")
         check(err <= EXPORT_ATOL if not bf16 else rel <= BF16_TENSOR_RL2,
               f"{tag}: reloaded against eager {err}, {rel}")
-    log(f"    the fresh process took {sub_wall:.1f} s")
+    log(f"    the fresh process took {state['sub_wall']:.1f} s; the main process waited "
+        f"{waited:.1f} s for the jobs")
     for p in paths.values():
         os.remove(p)
     return dict(_build.LAUNCHES)
@@ -5893,18 +6017,52 @@ def phase_toy_quality(torch, root, rng):
     return total
 
 
-def run_large_phases(torch, gen):
-    """Phases 50-55 in one temporary directory: the large corpus and vocab,
-    then each phase; returns their launches and measurements."""
-    rng = np.random.default_rng(LARGE_SEED)
-    with tempfile.TemporaryDirectory() as root:
+_LARGE_DATA = r'''
+import json, os, sys, time
+import numpy as np
+import chip_smoke as c
+t0 = time.perf_counter()
+root = sys.argv[1]
+rng = np.random.default_rng(c.LARGE_SEED)
+c.write_large_corpus(root, rng)
+n = c.write_subword_vocab(os.path.join(root, "vocab.tsv"), c._manifest_texts(
+    os.path.join(root, "librivox-train-clean-100.json")))
+print(json.dumps({"n": n, "rng": rng.bit_generator.state, "s": time.perf_counter() - t0}))
+'''
+
+
+def start_large_data():
+    """Phases 50-55's temporary directory, and a process of its own that
+    writes the large corpus and vocab into it (host work, beside the phases
+    before 50)."""
+    tmp = tempfile.TemporaryDirectory()
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = background([sys.executable, "-c", _LARGE_DATA, tmp.name], stdout=subprocess.PIPE,
+                      stderr=subprocess.PIPE, text=True, cwd=here,
+                      env={**os.environ, "PYTHONPATH": here})
+    return tmp, proc
+
+
+def run_large_phases(torch, gen, data):
+    """Phases 50-55 in ``start_large_data``'s directory: the large corpus and
+    vocab (that process's), then each phase; returns their launches and
+    measurements."""
+    tmp, proc = data
+    with tmp as root:
         t0 = time.perf_counter()
-        write_large_corpus(root, rng)
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        check(proc.returncode == 0, f"50: the data process failed:\n{err[-4000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        rng = np.random.default_rng(LARGE_SEED)
+        rng.bit_generator.state = res["rng"]  # where the corpus left it
+        n = res["n"]
         vocab = os.path.join(root, "vocab.tsv")
-        n = write_subword_vocab(vocab, _manifest_texts(
-            os.path.join(root, "librivox-train-clean-100.json")))
         log(f"[50 data] {LARGE_B} test and {LARGE_FT_STEPS * LARGE_B} train wavs of 30-42 s "
-            f"and a scored vocab of {n} pieces in {time.perf_counter() - t0:.1f} s")
+            f"and a scored vocab of {n} pieces in {res['s']:.1f} s (a process of its own "
+            f"beside phases 37-44; waited {time.perf_counter() - t0:.1f} s)")
         check(n == LARGE_VOCAB, f"the vocab has {n} pieces")
         ctc = phase_large_transcription(torch, root, vocab)
         phase_large_cpu_vs_card(torch, root, vocab, ctc)
@@ -6953,6 +7111,10 @@ DIST_SGD_LR = 1e-3  # the bf16 finetune steps: the update is lr x the gradient
 # CTC loss of random weights amplifies rounding. A wrong reduction (a rank
 # missing, a scale, BatchNorm's local sum) is off by 10-100 % of |g|
 DIST_GRAD_RTOL = 3e-3
+# the most _hold_conditioned allows, in units of a tensor's own scale,
+# whatever the step on other kernels shows: below the 10 % by which a wrong
+# reduction moves a tensor
+COND_CAP = 5e-2
 
 
 def _free_port():
@@ -6988,21 +7150,18 @@ def _wave_pool(rng, k, n):
     return [speech_like(rng, n) for _ in range(k)]
 
 
-def write_dist_batches(root, world, seed=66):
-    """The global batches of phase 67 on the host, as .npz files under
-    ``root`` that every rank slices: the pretrain batch (world x 24 crops,
-    masks and shifts from ``host_augment_batch``) with its negative indices,
-    and two finetune steps of two micro-batches of world x 14 utterances of
-    4-24 s with random labels."""
+def write_pretrain_batch(root, b, name, rng, seed):
+    """A global pretrain batch of ``b`` SPIRAL-base crops of 250 000 samples
+    (masks and shifts from ``host_augment_batch``) with its negative
+    indices, as ``root/name``, which every rank slices."""
     import torch
 
     from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
     from tpu_speech_torch.models.spiral.st2vec import draw_negative_indices
     from tpu_speech_torch.train.spiral import host_augment_batch
 
-    rng = np.random.default_rng(seed)
     enc = _no_regularisers(spiral_base_pretrain_ls960().model.encoder)
-    n, b = DIST_PRE_SAMPLES, world * DIST_PRE_B
+    n = DIST_PRE_SAMPLES
     pool = _wave_pool(rng, 8, n)
     lens = rng.integers(n // 2, n + 1, size=b).astype(np.int32)
     lens[0] = n
@@ -7018,7 +7177,17 @@ def write_dist_batches(root, world, seed=66):
         feat_lens = (feat_lens + 1) // 2
     neg = draw_negative_indices(feat_lens, spec_len // 8, enc.n_negatives,
                                 torch.Generator().manual_seed(seed))
-    np.savez(os.path.join(root, "dist_pretrain.npz"), neg=neg.numpy(), **batch)
+    np.savez(os.path.join(root, name), neg=neg.numpy(), **batch)
+
+
+def write_dist_batches(root, world, seed=66):
+    """The global batches of phase 67 on the host, as .npz files under
+    ``root`` that every rank slices: the pretrain batch (world x 24 crops,
+    masks and shifts from ``host_augment_batch``) with its negative indices,
+    and two finetune steps of two micro-batches of world x 14 utterances of
+    4-24 s with random labels."""
+    rng = np.random.default_rng(seed)
+    write_pretrain_batch(root, world * DIST_PRE_B, "dist_pretrain.npz", rng, seed)
     pool = _wave_pool(rng, 8, MAX_SAMPLES)
     for step in range(2):
         for micro in range(2):
@@ -7099,42 +7268,52 @@ def _timed_steps(torch, step, allreduce=None, n=DIST_TIMED):
     return ms, ar, peak
 
 
-def dist_pretrain_step(torch, root, rank, world, fsdp=False, timed=0):
-    """One fp32 pretrain step of SPIRAL-base at full width on this rank's 24
-    crops of the global batch (dither, dropout and layerdrop off, the
-    negatives given), AdamW at a constant lr; rank 0 of world 1 is the
-    one-process step on the whole batch. Returns the loss, accuracy,
-    launches, all-reduced bytes, the weights after the step (on the host)
-    and, with ``timed`` samples, the step's and the all-reduce's ms and the
-    peak."""
+def dist_pretrain_step(torch, root, rank, world, fsdp=False, timed=0, seq_parallel=1,
+                       batch_file="dist_pretrain.npz", sgd=False):
+    """One fp32 pretrain step of SPIRAL-base at full width on this rank's
+    rows of the global batch in ``batch_file`` (dither, dropout and
+    layerdrop off, the negatives given), AdamW at a constant lr; rank 0 of
+    world 1 is the one-process step on the whole batch. ``seq_parallel`` S >
+    1 runs it on the (data, seq) mesh: a data group's rows, T / S frames a
+    rank. Returns the loss, accuracy, launches, all-reduced bytes, the
+    frames a rank held at the anchors, the peak, the weights after the step
+    (on the host) and, with ``timed`` samples, the step's and the
+    all-reduce's ms and the peak over them. ``sgd``: SGD(1) in place of
+    AdamW, so that the update is the gradient."""
     from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
     from tpu_speech_torch.models.spiral.dropout import DropoutRng
     from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder
     from tpu_speech_torch.ops import _build
-    from tpu_speech_torch.parallel.mesh import allreduce_grads
+    from tpu_speech_torch.parallel.mesh import allreduce_grads, data_axis, make_mesh
     from tpu_speech_torch.train.spiral import batch_to_device, make_pretrain_state, pretrain_step
 
+    mesh = make_mesh(seq_parallel=seq_parallel) if seq_parallel > 1 else None
+    d, n_data = data_axis(mesh) if mesh is not None else (rank, world)
     enc = _no_regularisers(spiral_base_pretrain_ls960().model.encoder)
     model = ST2VecEncoder(enc, pretraining=True)
     model.init_weights(torch.Generator().manual_seed(3))
     model = _place_model(torch, model.cuda(), world, fsdp)
-    state = make_pretrain_state(model, _dist_optimizer)
-    rows = _rank_rows(os.path.join(root, "dist_pretrain.npz"), rank, world)
+    state = make_pretrain_state(model, (lambda ps: torch.optim.SGD(ps, lr=1.0)) if sgd
+                                else _dist_optimizer)
+    rows = _rank_rows(os.path.join(root, batch_file), d, n_data)
     neg = torch.from_numpy(rows.pop("neg")).cuda()
     batch = batch_to_device(rows, "cuda")
-    rng = DropoutRng.seeded(0, "cuda", rank=rank, row0=rank * len(neg))
+    rng = DropoutRng.seeded(0, "cuda", rank=d, row0=d * len(neg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    m = pretrain_step(state, batch, rng, neg_idx=neg)
+    m = pretrain_step(state, batch, rng, neg_idx=neg, mesh=mesh)
     torch.cuda.synchronize()
     out = dict(loss=float(m["loss"]), acc=float(m["accuracy"]), launches=dict(_build.LAUNCHES),
-               bytes=m["allreduce_bytes"], params=_host_params(torch, model),
-               checksum=_param_checksum(torch, model))
+               bytes=m["allreduce_bytes"], frames=m["frames"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               params=_host_params(torch, model), checksum=_param_checksum(torch, model))
     if timed:
         from tpu_speech_torch.parallel import distributed
 
         params = model.student_parameters()
         out["ms"], out["allreduce_ms"], out["peak_gib"] = _timed_steps(
-            torch, lambda: pretrain_step(state, batch, rng, neg_idx=neg),
+            torch, lambda: pretrain_step(state, batch, rng, neg_idx=neg, mesh=mesh),
             (lambda: allreduce_grads(params)) if distributed.process_count() > 1 else None,
             n=timed)
     return out
@@ -7300,8 +7479,10 @@ def dist_worker(rank, job):
 
     use_full_fp32()
     try:
-        out = {"rank": rank, "device": str(distributed.device())}
+        out = {"rank": rank, "device": str(distributed.device()), "walls": {}}
+        t0 = time.perf_counter()
         out["evaluate"] = dist_evaluate(torch, job["manifest"], root, rank)
+        out["walls"]["evaluate"] = round(time.perf_counter() - t0, 2)
         cases = {"pretrain": lambda: dist_pretrain_step(torch, root, rank, world,
                                                         timed=job["timed"]),
                  "finetune": lambda: dist_finetune_steps(torch, root, rank, world,
@@ -7313,9 +7494,11 @@ def dist_worker(rank, job):
                                                                 fsdp=True, timed=job["timed"])
             cases["finetune_fsdp"] = lambda: dist_finetune_steps(torch, root, rank, world,
                                                                  fsdp=True, timed=job["timed"])
-        weights = {}
+        weights, walls = {}, out["walls"]
         for name, run in cases.items():
+            t0 = time.perf_counter()
             r = run()
+            walls[name] = round(time.perf_counter() - t0, 2)
             weights[name] = r.pop("params")
             grads = r.pop("grads", None)
             if grads:  # rank 0's fp32 finetune runs
@@ -7330,7 +7513,9 @@ def dist_worker(rank, job):
                 out[f"large_peak_{'fsdp' if fsdp else 'ddp'}"] = dist_large_finetune_peak(
                     torch, rank, world, fsdp)
                 torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         out["runner"] = dist_runner_steps(torch, root, rank, world)
+        walls["runner"] = round(time.perf_counter() - t0, 2)
     finally:
         distributed.shutdown()
     if rank == 0:
@@ -7376,6 +7561,47 @@ def _hold_weights(tag, got, ref, rtol=DIST_PARAM_RTOL):
             worst, name = err, k
     check(worst <= rtol, f"{tag}: {name} off by {worst:.3e} x max(1, max|p|) (limit {rtol})")
     return worst, name
+
+
+def _pretrain_init(torch):
+    """SPIRAL-base's weights before the phases' pretrain steps (seed 3)."""
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder
+
+    enc = _no_regularisers(spiral_base_pretrain_ls960().model.encoder)
+    model = ST2VecEncoder(enc, pretraining=True).init_weights(torch.Generator().manual_seed(3))
+    return {k: v.float() for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def _hold_conditioned(tag, got, ref, beside, init=None, floor=1e-3, rtol=DIST_GRAD_RTOL,
+                      cap=COND_CAP):
+    """Each tensor of ``got`` off ``ref`` by at most twice the most that
+    ``beside`` (the same step on other kernels) is off it anywhere, or
+    rtol, but never more than ``cap``, in units of max(the tensor's own
+    scale, floor x the step's largest): with ``init`` the tensors are
+    weights after a step from it and the scale is the tensor's max|update|,
+    without it they are gradients and the scale is max|g|. The steps of
+    random weights are ill-conditioned where a train-mode BatchNorm follows
+    a conv (the SPIRAL predictor's gradients move by about 1 % when only the
+    convolution library changes) or an L1 loss's sign flips with rounding
+    (HiFi-GAN's mel loss), and a wrong reduction moves a tensor by 10-100 %,
+    which ``cap`` (below 10 %) always catches. Returns (got's worst, its
+    name), (beside's worst, its name), the limit."""
+    scale = {k: ((init[k] - r) if init is not None else r).abs().max().item()
+             for k, r in ref.items()}
+    top = max(scale.values())
+
+    def worst(x):
+        return max(((x[k] - r).abs().max().item() / max(scale[k], floor * top), k)
+                   for k, r in ref.items())
+
+    check(got.keys() == ref.keys() == beside.keys(), f"{tag}: the tensors' names differ")
+    w_got, w_beside = worst(got), worst(beside)
+    limit = min(max(2 * w_beside[0], rtol), cap)
+    unit = "update" if init is not None else "g"
+    check(w_got[0] <= limit, f"{tag}: {w_got[1]} off by {w_got[0]:.3e} x max|{unit}| (one "
+          f"process on other kernels: {w_beside[0]:.3e}, {w_beside[1]}; limit {limit:.3e})")
+    return w_got, w_beside, limit
 
 
 def _hold_grads(tag, got, ref, rtol=DIST_GRAD_RTOL):
@@ -7468,7 +7694,8 @@ def finish_dist_ranks(torch, state):
     ranks, weights, wall = join_ranks(job, started or start_ranks(job))
     r0 = ranks[0]
     log(f"[67 ranks] {world} {backend} ranks ({', '.join(r['device'] for r in ranks)}) ran "
-        f"their checks in {wall:.1f} s (spawn, imports and the build's load included)")
+        f"their checks in {wall:.1f} s (spawn, imports and the build's load included); "
+        f"seconds by step, rank 0: {r0['walls']}")
     ev, one = r0["evaluate"], ref["evaluate"]
     log(f"[67 evaluate] B = 14 x 24 s a rank, {ev['n']} utts: WER {ev['wer']:.6f} CER "
         f"{ev['cer']:.6f} SER {ev['ser']:.6f}; one process WER {one['wer']:.6f} CER "
@@ -7682,29 +7909,358 @@ def phase_k2_offset(torch, gen):
     return worst
 
 
+# ---- 69-70: the seq axis and the TTS and VC trainers' data axis ---------------
+
+SEQ_B = 8  # phase 69: the data group's rows (two gloo ranks, seq 2)
+SEQ_DIST_B = 24  # --distributed: a data group's rows, as DDP's 24 a rank
+TR_ROWS = 2  # phase 70 and --distributed: a rank's rows of each trainer's batch
+TR_SEED = 70
+# the trainers' AdamW in phase 70: eps 1e-3 for DIST_OPTIM's reason, lr and
+# betas as each recipe's
+TR_OPTIM = dict(eps=1e-3, weight_decay=0.0)
+TR_ADAMW = {"gradtts": dict(lr=1e-4), "hifigan": dict(lr=2e-4, betas=(0.8, 0.99)),
+            "diffvc_dec": dict(lr=1e-4)}
+
+
+def write_trainer_batches(root, world, seed=TR_SEED):
+    """Phase 70's global batches, world x TR_ROWS rows each, as .npz files
+    that every rank slices: Grad-TTS (ids of 80-120 tokens, random 80-bin
+    mels of 300-500 frames, cropped to the config's out_size), HiFi-GAN
+    (speech-like 22 050 Hz segments of 8192 samples) and the DiffVC decoder
+    (two 128-frame mels of 80-128 valid frames and a unit speaker
+    embedding)."""
+    from tpu_speech_torch.text import symbols
+
+    rng = np.random.default_rng(seed)
+    b = world * TR_ROWS
+    x_lens = rng.integers(80, 121, size=b).astype(np.int32)
+    y_lens = rng.integers(300, 501, size=b).astype(np.int32)
+    x_lens[0], y_lens[0] = 120, 500
+    x = np.zeros((b, 120), np.int32)
+    for i in range(b):
+        x[i, :x_lens[i]] = rng.integers(1, len(symbols) + 1, size=x_lens[i])
+    y = (rng.standard_normal((b, 500, 80)) * 2 - 5).astype(np.float32)
+    np.savez(os.path.join(root, "gradtts.npz"), x=x, x_lengths=x_lens, y=y, y_lengths=y_lens)
+    wav = np.stack([speech_like(rng, 8192, sr=22050) for _ in range(b)]).astype(np.float32)
+    np.savez(os.path.join(root, "hifigan.npz"), wav=wav)
+    lens = rng.integers(80, 129, size=b).astype(np.int32)
+    lens[0] = 128
+    c = rng.standard_normal((b, 256)).astype(np.float32)
+    np.savez(os.path.join(root, "diffvc.npz"),
+             mel1=(rng.standard_normal((b, 128, 80)) * 2 - 5).astype(np.float32),
+             mel2=(rng.standard_normal((b, 128, 80)) * 2 - 5).astype(np.float32),
+             mel_lengths=lens, c=c / np.linalg.norm(c, axis=1, keepdims=True))
+
+
+def dist_trainer_steps(torch, root, rank, world, with_init=False):
+    """70: one step of each TTS and VC trainer at full width on this rank's
+    rows of the global batches: Grad-TTS (``configs/gradtts.py``, MAS on
+    the card, the crop and the per-step generator's draws at the global
+    shape, eval mode: no dropout), HiFi-GAN V1's GAN step and the DiffVC
+    decoder's (``configs/diffvc.py``); rank 0 of world 1 is the
+    one-process step on the whole batch. Returns each step's metrics,
+    launches, weights (on the host), the gradients summed over the ranks
+    before any clip (on the host, named as the weights; ``allreduce_grads``
+    wrapped for the step) and the weights' checksum, and with
+    ``with_init`` the weights before the step."""
+    from tpu_speech_torch.cli.train_hifigan import build_models, mel_cfg_from
+    from tpu_speech_torch.configs import diffvc as vcfg
+    from tpu_speech_torch.configs import gradtts as tcfg
+    from tpu_speech_torch.models.diffvc import DiffVC
+    from tpu_speech_torch.models.grad_tts import GradTTS
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.text import symbols
+    from tpu_speech_torch.train import diffvc as t_diffvc
+    from tpu_speech_torch.train import gradtts as t_gradtts
+    from tpu_speech_torch.train import hifigan as t_hifigan
+    from tpu_speech_torch.train.diffvc import dec_train_step
+    from tpu_speech_torch.train.gradtts import train_step
+    from tpu_speech_torch.train.hifigan import gan_train_step
+    from tpu_speech_torch.train.optim import AdamW
+    from tpu_speech_torch.train.trainer import batch_to_device, step_generator
+
+    def rows(name):
+        return batch_to_device(_rank_rows(os.path.join(root, name), rank, world), "cuda")
+
+    def host(modules):
+        return {k: v for mod in modules for k, v in _host_params(torch, mod).items()}
+
+    def run(step, modules):
+        init = host(modules) if with_init else None
+        names = {id(p): k for mod in modules for k, p in mod.named_parameters()}
+        grads, reduce = {}, t_gradtts.allreduce_grads
+
+        def reduce_and_keep(params):  # the summed gradients, before any clip
+            params = list(params)
+            n = reduce(params)
+            grads.update({names[id(p)]: p.grad.detach().to("cpu", torch.float32, copy=True)
+                          for p in params if p.grad is not None})
+            return n
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        trainers = (t_gradtts, t_hifigan, t_diffvc)
+        for mod in trainers:
+            mod.allreduce_grads = reduce_and_keep
+        try:
+            m = step()
+        finally:
+            for mod in trainers:
+                mod.allreduce_grads = reduce
+        torch.cuda.synchronize()
+        return dict(metrics={k: float(v) for k, v in m.items()}, launches=dict(_build.LAUNCHES),
+                    params=host(modules), init=init, grads=grads,
+                    checksum=[c for mod in modules for c in _param_checksum(torch, mod)])
+
+    out = {}
+    model = GradTTS(**tcfg.model_kwargs(len(symbols) + 1)).init_weights(
+        torch.Generator().manual_seed(5)).cuda().eval()
+    opt = AdamW(model.parameters(), **TR_ADAMW["gradtts"], **TR_OPTIM)
+    batch = rows("gradtts.npz")
+    out["gradtts"] = run(lambda: train_step(model, opt, batch,
+                                            step_generator(TR_SEED, 0, "cuda"), tcfg.out_size),
+                         [model])
+    gen, mpd, msd = (m.cuda() for m in build_models(HG_CONFIG))
+    disc = torch.nn.ModuleDict({"mpd": mpd, "msd": msd})
+    opt_g, opt_d = (AdamW(m.parameters(), **TR_ADAMW["hifigan"], **TR_OPTIM)
+                    for m in (gen, disc))
+    batch = rows("hifigan.npz")
+    out["hifigan"] = run(lambda: gan_train_step(gen, mpd, msd, opt_g, opt_d, batch,
+                                                mel_cfg_from(HG_CONFIG)), [gen, disc])
+    model = DiffVC(**vcfg.model_kwargs()).init_weights(torch.Generator().manual_seed(7)).cuda()
+    opt = AdamW(model.parameters(), **TR_ADAMW["diffvc_dec"], **TR_OPTIM)
+    batch = rows("diffvc.npz")
+    out["diffvc_dec"] = run(lambda: dec_train_step(model, opt, batch,
+                                                   step_generator(TR_SEED, 0, "cuda")), [model])
+    return out
+
+
+def _replay_update(torch, name, init, grads):
+    """Phase 70's step after its all-reduce, on the host: the trainer's clips
+    and the port's AdamW (TR_ADAMW[name]) applied to ``init`` with ``grads``
+    (the gradients summed over the ranks, before any clip). Returns the
+    weights it gives, by name."""
+    from tpu_speech_torch.train import diffvc as t_diffvc
+    from tpu_speech_torch.train import gradtts as t_gradtts
+    from tpu_speech_torch.train.optim import AdamW, clip_subtree_by_global_norm
+
+    named = [(k, torch.nn.Parameter(init[k].clone())) for k in grads]
+    for k, p in named:
+        p.grad = grads[k].clone()
+    clips = {"gradtts": [(t_gradtts.ENCODER, t_gradtts.MAX_GRAD_NORM),
+                         (t_gradtts.ESTIMATOR, t_gradtts.MAX_GRAD_NORM)],
+             "diffvc_dec": [(t_diffvc.ESTIMATOR, t_diffvc.MAX_GRAD_NORM)],
+             "hifigan": []}[name]  # the GAN step clips nothing
+    for prefixes, max_norm in clips:
+        clip_subtree_by_global_norm(named, prefixes, max_norm)
+    AdamW([p for _, p in named], **TR_ADAMW[name], **TR_OPTIM).step()
+    return {k: p.detach() for k, p in named}
+
+
+def seq_worker(rank, job):
+    """One rank of phases 69-70 (two gloo ranks on card 0) or of their
+    ``--distributed`` part (one NCCL rank a card): the seq-parallel pretrain
+    step at each seq size of ``job["seq"]``, then the three trainers' steps;
+    this rank's results as JSON, rank 0's weights as a torch file."""
+    import torch
+
+    from tpu_speech_torch.parallel import distributed
+
+    os.environ["LOCAL_RANK"] = str(rank if job["backend"] == "nccl" else 0)
+    world, root = job["world"], job["root"]
+    distributed.initialize(num_processes=world, process_id=rank, backend=job["backend"],
+                           device="cuda", init_method="file://" + os.path.join(root, "store"))
+    from tpu_speech_torch.utils.device import use_full_fp32
+
+    use_full_fp32()
+    out, weights = {"rank": rank, "walls": {}}, {}
+    t_last = [time.perf_counter()]
+
+    def keep(name, r):
+        out["walls"][name] = round(time.perf_counter() - t_last[0], 2)
+        weights[name] = r.pop("params")
+        if "grads" in r:
+            weights[name + "_grads"] = r.pop("grads")
+        r.pop("init", None)
+        sums = [None] * world
+        torch.distributed.all_gather_object(sums, r.pop("checksum"))
+        check(all(s == sums[0] for s in sums), f"{name}: the ranks' weights differ")
+        out[name] = r
+        torch.cuda.empty_cache()
+        t_last[0] = time.perf_counter()
+
+    try:
+        for sp in job["seq"]:
+            keep(f"seq{sp}", dist_pretrain_step(torch, root, rank, world, seq_parallel=sp,
+                                                batch_file=f"seq{sp}.npz", sgd=True))
+            if job["timed"]:  # AdamW, as DDP's timed step
+                keep(f"seq{sp}_timed", dist_pretrain_step(
+                    torch, root, rank, world, timed=job["timed"], seq_parallel=sp,
+                    batch_file=f"seq{sp}.npz"))
+        for name, r in dist_trainer_steps(torch, root, rank, world).items():
+            keep(name, r)
+    finally:
+        distributed.shutdown()
+    if rank == 0:
+        t0 = time.perf_counter()
+        torch.save(weights, os.path.join(root, "rank0_weights.pt"))
+        out["walls"]["save"] = round(time.perf_counter() - t0, 2)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def start_seq_ranks(torch, root, world, backend):
+    """69-70's data and, for gloo, their ranks at once (they share card 0
+    with the other phases; nothing they time over gloo is kept); NCCL's
+    start after the references (``finish_seq_ranks``)."""
+    import torch.multiprocessing as mp
+
+    seq = (2,) if backend == "gloo" else (2, 4)
+    rng = np.random.default_rng(69)
+    for sp in seq:  # a data group's rows: the whole batch at data 1
+        rows = SEQ_B if backend == "gloo" else SEQ_DIST_B
+        write_pretrain_batch(root, rows * (world // sp), f"seq{sp}.npz", rng, 69 + sp)
+    write_trainer_batches(root, world)
+    job = dict(world=world, backend=backend, root=root, seq=seq,
+               timed=DIST_TIMED if backend == "nccl" else 0)
+
+    def start():
+        return mp.start_processes(seq_worker, args=(job,), nprocs=world, join=False,
+                                  start_method="spawn"), time.perf_counter()
+
+    return job, (start() if backend == "gloo" else None), start
+
+
+def finish_seq_ranks(torch, state):
+    """The one-process references on the global batches, then the ranks'
+    steps held to them: the seq pretrain step (69) and the three trainers
+    (70); per rank the launches, the frames at the anchors and the peak.
+    Returns the paths' launches summed over the ranks."""
+    from tpu_speech_torch.ops import _build
+
+    job, started, start = state
+    root, world, backend = job["root"], job["world"], job["backend"]
+    ref = {}
+    for sp in job["seq"]:
+        ref[f"seq{sp}"] = dist_pretrain_step(torch, root, 0, 1, batch_file=f"seq{sp}.npz",
+                                             sgd=True)
+        with torch.backends.cudnn.flags(enabled=False):  # the yardstick: native convs
+            ref[f"seq{sp}_native"] = dist_pretrain_step(torch, root, 0, 1,
+                                                        batch_file=f"seq{sp}.npz", sgd=True)
+    torch.cuda.empty_cache()
+    ref.update(dist_trainer_steps(torch, root, 0, 1, with_init=True))
+    with torch.backends.cudnn.flags(enabled=False):  # the yardstick: native convs
+        native = dist_trainer_steps(torch, root, 0, 1)
+    torch.cuda.empty_cache()
+    ranks, weights, wall = join_ranks(job, started or start())
+    log(f"[69-70 ranks] {world} {backend} ranks ran their checks in {wall:.1f} s (spawn, "
+        f"imports and the build's load included); seconds by step, rank 0: "
+        f"{ranks[0]['walls']}")
+    kernels = ("fused_logmel", "fused_qkv_attention", "fused_qkv_attention_bwd",
+               "grouped_conv1d", "grouped_conv1d_dx")
+    paths = {}
+    for sp in job["seq"]:
+        name, one = f"seq{sp}", ref[f"seq{sp}"]
+        got = ranks[0][name]
+        rel = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+        check(rel <= DIST_LOSS_RTOL, f"69 {name}: loss {got['loss']} vs {one['loss']}")
+        (e_got, k_got), (e_native, k_native), limit = _hold_conditioned(
+            f"69 {name}", weights[name], one["params"], ref[name + "_native"]["params"],
+            _pretrain_init(torch))
+        n_data = world // sp
+        log(f"[69 seq {sp}] (data {n_data}, seq {sp}) over {world} {backend} ranks, "
+            f"B = {n_data} x {SEQ_B if backend == 'gloo' else SEQ_DIST_B} x 250 000 "
+            f"samples, SGD(1): loss {got['loss']:.6f}, one process on the whole batch "
+            f"{one['loss']:.6f} (rel {rel:.2e}, limit {DIST_LOSS_RTOL}); the update off "
+            f"one process's by {e_got:.2e} x max(its max|g|, 1e-3 x the largest) "
+            f"({k_got}), where one process on native convs is {e_native:.2e} ({k_native}); "
+            f"limit {limit:.2e} (cap {COND_CAP}); frames at the anchors one process "
+            f"{one['frames']}")
+        for r in ranks:
+            p = r[name]
+            check(all(p["frames"][k] * sp == v for k, v in one["frames"].items()),
+                  f"69 {name}: rank {r['rank']} holds {p['frames']}")
+            check(all(p["launches"][k] > 0 for k in kernels),
+                  f"69 {name}: rank {r['rank']} launches {p['launches']}")
+            t = r.get(name + "_timed")
+            timing = (f"; AdamW: {t['ms']:.2f} ms a step, all-reduce {t['allreduce_ms']:.2f} "
+                      f"ms, peak {t['peak_gib']:.2f} GiB" if t else "")
+            log(f"[69 seq {sp} rank {r['rank']}] frames {p['frames']}; launches "
+                f"{ {k: p['launches'][k] for k in kernels} }; peak {p['peak_gib']:.2f} GiB "
+                f"(one process on the whole batch {one['peak_gib']:.2f} GiB; SGD){timing}")
+        paths[f"pretrain_step_seq{sp}"] = {k: sum(r[name]["launches"].get(k, 0) for r in ranks)
+                                           for k in _build.LAUNCHES}
+    for name, what in (("gradtts", "Grad-TTS step, MAS on the card"),
+                       ("hifigan", "HiFi-GAN V1 GAN step"),
+                       ("diffvc_dec", "DiffVC decoder step")):
+        one, got = ref[name], ranks[0][name]
+        rel = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in one["metrics"].items() if "norm" not in k)
+        check(rel <= DIST_LOSS_RTOL, f"70 {name}: {got['metrics']} vs {one['metrics']}")
+        # the reduction's check: the summed gradients before any clip, which
+        # a wrong scale or a missing rank moves by 10-100 %
+        (g_got, gk_got), (g_native, gk_native), g_limit = _hold_conditioned(
+            f"70 {name} gradients", weights[name + "_grads"], one["grads"],
+            native[name]["grads"])
+        # the update's check: AdamW's first step divides each gradient by
+        # its own size, so where a gradient is rounding noise the update is
+        # noise of its own size (one process on native convs moves the
+        # DiffVC decoder's by up to 3.9e-2 of a tensor's largest); the
+        # weights are held to the trainer's clip and AdamW replayed on the
+        # host on the ranks' summed gradients, which the check above holds
+        replay = _replay_update(torch, name, one["init"], weights[name + "_grads"])
+        check(set(replay) <= set(weights[name]), f"70 {name}: the weights' names differ")
+        e_got, k_got = _hold_weights(f"70 {name} update",
+                                     {k: weights[name][k] for k in replay}, replay)
+        log(f"[70 {name}] {what}, {world} {backend} ranks x {TR_ROWS} rows against one "
+            f"process on the {world * TR_ROWS}: losses within {rel:.2e} (limit "
+            f"{DIST_LOSS_RTOL}); the summed gradients before the clip off one process's by "
+            f"{g_got:.2e} x max(their max|g|, 1e-3 x the largest) ({gk_got}), one process on "
+            f"native convs {g_native:.2e} ({gk_native}), limit {g_limit:.2e} (cap "
+            f"{COND_CAP}); the {len(replay)} weights after the step off the clip and AdamW "
+            f"replayed on the host on those gradients by {e_got:.2e} x max(1, max|p|) "
+            f"({k_got}; limit {DIST_PARAM_RTOL}); metrics {got['metrics']}; "
+            f"launches by rank "
+            f"{[{k: v for k, v in r[name]['launches'].items() if v} for r in ranks]}")
+        paths[f"{name}_train_ddp"] = {k: sum(r[name]["launches"].get(k, 0) for r in ranks)
+                                      for k in _build.LAUNCHES}
+    check(all(r["gradtts"]["launches"]["maximum_path"] > 0 for r in ranks),
+          "70: a rank ran no MAS kernel")
+    return dict(paths=paths, ranks=ranks, ref={k: {kk: vv for kk, vv in v.items()
+                                                   if kk not in ("params", "init", "grads")}
+                                               for k, v in ref.items()})
+
+
 def run_dist_phases(torch, gen):
-    """Phases 66-68 of the default run: NCCL at world 1 through the
-    environment, two gloo ranks on the one card at full width (started
-    first, so that they run beside phase 66), K2 at a batch offset. Returns
-    their paths' launches."""
+    """Phases 66-70 of the default run: NCCL at world 1 through the
+    environment, two gloo ranks on the one card at full width for SPIRAL's
+    data axis (67) and for the seq axis and the trainers' data axis (69-70),
+    both started first, so that they run beside phase 66, and K2 at a batch
+    offset (68). Returns their paths' launches."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root_env, tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root_env, tempfile.TemporaryDirectory() as root, \
+            tempfile.TemporaryDirectory() as root_seq:
         started = start_dist_ranks(torch, root, 2, "gloo")  # they run through phase 66
+        seq_started = start_seq_ranks(torch, root_seq, 2, "gloo")
         env = phase_dist_env(torch, root_env)
         elapsed("phase 66")
         ranks = finish_dist_ranks(torch, started)
-    elapsed("phase 67")
+        elapsed("phase 67")
+        seq = finish_seq_ranks(torch, seq_started)
+        elapsed("phases 69-70")
     k2 = phase_k2_offset(torch, gen)
-    log(f"[66-68] {time.perf_counter() - t0:.1f} s")
-    return dict(env=env, ranks=ranks, k2_offset=k2)
+    log(f"[66-70] {time.perf_counter() - t0:.1f} s")
+    return dict(env=env, ranks=ranks, k2_offset=k2, seq=seq)
 
 
 def distributed_main():
-    """``python3 chip_smoke.py --distributed``: phases 67 and 68 at
+    """``python3 chip_smoke.py --distributed``: phases 67-70 at
     ``torch.cuda.device_count()`` ranks over NCCL, one card each (FSDP too,
-    and the SPIRAL-large finetune step's peak memory under DDP and FSDP);
-    the cards' names and power limits, one JSON line of the per-rank
-    numbers, then the ``{"ok": true, ...}`` line."""
+    and the SPIRAL-large finetune step's peak memory under DDP and FSDP; the
+    seq-parallel pretrain step at (data N / 2, seq 2) and (data N / 4, seq 4)
+    with B = 24 a data group, timed, and the three trainers' steps held to one
+    process); the cards' names and power limits, one JSON line of the
+    per-rank numbers, then the ``{"ok": true, ...}`` line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -7720,6 +8276,8 @@ def distributed_main():
     log(f"[distributed] torch {torch.__version__}, CUDA {torch.version.cuda}, {world} cards")
     with tempfile.TemporaryDirectory() as root:
         res = phase_dist_ranks(torch, root, world, "nccl")
+    with tempfile.TemporaryDirectory() as root:
+        seq = finish_seq_ranks(torch, start_seq_ranks(torch, root, world, "nccl"))
     phase_k2_offset(torch, torch.Generator().manual_seed(0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -7730,7 +8288,10 @@ def distributed_main():
         "world": world, "one_rank": {k: {kk: v[kk] for kk in ("ms", "peak_gib")}
                                      for k, v in res["one_rank"].items()},
         "ranks": [{k: {kk: vv for kk, vv in r[k].items() if kk != "launches"}
-                   for k in keys} for r in res["ranks"]]}}))
+                   for k in keys} for r in res["ranks"]],
+        "seq": [{k: {kk: vv for kk, vv in r[k].items() if kk in ("ms", "peak_gib", "frames",
+                                                                 "allreduce_ms")}
+                 for k in ("seq2_timed", "seq4_timed")} for r in seq["ranks"]]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -7750,7 +8311,7 @@ def main():
     use_full_fp32()
     rng = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(0)
-    phase_build(_build)
+    sass = phase_build(_build)  # its SASS checks after phase 13
     k1 = phase_k1(torch, rng)
     log(f"    K1 {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms")
     k2 = phase_k2(torch, gen)
@@ -7762,6 +8323,7 @@ def main():
     bwd_err, k2_bwd_t = phase_k2_bwd(torch, gen)
     k4_err, k4_dx_err, k4_t = phase_k4(torch, gen)
     k3_err, k3_t, k3_launches = phase_k3(torch, gen)
+    phase_build_sass(*sass)
     elapsed("phases 1-13")
     spiral_tmp = tempfile.TemporaryDirectory()  # phase 9's and 14's corpora, for 37-39
     root = spiral_tmp.name
@@ -7794,9 +8356,9 @@ def main():
     tts_res = phase_tts_time(torch)
     elapsed("phases 23-25")
     tts16_launches, _ = phase_bf16_tts(torch, tts_res)
-    tts_export_launches = phase_tts_export(torch, tts_root)
-    elapsed("phases 45-46")
+    elapsed("phase 45")
     k_mas = phase_mas(torch, gen)
+    tts_export = start_tts_export(torch, tts_root)  # beside 27-32 and 48, finished after 48
     with tempfile.TemporaryDirectory() as root:
         gt_launches = phase_gradtts_train_slice(torch, rng, root)
     phase_gradtts_cpu_vs_card(torch)
@@ -7807,7 +8369,8 @@ def main():
     phase_vc_cpu_vs_card(torch)
     vc_res = phase_vc_time(torch, vc_cli)
     vc16_launches, _ = phase_bf16_vc(torch, vc_res)
-    elapsed("phases 30-32, 48")
+    tts_export_launches = finish_tts_export(torch, tts_export)
+    elapsed("phases 30-32, 48, 46")
     tr_rng = np.random.default_rng(TR_SEED)
     with tempfile.TemporaryDirectory() as root:
         ge2e_launches, spk_pt, tr_wavs, clean = phase_spk_train(torch, tr_rng, root)
@@ -7818,6 +8381,7 @@ def main():
     tr_launches["ge2e_train"] = ge2e_launches
     tr_launches.update(tr16_launches)
     elapsed("phases 33-36, 49")
+    large_data = start_large_data()  # phases 50-55's corpus, beside 37-44
     root = spiral_tmp.name
     resume_launches, pre_dir = phase_pretrain_resume(torch, root)
     val_launches = phase_validation(torch, root, pre_dir)
@@ -7833,7 +8397,7 @@ def main():
     phase_hifigan_time(torch)
     phase_gradtts_train_time(torch, bf16=True)
     elapsed("phases 40-44")
-    large = run_large_phases(torch, gen)
+    large = run_large_phases(torch, gen, large_data)
     elapsed("phases 50-55")
     sw = run_stream_w2v_phases(torch, gen, ft_ms)
     cc = run_conv_ctc_phases(torch)
@@ -7842,7 +8406,8 @@ def main():
         "ctc_eval_ddp": (dp["ranks"]["ctc_eval_ddp"], dp["env"]["ctc_eval_env"]),
         "pretrain_step_ddp": (dp["ranks"]["pretrain_step_ddp"],),
         "finetune_step_ddp": (dp["ranks"]["finetune_step_ddp"],),
-        "fsdp_step": (dp["env"]["fsdp_step"],)}
+        "fsdp_step": (dp["env"]["fsdp_step"],),
+        **{path: (counts,) for path, counts in dp["seq"]["paths"].items()}}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -8041,7 +8606,13 @@ def main():
                                       "grouped_conv1d_dx", "fused_qkv_self_attention_bf16",
                                       "fused_qkv_self_attention_bwd_bf16", "grouped_conv1d_bf16",
                                       "grouped_conv1d_dx_bf16")}
-        want["fsdp_step"] = want["pretrain_step_ddp"]
+        want["fsdp_step"] = want["pretrain_step_seq2"] = want["pretrain_step_ddp"]
+        want["gradtts_train_ddp"] = ("maximum_path",)
+        # phase 70's GAN and decoder steps run no hand kernel, the Grad-TTS
+        # step MAS alone
+        for path in ("gradtts_train_ddp", "hifigan_train_ddp", "diffvc_dec_train_ddp"):
+            check((k["launches_by_path"][path] > 0) == (k["name"] in want.get(path, ())),
+                  f"{k['name']}: {k['launches_by_path'][path]} launches on {path} (phase 70)")
         for path, names in want.items():
             if k["name"] in names:
                 check(k["launches_by_path"][path] > 0, f"{k['name']} never ran on {path}")

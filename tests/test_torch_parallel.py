@@ -210,9 +210,21 @@ def test_require_multiprocess_fails_loudly():
 
 
 def test_the_seq_and_model_axes_stop_naming_their_item():
-    for kw in ({"seq_parallel": 2}, {"model_parallel": 2}):
-        with pytest.raises(SystemExit, match=f"Queue 1 item {mesh.NEXT_ITEM[0]} "):
-            mesh.make_mesh(**kw)
+    """The model axis still stops, naming its item (11.3, TP placement); the
+    seq axis runs (``tests/test_torch_seq_parallel.py``): on a one-rank group
+    it asks for a world it divides, and builds the (data, seq) mesh of a
+    world it divides, here seq 1."""
+    assert mesh.NEXT_ITEM[0] == "11.3"
+    with pytest.raises(SystemExit, match="Queue 1 item 11.3 "):
+        mesh.make_mesh(model_parallel=2)
+    distributed.initialize(device="cpu")
+    try:
+        with pytest.raises(ValueError, match="seq_parallel=2 does not divide the 1 ranks"):
+            mesh.make_mesh(seq_parallel=2)
+        assert mesh.make_mesh(seq_parallel=1).mesh_dim_names == (mesh.DATA_AXIS,)
+        assert mesh.data_axis(None) == (0, 1) and mesh.seq_size(None) == 1
+    finally:
+        distributed.shutdown()
 
 
 def test_lr_scale_counts_the_ranks():

@@ -460,20 +460,21 @@ class _Reached(Exception):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--seq_parallel", "2", 11), ("--fsdp", "true", None), ("--num_nodes", "2", None),
+    ("--seq_parallel", "2", None), ("--fsdp", "true", None), ("--num_nodes", "2", None),
     ("--node_rank", "0", None), ("--master_addr", "h:1", None), ("--num_gpus", "2", None),
     ("--num_devices", "4", None),
 ])
 def test_unported_flags_stop_the_run_and_name_their_item(tmp_path, monkeypatch, flag, value,
                                                          item):
-    """Only ``--seq_parallel`` still refuses, naming its Queue 1 item, before
-    any work. The multi-device flags reach the process group or the spawn
+    """No flag refuses any more: ``--seq_parallel 2`` (with ``--num_devices
+    2``) reaches the spawn with the seq size in its arguments. The
+    multi-device flags reach the process group or the spawn
     with the JAX CLI's arguments (``initialize(coordinator_address=
     --master_addr, num_processes=--num_nodes, process_id=--node_rank)``, seen
     through stand-ins, so nothing is contacted); ``--num_nodes 2`` with no
     rendezvous fails with ``require_multiprocess``'s message; ``--fsdp`` reaches
     the runner's one-rank process group before the optimizer."""
-    from tpu_speech_torch.parallel import distributed
+    from tpu_speech_torch.parallel import distributed, launch
 
     _toy_pretrain_manifest(str(tmp_path))
     argv = ["--config_name", "spiral_tiny_test", "--device", "cpu",
@@ -487,11 +488,13 @@ def test_unported_flags_stop_the_run_and_name_their_item(tmp_path, monkeypatch, 
         return stand_in
 
     monkeypatch.setattr(distributed, "initialize", record("initialize"))
-    monkeypatch.setattr(run_spiral, "_spawn", record("spawn"))
+    monkeypatch.setattr(launch, "spawn", record("spawn"))
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     monkeypatch.delenv("RANK", raising=False)
     if flag == "--node_rank":  # the JAX CLI joins only with a coordinator
         monkeypatch.setenv("MASTER_ADDR", "h")
+    if flag == "--seq_parallel":
+        argv += ["--num_devices", "2"]
     if item is not None:
         with pytest.raises(SystemExit, match=f"Queue 1 item {item} "):
             run_spiral.main(argv + [flag, value])
@@ -509,7 +512,9 @@ def test_unported_flags_stop_the_run_and_name_their_item(tmp_path, monkeypatch, 
         return
     (name, args, kw), = calls
     if flag in ("--num_gpus", "--num_devices"):
-        assert name == "spawn" and args[2] == int(value) and args[1].device == "cpu"
+        assert name == "spawn" and args[2] == int(value) and args[3] == "cpu"
+    elif flag == "--seq_parallel":
+        assert name == "spawn" and args[2] == 2 and args[1][-2:] == ["--seq_parallel", "2"]
     elif flag == "--fsdp":
         assert name == "initialize" and kw == {"device": torch.device("cpu")}
     else:

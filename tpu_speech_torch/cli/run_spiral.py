@@ -110,8 +110,16 @@ global batch of ``batch_size x ranks``.
 - ``--fsdp true`` shards the parameters and AdamW's moments over the ranks
   (FSDP2, ``parallel/mesh.py::shard_state_fsdp``), also in a one-process run.
 
-``--seq_parallel`` is not ported yet: set to anything but its default it
-stops the run, naming its ROADMAP Queue 1 item (``NOT_PORTED``).
+- ``--seq_parallel S`` (pretraining) splits the ranks into a (data, seq)
+  mesh of world / S data groups of S ranks each: a data group's ranks hold
+  the same rows and each runs the encoders on T / S frames of them
+  (``parallel/seq.py``); the step stays the one-process step on the global
+  batch of ``batch_size x world / S``. The finetune mode raises, as the JAX
+  runner does::
+
+    python -m tpu_speech_torch.cli.run_spiral --num_devices 4 --seq_parallel 2 \
+        --config_name spiral_base_pretrain_ls960 --manifest_dir D --model_save_dir OUT
+
 ``--export_model PATH`` (test mode) saves the wav -> log-probs graph after
 the evaluation as a ``torch.export`` program
 (``SpiralFinetuneRunner.export_model``), which
@@ -125,20 +133,17 @@ import argparse
 import contextlib
 import glob
 import os
-import shutil
 import sys
-import tempfile
 
 import torch
 
 from tpu_speech_torch.configs.spiral import CONFIGS
 from tpu_speech_torch.data.spiral import read_manifest
 from tpu_speech_torch.eval.ctc_beam import NGramLM
-from tpu_speech_torch.ops import _build
-from tpu_speech_torch.parallel import distributed
-from tpu_speech_torch.parallel.mesh import NEXT_ITEM
+from tpu_speech_torch.parallel import distributed, launch
 from tpu_speech_torch.text.tokenizers import CharTokenizer, SubwordTokenizer
 from tpu_speech_torch.train.spiral_runner import (
+    SEQ_FINETUNE,
     SpiralFinetuneRunner,
     SpiralPretrainRunner,
 )
@@ -152,12 +157,6 @@ from tpu_speech_torch.utils.config import (
 from tpu_speech_torch.utils.exp_manager import ExpManager
 from tpu_speech_torch.utils.profiling import trace
 from tpu_speech_torch.utils.surgery import parse_skip_vars
-
-# flag -> the ROADMAP Queue 1 item that ports it; any value but the default
-# stops the run
-NOT_PORTED = {"seq_parallel": NEXT_ITEM[0]}
-_ITEMS = {NEXT_ITEM[0]: NEXT_ITEM[1]}
-
 
 def str2bool(v):
     return str(v).lower() in ("true", "1", "yes")
@@ -212,7 +211,8 @@ def build_parser():
     p.add_argument("--test_mode", type=str, default="multi_gpu",
                    help="accepted and ignored, as in the JAX CLI")
     p.add_argument("--seq_parallel", type=int, default=0,
-                   help=f"not ported (item {NEXT_ITEM[0]})")
+                   help="pretraining: shard the encoders' time axis over groups of this "
+                   "many ranks (the world must divide by it)")
     p.add_argument("--fsdp", type=str2bool, default=False,
                    help="shard the parameters and optimizer state over the ranks (FSDP2)")
     p.add_argument("--num_nodes", type=int, default=1,
@@ -279,86 +279,6 @@ def build_parser():
     return p
 
 
-def _refuse_unported(args, parser) -> None:
-    """SystemExit for a flag that is not ported yet and is not at its
-    default, naming its Queue 1 item."""
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag) != parser.get_default(flag):
-            raise SystemExit(f"--{flag}={getattr(args, flag)} is not ported yet: ROADMAP.md "
-                             f"Queue 1 item {item} ({_ITEMS[item]})")
-
-
-def local_ranks(args) -> int:
-    """The ranks this launch starts on this node: ``--num_devices`` (or
-    ``--num_gpus``), 0 meaning every visible card (one process on the
-    CPU)."""
-    n = args.num_devices or args.num_gpus
-    if n:
-        return n
-    return torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
-
-
-def _spawn(argv, args, n: int):
-    """Start ``n`` local ranks of this command (``torch.multiprocessing``)
-    and return rank 0's result; a failing rank fails the launch. One node
-    meets at a ``file://`` store in a temporary directory; several nodes at
-    the coordinator. On the card the kernels are built here first, so the
-    ranks only load them."""
-    import torch.multiprocessing as mp
-
-    if torch.device(args.device).type == "cuda":
-        _build.library()  # built once here; the ranks load it
-    tmp = tempfile.mkdtemp(prefix="run_spiral_")
-    try:
-        rv = distributed.rendezvous(args.master_addr or None,
-                                    args.num_nodes if args.num_nodes > 1 else None,
-                                    args.node_rank if args.node_rank >= 0 else None)
-        nodes = args.num_nodes if args.num_nodes > 1 else rv["world"]
-        launch = {"local_world": n, "world": nodes * n, "rank0": rv["rank"] * n,
-                  "init_method": (f"tcp://{rv['coordinator']}" if rv["coordinator"]
-                                  else f"file://{os.path.join(tmp, 'rendezvous')}"),
-                  "result": os.path.join(tmp, "result.pt"), "threads": torch.get_num_threads()}
-        mp.spawn(_rank_main, args=(list(argv), launch), nprocs=n, join=True)
-        return torch.load(launch["result"], weights_only=False)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _rank_main(local_rank: int, argv, launch: dict) -> None:
-    """One spawned rank: torchrun's variables, then ``main``; rank 0 keeps
-    its result for the launcher."""
-    torch.set_num_threads(launch["threads"])
-    os.environ.update(LOCAL_RANK=str(local_rank), LOCAL_WORLD_SIZE=str(launch["local_world"]),
-                      RANK=str(launch["rank0"] + local_rank), WORLD_SIZE=str(launch["world"]))
-    out = main(argv, _init_method=launch["init_method"])
-    if distributed.is_primary():
-        torch.save(out, launch["result"])
-    distributed.shutdown()
-
-
-def join_process_group(args, init_method=None) -> None:
-    """Join the process group before any device is used (``:180-190``): a
-    spawned rank, or a launch that names a coordinator (``--master_addr``,
-    MASTER_ADDR, which ``torchrun`` sets), with the JAX CLI's arguments; then
-    fail if ``--num_nodes`` did not federate (with no coordinator, it
-    cannot)."""
-    if init_method is not None:
-        distributed.initialize(device=args.device, init_method=init_method)
-    elif args.master_addr or os.environ.get("MASTER_ADDR"):
-        distributed.initialize(
-            coordinator_address=args.master_addr or None,
-            num_processes=args.num_nodes if args.num_nodes > 1 else None,
-            process_id=args.node_rank if args.node_rank >= 0 else None,
-            device=args.device, init_method=None,
-        )
-    distributed.require_multiprocess(args.num_nodes)
-    if torch.device(args.device).type == "cuda" and distributed.process_count() > 1:
-        # one build a node, before any rank needs it (the others load it)
-        if distributed.rendezvous()["local_rank"] == 0:
-            _build.library()
-        distributed.barrier()
-
-
 def _config(name: str):
     """A fresh RunConfig of ``CONFIGS[name]``; SystemExit for a name the
     port does not have."""
@@ -409,18 +329,12 @@ def _epochs(cfg, runner, profile: bool):
         yield epoch, loss, val
 
 
-def _say(*args, **kw) -> None:
-    """print on the primary rank only."""
-    if distributed.is_primary():
-        print(*args, **kw)
-
-
 def _finish(runner, out: dict) -> dict:
     runner.ckpt.wait()  # drain the last checkpoint write
     out["state_dict"] = runner.save_state_dict()
-    _say(f"saved model state_dict: {out['state_dict']}")
+    launch.say(f"saved model state_dict: {out['state_dict']}")
     out["archive"] = runner.save_archive()
-    _say(f"saved model archive: {out['archive']}")
+    launch.say(f"saved model archive: {out['archive']}")
     out.update(steps=runner.history, iteration=runner.iteration, epoch=runner.epoch,
                log_dir=runner.log_dir)
     return out
@@ -432,7 +346,7 @@ def train_st2vec(cfg, runner: SpiralPretrainRunner, profile: bool = False) -> di
     for _, loss, v in _epochs(cfg, runner, profile):
         if v is not None and v == v:  # validation_ds configured and not empty
             val = runner.last_validation
-            _say(f"Validation: loss = {v:.4f}", flush=True)
+            launch.say(f"Validation: loss = {v:.4f}", flush=True)
     return _finish(runner, {"loss": loss, "validation": val})
 
 
@@ -442,7 +356,7 @@ def train_ctc(cfg, runner: SpiralFinetuneRunner, profile: bool = False) -> dict:
     for _, loss, v in _epochs(cfg, runner, profile):  # train_epoch prints the epoch's line
         if v:
             val = v
-            _say(f"Validation: WER = {v['wer']:.4f} | CER = {v['cer']:.4f}", flush=True)
+            launch.say(f"Validation: WER = {v['wer']:.4f} | CER = {v['cer']:.4f}", flush=True)
     return _finish(runner, {"loss": loss, "validation": val})
 
 
@@ -450,15 +364,18 @@ def main(argv=None, _init_method=None) -> dict:
     parser = build_parser()
     argv = sys.argv[1:] if argv is None else argv
     args = parser.parse_args(args=argv)
-    _refuse_unported(args, parser)
-    if not (args.master_addr or os.environ.get("MASTER_ADDR")):
-        distributed.require_multiprocess(args.num_nodes)  # several nodes need a coordinator
-    n_local = local_ranks(args)
-    if n_local > 1 and _init_method is None and not os.environ.get("RANK"):
-        return _spawn(argv, args, n_local)
-    join_process_group(args, _init_method)
+    if args.seq_parallel > 1 and args.model_type == "ctc_finetune":
+        raise ValueError(SEQ_FINETUNE)  # before test mode makes its run directory
+    # --num_devices (or --num_gpus) ranks on this node, 0 meaning every
+    # visible card (one process on the CPU)
+    spawned, out = launch.launch(main, argv, args.device, _init_method,
+                                 n=args.num_devices or args.num_gpus,
+                                 master_addr=args.master_addr, num_nodes=args.num_nodes,
+                                 node_rank=args.node_rank)
+    if spawned:
+        return out
     if args.use_horovod:
-        _say("WARNING: --use_horovod requested; NCCL collectives through torch.distributed "
+        launch.say("WARNING: --use_horovod requested; NCCL collectives through torch.distributed "
              "are the port's only backend, so the flag is accepted for launch-script "
              "parity and has no effect (the lr rescale counts the ranks).", file=sys.stderr)
     run_dir = args.model_save_dir or args.log_dir or "logs/spiral"
@@ -477,7 +394,7 @@ def main(argv=None, _init_method=None) -> dict:
             raise SystemExit("--use_chkpt_hparams: the archive's config has no model "
                              "section to rebuild")
         cfg.model = model_cfg
-        _say(f"model hparams taken from the archive config ({args.init_archive})")
+        launch.say(f"model hparams taken from the archive config ({args.init_archive})")
     manifest_dir = args.manifest_dir or args.data_dir
     if manifest_dir:
         for ds in (cfg.model.train_ds, cfg.model.validation_ds, cfg.model.test_ds):
@@ -489,6 +406,8 @@ def main(argv=None, _init_method=None) -> dict:
         cfg.model.test_ds.manifest_filepath = args.test_manifest
     if args.max_epochs:
         cfg.trainer.max_epochs = args.max_epochs
+    if args.seq_parallel:
+        cfg.trainer.seq_parallel = args.seq_parallel
     if args.fsdp:
         cfg.trainer.fsdp = True
     if args.dev_data_dup_factor > 0 and cfg.model.validation_ds is not None:
@@ -514,9 +433,9 @@ def _run(args, cfg, exp, run_dir, skip_vars) -> dict:
         if args.init_archive:
             runner.restore_from_archive(args.init_archive, partial=args.init_model_partial,
                                         skip=skip_vars)
-            _say(f"Restored weights from archive: {args.init_archive}")
+            launch.say(f"Restored weights from archive: {args.init_archive}")
         if args.resume_if_exists and runner.resume_if_exists():
-            _say(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
+            launch.say(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
         return train_st2vec(cfg, runner, profile=args.profile)
 
     if args.run_mode == "train":
@@ -539,24 +458,24 @@ def _run(args, cfg, exp, run_dir, skip_vars) -> dict:
     runner = SpiralFinetuneRunner(cfg, run_dir, tokenizer, device=args.device, exp=exp,
                                   ckpt_dir=args.chkpt_dir)
     if cfg.model.pretrain_chkpt_path:
-        _say(f"Loaded the pretrained encoder from: {cfg.model.pretrain_chkpt_path}")
+        launch.say(f"Loaded the pretrained encoder from: {cfg.model.pretrain_chkpt_path}")
     if args.init_archive:
         runner.restore_from_archive(args.init_archive, partial=args.init_model_partial,
                                     skip=skip_vars)
-        _say(f"Restored weights from archive: {args.init_archive}")
+        launch.say(f"Restored weights from archive: {args.init_archive}")
     resume = args.resume_if_exists
     if args.run_mode == "test" and args.init_chkpt_dir and args.init_chkpt_file:
         path = get_ckpt_path(args.init_chkpt_dir, args.init_chkpt_file)
         runner.restore_from_checkpoint(path, partial=args.init_model_partial, skip=skip_vars)
-        _say(f"Loaded test-mode weights from: {path}")
+        launch.say(f"Loaded test-mode weights from: {path}")
         resume = False  # explicit test weights take priority over a run's checkpoints
     if resume and runner.resume_if_exists():
-        _say(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
+        launch.say(f"Resumed from iteration {runner.iteration} (epoch {runner.epoch})")
     if args.run_mode == "train":
         return train_ctc(cfg, runner, profile=args.profile)
     if args.streaming_eval:
         results = runner.evaluate_streaming()
-        _say(f"TEST (streaming): WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
+        launch.say(f"TEST (streaming): WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
               f"| {results['n']} utts")
         return results
 
@@ -566,20 +485,20 @@ def _run(args, cfg, exp, run_dir, skip_vars) -> dict:
         # included (cli/run_spiral.py:402-416)
         texts = [e["text"] for e in read_manifest(args.lm_manifest, 0.0, None)]
         lm = NGramLM.from_texts(texts, runner.tokenizer, order=args.lm_order)
-        _say(f"n-gram LM (order {args.lm_order}) fit on {len(texts)} transcripts")
+        launch.say(f"n-gram LM (order {args.lm_order}) fit on {len(texts)} transcripts")
     results = runner.evaluate(
         save_logits_dir=os.path.join(runner.log_dir, "logits") if args.save_logits else None,
         beam_width=args.beam_size, lm=lm, lm_alpha=args.lm_alpha,
     )
-    _say(f"TEST: WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
+    launch.say(f"TEST: WER = {results['wer']:.4f} | CER = {results['cer']:.4f} "
           f"| {results['n']} utts")
-    _say(f"per-utterance diagnosis: {results['diagnosis_html']}")
+    launch.say(f"per-utterance diagnosis: {results['diagnosis_html']}")
     if distributed.process_count() > 1:
         print(f"rank {results['rank']}: decoded {len(results['hyps'])} utts in "
               f"{results['decode_s']:.3f} s", flush=True)
     if args.export_model and distributed.is_primary():
         results["exported"] = runner.export_model(args.export_model)
-        _say(f"exported: {results['exported']}")
+        launch.say(f"exported: {results['exported']}")
     return results
 
 

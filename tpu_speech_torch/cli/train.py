@@ -17,11 +17,21 @@ defaults to ``cuda`` and raises without a card. The config's ``precision =
 "bf16"`` trains with the mixed-precision step (float32 masters, bf16
 forward and backward), as the JAX CLI reads it (``cli/train.py:111``); any
 other value trains in fp32.
+
+Several cards (``parallel/launch.py``): the command starts one rank per
+visible card (``CUDA_VISIBLE_DEVICES`` picks them), as the JAX CLI's
+``make_mesh()`` spans every local device; ``batch_size`` is the global
+batch, split into equal contiguous rows (it must divide by the ranks), and
+the step is the one-process step on the global batch. ``torchrun
+--nproc_per_node N -m tpu_speech_torch.cli.train`` works too, and so do N
+gloo ranks on the CPU (``torchrun ... --device cpu``). Rank 0 alone writes
+the log dir's files.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 import torch
@@ -30,6 +40,7 @@ from tpu_speech_torch.configs import gradtts as cfg
 from tpu_speech_torch.data.gradtts import TextMelBatchCollate, TextMelDataset
 from tpu_speech_torch.data.loader import DataLoader
 from tpu_speech_torch.models.grad_tts import GradTTS
+from tpu_speech_torch.parallel import distributed, launch
 from tpu_speech_torch.text import symbols
 from tpu_speech_torch.train.gradtts import GradTTSTrainer
 from tpu_speech_torch.utils.device import resolve_device
@@ -74,15 +85,24 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None, multispeaker: bool = False) -> dict:
+def main(argv=None, multispeaker: bool = False, _init_method=None) -> dict:
+    argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    if multispeaker:
+        from tpu_speech_torch.cli.train_multi_speaker import main as entry
+    else:
+        entry = main
+    spawned, out = launch.launch(entry, argv, args.device, _init_method, modules=(cfg,))
+    if spawned:
+        return out
+    device = distributed.rank_device(resolve_device(args.device))
+    launch.check_batch(cfg.batch_size)
     name = "gradtts_multi" if multispeaker else "gradtts"
     exp = ExpManager(name=name, explicit_log_dir=cfg.log_dir)
     exp.save_config({k: v for k, v in vars(cfg).items() if not k.startswith("_")
                      and isinstance(v, (int, float, str, bool, list, tuple))})
 
-    print("Initializing data loaders...")
+    launch.say("Initializing data loaders...")
     dataset = TextMelDataset(
         cfg.train_filelist_path, cfg.cmudict_path, cfg.add_blank, cfg.n_fft, cfg.n_feats,
         cfg.sample_rate, cfg.hop_length, cfg.win_length, cfg.f_min, cfg.f_max,
@@ -90,10 +110,10 @@ def main(argv=None, multispeaker: bool = False) -> dict:
     loader = DataLoader(dataset, cfg.batch_size, TextMelBatchCollate(), shuffle=False,
                         drop_last=True, num_workers=4, seed=cfg.seed)
 
-    print("Initializing model...")
+    launch.say("Initializing model...")
     model = build_model(cfg.n_spks if multispeaker else None).to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Total parameters: {n_params / 1e6:.2f}m")
+    launch.say(f"Total parameters: {n_params / 1e6:.2f}m")
 
     trainer = GradTTSTrainer(
         model, cfg.log_dir, learning_rate=cfg.learning_rate, out_size=cfg.out_size,
@@ -103,18 +123,18 @@ def main(argv=None, multispeaker: bool = False) -> dict:
     first_epoch = 1
     if trainer.resume_if_exists():
         first_epoch = trainer.iteration // max(len(loader), 1) + 1
-        print(f"Resumed from iteration {trainer.iteration}")
+        launch.say(f"Resumed from iteration {trainer.iteration}")
 
-    print("Start training...")
+    launch.say("Start training...")
     epochs = []
     for epoch in range(first_epoch, cfg.n_epochs + 1):
         stats = trainer.train_epoch(loader, epoch)
         epochs.append(stats)
-        print(f"Epoch {epoch}: dur {stats['dur_loss']:.3f} | prior {stats['prior_loss']:.3f} "
+        launch.say(f"Epoch {epoch}: dur {stats['dur_loss']:.3f} | prior {stats['prior_loss']:.3f} "
               f"| diff {stats['diff_loss']:.3f}")
     trainer.ckpt.wait()  # drain the last checkpoint write
     path = trainer.save_state_dict(name)
-    print(f"saved model: {path}")
+    launch.say(f"saved model: {path}")
     exp.close()
     return {"n_params": n_params, "iteration": trainer.iteration, "first_epoch": first_epoch,
             "epochs": epochs, "state_dict": path, "log_dir": trainer.log_dir}

@@ -23,11 +23,17 @@ The decoder's initial weights are the reference's after
 ``torch.manual_seed(seed)``. ``--device`` defaults to ``cuda`` and raises
 without a card. ``--precision bf16`` trains on bf16 copies of the float32
 parameters (``train/diffvc.py``, the JAX step's ``bf16``).
+
+Several cards (``parallel/launch.py``): one rank per visible card,
+``--batch-size`` the global batch (it must divide by the ranks), the step
+the one-process step on the global batch; torchrun's variables and N gloo
+ranks on the CPU work too. Rank 0 alone writes the log dir's files.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import os
 from typing import Dict
 
@@ -41,6 +47,7 @@ from tpu_speech_torch.data.diffvc import VCDecBatchCollate, VCDecDataset
 from tpu_speech_torch.data.loader import DataLoader
 from tpu_speech_torch.models.diffvc import DiffVC
 from tpu_speech_torch.train.diffvc import DiffVCTrainer, dec_train_step, make_dec_preview
+from tpu_speech_torch.parallel import distributed, launch
 from tpu_speech_torch.utils.device import resolve_device
 from tpu_speech_torch.utils.exp_manager import ExpManager
 
@@ -76,9 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> dict:
+def main(argv=None, _init_method=None) -> dict:
+    argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    spawned, out = launch.launch(main, argv, args.device, _init_method, modules=(params,))
+    if spawned:
+        return out
+    device = distributed.rank_device(resolve_device(args.device))
+    launch.check_batch(args.batch_size)
 
     dataset = VCDecDataset(args.data_dir, args.val_file, args.exc_file,
                            shuffle_seed=params.seed)
@@ -91,7 +103,7 @@ def main(argv=None) -> dict:
     model.encoder.load_state_dict(load_encoder_params(args.enc_ckpt), strict=True)
     model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Number of parameters = {n_params / 1e6:.2f}m")
+    launch.say(f"Number of parameters = {n_params / 1e6:.2f}m")
 
     exp = ExpManager(name="diffvc_dec", explicit_log_dir=args.log_dir)
     exp.save_config(vars(args))
@@ -105,7 +117,7 @@ def main(argv=None) -> dict:
     res = trainer.fit(loader, args.epochs)
     res["state_dict"] = trainer.save_state_dict("diffvc")
     res["n_params"] = n_params
-    print(f"saved model: {res['state_dict']}")
+    launch.say(f"saved model: {res['state_dict']}")
     exp.close()
     return res
 

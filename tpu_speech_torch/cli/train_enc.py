@@ -20,11 +20,17 @@ PyTorch default) after ``torch.manual_seed(seed)``. ``--device`` defaults
 to ``cuda`` and raises without a card. ``--precision bf16`` trains on bf16
 copies of the float32 parameters (``train/diffvc.py``, the JAX step's
 ``bf16``).
+
+Several cards (``parallel/launch.py``): one rank per visible card,
+``--batch-size`` the global batch (it must divide by the ranks), the step
+the one-process step on the global batch; torchrun's variables and N gloo
+ranks on the CPU work too. Rank 0 alone writes the log dir's files.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import importlib.util
 
 import torch
@@ -34,6 +40,7 @@ from tpu_speech_torch.data.diffvc import VCEncBatchCollate, VCEncDataset
 from tpu_speech_torch.data.loader import DataLoader
 from tpu_speech_torch.models.diffvc import FwdDiffusion
 from tpu_speech_torch.train.diffvc import DiffVCTrainer, enc_train_step, make_enc_preview
+from tpu_speech_torch.parallel import distributed, launch
 from tpu_speech_torch.utils.device import resolve_device
 from tpu_speech_torch.utils.exp_manager import ExpManager
 
@@ -73,9 +80,14 @@ def build_encoder() -> FwdDiffusion:
                         params.enc_dim)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, _init_method=None) -> dict:
+    argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    spawned, out = launch.launch(main, argv, args.device, _init_method, modules=(params,))
+    if spawned:
+        return out
+    device = distributed.rank_device(resolve_device(args.device))
+    launch.check_batch(args.batch_size)
 
     dataset = VCEncDataset(args.data_dir, args.exc_file, args.avg_type,
                            shuffle_seed=params.seed)
@@ -85,7 +97,7 @@ def main(argv=None) -> dict:
 
     model = build_encoder().to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Number of encoder parameters = {n_params / 1e6:.2f}m")
+    launch.say(f"Number of encoder parameters = {n_params / 1e6:.2f}m")
 
     exp = ExpManager(name="diffvc_enc", explicit_log_dir=args.log_dir)
     exp.save_config(vars(args))
@@ -99,7 +111,7 @@ def main(argv=None) -> dict:
     res = trainer.fit(loader, args.epochs)
     res["state_dict"] = trainer.save_state_dict("enc")
     res["n_params"] = n_params
-    print(f"saved encoder: {res['state_dict']}")
+    launch.say(f"saved encoder: {res['state_dict']}")
     exp.close()
     return res
 

@@ -19,12 +19,18 @@ after it. At the end the generator is also written as
 reference's names, which ``tpu_speech_torch.cli.inference --hifigan`` and
 the JAX CLI load. ``--device`` defaults to ``cuda`` and raises without a
 card.
+
+Several cards (``parallel/launch.py``): one rank per visible card, the
+config's ``batch_size`` the global batch (it must divide by the ranks), the
+step the one-process step on the global batch; torchrun's variables and N
+gloo ranks on the CPU work too. Rank 0 alone writes the log dir's files.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import torch
 
@@ -36,6 +42,7 @@ from tpu_speech_torch.models.hifigan import (
     MultiScaleDiscriminator,
     uniform_init_,
 )
+from tpu_speech_torch.parallel import distributed, launch
 from tpu_speech_torch.train.hifigan import HiFiGANTrainer
 from tpu_speech_torch.utils.device import resolve_device
 from tpu_speech_torch.utils.exp_manager import ExpManager
@@ -99,14 +106,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> dict:
+def main(argv=None, _init_method=None) -> dict:
+    argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    spawned, out = launch.launch(main, argv, args.device, _init_method)
+    if spawned:
+        return out
+    device = distributed.rank_device(resolve_device(args.device))
     with open(args.config, encoding="utf-8") as f:
         h = json.load(f)
     mel_cfg = mel_cfg_from(h)
     segment = int(h.get("segment_size", 8192))
     batch_size = int(h.get("batch_size", 16))
+    launch.check_batch(batch_size)
     seed = int(h.get("seed", 1234))
 
     train_ds = MelAudioDataset(
@@ -132,7 +144,7 @@ def main(argv=None) -> dict:
     gen, mpd, msd = (m.to(device) for m in build_models(h))
     n_params = {name: sum(p.numel() for p in m.parameters())
                 for name, m in (("generator", gen), ("mpd", mpd), ("msd", msd))}
-    print("parameters: " + ", ".join(f"{k} {v / 1e6:.2f}m" for k, v in n_params.items()))
+    launch.say("parameters: " + ", ".join(f"{k} {v / 1e6:.2f}m" for k, v in n_params.items()))
     trainer = HiFiGANTrainer(
         gen, mpd, msd, args.log_dir, mel_cfg=mel_cfg,
         learning_rate=float(h.get("learning_rate", 2e-4)),
@@ -142,23 +154,23 @@ def main(argv=None) -> dict:
     first_epoch = 0
     if args.resume_if_exists and trainer.resume_if_exists():
         first_epoch = trainer.epoch + 1
-        print(f"resumed at iteration {trainer.iteration}, epoch {first_epoch}")
+        launch.say(f"resumed at iteration {trainer.iteration}, epoch {first_epoch}")
     loader.set_epoch(first_epoch)  # the shuffle of a straight run's epoch
 
     epochs = []
     for epoch in range(first_epoch, args.training_epochs):
         agg = trainer.train_epoch(loader, epoch)
-        print(f"epoch {epoch}: gen={agg['loss_gen']:.3f} disc={agg['loss_disc']:.3f} "
+        launch.say(f"epoch {epoch}: gen={agg['loss_gen']:.3f} disc={agg['loss_disc']:.3f} "
               f"mel={agg['mel_error']:.4f}")
         if val_loader is not None and epoch % args.validation_interval == 0:
             agg["val_mel_error"] = trainer.validate(val_loader, log_audio=2)
-            print(f"epoch {epoch}: validation mel error = {agg['val_mel_error']:.4f}")
+            launch.say(f"epoch {epoch}: validation mel error = {agg['val_mel_error']:.4f}")
         trainer.end_epoch(epoch)
         epochs.append(agg)
     trainer.save()
     trainer.ckpt.wait()  # drain the last checkpoint write
     path = trainer.save_generator()
-    print(f"saved generator: {path}")
+    launch.say(f"saved generator: {path}")
     exp.close()
     return {"n_params": n_params, "iteration": trainer.iteration, "first_epoch": first_epoch,
             "epochs": epochs, "generator": path, "log_dir": trainer.log_dir}

@@ -4,7 +4,8 @@ a Libri-TTS filelist with '|'-separated speaker ids, n_spks = 247).
 
     python -m tpu_speech_torch.cli.train_multi_speaker [--device cpu]
 
-Set ``n_spks`` in ``tpu_speech_torch/configs/gradtts.py`` first.
+Set ``n_spks`` in ``tpu_speech_torch/configs/gradtts.py`` first. Several
+cards run as ``cli/train.py`` does: one rank per visible card.
 """
 
 from __future__ import annotations
@@ -13,10 +14,10 @@ from tpu_speech_torch.cli import train
 from tpu_speech_torch.configs import gradtts as cfg
 
 
-def main(argv=None) -> dict:
+def main(argv=None, _init_method=None) -> dict:
     if cfg.n_spks <= 1:
         raise SystemExit("set n_spks in configs/gradtts.py (e.g. 247 for Libri-TTS)")
-    return train.main(argv, multispeaker=True)
+    return train.main(argv, multispeaker=True, _init_method=_init_method)
 
 
 if __name__ == "__main__":

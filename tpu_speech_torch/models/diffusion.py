@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpu_speech_torch.parallel.mesh import global_rows
+
 
 class Decoder(nn.Module):
     """The references' ``Diffusion`` module (Grad-TTS's and DiffVC's),
@@ -93,19 +95,36 @@ def diffusion_loss(
     t: Optional[torch.Tensor] = None,
     z: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    count: Optional[torch.Tensor] = None,
 ):
     """Score-matching loss at t ~ U[offset, 1 - offset] (the reference
     Diffusion.loss_t, diffusion.py:281-294). ``t`` (B,) and ``z`` (x0's
-    shape) are drawn from ``generator`` in that order when not given.
-    Returns (loss, xt)."""
-    if t is None:
-        t = torch.rand(x0.shape[0], generator=generator, dtype=x0.dtype, device=x0.device)
-        t = torch.clamp(t, offset, 1.0 - offset)
-    xt, z = forward_diffusion(x0, mask, mu, t, beta_min, beta_max, z=z, generator=generator)
+    shape) are drawn from ``generator`` in that order when not given, at the
+    global batch's shape over N ranks (this rank's rows kept). The sum
+    divides by (``count``, or sum(mask)) x n_feats. Returns (loss, xt)."""
+    t, z = draw_t_z(x0, offset, t, z, generator)
+    xt, z = forward_diffusion(x0, mask, mu, t, beta_min, beta_max, z=z)
     cum_noise = get_noise(t[:, None, None], beta_min, beta_max, cumulative=True)
     noise_estimation = score_fn(xt, t) * torch.sqrt(1.0 - torch.exp(-cum_noise))
-    loss = torch.sum((noise_estimation + z) ** 2) / (torch.sum(mask) * n_feats)
+    denom = torch.sum(mask) if count is None else count.to(mask.dtype)
+    loss = torch.sum((noise_estimation + z) ** 2) / (denom * n_feats)
     return loss, xt
+
+
+def draw_t_z(x0: torch.Tensor, offset: float, t: Optional[torch.Tensor] = None,
+             z: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None):
+    """A diffusion loss's draws, those not given from ``generator`` in this
+    order: t (B,) uniform clamped to [offset, 1 - offset], z standard normal
+    of x0's shape; each at the global batch's shape over N ranks, this
+    rank's rows kept (``parallel/mesh.py::global_rows``)."""
+    n, rows = global_rows(x0.shape[0])
+    if t is None:
+        t = torch.rand(n, generator=generator, dtype=x0.dtype, device=x0.device)[rows]
+        t = torch.clamp(t, offset, 1.0 - offset)
+    if z is None:
+        z = torch.randn((n, *x0.shape[1:]), generator=generator, dtype=x0.dtype,
+                        device=x0.device)[rows]
+    return t, z
 
 
 def reverse_diffusion(

@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from tpu_speech_torch.models.diffusion import reverse_diffusion_dpm
+from tpu_speech_torch.models.diffusion import draw_t_z, reverse_diffusion_dpm
 
 
 def _exp(x):
@@ -100,21 +100,23 @@ def forward_diffusion(x0, mask, mean, t, beta_min: float, beta_max: float,
 def diffusion_loss(score_fn, x0, mask, mean, ref, mean_ref, n_feats: int, beta_min: float,
                    beta_max: float, offset: float = 1e-5, t: Optional[torch.Tensor] = None,
                    z: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Score matching at t ~ U[offset, 1 - offset] (B,): the reference is
     diffused to the same t as the source, with the source's mask.
     ``score_fn(xt, xt_ref, t)`` evaluates the estimator; ``t`` and ``z``
-    (x0's shape) replace the draws."""
-    if t is None:
-        t = torch.rand(x0.shape[0], generator=generator, dtype=x0.dtype, device=x0.device)
-        t = torch.clamp(t, offset, 1.0 - offset)
-    xt, z = forward_diffusion(x0, mask, mean, t, beta_min, beta_max, z=z, generator=generator)
+    (x0's shape) replace the draws, which are made at the global batch's
+    shape over N ranks (``models/diffusion.py::draw_t_z``). The sum divides
+    by (``count``, or sum(mask)) x n_feats."""
+    t, z = draw_t_z(x0, offset, t, z, generator)
+    xt, z = forward_diffusion(x0, mask, mean, t, beta_min, beta_max, z=z)
     tb = t.view(-1, *(1,) * (x0.dim() - 1))
     xt_ref = (ref * get_gamma(0.0, tb, beta_min, beta_max)
               + mean_ref * (1.0 - get_gamma(0.0, tb, beta_min, beta_max))) * mask
     z_est = score_fn(xt, xt_ref, t)
     z_est = z_est * torch.sqrt(1.0 - get_gamma(0.0, tb, beta_min, beta_max, p=2.0))
-    return torch.sum((z_est + z) ** 2) / (torch.sum(mask) * n_feats)
+    denom = torch.sum(mask) if count is None else count.to(mask.dtype)
+    return torch.sum((z_est + z) ** 2) / (denom * n_feats)
 
 
 def step_table(n_timesteps: int, beta_min: float, beta_max: float, mode: str) -> np.ndarray:

@@ -106,6 +106,9 @@ class FwdDiffusion(nn.Module):
 
 
 def masked_mse(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-               n_feats: int) -> torch.Tensor:
-    """``FwdDiffusion.compute_loss`` on a prediction (``encoder.py:100-103``)."""
-    return torch.sum((pred - y) ** 2 * mask) / (torch.sum(mask) * n_feats)
+               n_feats: int, count=None) -> torch.Tensor:
+    """``FwdDiffusion.compute_loss`` on a prediction (``encoder.py:100-103``):
+    over (``count``, the global batch's frames over N ranks, or sum(mask))
+    x n_feats."""
+    denom = torch.sum(mask) if count is None else count.to(mask.dtype)
+    return torch.sum((pred - y) ** 2 * mask) / (denom * n_feats)

@@ -27,6 +27,7 @@ from tpu_speech_torch.models.diffvc.encoder import FwdDiffusion
 from tpu_speech_torch.models.diffvc.unet import GradLogPEstimatorVC
 from tpu_speech_torch.nn.init import seeded_init_
 from tpu_speech_torch.ops.masks import sequence_mask
+from tpu_speech_torch.parallel.mesh import global_counts
 
 
 @contextlib.contextmanager
@@ -76,8 +77,11 @@ class DiffVC(nn.Module):
         (B, 256) its speaker embedding. Both means come from the encoder
         with its dropout off and without gradient, whatever this module's
         mode; the reference is encoded and diffused under the source's mask.
-        ``t`` (B,) and ``z`` (B, T, F) replace the draws of ``generator``."""
+        ``t`` (B,) and ``z`` (B, T, F) replace the draws of ``generator``.
+        Over N ranks the draws are made at the global batch's shape and the
+        loss divides by the global frame count."""
         x_mask = sequence_mask(x_lengths, x.shape[1]).to(x.dtype)[:, None, :]  # (B, 1, T)
+        counts = global_counts(torch.sum(x_lengths))
         xc, refc = x.transpose(1, 2), x_ref.transpose(1, 2)
         with frozen(self.encoder):
             mean = self.encoder(xc, x_mask)
@@ -89,7 +93,8 @@ class DiffVC(nn.Module):
 
         return diffusion_loss(score_fn, xc, x_mask, mean, refc, mean_ref, self.n_feats,
                               self.beta_min, self.beta_max, t=t,
-                              z=None if z is None else z.transpose(1, 2), generator=generator)
+                              z=None if z is None else z.transpose(1, 2), generator=generator,
+                              count=None if counts is None else counts[0])
 
     def init_weights(self, generator: torch.Generator) -> "DiffVC":
         """Seeded random weights (``nn/init.py::seeded_init_``)."""

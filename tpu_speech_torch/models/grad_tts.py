@@ -30,6 +30,7 @@ from tpu_speech_torch.nn.init import seeded_init_
 from tpu_speech_torch.nn.unet import GradLogPEstimator2d
 from tpu_speech_torch.ops.masks import duration_loss, generate_path, sequence_mask
 from tpu_speech_torch.ops.monotonic_align import maximum_path
+from tpu_speech_torch.parallel.mesh import global_counts, global_rows
 
 
 class GradTTS(nn.Module):
@@ -93,21 +94,31 @@ class GradTTS(nn.Module):
         ``generator`` (on the batch's device) in this order when not given:
         ``offsets`` (B,) of the crop, ``t`` (B,) in [1e-5, 1 - 1e-5] and
         ``z`` (B, T, F) of the diffusion loss. ``attn``, the (B, Tx, Ty) MAS
-        path, replaces the search (to hold two devices to one path)."""
+        path, replaces the search (to hold two devices to one path).
+
+        Over N ranks (the rows of the global batch) the draws are made at
+        the global batch's shape and the three losses divide by the global
+        counts (one all-reduce): the ranks' losses add up to the global
+        loss."""
         spk_e = self._spk_vec(spk)
+        crop = out_size is not None and out_size < y.shape[1]
+        counts = global_counts(torch.sum(x_lengths),
+                               torch.sum(torch.clamp(y_lengths, max=out_size) if crop
+                                         else y_lengths))
         mu_x, logw, x_mask = self.encode(x, x_lengths)
         y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)
         if attn is None:
             attn = self.alignment(mu_x, y, x_mask[:, :, None] * y_mask[:, None, :])
 
         logw_gt = torch.log(1e-8 + torch.sum(attn, dim=-1)) * x_mask
-        dur_loss = duration_loss(logw * x_mask, logw_gt, x_lengths)
+        dur_loss = duration_loss(logw * x_mask, logw_gt, x_lengths,
+                                 None if counts is None else counts[0].to(logw.dtype))
 
-        if out_size is not None and out_size < y.shape[1]:
-            b = y.shape[0]
+        if crop:
             if offsets is None:
                 high = torch.clamp(y_lengths - out_size, min=1)
-                u = torch.rand(b, generator=generator, device=y.device)
+                n, rows = global_rows(y.shape[0])
+                u = torch.rand(n, generator=generator, device=y.device)[rows]
                 offsets = torch.minimum((u * high).long(), high - 1)
             idx = offsets.long()[:, None] + torch.arange(out_size, device=y.device)  # (B, out)
             y = torch.gather(y, 1, idx[:, :, None].expand(-1, -1, y.shape[2]))
@@ -121,10 +132,12 @@ class GradTTS(nn.Module):
         diff_loss, _ = diffusion_loss(
             lambda xt, tt: estimator(xt, mask, mu_cf, tt, spk_e), y.transpose(1, 2), mask,
             mu_cf, self.n_feats, self.beta_min, self.beta_max, t=t,
-            z=None if z is None else z.transpose(1, 2), generator=generator)
+            z=None if z is None else z.transpose(1, 2), generator=generator,
+            count=None if counts is None else counts[1])
 
         prior_loss = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi)) * y_mask[:, :, None])
-        prior_loss = prior_loss / (torch.sum(y_mask) * self.n_feats)
+        frames = torch.sum(y_mask) if counts is None else counts[1].to(y_mask.dtype)
+        prior_loss = prior_loss / (frames * self.n_feats)
         return dur_loss, prior_loss, diff_loss
 
     def init_weights(self, generator: torch.Generator) -> "GradTTS":

@@ -14,8 +14,8 @@ stores the unbiased one. Over N data-parallel ranks the statistics are
 those of the global batch, as flax computes them over the whole sharded
 array: the moments' sums are all-reduced in the forward and their gradients
 in the backward (``_GlobalMoments``), so every rank normalizes alike and
-keeps equal running statistics. Dropout draws from an explicit
-``DropoutRng``.
+keeps equal running statistics; under the seq axis the same sums cover
+every rank's frames. Dropout draws from an explicit ``DropoutRng``.
 
 ``causal=True`` is the streaming-trainable mode (``Conv1dTF:51``): the
 time pad is (k - 1, 0), so output frame t reads inputs up to t * stride only.
@@ -35,13 +35,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_speech_torch.parallel import distributed
+from tpu_speech_torch.parallel import seq as seq_axis
 
 from tpu_speech_torch.models.spiral.dropout import dropout
 
 
 def create_pad_mask(lens: torch.Tensor, max_len: int) -> torch.Tensor:
-    """True at PADDED positions (reference convention), (B, T)."""
-    return torch.arange(max_len, device=lens.device)[None, :] >= lens[:, None]
+    """True at PADDED positions (reference convention), (B, T); under the seq
+    axis at this rank's global frame positions."""
+    return seq_axis.positions(max_len, lens.device)[None, :] >= lens[:, None]
 
 
 def tf_pad_1d(kernel: int, stride: int, in_channels: int) -> Tuple[int, int]:
@@ -63,7 +65,10 @@ class Conv1dTF(nn.Module):
     ``causal``), mask-aware.
 
     Padded frames are zeroed before every conv with kernel > 1; with stride
-    s the lengths become ceil(len / s) and the pad mask is rebuilt.
+    s the lengths become ceil(len / s) and the pad mask is rebuilt. Under the
+    seq axis (``parallel/seq.py``) x holds this rank's frames: the conv runs
+    unpadded on them with the (pad left, k - s - pad left) frames its window
+    reaches in the neighbours (``halo``), and the lengths stay global.
     """
 
     def __init__(self, in_channels: int, filters: int, kernel_size: int,
@@ -79,7 +84,14 @@ class Conv1dTF(nn.Module):
     def forward(self, x, lens, pad_mask=None):
         if pad_mask is not None and self.kernel_size > 1:
             x = x.masked_fill(pad_mask[:, :, None], 0.0)
-        y = self.conv(F.pad(x.transpose(1, 2), self.pads)).transpose(1, 2)
+        if seq_axis.current() is not None and self.kernel_size > 1:
+            # this rank's frames of the time axis: the window's reach into
+            # each neighbour, zeros at the axis's ends (the pad)
+            left = self.pads[0]
+            x = seq_axis.halo(x, left, self.kernel_size - self.stride - left)
+            y = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        else:
+            y = self.conv(F.pad(x.transpose(1, 2), self.pads)).transpose(1, 2)
         if self.stride > 1:
             lens = (lens + self.stride - 1) // self.stride
             pad_mask = create_pad_mask(lens, y.shape[1])

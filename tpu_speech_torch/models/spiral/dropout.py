@@ -21,6 +21,10 @@ batch item: the attention kernels key their dropout masks by the global row
 (``ops/fused_attention.py::dropout_keep_mask``), so rank r's rows do not
 repeat rank 0's masks.
 
+Under the seq axis (``parallel/seq.py``) the ranks of a data group share
+their generators, and ``dropout`` draws the mask of the whole time axis and
+keeps the rank's frames: the group draws the unsharded step's bits.
+
 The bits cannot equal JAX's: parity tests run with dropout off.
 """
 
@@ -30,6 +34,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from tpu_speech_torch.parallel import seq as seq_axis
 
 
 @dataclasses.dataclass
@@ -64,5 +70,11 @@ def dropout(x: torch.Tensor, p: float, training: bool,
         return x
     if rng is None:
         raise ValueError("training-mode dropout needs a DropoutRng")
-    keep = torch.rand(x.shape, generator=rng.device, device=x.device) < 1.0 - p
+    seq = seq_axis.current()
+    if seq is None:
+        keep = torch.rand(x.shape, generator=rng.device, device=x.device) < 1.0 - p
+    else:  # (B, T / S, ...) frames of the seq axis: the global draw, this rank's frames
+        shape = (x.shape[0], x.shape[1] * seq.size, *x.shape[2:])
+        draw = torch.rand(shape, generator=rng.device, device=x.device)
+        keep = seq_axis.keep_frames(draw, seq) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))

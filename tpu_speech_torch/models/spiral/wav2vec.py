@@ -32,6 +32,12 @@ attention runs as plain torch ops, as the JAX module runs it outside any
 Pallas kernel (``wav2vec.py:165-167, 193-216``): scores filled with -1e9
 where the mask forbids, then the key-padding fill, softmax and dropout.
 Without one every layer keeps K2.
+
+Under the seq axis (``parallel/seq.py``) x holds a rank's frames: the
+positional conv and each layer's attention gather their operand along time
+(the (B, T, 3E) qkv plane for K2, with the whole key mask), run the kernel
+on the whole T, and keep the rank's frames; the backward reduce-scatters
+the operand's gradient along time. Everything else acts frame by frame.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from torch import nn
 from tpu_speech_torch.models.spiral.dropout import dropout
 from tpu_speech_torch.ops.fused_attention import fused_qkv_self_attention
 from tpu_speech_torch.ops.fused_posconv import grouped_conv1d
+from tpu_speech_torch.parallel import seq as seq_axis
 
 TRANSFORMER_LN_EPS = 1e-6  # flax nn.LayerNorm default (wav2vec.py:242-331)
 
@@ -95,7 +102,12 @@ class ConvPositionalEmbedding(nn.Module):
         return v / norm.clamp_min(1e-12) * self.weight_g
 
     def forward(self, x):
+        seq = seq_axis.current()
+        if seq is not None:  # K4 on the whole time axis, then this rank's frames
+            x = seq_axis.gather_time(x, seq)
         y = grouped_conv1d(x, self.weight().to(x.dtype), self.groups, self.left_pad)
+        if seq is not None:
+            y = seq_axis.keep_frames(y, seq)
         return F.gelu(y + self.bias.to(x.dtype))
 
 
@@ -171,8 +183,13 @@ class MultiheadSelfAttention(nn.Module):
             if rng is None:
                 raise ValueError("training-mode attention dropout needs a DropoutRng")
             drop_p, seed, b0 = self.dropout, rng.attention_seed(), rng.row0
+        seq = seq_axis.current()
+        if seq is not None:  # K2 on the whole time axis (the key mask is whole already)
+            qkv = seq_axis.gather_time(qkv, seq)
         out = fused_qkv_self_attention(qkv, self.num_heads, key_padding_mask,
                                        drop_p, seed, b0)
+        if seq is not None:
+            out = seq_axis.keep_frames(out, seq)
         return self.out_proj(out)
 
 
@@ -251,6 +268,12 @@ class TransformerEncoder(nn.Module):
     def forward(self, x, padding_mask=None, rng=None):
         if padding_mask is not None:
             x = x.masked_fill(padding_mask[:, :, None], 0.0)
+        key_mask = padding_mask
+        if seq_axis.current() is not None:
+            if self.attn_chunk is not None:
+                raise ValueError("the seq axis takes no streaming-mode encoder")
+            if padding_mask is not None:  # the attention reads every frame's mask
+                key_mask = seq_axis.gather_frames(padding_mask)
         x = x + self.pos_conv[0](x)
         attn_mask = None
         if self.attn_chunk is not None:
@@ -266,7 +289,7 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             if layerdrop and not rng.keep_layer(self.encoder_layerdrop):
                 continue
-            x = layer(x, padding_mask, rng, attn_mask)
+            x = layer(x, key_mask, rng, attn_mask)
             self.layers_run += 1
         if self.layer_norm_first:
             x = self.layer_norm(x)

@@ -8,6 +8,8 @@ helpers of Grad-TTS/model/utils.py): ``sequence_mask``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -39,6 +41,8 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (path - path_prev) * mask
 
 
-def duration_loss(logw: torch.Tensor, logw_gt: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """MSE between predicted and target log-durations, normalized by token count."""
-    return torch.sum((logw - logw_gt) ** 2) / torch.sum(lengths)
+def duration_loss(logw: torch.Tensor, logw_gt: torch.Tensor, lengths: torch.Tensor,
+                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE between predicted and target log-durations, normalized by token
+    count (``count``, the global batch's over N ranks, or sum(lengths))."""
+    return torch.sum((logw - logw_gt) ** 2) / (torch.sum(lengths) if count is None else count)

@@ -14,8 +14,16 @@ elements stay replicated, as JAX leaves them. ``shard_state_fsdp`` applies
 the rule through FSDP2's ``fully_shard`` with the replicated ones as
 ``ignored_params`` (their gradients go through ``allreduce_grads``).
 
-The ``seq`` and ``model`` axes (sequence parallelism, TP placement) are not
-ported yet: ``make_mesh`` stops naming their ROADMAP item.
+The ``seq`` axis (``make_mesh(seq_parallel=S)``, ``mesh.py:23-53``) makes
+the mesh (data, seq) of world / S by S ranks, rank r at (r // S, r % S) as
+JAX lays its devices out: the batch is sharded over ``data`` alone and a
+data group's S ranks split the encoders' time axis (``parallel/seq.py``).
+The ``model`` axis (TP placement) is not ported yet: ``make_mesh`` stops
+naming its ROADMAP item.
+
+The trainers' draws (crop offsets, diffusion times and noise) are made at
+the global batch's shape and sliced to the rank's rows (``global_rows``),
+so N ranks draw what one process draws on the whole batch.
 """
 
 from __future__ import annotations
@@ -28,33 +36,87 @@ import torch
 from tpu_speech_torch.parallel import distributed
 
 DATA_AXIS = "data"
+SEQ_AXIS = "seq"
 REPLICATED = "replicated"
-# the ROADMAP Queue 1 item that ports the seq and model axes
-NEXT_ITEM = (11, "sequence parallelism and TP placement")
+# the ROADMAP Queue 1 item that ports the model axis
+NEXT_ITEM = ("11.3", "TP placement, shard_params_tp")
 BUCKET_BYTES = 64 << 20  # gradient all-reduce bucket
 MIN_SIZE = 2 ** 14  # FSDP leaves under this many elements stay replicated
 
 
 def make_mesh(n_devices: Optional[int] = None, seq_parallel: int = 1,
               model_parallel: int = 1, device_type: Optional[str] = None):
-    """A 1-D ``DeviceMesh`` named ``data`` over every rank of the process
-    group (one card a rank; ``n_devices`` must equal the world size). A
-    ``seq`` or ``model`` axis above 1 stops the run."""
-    if seq_parallel > 1 or model_parallel > 1:
-        raise SystemExit(f"seq_parallel={seq_parallel}, model_parallel={model_parallel}: "
-                         f"not ported yet, ROADMAP.md Queue 1 item {NEXT_ITEM[0]} "
-                         f"({NEXT_ITEM[1]})")
+    """A ``DeviceMesh`` over every rank of the process group (one card a
+    rank; ``n_devices`` must equal the world size): 1-D ``data``, or with
+    ``seq_parallel`` S > 1 the 2-D (data, seq) of world / S by S. A
+    ``model`` axis above 1 stops the run."""
+    if model_parallel > 1:
+        raise SystemExit(f"model_parallel={model_parallel}: not ported yet, ROADMAP.md "
+                         f"Queue 1 item {NEXT_ITEM[0]} ({NEXT_ITEM[1]})")
     if not distributed.is_initialized():
         raise RuntimeError("make_mesh needs distributed.initialize first")
     world = distributed.process_count()
     if n_devices not in (None, world):
         raise ValueError(f"n_devices={n_devices}: the mesh has one rank a card, "
                          f"and this process group has {world}")
+    sp = max(1, seq_parallel)
+    if world % sp:
+        raise ValueError(f"seq_parallel={sp} does not divide the {world} ranks of this "
+                         "process group")
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = distributed.device()
     device_type = device_type or (dev.type if dev is not None else "cpu")
-    return init_device_mesh(device_type, (world,), mesh_dim_names=(DATA_AXIS,))
+    if sp == 1:
+        return init_device_mesh(device_type, (world,), mesh_dim_names=(DATA_AXIS,))
+    return init_device_mesh(device_type, (world // sp, sp), mesh_dim_names=(DATA_AXIS, SEQ_AXIS))
+
+
+def data_axis(mesh) -> tuple:
+    """(this rank's index on the data axis, its size): (rank, world) on a
+    1-D mesh or without one."""
+    if mesh is None:
+        return distributed.process_index(), distributed.process_count()
+    return mesh.get_local_rank(DATA_AXIS), mesh.size(mesh.mesh_dim_names.index(DATA_AXIS))
+
+
+def seq_size(mesh) -> int:
+    """The seq axis's size (1 without one)."""
+    if mesh is None or SEQ_AXIS not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(SEQ_AXIS))
+
+
+def global_rows(n_local: int, rank: Optional[int] = None,
+                world: Optional[int] = None) -> tuple:
+    """(the global batch, this rank's rows as a slice) of a rank batch of
+    ``n_local``: a draw of the global shape sliced by it is this rank's
+    share of the one-process draw."""
+    rank, world = _rank_world(rank, world)
+    return n_local * world, slice(rank * n_local, (rank + 1) * n_local)
+
+
+def global_count(local: torch.Tensor) -> torch.Tensor:
+    """The sum of ``local`` (a 0-d count) over the ranks, at least 1, in its
+    dtype: the global denominator of a loss."""
+    total = distributed.all_reduce_(local.detach().float())
+    return torch.clamp(total, min=1.0).to(local.dtype)
+
+
+def global_counts(*local: torch.Tensor) -> Optional[list]:
+    """0-d counts summed over the ranks in one call, in float32; None at
+    world 1 (the losses then divide by their own sums, as before)."""
+    if distributed.process_count() == 1:
+        return None
+    return list(distributed.all_reduce_(torch.stack([c.detach().float() for c in local])))
+
+
+def global_metrics(*values: torch.Tensor) -> list:
+    """0-d tensors summed over the ranks in one call (each rank's piece of a
+    global mean); as they are at world 1."""
+    if distributed.process_count() == 1:
+        return list(values)
+    return list(distributed.all_reduce_(torch.stack([v.detach().float() for v in values])))
 
 
 def _rank_world(rank, world):

@@ -28,6 +28,12 @@ bf16)``, ``:27-52, 73-86``): the forward and backward run through
 (``train/spiral.py::mixed_precision_params``), with the mels (and the speaker
 embedding) in bf16; the loss comes back float32, the gradients land on the
 float32 masters, and the clip and Adam run in float32.
+
+Over N ranks (``train/trainer.py``) each step runs on the rank's rows of
+the global batch: the losses divide by the global frame count, the
+decoder's t and z are drawn at the global shape (``models/diffvc/
+diffusion.py``), the gradients are summed over the ranks before the clip
+(so ``grad_norm`` is the global one), and the loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 from tpu_speech_torch.models.diffvc import DiffVC, FwdDiffusion, voice_convert
 from tpu_speech_torch.models.diffvc.encoder import masked_mse
 from tpu_speech_torch.ops.masks import sequence_mask
+from tpu_speech_torch.parallel.mesh import allreduce_grads, global_counts, global_metrics
 from tpu_speech_torch.train.optim import AdamW, clip_by_global_norm, clip_subtree_by_global_norm
 from tpu_speech_torch.train.spiral import mixed_precision_params
 from tpu_speech_torch.train.trainer import Trainer, batch_to_device, step_generator
@@ -84,9 +91,13 @@ def enc_train_step(model: FwdDiffusion, opt: AdamW, batch: dict,
     if bf16:
         x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
     mask = sequence_mask(batch["lengths"], x.shape[2]).to(x.dtype)[:, None, :]
-    loss = masked_mse(_forward(model, bf16)(x, mask), y, mask, model.n_feats).float()
+    counts = global_counts(torch.sum(batch["lengths"]))
+    loss = masked_mse(_forward(model, bf16)(x, mask), y, mask, model.n_feats,
+                      None if counts is None else counts[0]).float()
     loss.backward()
     _zero_missing_grads(params)
+    allreduce_grads(params)
+    loss, = global_metrics(loss)
     norm = clip_by_global_norm([p.grad for p in params], MAX_GRAD_NORM)
     opt.step()
     return {"loss": loss.detach(), "grad_norm": norm}
@@ -111,6 +122,8 @@ def dec_train_step(model: DiffVC, opt: AdamW, batch: dict,
                                  generator=generator).float()
     loss.backward()
     _zero_missing_grads(p for _, p in named)  # the encoder's, all of them
+    allreduce_grads(p for _, p in named)
+    loss, = global_metrics(loss)
     norm = clip_subtree_by_global_norm(named, ESTIMATOR, MAX_GRAD_NORM)
     opt.step()
     return {"loss": loss.detach(), "grad_norm": norm}
@@ -230,7 +243,7 @@ class DiffVCTrainer(Trainer):
         t0 = time.time()
         for batch in loader:
             generator = step_generator(self.seed, self.iteration, self.device)
-            batch = batch_to_device(batch, self.device)
+            batch = batch_to_device(self.shard(batch), self.device)
             self.timer.tick("step")
             metrics = self.step_fn(self.model, self.opt, batch, generator, bf16=self.bf16)
             # one read of every metric: the sync that closes the step
@@ -243,11 +256,12 @@ class DiffVCTrainer(Trainer):
                 self.tb.add_scalar("training/grad_norm", m["grad_norm"], self.iteration)
             self.iteration += 1
         mean_loss = float(np.mean(losses)) if losses else float("nan")
-        with open(os.path.join(self.log_dir, "train.log"), "a") as f:
-            f.write("Epoch %d: loss = %.4f | %.1fs\n" % (epoch, mean_loss, time.time() - t0))
+        if self.primary:
+            with open(os.path.join(self.log_dir, "train.log"), "a") as f:
+                f.write("Epoch %d: loss = %.4f | %.1fs\n" % (epoch, mean_loss, time.time() - t0))
         if epoch % self.save_every == 0:
-            self.ckpt.save(self.iteration, self.state())
-            if self.preview_fn is not None:
+            self.save_checkpoint()
+            if self.preview_fn is not None and self.primary:
                 self.preview_fn(self, epoch)
         return mean_loss
 
@@ -258,12 +272,14 @@ class DiffVCTrainer(Trainer):
         first_epoch = 1
         if self.resume_if_exists():
             first_epoch = self.iteration // max(len(loader), 1) + 1
-            print(f"Resumed from iteration {self.iteration}")
+            if self.primary:
+                print(f"Resumed from iteration {self.iteration}")
         loader.set_epoch(first_epoch - 1)
         losses = []
         for epoch in range(first_epoch, epochs + 1):
             losses.append(self.train_epoch(loader, epoch))
-            print(f"Epoch {epoch}: loss = {losses[-1]:.4f}")
+            if self.primary:
+                print(f"Epoch {epoch}: loss = {losses[-1]:.4f}")
         self.ckpt.wait()  # drain the last checkpoint write
         return {"first_epoch": first_epoch, "losses": losses, "iteration": self.iteration,
                 "history": self.history, "log_dir": self.log_dir}

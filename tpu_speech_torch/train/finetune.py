@@ -39,13 +39,8 @@ from tpu_speech_torch.models.spiral.ctc import CTCFinetuneModel, ctc_loss
 from tpu_speech_torch.models.spiral.dropout import DropoutRng
 from tpu_speech_torch.models.spiral.masking import apply_mask, gaussian_mask_emb
 from tpu_speech_torch.models.spiral.st2vec import wav_to_spec
-from tpu_speech_torch.parallel.mesh import allreduce_grads
-from tpu_speech_torch.train.spiral import (
-    global_count,
-    global_metrics,
-    micro_batches,
-    mixed_precision_params,
-)
+from tpu_speech_torch.parallel.mesh import allreduce_grads, global_count, global_metrics
+from tpu_speech_torch.train.spiral import micro_batches, mixed_precision_params
 
 
 @dataclasses.dataclass

@@ -26,6 +26,13 @@ checkpoint every ``save_every`` epochs, ``resume_if_exists``, synthesis
 previews, and at the end ``save_state_dict``: a reference-named ``.pt`` (the
 reference's own checkpoint format, Grad-TTS/train.py:174-175) that
 ``cli/inference.py`` loads.
+
+Over N ranks (``train/trainer.py``) ``train_step`` runs on the rank's rows:
+the model draws the crop offsets, t and z at the global batch's shape and
+keeps its rows, MAS runs on the rank's own rows, the three losses divide by
+the global counts (one all-reduce, ``models/grad_tts.py``), the gradients
+are summed over the ranks before the two clips, and the metrics are the
+global batch's (one more all-reduce).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from tpu_speech_torch.models.grad_tts import GradTTS, synthesize
+from tpu_speech_torch.parallel.mesh import allreduce_grads, global_metrics
 from tpu_speech_torch.train.optim import AdamW, clip_subtree_by_global_norm
 from tpu_speech_torch.train.spiral import mixed_precision_params
 from tpu_speech_torch.train.trainer import Trainer, batch_to_device, step_generator
@@ -72,11 +80,13 @@ def train_step(model: GradTTS, opt: AdamW, batch: dict,
     dur, prior, diff = forward(batch["x"], batch["x_lengths"], y, batch["y_lengths"],
                                spk=batch.get("spk"), out_size=out_size, generator=generator,
                                offsets=offsets, t=t, z=z, attn=attn)
-    loss = (dur + prior + diff).float()
-    loss.backward()
+    (dur + prior + diff).float().backward()
     for _, p in params:
         if p.grad is None:  # a leaf the loss does not reach: JAX's gradient is zero
             p.grad = torch.zeros_like(p)
+    allreduce_grads(p for _, p in params)
+    dur, prior, diff = global_metrics(dur, prior, diff)
+    loss = (dur + prior + diff).float()
     enc_norm = clip_subtree_by_global_norm(params, ENCODER, MAX_GRAD_NORM)
     dec_norm = clip_subtree_by_global_norm(params, ESTIMATOR, MAX_GRAD_NORM)
     opt.step()
@@ -150,7 +160,7 @@ class GradTTSTrainer(Trainer):
         for batch in loader:
             generator = step_generator(self.seed, self.iteration, self.device)
             n_frames += int(np.sum(batch["y_lengths"]))  # from the host batch: no sync
-            batch = batch_to_device(batch, self.device)
+            batch = batch_to_device(self.shard(batch), self.device)
             self.timer.tick("step")
             metrics = train_step(self.model, self.opt, batch, generator, self.out_size,
                                  bf16=self.bf16)
@@ -176,9 +186,11 @@ class GradTTSTrainer(Trainer):
         msg = ("Epoch %d: duration loss = %.3f | prior loss = %.3f | diffusion loss = %.3f "
                "| %.0f frames/s\n" % (epoch, means["dur_loss"], means["prior_loss"],
                                       means["diff_loss"], n_frames / max(dt, 1e-9)))
-        with open(os.path.join(self.log_dir, "train.log"), "a") as f:
-            f.write(msg)
+        if self.primary:
+            with open(os.path.join(self.log_dir, "train.log"), "a") as f:
+                f.write(msg)
         if epoch % self.save_every == 0:
-            self.ckpt.save(self.iteration, self.state())
-            self.log_previews(epoch)
+            self.save_checkpoint()
+            if self.primary:
+                self.log_previews(epoch)
         return means

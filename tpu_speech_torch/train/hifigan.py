@@ -34,6 +34,15 @@ at most 8 batches, up to ``log_audio`` wavs to TensorBoard), checkpoints and
 moments and counts, the step, the epoch and the datasets' crop generators,
 and is written by ``end_epoch`` after the epoch's validation, so that a
 resumed run, which starts at the epoch after it, equals a straight one.
+
+Over N ranks (one process a card, ``parallel/launch.py``) each rank runs the
+step on its rows of the global batch: every loss is a mean over the global
+batch (with equal shares, the local mean over N, summed), the
+discriminators' gradients are summed over the ranks before their AdamW, then
+the generator's before its own, and the metrics are the global ones. The
+staircase decay counts global steps (every rank takes each one). Every rank
+validates the whole validation set, as each JAX process does, and rank 0
+alone writes files.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ from tpu_speech_torch.models.hifigan import (
     feature_loss,
     generator_loss,
 )
+from tpu_speech_torch.parallel import distributed
+from tpu_speech_torch.parallel.mesh import allreduce_grads, global_metrics, replicate, shard_batch
 from tpu_speech_torch.train.optim import AdamW
 from tpu_speech_torch.train.spiral import mixed_precision_params
 from tpu_speech_torch.train.trainer import (
@@ -135,11 +146,13 @@ def gan_train_step(gen: Generator, mpd: MultiPeriodDiscriminator,
     for group in opt_d.param_groups:
         for p in group["params"]:
             p.grad = None
+    world = distributed.process_count()
     run_mpd, run_msd = _runner(mpd, bf16, True), _runner(msd, bf16, True)
     loss_f = discriminator_loss(run_mpd(wav_c)[0], run_mpd(y_hat)[0])[0]
     loss_s = discriminator_loss(run_msd(wav_c)[0], run_msd(y_hat)[0])[0]
     loss_d = (loss_f + loss_s).float()
-    loss_d.backward()
+    (loss_d / world).backward()  # this rank's share of the global mean
+    allreduce_grads(p for group in opt_d.param_groups for p in group["params"])
     opt_d.step()
 
     # 3-4: the generator's update against the updated discriminators
@@ -157,12 +170,16 @@ def gan_train_step(gen: Generator, mpd: MultiPeriodDiscriminator,
     loss_fm = feature_loss(fr, fg) + feature_loss(fr_s, fg_s)
     adv = generator_loss(pg)[0] + generator_loss(sg)[0]
     loss_g = (adv + loss_fm).float() + loss_mel
-    loss_g.backward()
+    (loss_g / world).backward()
+    allreduce_grads(gen.parameters())
     opt_g.step()
-    return {"loss_gen": loss_g.detach(), "loss_disc": loss_d.detach(),
-            "mel_error": loss_mel.detach() / MEL_LOSS_WEIGHT,
-            "loss_fm": loss_fm.detach().float(), "loss_adv": adv.detach().float(),
-            "loss_disc_mpd": loss_f.detach().float(), "loss_disc_msd": loss_s.detach().float()}
+    metrics = [loss_g, loss_d, loss_mel / MEL_LOSS_WEIGHT, loss_fm.float(), adv.float(),
+               loss_f.float(), loss_s.float()]
+    if world > 1:  # the global means: the local ones over N, summed
+        metrics = global_metrics(*(m / world for m in metrics))
+    names = ("loss_gen", "loss_disc", "mel_error", "loss_fm", "loss_adv", "loss_disc_mpd",
+             "loss_disc_msd")
+    return {k: v.detach() for k, v in zip(names, metrics)}
 
 
 class HiFiGANTrainer:
@@ -181,6 +198,10 @@ class HiFiGANTrainer:
         self.gen = gen
         self.disc = nn.ModuleDict({"mpd": mpd, "msd": msd})
         self.device = next(gen.parameters()).device
+        self.rank, self.world = distributed.process_index(), distributed.process_count()
+        self.primary = self.rank == 0
+        for module in (gen, self.disc):
+            replicate(module)  # rank 0's weights (nothing at world 1)
         self.exp = exp
         self.log_dir = exp.log_dir if exp is not None else log_dir
         os.makedirs(self.log_dir, exist_ok=True)
@@ -191,7 +212,7 @@ class HiFiGANTrainer:
         self.datasets = list(datasets)
         self.ckpt = Checkpointer(os.path.join(self.log_dir, "ckpt"))
         self.save_every = save_every
-        self.tb = exp.tb if exp is not None else None
+        self.tb = exp.tb if exp is not None and self.primary else None
         self.timer = StepTimer()
         self.iteration = 0
         self.epoch = -1  # the last epoch whose end was reached
@@ -236,6 +257,8 @@ class HiFiGANTrainer:
         n_samples = 0
         for batch in loader:
             n_samples += int(np.asarray(batch["wav"]).shape[0])
+            if self.world > 1:
+                batch = shard_batch(batch, self.rank, self.world)
             batch = batch_to_device(batch, self.device)
             self.timer.tick("step")
             metrics = self.step(batch)
@@ -258,8 +281,9 @@ class HiFiGANTrainer:
         msg = ("Epoch %d: gen loss = %.3f | disc loss = %.3f | mel error = %.4f | %.1f utt/s\n"
                % (epoch, means["loss_gen"], means["loss_disc"], means["mel_error"],
                   n_samples / max(dt, 1e-9)))
-        with open(os.path.join(self.log_dir, "train.log"), "a") as f:
-            f.write(msg)
+        if self.primary:
+            with open(os.path.join(self.log_dir, "train.log"), "a") as f:
+                f.write(msg)
         return means
 
     def end_epoch(self, epoch: int) -> None:
@@ -272,7 +296,8 @@ class HiFiGANTrainer:
     def save(self) -> None:
         """A checkpoint of this step, unless one was written at it."""
         if self._saved_step != self.iteration:
-            self.ckpt.save(self.iteration, self.state())
+            if self.primary:
+                self.ckpt.save(self.iteration, self.state())
             self._saved_step = self.iteration
 
     @torch.no_grad()
@@ -295,7 +320,7 @@ class HiFiGANTrainer:
             err = torch.mean(torch.abs(mel_spectrogram(y_g, **loss_cfg)
                                        - mel_spectrogram(wav, **loss_cfg)))
             errs.append(float(err))
-            if logged < log_audio:
+            if logged < log_audio and self.primary:
                 y = y_g.float().cpu().numpy()
                 for j in range(min(log_audio - logged, y.shape[0])):
                     self._log_audio(f"gen_audio_{logged}", y[j])
@@ -320,6 +345,8 @@ class HiFiGANTrainer:
         """``<log_dir>/<name>.pt``: ``{"generator": state_dict}`` with the
         reference's names, which both inference CLIs' ``load_hifigan`` read."""
         path = os.path.join(self.log_dir, f"{name}.pt")
-        torch.save({"generator": {k: v.detach().cpu() for k, v in
-                                  self.gen.state_dict().items()}}, path)
+        if self.primary:
+            torch.save({"generator": {k: v.detach().cpu() for k, v in
+                                      self.gen.state_dict().items()}}, path)
+        distributed.barrier()
         return path

@@ -50,6 +50,13 @@ clip takes the global norm, AdamW and the EMA run on every rank alike (shard
 by shard under FSDP), and the logged loss and accuracy are the global ones.
 At world 1 none of this makes a call. The metrics' ``allreduce_bytes`` is
 what the gradient all-reduce moved.
+
+Sequence parallelism (``mesh`` with a seq axis, JAX's ``seq_constrainer``
+anchors ``:94, 130, 144, 161``): a data group's S ranks hold the same rows
+and each runs the towers on T / S frames (``parallel/seq.py``). The
+InfoNCE's global count and the gradient sum run over the whole world (data
+x seq), so the step stays the one-process step on the global batch; K2 and
+K4 run on the time-gathered activations.
 """
 
 from __future__ import annotations
@@ -67,7 +74,13 @@ from tpu_speech_torch.models.spiral.masking import (
     make_student_masks,
 )
 from tpu_speech_torch.parallel import distributed
-from tpu_speech_torch.parallel.mesh import allreduce_grads, is_sharded
+from tpu_speech_torch.parallel import seq as seq_axis
+from tpu_speech_torch.parallel.mesh import (
+    allreduce_grads,
+    global_count,
+    global_metrics,
+    is_sharded,
+)
 from tpu_speech_torch.models.spiral.st2vec import (
     ST2VecEncoder,
     check_collapse,
@@ -107,21 +120,6 @@ def mixed_precision_params(named_parameters) -> dict:
     return {n: p.to(torch.bfloat16) for n, p in named_parameters if not is_sharded(p)}
 
 
-def global_count(local: torch.Tensor) -> torch.Tensor:
-    """The sum of ``local`` (a 0-d count) over the ranks, at least 1, in its
-    dtype: the global denominator of a loss."""
-    total = distributed.all_reduce_(local.detach().float())
-    return torch.clamp(total, min=1.0).to(local.dtype)
-
-
-def global_metrics(*values: torch.Tensor) -> list:
-    """0-d tensors summed over the ranks in one call (each rank's piece of a
-    global mean); as they are at world 1."""
-    if distributed.process_count() == 1:
-        return list(values)
-    return list(distributed.all_reduce_(torch.stack([v.detach().float() for v in values])))
-
-
 def micro_batches(batch, accum_steps: int) -> list:
     """The step's micro-batches: ``[batch]``, or the list of ``accum_steps``
     of them."""
@@ -133,10 +131,17 @@ def micro_batches(batch, accum_steps: int) -> list:
 
 
 def _pretrain_loss(model: ST2VecEncoder, batch: dict, rng: DropoutRng, bf16: bool,
-                   neg_idx: Optional[torch.Tensor]):
+                   neg_idx: Optional[torch.Tensor], seq: Optional[seq_axis.SeqGroup] = None):
     """One micro-batch's forward: (loss, accuracy, teacher layers, student
-    layers)."""
+    layers, the frames a rank held at the anchors). Under the seq axis
+    ``seq`` the spectrograms, the teacher's shift and the masking run
+    whole on every rank of the group (no parameters), each tower on the
+    rank's frames, the targets are gathered along time for the crop and the
+    negatives, and the negatives' indices are drawn at the global (B, T')."""
     cfg = model.cfg
+    if seq is not None and cfg.streaming is not None:
+        raise ValueError("the seq axis takes no streaming-mode encoder")
+    stride = int(np.prod([c.stride[0] for blk in cfg.blocks for c in blk.conv_layers]))
     emb = torch.tensor(gaussian_mask_emb(cfg.num_features), device=batch["wavs"].device)
     t_specs, t_lens = wav_to_spec(cfg, batch["wavs"], batch["wav_lens"],
                                   training=True, generator=rng.device)
@@ -159,32 +164,45 @@ def _pretrain_loss(model: ST2VecEncoder, batch: dict, rng: DropoutRng, bf16: boo
         def tower(*args, name):
             return model(*args, tower=name)
     k, r = int(batch["shift_k"]), int(batch["shift_r"])
+    t_out = s_specs.shape[1] // cfg.shift_unit
     with torch.no_grad():
         t_sh, t_lens_sh = teacher_shift(t_specs, t_lens, k, r, cfg.shift_unit,
                                         cfg.max_shift, emb)
-        targets, _ = tower(t_sh, t_lens_sh, rng, name="teacher")
+        if seq is not None:
+            t_sh = seq_axis.local_frames(t_sh, seq, stride)
+        with seq_axis.sharded(seq):
+            targets, _ = tower(t_sh, t_lens_sh, rng, name="teacher")
+        if seq is not None:
+            targets = seq_axis.gather_frames(targets, seq)
         # trim the k leading shifted frames -> aligned with the student frames
-        targets = targets[:, k:k + s_specs.shape[1] // cfg.shift_unit]
+        targets = targets[:, k:k + t_out]
     teacher_layers = model.target_feature_encoder.layers_run()
 
     s_specs = apply_mask(s_specs, batch["time_mask"], batch["chan_mask"], emb)
-    pred, feat_lens = tower(s_specs, s_lens, rng, name="student")
+    if seq is not None:
+        s_specs = seq_axis.local_frames(s_specs, seq, stride)
+    with seq_axis.sharded(seq):
+        pred, feat_lens = tower(s_specs, s_lens, rng, name="student")
     student_layers = model.feature_encoder.layers_run()
 
-    t_out = pred.shape[1]
-    valid = (torch.arange(t_out, device=pred.device)[None, :]
-             < feat_lens[:, None]).to(pred.dtype)
+    pos = seq_axis.positions(pred.shape[1], pred.device, seq)
+    valid = (pos[None, :] < feat_lens[:, None]).to(pred.dtype)
     if neg_idx is None:
         neg_idx = draw_negative_indices(feat_lens, t_out, cfg.n_negatives, rng.device)
+    positives = targets
+    if seq is not None:  # this rank's frames; the negatives index every frame
+        positives, neg_idx = (seq_axis.keep_frames(v, seq) for v in (targets, neg_idx))
     negs = gather_negatives(targets, neg_idx)
-    loss, acc = contrastive_loss(pred, targets, negs, valid, cfg.logit_temp,
+    loss, acc = contrastive_loss(pred, positives, negs, valid, cfg.logit_temp,
                                  global_count(valid.sum()))
-    return loss, acc, teacher_layers, student_layers
+    frames = {"specs": s_specs.shape[1], "teacher_specs": t_sh.shape[1],
+              "targets": positives.shape[1], "pred": pred.shape[1]}
+    return loss, acc, teacher_layers, student_layers, frames
 
 
 def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
                   grad_clip: Optional[float] = None, bf16: bool = False,
-                  accum_steps: int = 1, neg_idx=None) -> dict:
+                  accum_steps: int = 1, neg_idx=None, mesh=None) -> dict:
     """One update of ``state`` in place from a device batch (the dict of
     ``host_augment_batch`` as tensors on the model's device; ``shift_k`` and
     ``shift_r`` stay host ints), or from a list of ``accum_steps`` such
@@ -196,7 +214,12 @@ def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
     (floats), the transformer layers each tower ran (summed over the
     micro-batches) and ``allreduce_bytes``. Over N ranks ``batch`` is the
     rank's slice of the global batch (and ``neg_idx`` its rows); the loss
-    and accuracy are the global ones."""
+    and accuracy are the global ones. ``mesh``, a (data, seq)
+    ``DeviceMesh`` (``parallel/mesh.py::make_mesh(seq_parallel=S)``), runs
+    the towers on the rank's T / S frames of its data group's rows
+    (``neg_idx`` then has the group's rows and every frame); ``frames`` says
+    what a rank held at the anchors (spectrograms, the teacher's input,
+    targets, predictions)."""
     micro = micro_batches(batch, accum_steps)
     negs = list(neg_idx) if accum_steps > 1 and neg_idx is not None else [neg_idx] * accum_steps
     model = state.model
@@ -206,8 +229,9 @@ def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
         p.grad = None
     loss_sum = acc_sum = 0.0
     teacher_layers = student_layers = 0
+    seq = seq_axis.from_mesh(mesh)
     for mb, neg in zip(micro, negs):
-        loss, acc, t_layers, s_layers = _pretrain_loss(model, mb, rng, bf16, neg)
+        loss, acc, t_layers, s_layers, frames = _pretrain_loss(model, mb, rng, bf16, neg, seq)
         (loss / accum_steps).backward()
         loss_sum, acc_sum = loss_sum + loss.detach(), acc_sum + acc.detach()
         teacher_layers, student_layers = teacher_layers + t_layers, student_layers + s_layers
@@ -224,7 +248,7 @@ def pretrain_step(state: SpiralPretrainState, batch, rng: DropoutRng,
     state.step += 1
     return {"loss": loss_sum / accum_steps, "accuracy": acc_sum / accum_steps,
             "momentum": m, "lr": lr, "teacher_layers": teacher_layers,
-            "student_layers": student_layers, "allreduce_bytes": comm}
+            "student_layers": student_layers, "allreduce_bytes": comm, "frames": frames}
 
 
 @torch.no_grad()
@@ -239,7 +263,10 @@ def validation_loss(model: ST2VecEncoder, batch: dict, neg_idx=None,
     accuracy, diagnostics) as 0-d tensors; the model's mode is restored.
     Over N ranks ``batch`` is the rank's slice of the global batch: the loss
     and accuracy are the global batch's, and the diagnostics read its
-    utterances 0 and 1 (rank 0's, broadcast) over its shortest length."""
+    utterances 0 and 1 (rank 0's, broadcast) over its shortest length. Under
+    the seq axis the S ranks of a data group each run this whole on their
+    group's rows: the world's counts and sums then both hold every row S
+    times, so the loss and accuracy are still the global batch's."""
     cfg = model.cfg
     was_training = model.training
     model.eval()

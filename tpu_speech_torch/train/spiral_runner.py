@@ -89,9 +89,21 @@ the ranks (``allreduce_sum``): every rank returns the WER of one process.
 Under FSDP, validation, evaluation and serving run on a float32 copy with
 the whole weights (``_plain_model``), gathered once a call.
 
+Sequence parallelism (``trainer.seq_parallel`` S > 1, pretraining only,
+``:109-117``): the mesh is (data, seq) of N / S by S ranks
+(``parallel/mesh.py::make_mesh``). A data group's S ranks read the same
+rows: the loader shards over the data index d of N / S, the global batch is
+``batch_size x N / S``, the lr rescale counts N / S, the host generators and
+the dropout generators are seeded by d (``row0 = d x batch_size``), and the
+step runs the towers on each rank's T / S frames (``train/spiral.py``). The
+group's first rank makes each device batch (the crops, the noise, the masks
+and shifts) and sends it to the others (``seq.broadcast_batch``): the
+loader's draws depend on its threads' timing, so S loaders of one shard do
+not give the same audio. The finetune runner raises for S > 1, as the JAX
+one does.
+
 Not ported yet: orbax checkpoints, the native C++ batcher, tarred data, the
-mu-law wire format, the bucketed loader (``num_buckets``), and sequence
-parallelism.
+mu-law wire format and the bucketed loader (``num_buckets``).
 """
 
 from __future__ import annotations
@@ -130,12 +142,13 @@ from tpu_speech_torch.models.spiral.masking import make_student_masks
 from tpu_speech_torch.models.spiral.dropout import DropoutRng
 from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder, wav_to_spec
 from tpu_speech_torch.models.spiral.streaming import StreamingTranscriber
-from tpu_speech_torch.parallel import distributed
+from tpu_speech_torch.parallel import distributed, seq
 from tpu_speech_torch.parallel.mesh import (
     full_state_dict,
     full_tensor,
     is_sharded,
     load_full_,
+    data_axis,
     load_state_dict_,
     make_mesh,
     replicate,
@@ -161,6 +174,9 @@ from tpu_speech_torch.utils.surgery import merge_params
 # prefix (the JAX converter drops them the same way,
 # compat/torch_spiral.py:200-204)
 _REFERENCE_CONSTANTS = ("mask_emb", "wav2spec.featurizer.window", "wav2spec.featurizer.fb")
+
+SEQ_FINETUNE = ("trainer.seq_parallel is a pretrain-only knob (the 250k-sample crops); the "
+                "CTC finetune step does not implement it")
 
 
 def build_model(cfg, num_classes: int, device=None) -> CTCFinetuneModel:
@@ -487,6 +503,8 @@ class SpiralFinetuneRunner(_Runner):
         """exp: an optional ``utils/exp_manager.py::ExpManager`` that owns the
         run directory and the TensorBoard writer; ckpt_dir: the step
         checkpoints' directory (default ``<log_dir>/ckpt``)."""
+        if max(1, getattr(cfg.trainer, "seq_parallel", 1)) > 1:
+            raise ValueError(SEQ_FINETUNE)
         log_dir = self._init_run(cfg, log_dir, exp, ckpt_dir)
         m = cfg.model
         self.enc_cfg = m.encoder
@@ -907,6 +925,15 @@ class SpiralPretrainRunner(_Runner):
         m = cfg.model
         self.enc_cfg = m.encoder
         self.device = distributed.rank_device(resolve_device(device))
+        self.mesh = None
+        sp = max(1, getattr(cfg.trainer, "seq_parallel", 1))
+        if sp > 1:
+            distributed.initialize(device=self.device)  # a no-op when already joined
+            self.mesh = make_mesh(seq_parallel=sp)
+        self.seq = seq.from_mesh(self.mesh)
+        # the data axis: the loader's shard, the generators and the lr
+        # rescale count data groups, not ranks (one rank each without seq)
+        self.data_rank, self.n_data = data_axis(self.mesh)
         self.accum = max(1, getattr(cfg.trainer, "accumulate_grad_batches", 1))
         self.bf16 = getattr(m, "precision", "fp32") == "bf16"
         self.wire = getattr(m.train_ds, "wire_dtype", "int16")
@@ -929,7 +956,7 @@ class SpiralPretrainRunner(_Runner):
                                     return_both=True)
         self.loader = DataLoader(self.dataset, ds.batch_size, AudioBatchCollate(ds.crop_size),
                                  shuffle=ds.shuffle, num_workers=ds.num_workers,
-                                 shard_id=self.rank, num_shards=self.world)
+                                 shard_id=self.data_rank, num_shards=self.n_data)
         self.spec_len = _spec_len(ds.crop_size, ds.sample_rate)
 
         # the student from a seeded generator (the JAX runner's PRNGKey(0)
@@ -937,13 +964,13 @@ class SpiralPretrainRunner(_Runner):
         model = ST2VecEncoder(self.enc_cfg, pretraining=True)
         model.init_weights(torch.Generator().manual_seed(seed))
         total_steps = m.optim.sched.max_steps if m.optim.sched else 100000
-        self.lr_scale = lr_scale(m, data_parallel=self.world, accum=self.accum)
+        self.lr_scale = lr_scale(m, data_parallel=self.n_data, accum=self.accum)
         self.state = make_pretrain_state(
             self._data_parallel(model.to(self.device)),
             lambda params: make_optimizer(m.optim, params, total_steps, self.lr_scale))
-        self.rng = DropoutRng.seeded(seed, self.device, rank=self.rank,
-                                     row0=self.rank * ds.batch_size)
-        self.host_rng = np.random.default_rng(self.rank)  # the process index
+        self.rng = DropoutRng.seeded(seed, self.device, rank=self.data_rank,
+                                     row0=self.data_rank * ds.batch_size)
+        self.host_rng = np.random.default_rng(self.data_rank)  # the process index
         # micro-batches of the next update and their audio seconds (kept
         # across epochs; the seconds count when the update consumes them)
         self._micro, self._micro_sec = [], 0.0
@@ -988,15 +1015,21 @@ class SpiralPretrainRunner(_Runner):
             self.enc_cfg, raw["wavs"], raw["wav_lens"], raw["p_wavs"],
             raw["p_wav_lens"], self.spec_len, self.host_rng, shift_rng)
 
-    def device_batch(self, raw, micro: int = 0) -> dict:
+    def device_batch(self, raw, micro: int = 0, wire: Optional[str] = None) -> dict:
+        """A loader batch augmented and on the device in ``wire`` (the
+        config's by default); under seq parallelism the group's first rank's
+        batch on every rank of the group (the others' ``raw`` is unused)."""
+        if self.seq is not None and self.seq.index > 0:
+            return seq.broadcast_batch(None, self.seq, self.device)
         batch = self._augment(raw, micro)
-        if self.wire == "int16":
+        if (wire or self.wire) == "int16":
             batch = quantize_wire_int16(batch)
-        return batch_to_device(batch, self.device)
+        batch = batch_to_device(batch, self.device)
+        return batch if self.seq is None else seq.broadcast_batch(batch, self.seq, self.device)
 
     def step(self, batch) -> dict:
         return pretrain_step(self.state, batch, self.rng, grad_clip=self.cfg.model.grad_clip,
-                             bf16=self.bf16, accum_steps=self.accum)
+                             bf16=self.bf16, accum_steps=self.accum, mesh=self.mesh)
 
     def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> float:
         """One pass over the loader, one update per ``accum`` batches (the
@@ -1046,7 +1079,7 @@ class SpiralPretrainRunner(_Runner):
                                dup_factor=getattr(ds, "dup_factor", 1))
         return DataLoader(dataset, ds.batch_size, AudioBatchCollate(m.train_ds.crop_size),
                           shuffle=False, num_workers=ds.num_workers,
-                          shard_id=self.rank, num_shards=self.world)
+                          shard_id=self.data_rank, num_shards=self.n_data)
 
     def validation_step(self, batch, neg_idx=None, model=None):
         """(loss, accuracy, collapse diagnostics) of one device batch
@@ -1072,7 +1105,7 @@ class SpiralPretrainRunner(_Runner):
             return float("nan")
         results, model = [], self._plain_model()
         for raw in self.val_loader:
-            batch = batch_to_device(self._augment(raw), self.device)
+            batch = self.device_batch(raw, wire="float32")
             results.append(self.validation_step(batch, model=model))
         if not results:
             self.last_validation = {}
