@@ -440,20 +440,43 @@ result):
     the trainer's clip and AdamW replayed on the host on those summed
     gradients (AdamW's first update divides each gradient by its own size,
     so it turns gradients that are rounding noise into updates that are
-    noise: they are not compared with one process's).
+    noise: they are not compared with one process's);
+71. the model axis (``pretrain_step_tp_s1``, ``gradtts_train_tp``): in the
+    same ranks, (data 1, model 2), the SPIRAL-base pretrain step (B = 8 x
+    250 000, SGD(1)) and the Grad-TTS step with ``shard_params_tp`` (every
+    weight whose flax output axis 2 divides split over the two ranks,
+    gathered whole for the forward), each held to one process's by the
+    rules of 69 and 70; per rank the bytes of parameters (and AdamW's
+    moments) beside the replicated runs', and the launches of K1, K2-fwd,
+    K2-bwd, K4, K4-dx and MAS, each > 0;
+72. the bucketed finetune runner (``finetune_step_bucketed``,
+    ``train_ds.num_buckets`` 4) at B = 14 over 120 utterances of 2-24 s:
+    two updates a bucket, each at its bound's width, K1, K2 and K4 at each
+    bound's frame count; then the step at bench.py's 12.8 s bucket beside
+    the 24 s pad (``ctc_finetune_step_ms_bucket13s`` / ``_pad24``);
+73. a SPIRAL-base pretrain step on the mu-law wire against the float step
+    on the waves decoded on the host (``pretrain_step_mulaw``), the two
+    timed after 69-71's ranks (AdamW, median of 5); a tarred
+    epoch through both runners (``finetune_tarred_runner``,
+    ``pretrain_tarred_runner``); two finetune steps per registry optimizer,
+    the card's weights held to the optimizer replayed on the CPU on the
+    card's gradients (``finetune_step_registry``).
 
 Phase 47 runs after phase 16 (it needs phase 14's weights), 45 after 25, 46
 after 26 (its exports and their fresh process on a thread beside 27-32 and
 48, finished after 48), 48 after 32, 49 after 36, 50-55 after 44, 56-60 after
-55, 61-65 after 60 and 66-70 after 65.
+55, 61-65 after 60 and 66-73 after 65 (72-73 in this process while 69-71's
+ranks run, 72's timing after them).
 
-``python3 chip_smoke.py --distributed`` runs phases 67-70 alone at
+``python3 chip_smoke.py --distributed`` runs phases 67-71 alone at
 ``torch.cuda.device_count()`` ranks over NCCL, one card each, with FSDP
 beside DDP (the pretrain and finetune steps held to one process's, the
 SPIRAL-large finetune step's peak memory under each), the seq axis at seq 2
 and 4 with B = 24 a data group (held to one process, timed), the three
-trainers at N x 2 rows, and prints per rank the step and all-reduce times
-and peaks beside one rank alone.
+trainers at N x 2 rows, the model axis at (data N / 2, model 2) and (data
+N / 4, seq 2, model 2) with B = 24 a data group (held to one process,
+timed, the Grad-TTS step too), and prints per rank the step and
+all-reduce times and peaks beside one rank alone and DDP.
 
 Output: phase lines, then the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``), then one JSON line describing
@@ -462,6 +485,7 @@ Needs one CUDA card; fails without one.
 """
 
 import atexit
+import gc
 import json
 import math
 import os
@@ -7268,8 +7292,15 @@ def _timed_steps(torch, step, allreduce=None, n=DIST_TIMED):
     return ms, ar, peak
 
 
+def _local_bytes(torch, tensors):
+    """The bytes of the tensors this rank holds (a sharded one's shard)."""
+    from tpu_speech_torch.parallel.mesh import local
+
+    return sum(local(t).numel() * local(t).element_size() for t in tensors)
+
+
 def dist_pretrain_step(torch, root, rank, world, fsdp=False, timed=0, seq_parallel=1,
-                       batch_file="dist_pretrain.npz", sgd=False):
+                       batch_file="dist_pretrain.npz", sgd=False, model_parallel=1, wire=None):
     """One fp32 pretrain step of SPIRAL-base at full width on this rank's
     rows of the global batch in ``batch_file`` (dither, dropout and
     layerdrop off, the negatives given), AdamW at a constant lr; rank 0 of
@@ -7279,24 +7310,49 @@ def dist_pretrain_step(torch, root, rank, world, fsdp=False, timed=0, seq_parall
     frames a rank held at the anchors, the peak, the weights after the step
     (on the host) and, with ``timed`` samples, the step's and the
     all-reduce's ms and the peak over them. ``sgd``: SGD(1) in place of
-    AdamW, so that the update is the gradient."""
+    AdamW, so that the update is the gradient. ``model_parallel`` M > 1
+    (phase 71) places the weights by ``shard_params_tp`` over the (data,
+    [seq,] model) mesh, a data group's rows on each of its M ranks; the
+    parameter bytes a rank holds (and AdamW's two moments' when timed)
+    come with the results. ``wire`` (phase 73) ships the waves as ``mulaw``
+    bytes, or as ``mulaw_decoded``: those bytes expanded on the host to the
+    float32 waves the card's decode gives."""
     from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
     from tpu_speech_torch.models.spiral.dropout import DropoutRng
     from tpu_speech_torch.models.spiral.st2vec import ST2VecEncoder
     from tpu_speech_torch.ops import _build
-    from tpu_speech_torch.parallel.mesh import allreduce_grads, data_axis, make_mesh
-    from tpu_speech_torch.train.spiral import batch_to_device, make_pretrain_state, pretrain_step
+    from tpu_speech_torch.parallel.mesh import (
+        allreduce_grads,
+        data_axis,
+        make_mesh,
+        shard_params_tp,
+    )
+    from tpu_speech_torch.train.spiral import (
+        batch_to_device,
+        make_pretrain_state,
+        pretrain_step,
+        quantize_wire,
+    )
 
-    mesh = make_mesh(seq_parallel=seq_parallel) if seq_parallel > 1 else None
+    mesh = (make_mesh(seq_parallel=seq_parallel, model_parallel=model_parallel)
+            if seq_parallel > 1 or model_parallel > 1 else None)
     d, n_data = data_axis(mesh) if mesh is not None else (rank, world)
     enc = _no_regularisers(spiral_base_pretrain_ls960().model.encoder)
     model = ST2VecEncoder(enc, pretraining=True)
     model.init_weights(torch.Generator().manual_seed(3))
-    model = _place_model(torch, model.cuda(), world, fsdp)
-    state = make_pretrain_state(model, (lambda ps: torch.optim.SGD(ps, lr=1.0)) if sgd
+    if model_parallel > 1:  # the seeded init is every rank's: no broadcast
+        shard_params_tp(mesh, model.cuda())
+    else:
+        model = _place_model(torch, model.cuda(), world, fsdp)
+    state = make_pretrain_state(model, (lambda ps: torch.optim.SGD(ps, lr=1.0, foreach=False))
+                                if sgd
                                 else _dist_optimizer)
     rows = _rank_rows(os.path.join(root, batch_file), d, n_data)
     neg = torch.from_numpy(rows.pop("neg")).cuda()
+    if wire is not None:
+        rows = quantize_wire(rows, "mulaw")
+        if wire == "mulaw_decoded":
+            rows.update({k: mulaw_decode(rows[k]) for k in ("wavs", "p_wavs")})
     batch = batch_to_device(rows, "cuda")
     rng = DropoutRng.seeded(0, "cuda", rank=d, row0=d * len(neg))
     torch.cuda.synchronize()
@@ -7307,6 +7363,7 @@ def dist_pretrain_step(torch, root, rank, world, fsdp=False, timed=0, seq_parall
     out = dict(loss=float(m["loss"]), acc=float(m["accuracy"]), launches=dict(_build.LAUNCHES),
                bytes=m["allreduce_bytes"], frames=m["frames"],
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               param_bytes=_local_bytes(torch, model.parameters()),
                params=_host_params(torch, model), checksum=_param_checksum(torch, model))
     if timed:
         from tpu_speech_torch.parallel import distributed
@@ -7314,8 +7371,10 @@ def dist_pretrain_step(torch, root, rank, world, fsdp=False, timed=0, seq_parall
         params = model.student_parameters()
         out["ms"], out["allreduce_ms"], out["peak_gib"] = _timed_steps(
             torch, lambda: pretrain_step(state, batch, rng, neg_idx=neg, mesh=mesh),
-            (lambda: allreduce_grads(params)) if distributed.process_count() > 1 else None,
+            (lambda: allreduce_grads(params)) if distributed.batch_count() > 1 else None,
             n=timed)
+        out["moment_bytes"] = _local_bytes(
+            torch, [v for st in state.optimizer.state.values() for v in st.values()])
     return out
 
 
@@ -7952,7 +8011,7 @@ def write_trainer_batches(root, world, seed=TR_SEED):
              mel_lengths=lens, c=c / np.linalg.norm(c, axis=1, keepdims=True))
 
 
-def dist_trainer_steps(torch, root, rank, world, with_init=False):
+def dist_trainer_steps(torch, root, rank, world, with_init=False, model_parallel=1):
     """70: one step of each TTS and VC trainer at full width on this rank's
     rows of the global batches: Grad-TTS (``configs/gradtts.py``, MAS on
     the card, the crop and the per-step generator's draws at the global
@@ -7962,13 +8021,18 @@ def dist_trainer_steps(torch, root, rank, world, with_init=False):
     launches, weights (on the host), the gradients summed over the ranks
     before any clip (on the host, named as the weights; ``allreduce_grads``
     wrapped for the step) and the weights' checksum, and with
-    ``with_init`` the weights before the step."""
+    ``with_init`` the weights before the step. ``model_parallel`` M > 1
+    (phase 71) runs the Grad-TTS step alone with ``shard_params_tp`` on
+    (data world / M, model M), a data group's rows on each of its M ranks;
+    every step reports the parameter and AdamW moment bytes a rank holds."""
     from tpu_speech_torch.cli.train_hifigan import build_models, mel_cfg_from
     from tpu_speech_torch.configs import diffvc as vcfg
     from tpu_speech_torch.configs import gradtts as tcfg
     from tpu_speech_torch.models.diffvc import DiffVC
     from tpu_speech_torch.models.grad_tts import GradTTS
     from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.parallel import distributed
+    from tpu_speech_torch.parallel.mesh import full_tensor, make_mesh, shard_params_tp
     from tpu_speech_torch.text import symbols
     from tpu_speech_torch.train import diffvc as t_diffvc
     from tpu_speech_torch.train import gradtts as t_gradtts
@@ -7979,13 +8043,16 @@ def dist_trainer_steps(torch, root, rank, world, with_init=False):
     from tpu_speech_torch.train.optim import AdamW
     from tpu_speech_torch.train.trainer import batch_to_device, step_generator
 
+    mesh = make_mesh(model_parallel=model_parallel) if model_parallel > 1 else None
+    d, n_data = distributed.data_coordinate() if mesh is not None else (rank, world)
+
     def rows(name):
-        return batch_to_device(_rank_rows(os.path.join(root, name), rank, world), "cuda")
+        return batch_to_device(_rank_rows(os.path.join(root, name), d, n_data), "cuda")
 
     def host(modules):
         return {k: v for mod in modules for k, v in _host_params(torch, mod).items()}
 
-    def run(step, modules):
+    def run(step, modules, opts):
         init = host(modules) if with_init else None
         names = {id(p): k for mod in modules for k, p in mod.named_parameters()}
         grads, reduce = {}, t_gradtts.allreduce_grads
@@ -7993,8 +8060,8 @@ def dist_trainer_steps(torch, root, rank, world, with_init=False):
         def reduce_and_keep(params):  # the summed gradients, before any clip
             params = list(params)
             n = reduce(params)
-            grads.update({names[id(p)]: p.grad.detach().to("cpu", torch.float32, copy=True)
-                          for p in params if p.grad is not None})
+            grads.update({names[id(p)]: full_tensor(p.grad).detach().to(
+                "cpu", torch.float32, copy=True) for p in params if p.grad is not None})
             return n
 
         torch.cuda.synchronize()
@@ -8010,28 +8077,38 @@ def dist_trainer_steps(torch, root, rank, world, with_init=False):
         torch.cuda.synchronize()
         return dict(metrics={k: float(v) for k, v in m.items()}, launches=dict(_build.LAUNCHES),
                     params=host(modules), init=init, grads=grads,
+                    param_bytes=_local_bytes(torch, [p for mod in modules
+                                                     for p in mod.parameters()]),
+                    moment_bytes=_local_bytes(torch, [v for o in opts for st in o.state.values()
+                                                      for v in st.values()]),
                     checksum=[c for mod in modules for c in _param_checksum(torch, mod)])
 
     out = {}
     model = GradTTS(**tcfg.model_kwargs(len(symbols) + 1)).init_weights(
         torch.Generator().manual_seed(5)).cuda().eval()
+    if mesh is not None:  # the seeded init is every rank's: no broadcast
+        shard_params_tp(mesh, model)
     opt = AdamW(model.parameters(), **TR_ADAMW["gradtts"], **TR_OPTIM)
     batch = rows("gradtts.npz")
     out["gradtts"] = run(lambda: train_step(model, opt, batch,
                                             step_generator(TR_SEED, 0, "cuda"), tcfg.out_size),
-                         [model])
+                         [model], [opt])
+    if mesh is not None:
+        return out
     gen, mpd, msd = (m.cuda() for m in build_models(HG_CONFIG))
     disc = torch.nn.ModuleDict({"mpd": mpd, "msd": msd})
     opt_g, opt_d = (AdamW(m.parameters(), **TR_ADAMW["hifigan"], **TR_OPTIM)
                     for m in (gen, disc))
     batch = rows("hifigan.npz")
     out["hifigan"] = run(lambda: gan_train_step(gen, mpd, msd, opt_g, opt_d, batch,
-                                                mel_cfg_from(HG_CONFIG)), [gen, disc])
+                                                mel_cfg_from(HG_CONFIG)), [gen, disc],
+                         [opt_g, opt_d])
     model = DiffVC(**vcfg.model_kwargs()).init_weights(torch.Generator().manual_seed(7)).cuda()
     opt = AdamW(model.parameters(), **TR_ADAMW["diffvc_dec"], **TR_OPTIM)
     batch = rows("diffvc.npz")
     out["diffvc_dec"] = run(lambda: dec_train_step(model, opt, batch,
-                                                   step_generator(TR_SEED, 0, "cuda")), [model])
+                                                   step_generator(TR_SEED, 0, "cuda")), [model],
+                            [opt])
     return out
 
 
@@ -8058,10 +8135,12 @@ def _replay_update(torch, name, init, grads):
 
 
 def seq_worker(rank, job):
-    """One rank of phases 69-70 (two gloo ranks on card 0) or of their
+    """One rank of phases 69-71 (two gloo ranks on card 0) or of their
     ``--distributed`` part (one NCCL rank a card): the seq-parallel pretrain
-    step at each seq size of ``job["seq"]``, then the three trainers' steps;
-    this rank's results as JSON, rank 0's weights as a torch file."""
+    step at each seq size of ``job["seq"]``, the three trainers' steps, then
+    the model axis's TP-placed pretrain step on each mesh of ``job["tp"]``
+    and Grad-TTS step; this rank's results as JSON, rank 0's weights as a
+    torch file."""
     import torch
 
     from tpu_speech_torch.parallel import distributed
@@ -8099,6 +8178,16 @@ def seq_worker(rank, job):
                     batch_file=f"seq{sp}.npz"))
         for name, r in dist_trainer_steps(torch, root, rank, world).items():
             keep(name, r)
+        for sp, batch_file in job["tp"]:  # 71: the model axis, TP-placed
+            name = f"tp_s{sp}"
+            keep(name, dist_pretrain_step(torch, root, rank, world, seq_parallel=sp,
+                                          model_parallel=2, batch_file=batch_file, sgd=True))
+            if job["timed"]:
+                keep(name + "_timed", dist_pretrain_step(
+                    torch, root, rank, world, timed=job["timed"], seq_parallel=sp,
+                    model_parallel=2, batch_file=batch_file))
+        keep("gradtts_tp", dist_trainer_steps(torch, root, rank, world,
+                                              model_parallel=2)["gradtts"])
     finally:
         distributed.shutdown()
     if rank == 0:
@@ -8121,7 +8210,10 @@ def start_seq_ranks(torch, root, world, backend):
         rows = SEQ_B if backend == "gloo" else SEQ_DIST_B
         write_pretrain_batch(root, rows * (world // sp), f"seq{sp}.npz", rng, 69 + sp)
     write_trainer_batches(root, world)
-    job = dict(world=world, backend=backend, root=root, seq=seq,
+    # 71's meshes: (data world / 2, model 2) on the seq 2 batch (a data
+    # group's rows), and on four cards (data 1, seq 2, model 2) on seq 4's
+    tp = (((1, "seq2.npz"), (2, "seq4.npz")) if backend == "nccl" else ((1, "seq2.npz"),))
+    job = dict(world=world, backend=backend, root=root, seq=seq, tp=tp,
                timed=DIST_TIMED if backend == "nccl" else 0)
 
     def start():
@@ -8226,40 +8318,450 @@ def finish_seq_ranks(torch, state):
                                       for k in _build.LAUNCHES}
     check(all(r["gradtts"]["launches"]["maximum_path"] > 0 for r in ranks),
           "70: a rank ran no MAS kernel")
+    paths.update(_hold_tp_steps(torch, job, ranks, weights, ref, native, kernels))
     return dict(paths=paths, ranks=ranks, ref={k: {kk: vv for kk, vv in v.items()
                                                    if kk not in ("params", "init", "grads")}
                                                for k, v in ref.items()})
 
 
+def _hold_tp_steps(torch, job, ranks, weights, ref, native, kernels):
+    """71: the model axis's steps held to one process's by the rules of
+    phases 69 (the TP-placed pretrain step, SGD(1): its update) and 70 (the
+    TP-placed Grad-TTS step: its summed gradients, and its weights against
+    the clip and AdamW replayed on them); per rank the bytes of parameters
+    and moments beside the replicated runs', the launches and the peak.
+    Returns the paths' launches summed over the ranks."""
+    from tpu_speech_torch.ops import _build
+
+    world, backend = job["world"], job["backend"]
+    paths = {}
+    for sp, batch_file in job["tp"]:
+        name, rep = f"tp_s{sp}", "seq2" if batch_file == "seq2.npz" else "seq4"
+        one, got = ref[rep], ranks[0][name]
+        rel = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+        check(rel <= DIST_LOSS_RTOL, f"71 {name}: loss {got['loss']} vs {one['loss']}")
+        (e_got, k_got), (e_native, k_native), limit = _hold_conditioned(
+            f"71 {name}", weights[name], one["params"], ref[rep + "_native"]["params"],
+            _pretrain_init(torch))
+        mesh = f"(data {world // (2 * sp)}, {f'seq {sp}, ' if sp > 1 else ''}model 2)"
+        log(f"[71 tp pretrain {mesh}] SPIRAL-base, shard_params_tp over {world} {backend} "
+            f"ranks, the {rep}.npz batch (a data group's rows on each model pair), SGD(1): "
+            f"loss {got['loss']:.6f}, one process {one['loss']:.6f} (rel {rel:.2e}, limit "
+            f"{DIST_LOSS_RTOL}); the update off one process's by {e_got:.2e} ({k_got}), one "
+            f"process on native convs {e_native:.2e} ({k_native}); limit {limit:.2e}")
+        for r in ranks:
+            p, seq_run = r[name], r.get(rep, {})
+            check(all(p["launches"][k] > 0 for k in kernels),
+                  f"71 {name}: rank {r['rank']} launches {p['launches']}")
+            check(p["param_bytes"] < seq_run.get("param_bytes", float("inf")),
+                  f"71 {name}: rank {r['rank']} holds {p['param_bytes']} parameter bytes")
+            t = r.get(name + "_timed")
+            timing = (f"; AdamW: {t['ms']:.2f} ms a step, all-reduce {t['allreduce_ms']:.2f} "
+                      f"ms, peak {t['peak_gib']:.2f} GiB, moments {t['moment_bytes'] / 2**20:.1f} "
+                      f"MiB" if t else "")
+            rep_mib = seq_run.get("param_bytes", 0) / 2**20
+            log(f"[71 tp pretrain {mesh} rank {r['rank']}] parameters "
+                f"{p['param_bytes'] / 2**20:.1f} MiB (replicated {rep_mib:.1f} MiB); launches "
+                f"{ {k: p['launches'][k] for k in kernels} }; peak "
+                f"{p['peak_gib']:.2f} GiB (replicated seq run {seq_run.get('peak_gib', 0):.2f}, "
+                f"one process {one['peak_gib']:.2f}; SGD){timing}")
+        paths[f"pretrain_step_tp_s{sp}"] = {k: sum(r[name]["launches"].get(k, 0) for r in ranks)
+                                           for k in _build.LAUNCHES}
+    one, got = ref["gradtts"], ranks[0]["gradtts_tp"]
+    rel = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+              for k, v in one["metrics"].items() if "norm" not in k)
+    check(rel <= DIST_LOSS_RTOL, f"71 gradtts_tp: {got['metrics']} vs {one['metrics']}")
+    (g_got, gk_got), (g_native, gk_native), g_limit = _hold_conditioned(
+        "71 gradtts_tp gradients", weights["gradtts_tp_grads"], one["grads"],
+        native["gradtts"]["grads"])
+    replay = _replay_update(torch, "gradtts", one["init"], weights["gradtts_tp_grads"])
+    e_got, k_got = _hold_weights("71 gradtts_tp update",
+                                 {k: weights["gradtts_tp"][k] for k in replay}, replay)
+    log(f"[71 tp gradtts] Grad-TTS step, MAS on the card, shard_params_tp on (data "
+        f"{world // 2}, model 2), {world} {backend} ranks, a data group's rows each: losses "
+        f"within {rel:.2e} of one process on the {world * TR_ROWS} rows (limit "
+        f"{DIST_LOSS_RTOL}); summed gradients off one process's by {g_got:.2e} ({gk_got}), "
+        f"native convs {g_native:.2e} ({gk_native}), limit {g_limit:.2e}; weights off the "
+        f"host replay by {e_got:.2e} x max(1, max|p|) ({k_got}; limit {DIST_PARAM_RTOL})")
+    for r in ranks:
+        p, rep = r["gradtts_tp"], r["gradtts"]
+        check(p["launches"]["maximum_path"] > 0, f"71: rank {r['rank']} ran no MAS kernel")
+        check(p["param_bytes"] < rep["param_bytes"] and p["moment_bytes"] < rep["moment_bytes"],
+              f"71 gradtts_tp: rank {r['rank']} holds {p['param_bytes']} + "
+              f"{p['moment_bytes']} bytes")
+        log(f"[71 tp gradtts rank {r['rank']}] parameters {p['param_bytes'] / 2**20:.2f} MiB, "
+            f"AdamW moments {p['moment_bytes'] / 2**20:.2f} MiB (replicated, phase 70: "
+            f"{rep['param_bytes'] / 2**20:.2f} and {rep['moment_bytes'] / 2**20:.2f} MiB); "
+            f"launches { {k: v for k, v in p['launches'].items() if v} }")
+    paths["gradtts_train_tp"] = {k: sum(r["gradtts_tp"]["launches"].get(k, 0) for r in ranks)
+                                 for k in _build.LAUNCHES}
+    return paths
+
+
+# ---- 72-73: SPIRAL's data options and the optimizer registry -----------------
+
+BUCKET_GROUPS = ((2.0, 7.0), (8.5, 12.5), (14.0, 18.0), (19.5, 23.5))  # s, 30 utts each
+BUCKET_GROUP_UTTS = 30  # two batches of 14 a quantile bucket, 2 left over
+BUCKET_STEPS = 8  # two a bucket
+BUCKET_POINTS = (12.8, 24.0)  # s: bench.py's ctc_finetune_step_ms_bucket13s and _pad24
+TAR_UTTS = 8  # a tar shard's utterances: two batches of 4 a runner
+REGISTRY_STEPS = 2  # Rprop's first update is zero (optax applies the stored one)
+REGISTRY_OPTIM = {  # phase 73: each registry name, its parameter class and a recipe's values
+    "adam": ("AdamParams", dict(lr=1e-4)),
+    "adamw": ("AdamWParams", dict(lr=1e-4, weight_decay=0.01)),
+    "novograd": ("NovogradParams", dict(lr=1e-3, weight_decay=1e-3)),
+    "sgd": ("SGDParams", dict(lr=1e-2, momentum=0.9, weight_decay=1e-3)),
+    "adadelta": ("AdamWParams", dict(name="adadelta", lr=1.0, eps=1e-6)),
+    "adamax": ("AdamWParams", dict(name="adamax", lr=1e-4, betas=(0.9, 0.999))),
+    "adagrad": ("AdamWParams", dict(name="adagrad", lr=1e-3, eps=1e-7)),
+    "rprop": ("AdamWParams", dict(name="rprop", lr=1e-5))}
+
+
+def mulaw_decode(u8):
+    """``wav_to_spec``'s inverse companding of mu-law bytes, in float32 on
+    the host (``tpu_speech_torch/models/spiral/st2vec.py:103-107``)."""
+    y = u8.astype(np.float32) * np.float32(1.0 / 127.5) - np.float32(1.0)
+    mag = np.exp(np.abs(y) * np.float32(math.log1p(255.0))) - np.float32(1.0)
+    return (np.sign(y) * np.float32(1.0 / 255.0) * mag).astype(np.float32)
+
+
+def write_bucket_corpus(root, rng):
+    """72's manifest: 30 utterances in each of BUCKET_GROUPS' duration
+    ranges (gaps between them, so the quantile bounds fall in the gaps),
+    windows of a speech-like pool at random gains, with random transcripts,
+    under the base config's train manifest name. Returns its path and the
+    entries."""
+    import scipy.io.wavfile
+
+    pool = np.concatenate([speech_like(rng, MAX_SAMPLES) for _ in range(2)])
+    path = os.path.join(root, "librivox-train-clean-100.json")
+    entries = []
+    with open(path, "w") as f:
+        for g, (lo, hi) in enumerate(BUCKET_GROUPS):
+            for i, d in enumerate(np.round(rng.uniform(lo, hi, BUCKET_GROUP_UTTS), 3)):
+                n = int(d * SR)
+                start = int(rng.integers(len(pool) - n))
+                pcm = np.clip(pool[start:start + n] * rng.uniform(0.5, 1.5) * 32767, -32768,
+                              32767).astype(np.int16)
+                wav = os.path.join(root, f"b{g}_{i:02d}.wav")
+                scipy.io.wavfile.write(wav, SR, pcm)
+                e = {"audio_filepath": wav, "duration": float(d),
+                     "text": random_transcript(rng, d)}
+                f.write(json.dumps(e) + "\n")
+                entries.append(e)
+    return path, entries
+
+
+def _base_finetune_runner(root, name, **train_ds):
+    from tpu_speech_torch.configs.spiral import spiral_base_ctc_char
+    from tpu_speech_torch.text.tokenizers import CharTokenizer
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    cfg = spiral_base_ctc_char()
+    cfg.model.freeze_finetune_updates = 0
+    for k, v in train_ds.items():
+        setattr(cfg.model.train_ds, k, v)
+    return SpiralFinetuneRunner(cfg, os.path.join(root, name), CharTokenizer(cfg.model.labels),
+                                device="cuda")
+
+
+def _watch_runner_steps(torch, runner):
+    """Wrap ``runner.step``: each step's launches and wave width (the
+    launches reset before it and read after a synchronise)."""
+    from tpu_speech_torch.ops import _build
+
+    seen, step = [], runner.step
+
+    def watched(batch):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        m = step(batch)
+        torch.cuda.synchronize()
+        seen.append((int(batch["wavs"].shape[1]), batch["wavs"].dtype, dict(_build.LAUNCHES)))
+        return m
+
+    runner.step = watched
+    return seen
+
+
+def _sum_launches(seen):
+    from tpu_speech_torch.ops import _build
+
+    return {k: sum(s[2].get(k, 0) for s in seen) for k in _build.LAUNCHES}
+
+
+K1_K2_K4 = ("fused_logmel", "fused_qkv_attention", "fused_qkv_attention_bwd", "grouped_conv1d",
+            "grouped_conv1d_dx")
+
+
+def phase_bucketed_finetune(torch, root):
+    """72: the bucketed finetune runner (``train_ds.num_buckets`` 4) at B =
+    14 over 120 utterances of 2-24 s (``write_bucket_corpus``): one epoch of
+    BUCKET_STEPS updates, two a bucket, each step padded to its bucket's
+    bound, K1, K2 (forward and backward) and K4 (and dx) launched at every
+    bound's frame count, finite losses. Returns the path's launches and the
+    manifest (``phase_bucket_time`` times the step later)."""
+    path, entries = write_bucket_corpus(root, np.random.default_rng(72))
+    runner = _base_finetune_runner(root, "bucketed", manifest_filepath=path, num_buckets=4)
+    check(runner.cfg.model.train_ds.batch_size == BATCH, "72: the recipe's batch is 14")
+    bounds = runner.loader.bounds
+    widths = [int(round(b * SR)) for b in bounds]
+    seen = _watch_runner_steps(torch, runner)
+    loss = runner.train_epoch(1, max_steps=BUCKET_STEPS)
+    got = [w for w, _, _ in seen]
+    check(np.isfinite(loss) and len(seen) == BUCKET_STEPS, f"72: {len(seen)} steps, loss {loss}")
+    check(sorted(got) == sorted(w for w in widths for _ in range(2)),
+          f"72: step widths {got} against the bounds' {widths}")
+    check(any(a != b for a, b in zip(got, got[1:])), "72: no new width between two steps")
+    for w, _, launches in seen:
+        check(all(launches[k] > 0 for k in K1_K2_K4), f"72: a step at {w} launched {launches}")
+    log(f"[72 bucketed finetune] SPIRAL-base, B = {BATCH}, {len(entries)} utterances of "
+        f"{min(e['duration'] for e in entries):.2f}-{max(e['duration'] for e in entries):.2f} s, "
+        f"bounds {bounds} s: {len(seen)} updates at widths {got} (frames "
+        f"{[1 + w // 160 for w in got]}), epoch loss {loss:.4f}; launches a step "
+        f"{[{k: s[2][k] for k in K1_K2_K4} for s in seen[:4]]} ...")
+    return dict(launches=_sum_launches(seen), widths=got, bounds=bounds, manifest=path)
+
+
+def phase_bucket_time(torch, root, bucket):
+    """72, after the ranks beside it: a fresh bucketed runner's finetune
+    step at bench.py's 12.8 s bucket point beside the 24 s pad (B = 14,
+    fp32, the batch on the card, median of 5, CUDA events)."""
+    runner = _base_finetune_runner(root, "bucket_time", manifest_filepath=bucket["manifest"],
+                                   num_buckets=4)
+    whole = _finetune_batch(np.random.default_rng(73), BATCH)
+    times = {}
+    for seconds in BUCKET_POINTS:
+        n = int(seconds * SR)
+        raw = dict(whole)
+        raw["wavs"] = raw["wavs"][:, :n]
+        raw["wav_lens"] = np.minimum(raw["wav_lens"], n)
+        raw["label_lens"] = np.minimum(raw["label_lens"], int(12 * seconds))
+        batch = runner.device_batch(raw)
+        step = runner.step
+        times[seconds] = cuda_ms(lambda: step(batch), n=5, warmup=1)
+    bucket, pad = (times[s] for s in BUCKET_POINTS)
+    log(f"[72 bucket point] finetune step fp32, B = {BATCH}, batch on the card: "
+        f"{BUCKET_POINTS[0]} s bucket {bucket:.2f} ms, {BUCKET_POINTS[1]} s pad {pad:.2f} ms "
+        f"(median of 5; ratio {bucket / pad:.3f}; bench.py's ctc_finetune_step_ms_bucket13s / "
+        f"_pad24)")
+    return dict(bucket13s_ms=bucket, pad24_ms=pad)
+
+
+def _tar_shard(root, entries, name):
+    import tarfile
+
+    path = os.path.join(root, name)
+    with tarfile.open(path, "w") as tf:
+        for e in entries:
+            tf.add(e["audio_filepath"], arcname=os.path.basename(e["audio_filepath"]))
+    return path
+
+
+def phase_tarred_runners(torch, root, entries):
+    """73: a tarred epoch through both runners at full width: the finetune
+    runner over a tar shard of phase 72's 2-7 s utterances, the pretrain
+    runner over one of its 19.5-23.5 s ones (250 000-sample crops), B = 4,
+    two updates each; finite losses, K1, K2 and K4 launched every step."""
+    from tpu_speech_torch.configs.spiral import spiral_base_pretrain_ls960
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+
+    short = [e for e in entries if e["duration"] <= BUCKET_GROUPS[0][1]][:TAR_UTTS]
+    long = [e for e in entries if e["duration"] >= BUCKET_GROUPS[3][0]][:TAR_UTTS]
+    out = {}
+    for kind, chosen in (("finetune", short), ("pretrain", long)):
+        manifest = os.path.join(root, f"tar_{kind}.json")
+        with open(manifest, "w") as f:
+            f.writelines(json.dumps(e) + "\n" for e in chosen)
+        tar = _tar_shard(root, chosen, f"{kind}.tar")
+        if kind == "finetune":
+            runner = _base_finetune_runner(root, "tar_ft", manifest_filepath=manifest,
+                                           tarred_audio_filepaths=tar, batch_size=4)
+        else:
+            cfg = spiral_base_pretrain_ls960()
+            ds = cfg.model.train_ds
+            ds.manifest_filepath, ds.tarred_audio_filepaths, ds.batch_size = manifest, tar, 4
+            cfg.model.validation_ds = None
+            runner = SpiralPretrainRunner(cfg, os.path.join(root, "tar_pre"), device="cuda")
+        seen = _watch_runner_steps(torch, runner)
+        loss = runner.train_epoch(1)
+        check(np.isfinite(loss) and len(seen) == TAR_UTTS // 4,
+              f"73 tarred {kind}: {len(seen)} updates, loss {loss}")
+        for w, _, launches in seen:
+            check(all(launches[k] > 0 for k in K1_K2_K4),
+                  f"73 tarred {kind}: a step launched {launches}")
+        log(f"[73 tarred {kind}] SPIRAL-base runner over one tar shard of {len(chosen)} "
+            f"utterances, B = 4: {len(seen)} updates at widths {[w for w, _, _ in seen]}, "
+            f"epoch loss {loss:.4f}")
+        out[kind] = _sum_launches(seen)
+    return out
+
+
+def phase_mulaw_pretrain(torch, root):
+    """73: the pretrain step on the mu-law wire (B = 8 x 250 000, SGD(1),
+    SPIRAL-base, the negatives given) against the float step on the same
+    bytes expanded on the host: the loss within 1e-5 relative, the update
+    by phase 69's rule (one process on native convs the yardstick)."""
+    write_pretrain_batch(root, SEQ_B, "mulaw.npz", np.random.default_rng(731), 731)
+    mu = dist_pretrain_step(torch, root, 0, 1, batch_file="mulaw.npz", sgd=True, wire="mulaw")
+    ref = dist_pretrain_step(torch, root, 0, 1, batch_file="mulaw.npz", sgd=True,
+                             wire="mulaw_decoded")
+    with torch.backends.cudnn.flags(enabled=False):
+        native = dist_pretrain_step(torch, root, 0, 1, batch_file="mulaw.npz", sgd=True,
+                                    wire="mulaw_decoded")
+    rel = abs(mu["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(rel <= DIST_LOSS_RTOL, f"73 mulaw: loss {mu['loss']} vs {ref['loss']}")
+    (e, k), (e_native, k_native), limit = _hold_conditioned(
+        "73 mulaw", mu["params"], ref["params"], native["params"], _pretrain_init(torch))
+    check(all(mu["launches"][k] > 0 for k in K1_K2_K4), f"73 mulaw: {mu['launches']}")
+    log(f"[73 mulaw pretrain] SPIRAL-base, B = {SEQ_B} x 250 000 as uint8 mu-law bytes "
+        f"(decoded on the card before K1), SGD(1): loss {mu['loss']:.6f}, the float step on "
+        f"the host-decoded waves {ref['loss']:.6f} (rel {rel:.2e}, limit {DIST_LOSS_RTOL}); "
+        f"the update off it by {e:.2e} ({k}), native convs {e_native:.2e} ({k_native}), "
+        f"limit {limit:.2e}; launches { {k: mu['launches'][k] for k in K1_K2_K4} }")
+    return mu["launches"]
+
+
+def phase_registry_finetune(torch):
+    """73: REGISTRY_STEPS finetune steps of SPIRAL-base at full width (B = 2
+    x 4 s, regularisers off) with each optimizer of the registry
+    (``make_optimizer``, a cosine schedule across its warmup; Rprop a
+    constant), the card's parameters held to the same optimizer replayed on
+    the CPU on the card's gradients, as phases 28 and 35 hold Adam (within
+    GT_PARAM_RTOL x max(1, |p|)). Returns the path's launches."""
+    import copy
+
+    from tpu_speech_torch.models.spiral.dropout import DropoutRng
+    from tpu_speech_torch.ops import _build
+    from tpu_speech_torch.train.finetune import finetune_step, make_finetune_state
+    from tpu_speech_torch.train.optim import make_optimizer
+    from tpu_speech_torch.train.spiral import batch_to_device
+    from tpu_speech_torch.train.spiral_runner import build_model
+    from tpu_speech_torch.utils import config
+
+    r = np.random.default_rng(9)
+    n = 4 * SR
+    wavs = np.stack([speech_like(r, n) for _ in range(2)])
+    labels = np.zeros((2, 512), np.int32)
+    labels[:, :40] = r.integers(1, 28, size=(2, 40))
+    batch = batch_to_device({"wavs": wavs, "wav_lens": np.array([n, 3 * SR], np.int32),
+                             "labels": labels, "label_lens": np.array([40, 30], np.int32)},
+                            "cuda")
+    base = build_model(_no_dropout_finetune_cfg(), 28).init_weights(
+        torch.Generator().manual_seed(3))
+    launches, worst = dict.fromkeys(_build.LAUNCHES, 0), {}
+    for name, (cls, fields) in REGISTRY_OPTIM.items():
+        cfg = getattr(config, cls)(**fields)
+        check(cfg.name == name, f"73: {cls} names {cfg.name}")
+        if name != "rprop":
+            cfg.sched = config.SchedParams(warmup_steps=1, max_steps=10)
+        model = copy.deepcopy(base).cuda()
+        state = make_finetune_state(model, lambda ps: make_optimizer(cfg, ps, 10))
+        grads, opt_step = [], state.optimizer.step
+
+        def keep_and_step():
+            grads.append([p.grad.detach().cpu() for p in model.parameters()])
+            return opt_step()
+
+        state.optimizer.step = keep_and_step
+        for step in range(REGISTRY_STEPS):
+            _build.reset_launches()
+            m = finetune_step(state, batch, DropoutRng.seeded(step, "cuda"))
+            torch.cuda.synchronize()
+            check(np.isfinite(float(m["loss"])), f"73 {name}: loss {float(m['loss'])}")
+            launches = {k: v + _build.LAUNCHES[k] for k, v in launches.items()}
+        ref = [torch.nn.Parameter(p.detach().clone()) for p in base.parameters()]
+        opt = make_optimizer(cfg, ref, 10)
+        for g in grads:
+            for p, gi in zip(ref, g):
+                p.grad = gi
+            opt.step()
+        worst[name] = max((((p.detach().cpu() - q.detach()).abs()
+                            / q.detach().abs().clamp(min=1.0)).max().item(), k)
+                          for (k, p), q in zip(model.named_parameters(), ref))
+        moved = max((p.detach().cpu() - q.detach()).abs().max().item()
+                    for p, q in zip(model.parameters(), base.parameters()))
+        check(worst[name][0] <= GT_PARAM_RTOL and moved > 0,
+              f"73 {name}: the card's weights off the CPU replay by {worst[name]} "
+              f"(moved {moved:.2e})")
+        del model, state, ref, opt, grads
+    log(f"[73 registry] SPIRAL-base finetune, B = 2 x 4 s, {REGISTRY_STEPS} steps a registry "
+        f"optimizer; the card's weights off the same optimizer replayed on the CPU on the "
+        f"card's gradients, x max(1, |p|) (limit {GT_PARAM_RTOL}): "
+        + ", ".join(f"{k} {v[0]:.2e}" for k, v in worst.items()))
+    return launches
+
+
+def phase_wire_time(torch, root):
+    """73, after the ranks beside it: the AdamW pretrain step (SPIRAL-base,
+    B = 8 x 250 000, the batch on the card) on phase 73's mu-law bytes
+    beside the same step on the waves decoded on the host (median of 5,
+    CUDA events): the decode before K1 is the whole difference."""
+    times = {wire: dist_pretrain_step(torch, root, 0, 1, batch_file="mulaw.npz", timed=5,
+                                      wire=wire)["ms"] for wire in ("mulaw", "mulaw_decoded")}
+    log(f"[73 mulaw time] AdamW pretrain step, B = {SEQ_B} x 250 000: mu-law bytes "
+        f"{times['mulaw']:.2f} ms, the same waves as float32 {times['mulaw_decoded']:.2f} ms "
+        f"(median of 5)")
+    return dict(mulaw_ms=times["mulaw"], float32_ms=times["mulaw_decoded"])
+
+
+def run_data_optim_phases(torch, root):
+    """Phases 72-73 but 72's timing: the bucketed finetune runner, the
+    tarred runners, the mu-law pretrain step and the registry's optimizers.
+    Returns their paths' launches and 72's manifest."""
+    t0 = time.perf_counter()
+    bucket = phase_bucketed_finetune(torch, root)
+    with open(os.path.join(root, "librivox-train-clean-100.json")) as f:
+        entries = [json.loads(line) for line in f]
+    tarred = phase_tarred_runners(torch, root, entries)
+    mulaw = phase_mulaw_pretrain(torch, root)
+    registry = phase_registry_finetune(torch)
+    # the watched runners and optimizers are cycles (their step wraps a bound
+    # method): free them before phase 69's references measure a peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[72-73] {time.perf_counter() - t0:.1f} s")
+    return dict(bucket=bucket, paths={
+        "finetune_step_bucketed": bucket["launches"], "finetune_tarred_runner": tarred["finetune"],
+        "pretrain_tarred_runner": tarred["pretrain"], "pretrain_step_mulaw": mulaw,
+        "finetune_step_registry": registry})
+
+
 def run_dist_phases(torch, gen):
-    """Phases 66-70 of the default run: NCCL at world 1 through the
+    """Phases 66-73 of the default run: NCCL at world 1 through the
     environment, two gloo ranks on the one card at full width for SPIRAL's
-    data axis (67) and for the seq axis and the trainers' data axis (69-70),
-    both started first, so that they run beside phase 66, and K2 at a batch
-    offset (68). Returns their paths' launches."""
+    data axis (67) and for the seq axis, the trainers' data axis and the
+    model axis (69-71), both started first, so that they run beside phase
+    66; the data options and the registry (72-73) here while 69-71's ranks
+    run; and K2 at a batch offset (68). Returns their paths' launches."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root_env, tempfile.TemporaryDirectory() as root, \
-            tempfile.TemporaryDirectory() as root_seq:
+            tempfile.TemporaryDirectory() as root_seq, tempfile.TemporaryDirectory() as root_data:
         started = start_dist_ranks(torch, root, 2, "gloo")  # they run through phase 66
         seq_started = start_seq_ranks(torch, root_seq, 2, "gloo")
         env = phase_dist_env(torch, root_env)
         elapsed("phase 66")
         ranks = finish_dist_ranks(torch, started)
         elapsed("phase 67")
+        data = run_data_optim_phases(torch, root_data)  # beside 69-71's ranks
+        elapsed("phases 72-73")
         seq = finish_seq_ranks(torch, seq_started)
-        elapsed("phases 69-70")
+        elapsed("phases 69-71")
+        data["bucket"].update(phase_bucket_time(torch, root_data, data["bucket"]))
+        data["wire"] = phase_wire_time(torch, root_data)
     k2 = phase_k2_offset(torch, gen)
-    log(f"[66-70] {time.perf_counter() - t0:.1f} s")
-    return dict(env=env, ranks=ranks, k2_offset=k2, seq=seq)
+    log(f"[66-73] {time.perf_counter() - t0:.1f} s")
+    return dict(env=env, ranks=ranks, k2_offset=k2, seq=seq, data=data)
 
 
 def distributed_main():
-    """``python3 chip_smoke.py --distributed``: phases 67-70 at
+    """``python3 chip_smoke.py --distributed``: phases 67-71 at
     ``torch.cuda.device_count()`` ranks over NCCL, one card each (FSDP too,
     and the SPIRAL-large finetune step's peak memory under DDP and FSDP; the
     seq-parallel pretrain step at (data N / 2, seq 2) and (data N / 4, seq 4)
-    with B = 24 a data group, timed, and the three trainers' steps held to one
-    process); the cards' names and power limits, one JSON line of the
+    with B = 24 a data group, timed, the three trainers' steps held to one
+    process, and the TP-placed pretrain step at (data N / 2, model 2) and
+    (data N / 4, seq 2, model 2), timed, and Grad-TTS step); the cards' names and power limits, one JSON line of the
     per-rank numbers, then the ``{"ok": true, ...}`` line."""
     import torch
 
@@ -8278,6 +8780,16 @@ def distributed_main():
         res = phase_dist_ranks(torch, root, world, "nccl")
     with tempfile.TemporaryDirectory() as root:
         seq = finish_seq_ranks(torch, start_seq_ranks(torch, root, world, "nccl"))
+    for r, ddp in zip(seq["ranks"], res["ranks"]):
+        d = ddp["pretrain"]
+        log(f"[71 distributed rank {r['rank']}] AdamW pretrain step, B = 24 a data group: "
+            + "; ".join(f"{mesh} {r[k]['ms']:.2f} ms, peak {r[k]['peak_gib']:.2f} GiB, "
+                        f"parameters {r[k]['param_bytes'] / 2**20:.1f} MiB, moments "
+                        f"{r[k]['moment_bytes'] / 2**20:.1f} MiB"
+                        for mesh, k in (("(data 2, model 2)", "tp_s1_timed"),
+                                        ("(data 1, seq 2, model 2)", "tp_s2_timed"),
+                                        ("(data 2, seq 2)", "seq2_timed")))
+            + f"; DDP {d['ms']:.2f} ms, peak {d['peak_gib']:.2f} GiB")
     phase_k2_offset(torch, torch.Generator().manual_seed(0))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -8290,8 +8802,10 @@ def distributed_main():
         "ranks": [{k: {kk: vv for kk, vv in r[k].items() if kk != "launches"}
                    for k in keys} for r in res["ranks"]],
         "seq": [{k: {kk: vv for kk, vv in r[k].items() if kk in ("ms", "peak_gib", "frames",
-                                                                 "allreduce_ms")}
-                 for k in ("seq2_timed", "seq4_timed")} for r in seq["ranks"]]}}))
+                                                                 "allreduce_ms", "param_bytes",
+                                                                 "moment_bytes")}
+                 for k in ("seq2_timed", "seq4_timed", "tp_s1_timed", "tp_s2_timed")}
+                for r in seq["ranks"]]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -8407,7 +8921,8 @@ def main():
         "pretrain_step_ddp": (dp["ranks"]["pretrain_step_ddp"],),
         "finetune_step_ddp": (dp["ranks"]["finetune_step_ddp"],),
         "fsdp_step": (dp["env"]["fsdp_step"],),
-        **{path: (counts,) for path, counts in dp["seq"]["paths"].items()}}
+        **{path: (counts,) for path, counts in dp["seq"]["paths"].items()},
+        **{path: (counts,) for path, counts in dp["data"]["paths"].items()}}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -8607,10 +9122,14 @@ def main():
                                       "fused_qkv_self_attention_bwd_bf16", "grouped_conv1d_bf16",
                                       "grouped_conv1d_dx_bf16")}
         want["fsdp_step"] = want["pretrain_step_seq2"] = want["pretrain_step_ddp"]
-        want["gradtts_train_ddp"] = ("maximum_path",)
+        for path in ("pretrain_step_tp_s1", "finetune_step_bucketed", "finetune_tarred_runner",
+                     "pretrain_tarred_runner", "pretrain_step_mulaw", "finetune_step_registry"):
+            want[path] = want["pretrain_step_ddp"]  # 71-73: K1, K2 and K4 forward and back
+        want["gradtts_train_ddp"] = want["gradtts_train_tp"] = ("maximum_path",)
         # phase 70's GAN and decoder steps run no hand kernel, the Grad-TTS
-        # step MAS alone
-        for path in ("gradtts_train_ddp", "hifigan_train_ddp", "diffvc_dec_train_ddp"):
+        # steps (70, 71) MAS alone
+        for path in ("gradtts_train_ddp", "hifigan_train_ddp", "diffvc_dec_train_ddp",
+                     "gradtts_train_tp"):
             check((k["launches_by_path"][path] > 0) == (k["name"] in want.get(path, ())),
                   f"{k['name']}: {k['launches_by_path'][path]} launches on {path} (phase 70)")
         for path, names in want.items():

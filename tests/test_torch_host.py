@@ -5,7 +5,9 @@ overrides, the tokenizers, the TTS text frontend, the WER tools, the SPIRAL
 data pipeline, the DiffVC and GE2E data paths (``utils/config.py``,
 ``text/``, ``eval/wer.py``, ``data/``), the plotting helpers and the
 speaker-data preprocessing CLI. Each is held here against the module it was copied from, on the
-same inputs.
+same inputs. SPIRAL's data options (tar shards, duration buckets, the mu-law
+wire) give the JAX package's batches bit for bit, and a runner epoch runs on
+each.
 """
 
 import dataclasses
@@ -38,9 +40,9 @@ from tpu_speech_torch.utils import config as t_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-CONFIG_CLASSES = ("AdamWParams", "SchedParams", "AudioDatasetConfig", "DecoderConfig",
-                  "NoisePerturbConfig", "TrainerConfig", "ExpManagerConfig",
-                  "SpiralModelConfig", "RunConfig")
+CONFIG_CLASSES = ("AdamWParams", "AdamParams", "NovogradParams", "SGDParams", "SchedParams",
+                  "AudioDatasetConfig", "DecoderConfig", "NoisePerturbConfig", "TrainerConfig",
+                  "ExpManagerConfig", "SpiralModelConfig", "RunConfig")
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
@@ -704,3 +706,258 @@ def test_fsdp_shardings_rule_same(size):
         assert (got[k] if got[k] == t_mesh.REPLICATED else got[k].dim) == want, (k, tree[k].shape)
     assert jax.device_count() >= size
 
+
+
+# ---- SPIRAL's data options: tar shards, duration buckets, the mu-law wire ------
+
+def _tar_corpus(root, n=10):
+    """``_corpus``'s wavs in three tar shards (a directory and a member the
+    manifest does not name among them)."""
+    import tarfile
+
+    manifest, noise = _corpus(root, n)
+    tars = []
+    for k in range(3):
+        path = str(root / f"shard{k}.tar")
+        with tarfile.open(path, "w") as tf:
+            if k == 0:
+                (root / "sub").mkdir(exist_ok=True)
+                tf.add(str(root / "sub"), arcname="sub")
+                tf.add(str(root / "n.wav"), arcname="unlisted.wav")
+            for i in range(k, n, 3):
+                tf.add(str(root / f"u{i}.wav"), arcname=f"audio/u{i}.wav")
+        tars.append(path)
+    return manifest, noise, ",".join(tars)
+
+
+def _tar_batches(mods, manifest, noise, tars, text, shard_id, num_shards, shuffle_n):
+    data, tok = mods
+    aug = data.AudioAugmentor([(1.0, data.RandomNoisePerturbation(
+        noise, 0.0, 30.0, ratio=0.7, rng=random.Random(11)))])
+    aug.rng = random.Random(12)
+    kw = dict(crop_size=7000, shuffle_n=shuffle_n, seed=2, shard_id=shard_id,
+              num_shards=num_shards, augmentor=aug)
+    if text:
+        ds = data.TarredAudioDataset(manifest, tars, 16000, tokenizer=tok.CharTokenizer(), **kw)
+        collate = data.AudioTextBatchCollate(7000, 16)
+    else:
+        ds = data.TarredAudioDataset(manifest, tars, 16000, return_both=True, **kw)
+        collate = data.AudioBatchCollate(7000)
+    return len(ds), [b for _ in range(2) for b in ds.iter_batches(2, collate, drop_last=False)]
+
+
+def _assert_batches_equal(ours, theirs):
+    assert len(ours) == len(theirs) > 0
+    for a, b in zip(ours, theirs):
+        assert a.keys() == b.keys()
+        for k in a:
+            if isinstance(a[k], np.ndarray):
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            else:
+                assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("text", [False, True], ids=["pretrain", "finetune"])
+@pytest.mark.parametrize("num_shards,shuffle_n", [(1, 0), (2, 3)])
+def test_tarred_batches_same(text, num_shards, shuffle_n, tmp_path):
+    """``TarredAudioDataset`` over three tar shards, each of ``num_shards``
+    data ranks its shards, the crops, the noise, the labels and the
+    ``shuffle_n`` reservoir drawn from ``seed + shard_id``: two epochs of
+    batches equal JAX's, and so is the length."""
+    manifest, noise, tars = _tar_corpus(tmp_path)
+    for shard_id in range(num_shards):
+        args = (manifest, noise, tars, text, shard_id, num_shards, shuffle_n)
+        n_ours, ours = _tar_batches((t_data, t_tok), *args)
+        n_theirs, theirs = _tar_batches((j_data, j_tok), *args)
+        assert n_ours == n_theirs
+        _assert_batches_equal(ours, theirs)
+
+
+def _jax_bucket_bounds(durations, max_samples, sr, num_buckets):
+    """The JAX finetune runner's bounds (``spiral_runner.py:656-670``)."""
+    qs = np.quantile(durations, np.arange(1, num_buckets + 1) / num_buckets)
+    max_dur = max_samples / sr
+    bounds = sorted(set(min(max_dur, float(np.ceil(q * 4.0) / 4.0)) for q in qs))
+    bounds[-1] = max_dur
+    return bounds
+
+
+def _jax_bucket_collate(bound_samples, max_samples):
+    """The JAX finetune runner's collate builder (``spiral_runner.py:672-675``)."""
+    cap = -(-512 * bound_samples // max_samples)
+    labels = max(64, (cap + 31) // 32 * 32)
+    return j_data.AudioTextBatchCollate(bound_samples, int(labels))
+
+
+@pytest.mark.parametrize("run_length", [1, 2])
+def test_bucketed_batches_same(run_length, tmp_path):
+    """``BucketedDataLoader`` with the finetune runner's quantile bounds
+    and per-bucket collates over two data ranks: the same bounds, and two
+    epochs of each rank's batches equal JAX's bit for bit; each batch is
+    padded to its bucket's bound, and runs of ``run_length`` share one."""
+    from tpu_speech_torch.train.spiral_runner import bucket_bounds, bucket_collate
+
+    manifest, _ = _corpus(tmp_path, n=24)
+    max_samples = 16000
+    durations = [e["duration"] for e in t_data.read_manifest(manifest)]
+    bounds = bucket_bounds(durations, max_samples, 16000, 4)
+    assert bounds == _jax_bucket_bounds(np.asarray(durations), max_samples, 16000, 4)
+    assert len(bounds) > 1
+    for shard_id in range(2):
+        loaders = []
+        for data, loader, tok, collate in (
+                (t_data, t_loader, t_tok, lambda b: bucket_collate(b, max_samples)),
+                (j_data, j_loader, j_tok, lambda b: _jax_bucket_collate(b, max_samples))):
+            ds = data.AudioToTextDataset(manifest, tok.CharTokenizer(), sample_rate=16000,
+                                         crop_size=max_samples, seed=4)
+            loaders.append(loader.BucketedDataLoader(
+                ds, 2, collate, durations, bounds, 16000, run_length=run_length,
+                num_workers=1, seed=5, shard_id=shard_id, num_shards=2))
+        ours, theirs = ([b for _ in range(2) for b in dl] for dl in loaders)
+        _assert_batches_equal(ours, theirs)
+        widths = [b["wavs"].shape[1] for b in ours]
+        assert set(widths) <= {int(round(b * 16000)) for b in bounds}
+        for i in range(0, len(widths) // 2, run_length):  # the first epoch's runs
+            assert len(set(widths[i:i + run_length])) == 1
+
+
+def test_mulaw_wire_bytes_same():
+    """``quantize_wire_mulaw``' bytes (clipped tails, zeros, the extremes)
+    and ``quantize_wire``'s dispatch equal JAX's; an unknown wire fails
+    alike."""
+    from tpu_speech.train import spiral as j_spiral
+    from tpu_speech_torch.train import spiral as t_spiral
+
+    rng = np.random.default_rng(0)
+    wavs = (rng.standard_normal((3, 4000)) * 0.4).astype(np.float32)
+    wavs[0, :5] = [0.0, 1.0, -1.0, 1.7, -3.0]
+    batch = {"wavs": wavs, "p_wavs": wavs[::-1].copy(), "wav_lens": np.full(3, 4000, np.int32)}
+    for wire in ("mulaw", "int16", "float32"):
+        ours, theirs = t_spiral.quantize_wire(batch, wire), j_spiral.quantize_wire(batch, wire)
+        for k in batch:
+            assert ours[k].dtype == theirs[k].dtype
+            assert ours[k].tobytes() == theirs[k].tobytes(), (wire, k)
+    mu = t_spiral.quantize_wire_mulaw(batch)
+    assert mu["wavs"].dtype == np.uint8 and mu["wavs"].tobytes() == \
+        j_spiral.quantize_wire_mulaw(batch)["wavs"].tobytes()
+    for mod in (t_spiral, j_spiral):
+        with pytest.raises(ValueError, match="expected float32/int16/mulaw"):
+            mod.quantize_wire(batch, "bf16")
+
+
+def _runner_corpus(root, n, seconds=(0.3, 1.0)):
+    rng = np.random.default_rng(1)
+    path = root / "train.json"
+    with open(path, "w") as f:
+        for i in range(n):
+            d = float(np.round(rng.uniform(*seconds), 3))
+            wav = str(root / f"r{i}.wav")
+            t_write_wav(wav, (0.2 * rng.standard_normal(int(d * 16000))).clip(-1, 1), 16000)
+            f.write(json.dumps({"audio_filepath": wav, "duration": d,
+                                "text": "ab c" if i % 2 else "hi"}) + "\n")
+    return str(path)
+
+
+def _tar_of(root, manifest):
+    import tarfile
+
+    path = str(root / "train.tar")
+    with tarfile.open(path, "w") as tf:
+        for e in t_data.read_manifest(manifest):
+            tf.add(e["audio_filepath"], arcname=os.path.basename(e["audio_filepath"]))
+    return path
+
+
+@pytest.fixture(scope="module")
+def _runner_threads():
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("option", ["tarred", "buckets_accum2", "buckets_bf16", "mulaw"])
+def test_finetune_runner_epoch_on_each_data_option(option, tmp_path, _runner_threads):
+    """The tiny finetune runner trains an epoch with tarred data, with four
+    duration buckets at ``accumulate_grad_batches`` 2 and in bf16, and on
+    the mu-law wire: finite losses; the buckets' steps see their bounds'
+    widths, a new width between updates, never two in one update; the
+    mu-law batches travel as uint8. Tarred data with buckets fails as JAX's
+    runner does."""
+    import torch
+
+    from tpu_speech_torch.configs.spiral import spiral_tiny_ctc_char
+    from tpu_speech_torch.text.tokenizers import CharTokenizer
+    from tpu_speech_torch.train.spiral_runner import SpiralFinetuneRunner
+
+    cfg = spiral_tiny_ctc_char()
+    ds = cfg.model.train_ds
+    ds.manifest_filepath = _runner_corpus(tmp_path, 16)
+    ds.num_workers = 1
+    if option == "tarred":
+        ds.tarred_audio_filepaths = _tar_of(tmp_path, ds.manifest_filepath)
+        ds.shuffle_n = 4
+    elif option.startswith("buckets"):
+        ds.num_buckets = 4
+        if option == "buckets_accum2":
+            cfg.trainer.accumulate_grad_batches = 2
+        else:
+            cfg.model.precision = "bf16"
+    else:
+        ds.wire_dtype = "mulaw"
+    runner = SpiralFinetuneRunner(cfg, str(tmp_path / "run"), CharTokenizer(), device="cpu")
+    seen, step = [], runner.step
+
+    def recording(batch):
+        seen.append([tuple(b["wavs"].shape) + (b["wavs"].dtype,)
+                     for b in (batch if isinstance(batch, list) else [batch])])
+        return step(batch)
+
+    runner.step = recording
+    loss = runner.train_epoch(1)
+    assert np.isfinite(loss) and runner.iteration == len(seen) > 0
+    if option == "tarred":
+        assert len(runner.loader) == 8 and runner.iteration == 8
+        assert all(s[0][1] == 16000 for s in seen)
+        cfg.model.train_ds.num_buckets = 2
+        with pytest.raises(ValueError, match="tarred shards stream in order"):
+            SpiralFinetuneRunner(cfg, str(tmp_path / "run2"), CharTokenizer(),
+                                 device="cpu").loader
+    elif option.startswith("buckets"):
+        widths = [[w for w, *_ in ((s[1],) for s in update)] for update in seen]
+        per_update = 2 if option == "buckets_accum2" else 1
+        assert all(len(u) == per_update and len(set(u)) == 1 for u in widths)
+        assert any(a[0] != b[0] for a, b in zip(widths, widths[1:]))
+        bounds = {int(round(b * 16000)) for b in runner.loader.bounds}
+        assert {u[0] for u in widths} <= bounds
+    else:
+        assert all(s[0][2] == torch.uint8 for s in seen)
+
+
+@pytest.mark.parametrize("option", ["tarred", "mulaw"])
+def test_pretrain_runner_epoch_on_each_data_option(option, tmp_path, _runner_threads):
+    """The tiny pretrain runner trains an epoch from a tar shard and on the
+    mu-law wire: finite losses, uint8 waves on the mu-law wire."""
+    import torch
+
+    from tpu_speech_torch.configs.spiral import spiral_tiny_pretrain
+    from tpu_speech_torch.train.spiral_runner import SpiralPretrainRunner
+
+    cfg = spiral_tiny_pretrain()
+    ds = cfg.model.train_ds
+    ds.manifest_filepath = _runner_corpus(tmp_path, 8, seconds=(1.05, 1.4))
+    ds.max_duration = 2.0
+    ds.num_workers = 1
+    if option == "tarred":
+        ds.tarred_audio_filepaths = _tar_of(tmp_path, ds.manifest_filepath)
+    else:
+        ds.wire_dtype = "mulaw"
+    runner = SpiralPretrainRunner(cfg, str(tmp_path / "run"), device="cpu")
+    seen, step = [], runner.step
+    runner.step = lambda batch: (seen.append(batch["wavs"].dtype), step(batch))[1]
+    loss = runner.train_epoch(1)
+    assert np.isfinite(loss) and runner.iteration == len(seen) == 4
+    assert set(seen) == {torch.uint8 if option == "mulaw" else torch.int16}

@@ -209,20 +209,30 @@ def test_require_multiprocess_fails_loudly():
         distributed.require_multiprocess(2)
 
 
-def test_the_seq_and_model_axes_stop_naming_their_item():
-    """The model axis still stops, naming its item (11.3, TP placement); the
-    seq axis runs (``tests/test_torch_seq_parallel.py``): on a one-rank group
-    it asks for a world it divides, and builds the (data, seq) mesh of a
-    world it divides, here seq 1."""
-    assert mesh.NEXT_ITEM[0] == "11.3"
-    with pytest.raises(SystemExit, match="Queue 1 item 11.3 "):
-        mesh.make_mesh(model_parallel=2)
+def test_the_seq_and_model_axes_build_the_jax_layout():
+    """``mesh_layout`` (the shape and axis names ``make_mesh`` builds) gives
+    JAX's mesh on the 8 virtual devices for each (seq, model), with rank r
+    where JAX puts device r (the model axis over four gloo ranks:
+    ``tests/test_torch_tp.py``); on a one-rank group a seq or model axis
+    asks for a world it divides, and the axes of 1 build the data mesh with
+    no model axis (rank and world are the data coordinate)."""
+    for sp, mp in ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4), (2, 4), (1, 8)):
+        jm = jmesh.make_mesh(n_devices=8, seq_parallel=sp, model_parallel=mp)
+        shape, names = mesh.mesh_layout(8, sp, mp)
+        assert names == tuple(jm.axis_names) and shape == tuple(jm.devices.shape)
+        ids = np.vectorize(lambda d: d.id)(jm.devices)
+        assert np.array_equal(np.arange(8).reshape(shape), ids), (sp, mp)
     distributed.initialize(device="cpu")
     try:
         with pytest.raises(ValueError, match="seq_parallel=2 does not divide the 1 ranks"):
             mesh.make_mesh(seq_parallel=2)
-        assert mesh.make_mesh(seq_parallel=1).mesh_dim_names == (mesh.DATA_AXIS,)
+        with pytest.raises(ValueError, match="model_parallel=2 x seq_parallel=1 does not "
+                                             "divide the 1 ranks"):
+            mesh.make_mesh(model_parallel=2)
+        m = mesh.make_mesh(seq_parallel=1, model_parallel=1)
+        assert m.mesh_dim_names == (mesh.DATA_AXIS,) and mesh.model_size(m) == 1
         assert mesh.data_axis(None) == (0, 1) and mesh.seq_size(None) == 1
+        assert distributed.data_coordinate() == (0, 1) and distributed.batch_count() == 1
     finally:
         distributed.shutdown()
 

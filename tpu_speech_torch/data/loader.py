@@ -2,8 +2,8 @@
 
 The port's own copy of ``DataLoader`` of ``tpu_speech/data/loader.py:18``: a
 thread pool and a bounded queue in place of worker processes (numpy FFT and
-file reads release the GIL). ``BucketedDataLoader`` comes with the slice that
-needs it.
+file reads release the GIL), and ``BucketedDataLoader`` (``:132-214``):
+duration buckets, one static shape each.
 """
 
 from __future__ import annotations
@@ -133,3 +133,88 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+
+
+class BucketedDataLoader(DataLoader):
+    """Duration-bucketed batches: one static shape per bucket.
+
+    The reference pads every CTC-finetune batch to the longest utterance in
+    it (dynamic shapes, audio_to_text.py collate); a TPU-static single bucket
+    instead pads everything to max_duration — LibriSpeech utterances average
+    well under half of the 24 s cap, so that wastes ~2x compute. Bucketing
+    recovers it TPU-natively: items are grouped into k duration buckets, each
+    batch is drawn from ONE bucket and padded to that bucket's bound, and the
+    step runs one shape per bucket (K1, K2 and K4 take each bucket's frame
+    count as it comes).
+
+    Multi-host safety: every process builds the SAME global batch schedule
+    (same seed), then takes its shard's slice of each global batch, so the
+    per-step shapes agree across processes (a shape mismatch would corrupt
+    the global array assembly).
+
+    run_length: emit batches in runs of this many consecutive same-bucket
+    batches (= trainer.accumulate_grad_batches) so gradient-accumulation
+    stacks never mix shapes. Per-bucket leftovers that can't fill a full run
+    are dropped (< global_batch * run_length items per bucket per epoch).
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        collate_builder: Callable[[int], Callable],
+        durations: Sequence[float],
+        bucket_bounds: Sequence[float],
+        sample_rate: int,
+        run_length: int = 1,
+        **kwargs,
+    ):
+        """collate_builder(bound_samples) -> collate_fn for one bucket;
+        bucket_bounds: ascending per-bucket max durations (seconds), the last
+        one >= every item's duration."""
+        super().__init__(dataset, batch_size, None, **kwargs)
+        self.durations = np.asarray(durations, dtype=np.float64)
+        self.bounds = sorted(float(b) for b in bucket_bounds)
+        self.sample_rate = sample_rate
+        self.run_length = max(1, run_length)
+        self.bucket_samples = [
+            int(round(b * sample_rate)) for b in self.bounds
+        ]
+        self.collates = [collate_builder(s) for s in self.bucket_samples]
+        self._bucket_of = np.searchsorted(
+            np.asarray(self.bounds), self.durations, side="left"
+        )
+        self._bucket_of = np.minimum(self._bucket_of, len(self.bounds) - 1)
+
+    def _batch_indices(self):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+        global_bs = self.batch_size * self.num_shards
+        run_items = global_bs * self.run_length
+        runs = []  # each: list of (bucket_id, global_idx_batch)
+        for k in range(len(self.bounds)):
+            idxs = order[self._bucket_of[order] == k]
+            m = len(idxs) - len(idxs) % run_items
+            for i in range(0, m, run_items):
+                runs.append([
+                    (k, idxs[j : j + global_bs])
+                    for j in range(i, i + run_items, global_bs)
+                ])
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed * 7919 + self._epoch)
+            rng.shuffle(runs)
+        lo = self.shard_id * self.batch_size
+        hi = lo + self.batch_size
+        return [
+            (k, batch[lo:hi]) for run in runs for (k, batch) in run
+        ]
+
+    def _make_batch(self, spec):
+        k, idxs = spec
+        return self.collates[k]([self.dataset[int(i)] for i in idxs])
+
+    def __len__(self):
+        return len(self._batch_indices())

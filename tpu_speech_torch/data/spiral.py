@@ -2,19 +2,23 @@
 
 The port's own copy of what its runners use of ``tpu_speech/data/spiral.py``:
 ``read_manifest``, ``RandomNoisePerturbation`` and ``AudioAugmentor``, the
-datasets ``AudioDataset`` and ``AudioToTextDataset``, and the collates
-``AudioBatchCollate`` and ``AudioTextBatchCollate``. Manifest lines
+datasets ``AudioDataset``, ``TarredAudioDataset`` (``:358-464``) and
+``AudioToTextDataset``, and the collates ``AudioBatchCollate`` and
+``AudioTextBatchCollate``. Manifest lines
 {'audio_filepath', 'duration', 'text'}, random crop to ``crop_size``
 samples, optional clean+perturbed pairs for teacher-student pretraining,
 char label encoding for CTC finetuning. Batches are fully static: (B,
-crop_size) wavs. The other perturbations and the tarred dataset come with
-the slices that need them.
+crop_size) wavs. The other perturbations come with the slice that needs
+them.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
 import random
+import tarfile
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -147,6 +151,109 @@ class AudioDataset:
         if self.augmentor is not None:
             wav = self.augmentor(wav, self.sample_rate)
         return {"wav": wav}
+
+
+class TarredAudioDataset:
+    """Iterable dataset over tar shards of wav files (the reference's
+    TarredAudioToCharDataset family, audio_to_text.py:798+): manifest entries
+    are matched to tar members by file id (basename without extension).
+    Streams members in shard order — no random access, suited to large
+    corpora on blob storage. shard_id/num_shards splits shards across hosts;
+    shuffle_n is a small reservoir shuffle within the stream."""
+
+    def __init__(
+        self,
+        manifest_filepath,
+        tar_filepaths: Sequence[str],
+        sample_rate: int = 16000,
+        crop_size: Optional[int] = None,
+        min_duration: float = 0.0,
+        max_duration: Optional[float] = None,
+        augmentor: Optional[AudioAugmentor] = None,
+        return_both: bool = False,
+        shuffle_n: int = 0,
+        seed: int = 0,
+        shard_id: int = 0,
+        num_shards: int = 1,
+        tokenizer=None,
+    ):
+        if isinstance(tar_filepaths, str):
+            tar_filepaths = tar_filepaths.split(",")
+        entries = read_manifest(manifest_filepath, min_duration, max_duration)
+        self.by_id = {
+            os.path.splitext(os.path.basename(e["audio_filepath"]))[0]: e
+            for e in entries
+        }
+        self.tar_filepaths = list(tar_filepaths)[shard_id::num_shards]
+        self.sample_rate = sample_rate
+        self.crop_size = crop_size
+        self.augmentor = augmentor
+        self.return_both = return_both
+        self.shuffle_n = shuffle_n
+        self.tokenizer = tokenizer
+        self.rng = random.Random(seed + shard_id)
+        self._n = len(self.by_id) // max(num_shards, 1)
+
+    def __len__(self):
+        return self._n
+
+    def _make_item(self, wav):
+        if self.crop_size is not None and len(wav) > self.crop_size:
+            start = self.rng.randrange(len(wav) - self.crop_size)
+            wav = wav[start : start + self.crop_size]
+        if self.return_both:
+            p_wav = wav.copy()
+            if self.augmentor is not None:
+                p_wav = self.augmentor(p_wav, self.sample_rate)
+            return {"wav": wav, "p_wav": p_wav}
+        if self.augmentor is not None:
+            wav = self.augmentor(wav, self.sample_rate)
+        return {"wav": wav}
+
+    def _iter_items(self):
+        for tar_path in self.tar_filepaths:
+            with tarfile.open(tar_path, "r") as tf:
+                for member in tf:
+                    if not member.isfile():
+                        continue
+                    fid = os.path.splitext(os.path.basename(member.name))[0]
+                    entry = self.by_id.get(fid)
+                    if entry is None:
+                        continue
+                    wav, sr = read_wav(
+                        io.BytesIO(tf.extractfile(member).read())
+                    )
+                    assert sr == self.sample_rate, (member.name, sr)
+                    item = self._make_item(wav)
+                    if self.tokenizer is not None:
+                        item["labels"] = np.asarray(
+                            self.tokenizer.text_to_ids(entry["text"]),
+                            dtype=np.int32,
+                        )
+                        item["text"] = entry["text"]
+                    yield item
+
+    def __iter__(self):
+        if self.shuffle_n <= 1:
+            yield from self._iter_items()
+            return
+        buf = []
+        for item in self._iter_items():
+            buf.append(item)
+            if len(buf) >= self.shuffle_n:
+                yield buf.pop(self.rng.randrange(len(buf)))
+        self.rng.shuffle(buf)
+        yield from buf
+
+    def iter_batches(self, batch_size: int, collate_fn, drop_last=True):
+        batch = []
+        for item in self:
+            batch.append(item)
+            if len(batch) == batch_size:
+                yield collate_fn(batch)
+                batch = []
+        if batch and not drop_last:
+            yield collate_fn(batch)
 
 
 class AudioToTextDataset(AudioDataset):

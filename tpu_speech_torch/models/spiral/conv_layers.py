@@ -100,7 +100,7 @@ class Conv1dTF(nn.Module):
 
 class _GlobalMoments(torch.autograd.Function):
     """(E[x], E[x^2]) per channel of x (B, C, T) over the global batch:
-    the local sums and count all-reduced in one call. The backward sums the
+    the local sums and count all-reduced over the batch group in one call. The backward sums the
     moments' gradients over the ranks (each rank's loss is its piece of the
     global loss) before the local chain rule."""
 
@@ -109,7 +109,7 @@ class _GlobalMoments(torch.autograd.Function):
         c = x.shape[1]
         sums = torch.cat([x.sum(dim=(0, 2)), x.square().sum(dim=(0, 2)),
                           x.new_tensor([x.shape[0] * x.shape[2]])])
-        distributed.all_reduce_(sums)
+        distributed.batch_all_reduce_(sums)
         n = sums[2 * c]
         ctx.save_for_backward(x, n)
         return sums[:c] / n, sums[c:2 * c] / n
@@ -120,7 +120,7 @@ class _GlobalMoments(torch.autograd.Function):
         c = x.shape[1]
         g = torch.cat([torch.zeros(c, device=x.device) if g is None else g
                        for g in (g_mean, g_mean2)])
-        distributed.all_reduce_(g)
+        distributed.batch_all_reduce_(g)
         return (g[:c, None] + 2.0 * x * g[c:, None]) / n
 
 
@@ -141,7 +141,7 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        if distributed.process_count() > 1:
+        if distributed.batch_count() > 1:
             mean, mean2 = _GlobalMoments.apply(xf)
         else:
             mean = xf.mean(dim=(0, 2))

@@ -15,6 +15,15 @@ The backend is NCCL for a CUDA device and gloo for the CPU; each rank binds
 ``cuda:<local rank>`` before anything is allocated there. Without a process
 group (or at world 1) every collective here is the identity and makes no
 call, so a one-process run is the run it was before.
+
+A mesh with a ``model`` axis (``mesh.make_mesh(model_parallel=M)``) gives a
+rank M - 1 partners that hold the same rows and frames. The batch's sums
+(loss counts, metrics, BatchNorm's moments, the replicated gradients) then
+run over the rank's batch group, the ranks of its model coordinate
+(``batch_all_reduce_``), and its rows are those of its data coordinate
+(``data_coordinate``); ``make_mesh`` records both (``set_batch_layout``) and
+``shutdown`` forgets them. Without a model axis the batch group is the
+world.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_PORT = "12355"
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
 _device: Optional[torch.device] = None  # the rank's device, set by initialize
+# (batch group, its size, data index, data size) of a mesh with a model axis
+_batch_layout: Optional[tuple] = None
 
 
 def is_initialized() -> bool:
@@ -93,10 +105,41 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def shutdown() -> None:
-    global _device
+    global _device, _batch_layout
     if is_initialized():
         dist.destroy_process_group()
     _device = None
+    _batch_layout = None
+
+
+def set_batch_layout(layout: Optional[tuple]) -> None:
+    """(the batch group, its size, this rank's data index, the data size),
+    or None for the world (no model axis); ``mesh.make_mesh`` sets it."""
+    global _batch_layout
+    _batch_layout = layout
+
+
+def batch_count() -> int:
+    """The ranks that hold different rows or frames of the global batch:
+    the batch group's size (the world without a model axis)."""
+    return process_count() if _batch_layout is None else _batch_layout[1]
+
+
+def data_coordinate() -> tuple:
+    """(this rank's data index, the data size): the rows it holds are those
+    of its index (rank and world without a model axis)."""
+    if _batch_layout is None:
+        return process_index(), process_count()
+    return _batch_layout[2], _batch_layout[3]
+
+
+def batch_all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """``all_reduce_`` over the batch group: each rank's piece counted once
+    however many model partners hold it."""
+    if batch_count() > 1:
+        group = None if _batch_layout is None else _batch_layout[0]
+        dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
 
 
 def process_count() -> int:
@@ -143,8 +186,7 @@ def all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """In-place all-reduce of a tensor (``sum``, ``min`` or ``max``); the
     identity at world 1."""
     if process_count() > 1:
-        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
-                               "max": dist.ReduceOp.MAX}[op])
+        dist.all_reduce(t, op=_OPS[op])
     return t
 
 

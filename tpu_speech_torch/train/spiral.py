@@ -3,8 +3,9 @@
 Port of ``tpu_speech/train/spiral.py``: ``make_pretrain_step:66`` becomes
 ``pretrain_step``, with its bf16 mixed precision and its gradient
 accumulation, and the host-side ``host_augment_batch:305`` and
-``quantize_wire_int16:245`` are numpy twins that give equal arrays from one
-seed.
+the wire formats (``quantize_wire_int16:245``, ``quantize_wire_mulaw:273``
+and their dispatch ``quantize_wire:294``) are numpy twins that give equal
+arrays from one seed.
 
 ``validation_loss`` is the no-update loss of the pretrain runner's
 validation (train=False), with ``check_collapse`` on the same tensors.
@@ -307,6 +308,34 @@ def quantize_wire_int16(batch: dict) -> dict:
         if k in out and out[k].dtype == np.float32:
             out[k] = np.clip(np.rint(out[k] * 32768.0), -32768, 32767).astype(np.int16)
     return out
+
+
+_MU = 255.0
+
+
+def quantize_wire_mulaw(batch: dict) -> dict:
+    """Re-encode float32 waveform leaves as 8-bit mu-law (G.711-style, mu
+    255) for the host->device copy (``quantize_wire_mulaw:273``; opt-in,
+    ``train_ds.wire_dtype='mulaw'``). Lossy, about 38 dB SNR, a quarter of
+    the float32 bytes; ``wav_to_spec`` expands it on the device before K1."""
+    out = dict(batch)
+    for k in ("wavs", "p_wavs"):
+        if k in out and out[k].dtype == np.float32:
+            x = np.clip(out[k], -1.0, 1.0)
+            y = np.sign(x) * np.log1p(_MU * np.abs(x)) / np.log1p(_MU)
+            out[k] = np.rint((y + 1.0) * 127.5).astype(np.uint8)
+    return out
+
+
+def quantize_wire(batch: dict, wire_dtype: str) -> dict:
+    """``train_ds.wire_dtype`` -> its encoder (``float32``: as it is)."""
+    if wire_dtype == "int16":
+        return quantize_wire_int16(batch)
+    if wire_dtype == "mulaw":
+        return quantize_wire_mulaw(batch)
+    if wire_dtype == "float32":
+        return batch
+    raise ValueError(f"train_ds.wire_dtype={wire_dtype!r} (expected float32/int16/mulaw)")
 
 
 def host_augment_batch(cfg, wavs, wav_lens, p_wavs, p_wav_lens, spec_len: int,

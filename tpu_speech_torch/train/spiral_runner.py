@@ -102,8 +102,17 @@ loader's draws depend on its threads' timing, so S loaders of one shard do
 not give the same audio. The finetune runner raises for S > 1, as the JAX
 one does.
 
-Not ported yet: orbax checkpoints, the native C++ batcher, tarred data, the
-mu-law wire format and the bucketed loader (``num_buckets``).
+The data options (``:142-163``, ``:605-681``): ``train_ds.tarred_audio_filepaths``
+streams the training audio from tar shards (``TarredAudioDataset``, the
+shards split over the data ranks, a ``shuffle_n`` reservoir; ``_TarLoader``);
+the finetune runner's ``train_ds.num_buckets`` > 1 draws each batch from one
+duration bucket padded to its bound (``BucketedDataLoader``: quantile bounds
+snapped up to quarter seconds, the label capacity scaled with the bound, runs
+of ``accumulate_grad_batches`` batches of one bucket), which tarred data
+refuses; ``train_ds.wire_dtype`` ``mulaw`` ships 8-bit mu-law waves
+(``quantize_wire``), which ``wav_to_spec`` expands on the device.
+
+Not ported: orbax checkpoints and the native C++ batcher.
 """
 
 from __future__ import annotations
@@ -124,7 +133,7 @@ from tpu_speech_torch.compat.jax_spiral import (
     st2vec_from_jax,
     st2vec_to_jax,
 )
-from tpu_speech_torch.data.loader import DataLoader
+from tpu_speech_torch.data.loader import BucketedDataLoader, DataLoader
 from tpu_speech_torch.data.spiral import (
     AudioAugmentor,
     AudioBatchCollate,
@@ -132,6 +141,7 @@ from tpu_speech_torch.data.spiral import (
     AudioTextBatchCollate,
     AudioToTextDataset,
     RandomNoisePerturbation,
+    TarredAudioDataset,
     read_manifest,
 )
 from tpu_speech_torch.data.wav import read_wav
@@ -162,7 +172,7 @@ from tpu_speech_torch.train.spiral import (
     host_augment_batch,
     make_pretrain_state,
     pretrain_step,
-    quantize_wire_int16,
+    quantize_wire,
     validation_loss,
 )
 from tpu_speech_torch.utils.archive import load_archive, save_archive
@@ -174,6 +184,49 @@ from tpu_speech_torch.utils.surgery import merge_params
 # prefix (the JAX converter drops them the same way,
 # compat/torch_spiral.py:200-204)
 _REFERENCE_CONSTANTS = ("mask_emb", "wav2spec.featurizer.window", "wav2spec.featurizer.fb")
+
+TARRED_BUCKETS = ("train_ds.num_buckets requires random-access manifests; tarred shards "
+                  "stream in order (one static shape)")
+
+
+class _TarLoader:
+    """A tarred dataset's batches in stream order (the JAX runners'
+    ``_TarLoader``, ``spiral_runner.py:155-163``), with the loader surface
+    the checkpoints read (``dataset``, ``_epoch``, ``set_epoch``)."""
+
+    def __init__(self, dataset: TarredAudioDataset, batch_size: int, collate):
+        self.dataset, self.batch_size, self.collate = dataset, batch_size, collate
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __iter__(self):
+        self._epoch += 1
+        return self.dataset.iter_batches(self.batch_size, self.collate)
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+
+def bucket_bounds(durations, max_samples: int, sample_rate: int, num_buckets: int) -> list:
+    """The finetune runner's bucket bounds in seconds (``:660-670``):
+    quantiles of the durations snapped up to quarter seconds (near-equal
+    ones collapse), the last at the max duration."""
+    qs = np.quantile(np.asarray(durations, dtype=np.float64),
+                     np.arange(1, num_buckets + 1) / num_buckets)
+    max_dur = max_samples / sample_rate
+    bounds = sorted(set(min(max_dur, float(np.ceil(q * 4.0) / 4.0)) for q in qs))
+    bounds[-1] = max_dur
+    return bounds
+
+
+def bucket_collate(bound_samples: int, max_samples: int) -> AudioTextBatchCollate:
+    """A bucket's collate (``:672-675``): the label capacity of 512 scaled
+    with the bucket's bound, at least 64, in multiples of 32."""
+    cap = -(-512 * bound_samples // max_samples)  # ceil-scale
+    return AudioTextBatchCollate(bound_samples, int(max(64, (cap + 31) // 32 * 32)))
+
 
 SEQ_FINETUNE = ("trainer.seq_parallel is a pretrain-only knob (the 250k-sample crops); the "
                 "CTC finetune step does not implement it")
@@ -343,18 +396,18 @@ class _Runner:
 
     def checkpoint_state(self) -> dict:
         """What a step checkpoint holds: the model's state_dict (float32
-        masters, the EMA teacher, BatchNorm statistics), AdamW's moments by
-        parameter name and its count, the step counts and the epoch, and
+        masters, the EMA teacher, BatchNorm statistics), the optimizer's
+        state by key and parameter name (AdamW's ``mu`` and ``nu``) and its
+        count, the step counts and the epoch, and
         ``_rank_state`` (rank 0's; over N ranks also every rank's, under
         ``ranks``). Sharded tensors are gathered whole: every rank calls
         it."""
         model, opt = self._weights, self.state.optimizer
         names = {p: n for n, p in model.named_parameters()}
-        out = {"model": full_state_dict(model),
-               "mu": {names[p]: full_tensor(st["mu"]) for p, st in opt.state.items()},
-               "nu": {names[p]: full_tensor(st["nu"]) for p, st in opt.state.items()},
-               "count": opt.count, "step": self.state.step,
+        out = {"model": full_state_dict(model), "count": opt.count, "step": self.state.step,
                "iteration": self.iteration, "epoch": self.epoch}
+        for key in opt.STATE:  # AdamW's "mu" and "nu", by parameter name
+            out[key] = {names[p]: full_tensor(st[key]) for p, st in opt.state.items()}
         mine = self._rank_state()
         out.update(mine)
         if self.world > 1:
@@ -371,11 +424,11 @@ class _Runner:
         load_state_dict_(model, st["model"])
         params = dict(model.named_parameters())
         opt.state.clear()
-        for name, mu in st["mu"].items():
+        for name in st[opt.STATE[0]] if opt.STATE else ():
             p = params[name]
-            opt.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
-            load_full_(opt.state[p]["mu"], mu)
-            load_full_(opt.state[p]["nu"], st["nu"][name])
+            opt.state[p] = {key: opt.init_state(key, p) for key in opt.STATE}
+            for key in opt.STATE:
+                load_full_(opt.state[p][key], st[key][name])
         opt.count = int(st["count"])
         self.state.step = int(st["step"])
         self.iteration, self.epoch = int(st["iteration"]), int(st["epoch"])
@@ -803,20 +856,35 @@ class SpiralFinetuneRunner(_Runner):
     @functools.cached_property
     def loader(self):
         ds = self.cfg.model.train_ds
+        num_buckets = max(1, getattr(ds, "num_buckets", 1))
+        collate = AudioTextBatchCollate(self.max_samples, 512)
         if getattr(ds, "tarred_audio_filepaths", None):
-            raise NotImplementedError("tarred training data is not ported yet")
-        if max(1, getattr(ds, "num_buckets", 1)) > 1:
-            raise NotImplementedError("the bucketed loader is not ported yet")
-        dataset = AudioToTextDataset(
-            ds.manifest_filepath, self.tokenizer, sample_rate=ds.sample_rate,
-            crop_size=self.max_samples, min_duration=ds.min_duration,
-            max_duration=ds.max_duration, dup_factor=getattr(ds, "dup_factor", 1),
-        )
-        loader = DataLoader(
-            dataset, ds.batch_size, AudioTextBatchCollate(self.max_samples, 512),
-            shuffle=ds.shuffle, num_workers=ds.num_workers,
-            shard_id=self.rank, num_shards=self.world,
-        )
+            if num_buckets > 1:
+                raise ValueError(TARRED_BUCKETS)
+            dataset = TarredAudioDataset(
+                ds.manifest_filepath, ds.tarred_audio_filepaths, ds.sample_rate,
+                crop_size=self.max_samples, min_duration=ds.min_duration,
+                max_duration=ds.max_duration, shuffle_n=getattr(ds, "shuffle_n", 0),
+                shard_id=self.rank, num_shards=self.world, tokenizer=self.tokenizer)
+            loader = _TarLoader(dataset, ds.batch_size, collate)
+        else:
+            dataset = AudioToTextDataset(
+                ds.manifest_filepath, self.tokenizer, sample_rate=ds.sample_rate,
+                crop_size=self.max_samples, min_duration=ds.min_duration,
+                max_duration=ds.max_duration, dup_factor=getattr(ds, "dup_factor", 1),
+            )
+            kw = dict(shuffle=ds.shuffle, num_workers=ds.num_workers, shard_id=self.rank,
+                      num_shards=self.world)
+            if num_buckets > 1:
+                durations = [e["duration"] for e in dataset.entries]
+                loader = BucketedDataLoader(
+                    dataset, ds.batch_size,
+                    functools.partial(bucket_collate, max_samples=self.max_samples),
+                    durations, bucket_bounds(durations, self.max_samples, ds.sample_rate,
+                                             num_buckets),
+                    ds.sample_rate, run_length=self.accum, **kw)
+            else:
+                loader = DataLoader(dataset, ds.batch_size, collate, **kw)
         self.__dict__["loader"] = loader
         self._apply_loader_resume()
         return loader
@@ -839,11 +907,7 @@ class SpiralFinetuneRunner(_Runner):
         batch = {k: v for k, v in raw.items() if k != "texts"}
         batch["time_mask"], batch["chan_mask"] = self._train_masks(
             batch["wavs"].shape[1], batch["wav_lens"])
-        wire = getattr(self.cfg.model.train_ds, "wire_dtype", "int16")
-        if wire == "int16":
-            batch = quantize_wire_int16(batch)
-        elif wire != "float32":
-            raise NotImplementedError(f"wire_dtype={wire!r} is not ported yet")
+        batch = quantize_wire(batch, getattr(self.cfg.model.train_ds, "wire_dtype", "int16"))
         return batch_to_device(batch, self.device)
 
     def step(self, batch) -> dict:
@@ -937,10 +1001,6 @@ class SpiralPretrainRunner(_Runner):
         self.accum = max(1, getattr(cfg.trainer, "accumulate_grad_batches", 1))
         self.bf16 = getattr(m, "precision", "fp32") == "bf16"
         self.wire = getattr(m.train_ds, "wire_dtype", "int16")
-        if self.wire not in ("int16", "float32"):
-            raise NotImplementedError(f"wire_dtype={self.wire!r} is not ported yet")
-        if getattr(m.train_ds, "tarred_audio_filepaths", None):
-            raise NotImplementedError("tarred training data is not ported yet")
 
         aug = None
         noise_cfg = getattr(m, "noise_perturb", None)
@@ -951,12 +1011,21 @@ class SpiralPretrainRunner(_Runner):
         elif m.train_ds.noise_manifest:
             aug = AudioAugmentor([(1.0, RandomNoisePerturbation(m.train_ds.noise_manifest))])
         ds = m.train_ds
-        self.dataset = AudioDataset(ds.manifest_filepath, ds.sample_rate, ds.crop_size,
-                                    ds.min_duration, ds.max_duration, augmentor=aug,
-                                    return_both=True)
-        self.loader = DataLoader(self.dataset, ds.batch_size, AudioBatchCollate(ds.crop_size),
-                                 shuffle=ds.shuffle, num_workers=ds.num_workers,
-                                 shard_id=self.data_rank, num_shards=self.n_data)
+        collate = AudioBatchCollate(ds.crop_size)
+        if getattr(ds, "tarred_audio_filepaths", None):
+            self.dataset = TarredAudioDataset(
+                ds.manifest_filepath, ds.tarred_audio_filepaths, ds.sample_rate, ds.crop_size,
+                ds.min_duration, ds.max_duration, augmentor=aug, return_both=True,
+                shuffle_n=getattr(ds, "shuffle_n", 0), shard_id=self.data_rank,
+                num_shards=self.n_data)
+            self.loader = _TarLoader(self.dataset, ds.batch_size, collate)
+        else:
+            self.dataset = AudioDataset(ds.manifest_filepath, ds.sample_rate, ds.crop_size,
+                                        ds.min_duration, ds.max_duration, augmentor=aug,
+                                        return_both=True)
+            self.loader = DataLoader(self.dataset, ds.batch_size, collate, shuffle=ds.shuffle,
+                                     num_workers=ds.num_workers, shard_id=self.data_rank,
+                                     num_shards=self.n_data)
         self.spec_len = _spec_len(ds.crop_size, ds.sample_rate)
 
         # the student from a seeded generator (the JAX runner's PRNGKey(0)
@@ -1021,9 +1090,7 @@ class SpiralPretrainRunner(_Runner):
         batch on every rank of the group (the others' ``raw`` is unused)."""
         if self.seq is not None and self.seq.index > 0:
             return seq.broadcast_batch(None, self.seq, self.device)
-        batch = self._augment(raw, micro)
-        if (wire or self.wire) == "int16":
-            batch = quantize_wire_int16(batch)
+        batch = quantize_wire(self._augment(raw, micro), wire or self.wire)
         batch = batch_to_device(batch, self.device)
         return batch if self.seq is None else seq.broadcast_batch(batch, self.seq, self.device)
 

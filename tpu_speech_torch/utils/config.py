@@ -5,8 +5,9 @@ The port's own copy of what it uses of ``tpu_speech/utils/config.py``
 with the same defaults, ``apply_override`` / ``apply_overrides`` /
 ``parse_cli_override`` with the helpers they need, and
 ``load_yaml_experiment`` (a YAML experiment file: a ``base:`` config name and
-a nested mapping of overrides). Left out until a slice needs them: the Adam,
-Novograd and SGD parameter classes.
+a nested mapping of overrides), and the optimizers' parameter classes
+(``AdamWParams``, ``AdamParams``, ``NovogradParams`` with the reference's
+NovoGrad defaults, ``SGDParams``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,36 @@ class AdamWParams:
     eps: float = 1e-6
     betas: Tuple[float, float] = (0.9, 0.98)
     weight_decay: float = 0.01
+    sched: Optional["SchedParams"] = None
+
+
+@dataclasses.dataclass
+class AdamParams:
+    name: str = "adam"
+    lr: float = 1e-3
+    eps: float = 1e-8
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.0
+    sched: Optional["SchedParams"] = None
+
+
+@dataclasses.dataclass
+class NovogradParams:
+    """Reference core/optim/novograd.py defaults."""
+    name: str = "novograd"
+    lr: float = 1e-2
+    eps: float = 1e-8
+    betas: Tuple[float, float] = (0.95, 0.25)
+    weight_decay: float = 0.0
+    sched: Optional["SchedParams"] = None
+
+
+@dataclasses.dataclass
+class SGDParams:
+    name: str = "sgd"
+    lr: float = 1e-2
+    momentum: float = 0.0
+    weight_decay: float = 0.0
     sched: Optional["SchedParams"] = None
 
 
